@@ -1,0 +1,246 @@
+"""LLaMA/Vicuna decoder-only LM in PyTorch.
+
+Port of ``eventgpt_tpu/models/llama.py`` for inference: RMSNorm, RoPE,
+GQA attention, SwiGLU MLP; ``prefill`` writes a bf16 KV cache and
+``decode_step`` reads it. Layers are a list of per-layer parameter dicts
+that a Python loop walks (the JAX package's ``lax.scan`` over a stacked
+axis). Softmax, RMSNorm and the lm_head logits are f32 whatever the weight
+dtype. Prefill attention runs dense or through the flash kernel
+(``ops/flash_attention.py``); decode attention is dense over the cache.
+
+Parameters (weights in ``nn.Linear``'s (out, in) layout)::
+
+    {"embed_tokens": (V, D),
+     "layers": [{"input_layernorm": (D,), "q_proj", "k_proj", "v_proj",
+                 "o_proj", "post_attention_layernorm": (D,), "gate_proj",
+                 "up_proj", "down_proj"}, ...],
+     "norm": (D,), "lm_head": (V, D)}
+
+The KV cache is ``{"k": [L, B, S, KV, hd], "v": ..., "length": [B]}``;
+the port updates it in place.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from eventgpt_tpu_torch.config import LlamaConfig
+from eventgpt_tpu_torch.ops.flash_attention import NEG_INF, flash_attention
+
+Params = Dict[str, Any]
+KVCache = Dict[str, torch.Tensor]
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    norm = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (norm * weight.float()).to(x.dtype)
+
+
+def rope_tables(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 cos/sin tables for ``positions``: (..., head_dim) each.
+
+    HF convention: inv_freq over even indices, the table is
+    concat(freqs, freqs), rotation by rotate_half.
+    """
+    hd = cfg.resolved_head_dim()
+    exponent = torch.arange(0, hd, 2, dtype=torch.float32, device=positions.device) / hd
+    inv_freq = 1.0 / torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
+                                            device=positions.device), exponent)
+    freqs = positions.float()[..., None] * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, hd); cos/sin: (B, S, hd) f32 -> rotated x, the tables
+    cast to x.dtype first."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    rotated = torch.cat([-x2, x1], dim=-1)
+    cos = cos[:, :, None, :].to(x.dtype)
+    sin = sin[:, :, None, :].to(x.dtype)
+    return x * cos + rotated * sin
+
+
+def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
+    return params["embed_tokens"][input_ids]
+
+
+def resize_token_embeddings(params: Params, new_vocab_size: int) -> Params:
+    """Grow embed/lm_head rows, new rows the mean of the old ones; shrinking
+    truncates. Port of ``eventgpt_tpu/models/llama.resize_token_embeddings``
+    (lm_head here is (V, D), so it grows by rows too)."""
+    embed, head = params["embed_tokens"], params["lm_head"]
+    old = embed.shape[0]
+    if new_vocab_size <= old:
+        return {**params, "embed_tokens": embed[:new_vocab_size],
+                "lm_head": head[:new_vocab_size]}
+    n_new = new_vocab_size - old
+    embed_new = torch.cat([embed, embed.mean(dim=0, keepdim=True).expand(n_new, -1)])
+    head_new = torch.cat([head, head.mean(dim=0, keepdim=True).expand(n_new, -1)])
+    return {**params, "embed_tokens": embed_new, "lm_head": head_new}
+
+
+def lm_head_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Logits as the f32 accumulator of x @ w.T. bf16 products are exact
+    in f32, so the f32 product of the upcast operands is that accumulator;
+    rounding the logits to bf16 could flip the greedy argmax."""
+    return F.linear(x.float(), w.float())
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, KV*n_rep, hd), GQA head replication."""
+    if n_rep == 1:
+        return x
+    b, s, kv, hd = x.shape
+    return x[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(b, s, kv * n_rep, hd)
+
+
+def _project_qkv(cfg: LlamaConfig, y: torch.Tensor, layer: Params):
+    """y (B, T, D) -> q (B, T, H, hd), k/v (B, T, KV, hd), pre-RoPE."""
+    b, t, _ = y.shape
+    hd = cfg.resolved_head_dim()
+    q = F.linear(y, layer["q_proj"]).reshape(b, t, cfg.num_heads, hd)
+    k = F.linear(y, layer["k_proj"]).reshape(b, t, cfg.num_kv_heads, hd)
+    v = F.linear(y, layer["v_proj"]).reshape(b, t, cfg.num_kv_heads, hd)
+    return q, k, v
+
+
+def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """Materialized-scores attention: f32 scores plus an additive mask
+    (B, 1, Q, S), f32 softmax cast to q.dtype. q (B, Q, H, hd), k/v
+    (B, S, H, hd) -> (B, Q, H, hd)."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = scores * (1.0 / math.sqrt(hd)) + mask
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _mlp_block(x: torch.Tensor, layer: Params) -> torch.Tensor:
+    gate = F.linear(x, layer["gate_proj"])
+    up = F.linear(x, layer["up_proj"])
+    return F.linear(F.silu(gate) * up, layer["down_proj"])
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: Optional[torch.device] = None) -> KVCache:
+    """Dense KV cache buffers (L, B, max_len, KV, hd) in ``dtype``."""
+    hd = cfg.resolved_head_dim()
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def _additive_mask(visible: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros((), dtype=torch.float32, device=visible.device)
+    return torch.where(visible, zero, torch.tensor(NEG_INF, device=visible.device))
+
+
+def prefill(
+    params: Params,
+    cfg: LlamaConfig,
+    inputs_embeds: torch.Tensor,
+    attention_mask: torch.Tensor,
+    cache: KVCache,
+    last_only: bool = False,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Run the full prompt; returns (f32 logits, cache filled in place).
+
+    ``attention_mask`` is bool (B, T): True = real token, False = right
+    pad. The prompt occupies cache slots [0, T); cache["length"] becomes
+    each row's true prompt length. ``last_only`` returns (B, V) logits at
+    each row's last real token instead of (B, T, V).
+    """
+    b, t, _ = inputs_embeds.shape
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    positions = torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1
+    positions = positions.clamp_min(0)
+    cos, sin = rope_tables(cfg, positions)
+
+    use_flash = cfg.attn_impl == "flash"
+    mask = None
+    if not use_flash:
+        causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=inputs_embeds.device))
+        mask = _additive_mask(causal[None, None] & attention_mask[:, None, None, :])
+
+    x = inputs_embeds
+    for li, layer in enumerate(params["layers"]):
+        y = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
+        q, k, v = _project_qkv(cfg, y, layer)
+        k = apply_rope(k, cos, sin)
+        q = apply_rope(q, cos, sin)
+        cache["k"][li, :, :t] = k.to(cache["k"].dtype)
+        cache["v"][li, :, :t] = v.to(cache["v"].dtype)
+        k_rep = _repeat_kv(k, h // kvh)
+        v_rep = _repeat_kv(v, h // kvh)
+        if use_flash:
+            ctx = flash_attention(q.contiguous(), k_rep.contiguous(), v_rep.contiguous(),
+                                  valid=attention_mask, causal=True)
+        else:
+            ctx = _dense_attention(q, k_rep, v_rep, mask)
+        x = x + F.linear(ctx.reshape(b, t, -1), layer["o_proj"])
+        y2 = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+        x = x + _mlp_block(y2, layer)
+
+    lengths = attention_mask.to(torch.int32).sum(dim=1)
+    cache["length"].copy_(lengths)
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    if last_only:
+        idx = (lengths - 1).clamp_min(0).long()
+        last = x[torch.arange(b, device=x.device), idx]  # (B, D)
+        return lm_head_f32(last, params["lm_head"]), cache
+    return lm_head_f32(x, params["lm_head"]), cache
+
+
+def decode_step(
+    params: Params,
+    cfg: LlamaConfig,
+    token_embeds: torch.Tensor,
+    cache: KVCache,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step. token_embeds: (B, 1, D). Returns (f32 logits
+    (B, V), cache updated in place).
+
+    The new token lands at slot ``cache["length"]`` with position id equal
+    to the number of real tokens so far; it attends to slots [0, length]
+    (its own slot included).
+    """
+    b = token_embeds.shape[0]
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    max_len = cache["k"].shape[2]
+    pos = cache["length"]  # (B,)
+    cos, sin = rope_tables(cfg, pos[:, None])
+    slot = pos.long()
+    valid = torch.arange(max_len, device=pos.device)[None, :] <= slot[:, None]
+    mask = _additive_mask(valid[:, None, None, :])
+    rows = torch.arange(b, device=pos.device)
+
+    x = token_embeds
+    for li, layer in enumerate(params["layers"]):
+        y = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
+        q, k_new, v_new = _project_qkv(cfg, y, layer)
+        k_new = apply_rope(k_new, cos, sin)
+        q = apply_rope(q, cos, sin)
+        cache["k"][li, rows, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][li, rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+        k_all = _repeat_kv(cache["k"][li].to(x.dtype), h // kvh)
+        v_all = _repeat_kv(cache["v"][li].to(x.dtype), h // kvh)
+        ctx = _dense_attention(q, k_all, v_all, mask)
+        x = x + F.linear(ctx.reshape(b, 1, -1), layer["o_proj"])
+        y2 = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+        x = x + _mlp_block(y2, layer)
+
+    cache["length"] += 1
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    return lm_head_f32(x[:, 0], params["lm_head"]), cache

@@ -1,0 +1,1 @@
+"""Host preprocessing, sampling, and the hand-written CUDA kernels with their plain versions."""

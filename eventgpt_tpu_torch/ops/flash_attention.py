@@ -1,0 +1,113 @@
+"""Flash attention for the prefill path: the sm_90a kernel and its plain version.
+
+``flash_attention`` is the port of ``eventgpt_tpu/ops/flash_attention.py``
+(the Pallas ``_flash_kernel``). On a CUDA tensor it launches the
+hand-written kernel in ``csrc/flash_attention.cu`` or raises; on a CPU
+tensor it runs ``flash_attention_reference``, the plain PyTorch version
+of the same function.
+
+Bound on an H100 SXM at the 7B prefill shape of ``chip_smoke.py`` (B=4,
+S=849, H=32, hd=128, bf16): 111 MB of q/k/v/out and mask -> 33 us at
+3.35 TB/s (the bound), against 23.6 GFLOP causal -> 24 us at 989 TFLOP/s.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from eventgpt_tpu_torch.ops._build import CudaKernel
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+HEAD_DIM = 128
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+FLASH_KERNEL = CudaKernel("flash_attention.cu", {
+    "egpt_flash_attention_fwd_bf16": (
+        ctypes.c_int, [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
+})
+
+
+def flash_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: masked softmax attention in f32.
+
+    q/k/v: (B, S, H, hd), KV already head-repeated; ``valid``: (B, S) bool
+    padding mask. Masked scores take the finite NEG_INF, the softmax sum is
+    clamped at 1e-30, and query rows with ``valid`` False come out exactly
+    zero. Returns (B, S, H, hd) in q.dtype.
+    """
+    b, s, h, hd = q.shape
+    if valid is None:
+        valid = torch.ones((b, s), dtype=torch.bool, device=q.device)
+    valid = valid.to(torch.bool)
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float() * scale
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
+    mask = valid[:, None, None, :]
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        mask = mask & (pos[None, None, None, :] <= pos[None, None, :, None])
+    scores = torch.where(mask, scores, torch.tensor(NEG_INF, device=q.device))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bkhd->bqhd", p / l, v.float())
+    out = torch.where(valid[:, :, None, None], out, torch.zeros((), device=q.device))
+    return out.to(q.dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Fused attention. q/k/v: (B, S, H, hd) with KV already head-repeated;
+    ``valid``: (B, S) bool padding mask. Returns (B, S, H, hd) in q.dtype.
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the kernel,
+    which takes contiguous bf16 q/k/v of one shape with hd = 128, and
+    raises on anything else.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, valid, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    b, s, h, hd = q.shape
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {x.device}, q on {q.device}")
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"flash_attention: {name} must be bfloat16, got {x.dtype}")
+        if x.shape != q.shape:
+            raise ValueError(f"flash_attention: {name} shape {tuple(x.shape)} != q shape {tuple(q.shape)}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be contiguous and 16-byte aligned")
+    if hd != HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim must be {HEAD_DIM}, got {hd}")
+    if valid is None:
+        valid_u8 = torch.ones((b, s), dtype=torch.uint8, device=q.device)
+    else:
+        if tuple(valid.shape) != (b, s) or valid.device != q.device:
+            raise ValueError(f"flash_attention: valid must be ({b}, {s}) on {q.device}")
+        valid_u8 = valid.to(torch.uint8).contiguous()
+    out = torch.empty_like(q)
+    lib = FLASH_KERNEL.lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.egpt_flash_attention_fwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_u8.data_ptr(),
+        out.data_ptr(), b, s, h, int(causal), 1.0 / math.sqrt(hd), stream)
+    FLASH_KERNEL.check(err)
+    FLASH_KERNEL.launches += 1
+    return out
