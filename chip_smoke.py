@@ -2,24 +2,31 @@
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile DIR]
 
 Phases, each printed on its own line:
 
-1. build   -- compiles every hand-written kernel with nvcc for sm_90a
-              (one nvcc per source, all started together);
-2. kernel  -- holds each kernel against its plain PyTorch version on the
-              card at the shapes the main path gives it, and times the
-              kernel, the plain version and one PyTorch library call;
-3. slice   -- four event-QA requests through EventGPT-7B at full width
-              (CLIP ViT-L/14-336, LLaMA-7B; random bf16 weights from a
-              seed), through the calls ``eventgpt_tpu_torch.cli.infer``
-              makes; checks that the main path launched every kernel, that
-              the flash prefill agrees with the dense prefill, and that a
-              tiny model gives the same greedy chain on the card as on the
-              CPU;
-4. kernels -- one JSON line per the kernel table, then the card's name and
-              power limit, then the result line.
+1. build        -- compiles every hand-written kernel with nvcc for sm_90a
+                   (one nvcc per source, all started together);
+2. kernel_*     -- holds each kernel against its plain PyTorch version on
+                   the card at the shapes the main paths give it, and times
+                   the kernel, the plain version and one PyTorch library
+                   call: K1 (flash prefill), K4 (int4 matmul) at the 7B
+                   decode and prefill shapes;
+3. slice        -- four event-QA requests through EventGPT-7B at full width
+                   (CLIP ViT-L/14-336, LLaMA-7B; random bf16 weights from a
+                   seed), through the calls ``eventgpt_tpu_torch.cli.infer``
+                   makes, then flash-vs-dense prefill logits;
+4. slice_int4   -- the same requests with ``--quant int4 --kv_cache int8``
+                   (the bf16 tree quantized on the card): K4 launches
+                   225 x (1 + decode steps), K1 32; then int4 vs the bf16
+                   prefill of the dequantized weights, the int8 vs bf16 KV
+                   cache, and K2 (int8 decode attention) on that cache;
+5. slice_int8_fused -- ``--quant int8 --fuse_params`` with a bf16 cache;
+6. tiny_*       -- tiny models give the same greedy chain on the card as on
+                   the CPU, bf16-free f32 and with int4 + int8 KV + fused;
+7. kernels      -- one JSON line per the kernel table, then the card's name
+                   and power limit, then the result line.
 
 Any failure raises and exits non-zero. Without a CUDA card it exits
 non-zero before printing any result.
@@ -39,6 +46,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak, H100 SXM
+H100_F32_FLOPS = 67e12          # f32 outside the tensor cores, H100 SXM
 QUERIES = [
     "What is happening in this scene?",
     "Describe the motion of the objects you can see.",
@@ -53,19 +61,64 @@ KERNEL_ATOL = 2e-2
 # round P/probs and ctx to bf16 at different points, and each layer's
 # difference passes through the rest of the stack. Logits are O(1).
 PREFILL_LOGIT_ATOL = 0.25
+# K4 vs its plain version: the same exact products (bf16 x times a small
+# integer, times the f32 group scale) summed in f32 in another order, on
+# outputs of O(1).
+INT4_KERNEL_ATOL, INT4_KERNEL_RTOL = 1e-3, 1e-4
+# int4 prefill vs the bf16 prefill of the dequantized weights: the only
+# difference is the bf16 rounding of each weight q*s (2^-9 relative), in
+# all 7 matmuls of each of 32 layers and in lm_head. One bf16 rounding per
+# layer (flash vs dense, the prefill_flash_vs_dense line) gave 0.079 at
+# |logits| 4.3 on an H100; seven in quadrature is ~0.21, so 0.5 leaves room
+# for the lm_head and the tails.
+INT4_DEQUANT_LOGIT_ATOL = 0.5
+# K2 vs its plain version: the same arithmetic summed in another order and
+# expf vs torch.exp, which can flip the bf16 rounding of one slot's
+# p * v_s (2^-8 of that slot's share), plus the bf16 output rounding.
+DECODE_KERNEL_ATOL = 2e-2
+# The tiny f32 int4 model on the card vs the CPU: the same arithmetic in f32
+# summed in another order, but K4 rounds its input to bf16. Where an f32
+# activation differs in its last bit between the two, that rounding can
+# land one bf16 step (2^-8) apart, which moves a logit by ~1e-2 through two
+# layers: the bar of tests/test_torch_quant.py for the same effect between
+# the port and the JAX package (1.1e-2 measured there).
+TINY_LOGIT_ATOL = 3e-2
+# 7B shapes of K4: (M, K, N) at decode (M = B = 4) and prefill (M = B*T).
+INT4_DECODE_SHAPES = [(4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096), (4, 4096, 32000)]
+# K4 launches per 7B decode step at each decode shape: q, k, v, o; gate,
+# up; down; lm_head, in each of 32 layers but the last.
+INT4_LAUNCHES_PER_STEP = {(4, 4096, 4096): 128, (4, 4096, 11008): 64,
+                          (4, 11008, 4096): 32, (4, 4096, 32000): 1}
 
 
 def emit(phase: str, payload: dict) -> None:
     print(f"{phase}: {json.dumps(payload)}", flush=True)
 
 
-def cuda_time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+def cuda_time_ms(fn, warmup: int = 3, iters: int = 20, cold_l2: bool = False) -> float:
     """Mean device ms per call: CUDA events around ``iters`` calls after
-    ``warmup`` calls."""
+    ``warmup`` calls. ``cold_l2`` writes 128 MB between calls, more than the
+    50 MB L2, and times each call alone: for a caller that finds its
+    operands in device memory, as a decode step finds each layer's weights
+    and cache. The device then sleeps ~0.5 ms, so that the host has queued
+    the call before the start event runs and no host time is counted."""
     import torch
 
     for _ in range(warmup):
         fn()
+    if cold_l2:
+        scratch = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(iters)]
+        torch.cuda.synchronize()
+        for start, end in events:
+            scratch.zero_()
+            torch.cuda._sleep(1_000_000)
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(start.elapsed_time(end) for start, end in events) / iters
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -156,6 +209,172 @@ def tiny_card_matches_cpu(event_path: str) -> dict:
     return {"tokens": len(on_card[0]), "identical": True}
 
 
+def _bound(nbytes: float, flops: float, peak_flops: float = H100_BF16_FLOPS):
+    """Least time on an H100 SXM: the larger of bytes over 3.35 TB/s and
+    operations over ``peak_flops``."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_int4_kernel(m: int, k: int, n: int, seed: int, group: int = 128) -> dict:
+    """K4 against its plain version at (M, K, N): bf16 x, a seeded weight
+    of the init's scale quantized on the card; returns error and times.
+    The library call is one bf16 ``F.linear`` on the dequantized weight."""
+    import torch
+    import torch.nn.functional as F
+
+    from eventgpt_tpu_torch.ops import int4_matmul as i4
+    from eventgpt_tpu_torch.ops.quant import dequantize_tensor4, quantize_tensor4
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device="cuda") / math.sqrt(k)
+    leaf = quantize_tensor4(w, group)
+    del w
+    q4, s = leaf["q4"], leaf["s"]
+    out = i4.int4_matmul(x, q4, s)
+    torch.cuda.synchronize()
+    ref = i4.int4_matmul_reference(x, q4, s)
+    err = (out - ref).abs().max().item()
+    bad = (out - ref).abs() > INT4_KERNEL_ATOL + INT4_KERNEL_RTOL * ref.abs()
+    if not math.isfinite(err) or bool(bad.any()):
+        raise AssertionError(f"int4 kernel at M={m} K={k} N={n}: max abs err {err} over "
+                             f"atol {INT4_KERNEL_ATOL} + rtol {INT4_KERNEL_RTOL}")
+    w_lin = dequantize_tensor4(leaf, torch.bfloat16).T.contiguous()  # (N, K), not timed
+    ms = cuda_time_ms(lambda: i4.int4_matmul(x, q4, s), cold_l2=True)
+    plain_ms = cuda_time_ms(lambda: i4.int4_matmul_reference(x, q4, s), warmup=1, iters=3,
+                            cold_l2=True)
+    library_ms = cuda_time_ms(lambda: F.linear(x, w_lin), cold_l2=True)
+    nbytes = m * k * 2 + q4.numel() + s.numel() * 4 + m * n * 4
+    flops = 2 * m * k * n
+    bound_ms, bound_by = _bound(nbytes, flops)
+    return {"M": m, "K": k, "N": n, "group": group, "max_abs_err": err,
+            "atol": INT4_KERNEL_ATOL, "rtol": INT4_KERNEL_RTOL, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library": "F.linear bf16 on the dequantized (N, K) weight",
+            "bytes": nbytes, "flops": flops}
+
+
+def check_decode_kernel(cache, li: int, n_valid, seed: int) -> dict:
+    """K2 against its plain version on layer ``li`` of an int8 cache, with
+    a seeded bf16 q (B, KV, 1, hd). The library call is SDPA on that
+    layer's K/V dequantized to bf16 (the dequantize is not timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eventgpt_tpu_torch.ops import decode_attention as da
+
+    kq, ks, vq, vs = cache["k"]["q"], cache["k"]["s"], cache["v"]["q"], cache["v"]["s"]
+    _, b, s_len, kv, hd = kq.shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, kv, 1, hd), generator=g, device="cuda", dtype=torch.bfloat16)
+    nv = torch.tensor(n_valid, device="cuda", dtype=torch.int32)
+    out = da.decode_attention_int8(q, kq, ks, vq, vs, li, nv)
+    torch.cuda.synchronize()
+    ref = da.decode_attention_int8_plain(q, kq, ks, vq, vs, li, nv)
+    err = (out.float() - ref.float()).abs().max().item()
+    if not math.isfinite(err) or err > DECODE_KERNEL_ATOL:
+        raise AssertionError(f"decode kernel at li={li}: max abs err {err} > {DECODE_KERNEL_ATOL}")
+    k_l = (kq[li].float() * ks[li]).to(torch.bfloat16).transpose(1, 2)  # (B, KV, S, hd)
+    v_l = (vq[li].float() * vs[li]).to(torch.bfloat16).transpose(1, 2)
+    mask = (torch.arange(s_len, device="cuda")[None, :] < nv[:, None])[:, None, None, :]
+    ms = cuda_time_ms(lambda: da.decode_attention_int8(q, kq, ks, vq, vs, li, nv), cold_l2=True)
+    plain_ms = cuda_time_ms(lambda: da.decode_attention_int8_plain(q, kq, ks, vq, vs, li, nv),
+                            warmup=1, iters=5, cold_l2=True)
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k_l, v_l, attn_mask=mask),
+                              cold_l2=True)
+    visible = sum(min(int(x), s_len) for x in n_valid)
+    nbytes = 2 * visible * kv * (hd + 4) + q.numel() * 2 + out.numel() * 2 + b * 4
+    flops = 2 * 2 * visible * kv * hd
+    bound_ms, bound_by = _bound(nbytes, flops, H100_F32_FLOPS)
+    return {"li": li, "B": b, "S": s_len, "KV": kv, "G": 1, "hd": hd, "n_valid": list(n_valid),
+            "max_abs_err": err, "atol": DECODE_KERNEL_ATOL, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "library": "SDPA, bool mask, on the layer dequantized to bf16 (dequantize not timed)",
+            "bytes": nbytes, "flops": flops}
+
+
+def check_generations(name: str, out_ids, vocab: int) -> None:
+    """One list of at most MAX_NEW_TOKENS in-vocabulary ids per request."""
+    if len(out_ids) != len(QUERIES) or any(
+            len(r) > MAX_NEW_TOKENS or any(not 0 <= t < vocab for t in r) for r in out_ids):
+        raise AssertionError(f"malformed {name} generations: {out_ids}")
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def tiny_quant_card_matches_cpu(event_path: str) -> dict:
+    """A tiny f32 model whose LLaMA widths pass the K4 gate, run with
+    ``--quant int4 --kv_cache int8 --fuse_params``, gives the same greedy
+    chain and first-step logits on the card as on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from eventgpt_tpu_torch.config import EventChatConfig, LlamaConfig
+    from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
+    from eventgpt_tpu_torch.data.tokenizer import ByteTokenizer, tokenize_with_event
+    from eventgpt_tpu_torch.models import eventchat, llama
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.ops.image import process_event_file
+    from eventgpt_tpu_torch.ops.int4_matmul import INT4_KERNEL
+    from eventgpt_tpu_torch.ops.quant import quantize_llama_params
+
+    lm = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                     num_heads=4, num_kv_heads=2, max_seq_len=256)
+    base = EventChatConfig.tiny()
+    cfg = dataclasses.replace(base, llama=lm,
+                              projector=dataclasses.replace(base.projector, output_dim=256))
+    trees = {}
+    for dev in ("cpu", "cuda"):
+        params = init_eventchat_params(cfg, torch.Generator().manual_seed(2), torch.float32, "cpu")
+        params = _to(params, dev)
+        llama.fuse_llama_params(params["llama"])
+        quantize_llama_params(params["llama"], bits=4)
+        trees[dev] = params
+    for name in ("qkv_proj", "gate_up_proj", "down_proj"):
+        q_cpu = trees["cpu"]["llama"]["layers"][0][name]
+        q_card = trees["cuda"]["llama"]["layers"][0][name]
+        n_bad = {k: int((q_card[k].cpu() != q_cpu[k]).sum()) for k in ("q4", "s")}
+        if any(n_bad.values()):
+            raise AssertionError(f"int4 quantization of {name} on the card differs from the "
+                                 f"CPU's in {n_bad} elements")
+    _, pixels = process_event_file(event_path, cfg.num_event_frames, cfg.vision.image_size)
+    ids = tokenize_with_event(prepare_event_prompt(QUERIES[1]), ByteTokenizer())
+    kwargs = dict(max_new_tokens=16, temperature=0.0, eos_token_id=None, kv_quant=True)
+    first = {}
+    for dev, params in trees.items():
+        padded, mask, _ = eventchat.prepare_prefill(params, cfg, [ids], pixels[None])
+        cache = llama.init_kv_cache(cfg.llama, 1, padded.shape[1], dtype=padded.dtype,
+                                    device=padded.device, quant=True)
+        with torch.inference_mode():
+            first[dev], _ = llama.prefill(params["llama"], cfg.llama, padded, mask, cache,
+                                          last_only=True)
+    INT4_KERNEL.launches = 0
+    on_card = eventchat.generate(trees["cuda"], cfg, [ids], pixels[None], device="cuda", **kwargs)
+    launches = INT4_KERNEL.launches
+    on_cpu = eventchat.generate(trees["cpu"], cfg, [ids], pixels[None], device="cpu", **kwargs)
+    diff = (first["cuda"].cpu() - first["cpu"]).abs().max().item()
+    if on_cpu != on_card:
+        raise AssertionError(f"tiny int4 greedy chain differs: cpu {on_cpu} vs cuda {on_card}")
+    if not diff <= TINY_LOGIT_ATOL:
+        raise AssertionError(f"tiny int4 first-step logits differ by {diff} > {TINY_LOGIT_ATOL}")
+    if launches == 0:
+        raise AssertionError("the tiny int4 model on the card did not launch K4")
+    return {"config": "LLaMA d=256 ffn=512 vocab=512 2 layers 4 heads 2 KV heads, f32, "
+                      "--quant int4 --kv_cache int8 --fuse_params",
+            "tokens": len(on_card[0]), "identical": True, "first_logit_max_abs_diff": diff,
+            "tolerance": TINY_LOGIT_ATOL, "int4_launches_on_card": launches}
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -198,15 +417,16 @@ def prepare_requests(cfg, event_dir: str):
     return tokenizer, ids, np.stack(pixels), lengths, host
 
 
-def timed_generate(eventchat, params, cfg, ids, pixels, tokenizer):
+def timed_generate(eventchat, params, cfg, ids, pixels, tokenizer, kv_quant=False,
+                   max_new_tokens=MAX_NEW_TOKENS):
     """One batch through ``generate`` with phase timings; returns (numbers, ids)."""
     import torch
 
     timings = {}
     t0 = time.perf_counter()
     out_ids = eventchat.generate(
-        params, cfg, ids, pixels, max_new_tokens=MAX_NEW_TOKENS, temperature=0.0,
-        eos_token_id=tokenizer.eos_token_id, seed=0, timings=timings)
+        params, cfg, ids, pixels, max_new_tokens=max_new_tokens, temperature=0.0,
+        eos_token_id=tokenizer.eos_token_id, seed=0, timings=timings, kv_quant=kv_quant)
     torch.cuda.synchronize()
     steps = timings["decode_steps"]
     return {
@@ -221,7 +441,8 @@ def timed_generate(eventchat, params, cfg, ids, pixels, tokenizer):
     }, out_ids
 
 
-def profile_generate(eventchat, params, cfg, ids, pixels, tokenizer, out_dir: str) -> dict:
+def profile_generate(eventchat, params, cfg, ids, pixels, tokenizer, out_dir: str,
+                     name: str = "generate", kv_quant: bool = False) -> dict:
     """torch.profiler over one more batch: device time by operator, and the
     device's busy share of the wall time (kernels on one stream)."""
     import torch
@@ -231,7 +452,7 @@ def profile_generate(eventchat, params, cfg, ids, pixels, tokenizer, out_dir: st
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        timed_generate(eventchat, params, cfg, ids, pixels, tokenizer)
+        timed_generate(eventchat, params, cfg, ids, pixels, tokenizer, kv_quant=kv_quant)
         wall_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
 
@@ -240,12 +461,13 @@ def profile_generate(eventchat, params, cfg, ids, pixels, tokenizer, out_dir: st
 
     busy_ms = sum(dev_us(e) for e in avgs) / 1e3
     top = sorted(avgs, key=dev_us, reverse=True)[:15]
-    with open(os.path.join(out_dir, "profile_generate.txt"), "w") as f:
+    table = os.path.join(out_dir, f"profile_{name}.txt")
+    with open(table, "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "top_device_ms": [[e.key, dev_us(e) / 1e3, e.count] for e in top],
-            "table": os.path.join(out_dir, "profile_generate.txt")}
+            "table": table}
 
 
 def main() -> int:
@@ -255,7 +477,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="also profile one batch; write the operator table to DIR")
+                        help="also profile one bf16 and one int4 batch; write the operator "
+                             "tables to DIR")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -266,16 +489,27 @@ def main() -> int:
     from eventgpt_tpu_torch.config import EventChatConfig
     from eventgpt_tpu_torch.models import eventchat, llama
     from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.ops import quant
     from eventgpt_tpu_torch.ops._build import build_all
+    from eventgpt_tpu_torch.ops.decode_attention import DECODE_INT8_KERNEL
     from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+    from eventgpt_tpu_torch.ops.int4_matmul import INT4_KERNEL
 
-    kernels = [FLASH_KERNEL]
+    kernels = [FLASH_KERNEL, INT4_KERNEL, DECODE_INT8_KERNEL]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     emit("device", {"kind": card, "count": torch.cuda.device_count(), "nvidia_smi": smi,
                     "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    def counted(run):
+        """Drive one main path with every launch count set to 0 just before
+        it; returns (its result, the counts read just after)."""
+        for k in kernels:
+            k.launches = 0
+        out = run()
+        return out, {k.source: k.launches for k in kernels}
 
     # 1. build
     shutil.rmtree(os.path.join(ROOT, "eventgpt_tpu_torch", "csrc", "build"), ignore_errors=True)
@@ -291,6 +525,7 @@ def main() -> int:
     cfg = EventChatConfig.eventgpt_7b()
     if cfg.llama.attn_impl != "flash":
         raise AssertionError("the 7B preset must prefill through the flash kernel")
+    n_layers = cfg.llama.num_layers
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=ROOT)
     try:
         tokenizer, ids, pixels, lengths, host = prepare_requests(cfg, work)
@@ -300,30 +535,31 @@ def main() -> int:
         torch.cuda.synchronize()
         emit("host", {**host, "init_weights_s": time.perf_counter() - t0})
 
-        # 2. kernel checks at the main path's prefill shape and at an S
-        # that is no multiple of the 64-row tile.
+        # 2. kernel checks at the main paths' shapes: K1 at the prefill
+        # shape and at an S that is no multiple of the 64-row tile; K4 at
+        # the 7B decode shapes and at the prefill M = B * T.
         main_check = check_flash_kernel(lengths, seed=1)
         emit("kernel_flash_main_shape", main_check)
         odd_check = check_flash_kernel([333, 201], seed=2)
         emit("kernel_flash_odd_s", odd_check)
+        m_prefill = len(lengths) * max(lengths)
+        int4_checks = {}
+        for i, shape in enumerate(INT4_DECODE_SHAPES
+                                  + [(m_prefill, 4096, 11008), (m_prefill, 11008, 4096)]):
+            int4_checks[shape] = check_int4_kernel(*shape, seed=10 + i)
+            emit("kernel_int4_M{}_K{}_N{}".format(*shape), int4_checks[shape])
 
-        # 3. the slice: four requests through generate, as cli/infer calls
-        # it. The first run is the counted main path (and the cold start);
-        # the second is the same work with every shape seen before.
-        for k in kernels:
-            k.launches = 0
+        # 3. the bf16 slice: four requests through generate, as cli/infer
+        # calls it. The first run is the counted main path (and the cold
+        # start); the second is the same work with every shape seen before.
         torch.cuda.reset_peak_memory_stats()
-        cold, out_ids = timed_generate(eventchat, params, cfg, ids, pixels, tokenizer)
-        launches = {k.source: k.launches for k in kernels}
+        (cold, out_ids), launches = counted(
+            lambda: timed_generate(eventchat, params, cfg, ids, pixels, tokenizer))
         cold["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-        for k in kernels:
-            if k.launches < cfg.llama.num_layers:
-                raise AssertionError(f"{k.source}: {k.launches} launches on the main path, "
-                                     f"want >= {cfg.llama.num_layers}")
+        if launches[FLASH_KERNEL.source] != n_layers:
+            raise AssertionError(f"bf16 slice: {launches} launches, want K1 = {n_layers}")
         vocab = cfg.llama.vocab_size
-        if len(out_ids) != len(QUERIES) or any(
-                len(r) > MAX_NEW_TOKENS or any(not 0 <= t < vocab for t in r) for r in out_ids):
-            raise AssertionError(f"malformed generations: {out_ids}")
+        check_generations("bf16", out_ids, vocab)
         emit("slice", {
             "config": "EventGPT-7B (CLIP ViT-L/14-336 24 layers, LLaMA-7B 32 layers, d=4096, "
                       "vocab 32000), random bf16 weights, seed 0",
@@ -358,14 +594,132 @@ def main() -> int:
                                         "finite": finite, "same_greedy_first_token": same_first})
         if not finite or diff > PREFILL_LOGIT_ATOL:
             raise AssertionError(f"flash vs dense prefill logits differ by {diff}")
-        del params, padded, logits, cache
+        del logits, cache
+        torch.cuda.empty_cache()
+
+        # 4. --quant int4 --kv_cache int8: the bf16 LLaMA quantized on the
+        # card (a copy of the tree, so the bf16 weights stay for phase 5).
+        bf16_bytes = tree_bytes(params)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        llama_int4 = quant.quantize_llama_params(llama.copy_tree(params["llama"]), bits=4)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        params_int4 = {**params, "llama": llama_int4}
+        (cold4, ids4), launches4 = counted(lambda: timed_generate(
+            eventchat, params_int4, cfg, ids, pixels, tokenizer, kv_quant=True))
+        peak4 = torch.cuda.max_memory_allocated()
+        steps4 = cold4["decode_steps"]
+        want_k4 = (7 * n_layers + 1) * (1 + steps4)
+        if launches4[INT4_KERNEL.source] != want_k4 or launches4[FLASH_KERNEL.source] != n_layers:
+            raise AssertionError(f"int4 slice: launches {launches4}, want K4 = {want_k4} "
+                                 f"(225 x (1 + {steps4})) and K1 = {n_layers}")
+        check_generations("int4", ids4, vocab)
+        warm4, warm_ids4 = timed_generate(eventchat, params_int4, cfg, ids, pixels, tokenizer,
+                                          kv_quant=True)
+        if warm_ids4 != ids4:
+            raise AssertionError("a second int4 greedy run gave other tokens")
+        cache_bytes = 2 * n_layers * len(QUERIES) * ((t + MAX_NEW_TOKENS + 127) // 128 * 128) \
+            * cfg.llama.num_kv_heads * (cfg.llama.resolved_head_dim() + 4)
+        emit("slice_int4", {
+            "flags": "--quant int4 --kv_cache int8", "quantize_on_card_s": quantize_s,
+            "cold": cold4, "warm": warm4, "launches": launches4,
+            "k4_launches_want": want_k4, "same_tokens_cold_warm": True,
+            "same_first_token_as_bf16": [a[:1] == c[:1] for a, c in zip(ids4, out_ids)],
+            "peak_mem_bytes": peak4, "bf16_tree_bytes": bf16_bytes,
+            "peak_minus_bf16_tree_bytes": peak4 - bf16_bytes,
+            "int4_llama_bytes": tree_bytes(llama_int4), "int8_cache_bytes": cache_bytes,
+            "first_ids": [r[:8] for r in ids4], "nvidia_smi": smi,
+        })
+        if args.profile:
+            emit("profile_int4", profile_generate(eventchat, params_int4, cfg, ids, pixels,
+                                                  tokenizer, args.profile, name="generate_int4",
+                                                  kv_quant=True))
+
+        # int4 vs the bf16 prefill of the dequantized weights.
+        llama_deq = quant.dequantize_llama_params(llama_int4, torch.bfloat16)
+        first = {}
+        for name, lp in (("int4", llama_int4), ("dequant_bf16", llama_deq)):
+            cache = llama.init_kv_cache(cfg.llama, b, t, dtype=padded.dtype, device=padded.device)
+            with torch.inference_mode():
+                first[name], _ = llama.prefill(lp, cfg.llama, padded, mask, cache, last_only=True)
+        del llama_deq, cache
+        torch.cuda.empty_cache()
+        diff = (first["int4"] - first["dequant_bf16"]).abs().max().item()
+        finite = bool(torch.isfinite(first["int4"]).all())
+        emit("int4_vs_dequant_bf16", {
+            "max_abs_logit_diff": diff, "tolerance": INT4_DEQUANT_LOGIT_ATOL,
+            "logit_absmax": first["dequant_bf16"].abs().max().item(), "finite": finite,
+            "same_greedy_first_token": (first["int4"].argmax(-1)
+                                        == first["dequant_bf16"].argmax(-1)).tolist()})
+        if not finite or diff > INT4_DEQUANT_LOGIT_ATOL:
+            raise AssertionError(f"int4 vs dequantized bf16 prefill logits differ by {diff}")
+
+        # The int8 KV cache against the bf16 one: first decode-step logits,
+        # int4 weights on both, at the cache length generate uses.
+        max_len = (t + MAX_NEW_TOKENS + 127) // 128 * 128
+        step_logits, caches = {}, {}
+        tok = first["int4"].argmax(-1)
+        for kv_name, kv_quant in (("bf16", False), ("int8", True)):
+            cache = llama.init_kv_cache(cfg.llama, b, max_len, dtype=padded.dtype,
+                                        device=padded.device, quant=kv_quant)
+            with torch.inference_mode():
+                llama.prefill(llama_int4, cfg.llama, padded, mask, cache, last_only=True)
+                emb = llama.embed_tokens(llama_int4, tok[:, None])
+                step_logits[kv_name], caches[kv_name] = llama.decode_step(
+                    llama_int4, cfg.llama, emb, cache)
+        ref = step_logits["bf16"]
+        diff = (step_logits["int8"] - ref).abs().max().item()
+        bound = 0.1 * (ref.abs().max().item() + 1)
+        emit("kv_int8_vs_bf16", {"max_abs_logit_diff": diff, "bound": bound,
+                                 "bound_rule": "0.1 * (max|ref| + 1), tests/test_quant.py",
+                                 "same_greedy_token": (step_logits["int8"].argmax(-1)
+                                                       == ref.argmax(-1)).tolist()})
+        if not math.isfinite(diff) or diff > bound:
+            raise AssertionError(f"int8 vs bf16 KV cache step logits differ by {diff} > {bound}")
+        del caches["bf16"], step_logits
+
+        # K2 on the int8 cache that the int4 prefill wrote.
+        decode_checks = [check_decode_kernel(caches["int8"], li, lengths, seed=20 + li)
+                         for li in (0, n_layers - 1)]
+        for chk in decode_checks:
+            emit("kernel_decode_int8", chk)
+        del caches, params_int4, llama_int4, padded, mask
+        torch.cuda.empty_cache()
+
+        # 5. --quant int8 --fuse_params, bf16 cache: a short run warms the
+        # new GEMM shapes, then the counted run.
+        llama_i8 = quant.quantize_llama_params(
+            llama.fuse_llama_params(llama.copy_tree(params["llama"])), bits=8)
+        params_i8 = {**params, "llama": llama_i8}
+        timed_generate(eventchat, params_i8, cfg, ids, pixels, tokenizer, max_new_tokens=2)
+        (warm8, ids8), launches8 = counted(lambda: timed_generate(
+            eventchat, params_i8, cfg, ids, pixels, tokenizer))
+        if launches8[INT4_KERNEL.source] != 0 or launches8[FLASH_KERNEL.source] != n_layers:
+            raise AssertionError(f"int8 fused slice: launches {launches8}, want K4 = 0 and "
+                                 f"K1 = {n_layers}")
+        check_generations("int8", ids8, vocab)
+        probe = torch.zeros((1, 8), dtype=torch.bfloat16, device="cuda")
+        emit("slice_int8_fused", {
+            "flags": "--quant int8 --fuse_params", "run": "warm", **warm8,
+            "launches": launches8, "int8_gemm_form": quant.int8_gemm_form(probe),
+            "int8_llama_bytes": tree_bytes(llama_i8), "first_ids": [r[:8] for r in ids8],
+            "nvidia_smi": smi})
+        del params, params_i8, llama_i8
         torch.cuda.empty_cache()
 
         emit("tiny_card_vs_cpu", tiny_card_matches_cpu(os.path.join(work, "events_0.npy")))
+        emit("tiny_quant_card_vs_cpu",
+             tiny_quant_card_matches_cpu(os.path.join(work, "events_1.npy")))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 4. the kernel table, the card, the result.
+    # 6. the kernel table, the card, the result. K4's numbers are one 7B
+    # decode step's 225 launches at M = 4; K2 is not on a main path (the
+    # decode reads the int8 cache densely, as in the JAX package).
+    step = {key: sum(INT4_LAUNCHES_PER_STEP[sh] * int4_checks[sh][key]
+                     for sh in INT4_DECODE_SHAPES)
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd_bf16",
         "route": "cuda",
@@ -378,6 +732,30 @@ def main() -> int:
         "bound_ms": main_check["bound_ms"],
         "bound_by": main_check["bound_by"],
         "library_ms": main_check["library_ms"],
+    }, {
+        "name": "int4_matmul",
+        "route": "cuda",
+        "source": "eventgpt_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "eventgpt_tpu/ops/int4_matmul.py:36",
+        "launches": launches4[INT4_KERNEL.source],
+        "max_abs_err": max(c["max_abs_err"] for c in int4_checks.values()),
+        "ms": step["ms"],
+        "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": step["library_ms"],
+    }, {
+        "name": "decode_attention_int8",
+        "route": "cuda",
+        "source": "eventgpt_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "eventgpt_tpu/ops/decode_attention.py:50",
+        "launches": launches4[DECODE_INT8_KERNEL.source],
+        "max_abs_err": max(c["max_abs_err"] for c in decode_checks),
+        "ms": decode_checks[0]["ms"],
+        "plain_ms": decode_checks[0]["plain_ms"],
+        "bound_ms": decode_checks[0]["bound_ms"],
+        "bound_by": decode_checks[0]["bound_by"],
+        "library_ms": decode_checks[0]["library_ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -2,13 +2,16 @@
 
 Port of ``eventgpt_tpu/cli/infer.py`` for this slice of the port: the
 same load -> preprocess -> generate -> detokenize flow and the same flags,
-plus ``--device`` (default ``cuda``). Flags whose paths are not ported yet
-(weight quantization, the int8 KV cache, beam search, speculative and
-Medusa decoding, a serving mesh, Q-Former) raise.
+plus ``--device`` (default ``cuda``). ``--quant int8|int4``, ``--kv_cache
+int8`` and ``--fuse_params`` run the quantized path (int4 through the K4
+kernel of ``ops/int4_matmul.py``). Flags whose paths are not ported yet
+(beam search, speculative and Medusa decoding, a serving mesh, Q-Former)
+raise.
 
 Usage:
   python -m eventgpt_tpu_torch.cli.infer --model_path tiny-random \\
-      --event_frame events.npy --query "What is happening?"
+      --event_frame events.npy --query "What is happening?" \
+      [--quant int4 --kv_cache int8 --fuse_params] [--device cpu]
 
 ``--model_path tiny-random`` runs tiny random weights with the offline byte
 tokenizer. Loading a real checkpoint is not ported yet; ``chip_smoke.py``
@@ -30,8 +33,9 @@ from eventgpt_tpu_torch.data.tokenizer import ByteTokenizer, tokenize_with_event
 from eventgpt_tpu_torch.device import resolve_device
 from eventgpt_tpu_torch.models import eventchat
 from eventgpt_tpu_torch.models.convert import init_eventchat_params
-from eventgpt_tpu_torch.models.llama import resize_token_embeddings
+from eventgpt_tpu_torch.models.llama import fuse_llama_params, resize_token_embeddings
 from eventgpt_tpu_torch.ops.image import process_event_file
+from eventgpt_tpu_torch.ops.quant import quantize_llama_params
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -83,13 +87,10 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """Flags of paths that later slices of the port bring raise here."""
     unported = [
-        (args.quant != "none", f"--quant {args.quant}", "the int8/int4 weight path"),
-        (args.kv_cache != "bf16", f"--kv_cache {args.kv_cache}", "the int8 KV cache"),
         (args.num_beams > 1, f"--num_beams {args.num_beams}", "beam search"),
         (args.speculative != 0, f"--speculative {args.speculative}", "speculative decoding"),
         (args.draft_head is not None, "--draft_head", "Medusa draft heads"),
         (args.mesh_data * args.mesh_fsdp * args.mesh_model != 1, "--mesh_*", "the serving mesh"),
-        (args.fuse_params, "--fuse_params", "fused q|k|v weights"),
         (args.use_event_qformer, "--use_event_qformer", "the Q-Former"),
         (args.model_base is not None, "--model_base", "checkpoint loading"),
     ]
@@ -109,8 +110,8 @@ def _refuse_unported(args) -> None:
 
 def load_model(args, device: torch.device):
     """(cfg, params on ``device``, tokenizer) for tiny random weights, with
-    the special-token registration and embedding resize of the JAX CLI's
-    ``prepare_model``."""
+    the JAX CLI's ``prepare_model`` order: special tokens, embedding resize,
+    then ``--fuse_params``, then ``--quant`` (on ``device``, in place)."""
     import dataclasses
 
     cfg = EventChatConfig.tiny()
@@ -129,6 +130,10 @@ def load_model(args, device: torch.device):
                              special_tokens=True)
     if len(tokenizer) > cfg.llama.vocab_size:
         params["llama"] = resize_token_embeddings(params["llama"], len(tokenizer))
+    if args.fuse_params:
+        fuse_llama_params(params["llama"])
+    if args.quant in ("int8", "int4"):
+        quantize_llama_params(params["llama"], bits=4 if args.quant == "int4" else 8)
     return cfg, params, tokenizer
 
 
@@ -156,6 +161,7 @@ def main(argv=None) -> str:
         eos_token_id=tokenizer.eos_token_id,
         seed=args.seed,
         max_context=args.context_len,
+        kv_quant=args.kv_cache == "int8",
         device=device,
     )[0]
     t_gen = time.perf_counter() - t0

@@ -24,8 +24,6 @@ from eventgpt_tpu_torch.device import resolve_device
 Params = Dict[str, Any]
 
 _CLIP_LINEARS = {"q_proj": "q", "k_proj": "k", "v_proj": "v", "out_proj": "o"}
-_LLAMA_ATTN = {"q_proj": "q", "k_proj": "k", "v_proj": "v", "o_proj": "o"}
-_LLAMA_MLP = {"gate_proj": "gate", "up_proj": "up", "down_proj": "down"}
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
@@ -76,26 +74,37 @@ def projector_params_from_jax(tree: Params, dtype, device) -> Params:
     return out
 
 
+def _leaf_from_jax(leaf, i: Optional[int], dtype, device):
+    """One JAX LLaMA weight leaf (layer ``i`` of a stacked leaf, or the
+    whole leaf when ``i`` is None) in the port's form: a dense (in, out)
+    kernel becomes an (out, in) weight in ``dtype``; an int8 or int4 leaf
+    keeps its payload and f32 scales as they are, with no transpose."""
+    if isinstance(leaf, dict):
+        return {k: torch.from_numpy(np.array(v if i is None else v[i])).to(device)
+                for k, v in leaf.items()}
+    return _weight(leaf if i is None else leaf[i], dtype, device)
+
+
 def llama_params_from_jax(tree: Params, cfg: LlamaConfig, dtype, device) -> Params:
+    """Split or fused (``qkv``, ``gate_up``) and dense or quantized JAX
+    trees; fused leaves become ``qkv_proj`` / ``gate_up_proj``."""
     lay = tree["layers"]
-    if "qkv" in lay["attn"] or "gate_up" in lay["mlp"]:
-        raise ValueError("fused q|k|v / gate|up leaves are not supported; pass the unfused tree")
+    attn = {f"{k}_proj": v for k, v in lay["attn"].items()}
+    mlp = {f"{k}_proj": v for k, v in lay["mlp"].items()}
     layers = []
     for i in range(cfg.num_layers):
         layer = {
             "input_layernorm": _tensor(lay["input_norm"][i], dtype, device),
             "post_attention_layernorm": _tensor(lay["post_norm"][i], dtype, device),
         }
-        for ours, theirs in _LLAMA_ATTN.items():
-            layer[ours] = _weight(lay["attn"][theirs][i], dtype, device)
-        for ours, theirs in _LLAMA_MLP.items():
-            layer[ours] = _weight(lay["mlp"][theirs][i], dtype, device)
+        for name, leaf in {**attn, **mlp}.items():
+            layer[name] = _leaf_from_jax(leaf, i, dtype, device)
         layers.append(layer)
     return {
         "embed_tokens": _tensor(tree["embed_tokens"], dtype, device),
         "layers": layers,
         "norm": _tensor(tree["final_norm"], dtype, device),
-        "lm_head": _weight(tree["lm_head"], dtype, device),
+        "lm_head": _leaf_from_jax(tree["lm_head"], None, dtype, device),
     }
 
 

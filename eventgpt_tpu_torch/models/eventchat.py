@@ -187,6 +187,7 @@ def generate(
     seed: int = 0,
     max_context: Optional[int] = None,
     num_beams: int = 1,
+    kv_quant: bool = False,
     speculative: int = 0,
     draft_head=None,
     timings: Optional[Dict[str, float]] = None,
@@ -202,6 +203,7 @@ def generate(
 
     ``input_ids_batch``: token ids containing -200 sentinels.
     ``pixel_values_batch``: (B, T_frames, C, H, W).
+    ``kv_quant``: keep the KV cache as int8 with per-vector f32 scales.
     ``timings``: when given, filled with host-clock seconds of the encode,
     prefill and decode phases, each ending in a device synchronize.
     """
@@ -229,7 +231,8 @@ def generate(
     bucket = 2 * SEQ_BUCKET
     max_len = t + max_new_tokens
     max_len = ((max_len + bucket - 1) // bucket) * bucket
-    cache = llama_mod.init_kv_cache(cfg.llama, b, max_len, dtype=padded.dtype, device=held)
+    cache = llama_mod.init_kv_cache(cfg.llama, b, max_len, dtype=padded.dtype, device=held,
+                                    quant=kv_quant)
     last_logits, cache = llama_mod.prefill(params["llama"], cfg.llama, padded, mask,
                                            cache, last_only=True)
     clock.lap("prefill_s")

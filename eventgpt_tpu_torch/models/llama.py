@@ -1,14 +1,14 @@
 """LLaMA/Vicuna decoder-only LM in PyTorch.
 
 Port of ``eventgpt_tpu/models/llama.py`` for inference: RMSNorm, RoPE,
-GQA attention, SwiGLU MLP; ``prefill`` writes a bf16 KV cache and
+GQA attention, SwiGLU MLP; ``prefill`` writes the KV cache and
 ``decode_step`` reads it. Layers are a list of per-layer parameter dicts
 that a Python loop walks (the JAX package's ``lax.scan`` over a stacked
 axis). Softmax, RMSNorm and the lm_head logits are f32 whatever the weight
 dtype. Prefill attention runs dense or through the flash kernel
 (``ops/flash_attention.py``); decode attention is dense over the cache.
 
-Parameters (weights in ``nn.Linear``'s (out, in) layout)::
+Parameters (dense weights in ``nn.Linear``'s (out, in) layout)::
 
     {"embed_tokens": (V, D),
      "layers": [{"input_layernorm": (D,), "q_proj", "k_proj", "v_proj",
@@ -16,8 +16,16 @@ Parameters (weights in ``nn.Linear``'s (out, in) layout)::
                  "up_proj", "down_proj"}, ...],
      "norm": (D,), "lm_head": (V, D)}
 
-The KV cache is ``{"k": [L, B, S, KV, hd], "v": ..., "length": [B]}``;
-the port updates it in place.
+``fuse_llama_params`` replaces q|k|v by ``qkv_proj`` and gate|up by
+``gate_up_proj``; ``ops/quant.quantize_llama_params`` replaces weights by
+int8 or int4 leaves in the JAX package's (K, N) layout. Every weight
+product goes through ``ops/quant.matmul`` (lm_head through
+``matmul_f32_out``), which dispatches on the leaf.
+
+The KV cache is ``{"k": [L, B, S, KV, hd], "v": ..., "length": [B]}`` in
+the compute dtype, or with ``quant=True`` ``{"k": {"q": int8 [L, B, S, KV,
+hd], "s": f32 [L, B, S, KV, 1]}, "v": ...}``, one symmetric scale per
+cached vector. The port updates it in place.
 """
 
 from __future__ import annotations
@@ -30,9 +38,12 @@ import torch.nn.functional as F
 
 from eventgpt_tpu_torch.config import LlamaConfig
 from eventgpt_tpu_torch.ops.flash_attention import NEG_INF, flash_attention
+from eventgpt_tpu_torch.ops.quant import true_div
+from eventgpt_tpu_torch.ops.quant import matmul as _mm
+from eventgpt_tpu_torch.ops.quant import matmul_f32_out as _mm_f32
 
 Params = Dict[str, Any]
-KVCache = Dict[str, torch.Tensor]
+KVCache = Dict[str, Any]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -86,11 +97,28 @@ def resize_token_embeddings(params: Params, new_vocab_size: int) -> Params:
     return {**params, "embed_tokens": embed_new, "lm_head": head_new}
 
 
-def lm_head_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Logits as the f32 accumulator of x @ w.T. bf16 products are exact
-    in f32, so the f32 product of the upcast operands is that accumulator;
-    rounding the logits to bf16 could flip the greedy argmax."""
-    return F.linear(x.float(), w.float())
+def copy_tree(params: Params) -> Params:
+    """A copy of the tree's dicts and layer list that shares the tensors:
+    what the in-place ``fuse_llama_params`` and
+    ``ops/quant.quantize_llama_params`` take to leave ``params`` as it is."""
+    return {**params, "layers": [dict(layer) for layer in params["layers"]]}
+
+
+def fuse_llama_params(params: Params) -> Params:
+    """Concatenate q|k|v into ``qkv_proj`` and gate|up into ``gate_up_proj``
+    along the (out, in) weights' out axis, the JAX package's order, so each
+    layer runs 5 weight matmuls instead of 7. Fuse before quantizing, so
+    the scales are computed on the fused weights.
+
+    **Replaces the leaves of ``params`` in place**, one layer at a time, so
+    that on the card the unfused and fused weights of at most one layer
+    coexist (``copy_tree`` keeps the original). Returns ``params``.
+    """
+    for layer in params["layers"]:
+        layer["qkv_proj"] = torch.cat(
+            [layer.pop("q_proj"), layer.pop("k_proj"), layer.pop("v_proj")], dim=0)
+        layer["gate_up_proj"] = torch.cat([layer.pop("gate_proj"), layer.pop("up_proj")], dim=0)
+    return params
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -102,13 +130,18 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def _project_qkv(cfg: LlamaConfig, y: torch.Tensor, layer: Params):
-    """y (B, T, D) -> q (B, T, H, hd), k/v (B, T, KV, hd), pre-RoPE."""
+    """y (B, T, D) -> q (B, T, H, hd), k/v (B, T, KV, hd), pre-RoPE, from
+    split or fused leaves."""
     b, t, _ = y.shape
     hd = cfg.resolved_head_dim()
-    q = F.linear(y, layer["q_proj"]).reshape(b, t, cfg.num_heads, hd)
-    k = F.linear(y, layer["k_proj"]).reshape(b, t, cfg.num_kv_heads, hd)
-    v = F.linear(y, layer["v_proj"]).reshape(b, t, cfg.num_kv_heads, hd)
-    return q, k, v
+    qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    if "qkv_proj" in layer:
+        qkv = _mm(y, layer["qkv_proj"])
+        q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
+    else:
+        q, k, v = _mm(y, layer["q_proj"]), _mm(y, layer["k_proj"]), _mm(y, layer["v_proj"])
+    return (q.reshape(b, t, cfg.num_heads, hd), k.reshape(b, t, cfg.num_kv_heads, hd),
+            v.reshape(b, t, cfg.num_kv_heads, hd))
 
 
 def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -124,22 +157,67 @@ def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _mlp_block(x: torch.Tensor, layer: Params) -> torch.Tensor:
-    gate = F.linear(x, layer["gate_proj"])
-    up = F.linear(x, layer["up_proj"])
-    return F.linear(F.silu(gate) * up, layer["down_proj"])
+    if "gate_up_proj" in layer:
+        gu = _mm(x, layer["gate_up_proj"])
+        i = gu.shape[-1] // 2
+        gate, up = gu[..., :i], gu[..., i:]
+    else:
+        gate, up = _mm(x, layer["gate_proj"]), _mm(x, layer["up_proj"])
+    return _mm(F.silu(gate) * up, layer["down_proj"])
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
-                  device: Optional[torch.device] = None) -> KVCache:
-    """Dense KV cache buffers (L, B, max_len, KV, hd) in ``dtype``."""
+                  device: Optional[torch.device] = None, quant: bool = False) -> KVCache:
+    """Dense KV cache buffers (L, B, max_len, KV, hd) in ``dtype``; with
+    ``quant`` int8 payloads and one f32 scale per (layer, row, slot, head)."""
     hd = cfg.resolved_head_dim()
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, hd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
-    }
+
+    def buf():
+        if quant:
+            return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "s": torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device)}
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {"k": buf(), "v": buf(),
+            "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _kv_max_len(cache: KVCache) -> int:
+    buf = cache["k"]
+    return (buf["q"] if isinstance(buf, dict) else buf).shape[2]
+
+
+def _kv_quantize(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """(..., hd) -> {"q": int8, "s": f32 (..., 1)}; symmetric per vector."""
+    x32 = x.float()
+    s = true_div(x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8), 127.0)
+    q = torch.clamp(torch.round(x32 / s), -127, 127).to(torch.int8)
+    return {"q": q, "s": s}
+
+
+def _kv_dequant(leaf: Dict[str, torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    return (leaf["q"].float() * leaf["s"]).to(dtype)
+
+
+def _cache_write(buf, li: int, index, vals: torch.Tensor) -> None:
+    """Write ``vals`` into layer ``li`` of a cache buffer at ``index`` (the
+    slots after the layer axis), quantizing them for an int8 buffer."""
+    if isinstance(buf, dict):
+        qs = _kv_quantize(vals)
+        buf["q"][(li,) + index] = qs["q"]
+        buf["s"][(li,) + index] = qs["s"]
+    else:
+        buf[(li,) + index] = vals.to(buf.dtype)
+
+
+def _cache_read_layer(buf, li: int, dtype: torch.dtype) -> torch.Tensor:
+    """Layer ``li`` of a cache buffer as (B, S, KV, hd) in ``dtype``; an
+    int8 buffer is dequantized first, as the JAX package's decode does."""
+    if isinstance(buf, dict):
+        return _kv_dequant({"q": buf["q"][li], "s": buf["s"][li]}, dtype)
+    return buf[li].to(dtype)
 
 
 def _additive_mask(visible: torch.Tensor) -> torch.Tensor:
@@ -180,8 +258,8 @@ def prefill(
         q, k, v = _project_qkv(cfg, y, layer)
         k = apply_rope(k, cos, sin)
         q = apply_rope(q, cos, sin)
-        cache["k"][li, :, :t] = k.to(cache["k"].dtype)
-        cache["v"][li, :, :t] = v.to(cache["v"].dtype)
+        _cache_write(cache["k"], li, (slice(None), slice(0, t)), k)
+        _cache_write(cache["v"], li, (slice(None), slice(0, t)), v)
         k_rep = _repeat_kv(k, h // kvh)
         v_rep = _repeat_kv(v, h // kvh)
         if use_flash:
@@ -189,7 +267,7 @@ def prefill(
                                   valid=attention_mask, causal=True)
         else:
             ctx = _dense_attention(q, k_rep, v_rep, mask)
-        x = x + F.linear(ctx.reshape(b, t, -1), layer["o_proj"])
+        x = x + _mm(ctx.reshape(b, t, -1), layer["o_proj"])
         y2 = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
         x = x + _mlp_block(y2, layer)
 
@@ -199,8 +277,8 @@ def prefill(
     if last_only:
         idx = (lengths - 1).clamp_min(0).long()
         last = x[torch.arange(b, device=x.device), idx]  # (B, D)
-        return lm_head_f32(last, params["lm_head"]), cache
-    return lm_head_f32(x, params["lm_head"]), cache
+        return _mm_f32(last, params["lm_head"]), cache
+    return _mm_f32(x, params["lm_head"]), cache
 
 
 def decode_step(
@@ -218,7 +296,7 @@ def decode_step(
     """
     b = token_embeds.shape[0]
     h, kvh = cfg.num_heads, cfg.num_kv_heads
-    max_len = cache["k"].shape[2]
+    max_len = _kv_max_len(cache)
     pos = cache["length"]  # (B,)
     cos, sin = rope_tables(cfg, pos[:, None])
     slot = pos.long()
@@ -232,15 +310,15 @@ def decode_step(
         q, k_new, v_new = _project_qkv(cfg, y, layer)
         k_new = apply_rope(k_new, cos, sin)
         q = apply_rope(q, cos, sin)
-        cache["k"][li, rows, slot] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][li, rows, slot] = v_new[:, 0].to(cache["v"].dtype)
-        k_all = _repeat_kv(cache["k"][li].to(x.dtype), h // kvh)
-        v_all = _repeat_kv(cache["v"][li].to(x.dtype), h // kvh)
+        _cache_write(cache["k"], li, (rows, slot), k_new[:, 0])
+        _cache_write(cache["v"], li, (rows, slot), v_new[:, 0])
+        k_all = _repeat_kv(_cache_read_layer(cache["k"], li, x.dtype), h // kvh)
+        v_all = _repeat_kv(_cache_read_layer(cache["v"], li, x.dtype), h // kvh)
         ctx = _dense_attention(q, k_all, v_all, mask)
-        x = x + F.linear(ctx.reshape(b, 1, -1), layer["o_proj"])
+        x = x + _mm(ctx.reshape(b, 1, -1), layer["o_proj"])
         y2 = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
         x = x + _mlp_block(y2, layer)
 
     cache["length"] += 1
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    return lm_head_f32(x[:, 0], params["lm_head"]), cache
+    return _mm_f32(x[:, 0], params["lm_head"]), cache

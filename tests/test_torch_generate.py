@@ -107,9 +107,9 @@ def test_cli_runs_end_to_end(tmp_path, capsys):
                       "--temperature", "0", "--max_new_tokens", "6", "--timing"])
     assert isinstance(out, str)
     assert "[timing]" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="int4"):
+    with pytest.raises(NotImplementedError, match="beam"):
         infer.main(["--model_path", "tiny-random", "--event_frame", path, "--query", "q",
-                    "--device", "cpu", "--quant", "int4"])
+                    "--device", "cpu", "--num_beams", "2"])
 
 
 def test_entry_points_refuse_a_missing_card(tmp_path):

@@ -28,7 +28,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                          env=env, cwd=REPO, timeout=120)
     assert res.returncode == 0, res.stderr
     found = json.loads(res.stdout.strip().splitlines()[-1])
-    # Every submodule was imported, the kernel wrapper and the CLI among them.
+    # Every submodule was imported, the kernel wrappers and the CLI among them.
     assert {"eventgpt_tpu_torch.ops.flash_attention",
+            "eventgpt_tpu_torch.ops.int4_matmul",
+            "eventgpt_tpu_torch.ops.decode_attention",
+            "eventgpt_tpu_torch.ops.quant",
             "eventgpt_tpu_torch.cli.infer"} <= set(found["modules"])
     assert found["bad"] == [], f"the port pulled in: {found['bad']}"

@@ -5,10 +5,15 @@ JAX:  python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
 Without a card the ``cuda`` tests skip; a CUDA kernel has no CPU mode.
 """
 
+import math
+
 import pytest
 import torch
 
+from eventgpt_tpu_torch.ops import decode_attention as da
 from eventgpt_tpu_torch.ops import flash_attention as fa
+from eventgpt_tpu_torch.ops import int4_matmul as i4
+from eventgpt_tpu_torch.ops.quant import quantize_tensor4
 
 # bf16 kernel vs its f32 plain version: the bf16 output rounding (2^-8
 # relative, |out| <= ~3) plus P rounded to bf16 before the P.V product.
@@ -66,3 +71,146 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     out = fa.flash_attention(q, q, q)
     assert fa.FLASH_KERNEL.launches == before
     torch.testing.assert_close(out, fa.flash_attention_reference(q, q, q), rtol=0, atol=0)
+
+
+# K4 vs its plain version: both sum exact products (bf16 x times a small
+# integer, then the f32 group scale) in f32, in another order; outputs are
+# O(sqrt(K)) ~ 30.
+I4_ATOL, I4_RTOL = 2e-3, 1e-4
+
+
+def _int4_case(m, k, n, group, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev, dtype=torch.bfloat16)
+    w = torch.randn((k, n), generator=g, device=dev)
+    leaf = quantize_tensor4(w, group)
+    return x, leaf["q4"], leaf["s"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,group", [
+    (1, 256, 256, 128),     # one row, one group per warp
+    (4, 512, 256, 128),     # the decode tile, groups split over warps
+    (16, 256, 512, 256),    # a full 16-row tile; one group over all of K
+    (17, 512, 512, 64),     # the first M of the 64-row prefill tile
+    (37, 768, 96, 32),      # M, N not tile multiples (ragged block in N)
+    (130, 256, 1024, 16),   # three row blocks, the smallest group
+])
+def test_int4_kernel_matches_plain(m, k, n, group):
+    dev = _card()
+    x, q4, s = _int4_case(m, k, n, group, dev, seed=m + k)
+    before = i4.INT4_KERNEL.launches
+    out = i4.int4_matmul(x, q4, s)
+    torch.cuda.synchronize()
+    assert i4.INT4_KERNEL.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    torch.testing.assert_close(out, i4.int4_matmul_reference(x, q4, s),
+                               atol=I4_ATOL, rtol=I4_RTOL)
+    # An f32 x is rounded to bf16 first, as the Pallas kernel does.
+    torch.testing.assert_close(i4.int4_matmul(x.float(), q4, s), out, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_int4_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    x, q4, s = _int4_case(4, 256, 256, 128, dev, seed=0)
+    with pytest.raises(ValueError, match="floating"):
+        i4.int4_matmul(x.to(torch.int32), q4, s)
+    with pytest.raises(ValueError, match="uint8"):
+        i4.int4_matmul(x, q4.to(torch.int8), s)
+    with pytest.raises(ValueError, match="float32"):
+        i4.int4_matmul(x, q4, s.double())
+    with pytest.raises(ValueError, match="do not match"):
+        i4.int4_matmul(x[:, :128].contiguous(), q4, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        i4.int4_matmul(x, q4.T.contiguous().T, s)
+    with pytest.raises(ValueError, match="group"):
+        i4.int4_matmul(x, q4, s.repeat_interleave(16, dim=0))  # group 8
+
+
+# K2 vs its plain version: the same arithmetic, summed in another order,
+# with expf against torch.exp (1-2 ulp). That can flip the bf16 rounding of
+# one slot's p * v_s: 2^-8 of that slot's share of the output, |v| <= 1.3
+# here. A bf16 output adds one bf16 step at |out| < 2.
+DA_ATOL = {torch.float32: 1e-2, torch.bfloat16: 2e-2}
+
+
+def _decode_case(L, B, S, KV, G, hd, dev, seed, dtype=torch.bfloat16):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def payload():
+        return torch.randint(-127, 128, (L, B, S, KV, hd), generator=g, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+
+    def scales():
+        return torch.rand((L, B, S, KV, 1), generator=g, device=dev) * 0.019 + 0.001
+
+    q = torch.randn((B, KV, G, hd), generator=g, device=dev).to(dtype)
+    return q, payload(), scales(), payload(), scales()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,B,S,KV,G,hd,li,n_valid,dtype", [
+    (3, 2, 128, 4, 2, 64, 2, [37, 100], torch.bfloat16),
+    (2, 3, 77, 2, 1, 128, 1, [1, 77, 40], torch.bfloat16),   # n_valid of 1 and of S
+    (1, 2, 33, 16, 8, 32, 0, [0, 500], torch.float32),       # none visible; past S
+    (32, 4, 96, 8, 1, 128, 31, [90, 3, 96, 64], torch.float32),
+])
+def test_decode_int8_kernel_matches_plain(L, B, S, KV, G, hd, li, n_valid, dtype):
+    dev = _card()
+    q, kq, ks, vq, vs = _decode_case(L, B, S, KV, G, hd, dev, seed=S + li, dtype=dtype)
+    nv = torch.tensor(n_valid, device=dev, dtype=torch.int32)
+    before = da.DECODE_INT8_KERNEL.launches
+    out = da.decode_attention_int8(q, kq, ks, vq, vs, li, nv)
+    torch.cuda.synchronize()
+    assert da.DECODE_INT8_KERNEL.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = da.decode_attention_int8_plain(q, kq, ks, vq, vs, li, nv)
+    assert (out.float() - ref.float()).abs().max().item() < DA_ATOL[dtype]
+
+
+@pytest.mark.cuda
+def test_decode_int8_kernel_reads_no_stale_slot():
+    """Slots at or past n_valid are never read: poisoning them changes
+    nothing, bit for bit."""
+    dev = _card()
+    q, kq, ks, vq, vs = _decode_case(2, 1, 64, 4, 2, 128, dev, seed=5)
+    nv = torch.tensor([40], device=dev, dtype=torch.int32)
+    out = da.decode_attention_int8(q, kq, ks, vq, vs, 1, nv)
+    kq[:, :, 40:] = 127
+    vs[:, :, 40:] = 1e3
+    assert torch.equal(da.decode_attention_int8(q, kq, ks, vq, vs, 1, nv), out)
+
+
+@pytest.mark.cuda
+def test_decode_int8_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    q, kq, ks, vq, vs = _decode_case(2, 2, 16, 2, 1, 64, dev, seed=0)
+    nv = torch.tensor([3, 16], device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        da.decode_attention_int8(q.half(), kq, ks, vq, vs, 0, nv)
+    with pytest.raises(ValueError, match="int8"):
+        da.decode_attention_int8(q, kq.to(torch.int16), ks, vq, vs, 0, nv)
+    with pytest.raises(ValueError, match="shape"):
+        da.decode_attention_int8(q, kq, ks[:, :, :8].contiguous(), vq, vs, 0, nv)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention_int8(torch.cat([q, q], dim=-1)[..., :64], kq, ks, vq, vs, 0, nv)
+    with pytest.raises(ValueError, match="out of range"):
+        da.decode_attention_int8(q, kq, ks, vq, vs, 2, nv)
+    q9, kq9, ks9, vq9, vs9 = _decode_case(1, 1, 8, 1, 9, 64, dev, seed=1)
+    with pytest.raises(ValueError, match="G <= 8"):
+        da.decode_attention_int8(q9, kq9, ks9, vq9, vs9, 0, nv[:1])
+
+
+def test_kernel_wrappers_take_the_plain_version_on_the_cpu():
+    x, q4, s = _int4_case(5, 256, 256, 128, torch.device("cpu"), seed=1)
+    q, kq, ks, vq, vs = _decode_case(2, 2, 16, 2, 1, 64, torch.device("cpu"), seed=2)
+    nv = torch.tensor([3, 16], dtype=torch.int32)
+    before = (i4.INT4_KERNEL.launches, da.DECODE_INT8_KERNEL.launches)
+    y = i4.int4_matmul(x, q4, s)
+    o = da.decode_attention_int8(q, kq, ks, vq, vs, 1, nv)
+    assert (i4.INT4_KERNEL.launches, da.DECODE_INT8_KERNEL.launches) == before
+    torch.testing.assert_close(y, i4.int4_matmul_reference(x, q4, s), rtol=0, atol=0)
+    torch.testing.assert_close(o, da.decode_attention_int8_plain(q, kq, ks, vq, vs, 1, nv),
+                               rtol=0, atol=0)
+    assert o.dtype == torch.bfloat16 and math.isfinite(o.float().abs().max().item())
