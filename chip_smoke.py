@@ -22,10 +22,22 @@ Phases, each printed on its own line:
                    225 x (1 + decode steps), K1 32; then int4 vs the bf16
                    prefill of the dequantized weights, the int8 vs bf16 KV
                    cache, and K2 (int8 decode attention) on that cache;
-5. slice_int8_fused -- ``--quant int8 --fuse_params`` with a bf16 cache;
-6. tiny_*       -- tiny models give the same greedy chain on the card as on
-                   the CPU, bf16-free f32 and with int4 + int8 KV + fused;
-7. kernels      -- one JSON line per the kernel table, then the card's name
+5. serve_*      -- with the bf16 7B tree of phase 3: six requests through
+                   the continuous-batching server as ``cli/serve`` builds it
+                   (a ContinuousBatcher under a ServingEngine), int8 KV cache,
+                   4 rows, max_len 1024, chunk 32, greedy: ``serve_paged_int8kv``
+                   (the paged arena) and ``serve_dense_int8kv`` (the dense
+                   cache, the same chains); between them ``kernel_paged_int8``
+                   holds K3 (paged int8 decode attention) on the arena that
+                   the server's first step filled, against its plain version
+                   and against K2 on the gathered view;
+6. slice_int8_fused -- ``--quant int8 --fuse_params`` with a bf16 cache;
+7. tiny_*       -- tiny models give the same greedy chain on the card as on
+                   the CPU, bf16-free f32, with int4 + int8 KV + fused, and
+                   served paged with the int8 cache; ``serve_http_tiny`` runs
+                   ``cli/serve.build_server`` on the card and answers two
+                   POST /v1/generate;
+8. kernels      -- one JSON line per the kernel table, then the card's name
                    and power limit, then the result line.
 
 Any failure raises and exits non-zero. Without a CUDA card it exits
@@ -85,6 +97,15 @@ DECODE_KERNEL_ATOL = 2e-2
 TINY_LOGIT_ATOL = 3e-2
 # 7B shapes of K4: (M, K, N) at decode (M = B = 4) and prefill (M = B*T).
 INT4_DECODE_SHAPES = [(4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096), (4, 4096, 32000)]
+# K3 vs its plain version and vs K2 on the gathered view, with f32 q and
+# output: the same arithmetic summed in another order (K3 rescales by the
+# running max after each 64-slot block, K2 takes one max); the JAX
+# package's bar for the paged kernel against the dense one
+# (tests/test_decode_attention.py::test_paged_kernel_matches_dense_kernel_on_gathered_view).
+PAGED_KERNEL_ATOL = 2e-3
+# The serving phases: the four requests of the slice, then two more over
+# streams 100 and 101 with queries 3 and 2, which wait for rows to free.
+SERVE_EXTRA = [(0, 3, 16), (1, 2, 16)]  # (stream, query, new tokens)
 # K4 launches per 7B decode step at each decode shape: q, k, v, o; gate,
 # up; down; lm_head, in each of 32 layers but the last.
 INT4_LAUNCHES_PER_STEP = {(4, 4096, 4096): 128, (4, 4096, 11008): 64,
@@ -441,10 +462,10 @@ def timed_generate(eventchat, params, cfg, ids, pixels, tokenizer, kv_quant=Fals
     }, out_ids
 
 
-def profile_generate(eventchat, params, cfg, ids, pixels, tokenizer, out_dir: str,
-                     name: str = "generate", kv_quant: bool = False) -> dict:
-    """torch.profiler over one more batch: device time by operator, and the
-    device's busy share of the wall time (kernels on one stream)."""
+def profile_call(fn, out_dir: str, name: str) -> dict:
+    """torch.profiler over one call of ``fn`` (one more batch, or one more
+    server run): device time by operator, and the device's busy share of
+    the wall time (kernels on one stream)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -452,7 +473,8 @@ def profile_generate(eventchat, params, cfg, ids, pixels, tokenizer, out_dir: st
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        timed_generate(eventchat, params, cfg, ids, pixels, tokenizer, kv_quant=kv_quant)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
 
@@ -470,6 +492,229 @@ def profile_generate(eventchat, params, cfg, ids, pixels, tokenizer, out_dir: st
             "table": table}
 
 
+def serve_requests(ids, pixels, budget: int = MAX_NEW_TOKENS):
+    """The serving phases' six requests: (prompt ids, pixels, new tokens)."""
+    reqs = [(ids[i], pixels[i], budget) for i in range(len(QUERIES))]
+    return reqs + [(ids[q], pixels[st], n) for st, q, n in SERVE_EXTRA]
+
+
+def run_server(params, cfg, tokenizer, requests, kv_layout: str) -> tuple:
+    """The requests through a ContinuousBatcher under a ServingEngine, as
+    ``cli/serve`` builds them (int8 KV cache, 4 rows, max_len 1024, chunk
+    32, greedy). All are queued before the scheduler thread starts, so the
+    first four admit as one wave. Returns (numbers, chains)."""
+    import torch
+
+    from eventgpt_tpu_torch.cli.serve import ServingEngine
+    from eventgpt_tpu_torch.models.eventchat import _vocab_size
+    from eventgpt_tpu_torch.serve import ContinuousBatcher
+
+    torch.cuda.reset_peak_memory_stats()
+    batcher = ContinuousBatcher(params, cfg, max_batch=4, max_len=1024, chunk=32,
+                                eos_token_id=tokenizer.eos_token_id, kv_quant=True,
+                                kv_layout=kv_layout)
+    engine = ServingEngine(batcher, tokenizer, start=False)
+    try:
+        rids = [engine.submit_ids(i, px, n) for i, px, n in requests]
+        t0 = time.perf_counter()
+        engine.start()
+        chains = [engine.result(r, timeout=600) for r in rids]
+        wall = time.perf_counter() - t0
+        statuses = [engine.status(r) for r in rids]
+    finally:
+        engine.shutdown()
+    if statuses != ["ok"] * len(rids):
+        raise AssertionError(f"serve {kv_layout}: statuses {statuses}")
+    vocab = _vocab_size(params)
+    if any(len(c) > n or any(not 0 <= t < vocab for t in c)
+           for c, (_, _, n) in zip(chains, requests)):
+        raise AssertionError(f"serve {kv_layout}: malformed chains {chains}")
+    stats = [batcher.request_stats[r] for r in rids]
+    out = {
+        "kv_layout": kv_layout, "kv_cache": "int8", "max_batch": 4, "max_len": batcher.max_len,
+        "chunk": 32, "requests": len(rids), "new_tokens": [n for _, _, n in requests],
+        "wall_s": wall, "generated_tokens": [len(c) for c in chains],
+        "batch_tok_s": sum(len(c) for c in chains) / wall,
+        "ttft_s": [st["ttft_s"] for st in stats], "latency_s": [st["latency_s"] for st in stats],
+        "prefill_dispatches": batcher.prefill_dispatches, "segments": batcher.segments,
+        "admission_s": batcher.admission_s, "decode_s": batcher.decode_s,
+        "decode_steps": batcher.decode_steps,
+        "decode_ms_per_step": batcher.decode_s * 1e3 / max(batcher.decode_steps, 1),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "kv_bytes": batcher.kv_bytes,
+    }
+    pool = batcher.pool_stats()
+    if pool is not None:
+        out["pool_after_drain"] = pool
+        if pool["free_blocks"] != pool["usable_blocks"] or int(batcher.cache["bt"].abs().sum()):
+            raise AssertionError(f"serve paged: blocks held after the drain: {pool}")
+    del batcher, engine
+    torch.cuda.empty_cache()
+    return out, chains
+
+
+def check_paged_kernel(params, cfg, tokenizer, requests, seed: int) -> tuple:
+    """K3 on the arena a paged int8 server holds after its first step:
+    the first four requests with a 64-token budget are admitted as one
+    wave and decode one 32-step segment, so each row's table holds its
+    reservation and ~860 visible slots. K3 is held against its plain
+    version at layers 0 and 31 and against K2 on the gathered view, and
+    timed with the plain version and SDPA on the gathered, dequantized
+    bf16 view (the gather and dequantize not timed). The server then
+    drains; returns (numbers, chains of 64 tokens)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eventgpt_tpu_torch.ops import decode_attention as da
+    from eventgpt_tpu_torch.serve import ContinuousBatcher
+
+    srv = ContinuousBatcher(params, cfg, max_batch=4, max_len=1024, chunk=32,
+                            eos_token_id=tokenizer.eos_token_id, kv_quant=True,
+                            kv_layout="paged")
+    rids = [srv.submit(i, px, 2 * MAX_NEW_TOKENS) for i, px, _ in requests[:len(QUERIES)]]
+    srv.step()
+    if srv.prefill_dispatches != 1 or any(r is None for r in srv.rows):
+        raise AssertionError("the first step did not admit the four requests as one wave")
+    cache = srv.cache
+    kq, ks, vq, vs = cache["k"]["q"], cache["k"]["s"], cache["v"]["q"], cache["v"]["s"]
+    bt, nv = cache["bt"].clone(), cache["length"].clone()
+    n_layers, n_blocks, bs, kv, hd = kq.shape
+    b, nbpr = bt.shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, kv, 1, hd), generator=g, device="cuda", dtype=torch.bfloat16)
+    q32 = q.float()
+    checks = []
+    for li in (0, n_layers - 1):
+        out = da.decode_attention_int8_paged(q32, kq, ks, vq, vs, li, bt, nv)
+        torch.cuda.synchronize()
+        plain = da.decode_attention_int8_paged_plain(q32, kq, ks, vq, vs, li, bt, nv)
+        gathered = [x[li][bt.long()].reshape((1, b, nbpr * bs) + tuple(x.shape[3:])).contiguous()
+                    for x in (kq, ks, vq, vs)]
+        dense = da.decode_attention_int8(q32, *gathered, 0, nv)
+        err = (out - plain).abs().max().item()
+        err_k2 = (out - dense).abs().max().item()
+        if not (err <= PAGED_KERNEL_ATOL and err_k2 <= PAGED_KERNEL_ATOL):
+            raise AssertionError(f"paged kernel at li={li}: max abs err {err} vs plain, "
+                                 f"{err_k2} vs K2 on the gathered view > {PAGED_KERNEL_ATOL}")
+        checks.append({"li": li, "max_abs_err": err, "max_abs_err_vs_k2_gathered": err_k2})
+    li = 0
+    k_l = (kq[li][bt.long()].float() * ks[li][bt.long()]).to(torch.bfloat16)
+    v_l = (vq[li][bt.long()].float() * vs[li][bt.long()]).to(torch.bfloat16)
+    k_l = k_l.reshape(b, nbpr * bs, kv, hd).transpose(1, 2)
+    v_l = v_l.reshape(b, nbpr * bs, kv, hd).transpose(1, 2)
+    mask = (torch.arange(nbpr * bs, device="cuda")[None, :] < nv[:, None])[:, None, None, :]
+    ms = cuda_time_ms(lambda: da.decode_attention_int8_paged(q, kq, ks, vq, vs, li, bt, nv),
+                      cold_l2=True)
+    plain_ms = cuda_time_ms(
+        lambda: da.decode_attention_int8_paged_plain(q, kq, ks, vq, vs, li, bt, nv),
+        warmup=1, iters=5, cold_l2=True)
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k_l, v_l, attn_mask=mask),
+                              cold_l2=True)
+    # The kernel reads what this data needs: the visible slots' int8 K and
+    # V and their scales (all table entries for a row with none visible),
+    # q, out, the tables and n_valid once.
+    lengths = [int(x) for x in nv.tolist()]
+    slots = sum(min(n, nbpr * bs) if n > 0 else nbpr * bs for n in lengths)
+    nbytes = 2 * slots * kv * (hd + 4) + q.numel() * 2 + q.numel() * 2 + bt.numel() * 4 + b * 4
+    flops = 2 * 2 * slots * kv * hd
+    bound_ms, bound_by = _bound(nbytes, flops, H100_F32_FLOPS)
+    table_bytes = 2 * b * nbpr * bs * kv * (hd + 4)
+    del k_l, v_l
+    out = srv.run_until_drained()
+    chains = [out[r] for r in rids]
+    pool = srv.pool_stats()
+    if pool["free_blocks"] != pool["usable_blocks"]:
+        raise AssertionError(f"kernel_paged_int8: blocks held after the drain: {pool}")
+    del srv, cache, kq, ks, vq, vs
+    torch.cuda.empty_cache()
+    return {"B": b, "KV": kv, "G": 1, "hd": hd, "block_size": bs, "table_entries": nbpr,
+            "pool_blocks": n_blocks, "n_valid": lengths, "tables": bt.tolist(),
+            "checks": checks, "atol": PAGED_KERNEL_ATOL,
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "SDPA, bool mask, on the gathered layer dequantized to bf16 "
+                       "(gather and dequantize not timed)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+            "whole_table_bytes": table_bytes,
+            "whole_table_bound_ms": table_bytes / H100_BYTES_PER_S * 1e3}, chains
+
+
+def tiny_serve_card_matches_cpu(work: str) -> dict:
+    """A tiny f32 model served paged with the int8 cache gives the same
+    greedy chains on the card as on the CPU."""
+    import numpy as np
+    import torch
+
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
+    from eventgpt_tpu_torch.data.tokenizer import ByteTokenizer, tokenize_with_event
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.ops.image import process_event_file
+    from eventgpt_tpu_torch.serve import ContinuousBatcher
+
+    cfg = EventChatConfig.tiny(vocab_size=260)
+    cpu = init_eventchat_params(cfg, torch.Generator().manual_seed(3), torch.float32, "cpu")
+    trees = {"cpu": cpu, "cuda": _to(cpu, "cuda")}
+    reqs = []
+    for i in range(3):
+        _, px = process_event_file(os.path.join(work, f"events_{i}.npy"), cfg.num_event_frames,
+                                   cfg.vision.image_size)
+        reqs.append((tokenize_with_event(prepare_event_prompt(QUERIES[i]), ByteTokenizer()),
+                     np.asarray(px), 12 + 2 * i))
+    chains = {}
+    for dev, params in trees.items():
+        srv = ContinuousBatcher(params, cfg, max_batch=2, max_len=512, chunk=8, eos_token_id=None,
+                                kv_quant=True, kv_layout="paged", device=dev)
+        rids = [srv.submit(*r) for r in reqs]
+        out = srv.run_until_drained()
+        chains[dev] = [out[r] for r in rids]
+    if chains["cpu"] != chains["cuda"]:
+        raise AssertionError(f"tiny served chains differ: cpu {chains['cpu']} vs "
+                             f"cuda {chains['cuda']}")
+    return {"config": "tiny f32, paged, int8 KV, 2 rows, chunk 8", "requests": len(reqs),
+            "tokens": [len(c) for c in chains["cuda"]], "identical": True}
+
+
+def serve_http_tiny(work: str) -> dict:
+    """``cli/serve.build_server`` on the default device (the card) with
+    tiny-random weights, paged with the int8 cache: two POST /v1/generate
+    answer 200."""
+    import base64
+    import http.client
+    import threading
+
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+
+    args = cli_serve.build_parser().parse_args(
+        ["--model_path", "tiny-random", "--port", "0", "--kv_layout", "paged",
+         "--kv_cache", "int8", "--max_new_tokens", "8"])
+    httpd, engine = cli_serve.build_server(args)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    answers = []
+    try:
+        for i in range(2):
+            with open(os.path.join(work, f"events_{i}.npy"), "rb") as f:
+                body = json.dumps({"query": QUERIES[i],
+                                   "event_b64": base64.b64encode(f.read()).decode()})
+            conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=300)
+            conn.request("POST", "/v1/generate", body=body)
+            res = conn.getresponse()
+            obj = json.loads(res.read())
+            if res.status != 200 or obj.get("status") != "ok":
+                raise AssertionError(f"POST /v1/generate answered {res.status}: {obj}")
+            answers.append({"code": res.status, "tokens": obj["tokens"],
+                            "latency_s": obj["latency_s"], "answer": obj["answer"]})
+        device = str(engine.batcher.device)
+    finally:
+        httpd.shutdown()
+        engine.shutdown()
+        httpd.server_close()
+    if not device.startswith("cuda"):
+        raise AssertionError(f"the server ran on {device}, not the card")
+    return {"device": device, "answers": answers}
+
+
 def main() -> int:
     import argparse
 
@@ -477,8 +722,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="also profile one bf16 and one int4 batch; write the operator "
-                             "tables to DIR")
+                        help="also profile one bf16 and one int4 batch and one paged server "
+                             "run; write the operator tables to DIR")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -491,11 +736,11 @@ def main() -> int:
     from eventgpt_tpu_torch.models.convert import init_eventchat_params
     from eventgpt_tpu_torch.ops import quant
     from eventgpt_tpu_torch.ops._build import build_all
-    from eventgpt_tpu_torch.ops.decode_attention import DECODE_INT8_KERNEL
+    from eventgpt_tpu_torch.ops.decode_attention import DECODE_INT8_KERNEL, PAGED_INT8_KERNEL
     from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
     from eventgpt_tpu_torch.ops.int4_matmul import INT4_KERNEL
 
-    kernels = [FLASH_KERNEL, INT4_KERNEL, DECODE_INT8_KERNEL]
+    kernels = [FLASH_KERNEL, INT4_KERNEL, DECODE_INT8_KERNEL, PAGED_INT8_KERNEL]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = torch.cuda.get_device_name(0)
@@ -572,8 +817,9 @@ def main() -> int:
         emit("slice_warm", {"run": "second (warm)", **warm, "nvidia_smi": smi})
         answers = tokenizer.batch_decode(out_ids, skip_special_tokens=True)
         if args.profile:
-            emit("profile", profile_generate(eventchat, params, cfg, ids, pixels, tokenizer,
-                                             args.profile))
+            emit("profile", profile_call(
+                lambda: timed_generate(eventchat, params, cfg, ids, pixels, tokenizer),
+                args.profile, "generate"))
         emit("answers", {"answers": answers, "first_ids": [r[:8] for r in out_ids]})
 
         # Flash vs dense prefill: first-token logits on the same embeddings.
@@ -597,7 +843,39 @@ def main() -> int:
         del logits, cache
         torch.cuda.empty_cache()
 
-        # 4. --quant int4 --kv_cache int8: the bf16 LLaMA quantized on the
+        # 4. the continuous-batching server on the bf16 tree, paged then
+        # dense, with K3 held on the paged arena in between.
+        requests = serve_requests(ids, pixels)
+        (paged, paged_chains), serve_launches = counted(
+            lambda: run_server(params, cfg, tokenizer, requests, "paged"))
+        want_k1 = n_layers * paged["prefill_dispatches"]
+        if (serve_launches[FLASH_KERNEL.source] != want_k1
+                or serve_launches[PAGED_INT8_KERNEL.source] != 0):
+            raise AssertionError(f"serve paged: launches {serve_launches}, want K1 = {want_k1} "
+                                 f"(32 per prefill dispatch) and K3 = 0")
+        emit("serve_paged_int8kv", {**paged, "launches": serve_launches,
+                                    "first_ids": [c[:8] for c in paged_chains],
+                                    "nvidia_smi": smi})
+        paged_check, check_chains = check_paged_kernel(params, cfg, tokenizer, requests,
+                                                       seed=30)
+        same_prefix = [c[:MAX_NEW_TOKENS] == p for c, p in zip(check_chains, paged_chains)]
+        emit("kernel_paged_int8", {**paged_check, "chains_64_prefix_equal_serve": same_prefix,
+                                   "nvidia_smi": smi})
+        if not all(same_prefix):
+            raise AssertionError("the 64-token served chains do not begin with the 32-token ones")
+        dense, dense_chains = run_server(params, cfg, tokenizer, requests, "dense")
+        agree = [sum(a == b for a, b in zip(c, o)) for c, o in zip(dense_chains, out_ids)]
+        emit("serve_dense_int8kv", {**dense, "same_chains_as_paged": dense_chains == paged_chains,
+                                    "tokens_agreeing_with_slice": agree,
+                                    "nvidia_smi": smi})
+        if dense_chains != paged_chains:
+            raise AssertionError("dense and paged served chains differ")
+        if args.profile:
+            emit("profile_serve_paged", profile_call(
+                lambda: run_server(params, cfg, tokenizer, requests, "paged"),
+                args.profile, "serve_paged"))
+
+        # 5. --quant int4 --kv_cache int8: the bf16 LLaMA quantized on the
         # card (a copy of the tree, so the bf16 weights stay for phase 5).
         bf16_bytes = tree_bytes(params)
         torch.cuda.reset_peak_memory_stats()
@@ -632,9 +910,10 @@ def main() -> int:
             "first_ids": [r[:8] for r in ids4], "nvidia_smi": smi,
         })
         if args.profile:
-            emit("profile_int4", profile_generate(eventchat, params_int4, cfg, ids, pixels,
-                                                  tokenizer, args.profile, name="generate_int4",
-                                                  kv_quant=True))
+            emit("profile_int4", profile_call(
+                lambda: timed_generate(eventchat, params_int4, cfg, ids, pixels, tokenizer,
+                                       kv_quant=True),
+                args.profile, "generate_int4"))
 
         # int4 vs the bf16 prefill of the dequantized weights.
         llama_deq = quant.dequantize_llama_params(llama_int4, torch.bfloat16)
@@ -687,7 +966,7 @@ def main() -> int:
         del caches, params_int4, llama_int4, padded, mask
         torch.cuda.empty_cache()
 
-        # 5. --quant int8 --fuse_params, bf16 cache: a short run warms the
+        # 6. --quant int8 --fuse_params, bf16 cache: a short run warms the
         # new GEMM shapes, then the counted run.
         llama_i8 = quant.quantize_llama_params(
             llama.fuse_llama_params(llama.copy_tree(params["llama"])), bits=8)
@@ -711,12 +990,15 @@ def main() -> int:
         emit("tiny_card_vs_cpu", tiny_card_matches_cpu(os.path.join(work, "events_0.npy")))
         emit("tiny_quant_card_vs_cpu",
              tiny_quant_card_matches_cpu(os.path.join(work, "events_1.npy")))
+        emit("tiny_serve_card_vs_cpu", tiny_serve_card_matches_cpu(work))
+        emit("serve_http_tiny", serve_http_tiny(work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 6. the kernel table, the card, the result. K4's numbers are one 7B
-    # decode step's 225 launches at M = 4; K2 is not on a main path (the
-    # decode reads the int8 cache densely, as in the JAX package).
+    # 8. the kernel table, the card, the result. K4's numbers are one 7B
+    # decode step's 225 launches at M = 4; K2 and K3 are on no main path
+    # (decode reads the int8 cache densely, or through the gathered block
+    # table, as in the JAX package).
     step = {key: sum(INT4_LAUNCHES_PER_STEP[sh] * int4_checks[sh][key]
                      for sh in INT4_DECODE_SHAPES)
             for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
@@ -756,6 +1038,18 @@ def main() -> int:
         "bound_ms": decode_checks[0]["bound_ms"],
         "bound_by": decode_checks[0]["bound_by"],
         "library_ms": decode_checks[0]["library_ms"],
+    }, {
+        "name": "decode_attention_int8_paged",
+        "route": "cuda",
+        "source": "eventgpt_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "eventgpt_tpu/ops/decode_attention.py:176",
+        "launches": serve_launches[PAGED_INT8_KERNEL.source],
+        "max_abs_err": paged_check["max_abs_err"],
+        "ms": paged_check["ms"],
+        "plain_ms": paged_check["plain_ms"],
+        "bound_ms": paged_check["bound_ms"],
+        "bound_by": paged_check["bound_by"],
+        "library_ms": paged_check["library_ms"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

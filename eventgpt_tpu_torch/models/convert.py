@@ -7,7 +7,8 @@ with matmul kernels in (in, out) layout under its own key names
 of per-layer dicts with ``nn.Linear``'s (out, in) weights under HF-style
 names (see each model module's docstring). ``params_from_jax`` maps one to
 the other; ``init_eventchat_params`` draws random weights with the JAX
-init's scales straight on the device.
+init's scales straight on the device. ``kv_cache_from_jax`` carries a KV
+cache over, so that tests can feed both packages the same cache.
 """
 
 from __future__ import annotations
@@ -118,6 +119,26 @@ def params_from_jax(tree: Params, cfg: EventChatConfig, dtype: torch.dtype = tor
         "projector": projector_params_from_jax(tree["projector"], dtype, device),
         "llama": llama_params_from_jax(tree["llama"], cfg.llama, dtype, device),
     }
+
+
+def kv_cache_from_jax(cache: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """A JAX KV cache (numpy or array leaves), dense or paged, in the
+    compute dtype or int8 with scales, -> the port's cache on ``device``.
+    The two packages share the layout: (L, B, S, KV, hd) per plane dense,
+    (L, N, bs, KV, hd) per plane and a (B, n_bpr) table ``bt`` paged, and
+    (B,) ``length``; each array is copied as it is (bf16 through f32)."""
+    device = resolve_device(device)
+
+    def leaf(x):
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        arr = np.asarray(x)
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.astype(np.float32)).to(device=device,
+                                                                dtype=torch.bfloat16)
+        return torch.from_numpy(np.array(arr)).to(device)
+
+    return {k: leaf(v) for k, v in cache.items()}
 
 
 class _Init:

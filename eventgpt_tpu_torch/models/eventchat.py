@@ -118,6 +118,15 @@ def splice_embeddings(
     return out[:limit]
 
 
+def _vocab_size(params: Params) -> int:
+    """The vocab of the lm_head leaf, which special tokens may have grown
+    past the config's: (V, D) when dense, (K, V) when quantized."""
+    head = params["llama"]["lm_head"]
+    if isinstance(head, dict):
+        return int(head.get("q", head.get("q4")).shape[-1])
+    return int(head.shape[0])
+
+
 def _pad_batch(embeds: List[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
     """Right-pad per-sample (T_i, D) embeds to (B, T_max, D) + bool mask."""
     lens = np.array([int(e.shape[0]) for e in embeds])

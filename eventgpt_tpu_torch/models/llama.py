@@ -25,7 +25,10 @@ product goes through ``ops/quant.matmul`` (lm_head through
 The KV cache is ``{"k": [L, B, S, KV, hd], "v": ..., "length": [B]}`` in
 the compute dtype, or with ``quant=True`` ``{"k": {"q": int8 [L, B, S, KV,
 hd], "s": f32 [L, B, S, KV, 1]}, "v": ...}``, one symmetric scale per
-cached vector. The port updates it in place.
+cached vector. The paged layout of the serving engine
+(``init_paged_kv_cache``) holds one arena [L, N, bs, KV, hd] per plane
+and a block table ``"bt"`` [B, S // bs]: logical slot p of row r lives at
+(bt[r, p // bs], p % bs). The port updates every cache in place.
 """
 
 from __future__ import annotations
@@ -184,9 +187,35 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
             "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
+def init_paged_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, n_blocks: int,
+                        block_size: int, dtype: torch.dtype = torch.bfloat16,
+                        device: Optional[torch.device] = None, quant: bool = False) -> KVCache:
+    """Paged KV cache: one arena (L, n_blocks, block_size, KV, hd) per
+    plane (int8 payloads and f32 scales with ``quant``) and a block table
+    ``bt`` (batch, max_len // block_size) int32. Which pool block backs
+    which row position is host bookkeeping (``serve_blocks.BlockPool``).
+    Tables start at block 0, the pool's scratch block, so the frozen
+    writes of an unadmitted row land where nothing reads."""
+    if max_len % block_size:
+        raise ValueError(f"max_len {max_len} must be a block_size {block_size} multiple")
+    cache = init_kv_cache(cfg, n_blocks, block_size, dtype=dtype, device=device, quant=quant)
+    cache["bt"] = torch.zeros((batch, max_len // block_size), dtype=torch.int32, device=device)
+    cache["length"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return cache
+
+
+def _kv_is_paged(cache: KVCache) -> bool:
+    return "bt" in cache
+
+
 def _kv_max_len(cache: KVCache) -> int:
+    """Logical slots per row: the buffer's slot axis for a dense cache,
+    table width times block size for a paged one."""
     buf = cache["k"]
-    return (buf["q"] if isinstance(buf, dict) else buf).shape[2]
+    slots = (buf["q"] if isinstance(buf, dict) else buf).shape[2]
+    if _kv_is_paged(cache):
+        return cache["bt"].shape[1] * slots
+    return slots
 
 
 def _kv_quantize(x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -201,9 +230,17 @@ def _kv_dequant(leaf: Dict[str, torch.Tensor], dtype: torch.dtype) -> torch.Tens
     return (leaf["q"].float() * leaf["s"]).to(dtype)
 
 
-def _cache_write(buf, li: int, index, vals: torch.Tensor) -> None:
+def _cache_write(buf, li: int, index, vals: torch.Tensor, bt=None) -> None:
     """Write ``vals`` into layer ``li`` of a cache buffer at ``index`` (the
-    slots after the layer axis), quantizing them for an int8 buffer."""
+    slots after the layer axis), quantizing them for an int8 buffer.
+
+    With a block table ``bt`` (paged cache), ``index`` is (rows, logical
+    slots) and each slot goes to (its row's table block, slot % bs): pure
+    indexing, so the values written are the dense path's."""
+    if bt is not None:
+        rows, slots = index
+        bs = (buf["q"] if isinstance(buf, dict) else buf).shape[2]
+        index = (bt[rows, slots // bs].long(), slots % bs)
     if isinstance(buf, dict):
         qs = _kv_quantize(vals)
         buf["q"][(li,) + index] = qs["q"]
@@ -212,9 +249,25 @@ def _cache_write(buf, li: int, index, vals: torch.Tensor) -> None:
         buf[(li,) + index] = vals.to(buf.dtype)
 
 
-def _cache_read_layer(buf, li: int, dtype: torch.dtype) -> torch.Tensor:
+def _cache_read_layer(buf, li: int, dtype: torch.dtype, bt=None) -> torch.Tensor:
     """Layer ``li`` of a cache buffer as (B, S, KV, hd) in ``dtype``; an
-    int8 buffer is dequantized first, as the JAX package's decode does."""
+    int8 buffer is dequantized first, as the JAX package's decode does.
+
+    With a block table ``bt`` (paged cache) the row's blocks are gathered
+    into the same (B, n_bpr * bs, KV, hd) view the dense cache gives (a
+    per-layer temporary; the gather is a copy, so the attention after it
+    is the dense path's), then dequantized."""
+    if bt is not None:
+        idx = bt.long()
+        b, nbpr = idx.shape
+
+        def gather(x):
+            g = x[li][idx]  # (B, n_bpr, bs, KV, ...)
+            return g.reshape((b, nbpr * g.shape[2]) + tuple(g.shape[3:]))
+
+        if isinstance(buf, dict):
+            return _kv_dequant({"q": gather(buf["q"]), "s": gather(buf["s"])}, dtype)
+        return gather(buf).to(dtype)
     if isinstance(buf, dict):
         return _kv_dequant({"q": buf["q"][li], "s": buf["s"][li]}, dtype)
     return buf[li].to(dtype)
@@ -240,6 +293,11 @@ def prefill(
     each row's true prompt length. ``last_only`` returns (B, V) logits at
     each row's last real token instead of (B, T, V).
     """
+    if _kv_is_paged(cache):
+        # Serving prefills a dense row cache and scatters it into the
+        # row's pool blocks (serve._admit_row_paged).
+        raise ValueError("prefill writes dense caches; scatter into a paged pool via "
+                         "the serving admission path")
     b, t, _ = inputs_embeds.shape
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     positions = torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1
@@ -292,7 +350,8 @@ def decode_step(
 
     The new token lands at slot ``cache["length"]`` with position id equal
     to the number of real tokens so far; it attends to slots [0, length]
-    (its own slot included).
+    (its own slot included). A paged cache is read through its block
+    table and keeps it.
     """
     b = token_embeds.shape[0]
     h, kvh = cfg.num_heads, cfg.num_kv_heads
@@ -303,6 +362,7 @@ def decode_step(
     valid = torch.arange(max_len, device=pos.device)[None, :] <= slot[:, None]
     mask = _additive_mask(valid[:, None, None, :])
     rows = torch.arange(b, device=pos.device)
+    bt = cache.get("bt")
 
     x = token_embeds
     for li, layer in enumerate(params["layers"]):
@@ -310,10 +370,10 @@ def decode_step(
         q, k_new, v_new = _project_qkv(cfg, y, layer)
         k_new = apply_rope(k_new, cos, sin)
         q = apply_rope(q, cos, sin)
-        _cache_write(cache["k"], li, (rows, slot), k_new[:, 0])
-        _cache_write(cache["v"], li, (rows, slot), v_new[:, 0])
-        k_all = _repeat_kv(_cache_read_layer(cache["k"], li, x.dtype), h // kvh)
-        v_all = _repeat_kv(_cache_read_layer(cache["v"], li, x.dtype), h // kvh)
+        _cache_write(cache["k"], li, (rows, slot), k_new[:, 0], bt)
+        _cache_write(cache["v"], li, (rows, slot), v_new[:, 0], bt)
+        k_all = _repeat_kv(_cache_read_layer(cache["k"], li, x.dtype, bt), h // kvh)
+        v_all = _repeat_kv(_cache_read_layer(cache["v"], li, x.dtype, bt), h // kvh)
         ctx = _dense_attention(q, k_all, v_all, mask)
         x = x + _mm(ctx.reshape(b, 1, -1), layer["o_proj"])
         y2 = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)

@@ -1,4 +1,5 @@
-"""Int8-KV decode attention (K2): the sm_90a kernel and its plain version.
+"""Int8-KV decode attention: K2 over the stacked cache and K3 over the
+paged arena, each an sm_90a kernel with its plain version.
 
 ``decode_attention_int8`` is the port of
 ``eventgpt_tpu/ops/decode_attention.decode_attention_int8`` (the Pallas
@@ -18,6 +19,18 @@ version on the cache that the quantized one-shot path writes.
 Bound on an H100 SXM at B=4, S=896, KV=32, hd=128 with ~850 visible slots
 a row: the int8 K/V payloads and f32 scales over the visible slots, about
 28 MB -> 8.5 us at 3.35 TB/s.
+
+``decode_attention_int8_paged`` (K3) is the port of
+``eventgpt_tpu/ops/decode_attention.decode_attention_int8_paged`` (the
+Pallas ``_paged_attn_kernel``): the same attention over the paged arena
+that ``models/llama.init_paged_kv_cache(quant=True)`` holds, k_q/v_q
+(L, N, bs, KV, hd) int8 with scales (L, N, bs, KV, 1), read through a
+block table (B, n_bpr) int32: logical slot p of row b is slot p % bs of
+pool block ``block_tables[b, p // bs]``. An online softmax (m, l, acc)
+carries across the table's entries, one entry at a time, as the Pallas
+grid does. Like K2 it is on no model path: the paged decode gathers the
+table into a dense view (``models/llama._cache_read_layer``), as the JAX
+package does. The kernel is in ``csrc/paged_attention.cu``.
 """
 
 from __future__ import annotations
@@ -39,6 +52,12 @@ DECODE_INT8_KERNEL = CudaKernel("decode_attention.cu", {
     "egpt_decode_attention_int8": (
         ctypes.c_int,
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]),
+})
+PAGED_INT8_KERNEL = CudaKernel("paged_attention.cu", {
+    "egpt_decode_attention_int8_paged": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+         ctypes.c_float, _P]),
 })
 
 
@@ -67,6 +86,47 @@ def decode_attention_int8_plain(q, k_q, k_s, v_q, v_s, li, n_valid) -> torch.Ten
     return out.to(q.dtype)
 
 
+def _check_args(name: str, q, k_q, k_s, v_q, v_s, li, n_valid):
+    """What both kernels take, checked before any pointer is passed: q
+    (B, KV, G, hd) bf16 or f32 on a card; k_q/v_q int8 and k_s/v_s f32
+    scales of one 5-d shape (L, ..., KV, hd) with hd in {32, 64, 128} and
+    G <= 8; every tensor contiguous, 16-byte aligned and on q's device;
+    0 <= li < L. Returns (li, n_valid as a contiguous int32 (B,))."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.ndim != 4 or k_q.ndim != 5:
+        raise ValueError(f"{name}: q must be (B, KV, G, hd) and the cache (L, ..., KV, hd)")
+    b, kv, g, hd = q.shape
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: q must be bfloat16 or float32, got {q.dtype}")
+    for arg, t, dtype, shape in (
+            ("k_q", k_q, torch.int8, k_q.shape), ("v_q", v_q, torch.int8, k_q.shape),
+            ("k_s", k_s, torch.float32, k_q.shape[:-1] + (1,)),
+            ("v_s", v_s, torch.float32, k_q.shape[:-1] + (1,))):
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {arg} shape {tuple(t.shape)} != {tuple(shape)}")
+    if tuple(k_q.shape[3:]) != (kv, hd):
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not match the cache "
+                         f"{tuple(k_q.shape)}")
+    if hd not in HEAD_DIMS or not 1 <= g <= MAX_GROUP:
+        raise ValueError(f"{name}: the kernel takes hd in {HEAD_DIMS} and 1 <= G <= "
+                         f"{MAX_GROUP}; got hd={hd}, G={g}")
+    li = int(li)
+    if not 0 <= li < k_q.shape[0]:
+        raise ValueError(f"{name}: layer {li} out of range [0, {k_q.shape[0]})")
+    for arg, t in (("q", q), ("k_q", k_q), ("k_s", k_s), ("v_q", v_q), ("v_s", v_s)):
+        if t.device != q.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
+    nv = torch.as_tensor(n_valid, device=q.device).to(torch.int32).contiguous()
+    if tuple(nv.shape) != (b,):
+        raise ValueError(f"{name}: n_valid must be ({b},), got {tuple(nv.shape)}")
+    return li, nv
+
+
 def decode_attention_int8(q, k_q, k_s, v_q, v_s, li, n_valid) -> torch.Tensor:
     """Returns the (B, KV, G, hd) attention context in q.dtype.
 
@@ -80,50 +140,95 @@ def decode_attention_int8(q, k_q, k_s, v_q, v_s, li, n_valid) -> torch.Tensor:
     """
     if q.device.type == "cpu":
         return decode_attention_int8_plain(q, k_q, k_s, v_q, v_s, li, n_valid)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention_int8: unsupported device {q.device}")
-    if q.ndim != 4 or k_q.ndim != 5:
-        raise ValueError("decode_attention_int8: q must be (B, KV, G, hd) and the "
-                         "cache (L, B, S, KV, hd)")
+    li, nv = _check_args("decode_attention_int8", q, k_q, k_s, v_q, v_s, li, n_valid)
     b, kv, g, hd = q.shape
-    n_layers, cb, s_len, ckv, chd = k_q.shape
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"decode_attention_int8: q must be bfloat16 or float32, got {q.dtype}")
-    for name, t, dtype, shape in (
-            ("k_q", k_q, torch.int8, k_q.shape), ("v_q", v_q, torch.int8, k_q.shape),
-            ("k_s", k_s, torch.float32, k_q.shape[:-1] + (1,)),
-            ("v_s", v_s, torch.float32, k_q.shape[:-1] + (1,))):
-        if t.dtype != dtype:
-            raise ValueError(f"decode_attention_int8: {name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"decode_attention_int8: {name} shape {tuple(t.shape)} != "
-                             f"{tuple(shape)}")
-    if (cb, ckv, chd) != (b, kv, hd):
-        raise ValueError(f"decode_attention_int8: q {tuple(q.shape)} does not match the "
-                         f"cache {tuple(k_q.shape)}")
-    if hd not in HEAD_DIMS or not 1 <= g <= MAX_GROUP:
-        raise ValueError(f"decode_attention_int8: the kernel takes hd in {HEAD_DIMS} and "
-                         f"1 <= G <= {MAX_GROUP}; got hd={hd}, G={g}")
-    li = int(li)
-    if not 0 <= li < n_layers:
-        raise ValueError(f"decode_attention_int8: layer {li} out of range [0, {n_layers})")
-    for name, t in (("q", q), ("k_q", k_q), ("k_s", k_s), ("v_q", v_q), ("v_s", v_s)):
-        if t.device != q.device:
-            raise ValueError(f"decode_attention_int8: {name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"decode_attention_int8: {name} must be contiguous and "
-                             f"16-byte aligned")
-    nv = torch.as_tensor(n_valid, device=q.device).to(torch.int32).contiguous()
-    if tuple(nv.shape) != (b,):
-        raise ValueError(f"decode_attention_int8: n_valid must be ({b},), got {tuple(nv.shape)}")
+    if k_q.shape[1] != b:
+        raise ValueError(f"decode_attention_int8: q {tuple(q.shape)} does not match the cache "
+                         f"{tuple(k_q.shape)}")
     qb = q.to(torch.bfloat16)
     out = torch.empty_like(q)
     lib = DECODE_INT8_KERNEL.lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.egpt_decode_attention_int8(
         qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(),
-        nv.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16), li, b, s_len,
+        nv.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16), li, b, k_q.shape[2],
         kv, g, hd, 1.0 / math.sqrt(hd), stream)
     DECODE_INT8_KERNEL.check(err)
     DECODE_INT8_KERNEL.launches += 1
+    return out
+
+
+def decode_attention_int8_paged_plain(q, k_q, k_s, v_q, v_s, li, block_tables,
+                                      n_valid) -> torch.Tensor:
+    """Plain PyTorch version of K3, in the Pallas kernel's order: one table
+    entry at a time, the f32 score (bf16 q . int8 k) * (k_s * scale), the
+    finite NEG_INF at logical slots >= n_valid, the running max m, sum l
+    and context acc rescaled by exp(m_old - m_new) at each entry, p * v_s
+    rounded to bf16 before the P.V dot, and division by max(l, 1e-30) at
+    the end. With n_valid = 0 every slot of every entry counts with weight
+    1. Returns (B, KV, G, hd) in q.dtype."""
+    b, kv, g, hd = q.shape
+    n_blocks, bs = k_q.shape[1], k_q.shape[2]
+    bt = torch.as_tensor(block_tables, device=q.device).long()
+    if bt.numel() and (int(bt.min()) < 0 or int(bt.max()) >= n_blocks):
+        raise ValueError(f"decode_attention_int8_paged: block table entries must lie in "
+                         f"[0, {n_blocks})")
+    scale = 1.0 / math.sqrt(hd)
+    qb = q.to(torch.bfloat16).float()
+    nv = torch.as_tensor(n_valid, device=q.device).long()
+    m = torch.full((b, kv, g, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, kv, g, 1), device=q.device)
+    acc = torch.zeros((b, kv, g, hd), device=q.device)
+    slot = torch.arange(bs, device=q.device)
+    for ni in range(bt.shape[1]):
+        blk = bt[:, ni]
+        k_scale = (k_s[li, blk, ..., 0] * scale).permute(0, 2, 1)   # (B, KV, bs)
+        s = torch.einsum("bkgd,bskd->bkgs", qb, k_q[li, blk].float()) * k_scale[:, :, None, :]
+        visible = (slot[None, :] + ni * bs) < nv[:, None]           # (B, bs)
+        s = torch.where(visible[:, None, None, :], s, torch.tensor(NEG_INF, device=q.device))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        v_scale = v_s[li, blk, ..., 0].permute(0, 2, 1)               # (B, KV, bs)
+        pv = (p * v_scale[:, :, None, :]).to(torch.bfloat16).float()
+        acc = acc * alpha + torch.einsum("bkgs,bskd->bkgd", pv, v_q[li, blk].float())
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def decode_attention_int8_paged(q, k_q, k_s, v_q, v_s, li, block_tables,
+                                n_valid) -> torch.Tensor:
+    """Returns the (B, KV, G, hd) attention context in q.dtype.
+
+    q: (B, KV, G, hd) post-RoPE queries; k_q/v_q: (L, N, bs, KV, hd) int8
+    pool arena; k_s/v_s: (L, N, bs, KV, 1) f32; li: the layer;
+    block_tables: (B, n_bpr) pool block per table entry; n_valid: (B,)
+    visible logical slots. A CPU tensor runs the plain version. A CUDA
+    tensor launches the kernel, which takes contiguous bf16 or f32 q with
+    hd in {32, 64, 128} and G <= 8, and raises on anything else. The
+    kernel reads no table entry outside [0, N): a row whose entries it
+    needs fall outside gets NaN instead.
+    """
+    if q.device.type == "cpu":
+        return decode_attention_int8_paged_plain(q, k_q, k_s, v_q, v_s, li, block_tables,
+                                                 n_valid)
+    name = "decode_attention_int8_paged"
+    li, nv = _check_args(name, q, k_q, k_s, v_q, v_s, li, n_valid)
+    b, kv, g, hd = q.shape
+    n_blocks, bs = k_q.shape[1], k_q.shape[2]
+    bt = torch.as_tensor(block_tables, device=q.device).to(torch.int32).contiguous()
+    if bt.ndim != 2 or bt.shape[0] != b or bt.shape[1] < 1:
+        raise ValueError(f"{name}: block_tables must be ({b}, n_bpr >= 1), got "
+                         f"{tuple(bt.shape)}")
+    qb = q.to(torch.bfloat16)
+    out = torch.empty_like(q)
+    lib = PAGED_INT8_KERNEL.lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.egpt_decode_attention_int8_paged(
+        qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(),
+        bt.data_ptr(), nv.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16), li,
+        b, n_blocks, bs, bt.shape[1], kv, g, hd, 1.0 / math.sqrt(hd), stream)
+    PAGED_INT8_KERNEL.check(err)
+    PAGED_INT8_KERNEL.launches += 1
     return out

@@ -28,10 +28,14 @@ def test_port_imports_no_jax_and_no_jax_package():
                          env=env, cwd=REPO, timeout=120)
     assert res.returncode == 0, res.stderr
     found = json.loads(res.stdout.strip().splitlines()[-1])
-    # Every submodule was imported, the kernel wrappers and the CLI among them.
+    # Every submodule was imported, the kernel wrappers, the server and the CLIs
+    # among them.
     assert {"eventgpt_tpu_torch.ops.flash_attention",
             "eventgpt_tpu_torch.ops.int4_matmul",
             "eventgpt_tpu_torch.ops.decode_attention",
             "eventgpt_tpu_torch.ops.quant",
-            "eventgpt_tpu_torch.cli.infer"} <= set(found["modules"])
+            "eventgpt_tpu_torch.serve",
+            "eventgpt_tpu_torch.serve_blocks",
+            "eventgpt_tpu_torch.cli.infer",
+            "eventgpt_tpu_torch.cli.serve"} <= set(found["modules"])
     assert found["bad"] == [], f"the port pulled in: {found['bad']}"

@@ -202,14 +202,99 @@ def test_decode_int8_kernel_refuses_what_it_does_not_take():
         da.decode_attention_int8(q9, kq9, ks9, vq9, vs9, 0, nv[:1])
 
 
+def _paged_case(L, N, bs, nbpr, B, KV, G, hd, dev, seed, dtype=torch.float32):
+    q, kq, ks, vq, vs = _decode_case(L, N, bs, KV, G, hd, dev, seed, dtype)
+    q = torch.randn((B, KV, G, hd), generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                    device=dev).to(dtype)
+    bt = torch.randint(0, N, (B, nbpr), generator=torch.Generator(device=dev).manual_seed(seed),
+                       device=dev, dtype=torch.int32)
+    return q, kq, ks, vq, vs, bt
+
+
+# K3 vs its plain version: the same per-entry online softmax, summed in
+# another order, with expf against torch.exp; the bar of K2 above.
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,N,bs,nbpr,B,KV,G,hd,li,n_valid,dtype", [
+    (2, 9, 32, 4, 3, 4, 2, 32, 1, [5, 67, 128], torch.float32),   # the JAX test's shapes
+    (2, 9, 32, 4, 3, 4, 2, 32, 0, [0, 1, 500], torch.float32),    # none visible; past the table
+    (3, 40, 64, 16, 4, 8, 1, 128, 2, [870, 64, 65, 1024], torch.bfloat16),  # serving blocks
+    (1, 12, 16, 5, 2, 16, 8, 64, 0, [33, 80], torch.bfloat16),
+])
+def test_paged_int8_kernel_matches_plain(L, N, bs, nbpr, B, KV, G, hd, li, n_valid, dtype):
+    dev = _card()
+    q, kq, ks, vq, vs, bt = _paged_case(L, N, bs, nbpr, B, KV, G, hd, dev, seed=bs + li,
+                                        dtype=dtype)
+    nv = torch.tensor(n_valid, device=dev, dtype=torch.int32)
+    before = da.PAGED_INT8_KERNEL.launches
+    out = da.decode_attention_int8_paged(q, kq, ks, vq, vs, li, bt, nv)
+    torch.cuda.synchronize()
+    assert da.PAGED_INT8_KERNEL.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = da.decode_attention_int8_paged_plain(q, kq, ks, vq, vs, li, bt, nv)
+    assert (out.float() - ref.float()).abs().max().item() < DA_ATOL[dtype]
+
+
+@pytest.mark.cuda
+def test_paged_int8_kernel_reads_no_masked_slot_and_agrees_with_k2():
+    """Blocks past n_valid, and the masked tail of the last visible one,
+    are never read: poisoning them changes nothing, bit for bit. On the
+    gathered dense view K3 agrees with K2, whose softmax is one-shot."""
+    dev = _card()
+    q, kq, ks, vq, vs, bt = _paged_case(2, 9, 32, 3, 1, 4, 2, 32, dev, seed=3)
+    bt = torch.tensor([[4, 7, 2]], device=dev, dtype=torch.int32)
+    nv = torch.tensor([40], device=dev, dtype=torch.int32)
+    out = da.decode_attention_int8_paged(q, kq, ks, vq, vs, 0, bt, nv)
+    gathered = [x[0][bt.long()].reshape((1, 96) + tuple(x.shape[3:]))[None].contiguous()
+                for x in (kq, ks, vq, vs)]
+    dense = da.decode_attention_int8(q, *gathered[:2], *gathered[2:], 0, nv)
+    assert (out - dense).abs().max().item() < 2e-3
+    kq[:, 2] = 127
+    vs[:, 2] = 1e3
+    kq[:, 7, 8:] = 127
+    vs[:, 7, 8:] = 1e3
+    assert torch.equal(da.decode_attention_int8_paged(q, kq, ks, vq, vs, 0, bt, nv), out)
+
+
+@pytest.mark.cuda
+def test_paged_int8_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    q, kq, ks, vq, vs, bt = _paged_case(2, 6, 16, 3, 2, 2, 1, 64, dev, seed=0)
+    nv = torch.tensor([3, 16], device=dev, dtype=torch.int32)
+    f = da.decode_attention_int8_paged
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        f(q.half(), kq, ks, vq, vs, 0, bt, nv)
+    with pytest.raises(ValueError, match="int8"):
+        f(q, kq.to(torch.int16), ks, vq, vs, 0, bt, nv)
+    with pytest.raises(ValueError, match="shape"):
+        f(q, kq, ks[:, :, :8].contiguous(), vq, vs, 0, bt, nv)
+    with pytest.raises(ValueError, match="contiguous"):
+        f(torch.cat([q, q], dim=-1)[..., :64], kq, ks, vq, vs, 0, bt, nv)
+    with pytest.raises(ValueError, match="out of range"):
+        f(q, kq, ks, vq, vs, 2, bt, nv)
+    with pytest.raises(ValueError, match="block_tables"):
+        f(q, kq, ks, vq, vs, 0, bt[:1], nv)
+    # An entry outside the pool is never read: that row's output is NaN.
+    bad = bt.clone()
+    bad[1, 0] = 6
+    out = f(q, kq, ks, vq, vs, 0, bad, nv)
+    assert torch.isnan(out[1]).all() and torch.isfinite(out[0]).all()
+
+
 def test_kernel_wrappers_take_the_plain_version_on_the_cpu():
     x, q4, s = _int4_case(5, 256, 256, 128, torch.device("cpu"), seed=1)
     q, kq, ks, vq, vs = _decode_case(2, 2, 16, 2, 1, 64, torch.device("cpu"), seed=2)
     nv = torch.tensor([3, 16], dtype=torch.int32)
-    before = (i4.INT4_KERNEL.launches, da.DECODE_INT8_KERNEL.launches)
+    pq, pkq, pks, pvq, pvs, bt = _paged_case(2, 6, 16, 3, 2, 2, 1, 64, torch.device("cpu"),
+                                             seed=3)
+    kernels = (i4.INT4_KERNEL, da.DECODE_INT8_KERNEL, da.PAGED_INT8_KERNEL)
+    before = [k.launches for k in kernels]
     y = i4.int4_matmul(x, q4, s)
     o = da.decode_attention_int8(q, kq, ks, vq, vs, 1, nv)
-    assert (i4.INT4_KERNEL.launches, da.DECODE_INT8_KERNEL.launches) == before
+    po = da.decode_attention_int8_paged(pq, pkq, pks, pvq, pvs, 1, bt, nv)
+    assert [k.launches for k in kernels] == before
+    torch.testing.assert_close(
+        po, da.decode_attention_int8_paged_plain(pq, pkq, pks, pvq, pvs, 1, bt, nv),
+        rtol=0, atol=0)
     torch.testing.assert_close(y, i4.int4_matmul_reference(x, q4, s), rtol=0, atol=0)
     torch.testing.assert_close(o, da.decode_attention_int8_plain(q, kq, ks, vq, vs, 1, nv),
                                rtol=0, atol=0)
