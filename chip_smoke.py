@@ -2,7 +2,7 @@
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--int4_baseline FILE]
 
 Phases, each printed on its own line:
 
@@ -12,7 +12,10 @@ Phases, each printed on its own line:
                    the card at the shapes the main paths give it, and times
                    the kernel, the plain version and one PyTorch library
                    call: K1 (flash prefill), K4 (int4 matmul) at the 7B
-                   decode and prefill shapes;
+                   decode and prefill shapes; with ``--int4_baseline`` also
+                   another version of ``csrc/int4_matmul.cu`` on the same
+                   inputs, in turns with K4: how a redesign of K4 is held
+                   against its parent commit's kernel in one call;
 3. slice        -- four event-QA requests through EventGPT-7B at full width
                    (CLIP ViT-L/14-336, LLaMA-7B; random bf16 weights from a
                    seed), through the calls ``eventgpt_tpu_torch.cli.infer``
@@ -37,7 +40,8 @@ Phases, each printed on its own line:
                    served paged with the int8 cache; ``serve_http_tiny`` runs
                    ``cli/serve.build_server`` on the card and answers two
                    POST /v1/generate;
-8. kernels      -- one JSON line per the kernel table, then the card's name
+8. kernels      -- one JSON line per the kernel table (K4 with one decode
+                   step's and one prefill forward's launches), then the card's name
                    and power limit, then the result line.
 
 Any failure raises and exits non-zero. Without a CUDA card it exits
@@ -110,6 +114,10 @@ SERVE_EXTRA = [(0, 3, 16), (1, 2, 16)]  # (stream, query, new tokens)
 # up; down; lm_head, in each of 32 layers but the last.
 INT4_LAUNCHES_PER_STEP = {(4, 4096, 4096): 128, (4, 4096, 11008): 64,
                           (4, 11008, 4096): 32, (4, 4096, 32000): 1}
+# K4 launches per 7B prefill forward at M = B*T, by (K, N): gate, up;
+# down; q, k, v, o, in each of 32 layers (lm_head runs on the last
+# position only, at M = B).
+INT4_PREFILL_LAUNCHES = {(4096, 11008): 64, (11008, 4096): 32, (4096, 4096): 128}
 
 
 def emit(phase: str, payload: dict) -> None:
@@ -238,10 +246,27 @@ def _bound(nbytes: float, flops: float, peak_flops: float = H100_BF16_FLOPS):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_int4_kernel(m: int, k: int, n: int, seed: int, group: int = 128) -> dict:
+def int4_baseline_kernel(path: str):
+    """Another version of ``csrc/int4_matmul.cu`` with the same C entry
+    point, built from ``path`` beside the port's kernels."""
+    from eventgpt_tpu_torch.ops._build import CudaKernel
+    from eventgpt_tpu_torch.ops.int4_matmul import INT4_KERNEL
+
+    class Baseline(CudaKernel):
+        @property
+        def path(self) -> str:
+            return os.path.abspath(path)
+
+    return Baseline("baseline_" + INT4_KERNEL.source, INT4_KERNEL.signatures)
+
+
+def check_int4_kernel(m: int, k: int, n: int, seed: int, group: int = 128,
+                      baseline=None) -> dict:
     """K4 against its plain version at (M, K, N): bf16 x, a seeded weight
     of the init's scale quantized on the card; returns error and times.
-    The library call is one bf16 ``F.linear`` on the dequantized weight."""
+    The library call is one bf16 ``F.linear`` on the dequantized weight.
+    A ``baseline`` kernel (``int4_baseline_kernel``) runs on the same
+    inputs: its difference from K4 and its time, timed in turns with K4."""
     import torch
     import torch.nn.functional as F
 
@@ -263,7 +288,29 @@ def check_int4_kernel(m: int, k: int, n: int, seed: int, group: int = 128) -> di
         raise AssertionError(f"int4 kernel at M={m} K={k} N={n}: max abs err {err} over "
                              f"atol {INT4_KERNEL_ATOL} + rtol {INT4_KERNEL_RTOL}")
     w_lin = dequantize_tensor4(leaf, torch.bfloat16).T.contiguous()  # (N, K), not timed
-    ms = cuda_time_ms(lambda: i4.int4_matmul(x, q4, s), cold_l2=True)
+
+    def run():
+        i4.int4_matmul(x, q4, s)
+
+    versus = {}
+    if baseline is None:
+        ms = cuda_time_ms(run, cold_l2=True)
+    else:
+        lib = baseline.lib()
+        base_out = torch.empty_like(out)
+
+        def run_baseline():
+            baseline.check(lib.egpt_int4_matmul(
+                x.data_ptr(), q4.data_ptr(), s.data_ptr(), base_out.data_ptr(), m, k, n,
+                k // s.shape[0], torch.cuda.current_stream().cuda_stream))
+
+        run_baseline()
+        torch.cuda.synchronize()
+        turns = [cuda_time_ms(f, cold_l2=True) for f in (run_baseline, run, run, run_baseline)]
+        ms = (turns[1] + turns[2]) / 2
+        versus = {"baseline_ms": (turns[0] + turns[3]) / 2, "baseline_turns_ms": turns,
+                  "baseline_max_abs_diff": (base_out - out).abs().max().item(),
+                  "baseline_bit_identical": bool(torch.equal(base_out, out))}
     plain_ms = cuda_time_ms(lambda: i4.int4_matmul_reference(x, q4, s), warmup=1, iters=3,
                             cold_l2=True)
     library_ms = cuda_time_ms(lambda: F.linear(x, w_lin), cold_l2=True)
@@ -275,7 +322,7 @@ def check_int4_kernel(m: int, k: int, n: int, seed: int, group: int = 128) -> di
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
             "library": "F.linear bf16 on the dequantized (N, K) weight",
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": flops, **versus}
 
 
 def check_decode_kernel(cache, li: int, n_valid, seed: int) -> dict:
@@ -724,6 +771,9 @@ def main() -> int:
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="also profile one bf16 and one int4 batch and one paged server "
                              "run; write the operator tables to DIR")
+    parser.add_argument("--int4_baseline", default=None, metavar="FILE",
+                        help="another version of csrc/int4_matmul.cu to build and time in "
+                             "turns with K4 on the K4 checks' inputs")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -738,9 +788,10 @@ def main() -> int:
     from eventgpt_tpu_torch.ops._build import build_all
     from eventgpt_tpu_torch.ops.decode_attention import DECODE_INT8_KERNEL, PAGED_INT8_KERNEL
     from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
-    from eventgpt_tpu_torch.ops.int4_matmul import INT4_KERNEL
+    from eventgpt_tpu_torch.ops.int4_matmul import INT4_KERNEL, LAUNCHES_BY_SHAPE
 
     kernels = [FLASH_KERNEL, INT4_KERNEL, DECODE_INT8_KERNEL, PAGED_INT8_KERNEL]
+    baseline = int4_baseline_kernel(args.int4_baseline) if args.int4_baseline else None
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = torch.cuda.get_device_name(0)
@@ -750,17 +801,20 @@ def main() -> int:
 
     def counted(run):
         """Drive one main path with every launch count set to 0 just before
-        it; returns (its result, the counts read just after)."""
+        it; returns (its result, the counts read just after). K4's counts
+        by path and shape are left in ``LAUNCHES_BY_SHAPE`` for the caller."""
         for k in kernels:
             k.launches = 0
+        LAUNCHES_BY_SHAPE.clear()
         out = run()
         return out, {k.source: k.launches for k in kernels}
 
     # 1. build
     shutil.rmtree(os.path.join(ROOT, "eventgpt_tpu_torch", "csrc", "build"), ignore_errors=True)
     t0 = time.perf_counter()
-    build_all(kernels)
-    for k in kernels:
+    built = kernels + ([baseline] if baseline else [])
+    build_all(built)
+    for k in built:
         k.lib()
         ptxas = [ln.strip() for ln in k.build_log.splitlines()
                  if "registers" in ln or "spill" in ln or "smem" in ln]
@@ -789,9 +843,9 @@ def main() -> int:
         emit("kernel_flash_odd_s", odd_check)
         m_prefill = len(lengths) * max(lengths)
         int4_checks = {}
-        for i, shape in enumerate(INT4_DECODE_SHAPES
-                                  + [(m_prefill, 4096, 11008), (m_prefill, 11008, 4096)]):
-            int4_checks[shape] = check_int4_kernel(*shape, seed=10 + i)
+        prefill_shapes = [(m_prefill, k, n) for k, n in INT4_PREFILL_LAUNCHES]
+        for i, shape in enumerate(INT4_DECODE_SHAPES + prefill_shapes):
+            int4_checks[shape] = check_int4_kernel(*shape, seed=10 + i, baseline=baseline)
             emit("kernel_int4_M{}_K{}_N{}".format(*shape), int4_checks[shape])
 
         # 3. the bf16 slice: four requests through generate, as cli/infer
@@ -886,12 +940,22 @@ def main() -> int:
         params_int4 = {**params, "llama": llama_int4}
         (cold4, ids4), launches4 = counted(lambda: timed_generate(
             eventchat, params_int4, cfg, ids, pixels, tokenizer, kv_quant=True))
+        by_shape4 = dict(LAUNCHES_BY_SHAPE)
         peak4 = torch.cuda.max_memory_allocated()
         steps4 = cold4["decode_steps"]
         want_k4 = (7 * n_layers + 1) * (1 + steps4)
         if launches4[INT4_KERNEL.source] != want_k4 or launches4[FLASH_KERNEL.source] != n_layers:
             raise AssertionError(f"int4 slice: launches {launches4}, want K4 = {want_k4} "
                                  f"(225 x (1 + {steps4})) and K1 = {n_layers}")
+        # The same launches by path and shape: the one prefill forward's at
+        # M = B * T, and each decode step's at M = B plus prefill's lm_head.
+        prefill4 = {(k, n): c for (path, k, n), c in by_shape4.items() if path == "prefill"}
+        decode4 = {(k, n): c for (path, k, n), c in by_shape4.items() if path == "decode"}
+        want_decode4 = {(k, n): c * steps4 for (_, k, n), c in INT4_LAUNCHES_PER_STEP.items()}
+        want_decode4[(4096, cfg.llama.vocab_size)] += 1
+        if prefill4 != INT4_PREFILL_LAUNCHES or decode4 != want_decode4:
+            raise AssertionError(f"int4 slice: K4 launches by (K, N) {by_shape4}, want prefill "
+                                 f"{INT4_PREFILL_LAUNCHES} and decode {want_decode4}")
         check_generations("int4", ids4, vocab)
         warm4, warm_ids4 = timed_generate(eventchat, params_int4, cfg, ids, pixels, tokenizer,
                                           kv_quant=True)
@@ -902,7 +966,10 @@ def main() -> int:
         emit("slice_int4", {
             "flags": "--quant int4 --kv_cache int8", "quantize_on_card_s": quantize_s,
             "cold": cold4, "warm": warm4, "launches": launches4,
-            "k4_launches_want": want_k4, "same_tokens_cold_warm": True,
+            "k4_launches_want": want_k4,
+            "k4_launches_by_shape": {f"{path} K={k} N={n}": c
+                                     for (path, k, n), c in sorted(by_shape4.items())},
+            "same_tokens_cold_warm": True,
             "same_first_token_as_bf16": [a[:1] == c[:1] for a, c in zip(ids4, out_ids)],
             "peak_mem_bytes": peak4, "bf16_tree_bytes": bf16_bytes,
             "peak_minus_bf16_tree_bytes": peak4 - bf16_bytes,
@@ -996,12 +1063,17 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
     # 8. the kernel table, the card, the result. K4's numbers are one 7B
-    # decode step's 225 launches at M = 4; K2 and K3 are on no main path
-    # (decode reads the int8 cache densely, or through the gathered block
-    # table, as in the JAX package).
+    # decode step's 225 launches at M = 4, and its prefill_* numbers the
+    # prefill forward's launches at M = B * T, as counted by shape in
+    # slice_int4 (224); K2 and K3 are on no main path (decode reads the int8
+    # cache densely, or through the gathered block table, as in the JAX
+    # package).
     step = {key: sum(INT4_LAUNCHES_PER_STEP[sh] * int4_checks[sh][key]
                      for sh in INT4_DECODE_SHAPES)
             for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    prefill = {key: sum(launches_kn * int4_checks[(m_prefill, *kn)][key]
+                        for kn, launches_kn in prefill4.items())
+               for key in ("ms", "bound_ms", "library_ms")}
     print(json.dumps({"kernels": [{
         "name": "flash_attention_fwd_bf16",
         "route": "cuda",
@@ -1026,6 +1098,10 @@ def main() -> int:
         "bound_ms": step["bound_ms"],
         "bound_by": "bytes",
         "library_ms": step["library_ms"],
+        "prefill_ms": prefill["ms"],
+        "prefill_bound_ms": prefill["bound_ms"],
+        "prefill_library_ms": prefill["library_ms"],
+        "prefill_launches": sum(prefill4.values()),
     }, {
         "name": "decode_attention_int8",
         "route": "cuda",

@@ -20,6 +20,7 @@ packed weight and its scales, 0.53 bytes per weight; at prefill
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -28,12 +29,16 @@ from eventgpt_tpu_torch.ops._build import CudaKernel
 BLOCK_N = 256
 BLOCK_KP = 128  # packed rows per Pallas step = 256 contraction rows
 KERNEL_GROUP_STEP = 16  # the card kernel's mma depth: its group must be a multiple
+DECODE_MAX_M = 16  # the card kernel's decode path takes M <= 16, its prefill path the rest
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 INT4_KERNEL = CudaKernel("int4_matmul.cu", {
     "egpt_int4_matmul": (ctypes.c_int, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
 })
+# The kernel's launches by (path, K, N), path "decode" or "prefill", raised
+# beside ``INT4_KERNEL.launches``: a run can show how its products were routed.
+LAUNCHES_BY_SHAPE: Counter = Counter()
 
 
 def supported(k: int, n: int, group: int) -> bool:
@@ -119,4 +124,5 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor) -> torch.Ten
                                m, k, n, group, stream)
     INT4_KERNEL.check(err)
     INT4_KERNEL.launches += 1
+    LAUNCHES_BY_SHAPE["decode" if m <= DECODE_MAX_M else "prefill", k, n] += 1
     return out

@@ -92,17 +92,27 @@ def _int4_case(m, k, n, group, dev, seed):
     (1, 256, 256, 128),     # one row, one group per warp
     (4, 512, 256, 128),     # the decode tile, groups split over warps
     (16, 256, 512, 256),    # a full 16-row tile; one group over all of K
-    (17, 512, 512, 64),     # the first M of the 64-row prefill tile
+    (17, 512, 512, 64),     # the first M of the prefill path
     (37, 768, 96, 32),      # M, N not tile multiples (ragged block in N)
-    (130, 256, 1024, 16),   # three row blocks, the smallest group
+    (130, 256, 1024, 16),   # two row blocks, the smallest group
+    (128, 512, 256, 128),   # one full 128-row prefill block
+    (129, 512, 256, 64),    # one row past it
+    (300, 512, 352, 128),   # ragged in M and in N (N % 128 == 96)
+    (64, 80, 256, 16),      # a K tail shorter than the 64-row stage
+    (40, 1024, 128, 256),   # a group over four stages of the ring
+    (70, 192, 160, 48),     # groups that end inside a stage and straddle two
+    (3396, 512, 256, 128),  # the 7B prefill M = B * T
 ])
 def test_int4_kernel_matches_plain(m, k, n, group):
     dev = _card()
     x, q4, s = _int4_case(m, k, n, group, dev, seed=m + k)
     before = i4.INT4_KERNEL.launches
+    shape = ("decode" if m <= 16 else "prefill", k, n)
+    before_shape = i4.LAUNCHES_BY_SHAPE[shape]
     out = i4.int4_matmul(x, q4, s)
     torch.cuda.synchronize()
     assert i4.INT4_KERNEL.launches == before + 1
+    assert i4.LAUNCHES_BY_SHAPE[shape] == before_shape + 1
     assert out.dtype == torch.float32 and out.shape == (m, n)
     torch.testing.assert_close(out, i4.int4_matmul_reference(x, q4, s),
                                atol=I4_ATOL, rtol=I4_RTOL)
@@ -126,6 +136,22 @@ def test_int4_kernel_refuses_what_it_does_not_take():
         i4.int4_matmul(x, q4.T.contiguous().T, s)
     with pytest.raises(ValueError, match="group"):
         i4.int4_matmul(x, q4, s.repeat_interleave(16, dim=0))  # group 8
+
+
+@pytest.mark.cuda
+def test_int4_prefill_path_refuses_strided_or_misaligned_operands():
+    dev = _card()
+    x, q4, s = _int4_case(64, 256, 256, 128, dev, seed=3)
+    before = i4.INT4_KERNEL.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        i4.int4_matmul(torch.cat([x, x], dim=1)[:, :256], q4, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        i4.int4_matmul(x, q4, torch.cat([s, s], dim=1)[:, :256])
+    x_off = torch.empty(x.numel() + 1, device=dev, dtype=torch.bfloat16)[1:].view(64, 256)
+    x_off.copy_(x)  # contiguous, 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        i4.int4_matmul(x_off, q4, s)
+    assert i4.INT4_KERNEL.launches == before
 
 
 # K2 vs its plain version: the same arithmetic, summed in another order,
@@ -288,10 +314,12 @@ def test_kernel_wrappers_take_the_plain_version_on_the_cpu():
                                              seed=3)
     kernels = (i4.INT4_KERNEL, da.DECODE_INT8_KERNEL, da.PAGED_INT8_KERNEL)
     before = [k.launches for k in kernels]
+    before_shapes = dict(i4.LAUNCHES_BY_SHAPE)
     y = i4.int4_matmul(x, q4, s)
     o = da.decode_attention_int8(q, kq, ks, vq, vs, 1, nv)
     po = da.decode_attention_int8_paged(pq, pkq, pks, pvq, pvs, 1, bt, nv)
     assert [k.launches for k in kernels] == before
+    assert dict(i4.LAUNCHES_BY_SHAPE) == before_shapes
     torch.testing.assert_close(
         po, da.decode_attention_int8_paged_plain(pq, pkq, pks, pvq, pvs, 1, bt, nv),
         rtol=0, atol=0)
