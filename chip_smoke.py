@@ -24,7 +24,8 @@ Phases, each printed on its own line:
                    (the bf16 tree quantized on the card): K4 launches
                    225 x (1 + decode steps), K1 32; then int4 vs the bf16
                    prefill of the dequantized weights, the int8 vs bf16 KV
-                   cache, and K2 (int8 decode attention) on that cache;
+                   cache, and K2 (int8 decode attention) on that cache, also
+                   at n_valid 0, 1, 64 and 65, with each of its passes timed;
 5. serve_*      -- with the bf16 7B tree of phase 3: six requests through
                    the continuous-batching server as ``cli/serve`` builds it
                    (a ContinuousBatcher under a ServingEngine), int8 KV cache,
@@ -33,7 +34,8 @@ Phases, each printed on its own line:
                    cache, the same chains); between them ``kernel_paged_int8``
                    holds K3 (paged int8 decode attention) on the arena that
                    the server's first step filled, against its plain version
-                   and against K2 on the gathered view;
+                   and against K2 on the gathered view, also at n_valid 0, 1,
+                   64 and 65;
 6. slice_int8_fused -- ``--quant int8 --fuse_params`` with a bf16 cache;
 7. tiny_*       -- tiny models give the same greedy chain on the card as on
                    the CPU, bf16-free f32, with int4 + int8 KV + fused, and
@@ -107,6 +109,11 @@ INT4_DECODE_SHAPES = [(4, 4096, 4096), (4, 4096, 11008), (4, 11008, 4096), (4, 4
 # package's bar for the paged kernel against the dense one
 # (tests/test_decode_attention.py::test_paged_kernel_matches_dense_kernel_on_gathered_view).
 PAGED_KERNEL_ATOL = 2e-3
+# One more batch of rows for K2 and K3 at the 7B shapes, at the split
+# kernels' edges: none visible (every split reads every slot, each with
+# weight 1), one, one whole 64-slot table entry and one past it; all but
+# the first leave trailing splits wholly past n_valid.
+SPLIT_EDGE_N_VALID = (0, 1, 64, 65)
 # The serving phases: the four requests of the slice, then two more over
 # streams 100 and 101 with queries 3 and 2, which wait for rows to free.
 SERVE_EXTRA = [(0, 3, 16), (1, 2, 16)]  # (stream, query, new tokens)
@@ -157,6 +164,37 @@ def cuda_time_ms(fn, warmup: int = 3, iters: int = 20, cold_l2: bool = False) ->
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_us(event) -> float:
+    """An operator's own device time in a torch.profiler table."""
+    return (getattr(event, "self_device_time_total", None)
+            or getattr(event, "self_cuda_time_total", 0))
+
+
+def device_ms_by_kernel(fn, match: str, iters: int = 10) -> dict:
+    """Device ms per call of each kernel whose name holds ``match``, from
+    torch.profiler over ``iters`` calls of ``fn``, each after the L2 flush
+    and the sleep of ``cuda_time_ms(cold_l2=True)``: how a kernel's time
+    splits over its launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    scratch = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            scratch.zero_()
+            torch.cuda._sleep(1_000_000)
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if match in e.key:
+            name = e.key.split("<")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + _device_us(e) / iters / 1e3
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -339,12 +377,18 @@ def check_decode_kernel(cache, li: int, n_valid, seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, kv, 1, hd), generator=g, device="cuda", dtype=torch.bfloat16)
     nv = torch.tensor(n_valid, device="cuda", dtype=torch.int32)
-    out = da.decode_attention_int8(q, kq, ks, vq, vs, li, nv)
-    torch.cuda.synchronize()
-    ref = da.decode_attention_int8_plain(q, kq, ks, vq, vs, li, nv)
-    err = (out.float() - ref.float()).abs().max().item()
-    if not math.isfinite(err) or err > DECODE_KERNEL_ATOL:
-        raise AssertionError(f"decode kernel at li={li}: max abs err {err} > {DECODE_KERNEL_ATOL}")
+    errs = {}
+    for rows in (n_valid, SPLIT_EDGE_N_VALID):
+        nv_rows = torch.tensor(rows, device="cuda", dtype=torch.int32)
+        out = da.decode_attention_int8(q, kq, ks, vq, vs, li, nv_rows)
+        torch.cuda.synchronize()
+        ref = da.decode_attention_int8_plain(q, kq, ks, vq, vs, li, nv_rows)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not math.isfinite(err) or err > DECODE_KERNEL_ATOL:
+            raise AssertionError(f"decode kernel at li={li}, n_valid {rows}: max abs err {err} > "
+                                 f"{DECODE_KERNEL_ATOL}")
+        errs[str(list(rows))] = err
+    split, n_split = da.decode_split(s_len, b * kv, da.sm_count(q.device))
     k_l = (kq[li].float() * ks[li]).to(torch.bfloat16).transpose(1, 2)  # (B, KV, S, hd)
     v_l = (vq[li].float() * vs[li]).to(torch.bfloat16).transpose(1, 2)
     mask = (torch.arange(s_len, device="cuda")[None, :] < nv[:, None])[:, None, None, :]
@@ -353,12 +397,16 @@ def check_decode_kernel(cache, li: int, n_valid, seed: int) -> dict:
                             warmup=1, iters=5, cold_l2=True)
     library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k_l, v_l, attn_mask=mask),
                               cold_l2=True)
+    passes_ms = device_ms_by_kernel(lambda: da.decode_attention_int8(q, kq, ks, vq, vs, li, nv),
+                                    "egpt_split")
     visible = sum(min(int(x), s_len) for x in n_valid)
     nbytes = 2 * visible * kv * (hd + 4) + q.numel() * 2 + out.numel() * 2 + b * 4
     flops = 2 * 2 * visible * kv * hd
     bound_ms, bound_by = _bound(nbytes, flops, H100_F32_FLOPS)
     return {"li": li, "B": b, "S": s_len, "KV": kv, "G": 1, "hd": hd, "n_valid": list(n_valid),
-            "max_abs_err": err, "atol": DECODE_KERNEL_ATOL, "ms": ms, "plain_ms": plain_ms,
+            "split_slots": split, "n_split": n_split, "blocks": b * kv * n_split,
+            "max_abs_err_by_n_valid": errs, "max_abs_err": max(errs.values()),
+            "atol": DECODE_KERNEL_ATOL, "ms": ms, "passes_ms": passes_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
             "library": "SDPA, bool mask, on the layer dequantized to bf16 (dequantize not timed)",
             "bytes": nbytes, "flops": flops}
@@ -524,18 +572,14 @@ def profile_call(fn, out_dir: str, name: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    busy_ms = sum(dev_us(e) for e in avgs) / 1e3
-    top = sorted(avgs, key=dev_us, reverse=True)[:15]
+    busy_ms = sum(_device_us(e) for e in avgs) / 1e3
+    top = sorted(avgs, key=_device_us, reverse=True)[:15]
     table = os.path.join(out_dir, f"profile_{name}.txt")
     with open(table, "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
-            "top_device_ms": [[e.key, dev_us(e) / 1e3, e.count] for e in top],
+            "top_device_ms": [[e.key, _device_us(e) / 1e3, e.count] for e in top],
             "table": table}
 
 
@@ -631,19 +675,23 @@ def check_paged_kernel(params, cfg, tokenizer, requests, seed: int) -> tuple:
     q = torch.randn((b, kv, 1, hd), generator=g, device="cuda", dtype=torch.bfloat16)
     q32 = q.float()
     checks = []
-    for li in (0, n_layers - 1):
-        out = da.decode_attention_int8_paged(q32, kq, ks, vq, vs, li, bt, nv)
+    edges = torch.tensor(SPLIT_EDGE_N_VALID, device="cuda", dtype=torch.int32)
+    for li, nv_rows in ((0, nv), (n_layers - 1, nv), (0, edges)):
+        out = da.decode_attention_int8_paged(q32, kq, ks, vq, vs, li, bt, nv_rows)
         torch.cuda.synchronize()
-        plain = da.decode_attention_int8_paged_plain(q32, kq, ks, vq, vs, li, bt, nv)
+        plain = da.decode_attention_int8_paged_plain(q32, kq, ks, vq, vs, li, bt, nv_rows)
         gathered = [x[li][bt.long()].reshape((1, b, nbpr * bs) + tuple(x.shape[3:])).contiguous()
                     for x in (kq, ks, vq, vs)]
-        dense = da.decode_attention_int8(q32, *gathered, 0, nv)
+        dense = da.decode_attention_int8(q32, *gathered, 0, nv_rows)
         err = (out - plain).abs().max().item()
         err_k2 = (out - dense).abs().max().item()
         if not (err <= PAGED_KERNEL_ATOL and err_k2 <= PAGED_KERNEL_ATOL):
-            raise AssertionError(f"paged kernel at li={li}: max abs err {err} vs plain, "
-                                 f"{err_k2} vs K2 on the gathered view > {PAGED_KERNEL_ATOL}")
-        checks.append({"li": li, "max_abs_err": err, "max_abs_err_vs_k2_gathered": err_k2})
+            raise AssertionError(f"paged kernel at li={li}, n_valid {nv_rows.tolist()}: max abs "
+                                 f"err {err} vs plain, {err_k2} vs K2 on the gathered view > "
+                                 f"{PAGED_KERNEL_ATOL}")
+        checks.append({"li": li, "n_valid": nv_rows.tolist(), "max_abs_err": err,
+                       "max_abs_err_vs_k2_gathered": err_k2})
+    split, n_split = da.paged_split(bs, nbpr, b * kv, da.sm_count(q.device))
     li = 0
     k_l = (kq[li][bt.long()].float() * ks[li][bt.long()]).to(torch.bfloat16)
     v_l = (vq[li][bt.long()].float() * vs[li][bt.long()]).to(torch.bfloat16)
@@ -657,6 +705,8 @@ def check_paged_kernel(params, cfg, tokenizer, requests, seed: int) -> tuple:
         warmup=1, iters=5, cold_l2=True)
     library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k_l, v_l, attn_mask=mask),
                               cold_l2=True)
+    passes_ms = device_ms_by_kernel(
+        lambda: da.decode_attention_int8_paged(q, kq, ks, vq, vs, li, bt, nv), "egpt_split")
     # The kernel reads what this data needs: the visible slots' int8 K and
     # V and their scales (all table entries for a row with none visible),
     # q, out, the tables and n_valid once.
@@ -676,9 +726,10 @@ def check_paged_kernel(params, cfg, tokenizer, requests, seed: int) -> tuple:
     torch.cuda.empty_cache()
     return {"B": b, "KV": kv, "G": 1, "hd": hd, "block_size": bs, "table_entries": nbpr,
             "pool_blocks": n_blocks, "n_valid": lengths, "tables": bt.tolist(),
+            "split_slots": split, "n_split": n_split, "blocks": b * kv * n_split,
             "checks": checks, "atol": PAGED_KERNEL_ATOL,
             "max_abs_err": max(c["max_abs_err"] for c in checks),
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": ms, "passes_ms": passes_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "SDPA, bool mask, on the gathered layer dequantized to bf16 "
                        "(gather and dequantize not timed)",
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,

@@ -1,15 +1,18 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel source under ``eventgpt_tpu_torch/csrc/`` exposes a plain C
-interface, including ``egpt_cuda_error_string``. It is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library in ``csrc/build/`` (ignored by git) on first use, named by a hash
-of its source and flags so an edited source rebuilds, and loaded with
-``ctypes``. Nothing is built or imported when this module is imported.
+interface, including ``egpt_cuda_error_string``. It is compiled with
+``nvcc`` for ``sm_90a`` into a shared library in ``csrc/build/`` (ignored
+by git) on first use, named by a hash of its source, the headers in
+``csrc/`` and the flags, so an edited source or header rebuilds, and
+loaded with ``ctypes``. Nothing is built or imported when this module is
+imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -58,8 +61,9 @@ class CudaKernel:
 
     def library_path(self) -> str:
         h = hashlib.sha256()
-        with open(self.path, "rb") as f:
-            h.update(f.read())
+        for path in [self.path, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+            with open(path, "rb") as f:
+                h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
         stem = os.path.splitext(self.source)[0]
         return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")

@@ -18,7 +18,7 @@ version on the cache that the quantized one-shot path writes.
 
 Bound on an H100 SXM at B=4, S=896, KV=32, hd=128 with ~850 visible slots
 a row: the int8 K/V payloads and f32 scales over the visible slots, about
-28 MB -> 8.5 us at 3.35 TB/s.
+28 MB -> 8.4 us at 3.35 TB/s.
 
 ``decode_attention_int8_paged`` (K3) is the port of
 ``eventgpt_tpu/ops/decode_attention.decode_attention_int8_paged`` (the
@@ -31,11 +31,22 @@ carries across the table's entries, one entry at a time, as the Pallas
 grid does. Like K2 it is on no model path: the paged decode gathers the
 table into a dense view (``models/llama._cache_read_layer``), as the JAX
 package does. The kernel is in ``csrc/paged_attention.cu``.
+
+Both kernels split the sequence across blocks, grid (B, KV, n_split): a
+scores pass, then a P.V pass that rounds p * v_s against the same max as
+the Pallas kernel (the row's for K2, the running max per table entry for
+K3) and whose last block for each (row, KV head) combines the splits'
+partials in split order (``csrc/decode_split.cuh``). The wrapper picks the
+split from static shapes only (``decode_split``, ``paged_split``): never
+from ``n_valid``, which lies on the device, so choosing costs no host
+sync. It allocates the scratch with ``torch.empty``; the kernels allocate
+nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -45,20 +56,68 @@ from eventgpt_tpu_torch.ops._build import CudaKernel
 NEG_INF = float(torch.finfo(torch.float32).min)
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 8  # query heads per KV head the kernel takes
+SPLIT_MIN_SLOTS = 64  # the fewest slots a split takes
+BLOCKS_PER_SM = 8  # the blocks a launch aims for on each SM
+MAX_SPLIT_ENTRIES = 128  # K3 table entries per split (csrc/decode_split.cuh)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 DECODE_INT8_KERNEL = CudaKernel("decode_attention.cu", {
     "egpt_decode_attention_int8": (
         ctypes.c_int,
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]),
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+         ctypes.c_float, _P]),
 })
 PAGED_INT8_KERNEL = CudaKernel("paged_attention.cu", {
     "egpt_decode_attention_int8_paged": (
         ctypes.c_int,
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-         ctypes.c_float, _P]),
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+         _I, ctypes.c_float, _P]),
 })
+
+
+def _split_units(n_units: int, unit_slots: int, pairs: int, sm_count: int,
+                 max_units: int) -> tuple:
+    """(units per split, n_split) for ``n_units`` units of ``unit_slots``
+    slots over ``pairs`` (row, KV head) pairs: enough splits for
+    BLOCKS_PER_SM blocks on each of ``sm_count`` SMs, each of at least
+    SPLIT_MIN_SLOTS slots and at most ``max_units`` units."""
+    min_units = -(-SPLIT_MIN_SLOTS // unit_slots)
+    want = -(-BLOCKS_PER_SM * sm_count // max(pairs, 1))
+    per = min(max(min_units, -(-n_units // want)), max_units)
+    return per, -(-n_units // per)
+
+
+def decode_split(s_len: int, pairs: int, sm_count: int) -> tuple:
+    """K2's (slots per split, n_split) for a cache of ``s_len`` slots and
+    ``pairs`` = B * KV: splits of whole 64-slot units, the last one
+    ragged."""
+    per, n_split = _split_units(-(-s_len // SPLIT_MIN_SLOTS), SPLIT_MIN_SLOTS, pairs,
+                                sm_count, s_len)
+    return per * SPLIT_MIN_SLOTS, n_split
+
+
+def paged_split(bs: int, nbpr: int, pairs: int, sm_count: int) -> tuple:
+    """K3's (slots per split, n_split) for tables of ``nbpr`` entries of
+    ``bs`` slots and ``pairs`` = B * KV: splits of whole table entries."""
+    per, n_split = _split_units(nbpr, bs, pairs, sm_count, MAX_SPLIT_ENTRIES)
+    return per * bs, n_split
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _scratch(b: int, kv: int, g: int, hd: int, n_split: int, slots: int, n_units: int,
+             device) -> torch.Tensor:
+    """The kernels' f32 scratch, per (row, KV head): for each split acc
+    (G * hd), (m, l) per query row and a bad flag; the scores of the
+    ``slots`` logical slots and the max of each of ``n_units`` units, per
+    query row; the ticket of the combine."""
+    per_pair = n_split * (g * hd + 2 * g + 1) + g * slots + g * n_units + 1
+    return torch.empty(b * kv * per_pair, dtype=torch.float32, device=device)
 
 
 def decode_attention_int8_plain(q, k_q, k_s, v_q, v_s, li, n_valid) -> torch.Tensor:
@@ -134,9 +193,8 @@ def decode_attention_int8(q, k_q, k_s, v_q, v_s, li, n_valid) -> torch.Tensor:
     k_s/v_s: (L, B, S, KV, 1) f32; li: the layer; n_valid: (B,) visible
     slot counts. A CPU tensor runs the plain version. A CUDA tensor
     launches the kernel, which takes contiguous bf16 or f32 q with
-    hd in {32, 64, 128} and G <= 8, and raises on anything else (a cache
-    whose G * S scores overflow the block's shared memory, beyond ~47K
-    slots at G = 1, is refused by the kernel's entry point).
+    hd in {32, 64, 128} and G <= 8, and raises on anything else. Its
+    shared memory does not grow with S, so any cache length is taken.
     """
     if q.device.type == "cpu":
         return decode_attention_int8_plain(q, k_q, k_s, v_q, v_s, li, n_valid)
@@ -145,14 +203,17 @@ def decode_attention_int8(q, k_q, k_s, v_q, v_s, li, n_valid) -> torch.Tensor:
     if k_q.shape[1] != b:
         raise ValueError(f"decode_attention_int8: q {tuple(q.shape)} does not match the cache "
                          f"{tuple(k_q.shape)}")
+    s_len = k_q.shape[2]
+    split, n_split = decode_split(s_len, b * kv, sm_count(q.device))
     qb = q.to(torch.bfloat16)
     out = torch.empty_like(q)
+    part = _scratch(b, kv, g, hd, n_split, s_len, n_split, q.device)
     lib = DECODE_INT8_KERNEL.lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.egpt_decode_attention_int8(
         qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(),
-        nv.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16), li, b, k_q.shape[2],
-        kv, g, hd, 1.0 / math.sqrt(hd), stream)
+        nv.data_ptr(), out.data_ptr(), part.data_ptr(), int(out.dtype == torch.bfloat16), li,
+        b, s_len, kv, g, hd, split, n_split, 1.0 / math.sqrt(hd), stream)
     DECODE_INT8_KERNEL.check(err)
     DECODE_INT8_KERNEL.launches += 1
     return out
@@ -221,14 +282,18 @@ def decode_attention_int8_paged(q, k_q, k_s, v_q, v_s, li, block_tables,
     if bt.ndim != 2 or bt.shape[0] != b or bt.shape[1] < 1:
         raise ValueError(f"{name}: block_tables must be ({b}, n_bpr >= 1), got "
                          f"{tuple(bt.shape)}")
+    nbpr = bt.shape[1]
+    split, n_split = paged_split(bs, nbpr, b * kv, sm_count(q.device))
     qb = q.to(torch.bfloat16)
     out = torch.empty_like(q)
+    part = _scratch(b, kv, g, hd, n_split, nbpr * bs, nbpr, q.device)
     lib = PAGED_INT8_KERNEL.lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.egpt_decode_attention_int8_paged(
         qb.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(),
-        bt.data_ptr(), nv.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16), li,
-        b, n_blocks, bs, bt.shape[1], kv, g, hd, 1.0 / math.sqrt(hd), stream)
+        bt.data_ptr(), nv.data_ptr(), out.data_ptr(), part.data_ptr(),
+        int(out.dtype == torch.bfloat16), li, b, n_blocks, bs, nbpr, kv, g, hd, split, n_split,
+        1.0 / math.sqrt(hd), stream)
     PAGED_INT8_KERNEL.check(err)
     PAGED_INT8_KERNEL.launches += 1
     return out

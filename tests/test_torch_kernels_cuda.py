@@ -195,6 +195,46 @@ def test_decode_int8_kernel_matches_plain(L, B, S, KV, G, hd, li, n_valid, dtype
     assert (out.float() - ref.float()).abs().max().item() < DA_ATOL[dtype]
 
 
+def _split_edges(split, total):
+    """n_valid per row across a kernel's split edges: none visible, one, a
+    split boundary and one past it, trailing splits wholly past n_valid,
+    every slot, past the end."""
+    return [0, 1, min(split, total), min(split + 1, total), min(2 * split + 3, total), total,
+            total + 100]
+
+
+def _two_calls_equal(run, kernel):
+    """Two calls of ``run`` give equal bits; each adds one launch."""
+    before = kernel.launches
+    out = run()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(run(), out)
+    assert kernel.launches == before + 2
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,KV,G,hd,dtype,multi", [
+    (640, 2, 1, 128, torch.bfloat16, True),   # 64-slot splits
+    (640, 2, 8, 32, torch.float32, True),     # G = 8 at hd 32
+    (320, 2, 8, 64, torch.bfloat16, True),    # G = 8 at hd 64
+    (48, 2, 2, 64, torch.float32, False),     # one split
+    (65536, 1, 1, 128, torch.bfloat16, True),  # beyond the old kernel's shared memory
+])
+def test_decode_int8_kernel_split_edges(S, KV, G, hd, dtype, multi):
+    dev = _card()
+    split, n_split = da.decode_split(S, 7 * KV, da.sm_count(dev))
+    assert (n_split > 2) == multi
+    q, kq, ks, vq, vs = _decode_case(1, 7, S, KV, G, hd, dev, seed=S + G, dtype=dtype)
+    nv = torch.tensor(_split_edges(split, S), device=dev, dtype=torch.int32)
+    out = _two_calls_equal(lambda: da.decode_attention_int8(q, kq, ks, vq, vs, 0, nv),
+                           da.DECODE_INT8_KERNEL)
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = da.decode_attention_int8_plain(q, kq, ks, vq, vs, 0, nv)
+    assert (out.float() - ref.float()).abs().max().item() < DA_ATOL[dtype]
+
+
 @pytest.mark.cuda
 def test_decode_int8_kernel_reads_no_stale_slot():
     """Slots at or past n_valid are never read: poisoning them changes
@@ -258,6 +298,64 @@ def test_paged_int8_kernel_matches_plain(L, N, bs, nbpr, B, KV, G, hd, li, n_val
     assert out.dtype == dtype and out.shape == q.shape
     ref = da.decode_attention_int8_paged_plain(q, kq, ks, vq, vs, li, bt, nv)
     assert (out.float() - ref.float()).abs().max().item() < DA_ATOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,bs,nbpr,KV,G,hd,dtype,multi", [
+    (40, 64, 16, 2, 1, 128, torch.bfloat16, True),  # one entry a split
+    (20, 16, 12, 2, 8, 32, torch.float32, True),    # G = 8 at hd 32, 4 entries a split
+    (20, 32, 6, 2, 8, 64, torch.bfloat16, True),    # G = 8 at hd 64
+    (12, 64, 1, 2, 2, 128, torch.float32, False),   # n_bpr = 1: one split
+])
+def test_paged_int8_kernel_split_edges(N, bs, nbpr, KV, G, hd, dtype, multi):
+    dev = _card()
+    split, n_split = da.paged_split(bs, nbpr, 7 * KV, da.sm_count(dev))
+    assert (n_split > 2) == multi
+    q, kq, ks, vq, vs, bt = _paged_case(2, N, bs, nbpr, 7, KV, G, hd, dev, seed=N + G,
+                                        dtype=dtype)
+    nv = torch.tensor(_split_edges(split, nbpr * bs), device=dev, dtype=torch.int32)
+    out = _two_calls_equal(lambda: da.decode_attention_int8_paged(q, kq, ks, vq, vs, 1, bt, nv),
+                           da.PAGED_INT8_KERNEL)
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = da.decode_attention_int8_paged_plain(q, kq, ks, vq, vs, 1, bt, nv)
+    assert (out.float() - ref.float()).abs().max().item() < DA_ATOL[dtype]
+
+
+@pytest.mark.cuda
+def test_paged_int8_kernel_bad_entry_in_a_later_split():
+    """An entry outside the pool that only a later split reads makes that
+    row NaN and no other; one past n_valid is never read."""
+    dev = _card()
+    q, kq, ks, vq, vs, bt = _paged_case(1, 10, 64, 16, 3, 2, 1, 128, dev, seed=9)
+    split, n_split = da.paged_split(64, 16, 6, da.sm_count(dev))
+    assert split == 64 and n_split == 16
+    bt[1, 5] = 10    # read by row 1's sixth split
+    bt[2, 12] = -1   # past row 2's visible slots
+    nv = torch.tensor([1024, 700, 700], device=dev, dtype=torch.int32)
+    out = da.decode_attention_int8_paged(q, kq, ks, vq, vs, 0, bt, nv)
+    assert torch.isnan(out[1]).all()
+    assert torch.isfinite(out[0]).all() and torch.isfinite(out[2]).all()
+    ok = bt.clone()
+    ok[1, 5], ok[2, 12] = 0, 0
+    ref = da.decode_attention_int8_paged_plain(q, kq, ks, vq, vs, 0, ok, nv)
+    assert (out[0::2] - ref[0::2]).abs().max().item() < DA_ATOL[torch.float32]
+
+
+def test_editing_a_header_changes_the_library_path(tmp_path, monkeypatch):
+    """A kernel's library is named by its source and every header in
+    csrc/, so an edited header builds anew instead of loading a stale
+    library."""
+    from eventgpt_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    (tmp_path / "kernel.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("// one\n")
+    kernel = _build.CudaKernel("kernel.cu", {})
+    before = kernel.library_path()
+    assert kernel.library_path() == before
+    (tmp_path / "shared.cuh").write_text("// two\n")
+    assert kernel.library_path() != before
 
 
 @pytest.mark.cuda
