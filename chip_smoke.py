@@ -12,17 +12,22 @@ Phases, each printed on its own line:
                    the card at the shapes the main paths give it, and times
                    the kernel, the plain version and one PyTorch library
                    call: K1 (flash prefill), K4 (int4 matmul) at the 7B
-                   decode and prefill shapes; with ``--int4_baseline`` also
-                   another version of ``csrc/int4_matmul.cu`` on the same
-                   inputs, in turns with K4: how a redesign of K4 is held
-                   against its parent commit's kernel in one call;
+                   decode shapes (with the decode plan and the GB/s
+                   reached) and prefill shapes; with ``--int4_baseline``
+                   also another version of ``csrc/int4_matmul.cu`` on the
+                   same inputs, in turns with K4: how a redesign of K4 is
+                   held against its parent commit's kernel in one call;
 3. slice        -- four event-QA requests through EventGPT-7B at full width
                    (CLIP ViT-L/14-336, LLaMA-7B; random bf16 weights from a
                    seed), through the calls ``eventgpt_tpu_torch.cli.infer``
                    makes, then flash-vs-dense prefill logits;
 4. slice_int4   -- the same requests with ``--quant int4 --kv_cache int8``
                    (the bf16 tree quantized on the card): K4 launches
-                   225 x (1 + decode steps), K1 32; then int4 vs the bf16
+                   225 x (1 + decode steps), K1 32, and a sha256 of the
+                   greedy chains; with ``--int4_baseline`` the same batch
+                   again through the other K4 (``slice_int4_baseline``),
+                   and with ``--profile`` K4's decode device ms per step
+                   for both; then int4 vs the bf16
                    prefill of the dequantized weights, the int8 vs bf16 KV
                    cache, and K2 (int8 decode attention) on that cache, also
                    at n_valid 0, 1, 64 and 65, with each of its passes timed;
@@ -38,7 +43,8 @@ Phases, each printed on its own line:
                    64 and 65;
 6. slice_int8_fused -- ``--quant int8 --fuse_params`` with a bf16 cache;
 7. tiny_*       -- tiny models give the same greedy chain on the card as on
-                   the CPU, bf16-free f32, with int4 + int8 KV + fused, and
+                   the CPU, bf16-free f32, with int4 + int8 KV + fused (its
+                   chain's sha256 printed), and
                    served paged with the int8 cache; ``serve_http_tiny`` runs
                    ``cli/serve.build_server`` on the card and answers two
                    POST /v1/generate;
@@ -52,6 +58,8 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import math
 import os
@@ -129,6 +137,24 @@ INT4_PREFILL_LAUNCHES = {(4096, 11008): 64, (11008, 4096): 32, (4096, 4096): 128
 
 def emit(phase: str, payload: dict) -> None:
     print(f"{phase}: {json.dumps(payload)}", flush=True)
+
+
+def digest(chains) -> str:
+    """sha256 of greedy token chains: runs of two trees compare by it."""
+    return hashlib.sha256(json.dumps(chains).encode()).hexdigest()
+
+
+@contextlib.contextmanager
+def routed_through(kernel, other):
+    """Launch ``kernel``'s wrapper through ``other``'s library, which has the
+    same C entry points, inside the block: another version of a kernel on
+    the path that calls it."""
+    saved = kernel._lib
+    kernel._lib = other.lib()
+    try:
+        yield
+    finally:
+        kernel._lib = saved
 
 
 def cuda_time_ms(fn, warmup: int = 3, iters: int = 20, cold_l2: bool = False) -> float:
@@ -355,12 +381,14 @@ def check_int4_kernel(m: int, k: int, n: int, seed: int, group: int = 128,
     nbytes = m * k * 2 + q4.numel() + s.numel() * 4 + m * n * 4
     flops = 2 * m * k * n
     bound_ms, bound_by = _bound(nbytes, flops)
+    plan = i4.decode_plan(m, k, n, group)
+    decode = {} if plan is None else {"plan": plan, "gb_per_s": nbytes / ms / 1e6}
     return {"M": m, "K": k, "N": n, "group": group, "max_abs_err": err,
             "atol": INT4_KERNEL_ATOL, "rtol": INT4_KERNEL_RTOL, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
             "library": "F.linear bf16 on the dequantized (N, K) weight",
-            "bytes": nbytes, "flops": flops, **versus}
+            "bytes": nbytes, "flops": flops, **versus, **decode}
 
 
 def check_decode_kernel(cache, li: int, n_valid, seed: int) -> dict:
@@ -488,7 +516,8 @@ def tiny_quant_card_matches_cpu(event_path: str) -> dict:
     return {"config": "LLaMA d=256 ffn=512 vocab=512 2 layers 4 heads 2 KV heads, f32, "
                       "--quant int4 --kv_cache int8 --fuse_params",
             "tokens": len(on_card[0]), "identical": True, "first_logit_max_abs_diff": diff,
-            "tolerance": TINY_LOGIT_ATOL, "int4_launches_on_card": launches}
+            "tolerance": TINY_LOGIT_ATOL, "int4_launches_on_card": launches,
+            "greedy_sha256": digest(on_card)}
 
 
 def _to(tree, device):
@@ -557,10 +586,11 @@ def timed_generate(eventchat, params, cfg, ids, pixels, tokenizer, kv_quant=Fals
     }, out_ids
 
 
-def profile_call(fn, out_dir: str, name: str) -> dict:
+def profile_call(fn, out_dir: str, name: str, match: str = "") -> dict:
     """torch.profiler over one call of ``fn`` (one more batch, or one more
     server run): device time by operator, and the device's busy share of
-    the wall time (kernels on one stream)."""
+    the wall time (kernels on one stream); with ``match``, the device ms
+    and launches of the kernels whose names hold it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -577,10 +607,13 @@ def profile_call(fn, out_dir: str, name: str) -> dict:
     table = os.path.join(out_dir, f"profile_{name}.txt")
     with open(table, "w") as f:
         f.write(avgs.table(sort_by="self_device_time_total", row_limit=60))
+    matched = [e for e in avgs if match and match in e.key]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "top_device_ms": [[e.key, _device_us(e) / 1e3, e.count] for e in top],
-            "table": table}
+            "table": table,
+            **({"match": match, "matched_device_ms": sum(_device_us(e) for e in matched) / 1e3,
+                "matched_launches": sum(e.count for e in matched)} if match else {})}
 
 
 def serve_requests(ids, pixels, budget: int = MAX_NEW_TOKENS):
@@ -1025,13 +1058,32 @@ def main() -> int:
             "peak_mem_bytes": peak4, "bf16_tree_bytes": bf16_bytes,
             "peak_minus_bf16_tree_bytes": peak4 - bf16_bytes,
             "int4_llama_bytes": tree_bytes(llama_int4), "int8_cache_bytes": cache_bytes,
-            "first_ids": [r[:8] for r in ids4], "nvidia_smi": smi,
+            "first_ids": [r[:8] for r in ids4], "greedy_sha256": digest(ids4),
+            "nvidia_smi": smi,
         })
-        if args.profile:
-            emit("profile_int4", profile_call(
+
+        def profile_int4(name):
+            """K4's decode-path device ms per decode step, from one more
+            profiled batch (the prefill's lm_head launch included)."""
+            prof = profile_call(
                 lambda: timed_generate(eventchat, params_int4, cfg, ids, pixels, tokenizer,
                                        kv_quant=True),
-                args.profile, "generate_int4"))
+                args.profile, name, match="int4_mm_decode")
+            return {**prof, "k4_decode_ms_per_step": prof["matched_device_ms"] / steps4}
+
+        if args.profile:
+            emit("profile_int4", profile_int4("generate_int4"))
+        if baseline is not None:
+            # The same batch with K4 launched from the baseline's library.
+            with routed_through(INT4_KERNEL, baseline):
+                base4, base_ids4 = timed_generate(eventchat, params_int4, cfg, ids, pixels,
+                                                  tokenizer, kv_quant=True)
+                base_prof = profile_int4("generate_int4_baseline") if args.profile else None
+            emit("slice_int4_baseline", {
+                "kernel": baseline.path, "warm": base4, "greedy_sha256": digest(base_ids4),
+                "same_chains_as_kernel": base_ids4 == ids4, "nvidia_smi": smi})
+            if base_prof is not None:
+                emit("profile_int4_baseline", base_prof)
 
         # int4 vs the bf16 prefill of the dequantized weights.
         llama_deq = quant.dequantize_llama_params(llama_int4, torch.bfloat16)
@@ -1153,6 +1205,8 @@ def main() -> int:
         "prefill_bound_ms": prefill["bound_ms"],
         "prefill_library_ms": prefill["library_ms"],
         "prefill_launches": sum(prefill4.values()),
+        **({"baseline_ms": sum(INT4_LAUNCHES_PER_STEP[sh] * int4_checks[sh]["baseline_ms"]
+                               for sh in INT4_DECODE_SHAPES)} if baseline else {}),
     }, {
         "name": "decode_attention_int8",
         "route": "cuda",

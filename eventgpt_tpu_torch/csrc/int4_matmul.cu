@@ -29,38 +29,58 @@
 // eight group scales. Each warp keeps an f32 per-group partial beside its
 // f32 accumulator and folds the partial in with the scale at the end of
 // every group, k16 steps and groups in ascending order: the Pallas
-// kernel's order, and the same sums in both paths.
-//   * Decode (M <= 16, int4_mm_decode_kernel): one 16-row tile with 8
-//     warps that split the groups of K between them and add their
-//     accumulators through shared memory, so that 32 columns of a
-//     4096-wide weight still give 128 blocks and each block keeps 8 warps
-//     of loads in flight. Operands come straight from device memory.
+// kernel's order. Operands reach shared memory through a ring of 16-byte
+// cp.async copies (zero-filled past N); every warp reaches every barrier.
+//   * Decode (M <= 16, int4_mm_decode_kernel): bytes bound it, and a 7B
+//     weight has too few columns to fill the card (4096 columns are 32
+//     tiles of 128), so K is split too. The grid is (column tiles of 128,
+//     8 splits), and the 8 splits of a column tile are one thread block
+//     cluster. Split s takes groups s, s + 8, s + 16, ... and folds them
+//     in ascending order; then each block stores 16 columns of its
+//     partial into the shared memory of the block that combines them,
+//     one cluster barrier, and each block sums its 16 columns of the 8
+//     partials in split order from 0 and writes them out. One launch, no
+//     atomics, two calls give equal bits, and the sums are those of one
+//     block whose 8 warps take the groups in turn. A block of 4 warps
+//     (32 columns each) stages up to 8 k16 steps of one group at a time:
+//     their 64 packed rows of its 128 columns (a warp's copy covers 128
+//     contiguous bytes of each of 4 rows), the x values of the rows < M,
+//     and, in the group's last stage, its scale row; 2 stages, one in
+//     flight while the other is multiplied; A fragments through
+//     ldmatrix.x4. At 4096 x 4096 that is 256 blocks, ~2 an SM. A whole
+//     7B decode step (225 launches) took 4.39 ms on an H100 80GB HBM3 at
+//     700 W with the L2 flushed before each launch (chip_smoke.py), 24%
+//     of its byte bound: each block's main loop runs at a fraction of the
+//     bandwidth a bare copy of the same tiles reaches, and the cluster
+//     barrier waits for the slowest of the 8 splits.
 //   * Prefill (M > 16, int4_mm_prefill_kernel): a 128 x 128 block tile of
 //     8 warps, 2 in M x 4 in N, each warp 64 x 32 (four 16-row m-tiles
 //     that share one B fragment). A 4-stage ring in dynamic shared memory
 //     holds, per 64 contraction rows, the x tile (128 x 64 bf16, rows
 //     padded to 144 B), the packed W tile (32 x 128 bytes, rows padded to
 //     160 B) and the scale row of each k16 step that ends a group, filled
-//     by 16-byte cp.async copies (zero-filled past M, K and N) three tiles
-//     ahead of the tile being multiplied. A fragments come from shared
-//     memory through ldmatrix.x4, B bytes through one 32-bit shared load
-//     per k-pair row; both paddings keep a warp's 32 lanes on distinct
-//     banks. Fragments are double-buffered over the k16 steps of a tile,
-//     and the four bytes of a word are unpacked together (unpack_word).
-//     x is read once per 128 output columns and W once per 128 rows. The
-//     accumulator and the partial take 128 registers a thread, so an SM
-//     holds one block, 8 warps, and each group's fold waits for the mma
-//     pipe to drain: mma.sync at that occupancy, not the ring, sets the
-//     pace.
-// What remains: wgmma with TMA feeding the ring (a warpgroup's products
-// are asynchronous, so a fold can overlap the next group's), and a
-// persistent grid whose epilogue overlaps the next tile's loads.
+//     three tiles ahead of the tile being multiplied. A fragments come
+//     from shared memory through ldmatrix.x4, B bytes through one 32-bit
+//     shared load per k-pair row; both paddings keep a warp's 32 lanes on
+//     distinct banks. Fragments are double-buffered over the k16 steps of
+//     a tile, and the four bytes of a word are unpacked together
+//     (unpack_word). x is read once per 128 output columns and W once per
+//     128 rows. The accumulator and the partial take 128 registers a
+//     thread, so an SM holds one block, 8 warps, and each group's fold
+//     waits for the mma pipe to drain: mma.sync at that occupancy, not the
+//     ring, sets the pace.
+// What remains: wgmma with TMA feeding the prefill ring (a warpgroup's
+// products are asynchronous, so a fold can overlap the next group's), and
+// a persistent grid whose epilogue overlaps the next tile's loads.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -75,141 +95,24 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One packed byte -> bf16x2 {hi - 8, lo - 8}; the low half (the mma's
-// lower k index) is the high nibble, row 2r.
-__device__ __forceinline__ uint32_t unpack_byte(uint32_t byte) {
-  const uint32_t pair = 0x43004300u | (byte >> 4) | ((byte & 0xFu) << 16);
-  __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&pair);
-  v = __hsub2(v, __floats2bfloat162_rn(136.f, 136.f));
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// ---- Decode (M <= 16): one 16-row tile, K split over 8 warps -------------
-
-constexpr int DEC_BM = 16;     // rows of the one m-tile
-constexpr int DEC_WARPS = 8;   // warps that split the groups of K
-constexpr int DEC_UNROLL = 8;  // k16 steps in flight per warp
-
-__global__ void __launch_bounds__(DEC_WARPS * 32)
-int4_mm_decode_kernel(const __nv_bfloat16* __restrict__ x,
-                      const uint8_t* __restrict__ q4,
-                      const float* __restrict__ s,
-                      float* __restrict__ out,
-                      int M, int K, int N, int group) {
-  constexpr int RED_LD = WARP_N + 1;  // padded against bank conflicts
-  __shared__ float red[DEC_WARPS * DEC_BM * RED_LD];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;   // row of the fragment / B column
-  const int t4 = lane % 4;  // column pair of the fragment / B k pair
-  const int n0 = blockIdx.x * WARP_N;
-  const int m0 = blockIdx.y * DEC_BM;
-
-  const int n_groups = K / group;
-  const int ksteps = group / 16;
-
-  // This thread's A rows: g and g + 8; rows past M read 0.
-  const __nv_bfloat16* xrow[2];
-  bool live[2];
+// The four bytes of one packed word -> bf16x2 {hi - 8, lo - 8} of byte j
+// in b[j]; the low half (the mma's lower k index) is the high nibble, row
+// 2r. The nibbles of bytes 0 and 2 (and of 1 and 3) become bf16 128 + n
+// two at a time, and one byte_perm pairs each byte's high and low nibble.
+__device__ __forceinline__ void unpack_word(uint32_t w, uint32_t b[4]) {
+  const uint32_t h02 = ((w >> 4) & 0x000F000Fu) | 0x43004300u;
+  const uint32_t l02 = (w & 0x000F000Fu) | 0x43004300u;
+  const uint32_t h13 = ((w >> 12) & 0x000F000Fu) | 0x43004300u;
+  const uint32_t l13 = ((w >> 8) & 0x000F000Fu) | 0x43004300u;
+  const uint32_t pairs[4] = {__byte_perm(h02, l02, 0x5410), __byte_perm(h13, l13, 0x5410),
+                             __byte_perm(h02, l02, 0x7632), __byte_perm(h13, l13, 0x7632)};
+  const __nv_bfloat162 off = __floats2bfloat162_rn(136.f, 136.f);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = m0 + g + 8 * h;
-    live[h] = r < M;
-    xrow[h] = x + (long)(r < M ? r : 0) * K;
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  const uint8_t* qcol = q4 + n0 + 4 * g;
-  for (int gi = warp; gi < n_groups; gi += DEC_WARPS) {
-    float part[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
-
-#pragma unroll DEC_UNROLL
-    for (int ks = 0; ks < ksteps; ++ks) {
-      const int k0 = gi * group + ks * 16;  // logical contraction row
-      const int r0 = k0 / 2;                // packed row
-      const uint32_t w0 = __ldg(reinterpret_cast<const unsigned int*>(
-          qcol + (long)(r0 + t4) * N));
-      const uint32_t w1 = __ldg(reinterpret_cast<const unsigned int*>(
-          qcol + (long)(r0 + 4 + t4) * N));
-      uint32_t a[4];
-      a[0] = live[0] ? ld32(xrow[0] + k0 + 2 * t4) : 0u;
-      a[1] = live[1] ? ld32(xrow[1] + k0 + 2 * t4) : 0u;
-      a[2] = live[0] ? ld32(xrow[0] + k0 + 8 + 2 * t4) : 0u;
-      a[3] = live[1] ? ld32(xrow[1] + k0 + 8 + 2 * t4) : 0u;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t b0 = unpack_byte((w0 >> (8 * j)) & 0xFFu);
-        const uint32_t b1 = unpack_byte((w1 >> (8 * j)) & 0xFFu);
-        mma_bf16(part[j], a, b0, b1);
-      }
-    }
-
-    // acc += partial * s[gi, col]. Accumulator element e of n-tile j sits
-    // at fragment column 2*t4 + (e & 1), i.e. column n0 + 8*t4 + 4*(e&1) + j.
-    const float4 s0 = __ldg(reinterpret_cast<const float4*>(s + (long)gi * N + n0 + 8 * t4));
-    const float4 s1 = __ldg(reinterpret_cast<const float4*>(s + (long)gi * N + n0 + 8 * t4 + 4));
-    const float se[4] = {s0.x, s0.y, s0.z, s0.w};
-    const float so[4] = {s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e] * ((e & 1) ? so[j] : se[j]);
-  }
-
-  // Add the warps' accumulators.
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = g + ((e & 2) ? 8 : 0);
-      const int col = 8 * t4 + 4 * (e & 1) + j;
-      red[(warp * DEC_BM + row) * RED_LD + col] = acc[j][e];
-    }
-  __syncthreads();
-  for (int i = threadIdx.x; i < DEC_BM * WARP_N; i += DEC_WARPS * 32) {
-    const int row = i / WARP_N;
-    const int col = i % WARP_N;
-    if (m0 + row >= M) continue;
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) v += red[(w * DEC_BM + row) * RED_LD + col];
-    out[(long)(m0 + row) * N + n0 + col] = v;
+  for (int j = 0; j < 4; ++j) {
+    const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&pairs[j]), off);
+    b[j] = *reinterpret_cast<const uint32_t*>(&v);
   }
 }
-
-// ---- Prefill (M > 16): a cp.async ring in shared memory -------------------
-
-constexpr int PF_BM = 128;                 // block rows: 2 warps of 64
-constexpr int PF_BN = 128;                 // block columns: 4 warps of 32
-constexpr int PF_BK = 64;                  // contraction rows per stage
-constexpr int PF_STEPS = PF_BK / 16;       // k16 steps per stage
-constexpr int PF_STAGES = 4;
-constexpr int PF_THREADS = 256;
-constexpr int PF_XLD = PF_BK + 8;          // x row pitch, bf16 (144 B)
-constexpr int PF_WLD = PF_BN + 32;         // W row pitch, bytes (160 B)
-constexpr int PF_X_BYTES = PF_BM * PF_XLD * 2;
-constexpr int PF_W_BYTES = PF_BK / 2 * PF_WLD;
-constexpr int PF_S_BYTES = PF_STEPS * PF_BN * 4;
-constexpr int PF_STAGE_BYTES = PF_X_BYTES + PF_W_BYTES + PF_S_BYTES;
-constexpr int PF_SMEM_BYTES = PF_STAGES * PF_STAGE_BYTES;
-static_assert(PF_BK / 2 * PF_BN / 16 % PF_THREADS == 0, "whole W chunks per thread");
-static_assert(PF_STEPS * PF_BN / 4 <= PF_THREADS, "one scale chunk per thread");
-static_assert(PF_X_BYTES % 16 == 0 && PF_W_BYTES % 16 == 0 && PF_STAGE_BYTES % 16 == 0,
-              "16-byte aligned sections");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -237,24 +140,263 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t a[4], uint32_t addr) {
                : "r"(addr));
 }
 
-// The four bytes of one packed word -> bf16x2 {hi - 8, lo - 8} of byte j
-// in b[j], the values unpack_byte gives: the nibbles of bytes 0 and 2 (and
-// of 1 and 3) become bf16 128 + n two at a time, and one byte_perm pairs
-// each byte's high and low nibble.
-__device__ __forceinline__ void unpack_word(uint32_t w, uint32_t b[4]) {
-  const uint32_t h02 = ((w >> 4) & 0x000F000Fu) | 0x43004300u;
-  const uint32_t l02 = (w & 0x000F000Fu) | 0x43004300u;
-  const uint32_t h13 = ((w >> 12) & 0x000F000Fu) | 0x43004300u;
-  const uint32_t l13 = ((w >> 8) & 0x000F000Fu) | 0x43004300u;
-  const uint32_t pairs[4] = {__byte_perm(h02, l02, 0x5410), __byte_perm(h13, l13, 0x5410),
-                             __byte_perm(h02, l02, 0x7632), __byte_perm(h13, l13, 0x7632)};
-  const __nv_bfloat162 off = __floats2bfloat162_rn(136.f, 136.f);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&pairs[j]), off);
-    b[j] = *reinterpret_cast<const uint32_t*>(&v);
+// ---- Decode (M <= 16): K split over a cluster of 8 blocks ----------------
+
+constexpr int DEC_BM = 16;                      // rows of the one m-tile
+constexpr int DEC_SPLITS = 8;                   // blocks of a cluster, one split each
+constexpr int DEC_BN = 128;                     // block columns: 4 warps of 32
+constexpr int DEC_THREADS = DEC_BN / WARP_N * 32;
+constexpr int DEC_STEPS = 8;                    // k16 steps per stage, all of one group
+constexpr int DEC_STAGES = 2;
+constexpr int DEC_STEP_LANES = DEC_THREADS / DEC_STEPS;  // threads that stage one step
+constexpr int DEC_WLD = DEC_BN + 32;            // W row pitch, bytes (160)
+constexpr int DEC_XLD = DEC_STEPS * 16 * 2 + 16;  // x row pitch, bytes (272)
+constexpr int DEC_W_BYTES = DEC_STEPS * 8 * DEC_WLD;
+constexpr int DEC_X_BYTES = DEC_BM * DEC_XLD;
+constexpr int DEC_S_BYTES = DEC_BN * 4;
+constexpr int DEC_STAGE_BYTES = DEC_W_BYTES + DEC_X_BYTES + DEC_S_BYTES;
+constexpr int DEC_SMEM_BYTES = DEC_STAGES * DEC_STAGE_BYTES;
+constexpr int DEC_SLICE = DEC_BN / DEC_SPLITS;  // columns each block combines
+// 16-byte chunks each staging thread copies for its step: W rows, x rows.
+constexpr int DEC_W_CHUNKS = 8 * DEC_BN / 16 / DEC_STEP_LANES;
+constexpr int DEC_X_CHUNKS = DEC_BM * 2 / DEC_STEP_LANES;
+static_assert(DEC_W_CHUNKS * DEC_STEP_LANES == 8 * DEC_BN / 16 &&
+              DEC_X_CHUNKS * DEC_STEP_LANES == DEC_BM * 2 && DEC_X_CHUNKS > 0,
+              "whole chunks a thread");
+static_assert(DEC_BN / 4 <= DEC_THREADS, "one scale chunk a thread");
+static_assert(DEC_STEPS % 4 == 0, "x rows of one ldmatrix fall on distinct banks");
+static_assert(DEC_SLICE % 4 == 0 && WARP_N % DEC_SLICE == 0, "whole float4s to one block");
+static_assert(DEC_W_BYTES % 16 == 0 && DEC_X_BYTES % 16 == 0 && DEC_STAGE_BYTES % 16 == 0,
+              "16-byte aligned sections");
+static_assert(DEC_SMEM_BYTES + DEC_SPLITS * DEC_BM * DEC_SLICE * 4 <= 48 * 1024,
+              "static shared memory");
+
+// A split's k16 steps run over its groups in order, in stages of at most
+// DEC_STEPS steps of one group: stage c of the split's q-th group (group
+// split + 8 q) holds steps [8 c, min(8 c + 8, group / 16)). Moved on one
+// stage at a time, so that the loop divides by nothing.
+struct StageCursor {
+  int q;
+  int c;
+};
+
+__device__ __forceinline__ void next_stage(StageCursor& cur, int stages_per_group) {
+  if (++cur.c == stages_per_group) {
+    cur.c = 0;
+    ++cur.q;
   }
 }
+
+// Start the copies of the stage at `cur` into one stage of the ring: thread
+// tid stages step tid / DEC_STEP_LANES, its 8 packed rows of the block's
+// 128 columns (16 lanes cover 128 contiguous bytes of a row, zero-filled
+// past N) and the 16 x values of each row < M; in the group's last stage
+// the first DEC_BN / 4 threads also stage the group's scale row.
+__device__ __forceinline__ void dec_load_stage(uint8_t* stage, const __nv_bfloat16* x,
+                                               const uint8_t* q4, const float* s, int M, int K,
+                                               int N, int group, int split, int nb,
+                                               const StageCursor& cur, int stages_per_group) {
+  const int st = threadIdx.x / DEC_STEP_LANES;
+  const int l = threadIdx.x % DEC_STEP_LANES;
+  const int steps_per_group = group / 16;
+  const long gi = split + (long)DEC_SPLITS * cur.q;
+  const int ks = cur.c * DEC_STEPS + st;  // this thread's step in the group
+  const uint32_t base = smem_u32(stage);
+  if (ks < steps_per_group) {
+    const long pr = gi * (group / 2) + ks * 8;  // the step's first packed row
+#pragma unroll
+    for (int i = 0; i < DEC_W_CHUNKS; ++i) {
+      const int c = l + i * DEC_STEP_LANES;
+      const int rr = c / (DEC_BN / 16);
+      const int col = c % (DEC_BN / 16) * 16;
+      const bool ok = nb + col < N;
+      const uint8_t* src = ok ? q4 + (pr + rr) * N + nb + col : q4;
+      cp_async16(base + (st * 8 + rr) * DEC_WLD + col, src, ok);
+    }
+    const long k0 = gi * group + ks * 16;
+#pragma unroll
+    for (int i = 0; i < DEC_X_CHUNKS; ++i) {
+      const int c = l + i * DEC_STEP_LANES;
+      const int row = c / 2;
+      const int half = c % 2;
+      if (row < M) {
+        cp_async16(base + DEC_W_BYTES + row * DEC_XLD + (st * 16 + half * 8) * 2,
+                   x + (long)row * K + k0 + half * 8, true);
+      }
+    }
+  }
+  if (cur.c == stages_per_group - 1 && threadIdx.x < DEC_BN / 4) {
+    const int col = threadIdx.x * 4;
+    const bool ok = nb + col < N;
+    const float* src = ok ? s + gi * N + nb + col : s;
+    cp_async16(base + DEC_W_BYTES + DEC_X_BYTES + col * 4, src, ok);
+  }
+}
+
+__global__ void __cluster_dims__(1, DEC_SPLITS, 1) __launch_bounds__(DEC_THREADS)
+int4_mm_decode_kernel(const __nv_bfloat16* __restrict__ x,
+                      const uint8_t* __restrict__ q4,
+                      const float* __restrict__ s,
+                      float* __restrict__ out,
+                      int M, int K, int N, int group) {
+  __shared__ __align__(16) uint8_t smem[DEC_SMEM_BYTES];  // the ring
+  // inbox[r]: split r's partial of the columns this block combines.
+  __shared__ __align__(16) float inbox[DEC_SPLITS][DEC_BM][DEC_SLICE];
+  cg::cluster_group cluster = cg::this_cluster();
+  // Every block of the cluster has started once this barrier completes; it
+  // is waited for only before the first store to a peer's inbox.
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;   // row of the fragment / B column
+  const int t4 = lane % 4;  // column pair of the fragment / B k pair
+  const int nb = blockIdx.x * DEC_BN;
+  // The cluster spans the split axis, so a block's rank in its cluster is
+  // its split.
+  const int split = static_cast<int>(cluster.block_rank());
+  const int n_groups = K / group;
+  const int steps_per_group = group / 16;
+  const int stages_per_group = (steps_per_group + DEC_STEPS - 1) / DEC_STEPS;
+  const int my_groups = split < n_groups ? (n_groups - split + DEC_SPLITS - 1) / DEC_SPLITS : 0;
+  const int n_tiles = my_groups * stages_per_group;
+
+  float acc[4][4];
+  float part[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = part[j][e] = 0.f;
+
+  StageCursor load = {0, 0};  // the next stage to copy
+#pragma unroll
+  for (int t = 0; t < DEC_STAGES - 1; ++t) {
+    if (t < n_tiles) {
+      dec_load_stage(smem + t * DEC_STAGE_BYTES, x, q4, s, M, K, N, group, split, nb, load,
+                     stages_per_group);
+      next_stage(load, stages_per_group);
+    }
+    cp_async_commit();
+  }
+
+  // x rows M..15 of every stage stay zero (the copies write rows < M
+  // only): ldmatrix reads all 16 rows. Stored while the first copies fly.
+  const int zero_chunks = (DEC_BM - M) * DEC_XLD / 16;
+  for (int i = threadIdx.x; i < DEC_STAGES * zero_chunks; i += DEC_THREADS) {
+    *reinterpret_cast<uint4*>(smem + i / zero_chunks * DEC_STAGE_BYTES + DEC_W_BYTES +
+                              M * DEC_XLD + i % zero_chunks * 16) = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // ldmatrix.x4 row addresses: lanes 0-15 rows 0-15 at k 0 (a0, a1),
+  // lanes 16-31 the same rows at k 8 (a2, a3).
+  const int a_off = DEC_W_BYTES + lane % 16 * DEC_XLD + lane / 16 * 16;
+  StageCursor use = {0, 0};  // the stage being multiplied
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<DEC_STAGES - 2>();
+    __syncthreads();  // stage t has landed; every warp is done with stage t - 1
+    if (t + DEC_STAGES - 1 < n_tiles) {
+      dec_load_stage(smem + (t + DEC_STAGES - 1) % DEC_STAGES * DEC_STAGE_BYTES, x, q4, s, M, K,
+                     N, group, split, nb, load, stages_per_group);
+      next_stage(load, stages_per_group);
+    }
+    cp_async_commit();
+
+    const uint8_t* stage = smem + t % DEC_STAGES * DEC_STAGE_BYTES;
+    const uint8_t* ws = stage + warp * WARP_N + 4 * g;
+    const uint32_t xs = smem_u32(stage) + a_off;
+    const int steps = min(DEC_STEPS, steps_per_group - use.c * DEC_STEPS);
+#pragma unroll
+    for (int st = 0; st < DEC_STEPS; ++st) {
+      if (st >= steps) break;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(ws + (st * 8 + t4) * DEC_WLD);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(ws + (st * 8 + 4 + t4) * DEC_WLD);
+      uint32_t a[4];
+      ldmatrix_x4(a, xs + st * 32);
+      uint32_t b0[4], b1[4];
+      unpack_word(w0, b0);
+      unpack_word(w1, b1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_bf16(part[j], a, b0[j], b1[j]);
+    }
+    if (use.c == stages_per_group - 1) {
+      // The group ends: acc += partial * s[group, col]. Accumulator
+      // element e of n-tile j sits at fragment column 2*t4 + (e & 1),
+      // i.e. column nb + 32*warp + 8*t4 + 4*(e&1) + j.
+      const float* ss = reinterpret_cast<const float*>(stage + DEC_W_BYTES + DEC_X_BYTES) +
+                        warp * WARP_N + 8 * t4;
+      const float4 s0 = *reinterpret_cast<const float4*>(ss);
+      const float4 s1 = *reinterpret_cast<const float4*>(ss + 4);
+      const float se[4] = {s0.x, s0.y, s0.z, s0.w};
+      const float so[4] = {s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[j][e] += part[j][e] * ((e & 1) ? so[j] : se[j]);
+          part[j][e] = 0.f;
+        }
+    }
+    next_stage(use, stages_per_group);
+  }
+  cp_async_wait<0>();
+
+  // Block r combines columns [16 r, 16 r + 16): each block stores its
+  // partial of those columns, rows < M, into block r's inbox[split].
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = g + 8 * h;
+    if (row >= M) continue;
+#pragma unroll
+    for (int odd = 0; odd < 2; ++odd) {
+      const int e = 2 * h + odd;
+      const int col = warp * WARP_N + 8 * t4 + 4 * odd;
+      float* dst = cluster.map_shared_rank(&inbox[split][row][col % DEC_SLICE],
+                                           col / DEC_SLICE);
+      *reinterpret_cast<float4*>(dst) = make_float4(acc[0][e], acc[1][e], acc[2][e], acc[3][e]);
+    }
+  }
+  cluster.sync();  // every partial is in its inbox
+
+  // The splits summed in split order from 0, four columns a thread.
+  for (int i = threadIdx.x; i < M * DEC_SLICE / 4; i += DEC_THREADS) {
+    const int row = i / (DEC_SLICE / 4);
+    const int c = i % (DEC_SLICE / 4) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < DEC_SPLITS; ++r) {
+      const float4 p = *reinterpret_cast<const float4*>(&inbox[r][row][c]);
+      v.x += p.x;
+      v.y += p.y;
+      v.z += p.z;
+      v.w += p.w;
+    }
+    const int col = nb + split * DEC_SLICE + c;
+    if (col < N) *reinterpret_cast<float4*>(out + (long)row * N + col) = v;
+  }
+}
+
+// ---- Prefill (M > 16): a cp.async ring in shared memory -------------------
+
+constexpr int PF_BM = 128;                 // block rows: 2 warps of 64
+constexpr int PF_BN = 128;                 // block columns: 4 warps of 32
+constexpr int PF_BK = 64;                  // contraction rows per stage
+constexpr int PF_STEPS = PF_BK / 16;       // k16 steps per stage
+constexpr int PF_STAGES = 4;
+constexpr int PF_THREADS = 256;
+constexpr int PF_XLD = PF_BK + 8;          // x row pitch, bf16 (144 B)
+constexpr int PF_WLD = PF_BN + 32;         // W row pitch, bytes (160 B)
+constexpr int PF_X_BYTES = PF_BM * PF_XLD * 2;
+constexpr int PF_W_BYTES = PF_BK / 2 * PF_WLD;
+constexpr int PF_S_BYTES = PF_STEPS * PF_BN * 4;
+constexpr int PF_STAGE_BYTES = PF_X_BYTES + PF_W_BYTES + PF_S_BYTES;
+constexpr int PF_SMEM_BYTES = PF_STAGES * PF_STAGE_BYTES;
+static_assert(PF_BK / 2 * PF_BN / 16 % PF_THREADS == 0, "whole W chunks per thread");
+static_assert(PF_STEPS * PF_BN / 4 <= PF_THREADS, "one scale chunk per thread");
+static_assert(PF_X_BYTES % 16 == 0 && PF_W_BYTES % 16 == 0 && PF_STAGE_BYTES % 16 == 0,
+              "16-byte aligned sections");
+
 
 // Where the k16 step that one thread stages scales for ends: its end row
 // e = 64 kt + 16 step + 16 as e / group and e % group, advanced one tile
@@ -491,8 +633,8 @@ extern "C" int egpt_int4_matmul(const void* x, const void* q4, const void* s,
   const float* sp = (const float*)s;
   float* op = (float*)out;
   if (M <= DEC_BM) {
-    dim3 grid(N / WARP_N, 1);
-    int4_mm_decode_kernel<<<grid, DEC_WARPS * 32, 0, st>>>(xp, qp, sp, op, M, K, N, group);
+    dim3 grid((N + DEC_BN - 1) / DEC_BN, DEC_SPLITS);
+    int4_mm_decode_kernel<<<grid, DEC_THREADS, 0, st>>>(xp, qp, sp, op, M, K, N, group);
   } else {
     const cudaError_t err = prefill_smem_ready();
     if (err != cudaSuccess) return (int)err;

@@ -15,6 +15,11 @@ and summed over the groups.
 Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at decode (M = 4) the
 packed weight and its scales, 0.53 bytes per weight; at prefill
 (M = 3396, K = 4096, N = 11008) the 306 GFLOP of the product.
+
+At M <= 16 the kernel splits K: ``decode_plan`` gives its launch, which
+depends on the static shapes only. Each 128-column tile is one cluster of
+8 blocks; split s folds groups s, s + 8, ... in ascending order, and the
+cluster sums the 8 partials in split order from 0, in the same launch.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ BLOCK_N = 256
 BLOCK_KP = 128  # packed rows per Pallas step = 256 contraction rows
 KERNEL_GROUP_STEP = 16  # the card kernel's mma depth: its group must be a multiple
 DECODE_MAX_M = 16  # the card kernel's decode path takes M <= 16, its prefill path the rest
+DECODE_SPLITS = 8  # decode blocks per column tile, one cluster (DEC_SPLITS in the source)
+DECODE_TILE_N = 128  # output columns of a decode block (DEC_BN in the source)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +61,25 @@ def supported(k: int, n: int, group: int) -> bool:
         and (group // 2) <= BLOCK_KP
         and BLOCK_KP % (group // 2) == 0
     )
+
+
+def decode_plan(m: int, k: int, n: int, group: int) -> dict | None:
+    """The card kernel's launch for x (m, k) @ a (k, n) weight in groups of
+    ``group`` rows, or None where m > DECODE_MAX_M (the prefill path):
+    ``n_split`` splits of the groups (``split_groups``) for each
+    ``tile_n``-column tile, the splits of a tile one cluster of ``cluster``
+    blocks, ``blocks`` in all."""
+    if m > DECODE_MAX_M:
+        return None
+    return {"n_split": DECODE_SPLITS, "tile_n": DECODE_TILE_N, "cluster": DECODE_SPLITS,
+            "blocks": -(-n // DECODE_TILE_N) * DECODE_SPLITS}
+
+
+def split_groups(n_groups: int, n_split: int = DECODE_SPLITS) -> list:
+    """The groups each split of the decode path folds, in its order: split
+    s takes s, s + n_split, ...; a split past the last group is empty and
+    adds zeros."""
+    return [list(range(sp, n_groups, n_split)) for sp in range(n_split)]
 
 
 def int4_matmul_reference(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -124,5 +150,6 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor) -> torch.Ten
                                m, k, n, group, stream)
     INT4_KERNEL.check(err)
     INT4_KERNEL.launches += 1
-    LAUNCHES_BY_SHAPE["decode" if m <= DECODE_MAX_M else "prefill", k, n] += 1
+    path = "prefill" if decode_plan(m, k, n, group) is None else "decode"
+    LAUNCHES_BY_SHAPE[path, k, n] += 1
     return out

@@ -154,6 +154,31 @@ def test_int4_prefill_path_refuses_strided_or_misaligned_operands():
     assert i4.INT4_KERNEL.launches == before
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,group", [
+    (1, 512, 256, 64),       # one row
+    (4, 512, 96, 128),       # N % 128 == 96: the tile's last 32 columns past N
+    (8, 1024, 32, 128),      # N of one warp, rows 8-15 of the m-tile unused
+    (9, 768, 4128, 64),      # the first row past 8; N = 4096 + 32
+    (16, 256, 256, 256),     # G = K: one group, seven empty splits
+    (16, 512, 128, 16),      # G = 16: every k16 step ends a group
+    (4, 384, 256, 128),      # three groups, fewer than the splits
+    (4, 4096, 4096, 128),    # the 7B decode weights: q, k, v, o
+    (4, 4096, 11008, 128),   # gate, up
+    (4, 11008, 4096, 128),   # down: 86 groups, 10 or 11 a split
+])
+def test_int4_decode_path_split_k(m, k, n, group):
+    """The split-K decode path: bit-equal over two calls, one launch each,
+    and the plain version's values at every edge of its plan."""
+    dev = _card()
+    assert i4.decode_plan(m, k, n, group) is not None
+    x, q4, s = _int4_case(m, k, n, group, dev, seed=m + k + n)
+    out = _two_calls_equal(lambda: i4.int4_matmul(x, q4, s), i4.INT4_KERNEL)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    torch.testing.assert_close(out, i4.int4_matmul_reference(x, q4, s),
+                               atol=I4_ATOL, rtol=I4_RTOL)
+
+
 # K2 vs its plain version: the same arithmetic, summed in another order,
 # with expf against torch.exp (1-2 ulp). That can flip the bf16 rounding of
 # one slot's p * v_s: 2^-8 of that slot's share of the output, |v| <= 1.3
