@@ -2,7 +2,7 @@
 
 Run from the repository root on a machine with an NVIDIA H100:
 
-    python3 chip_smoke.py [--profile DIR] [--int4_baseline FILE]
+    python3 chip_smoke.py [--profile DIR] [--int4_baseline FILE] [--flash_baseline FILE]
 
 Phases, each printed on its own line:
 
@@ -11,16 +11,26 @@ Phases, each printed on its own line:
 2. kernel_*     -- holds each kernel against its plain PyTorch version on
                    the card at the shapes the main paths give it, and times
                    the kernel, the plain version and one PyTorch library
-                   call: K1 (flash prefill), K4 (int4 matmul) at the 7B
+                   call: K1 (flash prefill) at the 7B prefill shape, at
+                   S = 333 and at the 64-row tile edges (with its registers
+                   per thread and blocks per SM), K4 (int4 matmul) at the 7B
                    decode shapes (with the decode plan and the GB/s
                    reached) and prefill shapes; with ``--int4_baseline``
-                   also another version of ``csrc/int4_matmul.cu`` on the
-                   same inputs, in turns with K4: how a redesign of K4 is
-                   held against its parent commit's kernel in one call;
+                   or ``--flash_baseline`` also another version of
+                   ``csrc/int4_matmul.cu`` or ``csrc/flash_attention.cu``
+                   on the same inputs, in turns with K4 or K1 (K1's
+                   ``baseline_bit_identical`` per shape): how a redesign of
+                   a kernel is held against its parent commit's kernel in
+                   one call;
 3. slice        -- four event-QA requests through EventGPT-7B at full width
                    (CLIP ViT-L/14-336, LLaMA-7B; random bf16 weights from a
                    seed), through the calls ``eventgpt_tpu_torch.cli.infer``
-                   makes, then flash-vs-dense prefill logits;
+                   makes, with a sha256 of the greedy chains; with
+                   ``--flash_baseline`` the same warm batch again through
+                   the other K1 (``slice_flash_baseline``: its prefill ms
+                   and digest), and with ``--profile`` K1's device ms per
+                   prefill forward for both; then flash-vs-dense prefill
+                   logits;
 4. slice_int4   -- the same requests with ``--quant int4 --kv_cache int8``
                    (the bf16 tree quantized on the card): K4 launches
                    225 x (1 + decode steps), K1 32, and a sha256 of the
@@ -159,8 +169,10 @@ def routed_through(kernel, other):
 
 def cuda_time_ms(fn, warmup: int = 3, iters: int = 20, cold_l2: bool = False) -> float:
     """Mean device ms per call: CUDA events around ``iters`` calls after
-    ``warmup`` calls. ``cold_l2`` writes 128 MB between calls, more than the
-    50 MB L2, and times each call alone: for a caller that finds its
+    ``warmup`` calls, queued while the device sleeps ~2 ms, so that a call
+    shorter than its host-side launch is timed back to back on the device,
+    not at the host's pace. ``cold_l2`` writes 128 MB between calls, more
+    than the 50 MB L2, and times each call alone: for a caller that finds its
     operands in device memory, as a decode step finds each layer's weights
     and cache. The device then sleeps ~0.5 ms, so that the host has queued
     the call before the start event runs and no host time is counted."""
@@ -184,6 +196,7 @@ def cuda_time_ms(fn, warmup: int = 3, iters: int = 20, cold_l2: bool = False) ->
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(4_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -242,9 +255,28 @@ def flash_bound_ms(b: int, s: int, h: int, hd: int, causal: bool = True):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def check_flash_kernel(lengths, seed: int) -> dict:
+def flash_occupancy() -> dict:
+    """K1's registers per thread, shared memory per block and resident
+    blocks per SM, from the kernel library's own CUDA query."""
+    import ctypes
+
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    fn = FLASH_KERNEL.lib().egpt_flash_attention_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    FLASH_KERNEL.check(fn(ctypes.byref(regs), ctypes.byref(smem), ctypes.byref(blocks)))
+    return {"registers_per_thread": regs.value, "smem_bytes_per_block": smem.value,
+            "blocks_per_sm": blocks.value}
+
+
+def check_flash_kernel(lengths, seed: int, baseline=None) -> dict:
     """K1 against its plain version at (B, S) = (len(lengths), max(lengths)),
-    32 heads of 128, bf16, right padding; returns error and times."""
+    32 heads of 128, bf16, right padding; returns error and times. A
+    ``baseline`` kernel (``baseline_kernel``) runs through the same wrapper
+    on the same inputs: its difference from K1 and its time, timed in turns
+    with K1."""
     import torch
     import torch.nn.functional as F
 
@@ -257,6 +289,8 @@ def check_flash_kernel(lengths, seed: int) -> dict:
     valid = torch.arange(s, device="cuda")[None, :] < torch.tensor(lengths, device="cuda")[:, None]
     out = fa.flash_attention(q, k, v, valid=valid, causal=True)
     torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"flash kernel at B={b} S={s}: non-finite output")
     ref = fa.flash_attention_reference(q, k, v, valid, causal=True)
     err = (out.float() - ref.float()).abs().max().item()
     if not math.isfinite(err) or err > KERNEL_ATOL:
@@ -268,14 +302,34 @@ def check_flash_kernel(lengths, seed: int) -> dict:
     # The library yardstick: one SDPA call with the same causal + key mask.
     mask = valid[:, None, None, :] & torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, valid=valid, causal=True))
+
+    def run():
+        fa.flash_attention(q, k, v, valid=valid, causal=True)
+
+    versus = {}
+    if baseline is None:
+        ms = cuda_time_ms(run)
+    else:
+        def run_baseline():
+            with routed_through(fa.FLASH_KERNEL, baseline):
+                return fa.flash_attention(q, k, v, valid=valid, causal=True)
+
+        base_out = run_baseline()
+        torch.cuda.synchronize()
+        turns = [cuda_time_ms(f) for f in (run_baseline, run, run, run_baseline)]
+        ms = (turns[1] + turns[2]) / 2
+        versus = {"baseline_ms": (turns[0] + turns[3]) / 2, "baseline_turns_ms": turns,
+                  "baseline_max_abs_diff": (base_out.float() - out.float()).abs().max().item(),
+                  "baseline_bit_identical": bool(torch.equal(base_out, out))}
     plain_ms = cuda_time_ms(lambda: fa.flash_attention_reference(q, k, v, valid, causal=True),
                             warmup=1, iters=5)
     library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
     bound_ms, bound_by, nbytes, flops = flash_bound_ms(b, s, h, hd)
     return {"B": b, "S": s, "H": h, "hd": hd, "lengths": list(lengths), "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+            "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+            "tflop_s": flops / ms / 1e9, "bf16_peak_share": flops / (ms * 1e-3) / H100_BF16_FLOPS,
+            **versus, **flash_occupancy()}
 
 
 def tiny_card_matches_cpu(event_path: str) -> dict:
@@ -310,18 +364,17 @@ def _bound(nbytes: float, flops: float, peak_flops: float = H100_BF16_FLOPS):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def int4_baseline_kernel(path: str):
-    """Another version of ``csrc/int4_matmul.cu`` with the same C entry
-    point, built from ``path`` beside the port's kernels."""
+def baseline_kernel(kernel, path: str):
+    """Another version of ``kernel``'s source with the same C entry points,
+    built from ``path`` beside the port's kernels."""
     from eventgpt_tpu_torch.ops._build import CudaKernel
-    from eventgpt_tpu_torch.ops.int4_matmul import INT4_KERNEL
 
     class Baseline(CudaKernel):
         @property
         def path(self) -> str:
             return os.path.abspath(path)
 
-    return Baseline("baseline_" + INT4_KERNEL.source, INT4_KERNEL.signatures)
+    return Baseline("baseline_" + kernel.source, kernel.signatures)
 
 
 def check_int4_kernel(m: int, k: int, n: int, seed: int, group: int = 128,
@@ -329,7 +382,7 @@ def check_int4_kernel(m: int, k: int, n: int, seed: int, group: int = 128,
     """K4 against its plain version at (M, K, N): bf16 x, a seeded weight
     of the init's scale quantized on the card; returns error and times.
     The library call is one bf16 ``F.linear`` on the dequantized weight.
-    A ``baseline`` kernel (``int4_baseline_kernel``) runs on the same
+    A ``baseline`` kernel (``baseline_kernel``) runs on the same
     inputs: its difference from K4 and its time, timed in turns with K4."""
     import torch
     import torch.nn.functional as F
@@ -858,6 +911,10 @@ def main() -> int:
     parser.add_argument("--int4_baseline", default=None, metavar="FILE",
                         help="another version of csrc/int4_matmul.cu to build and time in "
                              "turns with K4 on the K4 checks' inputs")
+    parser.add_argument("--flash_baseline", default=None, metavar="FILE",
+                        help="another version of csrc/flash_attention.cu to build, time in "
+                             "turns with K1 on the K1 checks' inputs, and run the bf16 "
+                             "slice through")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -875,7 +932,9 @@ def main() -> int:
     from eventgpt_tpu_torch.ops.int4_matmul import INT4_KERNEL, LAUNCHES_BY_SHAPE
 
     kernels = [FLASH_KERNEL, INT4_KERNEL, DECODE_INT8_KERNEL, PAGED_INT8_KERNEL]
-    baseline = int4_baseline_kernel(args.int4_baseline) if args.int4_baseline else None
+    baseline = baseline_kernel(INT4_KERNEL, args.int4_baseline) if args.int4_baseline else None
+    flash_base = (baseline_kernel(FLASH_KERNEL, args.flash_baseline)
+                  if args.flash_baseline else None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = torch.cuda.get_device_name(0)
@@ -896,7 +955,7 @@ def main() -> int:
     # 1. build
     shutil.rmtree(os.path.join(ROOT, "eventgpt_tpu_torch", "csrc", "build"), ignore_errors=True)
     t0 = time.perf_counter()
-    built = kernels + ([baseline] if baseline else [])
+    built = kernels + [x for x in (baseline, flash_base) if x is not None]
     build_all(built)
     for k in built:
         k.lib()
@@ -919,12 +978,16 @@ def main() -> int:
         emit("host", {**host, "init_weights_s": time.perf_counter() - t0})
 
         # 2. kernel checks at the main paths' shapes: K1 at the prefill
-        # shape and at an S that is no multiple of the 64-row tile; K4 at
-        # the 7B decode shapes and at the prefill M = B * T.
-        main_check = check_flash_kernel(lengths, seed=1)
+        # shape, at an S that is no multiple of the 64-row tile and at the
+        # tile edges (rows of 129, 128, 64 and 1 keys); K4 at the 7B decode
+        # shapes and at the prefill M = B * T.
+        main_check = check_flash_kernel(lengths, seed=1, baseline=flash_base)
         emit("kernel_flash_main_shape", main_check)
-        odd_check = check_flash_kernel([333, 201], seed=2)
+        odd_check = check_flash_kernel([333, 201], seed=2, baseline=flash_base)
         emit("kernel_flash_odd_s", odd_check)
+        edge_check = check_flash_kernel([129, 128, 64, 1], seed=3, baseline=flash_base)
+        emit("kernel_flash_tile_edges", edge_check)
+        flash_checks = (main_check, odd_check, edge_check)
         m_prefill = len(lengths) * max(lengths)
         int4_checks = {}
         prefill_shapes = [(m_prefill, k, n) for k, n in INT4_PREFILL_LAUNCHES]
@@ -947,17 +1010,40 @@ def main() -> int:
             "config": "EventGPT-7B (CLIP ViT-L/14-336 24 layers, LLaMA-7B 32 layers, d=4096, "
                       "vocab 32000), random bf16 weights, seed 0",
             "requests": len(QUERIES), "prompt_lengths": lengths, "run": "first (cold)",
-            **cold, "launches": launches, "nvidia_smi": smi,
+            **cold, "launches": launches, "greedy_sha256": digest(out_ids), "nvidia_smi": smi,
         })
         warm, warm_ids = timed_generate(eventchat, params, cfg, ids, pixels, tokenizer)
         if warm_ids != out_ids:
             raise AssertionError("a second greedy run gave other tokens")
         emit("slice_warm", {"run": "second (warm)", **warm, "nvidia_smi": smi})
         answers = tokenizer.batch_decode(out_ids, skip_special_tokens=True)
-        if args.profile:
-            emit("profile", profile_call(
+
+        def profile_bf16(name):
+            """K1's device ms per prefill forward, from one more profiled
+            bf16 batch (one prefill forward of 32 launches)."""
+            prof = profile_call(
                 lambda: timed_generate(eventchat, params, cfg, ids, pixels, tokenizer),
-                args.profile, "generate"))
+                args.profile, name, match="flash_fwd_kernel")
+            return {**prof, "k1_device_ms_per_prefill": prof["matched_device_ms"]}
+
+        if args.profile:
+            emit("profile", profile_bf16("generate"))
+        if flash_base is not None:
+            # The same warm batch with K1 launched from the baseline's
+            # library, then once more through K1: prefill in turns.
+            with routed_through(FLASH_KERNEL, flash_base):
+                base, base_ids = timed_generate(eventchat, params, cfg, ids, pixels, tokenizer)
+                base_prof = profile_bf16("generate_flash_baseline") if args.profile else None
+            again, again_ids = timed_generate(eventchat, params, cfg, ids, pixels, tokenizer)
+            if again_ids != out_ids:
+                raise AssertionError("a third greedy run gave other tokens")
+            emit("slice_flash_baseline", {
+                "kernel": flash_base.path, "warm": base, "greedy_sha256": digest(base_ids),
+                "same_chains_as_kernel": base_ids == out_ids,
+                "kernel_prefill_ms_turns": [warm["prefill_ms"], again["prefill_ms"]],
+                "nvidia_smi": smi})
+            if base_prof is not None:
+                emit("profile_flash_baseline", base_prof)
         emit("answers", {"answers": answers, "first_ids": [r[:8] for r in out_ids]})
 
         # Flash vs dense prefill: first-token logits on the same embeddings.
@@ -1183,12 +1269,13 @@ def main() -> int:
         "source": "eventgpt_tpu_torch/csrc/flash_attention.cu",
         "replaces": "eventgpt_tpu/ops/flash_attention.py:29",
         "launches": launches[FLASH_KERNEL.source],
-        "max_abs_err": max(main_check["max_abs_err"], odd_check["max_abs_err"]),
+        "max_abs_err": max(c["max_abs_err"] for c in flash_checks),
         "ms": main_check["ms"],
         "plain_ms": main_check["plain_ms"],
         "bound_ms": main_check["bound_ms"],
         "bound_by": main_check["bound_by"],
         "library_ms": main_check["library_ms"],
+        **({"baseline_ms": main_check["baseline_ms"]} if flash_base else {}),
     }, {
         "name": "int4_matmul",
         "route": "cuda",

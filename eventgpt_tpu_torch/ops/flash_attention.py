@@ -9,6 +9,20 @@ of the same function.
 Bound on an H100 SXM at the 7B prefill shape of ``chip_smoke.py`` (B=4,
 S=849, H=32, hd=128, bf16): 111 MB of q/k/v/out and mask -> 33 us at
 3.35 TB/s (the bound), against 23.6 GFLOP causal -> 24 us at 989 TFLOP/s.
+What holds the kernel back is the issue slots and latency of its 4 warps
+per 64-row q tile, not either bound: every 64-key tile costs each warp
+128 ``mma.sync``, 32 ``expf`` a thread and the rescale of its f32
+accumulator, and each tile comes from L2.
+
+The kernel takes its Q, K and V fragments through ``ldmatrix`` (V
+transposed), streams K and V tiles through a 2-stage ``cp.async`` ring
+(tile kb + 1 in flight while tile kb computes, one barrier a tile, rows
+past S zero-filled), tests each tile's key mask in a 64-bit register, and
+runs the heaviest causal q tiles first. Its output is bit-identical to the
+first version of the kernel: the same values reach the same fragment
+registers, and the mma order, the 64-key tile order, ``expf`` on the scaled
+f32 score and the row-sum order are kept; only how the operands arrive and
+when blocks run changed.
 """
 
 from __future__ import annotations

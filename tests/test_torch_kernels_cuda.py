@@ -32,6 +32,18 @@ def _card():
     (2, 333, 4, [333, 200], True),    # S no tile multiple, right padding
     (3, 130, 2, [130, 65, 1], True),  # a one-token row
     (2, 200, 2, [150, 200], False),   # non-causal with padding
+    # The 64-row q tile and 64-key KV tile edges: one token, one short of a
+    # tile, one tile, one past it, two tiles either side.
+    (1, 1, 2, None, True),
+    (2, 63, 2, [63, 17], True),
+    (2, 64, 2, [64, 63], False),
+    (2, 65, 2, [65, 64], True),
+    (2, 127, 2, [127, 65], True),
+    (2, 128, 2, [128, 127], True),
+    (4, 129, 2, [129, 128, 64, 1], True),
+    (3, 96, 2, [96, 0, 40], True),    # a row whose every key is padding
+    (2, 96, 2, [0, 96], False),       # the same, non-causal
+    (4, 849, 32, [849, 830, 815, 808], True),  # the 7B prefill shape
 ])
 def test_flash_kernel_matches_plain(b, s, h, lengths, causal):
     dev = _card()
@@ -46,9 +58,23 @@ def test_flash_kernel_matches_plain(b, s, h, lengths, causal):
     assert fa.FLASH_KERNEL.launches == before + 1
     ref = fa.flash_attention_reference(q, k, v, valid, causal)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
     assert (out.float() - ref.float()).abs().max().item() < ATOL
     for row, n in enumerate(lens.tolist()):
         assert (out[row, n:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_two_launches_are_bit_equal(causal):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((3, 333, 8, 128), generator=g, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    lens = torch.tensor([333, 200, 65], device=dev)
+    valid = torch.arange(333, device=dev)[None, :] < lens[:, None]
+    _two_calls_equal(lambda: fa.flash_attention(q, k, v, valid=valid, causal=causal),
+                     fa.FLASH_KERNEL)
 
 
 @pytest.mark.cuda
