@@ -52,13 +52,37 @@ Phases, each printed on its own line:
                    and against K2 on the gathered view, also at n_valid 0, 1,
                    64 and 65;
 6. slice_int8_fused -- ``--quant int8 --fuse_params`` with a bf16 cache;
-7. tiny_*       -- tiny models give the same greedy chain on the card as on
+7. checkpoint_7b -- phase 3's bf16 tree written as a sharded HF checkpoint
+                   (``convert.write_hf_checkpoint``) into the work directory,
+                   then loaded through ``cli.infer.load_model`` and
+                   ``prepare_model`` on the card: every leaf equal to phase
+                   3's, the four requests give ``slice``'s digest (K1 32
+                   launches); loaded again with ``--quant int4`` and run with
+                   the int8 cache, ``slice_int4``'s digest (K4 225 x (1 +
+                   steps)); write and load seconds and GB/s, and the peak
+                   device memory of the load over what was held before it;
+                   ``python -m eventgpt_tpu_torch.cli.infer --model_path DIR``
+                   as a subprocess on one stream (the first whose answer
+                   decodes to text) prints the answer and token count of an
+                   in-process batch-1 ``generate``, and so does it over a
+                   tiny bf16 checkpoint whose every generated id is one
+                   printable character (``cli_subprocess_tiny``). ``slice_qformer``: a
+                   seeded Q-Former at 7B width (32 queries, 2 layers, d =
+                   4096) saved as component files and loaded over the same
+                   directory with ``--use_event_qformer
+                   --pretrain_query_embedder --pretrain_attention_layers``;
+                   the four requests run on 32 event tokens each, cold then
+                   warm. The
+                   directory is deleted when the phases end;
+8. tiny_*       -- tiny models give the same greedy chain on the card as on
                    the CPU, bf16-free f32, with int4 + int8 KV + fused (its
-                   chain's sha256 printed), and
-                   served paged with the int8 cache; ``serve_http_tiny`` runs
-                   ``cli/serve.build_server`` on the card and answers two
-                   POST /v1/generate;
-8. kernels      -- one JSON line per the kernel table (K4 with one decode
+                   chain's sha256 printed), served paged with the int8
+                   cache, and loaded from a checkpoint the port wrote
+                   (plain and with a gated Q-Former);
+                   ``serve_http_tiny`` runs ``cli/serve.build_server`` on the
+                   card over a tiny bf16 checkpoint (``--model_path DIR``,
+                   prefill through K1) and answers two POST /v1/generate;
+9. kernels      -- one JSON line per the kernel table (K4 with one decode
                    step's and one prefill forward's launches), then the card's name
                    and power limit, then the result line.
 
@@ -139,6 +163,8 @@ SERVE_EXTRA = [(0, 3, 16), (1, 2, 16)]  # (stream, query, new tokens)
 # up; down; lm_head, in each of 32 layers but the last.
 INT4_LAUNCHES_PER_STEP = {(4, 4096, 4096): 128, (4, 4096, 11008): 64,
                           (4, 11008, 4096): 32, (4, 4096, 32000): 1}
+# Shards of the 7B checkpoint that checkpoint_7b writes (~3.5 GB each).
+CKPT_SHARDS = 4
 # K4 launches per 7B prefill forward at M = B*T, by (K, N): gate, up;
 # down; q, k, v, o, in each of 32 layers (lm_head runs on the last
 # position only, at M = B).
@@ -860,19 +886,37 @@ def tiny_serve_card_matches_cpu(work: str) -> dict:
 
 
 def serve_http_tiny(work: str) -> dict:
-    """``cli/serve.build_server`` on the default device (the card) with
-    tiny-random weights, paged with the int8 cache: two POST /v1/generate
-    answer 200."""
+    """``cli/serve.build_server`` on the default device (the card) over a
+    tiny bf16 checkpoint the port wrote, loaded through ``--model_path``
+    (head_dim 128, so that prefill takes K1, the default on the card),
+    paged with the int8 cache: two POST /v1/generate answer 200."""
     import base64
+    import dataclasses
     import http.client
     import threading
 
-    from eventgpt_tpu_torch.cli import serve as cli_serve
+    import torch
 
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+    from eventgpt_tpu_torch.config import EventChatConfig, LlamaConfig
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params, write_hf_checkpoint
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    base = EventChatConfig.tiny()
+    cfg = dataclasses.replace(
+        base, llama=LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                                num_layers=2, num_heads=2, num_kv_heads=2, max_seq_len=2048),
+        projector=dataclasses.replace(base.projector, output_dim=256))
+    ckpt = os.path.join(work, "tiny_serve_checkpoint")
+    write_hf_checkpoint(init_eventchat_params(cfg, torch.Generator().manual_seed(6),
+                                              torch.bfloat16, "cpu"), cfg, ckpt)
     args = cli_serve.build_parser().parse_args(
-        ["--model_path", "tiny-random", "--port", "0", "--kv_layout", "paged",
-         "--kv_cache", "int8", "--max_new_tokens", "8"])
+        ["--model_path", ckpt, "--tokenizer_path", "byte", "--port", "0", "--kv_layout",
+         "paged", "--kv_cache", "int8", "--max_new_tokens", "8"])
     httpd, engine = cli_serve.build_server(args)
+    if engine.batcher.cfg.llama.attn_impl != "flash":
+        raise AssertionError("a checkpoint served on the card must prefill through K1")
+    FLASH_KERNEL.launches = 0
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     answers = []
@@ -890,13 +934,347 @@ def serve_http_tiny(work: str) -> dict:
             answers.append({"code": res.status, "tokens": obj["tokens"],
                             "latency_s": obj["latency_s"], "answer": obj["answer"]})
         device = str(engine.batcher.device)
+        k1 = FLASH_KERNEL.launches
     finally:
         httpd.shutdown()
         engine.shutdown()
         httpd.server_close()
     if not device.startswith("cuda"):
         raise AssertionError(f"the server ran on {device}, not the card")
-    return {"device": device, "answers": answers}
+    if k1 == 0:
+        raise AssertionError("the served checkpoint did not launch K1")
+    return {"device": device, "model_path": "tiny bf16 checkpoint (LLaMA d=256, 2 heads of 128)",
+            "k1_launches": k1, "answers": answers}
+
+
+def tree_mismatches(a, b, path: str = "params") -> list:
+    """Paths where two parameter trees differ: structure, dtype, shape or
+    any value (``torch.equal``)."""
+    import torch
+
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)) or set(a) != set(b):
+            return [path]
+        return [m for k in a for m in tree_mismatches(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, list) or isinstance(b, list):
+        if not (isinstance(a, list) and isinstance(b, list)) or len(a) != len(b):
+            return [path]
+        return [m for i, (x, y) in enumerate(zip(a, b))
+                for m in tree_mismatches(x, y, f"{path}[{i}]")]
+    same = a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+    return [] if same else [path]
+
+
+def load_checkpoint_on_card(path: str, **flags) -> tuple:
+    """``cli.infer.load_model`` and ``prepare_model`` on the card as the CLI
+    runs them for ``--model_path path --tokenizer_path byte`` and ``flags``;
+    returns (cfg, params, tokenizer, numbers): seconds of the read and of
+    the whole load, and the peak device memory over what was held before."""
+    import argparse
+
+    import torch
+
+    from eventgpt_tpu_torch.cli.infer import load_model, prepare_model
+
+    args = argparse.Namespace(model_path=path, use_event_qformer=False,
+                              pretrain_query_embedder=None, pretrain_attention_layers=None,
+                              quant="none", fuse_params=False, seed=0,
+                              spatial_temporal_encoder=True)
+    for k, v in flags.items():
+        setattr(args, k, v)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, tokenizer = load_model(path, "bfloat16", None, "byte", "cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    cfg, params = prepare_model(cfg, params, tokenizer, args)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if params["llama"]["embed_tokens"].device.type != "cuda":
+        raise AssertionError("the checkpoint did not load onto the card")
+    return cfg, params, tokenizer, {
+        "read_s": read_s, "load_s": load_s,
+        "peak_bytes_over_before": torch.cuda.max_memory_allocated() - before,
+        "held_before_bytes": before}
+
+
+def run_infer_cli(ckpt: str, event_path: str, query: str, answer: str, tokens: int) -> dict:
+    """``python -m eventgpt_tpu_torch.cli.infer`` over ``ckpt`` with the
+    byte tokenizer, greedy, on the default device (the card), as a user
+    starts it; raises unless it prints ``answer`` after ``tokens`` generated
+    tokens (the numbers of an in-process batch-1 ``generate``)."""
+    cmd = [sys.executable, "-m", "eventgpt_tpu_torch.cli.infer", "--model_path", ckpt,
+           "--tokenizer_path", "byte", "--temperature", "0", "--max_new_tokens",
+           str(MAX_NEW_TOKENS), "--event_frame", event_path, "--query", query, "--timing"]
+    env = dict(os.environ, PYTHONIOENCODING="utf-8",
+               PYTHONPATH=os.pathsep.join([ROOT] + [x for x in [os.environ.get("PYTHONPATH")]
+                                                    if x]))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, timeout=600, cwd=ROOT, env=env)
+    cli_s = time.perf_counter() - t0
+    err = res.stderr.decode(errors="replace")
+    if res.returncode != 0:
+        raise AssertionError(f"the infer CLI exited {res.returncode}: {err[-2000:]}")
+    timing = [ln for ln in err.splitlines() if ln.startswith("[timing]")]
+    cli_tokens = int(timing[-1].split("(")[1].split()[0]) if timing else -1
+    if res.stdout != (answer + "\n").encode() or cli_tokens != max(tokens, 1):
+        raise AssertionError(f"the infer CLI printed {res.stdout[-300:]!r} of {cli_tokens} "
+                             f"tokens; in-process generate gives {answer!r} of {tokens}")
+    return {"argv": cmd[3:], "seconds": cli_s, "answer": answer, "tokens": tokens,
+            "timing": timing[-1], "equals_in_process_batch_1": True}
+
+
+def cli_subprocess_tiny(work: str, counted) -> dict:
+    """The infer CLI in a subprocess over a tiny bf16 checkpoint (vocab 260:
+    the byte tokenizer's 259 and ``<ev_patch>``; LLaMA heads of 128, so
+    that prefill takes K1), against an in-process batch-1 ``generate`` on
+    the card over the same directory loaded as the CLI loads it. The
+    lm_head rows of every id but those of the printable ASCII bytes 33-126
+    are zero, so greedy decoding picks one of those (their largest random
+    logit lies above 0): each generated id is one character of the answer,
+    and a wrong dtype, attention path or prefill in the CLI shows as
+    another string."""
+    import dataclasses
+
+    import torch
+
+    from eventgpt_tpu_torch.config import EventChatConfig, LlamaConfig
+    from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
+    from eventgpt_tpu_torch.data.tokenizer import tokenize_with_event
+    from eventgpt_tpu_torch.models import eventchat
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params, write_hf_checkpoint
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+    from eventgpt_tpu_torch.ops.image import process_event_file
+
+    base = EventChatConfig.tiny()
+    cfg = dataclasses.replace(
+        base, llama=LlamaConfig(vocab_size=260, hidden_size=256, intermediate_size=512,
+                                num_layers=2, num_heads=2, num_kv_heads=2, max_seq_len=2048),
+        projector=dataclasses.replace(base.projector, output_dim=256))
+    ckpt = os.path.join(work, "tiny_cli_checkpoint")
+    seeded = init_eventchat_params(cfg, torch.Generator().manual_seed(8), torch.bfloat16, "cpu")
+    # The byte tokenizer's id of byte b is b + 3.
+    seeded["llama"]["lm_head"][:33 + 3] = 0
+    seeded["llama"]["lm_head"][126 + 3 + 1:] = 0
+    write_hf_checkpoint(seeded, cfg, ckpt)
+    lcfg, params, tok, _ = load_checkpoint_on_card(ckpt)
+    if lcfg.llama.attn_impl != "flash" or lcfg.llama.vocab_size != 260:
+        raise AssertionError(f"the tiny CLI checkpoint loaded as {lcfg.llama}")
+    event_path = os.path.join(work, "events_2.npy")
+    _, px = process_event_file(event_path, lcfg.num_event_frames, lcfg.vision.image_size)
+    ids = tokenize_with_event(prepare_event_prompt(QUERIES[2]), tok)
+    one, launches = counted(lambda: eventchat.generate(
+        params, lcfg, [ids], px[None], max_new_tokens=MAX_NEW_TOKENS, temperature=0.0,
+        top_p=1.0, eos_token_id=tok.eos_token_id, seed=0, max_context=2048)[0])
+    answer = tok.batch_decode([one], skip_special_tokens=True)[0].strip()
+    if (not len(answer) == len(one) == MAX_NEW_TOKENS
+            or launches[FLASH_KERNEL.source] != lcfg.llama.num_layers):
+        raise AssertionError(f"tiny in-process answer {answer!r} of {len(one)} tokens, "
+                             f"launches {launches}")
+    out = run_infer_cli(ckpt, event_path, QUERIES[2], answer, len(one))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"model_path": "tiny bf16 checkpoint (vocab 260, LLaMA d=256, 2 heads of 128)",
+            **out, "in_process_launches": launches}
+
+
+def checkpoint_7b(params, cfg, ckpt: str, ids, pixels, event_paths, counted,
+                  digests: dict) -> dict:
+    """Phase 3's bf16 tree through a checkpoint on disk, as a user runs a
+    real one: written by ``write_hf_checkpoint``, loaded by the CLI's
+    functions (bf16, then ``--quant int4``), and by the CLI itself in a
+    subprocess. Every check raises."""
+    import torch
+
+    from eventgpt_tpu_torch.models import eventchat
+    from eventgpt_tpu_torch.models.convert import write_hf_checkpoint
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+    from eventgpt_tpu_torch.ops.int4_matmul import INT4_KERNEL
+
+    n_layers = cfg.llama.num_layers
+    tree = tree_bytes(params)
+    work = os.path.dirname(ckpt)
+    free = shutil.disk_usage(work).free
+    if free < tree + 2**30:
+        raise RuntimeError(f"checkpoint_7b: {free} bytes free under {work}, the bf16 7B "
+                           f"checkpoint needs {tree + 2**30}")
+    t0 = time.perf_counter()
+    write_hf_checkpoint(params, cfg, ckpt, num_shards=CKPT_SHARDS)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    os.sync()
+    sync_s = time.perf_counter() - t0
+    files = sorted(os.listdir(ckpt))
+    nbytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
+
+    lcfg, loaded, tokenizer, load_bf16 = load_checkpoint_on_card(ckpt)
+    if lcfg != cfg:
+        raise AssertionError(f"the loaded config differs from the 7B preset: {lcfg}")
+    bad = tree_mismatches(loaded, params)
+    if bad:
+        raise AssertionError(f"the loaded 7B tree differs from phase 3's at {bad[:5]}")
+    (run, out_ids), launches = counted(
+        lambda: timed_generate(eventchat, loaded, lcfg, ids, pixels, tokenizer))
+    if digest(out_ids) != digests["slice"] or launches[FLASH_KERNEL.source] != n_layers:
+        raise AssertionError(f"checkpoint_7b bf16: digest {digest(out_ids)} (slice "
+                             f"{digests['slice']}), launches {launches}")
+    del loaded
+    torch.cuda.empty_cache()
+
+    _, loaded4, _, load_int4 = load_checkpoint_on_card(ckpt, quant="int4")
+    (run4, ids4), launches4 = counted(
+        lambda: timed_generate(eventchat, loaded4, lcfg, ids, pixels, tokenizer, kv_quant=True))
+    want_k4 = (7 * n_layers + 1) * (1 + run4["decode_steps"])
+    if (digest(ids4) != digests["slice_int4"] or launches4[INT4_KERNEL.source] != want_k4
+            or launches4[FLASH_KERNEL.source] != n_layers):
+        raise AssertionError(f"checkpoint_7b int4: digest {digest(ids4)} (slice_int4 "
+                             f"{digests['slice_int4']}), launches {launches4}, want K4 {want_k4}")
+    del loaded4
+    torch.cuda.empty_cache()
+
+    # The CLI as a user starts it, on one stream, against an in-process
+    # batch-1 generate on the same tree with the CLI's defaults. The stream
+    # is the first whose answer decodes to text: with random weights most
+    # ids lie past the byte tokenizer's 259 and decode to nothing, so the
+    # token counts are compared too, and ``cli_subprocess_tiny`` repeats the
+    # check on a checkpoint whose every id decodes to text.
+    for i in range(len(QUERIES)):
+        one = eventchat.generate(params, cfg, [ids[i]], pixels[i:i + 1],
+                                 max_new_tokens=MAX_NEW_TOKENS, temperature=0.0, top_p=1.0,
+                                 eos_token_id=tokenizer.eos_token_id, seed=0,
+                                 max_context=2048)[0]
+        answer = tokenizer.batch_decode([one], skip_special_tokens=True)[0].strip()
+        if answer:
+            break
+    cli = run_infer_cli(ckpt, event_paths[i], QUERIES[i], answer, len(one))
+    return {
+        "config": "EventGPT-7B, phase 3's random bf16 weights", "shards": CKPT_SHARDS,
+        "files": files, "bytes": nbytes, "tree_bytes": tree, "free_bytes_before": free,
+        "write_s": write_s, "sync_s": sync_s, "write_gb_s": nbytes / write_s / 1e9,
+        "page_cache": "warm: the files were written in this phase, and the host holds "
+                      "them in memory",
+        "load_bf16": {**load_bf16, "gb_s": nbytes / load_bf16["load_s"] / 1e9,
+                      "peak_over_tree": load_bf16["peak_bytes_over_before"] / tree},
+        "leaves_equal_phase_3": True, "bf16_run": run, "bf16_launches": launches,
+        "greedy_sha256": digest(out_ids), "same_digest_as_slice": True,
+        "load_int4": {**load_int4, "flags": "--quant int4 (quantized on the card in place)",
+                      "gb_s": nbytes / load_int4["load_s"] / 1e9},
+        "int4_run": run4, "int4_launches": launches4, "k4_launches_want": want_k4,
+        "int4_greedy_sha256": digest(ids4), "same_digest_as_slice_int4": True,
+        "cli_subprocess": {**cli, "stream": i},
+    }
+
+
+def slice_qformer(cfg, ckpt: str, ids, pixels, counted) -> dict:
+    """A seeded Q-Former at 7B width, saved as component files and loaded
+    over the 7B checkpoint with ``--use_event_qformer
+    --pretrain_query_embedder --pretrain_attention_layers``; the four
+    requests run on its 32 event tokens each, twice (cold, then warm). At
+    this width the card checks the Q-Former's shape, finiteness and the
+    path's launches; its arithmetic is held against the JAX package's on
+    the CPU at small widths (tests/test_torch_qformer.py)."""
+    import torch
+
+    from eventgpt_tpu_torch.config import QFormerConfig
+    from eventgpt_tpu_torch.models import eventchat
+    from eventgpt_tpu_torch.models.qformer import init_qformer_params, save_qformer_components
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    qcfg = QFormerConfig(hidden_size=cfg.llama.hidden_size)
+    seeded = init_qformer_params(qcfg, torch.Generator(device="cuda").manual_seed(7),
+                                 torch.bfloat16, "cuda")
+    qe = os.path.join(os.path.dirname(ckpt), "qformer_7b", "query_embedder.npz")
+    al = os.path.join(os.path.dirname(ckpt), "qformer_7b", "attention_layers.npz")
+    t0 = time.perf_counter()
+    save_qformer_components(seeded, qe, al, num_heads=qcfg.num_heads)
+    save_s = time.perf_counter() - t0
+    qcfg_loaded, params, tokenizer, load = load_checkpoint_on_card(
+        ckpt, use_event_qformer=True, pretrain_query_embedder=qe, pretrain_attention_layers=al)
+    if not qcfg_loaded.use_event_qformer or qcfg_loaded.qformer != qcfg:
+        raise AssertionError(f"the Q-Former config read off the artifacts: {qcfg_loaded.qformer}")
+    bad = tree_mismatches(params["qformer"], seeded, "qformer")
+    if bad:
+        raise AssertionError(f"the loaded Q-Former differs from the seeded one at {bad[:5]}")
+    with torch.inference_mode():
+        px = torch.as_tensor(pixels, device="cuda").to(torch.bfloat16)
+        ev = eventchat.encode_events_batch(params, qcfg_loaded, px)
+    if tuple(ev.shape) != (len(QUERIES), qcfg.num_queries, cfg.llama.hidden_size) \
+            or not bool(torch.isfinite(ev.float()).all()):
+        raise AssertionError(f"Q-Former event tokens {tuple(ev.shape)} or not finite")
+    (run, out_ids), launches = counted(
+        lambda: timed_generate(eventchat, params, qcfg_loaded, ids, pixels, tokenizer))
+    if launches[FLASH_KERNEL.source] != cfg.llama.num_layers:
+        raise AssertionError(f"slice_qformer: launches {launches}, want K1 = "
+                             f"{cfg.llama.num_layers}")
+    check_generations("qformer", out_ids, cfg.llama.vocab_size)
+    # The first batch on a new tree is cold (the allocator grows, cuBLAS
+    # picks its kernels for the new M); a second batch gives warm times.
+    warm, warm_ids = timed_generate(eventchat, params, qcfg_loaded, ids, pixels, tokenizer)
+    if warm_ids != out_ids:
+        raise AssertionError("slice_qformer: the warm batch's ids differ from the first's")
+    out = {
+        "config": "EventGPT-7B from the checkpoint + Q-Former (32 queries, 2 layers, 8 "
+                  "heads, d=4096, mlp 4x), seeded bf16, saved as f32 npz",
+        "qformer_bytes": tree_bytes(seeded),
+        "component_file_bytes": os.path.getsize(qe) + os.path.getsize(al),
+        "save_s": save_s, "load": load,
+        "event_tokens_per_request": [int(ev.shape[1])] * int(ev.shape[0]),
+        "prefill_lengths": [len(x) - 1 + qcfg.num_queries for x in ids],
+        "first_batch": "cold", **run, "warm": warm, "launches": launches,
+        "greedy_sha256": digest(out_ids),
+        "first_ids": [r[:8] for r in out_ids]}
+    del params, seeded, ev
+    torch.cuda.empty_cache()
+    return out
+
+
+def tiny_checkpoint_card_vs_cpu(work: str) -> dict:
+    """A tiny f32 checkpoint written by the port, loaded by ``load_model``
+    and ``prepare_model`` (``--attn_impl dense``: K1 takes bf16 and head_dim
+    128 only), gives the same greedy chain on the card as on the CPU:
+    plain, and with a gated Q-Former whose component files lie beside it."""
+    import argparse
+    import dataclasses
+
+    import torch
+
+    from eventgpt_tpu_torch.cli.infer import load_model, prepare_model
+    from eventgpt_tpu_torch.config import EventChatConfig, QFormerConfig
+    from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
+    from eventgpt_tpu_torch.data.tokenizer import tokenize_with_event
+    from eventgpt_tpu_torch.models import eventchat
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params, write_hf_checkpoint
+    from eventgpt_tpu_torch.ops.image import process_event_file
+
+    base = EventChatConfig.tiny(vocab_size=260)
+    out = {}
+    for name, cfg in (("plain", base), ("qformer", dataclasses.replace(
+            base, use_event_qformer=True,
+            qformer=QFormerConfig(num_queries=6, num_layers=2, num_heads=2, hidden_size=64,
+                                  mlp_ratio=2)))):
+        ckpt = os.path.join(work, f"tiny_checkpoint_{name}")
+        write_hf_checkpoint(init_eventchat_params(cfg, torch.Generator().manual_seed(4),
+                                                  torch.float32, "cpu"), cfg, ckpt)
+        chains = {}
+        for dev in ("cpu", "cuda"):
+            lcfg, params, tok = load_model(ckpt, "float32", "dense", "byte", dev)
+            lcfg, params = prepare_model(lcfg, params, tok, argparse.Namespace(
+                model_path=ckpt, use_event_qformer=False, pretrain_query_embedder=None,
+                pretrain_attention_layers=None, quant="none"))
+            if lcfg.use_event_qformer != (name == "qformer"):
+                raise AssertionError(f"tiny {name} checkpoint: the Q-Former gate was lost")
+            _, px = process_event_file(os.path.join(work, "events_2.npy"), lcfg.num_event_frames,
+                                       lcfg.vision.image_size)
+            ids = tokenize_with_event(prepare_event_prompt(QUERIES[2]), tok)
+            chains[dev] = eventchat.generate(params, lcfg, [ids], px[None], max_new_tokens=16,
+                                             temperature=0.0, eos_token_id=None, device=dev)
+        if chains["cpu"] != chains["cuda"]:
+            raise AssertionError(f"tiny {name} checkpoint chains differ: cpu {chains['cpu']} "
+                                 f"vs cuda {chains['cuda']}")
+        out[name] = {"event_tokens": lcfg.num_event_tokens, "tokens": len(chains["cuda"][0]),
+                     "identical": True}
+    return out
 
 
 def main() -> int:
@@ -1240,13 +1618,31 @@ def main() -> int:
             "launches": launches8, "int8_gemm_form": quant.int8_gemm_form(probe),
             "int8_llama_bytes": tree_bytes(llama_i8), "first_ids": [r[:8] for r in ids8],
             "nvidia_smi": smi})
-        del params, params_i8, llama_i8
+        del params_i8, llama_i8
+        torch.cuda.empty_cache()
+
+        # 7. the 7B tree through a checkpoint on disk, then the Q-Former
+        # loaded over it; the directory goes when the phases end.
+        ckpt = os.path.join(work, "checkpoint_7b")
+        try:
+            emit("checkpoint_7b", {**checkpoint_7b(
+                params, cfg, ckpt, ids, pixels,
+                [os.path.join(work, f"events_{i}.npy") for i in range(len(QUERIES))], counted,
+                {"slice": digest(out_ids), "slice_int4": digest(ids4)}),
+                "cli_subprocess_tiny": cli_subprocess_tiny(work, counted), "nvidia_smi": smi})
+            emit("slice_qformer", {**slice_qformer(cfg, ckpt, ids, pixels, counted),
+                                   "nvidia_smi": smi})
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+            shutil.rmtree(os.path.join(work, "qformer_7b"), ignore_errors=True)
+        del params
         torch.cuda.empty_cache()
 
         emit("tiny_card_vs_cpu", tiny_card_matches_cpu(os.path.join(work, "events_0.npy")))
         emit("tiny_quant_card_vs_cpu",
              tiny_quant_card_matches_cpu(os.path.join(work, "events_1.npy")))
         emit("tiny_serve_card_vs_cpu", tiny_serve_card_matches_cpu(work))
+        emit("tiny_checkpoint_card_vs_cpu", tiny_checkpoint_card_vs_cpu(work))
         emit("serve_http_tiny", serve_http_tiny(work))
     finally:
         shutil.rmtree(work, ignore_errors=True)

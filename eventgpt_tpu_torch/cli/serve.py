@@ -19,7 +19,9 @@ Endpoints:
   GET  /health       -> {"status": "ok", "active": N, "queued": N}
   GET  /stats        -> engine counters, block-pool state, recent requests
 
-Ported flags: --model_path tiny-random, --max_batch, --max_len, --chunk,
+Ported flags: --model_path (tiny-random or a checkpoint dir), --tokenizer_path
+byte, --use_event_qformer, --pretrain_query_embedder,
+--pretrain_attention_layers, --max_batch, --max_len, --chunk,
 --temperature, --max_new_tokens, --dtype, --quant, --fuse_params,
 --kv_cache, --kv_layout, --kv_pool_blocks, --max_queue,
 --default_deadline_s, --max_body_mb, --drain_timeout_s, --host, --port,
@@ -435,9 +437,6 @@ _UNPORTED = [
     ("--trace_out", dict(), "span tracing"),
     ("--profile_dir", dict(), "POST /profile"),
     ("--faults", dict(), "fault injection"),
-    ("--use_event_qformer", dict(action="store_true"), "the Q-Former"),
-    ("--pretrain_query_embedder", dict(), "the Q-Former"),
-    ("--pretrain_attention_layers", dict(), "the Q-Former"),
 ]
 _MESH_FLAGS = ("--mesh_data", "--mesh_fsdp", "--mesh_model")
 
@@ -445,9 +444,16 @@ _MESH_FLAGS = ("--mesh_data", "--mesh_fsdp", "--mesh_model")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="EventGPT serving (PyTorch, CUDA)")
     p.add_argument("--model_path", default="tiny-random",
-                   help="tiny-random (tiny random weights); checkpoints are not ported yet")
+                   help="HF-layout checkpoint dir, or tiny-random (tiny random weights)")
     p.add_argument("--tokenizer_path", default=None,
-                   help="only 'byte' (the offline byte tokenizer) in this port")
+                   help="'byte' (the offline byte tokenizer); the HF tokenizer is not "
+                        "ported, so a checkpoint dir needs --tokenizer_path byte")
+    p.add_argument("--use_event_qformer", action="store_true",
+                   help="gate the Q-Former on (fresh weights unless component files load)")
+    p.add_argument("--pretrain_query_embedder", default=None,
+                   help="Q-Former query artifact (model.query_embedder.* npz)")
+    p.add_argument("--pretrain_attention_layers", default=None,
+                   help="Q-Former layer artifact (model.attention_layers.* npz)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8600)
     p.add_argument("--event_root", default=None,
@@ -516,26 +522,21 @@ def _refuse_unported(args) -> None:
     if args.prefill_budget != 0:
         raise NotImplementedError(f"--prefill_budget {args.prefill_budget}: piggyback "
                                   f"prefill lanes are not ported to eventgpt_tpu_torch yet")
-    if args.model_path != "tiny-random":
-        raise NotImplementedError(f"--model_path {args.model_path!r}: loading a checkpoint is "
-                                  f"not ported yet; use tiny-random")
-    if args.tokenizer_path not in (None, "byte"):
-        raise NotImplementedError("--tokenizer_path: only the byte tokenizer is ported")
 
 
 def build_engine(args):
-    """(cfg, engine): the model on ``--device`` and one batcher under one
-    engine."""
-    from eventgpt_tpu_torch.cli.infer import load_model
+    """(cfg, engine): the model loaded and prepared on ``--device`` as
+    ``cli/infer`` does it (``load_model``, ``prepare_model``), and one
+    batcher under one engine."""
+    from eventgpt_tpu_torch.cli.infer import load_model, prepare_model
     from eventgpt_tpu_torch.device import resolve_device
     from eventgpt_tpu_torch.serve import ContinuousBatcher
 
     _refuse_unported(args)
     device = resolve_device(args.device)
-    model_args = argparse.Namespace(attn_impl=None, spatial_temporal_encoder=True, seed=0,
-                                    dtype=args.dtype, fuse_params=args.fuse_params,
-                                    quant=args.quant)
-    cfg, params, tokenizer = load_model(model_args, device)
+    cfg, params, tokenizer = load_model(args.model_path, args.dtype, None, args.tokenizer_path,
+                                        device)
+    cfg, params = prepare_model(cfg, params, tokenizer, args)
     batcher = ContinuousBatcher(
         params, cfg, max_batch=args.max_batch, max_len=args.max_len, chunk=args.chunk,
         temperature=args.temperature, eos_token_id=tokenizer.eos_token_id,

@@ -1,15 +1,22 @@
 """Typed configuration of the port: the EventChat model and its parts.
 
-A copy of the dataclasses of ``eventgpt_tpu/config.py`` that this slice
-runs (vision tower, LLaMA, projector, top-level EventChat). ``attn_impl``
-takes ``dense`` or ``flash`` here; the sequence-parallel choices and the
-Q-Former come with later slices.
+A copy of the dataclasses of ``eventgpt_tpu/config.py`` that the port runs
+(vision tower, LLaMA, projector, Q-Former, top-level EventChat), their JSON
+round trip, and ``from_hf_config`` for a checkpoint's ``config.json``.
+``attn_impl`` takes ``dense`` or ``flash`` here; the sequence-parallel
+choices and the training-only remat fields of the JAX package's
+``LlamaConfig`` come with later slices. The JAX package's ``hidden_act`` and
+``max_event_stream_us``, which nothing reads, are left out.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional, Union
+
+import torch
 
 from eventgpt_tpu_torch import constants
 
@@ -55,6 +62,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
     max_seq_len: int = 2048
+    tie_word_embeddings: bool = False
     # "dense" = materialized-scores attention; "flash" = the fused prefill
     # kernel (ops/flash_attention.py). Decode always uses the dense
     # single-query path against the KV cache.
@@ -78,6 +86,13 @@ class LlamaConfig:
         return LlamaConfig(attn_impl="flash")
 
     @staticmethod
+    def llama_13b() -> "LlamaConfig":
+        return LlamaConfig(
+            hidden_size=5120, intermediate_size=13824, num_layers=40,
+            num_heads=40, num_kv_heads=40, attn_impl="flash",
+        )
+
+    @staticmethod
     def tiny(vocab_size: int = 256) -> "LlamaConfig":
         """Small config for tests."""
         return LlamaConfig(
@@ -99,6 +114,23 @@ class ProjectorConfig:
 
 
 @dataclass(frozen=True)
+class QFormerConfig:
+    """Shape of the config-gated event Q-Former (``models/qformer.py``):
+    ``num_queries`` learned queries in LM space cross-attend to the
+    projected frame features."""
+
+    num_queries: int = 32
+    num_layers: int = 2
+    num_heads: int = 8
+    hidden_size: int = 4096   # = LM embedding dim
+    mlp_ratio: int = 4
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+@dataclass(frozen=True)
 class EventChatConfig:
     """Top-level multimodal model config."""
 
@@ -115,9 +147,16 @@ class EventChatConfig:
     mm_use_im_start_end: bool = False
     mm_use_im_patch_token: bool = True
 
+    # When on, the Q-Former's learned queries replace the spatio-temporal
+    # pool as the LM's event tokens.
+    use_event_qformer: bool = False
+    qformer: QFormerConfig = field(default_factory=QFormerConfig)
+
     @property
     def num_event_tokens(self) -> int:
         """Tokens contributed by one event clip after the encode stage."""
+        if self.use_event_qformer:
+            return self.qformer.num_queries
         if not self.use_spatio_temporal_pool:
             return self.num_event_frames * self.vision.num_tokens
         t = self.num_temporal_tokens if self.num_temporal_tokens is not None else self.num_event_frames
@@ -126,6 +165,13 @@ class EventChatConfig:
     @staticmethod
     def eventgpt_7b() -> "EventChatConfig":
         return EventChatConfig(llama=LlamaConfig.llama_7b())
+
+    @staticmethod
+    def eventgpt_13b() -> "EventChatConfig":
+        return EventChatConfig(
+            llama=LlamaConfig.llama_13b(),
+            projector=ProjectorConfig(output_dim=5120),
+        )
 
     @staticmethod
     def tiny(vocab_size: int = 256) -> "EventChatConfig":
@@ -137,3 +183,108 @@ class EventChatConfig:
         llama = LlamaConfig.tiny(vocab_size)
         proj = ProjectorConfig(input_dim=32, output_dim=llama.hidden_size)
         return EventChatConfig(vision=vision, llama=llama, projector=proj)
+
+
+# ---------------------------------------------------------------------------
+# Serialization
+
+
+def to_dict(cfg: Any) -> Any:
+    if dataclasses.is_dataclass(cfg):
+        return {f.name: to_dict(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)}
+    return cfg
+
+
+_NESTED = {"vision": VisionConfig, "llama": LlamaConfig, "projector": ProjectorConfig,
+           "qformer": QFormerConfig}
+# Fields of the JAX package's dataclasses that the port does not carry: the
+# LM's training-only rematerialization, and the tower's activation name,
+# which neither package reads (both towers are CLIP's quick_gelu). A config
+# file the JAX package saved holds them; top-level fields the port lacks
+# (``max_event_stream_us``, read by neither package) are skipped as well.
+_NOT_CARRIED = {"llama": ("remat", "remat_policy"), "vision": ("hidden_act",)}
+
+
+def event_chat_config_from_dict(data: dict) -> EventChatConfig:
+    kwargs = {}
+    for f in dataclasses.fields(EventChatConfig):
+        if f.name not in data:
+            continue
+        v = data[f.name]
+        if f.name in _NESTED and isinstance(v, dict):
+            v = {k: x for k, x in v.items() if k not in _NOT_CARRIED.get(f.name, ())}
+            v = _NESTED[f.name](**v)
+        kwargs[f.name] = v
+    return EventChatConfig(**kwargs)
+
+
+def save_config(cfg: EventChatConfig, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(to_dict(cfg), f, indent=2)
+
+
+def load_config(path: str) -> EventChatConfig:
+    with open(path) as f:
+        return event_chat_config_from_dict(json.load(f))
+
+
+def default_attn_impl(device: Union[str, torch.device, None] = "cuda") -> str:
+    """Prefill attention for ``device``: the flash kernel (K1) on ``cuda``,
+    dense on the CPU, where the flash wrapper would run its plain version."""
+    return "flash" if torch.device("cuda" if device is None else device).type == "cuda" \
+        else "dense"
+
+
+def from_hf_config(hf: dict, attn_impl: Optional[str] = None,
+                   device: Union[str, torch.device, None] = "cuda") -> EventChatConfig:
+    """An EventChatConfig from an HF ``config.json`` dict: stock LLaMA
+    fields plus the reference's gating fields, with the JAX package's
+    rules (``eventgpt_tpu/config.py:from_hf_config``):
+
+    - the feature adaptor is on when ``event_feature_adaptor`` is present,
+      whatever its value; the Q-Former is on by ``use_event_qformer``'s value;
+    - a ``vision_config`` dict overrides the tower's dims, foreign keys
+      dropped;
+    - ``max_seq_len`` is ``max_position_embeddings`` capped at 4096.
+
+    ``attn_impl=None`` resolves by the device the model will run on
+    (``default_attn_impl``).
+    """
+    llama = LlamaConfig(
+        attn_impl=attn_impl if attn_impl is not None else default_attn_impl(device),
+        vocab_size=hf.get("vocab_size", 32000),
+        hidden_size=hf.get("hidden_size", 4096),
+        intermediate_size=hf.get("intermediate_size", 11008),
+        num_layers=hf.get("num_hidden_layers", 32),
+        num_heads=hf.get("num_attention_heads", 32),
+        num_kv_heads=hf.get("num_key_value_heads", hf.get("num_attention_heads", 32)),
+        rope_theta=hf.get("rope_theta", 10000.0),
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+        max_seq_len=min(hf.get("max_position_embeddings", 2048), 4096),
+        tie_word_embeddings=hf.get("tie_word_embeddings", False),
+    )
+    if isinstance(hf.get("vision_config"), dict):
+        known = {f.name for f in dataclasses.fields(VisionConfig)}
+        vision = VisionConfig(**{k: v for k, v in hf["vision_config"].items() if k in known})
+    else:
+        vision = VisionConfig()
+    proj = ProjectorConfig(
+        input_dim=vision.hidden_size,
+        output_dim=llama.hidden_size,
+        mlp_depth=hf.get("mm_projector_depth", 2),
+        use_feature_adaptor="event_feature_adaptor" in hf,
+    )
+    qf_kwargs = {}
+    if isinstance(hf.get("qformer_config"), dict):
+        known_qf = {f.name for f in dataclasses.fields(QFormerConfig)} - {"hidden_size"}
+        qf_kwargs = {k: v for k, v in hf["qformer_config"].items() if k in known_qf}
+    return EventChatConfig(
+        vision=vision,
+        llama=llama,
+        projector=proj,
+        use_spatio_temporal_pool=hf.get("spatial_temporal_encoder", True),
+        use_event_qformer=bool(hf.get("use_event_qformer", False)),
+        qformer=QFormerConfig(hidden_size=llama.hidden_size, **qf_kwargs),
+        mm_use_im_start_end=hf.get("mm_use_im_start_end", False),
+        mm_use_im_patch_token=hf.get("mm_use_im_patch_token", True),
+    )

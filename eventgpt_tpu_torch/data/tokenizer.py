@@ -152,13 +152,14 @@ class ByteTokenizer:
 
 
 def load_tokenizer(model_path: str):
-    """Load an HF tokenizer from a local path, or the ByteTokenizer fallback.
-
-    Replaces ``AutoTokenizer.from_pretrained(..., use_fast=False)`` at
-    ``inference.py:29``; ``model_path='byte'`` selects the offline fallback.
-    """
+    """The tokenizer for ``model_path``: ``'byte'`` selects the offline
+    ByteTokenizer. The HF tokenizer (``AutoTokenizer.from_pretrained(...,
+    use_fast=False)`` over a checkpoint's ``tokenizer.model``) is not
+    ported: it needs ``transformers`` and sentencepiece, which the card
+    machine lacks, so any other path raises."""
     if model_path == "byte":
         return ByteTokenizer()
-    from transformers import AutoTokenizer  # local import: heavy
-
-    return AutoTokenizer.from_pretrained(model_path, use_fast=False)
+    raise NotImplementedError(
+        f"tokenizer {model_path!r}: the HF tokenizer (tokenizer.model through "
+        f"transformers/sentencepiece) is not ported to eventgpt_tpu_torch yet; "
+        f"pass --tokenizer_path byte")

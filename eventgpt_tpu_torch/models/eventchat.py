@@ -3,6 +3,7 @@
 Port of ``eventgpt_tpu/models/eventchat.py`` for one-shot generation:
 
   1. ``encode_events_batch`` -- CLIP -> projector -> adaptor -> pooling
+                                (or the Q-Former, when the config gates it)
   2. ``llama.prefill``       -- spliced prompt embeddings, KV cache fill
   3. ``llama.decode_step``   -- the greedy or sampled decode loop
 
@@ -28,6 +29,7 @@ from eventgpt_tpu_torch.device import resolve_device
 from eventgpt_tpu_torch.models import clip as clip_mod
 from eventgpt_tpu_torch.models import llama as llama_mod
 from eventgpt_tpu_torch.models import projector as proj_mod
+from eventgpt_tpu_torch.models import qformer as qformer_mod
 from eventgpt_tpu_torch.ops.pooling import spatio_temporal_pool
 from eventgpt_tpu_torch.ops.sampling import sample
 
@@ -41,9 +43,12 @@ def _encode_feats(params: Params, cfg: EventChatConfig, frames: torch.Tensor) ->
     return proj_mod.apply_adaptor(params["projector"], feats)
 
 
-def _encode_tail(cfg: EventChatConfig, feats: torch.Tensor) -> torch.Tensor:
+def _encode_tail(params: Params, cfg: EventChatConfig, feats: torch.Tensor) -> torch.Tensor:
     """Per-sample (T, num_tokens, D) projected features -> (num_event_tokens,
-    D): raw patch concatenation or the spatio-temporal pool."""
+    D): Q-Former aggregation, raw patch concatenation, or the
+    spatio-temporal pool."""
+    if cfg.use_event_qformer:
+        return qformer_mod.qformer_encode(params["qformer"], cfg.qformer, feats)
     if not cfg.use_spatio_temporal_pool:
         return feats.reshape(-1, feats.shape[-1])
     return spatio_temporal_pool(feats, cfg.num_temporal_tokens)
@@ -58,7 +63,7 @@ def encode_events_batch(params: Params, cfg: EventChatConfig,
     flat = pixel_values.reshape((b * t,) + tuple(pixel_values.shape[2:]))
     feats = _encode_feats(params, cfg, flat)
     feats = feats.reshape((b, t) + tuple(feats.shape[1:]))
-    return torch.stack([_encode_tail(cfg, feats[i]) for i in range(b)])
+    return torch.stack([_encode_tail(params, cfg, feats[i]) for i in range(b)])
 
 
 def _interleave_segments(segments: Sequence[np.ndarray]):

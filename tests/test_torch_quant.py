@@ -324,8 +324,8 @@ def test_cli_runs_the_quantized_path_on_the_cpu(event_path):
     (["--speculative", "4"], "speculative"),
     (["--draft_head", "heads.npz"], "Medusa"),
     (["--mesh_model", "2"], "mesh"),
-    (["--use_event_qformer"], "Q-Former"),
-    (["--model_base", "base"], "checkpoint"),
+    (["--num_beams", "2"], "beam search"),
+    (["--mesh_fsdp", "2"], "mesh"),
 ])
 def test_cli_still_refuses_unported_flags(event_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
