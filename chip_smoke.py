@@ -37,7 +37,9 @@ Phases, each printed on its own line:
                    greedy chains; with ``--int4_baseline`` the same batch
                    again through the other K4 (``slice_int4_baseline``),
                    and with ``--profile`` K4's decode device ms per step
-                   for both; then int4 vs the bf16
+                   for both; ``slice_spec_int4`` (``--speculative 4``: K4
+                   launches by path and M, the chain rule against
+                   ``slice_int4``); then int4 vs the bf16
                    prefill of the dequantized weights, the int8 vs bf16 KV
                    cache, and K2 (int8 decode attention) on that cache, also
                    at n_valid 0, 1, 64 and 65, with each of its passes timed;
@@ -76,7 +78,8 @@ Phases, each printed on its own line:
                    directory is deleted when the phases end;
 8. tiny_*       -- tiny models give the same greedy chain on the card as on
                    the CPU, bf16-free f32, with int4 + int8 KV + fused (its
-                   chain's sha256 printed), served paged with the int8
+                   chain's sha256 printed), beam (k = 2, 3), speculative
+                   (window 1, 2, 4) and Medusa chains, served paged with the int8
                    cache, and loaded from a checkpoint the port wrote
                    (plain and with a gated Q-Former);
                    ``serve_http_tiny`` runs ``cli/serve.build_server`` on the
@@ -163,6 +166,17 @@ SERVE_EXTRA = [(0, 3, 16), (1, 2, 16)]  # (stream, query, new tokens)
 # up; down; lm_head, in each of 32 layers but the last.
 INT4_LAUNCHES_PER_STEP = {(4, 4096, 4096): 128, (4, 4096, 11008): 64,
                           (4, 11008, 4096): 32, (4, 4096, 32000): 1}
+# The speculative phases' verify window (4 requests x 4 = M 16, K4's decode
+# path under int4), the Medusa phase's head count and the beam width.
+SPEC_WINDOW, MEDUSA_HEADS, BEAMS = 4, 3, 4
+# decode_kstep vs sequential decode_step logits after 32 bf16 layers: the
+# same arithmetic, but each weight product runs at M = B * window instead of
+# M = B (another GEMM tiling, so another f32 summation order before the bf16
+# rounding of its output) and attention multiplies W query rows at once.
+# One bf16 rounding flip per layer (flash vs dense) gave 0.079 at |logits|
+# 4.3 on an H100; seven products per layer are the int4-vs-dequantized
+# case's seven roundings, hence its bar.
+KSTEP_LOGIT_ATOL = 0.5
 # Shards of the 7B checkpoint that checkpoint_7b writes (~3.5 GB each).
 CKPT_SHARDS = 4
 # K4 launches per 7B prefill forward at M = B*T, by (K, N): gate, up;
@@ -642,15 +656,18 @@ def prepare_requests(cfg, event_dir: str):
 
 
 def timed_generate(eventchat, params, cfg, ids, pixels, tokenizer, kv_quant=False,
-                   max_new_tokens=MAX_NEW_TOKENS):
-    """One batch through ``generate`` with phase timings; returns (numbers, ids)."""
+                   max_new_tokens=MAX_NEW_TOKENS, temperature=0.0, **variant):
+    """One batch through ``generate`` with phase timings; returns (numbers, ids).
+    ``variant`` passes beam, speculative or Medusa arguments on; a
+    ``spec_stats`` dict among them gets the speculative loop's counts."""
     import torch
 
     timings = {}
     t0 = time.perf_counter()
     out_ids = eventchat.generate(
-        params, cfg, ids, pixels, max_new_tokens=max_new_tokens, temperature=0.0,
-        eos_token_id=tokenizer.eos_token_id, seed=0, timings=timings, kv_quant=kv_quant)
+        params, cfg, ids, pixels, max_new_tokens=max_new_tokens, temperature=temperature,
+        eos_token_id=tokenizer.eos_token_id, seed=0, timings=timings, kv_quant=kv_quant,
+        **variant)
     torch.cuda.synchronize()
     steps = timings["decode_steps"]
     return {
@@ -1277,6 +1294,308 @@ def tiny_checkpoint_card_vs_cpu(work: str) -> dict:
     return out
 
 
+def _bucket_len(t: int, extra: int) -> int:
+    """The cache length ``generate`` gives a prompt of ``t`` tokens and
+    ``extra`` more slots (new tokens and the speculative reserve)."""
+    return (t + extra + 127) // 128 * 128
+
+
+def replay_logits(llama, params, cfg, padded, mask, chains, n_steps: int, max_len: int,
+                  kv_quant: bool, eos: int):
+    """The plain decode path replayed on given chains: prefill into a cache
+    of ``max_len`` slots, then ``n_steps`` decode steps fed each row's
+    chain (EOS past its end, as the decode loop feeds a finished row).
+    Returns (logits of every step, first the prefill's, each (B, V) f32,
+    the cache after the last step)."""
+    import torch
+
+    b = padded.shape[0]
+    cache = llama.init_kv_cache(cfg.llama, b, max_len, dtype=padded.dtype,
+                                device=padded.device, quant=kv_quant)
+    with torch.inference_mode():
+        logits, _ = llama.prefill(params["llama"], cfg.llama, padded, mask, cache,
+                                  last_only=True)
+        out = [logits]
+        for i in range(n_steps):
+            tok = torch.tensor([c[i] if i < len(c) else eos for c in chains],
+                               dtype=torch.long, device=padded.device)
+            logits, _ = llama.decode_step(params["llama"], cfg.llama,
+                                          llama.embed_tokens(params["llama"], tok[:, None]), cache)
+            out.append(logits)
+    return out, cache
+
+
+def kstep_vs_step(llama, params, cfg, padded, mask, chains, start: int, window: int,
+                  max_len: int, kv_quant: bool, eos: int) -> float:
+    """max |decode_kstep - sequential decode_step| over a window of the
+    chains' tokens [start, start + window), after a prefix of ``start``
+    tokens, in every row: the rounding gap between the speculative path's
+    verify forward and the plain path's steps on one prefix."""
+    import torch
+
+    _, cache = replay_logits(llama, params, cfg, padded, mask, chains, start, max_len,
+                             kv_quant, eos)
+    twin = {k: ({kk: vv.clone() for kk, vv in v.items()} if isinstance(v, dict) else v.clone())
+            for k, v in cache.items()}
+    win = torch.tensor([[c[i] if i < len(c) else eos for i in range(start, start + window)]
+                        for c in chains], dtype=torch.long, device=padded.device)
+    with torch.inference_mode():
+        k_logits, _ = llama.decode_kstep(params["llama"], cfg.llama,
+                                         llama.embed_tokens(params["llama"], win), cache)
+        steps = [llama.decode_step(params["llama"], cfg.llama,
+                                   llama.embed_tokens(params["llama"], win[:, i:i + 1]),
+                                   twin)[0] for i in range(window)]
+    return (k_logits - torch.stack(steps, dim=1)).abs().max().item()
+
+
+def chain_rule(name, llama, params, cfg, padded, mask, plain, got, window: int,
+               kv_quant: bool, eos: int) -> dict:
+    """Hold speculative chains to the plain greedy ones. A row that differs
+    passes only where its first divergent step is a rounding tie: the plain
+    path's top-2 logit margin there (replayed on the plain chains) below
+    the largest |decode_kstep - decode_step| logit gap on that prefix.
+    Anything else raises."""
+    import torch
+
+    report = []
+    for r, (p_row, g_row) in enumerate(zip(plain, got)):
+        if p_row == g_row:
+            continue
+        s = next((i for i, (a, b) in enumerate(zip(p_row, g_row)) if a != b),
+                 min(len(p_row), len(g_row)))
+        logits, _ = replay_logits(llama, params, cfg, padded, mask, plain, s,
+                                  _bucket_len(padded.shape[1], MAX_NEW_TOKENS), kv_quant, eos)
+        top2 = torch.topk(logits[s][r].float(), 2).values
+        margin = (top2[0] - top2[1]).item()
+        start = max(0, s - window)
+        gap = kstep_vs_step(llama, params, cfg, padded, mask, plain, start, window,
+                            _bucket_len(padded.shape[1], MAX_NEW_TOKENS + 2 * window),
+                            kv_quant, eos)
+        report.append({"row": r, "first_divergent_step": s, "plain_top2_margin": margin,
+                       "kstep_vs_step_max_abs": gap, "window_start": start,
+                       "rounding_tie": margin < gap})
+        if not margin < gap:
+            raise AssertionError(f"{name}: row {r} diverges from the plain greedy chain at step "
+                                 f"{s} with a top-2 margin {margin} >= the kstep-vs-step gap "
+                                 f"{gap}: not a rounding tie")
+    return {"rows_identical": [p == g for p, g in zip(plain, got)], "divergences": report}
+
+
+def spec_numbers(run: dict, stats: dict, plain_warm: dict, batch: int) -> dict:
+    """Tokens per iteration and decode ms per committed token of a
+    speculative run, beside the plain run's ms per step (one token per
+    row) from the same call."""
+    per_token = run["decode_ms"] * batch / max(stats["tokens"], 1)
+    return {"spec_stats": stats,
+            "tokens_per_iteration_per_row": stats["tokens"] / max(stats["iterations"] * batch, 1),
+            "decode_ms_per_committed_token_per_row": per_token,
+            "plain_decode_ms_per_step": plain_warm["decode_ms_per_step"],
+            "plain_over_spec_ms_per_token": plain_warm["decode_ms_per_step"] / per_token}
+
+
+def slice_spec_phases(eventchat, llama, params, cfg, ids, pixels, tokenizer, counted,
+                      plain_ids, plain_warm, n_layers: int, smi: str) -> dict:
+    """``slice_spec`` (lookup drafts), ``slice_medusa``, ``slice_spec_sampled``
+    and ``slice_beam`` on the bf16 7B tree: each a counted cold run (K1 =
+    one prefill forward), the greedy speculative ones also a warm run for
+    time. Returns each phase's launches."""
+    import torch
+
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    b, eos, vocab = len(ids), tokenizer.eos_token_id, cfg.llama.vocab_size
+    padded, mask, _ = eventchat.prepare_prefill(params, cfg, ids, pixels)
+    t = padded.shape[1]
+
+    counts = {}
+
+    def k1_once(name, launches):
+        counts[name] = launches
+        if launches[FLASH_KERNEL.source] != n_layers:
+            raise AssertionError(f"{name}: launches {launches}, want K1 = {n_layers}")
+
+    # The rounding gap between the verify forward and the plain steps on
+    # one prefix of the slice's chains.
+    gap = kstep_vs_step(llama, params, cfg, padded, mask, plain_ids, 8, SPEC_WINDOW,
+                        _bucket_len(t, MAX_NEW_TOKENS + 2 * SPEC_WINDOW), False, eos)
+    emit("kstep_vs_step", {"max_abs_logit_diff": gap, "tolerance": KSTEP_LOGIT_ATOL,
+                           "window": SPEC_WINDOW, "prefix_new_tokens": 8, "nvidia_smi": smi})
+    if not gap <= KSTEP_LOGIT_ATOL:
+        raise AssertionError(f"decode_kstep vs decode_step logits differ by {gap}")
+
+    dev = padded.device
+    heads = {"w": torch.randn((MEDUSA_HEADS, cfg.llama.hidden_size, cfg.llama.hidden_size),
+                              generator=torch.Generator(device=dev).manual_seed(0),
+                              device=dev, dtype=padded.dtype)
+             * (1.0 / math.sqrt(cfg.llama.hidden_size))}
+    for name, variant in (("slice_spec", {}), ("slice_medusa", {"draft_head": heads})):
+        stats = {}
+        (cold, got), launches = counted(lambda: timed_generate(
+            eventchat, params, cfg, ids, pixels, tokenizer, speculative=SPEC_WINDOW,
+            spec_stats=stats, **variant))
+        k1_once(name, launches)
+        check_generations(name, got, vocab)
+        rule = chain_rule(name, llama, params, cfg, padded, mask, plain_ids, got, SPEC_WINDOW,
+                          False, eos)
+        warm_stats = {}
+        warm, warm_ids = timed_generate(eventchat, params, cfg, ids, pixels, tokenizer,
+                                        speculative=SPEC_WINDOW, spec_stats=warm_stats, **variant)
+        if warm_ids != got:
+            raise AssertionError(f"{name}: a second run gave other tokens")
+        emit(name, {"window": SPEC_WINDOW, "cold": cold, "warm": warm, "launches": launches,
+                    **({"medusa_heads": MEDUSA_HEADS, "head_scale": "1/sqrt(d)"}
+                       if variant else {}),
+                    **spec_numbers(warm, warm_stats, plain_warm, b), **rule,
+                    "greedy_sha256": digest(got), "slice_greedy_sha256": digest(plain_ids),
+                    "nvidia_smi": smi})
+
+    stats = {}
+    (sampled, got), launches = counted(lambda: timed_generate(
+        eventchat, params, cfg, ids, pixels, tokenizer, temperature=0.6, top_p=0.9,
+        speculative=SPEC_WINDOW, spec_stats=stats))
+    k1_once("slice_spec_sampled", launches)
+    check_generations("slice_spec_sampled", got, vocab)
+    emit("slice_spec_sampled", {"window": SPEC_WINDOW, "temperature": 0.6, "top_p": 0.9,
+                                "run": sampled, "launches": launches,
+                                **spec_numbers(sampled, stats, plain_warm, b),
+                                "first_ids": [r[:8] for r in got], "nvidia_smi": smi})
+
+    # Beam search: B * k rows; the loop's own outputs are read through a
+    # wrapper around it while generate runs.
+    seen = {}
+    loop = eventchat._beam_loop
+
+    def spy(*args, **kw):
+        seen["out"] = out = loop(*args, **kw)
+        seen["gather_start"] = kw["gather_start"]
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    eventchat._beam_loop = spy
+    try:
+        (beam, got), launches = counted(lambda: timed_generate(
+            eventchat, params, cfg, ids, pixels, tokenizer, num_beams=BEAMS))
+    finally:
+        eventchat._beam_loop = loop
+    peak = torch.cuda.max_memory_allocated()
+    k1_once("slice_beam", launches)
+    check_generations("slice_beam", got, vocab)
+    _, lengths, norm, steps = seen["out"]
+    lengths, norm = lengths.tolist(), norm.tolist()
+    if not all(math.isfinite(x) for x in norm) or not all(1 <= n <= MAX_NEW_TOKENS
+                                                          for n in lengths):
+        raise AssertionError(f"slice_beam: scores {norm}, lengths {lengths}")
+    gs, s_len = seen["gather_start"], _bucket_len(t, MAX_NEW_TOKENS)
+    cache = llama.init_kv_cache(cfg.llama, b * BEAMS, s_len, dtype=padded.dtype,
+                                device=padded.device)
+    parent = (torch.arange(b, device=dev)[:, None] * BEAMS
+              + torch.randint(0, BEAMS, (b, BEAMS), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(1))).reshape(-1)
+    slab = sum(x[:, :, gs:].numel() * x.element_size()
+               for x in eventchat._cache_planes(cache))
+    regather_ms = cuda_time_ms(lambda: eventchat._beam_regather(cache, parent, gs),
+                               warmup=2, iters=10)
+    del cache
+    torch.cuda.empty_cache()
+    emit("slice_beam", {"num_beams": BEAMS, "rows": b * BEAMS, "run": beam, "launches": launches,
+                        "best_beam_lengths": lengths, "best_beam_norm_scores": norm,
+                        "beam_steps": steps, "peak_mem_bytes": peak,
+                        "peak_minus_held_bytes": peak - held,
+                        "regather": {"gather_start": gs, "cache_slots": s_len,
+                                     "tail_bytes_per_step": slab,
+                                     "moved_bytes_min_per_step": 2 * slab,
+                                     "ms_per_step": regather_ms,
+                                     "gb_per_s_min": 2 * slab / regather_ms / 1e6},
+                        "first_ids": [r[:8] for r in got], "nvidia_smi": smi})
+    return counts
+
+
+def slice_spec_int4(eventchat, llama, params_int4, cfg, ids, pixels, tokenizer, counted,
+                    plain_ids4, plain_warm4, n_layers: int, smi: str) -> tuple:
+    """``--quant int4 --kv_cache int8 --speculative 4``: K1 once, K4 by M
+    (the prefill forward's 224 at M = B * T, its lm_head at M = B, 225 per
+    verify forward at M = B * window, K4's decode path at M <= 16), and
+    the chain rule against ``slice_int4``'s chains."""
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+    from eventgpt_tpu_torch.ops.int4_matmul import DECODE_MAX_M, INT4_KERNEL, LAUNCHES_BY_M
+
+    b, eos = len(ids), tokenizer.eos_token_id
+    stats = {}
+    (cold, got), launches = counted(lambda: timed_generate(
+        eventchat, params_int4, cfg, ids, pixels, tokenizer, kv_quant=True,
+        speculative=SPEC_WINDOW, spec_stats=stats))
+    by_m = dict(LAUNCHES_BY_M)
+    padded, mask, _ = eventchat.prepare_prefill(params_int4, cfg, ids, pixels)
+    m_verify = b * SPEC_WINDOW
+    path = "decode" if m_verify <= DECODE_MAX_M else "prefill"
+    want = {("prefill", b * padded.shape[1]): 7 * n_layers, ("decode", b): 1}
+    want[path, m_verify] = want.get((path, m_verify), 0) + (7 * n_layers + 1) * stats["iterations"]
+    if by_m != want or launches[INT4_KERNEL.source] != sum(want.values()) \
+            or launches[FLASH_KERNEL.source] != n_layers:
+        raise AssertionError(f"slice_spec_int4: K4 launches by (path, M) {by_m}, want {want}; "
+                             f"launches {launches}")
+    check_generations("slice_spec_int4", got, cfg.llama.vocab_size)
+    rule = chain_rule("slice_spec_int4", llama, params_int4, cfg, padded, mask, plain_ids4, got,
+                      SPEC_WINDOW, True, eos)
+    warm_stats = {}
+    warm, warm_ids = timed_generate(eventchat, params_int4, cfg, ids, pixels, tokenizer,
+                                    kv_quant=True, speculative=SPEC_WINDOW,
+                                    spec_stats=warm_stats)
+    if warm_ids != got:
+        raise AssertionError("slice_spec_int4: a second run gave other tokens")
+    emit("slice_spec_int4", {
+        "flags": "--quant int4 --kv_cache int8 --speculative 4", "cold": cold, "warm": warm,
+        "launches": launches, "verify_m": m_verify, "verify_k4_path": path,
+        "k4_launches_by_path_m": {f"{p} M={m}": c for (p, m), c in sorted(by_m.items())},
+        **spec_numbers(warm, warm_stats, plain_warm4, b), **rule,
+        "greedy_sha256": digest(got), "slice_int4_greedy_sha256": digest(plain_ids4),
+        "nvidia_smi": smi})
+    return launches, by_m
+
+
+def tiny_variants_card_vs_cpu(event_path: str) -> dict:
+    """A tiny f32 model gives the same beam (k = 2, 3), speculative (window
+    1, 2, 4) and Medusa greedy chains on the card as on the CPU."""
+    import numpy as np
+    import torch
+
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
+    from eventgpt_tpu_torch.data.tokenizer import ByteTokenizer, tokenize_with_event
+    from eventgpt_tpu_torch.models import eventchat
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.ops.image import process_event_file
+
+    cfg = EventChatConfig.tiny(vocab_size=260)
+    cpu = init_eventchat_params(cfg, torch.Generator().manual_seed(4), torch.float32, "cpu")
+    card = _to(cpu, "cuda")
+    d = cfg.llama.hidden_size
+    heads = {"w": torch.randn((3, d, d), generator=torch.Generator().manual_seed(5)) * 0.5}
+    _, pixels = process_event_file(event_path, cfg.num_event_frames, cfg.vision.image_size)
+    ids = [tokenize_with_event(prepare_event_prompt(q), ByteTokenizer()) for q in QUERIES[:2]]
+    pixels = np.stack([pixels, pixels[::-1].copy()])
+    cases = [("beam", {"num_beams": k}) for k in (2, 3)]
+    cases += [("spec", {"speculative": w}) for w in (1, 2, 4)]
+    cases += [("medusa", {"speculative": 4, "draft_head": heads})]
+    out = []
+    for name, kw in cases:
+        chains = {}
+        for dev, params in (("cpu", cpu), ("cuda", card)):
+            kw_dev = ({**kw, "draft_head": _to(kw["draft_head"], dev)} if "draft_head" in kw
+                      else kw)
+            chains[dev] = eventchat.generate(params, cfg, ids, pixels, max_new_tokens=12,
+                                             temperature=0.0, eos_token_id=None, device=dev,
+                                             **kw_dev)
+        if chains["cpu"] != chains["cuda"]:
+            raise AssertionError(f"tiny {name} {kw.get('num_beams', kw.get('speculative'))}: "
+                                 f"cpu {chains['cpu']} vs cuda {chains['cuda']}")
+        out.append({"variant": name, "k": kw.get("num_beams", kw.get("speculative")),
+                    "identical": True, "sha256": digest(chains["cuda"])})
+    return {"config": "EventChatConfig.tiny(vocab 260), f32, batch 2, 12 new tokens",
+            "cases": out}
+
+
 def main() -> int:
     import argparse
 
@@ -1307,7 +1626,8 @@ def main() -> int:
     from eventgpt_tpu_torch.ops._build import build_all
     from eventgpt_tpu_torch.ops.decode_attention import DECODE_INT8_KERNEL, PAGED_INT8_KERNEL
     from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
-    from eventgpt_tpu_torch.ops.int4_matmul import INT4_KERNEL, LAUNCHES_BY_SHAPE
+    from eventgpt_tpu_torch.ops.int4_matmul import (INT4_KERNEL, LAUNCHES_BY_M,
+                                                     LAUNCHES_BY_SHAPE)
 
     kernels = [FLASH_KERNEL, INT4_KERNEL, DECODE_INT8_KERNEL, PAGED_INT8_KERNEL]
     baseline = baseline_kernel(INT4_KERNEL, args.int4_baseline) if args.int4_baseline else None
@@ -1327,6 +1647,7 @@ def main() -> int:
         for k in kernels:
             k.launches = 0
         LAUNCHES_BY_SHAPE.clear()
+        LAUNCHES_BY_M.clear()
         out = run()
         return out, {k.source: k.launches for k in kernels}
 
@@ -1445,6 +1766,12 @@ def main() -> int:
         del logits, cache
         torch.cuda.empty_cache()
 
+        # The decoding variants on the bf16 tree: speculative (lookup and
+        # Medusa drafts, greedy and sampled) and beam search.
+        variant_launches = slice_spec_phases(eventchat, llama, params, cfg, ids, pixels,
+                                             tokenizer, counted, out_ids, warm, n_layers, smi)
+        torch.cuda.empty_cache()
+
         # 4. the continuous-batching server on the bf16 tree, paged then
         # dense, with K3 held on the paged arena in between.
         requests = serve_requests(ids, pixels)
@@ -1548,6 +1875,9 @@ def main() -> int:
                 "same_chains_as_kernel": base_ids4 == ids4, "nvidia_smi": smi})
             if base_prof is not None:
                 emit("profile_int4_baseline", base_prof)
+        variant_launches["slice_spec_int4"], spec_by_m4 = slice_spec_int4(
+            eventchat, llama, params_int4, cfg, ids, pixels, tokenizer, counted, ids4, warm4,
+            n_layers, smi)
 
         # int4 vs the bf16 prefill of the dequantized weights.
         llama_deq = quant.dequantize_llama_params(llama_int4, torch.bfloat16)
@@ -1641,6 +1971,8 @@ def main() -> int:
         emit("tiny_card_vs_cpu", tiny_card_matches_cpu(os.path.join(work, "events_0.npy")))
         emit("tiny_quant_card_vs_cpu",
              tiny_quant_card_matches_cpu(os.path.join(work, "events_1.npy")))
+        emit("tiny_variants_card_vs_cpu",
+             tiny_variants_card_vs_cpu(os.path.join(work, "events_2.npy")))
         emit("tiny_serve_card_vs_cpu", tiny_serve_card_matches_cpu(work))
         emit("tiny_checkpoint_card_vs_cpu", tiny_checkpoint_card_vs_cpu(work))
         emit("serve_http_tiny", serve_http_tiny(work))
@@ -1671,6 +2003,10 @@ def main() -> int:
         "bound_ms": main_check["bound_ms"],
         "bound_by": main_check["bound_by"],
         "library_ms": main_check["library_ms"],
+        "launches_by_path": {"slice": launches[FLASH_KERNEL.source],
+                             "slice_int4": launches4[FLASH_KERNEL.source],
+                             **{name: n[FLASH_KERNEL.source]
+                                for name, n in variant_launches.items()}},
         **({"baseline_ms": main_check["baseline_ms"]} if flash_base else {}),
     }, {
         "name": "int4_matmul",
@@ -1688,6 +2024,11 @@ def main() -> int:
         "prefill_bound_ms": prefill["bound_ms"],
         "prefill_library_ms": prefill["library_ms"],
         "prefill_launches": sum(prefill4.values()),
+        "launches_by_path": {"slice_int4": launches4[INT4_KERNEL.source],
+                             **{name: n[INT4_KERNEL.source]
+                                for name, n in variant_launches.items()}},
+        "slice_spec_int4_launches_by_path_m": {f"{p} M={m}": c
+                                               for (p, m), c in sorted(spec_by_m4.items())},
         **({"baseline_ms": sum(INT4_LAUNCHES_PER_STEP[sh] * int4_checks[sh]["baseline_ms"]
                                for sh in INT4_DECODE_SHAPES)} if baseline else {}),
     }, {

@@ -8,15 +8,18 @@ an HF-layout checkpoint directory (``config.json``, sharded
 files when its config gates it), read onto the device in ``--dtype``.
 ``--quant int8|int4``, ``--kv_cache int8`` and ``--fuse_params`` run the
 quantized path (int4 through the K4 kernel of ``ops/int4_matmul.py``).
-``--model_base`` is accepted and ignored, as in the JAX CLI. Flags whose
-paths are not ported yet (beam search, speculative and Medusa decoding, a
-serving mesh) raise, and so does a tokenizer other than ``byte``: the HF
-tokenizer is not ported.
+``--num_beams N`` runs beam search, ``--speculative K`` speculative
+decoding with a K-token verify window, and ``--draft_head heads.npz``
+(with ``--speculative``) Medusa drafts from a head stack of either
+package. ``--model_base`` is accepted and ignored, as in the JAX CLI. The
+serving mesh (``--mesh_*``) is not ported and raises, and so does a
+tokenizer other than ``byte``: the HF tokenizer is not ported.
 
 Usage:
   python -m eventgpt_tpu_torch.cli.infer --model_path <ckpt_dir|tiny-random> \\
       --tokenizer_path byte --event_frame events.npy --query "What is happening?" \\
-      [--quant int4 --kv_cache int8 --fuse_params] [--device cpu]
+      [--quant int4 --kv_cache int8 --fuse_params] \\
+      [--num_beams N | --speculative K [--draft_head heads.npz]] [--device cpu]
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
 from eventgpt_tpu_torch.data.tokenizer import load_tokenizer, tokenize_with_event
 from eventgpt_tpu_torch.device import resolve_device
 from eventgpt_tpu_torch.models import convert, eventchat
+from eventgpt_tpu_torch.models import medusa as medusa_mod
 from eventgpt_tpu_torch.models import qformer as qformer_mod
 from eventgpt_tpu_torch.models.llama import fuse_llama_params, resize_token_embeddings
 from eventgpt_tpu_torch.ops.image import process_event_file
@@ -82,8 +86,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_data", type=int, default=1)
     p.add_argument("--mesh_fsdp", type=int, default=1)
     p.add_argument("--mesh_model", type=int, default=1)
-    p.add_argument("--speculative", type=int, default=0)
-    p.add_argument("--draft_head", default=None)
+    p.add_argument("--speculative", type=int, default=0,
+                   help="speculative decode window K (suffix-lookup drafts + a K-token "
+                        "verify); exactly the greedy chain at temperature 0, the sampling "
+                        "distribution above; needs num_beams 1")
+    p.add_argument("--draft_head", default=None,
+                   help="Medusa head stack (.npz of w (K, D, D)) that drafts instead of "
+                        "the lookup (needs --speculative > 0)")
     p.add_argument("--use_event_qformer", action="store_true",
                    help="gate the Q-Former on (fresh weights unless component files load)")
     p.add_argument("--pretrain_query_embedder", type=str, default=None,
@@ -97,19 +106,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    """Flags of paths that later slices of the port bring raise here."""
-    unported = [
-        (args.num_beams > 1, f"--num_beams {args.num_beams}", "beam search"),
-        (args.speculative != 0, f"--speculative {args.speculative}", "speculative decoding"),
-        (args.draft_head is not None, "--draft_head", "Medusa draft heads"),
-        (args.mesh_data * args.mesh_fsdp * args.mesh_model != 1, "--mesh_*", "the serving mesh"),
-    ]
-    for bad, flag, what in unported:
-        if bad:
-            raise NotImplementedError(
-                f"{flag}: {what} is not ported to eventgpt_tpu_torch yet")
+    """The serving mesh, which the port does not have, raises here; so do
+    the JAX CLI's flag errors."""
+    if args.mesh_data * args.mesh_fsdp * args.mesh_model != 1:
+        raise NotImplementedError(
+            "--mesh_*: the serving mesh is not ported to eventgpt_tpu_torch yet")
     if args.num_beams < 1:
         raise ValueError(f"num_beams must be >= 1, got {args.num_beams}")
+    if args.draft_head is not None and not args.speculative:
+        # Heads without a verify window would run plain decode under the
+        # heads' name.
+        raise ValueError("--draft_head requires --speculative K > 0 (the heads draft "
+                         "into the K-token verification window)")
 
 
 def load_model(model_path: str, dtype: str = "bfloat16", attn_impl=None, tokenizer_path=None,
@@ -212,6 +220,12 @@ def main(argv=None) -> str:
     input_ids = tokenize_with_event(prompt, tokenizer)
     t_prep = time.perf_counter() - t0
 
+    draft_head = None
+    if args.draft_head is not None:
+        embed = params["llama"]["embed_tokens"]
+        draft_head = medusa_mod.load_medusa(args.draft_head, dtype=embed.dtype,
+                                            device=embed.device)
+
     t0 = time.perf_counter()
     out_ids = eventchat.generate(
         params, cfg, [input_ids], pixels[None],
@@ -221,7 +235,10 @@ def main(argv=None) -> str:
         eos_token_id=tokenizer.eos_token_id,
         seed=args.seed,
         max_context=args.context_len,
+        num_beams=args.num_beams,
         kv_quant=args.kv_cache == "int8",
+        speculative=args.speculative,
+        draft_head=draft_head,
         device=device,
     )[0]
     t_gen = time.perf_counter() - t0

@@ -30,3 +30,8 @@ DEFAULT_NUM_EVENT_FRAMES = 5
 # collated T, and a sharded generate must agree with the trainer about
 # padded shapes (VERDICT r2 weak #6).
 SEQ_BUCKET = 64
+
+# Longest-suffix lookup depth of speculative drafting: matches of up to
+# this many trailing tokens are scored and the deepest match level wins
+# (the JAX package's ``models/eventchat.SPEC_LOOKUP_MAX``).
+SPEC_LOOKUP_MAX = 8

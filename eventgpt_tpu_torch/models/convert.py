@@ -8,7 +8,8 @@ of per-layer dicts with ``nn.Linear``'s (out, in) weights under HF-style
 names (see each model module's docstring). ``params_from_jax`` maps one to
 the other; ``init_eventchat_params`` draws random weights with the JAX
 init's scales straight on the device. ``kv_cache_from_jax`` carries a KV
-cache over, so that tests can feed both packages the same cache.
+cache over, and ``medusa_from_jax`` a Medusa head stack, so that tests can
+feed both packages the same arrays.
 
 HF checkpoints keep the reference's layout: the vision tower and projector
 live inside the LLM state dict under
@@ -160,6 +161,13 @@ def params_from_jax(tree: Params, cfg: EventChatConfig, dtype: torch.dtype = tor
     if "qformer" in tree:
         out["qformer"] = qformer_params_from_jax(tree["qformer"], dtype, device)
     return out
+
+
+def medusa_from_jax(tree: Params, dtype: torch.dtype = torch.float32, device="cuda") -> Params:
+    """A JAX Medusa head stack ``{"w": (K, D, D)}`` -> the port's, in
+    ``dtype`` on ``device``. Both packages keep the (in, out) layout of the
+    batched head product, so the array is carried as it is."""
+    return {"w": _tensor(np.asarray(tree["w"]), dtype, resolve_device(device))}
 
 
 def kv_cache_from_jax(cache: Dict[str, Any], device="cuda") -> Dict[str, Any]:

@@ -16,6 +16,9 @@ Parameters (dense weights in ``nn.Linear``'s (out, in) layout)::
                  "up_proj", "down_proj"}, ...],
      "norm": (D,), "lm_head": (V, D)}
 
+``decode_kstep`` is the K-token forward of speculative decoding: a window
+of K tokens after the cache contents, one causal query per token.
+
 ``fuse_llama_params`` replaces q|k|v by ``qkv_proj`` and gate|up by
 ``gate_up_proj``; ``ops/quant.quantize_llama_params`` replaces weights by
 int8 or int4 leaves in the JAX package's (K, N) layout. Every weight
@@ -285,13 +288,17 @@ def prefill(
     attention_mask: torch.Tensor,
     cache: KVCache,
     last_only: bool = False,
-) -> Tuple[torch.Tensor, KVCache]:
+    return_hidden: bool = False,
+):
     """Run the full prompt; returns (f32 logits, cache filled in place).
 
     ``attention_mask`` is bool (B, T): True = real token, False = right
     pad. The prompt occupies cache slots [0, T); cache["length"] becomes
     each row's true prompt length. ``last_only`` returns (B, V) logits at
-    each row's last real token instead of (B, T, V).
+    each row's last real token instead of (B, T, V). ``return_hidden``
+    returns (logits, final-norm hidden, cache): the hidden is (B, D) at the
+    last real token with ``last_only``, (B, T, D) otherwise (the seed of
+    the Medusa heads' first drafts).
     """
     if _kv_is_paged(cache):
         # Serving prefills a dense row cache and scatters it into the
@@ -334,9 +341,11 @@ def prefill(
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     if last_only:
         idx = (lengths - 1).clamp_min(0).long()
-        last = x[torch.arange(b, device=x.device), idx]  # (B, D)
-        return _mm_f32(last, params["lm_head"]), cache
-    return _mm_f32(x, params["lm_head"]), cache
+        x = x[torch.arange(b, device=x.device), idx]  # (B, D)
+    logits = _mm_f32(x, params["lm_head"])
+    if return_hidden:
+        return logits, x, cache
+    return logits, cache
 
 
 def decode_step(
@@ -382,3 +391,57 @@ def decode_step(
     cache["length"] += 1
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     return _mm_f32(x[:, 0], params["lm_head"]), cache
+
+
+def decode_kstep(
+    params: Params,
+    cfg: LlamaConfig,
+    token_embeds: torch.Tensor,
+    cache: KVCache,
+    return_hidden: bool = False,
+):
+    """K-token verification step of speculative decoding. token_embeds:
+    (B, K, D), a window of candidate tokens after the cache contents.
+    Returns (f32 logits (B, K, V), cache) with K slots written and
+    ``length`` advanced by K, in place; with ``return_hidden``, (logits,
+    final-norm hidden (B, K, D), cache).
+
+    Query i sits at position length + i and sees slots [0, length + i],
+    what ``decode_step`` sees when the window is fed one token at a time.
+    A caller that commits only a prefix of the window sets ``length``
+    back itself (the cache is written in place): slots above ``length``
+    are masked from every read and overwritten by the next window. A
+    paged cache is read and written through its block table.
+    """
+    b, kq, _ = token_embeds.shape
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    max_len = _kv_max_len(cache)
+    pos = cache["length"][:, None] + torch.arange(kq, device=token_embeds.device)[None, :]
+    cos, sin = rope_tables(cfg, pos)
+    slots = pos.long()  # (B, K)
+    valid = torch.arange(max_len, device=pos.device)[None, None, :] <= slots[:, :, None]
+    mask = _additive_mask(valid[:, None])  # (B, 1, K, S)
+    rows = torch.arange(b, device=pos.device)[:, None]
+    bt = cache.get("bt")
+
+    x = token_embeds
+    for li, layer in enumerate(params["layers"]):
+        y = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
+        q, k_new, v_new = _project_qkv(cfg, y, layer)
+        k_new = apply_rope(k_new, cos, sin)
+        q = apply_rope(q, cos, sin)
+        _cache_write(cache["k"], li, (rows, slots), k_new, bt)
+        _cache_write(cache["v"], li, (rows, slots), v_new, bt)
+        k_all = _repeat_kv(_cache_read_layer(cache["k"], li, x.dtype, bt), h // kvh)
+        v_all = _repeat_kv(_cache_read_layer(cache["v"], li, x.dtype, bt), h // kvh)
+        ctx = _dense_attention(q, k_all, v_all, mask)
+        x = x + _mm(ctx.reshape(b, kq, -1), layer["o_proj"])
+        y2 = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+        x = x + _mlp_block(y2, layer)
+
+    cache["length"] += kq
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    logits = _mm_f32(x, params["lm_head"])
+    if return_hidden:
+        return logits, x, cache
+    return logits, cache

@@ -43,9 +43,11 @@ _I = ctypes.c_int
 INT4_KERNEL = CudaKernel("int4_matmul.cu", {
     "egpt_int4_matmul": (ctypes.c_int, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
 })
-# The kernel's launches by (path, K, N), path "decode" or "prefill", raised
-# beside ``INT4_KERNEL.launches``: a run can show how its products were routed.
+# The kernel's launches by (path, K, N) and by (path, M), path "decode" or
+# "prefill", raised beside ``INT4_KERNEL.launches``: a run can show how its
+# products were routed.
 LAUNCHES_BY_SHAPE: Counter = Counter()
+LAUNCHES_BY_M: Counter = Counter()
 
 
 def supported(k: int, n: int, group: int) -> bool:
@@ -152,4 +154,5 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor) -> torch.Ten
     INT4_KERNEL.launches += 1
     path = "prefill" if decode_plan(m, k, n, group) is None else "decode"
     LAUNCHES_BY_SHAPE[path, k, n] += 1
+    LAUNCHES_BY_M[path, m] += 1
     return out

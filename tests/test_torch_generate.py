@@ -78,11 +78,15 @@ def test_sampled_generate_is_seeded(setup):
 
 
 def test_unported_decoders_raise(setup):
+    """Beam search and speculative decoding are ported; what still raises
+    are the JAX package's own validation errors: speculation with beams,
+    and fewer than one beam."""
     _, tp, ids, pixels = setup
-    with pytest.raises(NotImplementedError, match="beam"):
-        tchat.generate(tp, TCFG, ids, pixels, max_new_tokens=2, num_beams=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        tchat.generate(tp, TCFG, ids, pixels, max_new_tokens=2, speculative=4, device="cpu")
+    with pytest.raises(ValueError, match="num_beams must be 1"):
+        tchat.generate(tp, TCFG, ids, pixels, max_new_tokens=2, num_beams=2, speculative=4,
+                       device="cpu")
+    with pytest.raises(ValueError, match="num_beams must be >= 1"):
+        tchat.generate(tp, TCFG, ids, pixels, max_new_tokens=2, num_beams=0, device="cpu")
 
 
 @pytest.mark.parametrize("top_p", [0.1, 0.5, 0.9, 1.0])
@@ -107,9 +111,9 @@ def test_cli_runs_end_to_end(tmp_path, capsys):
                       "--temperature", "0", "--max_new_tokens", "6", "--timing"])
     assert isinstance(out, str)
     assert "[timing]" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="beam"):
-        infer.main(["--model_path", "tiny-random", "--event_frame", path, "--query", "q",
-                    "--device", "cpu", "--num_beams", "2"])
+    beam = infer.main(["--model_path", "tiny-random", "--event_frame", path, "--query", "q",
+                       "--device", "cpu", "--num_beams", "2", "--max_new_tokens", "4"])
+    assert isinstance(beam, str)
 
 
 def test_entry_points_refuse_a_missing_card(tmp_path):

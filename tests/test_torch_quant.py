@@ -321,16 +321,29 @@ def test_cli_runs_the_quantized_path_on_the_cpu(event_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--speculative", "4"], "speculative"),
-    (["--draft_head", "heads.npz"], "Medusa"),
     (["--mesh_model", "2"], "mesh"),
-    (["--num_beams", "2"], "beam search"),
     (["--mesh_fsdp", "2"], "mesh"),
 ])
 def test_cli_still_refuses_unported_flags(event_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         infer.main(["--model_path", "tiny-random", "--event_frame", event_path, "--query", "q",
                     "--device", "cpu", "--quant", "int4", *flags])
+
+
+@pytest.mark.parametrize("variant", ["speculative", "draft_head_alone", "beam"])
+def test_cli_decoding_variants_on_the_quantized_path(event_path, variant):
+    """--quant int4: speculation prints the greedy answer, --draft_head
+    without --speculative is the JAX CLI's ValueError, beam search runs."""
+    common = ["--model_path", "tiny-random", "--event_frame", event_path, "--query", "q",
+              "--device", "cpu", "--quant", "int4", "--temperature", "0",
+              "--max_new_tokens", "6"]
+    if variant == "speculative":
+        assert infer.main(common + ["--speculative", "4"]) == infer.main(common)
+    elif variant == "draft_head_alone":
+        with pytest.raises(ValueError, match="--speculative"):
+            infer.main(common + ["--draft_head", "heads.npz"])
+    else:
+        assert isinstance(infer.main(common + ["--num_beams", "2"]), str)
 
 
 def test_cli_quantized_path_wants_a_card_by_default(event_path):
