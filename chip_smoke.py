@@ -76,7 +76,24 @@ Phases, each printed on its own line:
                    the four requests run on 32 event tokens each, cold then
                    warm. The
                    directory is deleted when the phases end;
-8. tiny_*       -- tiny models give the same greedy chain on the card as on
+8. training     -- on the same bf16 tree, after ``slice_qformer``:
+                   ``kernel_flash_grad`` holds K1's autograd Function at
+                   the first training batch's shape (B = 2, T = 832, 32
+                   heads): its forward against the plain version, dq/dk/dv
+                   against autograd through the plain version, padded rows,
+                   and the forward, backward and SDPA-backward times with
+                   the backward's bound; ``train_stage1_7b`` (projector)
+                   and ``train_stage2_7b`` (LoRA r 64 + projector) build
+                   the trainer through ``cli.train.build_trainer`` on a toy
+                   QA set of 8 entries (streams of seeds 100-107) and take
+                   4 optimizer steps of batch 2 under full remat (K1 64
+                   launches and 32 backward calls per micro-step), then
+                   ``evaluate`` on 2 entries (K1 32), check that every
+                   trainable moved and sampled frozen leaves did not, merge
+                   ``lora_last.npz`` through ``merge_lora``, and hold a
+                   fresh trainer's resumed step against the same step in
+                   memory; with ``--profile``, one more step profiled;
+9. tiny_*       -- tiny models give the same greedy chain on the card as on
                    the CPU, bf16-free f32, with int4 + int8 KV + fused (its
                    chain's sha256 printed), beam (k = 2, 3), speculative
                    (window 1, 2, 4) and Medusa chains, served paged with the int8
@@ -85,8 +102,13 @@ Phases, each printed on its own line:
                    ``serve_http_tiny`` runs ``cli/serve.build_server`` on the
                    card over a tiny bf16 checkpoint (``--model_path DIR``,
                    prefill through K1) and answers two POST /v1/generate;
-9. kernels      -- one JSON line per the kernel table (K4 with one decode
-                   step's and one prefill forward's launches), then the card's name
+                   ``train_tiny_card_vs_cpu``: one f32 stage-1 and stage-2
+                   step agree on the card and the CPU, and ``cli.train``
+                   trains 2 steps on the card in a subprocess;
+10. kernels     -- one JSON line per the kernel table (K4 with one decode
+                   step's and one prefill forward's launches; K1 with its
+                   training launches by path and its backward's numbers),
+                   then the card's name
                    and power limit, then the result line.
 
 Any failure raises and exits non-zero. Without a CUDA card it exits
@@ -177,6 +199,41 @@ SPEC_WINDOW, MEDUSA_HEADS, BEAMS = 4, 3, 4
 # 4.3 on an H100; seven products per layer are the int4-vs-dequantized
 # case's seven roundings, hence its bar.
 KSTEP_LOGIT_ATOL = 0.5
+# Toy QA set of the training phases: 8 entries over streams of seeds
+# 100-107, byte-tokenizer v1 dialogs; the 7B phases take 4 optimizer steps
+# of 2 entries, then evaluate on 2.
+TRAIN_QA = [
+    ("What is happening in this scene?", "Cars move from left to right."),
+    ("Describe the motion you can see.", "A person walks toward the camera."),
+    ("Is the camera moving?", "Yes, it pans slowly to the left."),
+    ("How many objects move?", "Two objects move."),
+    ("What is in the foreground?", "A cyclist crosses the street."),
+    ("Which way does the scene move?", "Everything drifts upward."),
+    ("Is anything fast?", "A ball flies across the view."),
+    ("Describe the edges.", "Strong vertical edges from buildings."),
+]
+TRAIN_STEPS, TRAIN_BATCH = 4, 2
+# K1 launches per training micro-step under full remat: the forward and the
+# recompute of each of 32 layers; the backward runs once per layer.
+K1_PER_MICRO, K1_BACKWARD_PER_MICRO = 64, 32
+# K1's gradient on the card (the Function: kernel forward, plain f32
+# backward rounded to bf16) vs autograd through the plain version on the
+# same bf16 inputs: the same f32 products summed in another order and
+# rounded once to bf16, so at most about one bf16 step (2^-8) of the
+# largest gradient apart; the bar is twice that.
+FLASH_GRAD_RTOL = 2 ** -7
+# The resumed step's loss vs the same step taken by the trainer that wrote
+# the checkpoint, continued in memory, from the same state and batch: the
+# forward is the same bf16 arithmetic (the loss is taken before the
+# step's nondeterministic gather/embedding backward), so equal up to the
+# f32 loss of O(10) read back; 1e-3 bounds a GEMM choosing another split.
+RESUME_LOSS_ATOL = 1e-3
+# The tiny f32 train steps on the card vs the CPU (TF32 off): the same f32
+# arithmetic summed in another order; one Adam step moves each trainable by
+# ~lr, and a gradient's last-bit difference moves its update by ~1e-7.
+TINY_TRAIN_ATOL = 1e-4
+
+
 # Shards of the 7B checkpoint that checkpoint_7b writes (~3.5 GB each).
 CKPT_SHARDS = 4
 # K4 launches per 7B prefill forward at M = B*T, by (K, N): gate, up;
@@ -1596,6 +1653,388 @@ def tiny_variants_card_vs_cpu(event_path: str) -> dict:
             "cases": out}
 
 
+def write_train_set(work: str) -> dict:
+    """The toy QA set: ``train_{i}.npy`` streams, ``qa.json`` over all 8
+    entries and ``eval.json`` over the first 2."""
+    import numpy as np
+
+    from eventgpt_tpu_torch.ops.raster import synthetic_event_stream
+
+    entries = []
+    for i, (q, a) in enumerate(TRAIN_QA):
+        np.save(os.path.join(work, f"train_{i}.npy"), synthetic_event_stream(seed=100 + i))
+        entries.append({"id": i, "event": f"train_{i}.npy", "conversations": [
+            {"from": "human", "value": f"<event>\n{q}"}, {"from": "gpt", "value": a}]})
+    paths = {"data_path": os.path.join(work, "qa.json"),
+             "eval_data_path": os.path.join(work, "eval.json"), "event_folder": work}
+    with open(paths["data_path"], "w") as f:
+        json.dump(entries, f)
+    with open(paths["eval_data_path"], "w") as f:
+        json.dump(entries[:2], f)
+    return paths
+
+
+def flash_backward_bound_ms(b: int, s: int, h: int, hd: int):
+    """Least time for the dense f32 backward: q, k, v, the cotangent and
+    the mask read once and dq, dk, dv written once (bf16), against its five
+    f32 products over all (q, k) pairs (scores, dv, dp, dq, dk) at the f32
+    peak outside the tensor cores; the softmax's elementwise work is not
+    counted."""
+    nbytes = 7 * b * s * h * hd * 2 + b * s
+    flops = 5 * 2 * b * h * s * s * hd
+    bound_ms, bound_by = _bound(nbytes, flops, H100_F32_FLOPS)
+    return bound_ms, bound_by, nbytes, flops
+
+
+def check_flash_grad(lengths, s: int, seed: int) -> dict:
+    """K1's autograd Function at a training shape (B = len(lengths), the
+    padded length S, 32 heads of 128, bf16, right padding): the forward
+    against the plain version, dq/dk/dv against autograd through the plain
+    version, padded rows, and the forward, backward and SDPA-backward times."""
+    import torch
+    import torch.nn.functional as F
+
+    from eventgpt_tpu_torch.ops import flash_attention as fa
+
+    b, h, hd = len(lengths), 32, 128
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, cot = (torch.randn((b, s, h, hd), generator=g, device="cuda", dtype=torch.bfloat16)
+                    for _ in range(4))
+    valid = torch.arange(s, device="cuda")[None, :] < torch.tensor(lengths, device="cuda")[:, None]
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    launches = fa.FLASH_KERNEL.launches
+    out = fa.flash_attention(*leaves, valid=valid, causal=True)
+    (out.float() * cot.float()).sum().backward()
+    torch.cuda.synchronize()
+    if fa.FLASH_KERNEL.launches != launches + 1:
+        raise AssertionError("K1's Function did not launch the kernel once")
+    ref_out = fa.flash_attention_reference(q, k, v, valid, causal=True)
+    fwd_err = (out.detach().float() - ref_out.float()).abs().max().item()
+    if not math.isfinite(fwd_err) or fwd_err > KERNEL_ATOL:
+        raise AssertionError(f"K1 forward under grad: max abs err {fwd_err} > {KERNEL_ATOL}")
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    (fa.flash_attention_reference(*refs, valid, causal=True).float() * cot.float()).sum().backward()
+    grads = {}
+    for name, got, want in zip("qkv", leaves, refs):
+        if not bool(torch.isfinite(got.grad).all()):
+            raise AssertionError(f"K1 gradient d{name} is not finite")
+        err = (got.grad.float() - want.grad.float()).abs().max().item()
+        bar = FLASH_GRAD_RTOL * want.grad.float().abs().max().item()
+        grads[f"d{name}_max_abs_err"], grads[f"d{name}_bar"] = err, bar
+        if err > bar:
+            raise AssertionError(f"K1 gradient d{name}: max abs err {err} > {bar}")
+    for row, n in enumerate(lengths):
+        if n < s and not bool((leaves[0].grad[row, n:] == 0).all()):
+            raise AssertionError(f"K1 gradient: padded query rows of row {row} are not zero")
+    del out, ref_out, refs, leaves
+
+    fwd_ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v, valid=valid, causal=True))
+    bwd_ms = cuda_time_ms(lambda: fa.flash_attention_backward(q, k, v, valid, cot),
+                          warmup=1, iters=5)
+    mask = valid[:, None, None, :] & torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    cot_t = cot.transpose(1, 2)
+    sdpa_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), cot_t,
+                                                           retain_graph=True), warmup=1, iters=5)
+    bound_ms, bound_by, nbytes, flops = flash_backward_bound_ms(b, s, h, hd)
+    return {"B": b, "S": s, "H": h, "hd": hd, "lengths": list(lengths),
+            "forward_max_abs_err": fwd_err, "grad_rtol": FLASH_GRAD_RTOL, **grads,
+            "padded_rows_zero_grad": True, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "backward_bound_ms": bound_ms, "backward_bound_by": bound_by,
+            "backward_bytes": nbytes, "backward_f32_flops": flops,
+            "backward_f32_tflop_s": flops / bwd_ms / 1e9,
+            "sdpa_backward_ms": sdpa_bwd_ms}
+
+
+def _sha_leaves(leaves) -> str:
+    import torch
+
+    h = hashlib.sha256()
+    for t in leaves:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def frozen_sample(params) -> list:
+    """Sampled frozen leaves whose hash must not move in training: a CLIP
+    layer, two LLaMA layers and lm_head."""
+    lm = params["llama"]
+    return ([params["clip"]["layers"][0]["q_proj"]["weight"]]
+            + [lm["layers"][i][name] for i in (0, len(lm["layers"]) - 1)
+               for name in ("q_proj", "down_proj")] + [lm["lm_head"]])
+
+
+def _train_args(stage: int, paths: dict, out: str, **kw):
+    from eventgpt_tpu_torch.train.args import DataArguments, ModelArguments, TrainingArguments
+
+    targs = dict(output_dir=out, stage=stage, max_steps=TRAIN_STEPS,
+                 per_device_train_batch_size=TRAIN_BATCH, logging_steps=1, save_steps=-1,
+                 eval_steps=-1, bf16=True)
+    if stage == 1:
+        targs.update(learning_rate=2e-3)
+    else:
+        targs.update(lora_r=64, lora_alpha=16.0, learning_rate=2e-4, mm_projector_lr=2e-5)
+    targs.update(kw)
+    return (ModelArguments(), DataArguments(**paths), TrainingArguments(**targs))
+
+
+def train_7b(stage: int, params, cfg, tokenizer, paths: dict, work: str,
+             profile_dir=None) -> dict:
+    """One training stage at EventGPT-7B width through ``cli.train.build_trainer``
+    on the bf16 tree already on the card: 4 optimizer steps (full remat),
+    ``evaluate`` on 2 entries, then ``save``, a fresh trainer that resumes
+    and takes step 5, against the first trainer taking step 5 in memory.
+    With ``profile_dir``, torch.profiler over one more step on the first
+    batch (K1's forward and recompute launches matched by name)."""
+    import torch
+
+    from eventgpt_tpu_torch.checkpoint import load_component
+    from eventgpt_tpu_torch.cli.train import build_trainer
+    from eventgpt_tpu_torch.models import clip as clip_mod
+    from eventgpt_tpu_torch.ops import flash_attention as fa
+    from eventgpt_tpu_torch.train.lora import LoraConfig, merge_lora
+    from eventgpt_tpu_torch.train.data import batch_iterator
+    from eventgpt_tpu_torch.train.optim import tree_leaves
+    from eventgpt_tpu_torch.train.steps import batch_to_device
+
+    def reset():
+        fa.FLASH_KERNEL.launches = 0
+        for key in fa.LAUNCHES_BY_PATH:
+            fa.LAUNCHES_BY_PATH[key] = 0
+
+    n_layers = cfg.llama.num_layers
+    out = os.path.join(work, f"train_stage{stage}")
+    frozen_hash = _sha_leaves(frozen_sample(params))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer = build_trainer(*_train_args(stage, paths, out), device="cuda",
+                            loaded=(cfg, params, tokenizer))
+    build_s = time.perf_counter() - t0
+    start = [t.detach().clone() for _, t in tree_leaves(trainer.state.trainable)]
+    trainable_bytes = sum(t.numel() * t.element_size() for t in start)
+    first = next(batch_iterator(trainer.dataset, TRAIN_BATCH, trainer.cfg,
+                                seed=trainer.targs.seed, max_len=trainer.targs.model_max_length))
+    shape = {"T": int(first["attn_mask"].shape[1]),
+             "lengths": [int(x) for x in first["attn_mask"].sum(1)]}
+
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    final = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    micro = trainer.state.step
+    paths_k1 = dict(fa.LAUNCHES_BY_PATH)
+    launches_train = fa.FLASH_KERNEL.launches
+    if micro != TRAIN_STEPS:
+        raise AssertionError(f"stage {stage}: {micro} micro-steps, want {TRAIN_STEPS}")
+    k1_per_micro = (paths_k1["train_forward"] + paths_k1["recompute"]) / micro
+    if (launches_train != K1_PER_MICRO * micro
+            or paths_k1["train_forward"] != n_layers * micro
+            or paths_k1["recompute"] != n_layers * micro
+            or paths_k1["backward"] != K1_BACKWARD_PER_MICRO * micro
+            or paths_k1["inference"] != 0):
+        raise AssertionError(f"stage {stage}: K1 launches {launches_train} by path {paths_k1}, "
+                             f"want {K1_PER_MICRO} a micro-step (forward + recompute) and "
+                             f"{K1_BACKWARD_PER_MICRO} backward calls")
+    records = [json.loads(line) for line in open(trainer.metrics_path)]
+    steps = [r for r in records if "loss" in r and "event" not in r]
+    tele = [json.loads(line) for line in open(trainer.telemetry_path)]
+    losses = [r["loss"] for r in steps]
+    if len(steps) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"stage {stage}: losses {losses}")
+    end = [t.detach() for _, t in tree_leaves(trainer.state.trainable)]
+    unmoved = [str(p) for (p, _), a, b in zip(tree_leaves(trainer.state.trainable), start, end)
+               if torch.equal(a, b)]
+    if unmoved:
+        raise AssertionError(f"stage {stage}: trainable leaves that did not move: {unmoved}")
+    if _sha_leaves(frozen_sample(params)) != frozen_hash:
+        raise AssertionError(f"stage {stage}: a frozen leaf changed")
+    del start, end
+    per_step = []
+    prev_tokens = 0
+    for r, t in zip(steps, tele):
+        per_step.append({"step": r["step"], "loss": r["loss"], "grad_norm": r["grad_norm"],
+                         "ms": t["step_wall_s"] * 1e3,
+                         "tokens": t["tokens_seen"] - prev_tokens,
+                         "tokens_per_s": (t["tokens_seen"] - prev_tokens) / t["step_wall_s"]})
+        prev_tokens = t["tokens_seen"]
+
+    # Eval on 2 entries: one no-grad forward, K1 32 launches.
+    reset()
+    t0 = time.perf_counter()
+    ev = trainer.evaluate(micro)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    eval_k1 = fa.LAUNCHES_BY_PATH["inference"]
+    if eval_k1 != n_layers or not math.isfinite(ev["eval_loss"]):
+        raise AssertionError(f"stage {stage}: eval {ev}, K1 {dict(fa.LAUNCHES_BY_PATH)}")
+
+    # Where the step's time goes: CLIP alone and the no-grad forward (CLIP +
+    # LM + loss) on the first batch, timed on the device.
+    batch = batch_to_device(first, "cuda")
+    pix = batch["pixel_values"].reshape((-1,) + tuple(batch["pixel_values"].shape[2:]))
+    with torch.no_grad():
+        clip_ms = cuda_time_ms(lambda: clip_mod.clip_encode(
+            params["clip"], cfg.vision, pix.to(torch.bfloat16)), warmup=1, iters=3)
+        fwd_ms = cuda_time_ms(lambda: trainer.eval_step(trainer.state, batch), warmup=1, iters=3)
+
+    # Components the JAX package reads, and the LoRA merge of the port.
+    comps = sorted(f for f in os.listdir(out) if f.endswith(".npz"))
+    merged = None
+    if stage == 2:
+        lora = load_component(os.path.join(out, "lora_last.npz"), strip_prefix="lora.")
+        lcfg = LoraConfig(r=64, alpha=16.0)
+        two = {"layers": [params["llama"]["layers"][i] for i in (0, n_layers - 1)]}
+        sub = {g: {n: {k: v[[0, n_layers - 1]] for k, v in ab.items()} for n, ab in names.items()}
+               for g, names in lora.items()}
+        out_two = merge_lora(two, sub, lcfg)
+        a = trainer.state.trainable["lora"]["attn"]["q"]["a"][-1].detach()
+        b = trainer.state.trainable["lora"]["attn"]["q"]["b"][-1].detach()
+        want = (two["layers"][1]["q_proj"].float() + lcfg.scaling * (a @ b).T)
+        diff = (out_two["layers"][1]["q_proj"].float() - want).abs().max().item()
+        if diff > 2 ** -8 * want.abs().max().item():
+            raise AssertionError(f"merge_lora of lora_last.npz differs by {diff}")
+        merged = {"layers_merged": [0, n_layers - 1], "max_abs_diff_bf16": diff}
+        del out_two, two, sub, lora
+
+    # Resume: a fresh trainer from ckpt_last takes step 5; the first trainer
+    # takes step 5 in memory from the same state and batch.
+    resumed = build_trainer(*_train_args(stage, paths, out + "_resumed"), device="cuda",
+                            loaded=(cfg, params, tokenizer))
+    t0 = time.perf_counter()
+    resumed.resume(os.path.join(out, "ckpt_last"))
+    resume_s = time.perf_counter() - t0
+    resumed.targs.max_steps = TRAIN_STEPS + 1
+    resumed.train()
+    trainer.targs.max_steps = TRAIN_STEPS + 1
+    trainer.train()
+    got = [json.loads(line) for line in open(resumed.metrics_path)][0]
+    want = [r for r in map(json.loads, open(trainer.metrics_path))
+            if r.get("step") == TRAIN_STEPS + 1 and "loss" in r][0]
+    resume_diff = abs(got["loss"] - want["loss"])
+    if got["step"] != TRAIN_STEPS + 1 or not resume_diff <= RESUME_LOSS_ATOL:
+        raise AssertionError(f"stage {stage}: resumed step {got} vs in memory {want}")
+    if _sha_leaves(frozen_sample(params)) != frozen_hash:
+        raise AssertionError(f"stage {stage}: a frozen leaf changed")
+    prof = None
+    if profile_dir:
+        prof = profile_call(lambda: trainer.train_step(trainer.state, batch), profile_dir,
+                            f"train_stage{stage}", match="flash_fwd_kernel")
+    del trainer, resumed, batch
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(out + "_resumed", ignore_errors=True)
+    torch.cuda.empty_cache()
+    warm = [s["ms"] for s in per_step[1:]]
+    return {
+        "stage": stage, "batch": shape, "build_s": build_s, "train_s": train_s,
+        "per_step": per_step, "cold_step_ms": per_step[0]["ms"],
+        "warm_step_ms": sum(warm) / len(warm), "final": final,
+        "eval": {**ev, "ms": eval_ms, "k1_inference": eval_k1},
+        "split_ms": {"clip_no_grad": clip_ms, "eval_forward_no_grad": fwd_ms},
+        "k1_launches": launches_train, "k1_by_path": paths_k1,
+        "k1_launches_per_micro_step": k1_per_micro, "k1_launches_per_micro_step_want": K1_PER_MICRO,
+        "k1_backward_per_micro_step": paths_k1["backward"] / micro,
+        "peak_mem_bytes": peak, "held_before_bytes": held,
+        "peak_above_held_bytes": peak - held, "bf16_tree_bytes": tree_bytes(params),
+        "trainable_f32_bytes": trainable_bytes,
+        "trainables_moved": True, "frozen_sha256_unchanged": frozen_hash,
+        "components": comps, "lora_merge": merged,
+        "resume": {"loss_resumed": got["loss"], "loss_in_memory": want["loss"],
+                   "abs_diff": resume_diff, "bar": RESUME_LOSS_ATOL, "resume_s": resume_s},
+        **({"profile_step": prof} if prof else {}),
+    }
+
+
+def train_tiny_card_vs_cpu(work: str, paths: dict) -> dict:
+    """The tiny f32 config with dense attention: one stage-1 and one stage-2
+    step from the same state on the card and on the CPU agree in loss,
+    grad_norm and the updated trainables; then ``cli.train`` on the card in
+    a subprocess for 2 steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.train import steps as steps_mod
+    from eventgpt_tpu_torch.train.data import synthetic_multimodal_batch
+    from eventgpt_tpu_torch.train.lora import LoraConfig
+    from eventgpt_tpu_torch.train.optim import linear_warmup_cosine, make_optimizer, tree_leaves
+    from eventgpt_tpu_torch.train.trainer import tree_map
+
+    cfg = EventChatConfig.tiny(vocab_size=260)
+    if cfg.llama.attn_impl != "dense":
+        raise AssertionError("the tiny config must train with dense attention")
+    cpu = init_eventchat_params(cfg, torch.Generator().manual_seed(5), torch.float32, "cpu")
+    rng = np.random.default_rng(6)
+    size = cfg.vision.image_size
+    pix = rng.standard_normal((2, cfg.num_event_frames, 3, size, size)).astype(np.float32)
+    batch = synthetic_multimodal_batch(cfg, 2, 48, event_offset=5, pixel_values=pix,
+                                       mask_event_labels=True)
+    batch["token_ids"] = rng.integers(3, 259, (2, 48)).astype(np.int32)
+    batch["labels"] = np.where(batch["event_pos"], -100, batch["token_ids"]).astype(np.int32)
+    lcfg = LoraConfig(r=4, alpha=8.0)
+    lora = steps_mod.split_stage2(cpu, cfg, lcfg, torch.Generator().manual_seed(7))[0]["lora"]
+    for ab in lora["attn"].values():
+        ab["b"] += 0.02
+    result = {}
+    for stage in (1, 2):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = _to(cpu, dev)
+            if stage == 1:
+                tr, fz = steps_mod.split_stage1(params)
+                combine = steps_mod.stage1_combine
+            else:
+                tr, fz = steps_mod.split_stage2(params, cfg, lcfg,
+                                                torch.Generator().manual_seed(0))
+                tr["lora"] = _to(lora, dev)
+                combine = steps_mod.make_stage2_combine(lcfg)
+            tr = tree_map(lambda x: x.to(dev).detach().clone(), tr)
+            opt = make_optimizer(linear_warmup_cosine(1e-3, 4), weight_decay=0.01,
+                                 projector_lr=5e-4 if stage == 2 else None)
+            state = steps_mod.init_train_state(tr, fz, opt)
+            step = steps_mod.make_train_step(cfg, opt, combine)
+            state, m = step(state, steps_mod.batch_to_device(batch, dev))
+            runs[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                         [t.detach().cpu() for _, t in tree_leaves(state.trainable)])
+        (lc, gc, tc), (lg, gg, tg) = runs["cpu"], runs["cuda"]
+        tree_diff = max((a - b).abs().max().item() for a, b in zip(tc, tg))
+        numbers = {"loss_cpu": lc, "loss_cuda": lg, "grad_norm_cpu": gc, "grad_norm_cuda": gg,
+                   "trainables_max_abs_diff": tree_diff, "bar": TINY_TRAIN_ATOL}
+        if (abs(lc - lg) > TINY_TRAIN_ATOL or abs(gc - gg) > TINY_TRAIN_ATOL
+                or tree_diff > TINY_TRAIN_ATOL):
+            raise AssertionError(f"tiny stage-{stage} step differs on the card: {numbers}")
+        result[f"stage{stage}"] = numbers
+
+    out = os.path.join(work, "cli_train_tiny")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "eventgpt_tpu_torch.cli.train", "--model_path", "tiny-random",
+         "--data_path", paths["data_path"], "--event_folder", paths["event_folder"],
+         "--stage", "2", "--max_steps", "2", "--bf16", "false", "--lora_r", "8",
+         "--per_device_train_batch_size", "2", "--output_dir", out, "--logging_steps", "1"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    if res.returncode != 0:
+        raise AssertionError(f"cli.train on the card exited {res.returncode}: "
+                             f"{res.stderr[-3000:]}")
+    steps_logged = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    if [r["step"] for r in steps_logged] != [1, 2] or not all(
+            math.isfinite(r["loss"]) for r in steps_logged):
+        raise AssertionError(f"cli.train on the card logged {steps_logged}")
+    result["cli_train"] = {"returncode": 0, "seconds": time.perf_counter() - t0,
+                           "losses": [r["loss"] for r in steps_logged],
+                           "files": sorted(os.listdir(out))}
+    shutil.rmtree(out, ignore_errors=True)
+    return result
+
+
 def main() -> int:
     import argparse
 
@@ -1965,6 +2404,25 @@ def main() -> int:
         finally:
             shutil.rmtree(ckpt, ignore_errors=True)
             shutil.rmtree(os.path.join(work, "qformer_7b"), ignore_errors=True)
+
+        # 8. training at 7B width on the bf16 tree: K1's gradient at the
+        # first training batch's shape, then stage 1 and stage 2 through
+        # cli.train's construction.
+        from eventgpt_tpu_torch.train.data import EventChatDataset, batch_iterator
+
+        train_paths = write_train_set(work)
+        first = next(batch_iterator(
+            EventChatDataset(train_paths["data_path"], tokenizer, cfg,
+                             event_folder=train_paths["event_folder"]),
+            TRAIN_BATCH, cfg, seed=0))
+        grad_check = check_flash_grad([int(n) for n in first["attn_mask"].sum(1)],
+                                      int(first["attn_mask"].shape[1]), seed=40)
+        emit("kernel_flash_grad", {**grad_check, "nvidia_smi": smi})
+        train_runs = {}
+        for stage in (1, 2):
+            train_runs[stage] = train_7b(stage, params, cfg, tokenizer, train_paths, work,
+                                         profile_dir=args.profile)
+            emit(f"train_stage{stage}_7b", {**train_runs[stage], "nvidia_smi": smi})
         del params
         torch.cuda.empty_cache()
 
@@ -1976,6 +2434,7 @@ def main() -> int:
         emit("tiny_serve_card_vs_cpu", tiny_serve_card_matches_cpu(work))
         emit("tiny_checkpoint_card_vs_cpu", tiny_checkpoint_card_vs_cpu(work))
         emit("serve_http_tiny", serve_http_tiny(work))
+        emit("train_tiny_card_vs_cpu", train_tiny_card_vs_cpu(work, train_paths))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2006,7 +2465,25 @@ def main() -> int:
         "launches_by_path": {"slice": launches[FLASH_KERNEL.source],
                              "slice_int4": launches4[FLASH_KERNEL.source],
                              **{name: n[FLASH_KERNEL.source]
-                                for name, n in variant_launches.items()}},
+                                for name, n in variant_launches.items()},
+                             **{f"train_stage{st}": run["k1_launches"]
+                                for st, run in train_runs.items()},
+                             **{f"train_stage{st}_eval": run["eval"]["k1_inference"]
+                                for st, run in train_runs.items()}},
+        "train_launches_by_path": {f"train_stage{st}": run["k1_by_path"]
+                                   for st, run in train_runs.items()},
+        "train_launches_per_micro_step": {f"train_stage{st}": run["k1_launches_per_micro_step"]
+                                          for st, run in train_runs.items()},
+        "backward": "plain torch (eventgpt_tpu_torch/ops/flash_attention.py"
+                    ":flash_attention_backward)",
+        "backward_calls_per_micro_step": {f"train_stage{st}": run["k1_backward_per_micro_step"]
+                                          for st, run in train_runs.items()},
+        "backward_shape": [grad_check["B"], grad_check["S"], grad_check["H"], grad_check["hd"]],
+        "backward_ms": grad_check["backward_ms"],
+        "backward_bound_ms": grad_check["backward_bound_ms"],
+        "backward_bound_by": grad_check["backward_bound_by"],
+        "backward_library_ms": grad_check["sdpa_backward_ms"],
+        "forward_ms_at_backward_shape": grad_check["forward_ms"],
         **({"baseline_ms": main_check["baseline_ms"]} if flash_base else {}),
     }, {
         "name": "int4_matmul",

@@ -4,9 +4,13 @@ A copy of the dataclasses of ``eventgpt_tpu/config.py`` that the port runs
 (vision tower, LLaMA, projector, Q-Former, top-level EventChat), their JSON
 round trip, and ``from_hf_config`` for a checkpoint's ``config.json``.
 ``attn_impl`` takes ``dense`` or ``flash`` here; the sequence-parallel
-choices and the training-only remat fields of the JAX package's
-``LlamaConfig`` come with later slices. The JAX package's ``hidden_act`` and
-``max_event_stream_us``, which nothing reads, are left out.
+choices of the JAX package's ``LlamaConfig`` come with a later slice. The
+LM's ``remat`` and ``remat_policy`` are carried with the JAX defaults and
+validation; ``models/llama.forward`` runs ``full`` and ``nothing_saveable``
+as per-layer ``torch.utils.checkpoint`` and raises ``NotImplementedError``
+for the two policies that save matmul outputs. The JAX package's
+``hidden_act`` and ``max_event_stream_us``, which nothing reads, are left
+out.
 """
 
 from __future__ import annotations
@@ -67,10 +71,25 @@ class LlamaConfig:
     # kernel (ops/flash_attention.py). Decode always uses the dense
     # single-query path against the KV cache.
     attn_impl: str = "dense"
+    # Rematerialize each layer in the backward pass of ``llama.forward``
+    # under grad (per-layer ``torch.utils.checkpoint``); what it may save
+    # instead of recomputing is ``remat_policy``: "full" and
+    # "nothing_saveable" save nothing (two spellings of one policy). The
+    # JAX package's "dots_saveable" and "dots_with_no_batch_dims_saveable"
+    # are valid names that the port's forward refuses.
+    remat: bool = True
+    remat_policy: str = "full"
 
     _ATTN_IMPLS = ("dense", "flash")
+    _REMAT_POLICIES = ("full", "nothing_saveable", "dots_saveable",
+                       "dots_with_no_batch_dims_saveable")
 
     def __post_init__(self):
+        if self.remat_policy not in self._REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy must be one of {self._REMAT_POLICIES}, "
+                f"got {self.remat_policy!r}"
+            )
         if self.attn_impl not in self._ATTN_IMPLS:
             raise ValueError(
                 f"attn_impl must be one of {self._ATTN_IMPLS}, "
@@ -198,11 +217,11 @@ def to_dict(cfg: Any) -> Any:
 _NESTED = {"vision": VisionConfig, "llama": LlamaConfig, "projector": ProjectorConfig,
            "qformer": QFormerConfig}
 # Fields of the JAX package's dataclasses that the port does not carry: the
-# LM's training-only rematerialization, and the tower's activation name,
-# which neither package reads (both towers are CLIP's quick_gelu). A config
-# file the JAX package saved holds them; top-level fields the port lacks
-# (``max_event_stream_us``, read by neither package) are skipped as well.
-_NOT_CARRIED = {"llama": ("remat", "remat_policy"), "vision": ("hidden_act",)}
+# tower's activation name, which neither package reads (both towers are
+# CLIP's quick_gelu). A config file the JAX package saved holds it;
+# top-level fields the port lacks (``max_event_stream_us``, read by neither
+# package) are skipped as well.
+_NOT_CARRIED = {"vision": ("hidden_act",)}
 
 
 def event_chat_config_from_dict(data: dict) -> EventChatConfig:

@@ -163,6 +163,31 @@ def params_from_jax(tree: Params, cfg: EventChatConfig, dtype: torch.dtype = tor
     return out
 
 
+def projector_params_to_jax(params: Params) -> Params:
+    """The port's projector -> the JAX package's layout as numpy f32 arrays
+    ({"mlp": [{"kernel": (in, out), "bias"}], "adaptor"}): the tree of a
+    ``projector_*.npz`` component that both packages read."""
+    def lin(p):
+        return {"kernel": p["weight"].detach().float().cpu().numpy().T.copy(),
+                "bias": p["bias"].detach().float().cpu().numpy()}
+
+    out: Params = {"mlp": [lin(p) for p in params["mlp"]]}
+    if params.get("adaptor") is not None:
+        out["adaptor"] = lin(params["adaptor"])
+    return out
+
+
+def lora_from_jax(tree: Params, dtype: torch.dtype = torch.float32, device="cuda") -> Params:
+    """A JAX LoRA tree (or a ``lora.*`` npz loaded by ``load_component``)
+    -> the port's, in ``dtype`` on ``device``. Both packages keep the
+    factors stacked on the layer axis in the math layout, a (L, d_in, r)
+    and b (L, r, d_out), so the arrays are carried as they are."""
+    device = resolve_device(device)
+    return {group: {name: {k: _tensor(np.asarray(v), dtype, device) for k, v in ab.items()}
+                    for name, ab in names.items()}
+            for group, names in tree.items()}
+
+
 def medusa_from_jax(tree: Params, dtype: torch.dtype = torch.float32, device="cuda") -> Params:
     """A JAX Medusa head stack ``{"w": (K, D, D)}`` -> the port's, in
     ``dtype`` on ``device``. Both packages keep the (in, out) layout of the

@@ -1,8 +1,9 @@
 """LLaMA/Vicuna decoder-only LM in PyTorch.
 
-Port of ``eventgpt_tpu/models/llama.py`` for inference: RMSNorm, RoPE,
-GQA attention, SwiGLU MLP; ``prefill`` writes the KV cache and
-``decode_step`` reads it. Layers are a list of per-layer parameter dicts
+Port of ``eventgpt_tpu/models/llama.py``: RMSNorm, RoPE, GQA attention,
+SwiGLU MLP; ``prefill`` writes the KV cache and ``decode_step`` reads it;
+``forward`` is the cache-free training forward, one layer block shared
+with ``prefill``, each layer checkpointed under grad when ``cfg.remat``. Layers are a list of per-layer parameter dicts
 that a Python loop walks (the JAX package's ``lax.scan`` over a stacked
 axis). Softmax, RMSNorm and the lm_head logits are f32 whatever the weight
 dtype. Prefill attention runs dense or through the flash kernel
@@ -41,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from eventgpt_tpu_torch.config import LlamaConfig
 from eventgpt_tpu_torch.ops.flash_attention import NEG_INF, flash_attention
@@ -281,6 +283,50 @@ def _additive_mask(visible: torch.Tensor) -> torch.Tensor:
     return torch.where(visible, zero, torch.tensor(NEG_INF, device=visible.device))
 
 
+def _layer_block(cfg: LlamaConfig, layer: Params, x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor, attention_mask: torch.Tensor, mask: Optional[torch.Tensor],
+                 cache: Optional[KVCache] = None, li: int = 0) -> torch.Tensor:
+    """One decoder layer over a whole prompt (B, T, D) -> (B, T, D): the body
+    of ``prefill``'s layer loop and of ``forward``'s. Attention is the flash
+    kernel when ``mask`` is None, else dense with that additive mask; with a
+    ``cache`` the rotated k/v are written into its layer ``li``."""
+    b, t, _ = x.shape
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    y = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
+    q, k, v = _project_qkv(cfg, y, layer)
+    k = apply_rope(k, cos, sin)
+    q = apply_rope(q, cos, sin)
+    if cache is not None:
+        _cache_write(cache["k"], li, (slice(None), slice(0, t)), k)
+        _cache_write(cache["v"], li, (slice(None), slice(0, t)), v)
+    k_rep = _repeat_kv(k, h // kvh)
+    v_rep = _repeat_kv(v, h // kvh)
+    if mask is None:
+        ctx = flash_attention(q.contiguous(), k_rep.contiguous(), v_rep.contiguous(),
+                              valid=attention_mask, causal=True)
+    else:
+        ctx = _dense_attention(q, k_rep, v_rep, mask)
+    x = x + _mm(ctx.reshape(b, t, -1), layer["o_proj"])
+    y2 = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+    return x + _mlp_block(y2, layer)
+
+
+def _prompt_tables(cfg: LlamaConfig, inputs_embeds: torch.Tensor,
+                   attention_mask: torch.Tensor):
+    """RoPE tables at each token's position (its count of real tokens before
+    it) and the dense path's additive causal + key-padding mask (None on
+    the flash path)."""
+    t = inputs_embeds.shape[1]
+    positions = torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1
+    positions = positions.clamp_min(0)
+    cos, sin = rope_tables(cfg, positions)
+    mask = None
+    if cfg.attn_impl != "flash":
+        causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=inputs_embeds.device))
+        mask = _additive_mask(causal[None, None] & attention_mask[:, None, None, :])
+    return cos, sin, mask
+
+
 def prefill(
     params: Params,
     cfg: LlamaConfig,
@@ -305,36 +351,12 @@ def prefill(
         # row's pool blocks (serve._admit_row_paged).
         raise ValueError("prefill writes dense caches; scatter into a paged pool via "
                          "the serving admission path")
-    b, t, _ = inputs_embeds.shape
-    h, kvh = cfg.num_heads, cfg.num_kv_heads
-    positions = torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1
-    positions = positions.clamp_min(0)
-    cos, sin = rope_tables(cfg, positions)
-
-    use_flash = cfg.attn_impl == "flash"
-    mask = None
-    if not use_flash:
-        causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=inputs_embeds.device))
-        mask = _additive_mask(causal[None, None] & attention_mask[:, None, None, :])
+    b = inputs_embeds.shape[0]
+    cos, sin, mask = _prompt_tables(cfg, inputs_embeds, attention_mask)
 
     x = inputs_embeds
     for li, layer in enumerate(params["layers"]):
-        y = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
-        q, k, v = _project_qkv(cfg, y, layer)
-        k = apply_rope(k, cos, sin)
-        q = apply_rope(q, cos, sin)
-        _cache_write(cache["k"], li, (slice(None), slice(0, t)), k)
-        _cache_write(cache["v"], li, (slice(None), slice(0, t)), v)
-        k_rep = _repeat_kv(k, h // kvh)
-        v_rep = _repeat_kv(v, h // kvh)
-        if use_flash:
-            ctx = flash_attention(q.contiguous(), k_rep.contiguous(), v_rep.contiguous(),
-                                  valid=attention_mask, causal=True)
-        else:
-            ctx = _dense_attention(q, k_rep, v_rep, mask)
-        x = x + _mm(ctx.reshape(b, t, -1), layer["o_proj"])
-        y2 = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
-        x = x + _mlp_block(y2, layer)
+        x = _layer_block(cfg, layer, x, cos, sin, attention_mask, mask, cache, li)
 
     lengths = attention_mask.to(torch.int32).sum(dim=1)
     cache["length"].copy_(lengths)
@@ -445,3 +467,35 @@ def decode_kstep(
     if return_hidden:
         return logits, x, cache
     return logits, cache
+
+
+def forward(
+    params: Params,
+    cfg: LlamaConfig,
+    inputs_embeds: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Cache-free full forward -> f32 logits (B, T, V): the training and
+    eval path (``eventgpt_tpu/models/llama.forward``). The layers are
+    ``prefill``'s, without the cache write. Under grad with ``cfg.remat``,
+    each layer runs inside ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are dropped after the forward and recomputed in the
+    backward pass, so flash attention launches twice per layer."""
+    b, t, _ = inputs_embeds.shape
+    if attention_mask is None:
+        attention_mask = torch.ones((b, t), dtype=torch.bool, device=inputs_embeds.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    if remat and cfg.remat_policy not in ("full", "nothing_saveable"):
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} (saving matmul outputs) is not ported to "
+            f"eventgpt_tpu_torch yet; use 'full' or 'nothing_saveable'")
+    cos, sin, mask = _prompt_tables(cfg, inputs_embeds, attention_mask)
+    x = inputs_embeds
+    for layer in params["layers"]:
+        if remat:
+            x = checkpoint(_layer_block, cfg, layer, x, cos, sin, attention_mask, mask,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer_block(cfg, layer, x, cos, sin, attention_mask, mask)
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    return _mm_f32(x, params["lm_head"])

@@ -23,13 +23,25 @@ first version of the kernel: the same values reach the same fragment
 registers, and the mma order, the 64-key tile order, ``expf`` on the scaled
 f32 score and the row-sum order are kept; only how the operands arrive and
 when blocks run changed.
+
+Training differentiates through K1: under grad, ``flash_attention`` goes
+through ``FlashAttentionFunction``, whose forward is the same kernel (the
+plain version on a CPU tensor) and whose backward is
+``flash_attention_backward``, the JAX package's ``_flash_vjp_bwd`` written
+in plain torch on both devices: the scores rebuilt in f32 with the finite
+NEG_INF mask, the softmax, padded query rows zeroed, then dv, dp, ds, dq and
+dk as dense f32 products. The JAX backward is dense XLA outside any Pallas
+kernel, so its port is plain torch; a hand-written Hopper backward is queued
+work. It materializes four (B, H, S, S) f32 tensors per call.
+``LAUNCHES_BY_PATH`` counts K1's launches by inference forward, training
+forward and the recompute of a checkpointed layer, and the backward's calls.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -44,6 +56,12 @@ FLASH_KERNEL = CudaKernel("flash_attention.cu", {
     "egpt_flash_attention_fwd_bf16": (
         ctypes.c_int, [_P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
 })
+# K1 launches by the path that made them ("inference": no autograd graph;
+# "train_forward": under grad; "recompute": under grad inside a backward
+# pass, i.e. a checkpointed layer run again), and "backward": calls of
+# ``flash_attention_backward`` through the autograd Function, on any device.
+LAUNCHES_BY_PATH: Dict[str, int] = {"inference": 0, "train_forward": 0, "recompute": 0,
+                                    "backward": 0}
 
 
 def flash_attention_reference(
@@ -80,20 +98,10 @@ def flash_attention_reference(
     return out.to(q.dtype)
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    valid: Optional[torch.Tensor] = None,
-    causal: bool = True,
-) -> torch.Tensor:
-    """Fused attention. q/k/v: (B, S, H, hd) with KV already head-repeated;
-    ``valid``: (B, S) bool padding mask. Returns (B, S, H, hd) in q.dtype.
-
-    A CPU tensor runs the plain version. A CUDA tensor launches the kernel,
-    which takes contiguous bf16 q/k/v of one shape with hd = 128, and
-    raises on anything else.
-    """
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: Optional[torch.Tensor], causal: bool, path: str) -> torch.Tensor:
+    """The forward on q's device: the plain version on a CPU tensor, the
+    kernel on a CUDA tensor (counted under ``path``)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, valid, causal)
     if q.device.type != "cuda":
@@ -124,4 +132,78 @@ def flash_attention(
         out.data_ptr(), b, s, h, int(causal), 1.0 / math.sqrt(hd), stream)
     FLASH_KERNEL.check(err)
     FLASH_KERNEL.launches += 1
+    LAUNCHES_BY_PATH[path] += 1
     return out
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             valid: Optional[torch.Tensor], g: torch.Tensor,
+                             causal: bool = True):
+    """(dq, dk, dv) of the attention at the output cotangent ``g``, each in
+    its input's dtype: the JAX package's ``_flash_vjp_bwd`` in f32. Padded
+    query rows (``valid`` False) get zero probabilities, as the forward
+    zeroes their output, so they pass no gradient."""
+    b, s, h, hd = q.shape
+    if valid is None:
+        valid = torch.ones((b, s), dtype=torch.bool, device=q.device)
+    valid = valid.to(torch.bool)
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    mask = valid[:, None, None, :]
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        mask = mask & (pos[None, None, None, :] <= pos[None, None, :, None])
+    scores = torch.where(mask, scores, torch.tensor(NEG_INF, device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    del scores, mask
+    p = p * valid[:, None, :, None]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    del dp, p
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K1 with a gradient: forward through ``_flash_forward``, saving q, k,
+    v and the mask (not the output); backward through
+    ``flash_attention_backward``. ``valid`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, causal):
+        path = "recompute" if torch._C._current_graph_task_id() != -1 else "train_forward"
+        out = _flash_forward(q, k, v, valid, causal, path)
+        ctx.save_for_backward(q, k, v, valid)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, valid = ctx.saved_tensors
+        LAUNCHES_BY_PATH["backward"] += 1
+        dq, dk, dv = flash_attention_backward(q, k, v, valid, g, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Fused attention. q/k/v: (B, S, H, hd) with KV already head-repeated;
+    ``valid``: (B, S) bool padding mask. Returns (B, S, H, hd) in q.dtype.
+
+    A CPU tensor runs the plain version. A CUDA tensor launches the kernel,
+    which takes contiguous bf16 q/k/v of one shape with hd = 128, and
+    raises on anything else. With grad enabled and an input that requires
+    grad, the call goes through ``FlashAttentionFunction`` (the same
+    forward, and a backward); otherwise straight to the forward.
+    """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, valid, causal)
+    return _flash_forward(q, k, v, valid, causal, "inference")

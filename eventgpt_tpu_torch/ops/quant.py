@@ -1,6 +1,6 @@
 """Weight-only int8 and int4 quantization of the LLaMA matmuls.
 
-Port of ``eventgpt_tpu/ops/quant.py`` for inference. Quantized leaves keep
+Port of ``eventgpt_tpu/ops/quant.py``. Quantized leaves keep
 the JAX package's layouts, so the two packages hold the same arrays:
 
   * int8: ``{"q": (K, N) int8, "s": (1, N) f32}``, symmetric per output
@@ -15,7 +15,10 @@ reads ``w.T`` = (K, N). ``matmul`` / ``matmul_f32_out`` dispatch on the
 leaf: dense, int8 (a library GEMM that keeps the f32 accumulator before the
 f32 scale) or int4 (``_matmul4``: the K4 kernel of ``ops/int4_matmul.py``
 where its shape gate holds, else the grouped two-plane einsum, as in the
-JAX package).
+JAX package), or a training-time LoRA composite ``{"w": base, "a": A*scale
+(d_in, r), "b": B (r, d_out)}`` (``train/lora.apply_lora``), evaluated as
+``x @ w + (drop(x) @ a) @ b``: the factors keep the JAX package's math
+layout, the base weight the port's (out, in).
 """
 
 from __future__ import annotations
@@ -36,6 +39,34 @@ def is_quantized(leaf: Any) -> bool:
 
 def is_quantized4(leaf: Any) -> bool:
     return isinstance(leaf, dict) and "q4" in leaf and "s" in leaf
+
+
+def is_lora(leaf: Any) -> bool:
+    """Apply-form LoRA composite leaf: {"w": base, "a": A*scale, "b": B},
+    plus {"seed", "dr"} when the adapter branch drops its input."""
+    return isinstance(leaf, dict) and "w" in leaf and "a" in leaf and "b" in leaf
+
+
+def _lora_branch_input(x: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
+    """The adapter branch's input: ``x``, or with the leaf's dropout state
+    inverted dropout at rate ``dr`` (peft semantics: the base ``x @ w`` is
+    never dropped). The mask comes from a generator seeded with the leaf's
+    own ``seed``, so a checkpointed layer's recompute draws the mask its
+    forward drew."""
+    if "seed" not in w:
+        return x
+    keep = 1.0 - w["dr"]
+    g = torch.Generator(device=x.device)
+    g.manual_seed(int(w["seed"]))
+    mask = torch.rand(x.shape, generator=g, device=x.device) < keep
+    return torch.where(mask, x / x.new_tensor(keep), torch.zeros((), dtype=x.dtype,
+                                                                  device=x.device))
+
+
+def _lora_delta(x: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
+    """(drop(x) @ a) @ b in x.dtype."""
+    xl = _lora_branch_input(x, w)
+    return torch.matmul(xl, w["a"].to(x.dtype)) @ w["b"].to(x.dtype)
 
 
 def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -146,7 +177,9 @@ def _matmul8_f32(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
     """x @ w for a dense (out, in) weight or a quantized leaf, in x.dtype.
     Quantized products keep the f32 accumulator and round once, after the
-    f32 scale."""
+    f32 scale. A LoRA composite adds its delta to the base product."""
+    if is_lora(w):
+        return matmul(x, w["w"]) + _lora_delta(x, w)
     if is_quantized4(w):
         return _matmul4(x, w).to(x.dtype)
     if is_quantized(w):
@@ -157,7 +190,10 @@ def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
 def matmul_f32_out(x: torch.Tensor, w: Any) -> torch.Tensor:
     """Like ``matmul`` but returns the f32 accumulator (lm_head logits).
     For a dense weight that is the product of the f32-upcast operands:
-    bf16 products are exact in f32."""
+    bf16 products are exact in f32. A LoRA composite adds its x.dtype delta
+    in f32."""
+    if is_lora(w):
+        return matmul_f32_out(x, w["w"]) + _lora_delta(x, w).float()
     if is_quantized4(w):
         return _matmul4(x, w)
     if is_quantized(w):

@@ -6,7 +6,7 @@
   not). Exact: the bytes are the same.
 - The config: ``from_hf_config``, the presets and the JSON round trip give
   the JAX package's ``to_dict`` (without the fields the port does not
-  carry: training-only remat, ``hidden_act`` and ``max_event_stream_us``).
+  carry: ``hidden_act`` and ``max_event_stream_us``).
 - Loading: a directory written by the JAX ``write_hf_checkpoint`` loads in
   the port to exactly ``params_from_jax(eventchat_params_from_hf(
   load_state_dict(dir)))``, and a directory the port writes loads in the
@@ -45,9 +45,9 @@ from eventgpt_tpu_torch.ops.raster import synthetic_event_stream
 # takes the resize path too.
 JCFG = jcfg.EventChatConfig.tiny(vocab_size=259)
 TCFG = tcfg.EventChatConfig.tiny(vocab_size=259)
-# Fields of the JAX config that the port does not carry: the LM's
-# training-only remat, and two that neither package reads.
-_NOT_CARRIED = {"llama": ("remat", "remat_policy"), "vision": ("hidden_act",)}
+# Fields of the JAX config that the port does not carry: two that neither
+# package reads.
+_NOT_CARRIED = {"vision": ("hidden_act",)}
 
 
 def _jax_dict(cfg):

@@ -46,7 +46,12 @@ def test_port_imports_no_jax_and_no_jax_package():
             "eventgpt_tpu_torch.checkpoint",
             "eventgpt_tpu_torch.models._safetensors",
             "eventgpt_tpu_torch.models.qformer",
-            "eventgpt_tpu_torch.train.lora"} <= set(found["modules"])
+            "eventgpt_tpu_torch.train.lora",
+            "eventgpt_tpu_torch.train.optim",
+            "eventgpt_tpu_torch.train.data",
+            "eventgpt_tpu_torch.train.steps",
+            "eventgpt_tpu_torch.train.trainer",
+            "eventgpt_tpu_torch.cli.train"} <= set(found["modules"])
     assert found["bad"] == [], f"the port pulled in: {found['bad']}"
 
 

@@ -99,6 +99,62 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     torch.testing.assert_close(out, fa.flash_attention_reference(q, q, q), rtol=0, atol=0)
 
 
+# K1's gradient (the autograd Function: the kernel forward, the plain f32
+# backward cast to bf16) vs autograd through the plain version on the same
+# bf16 inputs: both are f32 sums of the same products rounded once to bf16,
+# so they differ by at most about one bf16 rounding of the largest gradient.
+GRAD_RTOL = 2 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,lengths", [
+    (2, 130, 4, [130, 77]),
+    (2, 896, 32, [896, 801]),   # the 7B training shape of chip_smoke.py
+])
+def test_flash_kernel_gradient_matches_plain(b, s, h, lengths):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(s + 1)
+    q, k, v, cot = (torch.randn((b, s, h, 128), generator=g, device=dev, dtype=torch.bfloat16)
+                    for _ in range(4))
+    valid = torch.arange(s, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    launches, paths = fa.FLASH_KERNEL.launches, dict(fa.LAUNCHES_BY_PATH)
+    out = fa.flash_attention(*leaves, valid=valid, causal=True)
+    (out.float() * cot.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert fa.FLASH_KERNEL.launches == launches + 1
+    assert fa.LAUNCHES_BY_PATH["train_forward"] == paths["train_forward"] + 1
+    assert fa.LAUNCHES_BY_PATH["backward"] == paths["backward"] + 1
+    refs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = fa.flash_attention_reference(*refs, valid, causal=True)
+    (ref.float() * cot.float()).sum().backward()
+    for name, got, want in zip("qkv", leaves, refs):
+        assert got.grad.dtype == torch.bfloat16 and bool(torch.isfinite(got.grad).all())
+        bar = GRAD_RTOL * want.grad.float().abs().max().item()
+        err = (got.grad.float() - want.grad.float()).abs().max().item()
+        assert err <= bar, (name, err, bar)
+    for row, n in enumerate(lengths):
+        assert (leaves[0].grad[row, n:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_f32_flash_training_on_the_card_raises(tmp_path):
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.data.tokenizer import ByteTokenizer
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.train.args import DataArguments, ModelArguments, TrainingArguments
+    from eventgpt_tpu_torch.train.trainer import Trainer
+
+    dev = _card()
+    cfg = EventChatConfig.tiny()
+    params = init_eventchat_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                   torch.float32, dev)
+    with pytest.raises(ValueError, match="bf16 only"):
+        Trainer(cfg, params, ByteTokenizer(), ModelArguments(), DataArguments(),
+                TrainingArguments(output_dir=str(tmp_path), bf16=False, attn_impl="flash"),
+                device=dev)
+
+
 # K4 vs its plain version: both sum exact products (bf16 x times a small
 # integer, then the f32 group scale) in f32, in another order; outputs are
 # O(sqrt(K)) ~ 30.
