@@ -52,7 +52,20 @@ Phases, each printed on its own line:
                    holds K3 (paged int8 decode attention) on the arena that
                    the server's first step filled, against its plain version
                    and against K2 on the gathered view, also at n_valid 0, 1,
-                   64 and 65;
+                   64 and 65. These three run the synchronous scheduler
+                   without the prefix cache or lanes. ``serve_defaults_*``:
+                   the served path at the JAX CLI's defaults (pipelined,
+                   prefix cache 512 MiB, prefill_budget = chunk), built by
+                   ``cli/serve.make_batcher``, paged then dense, budgets 48,
+                   16, 16, 16 and the last two requests submitted after the
+                   first harvest; also with ``--prefix_cache_mb 0`` (the
+                   late requests hit requests 1 and 2's event heads and
+                   join as suffix lanes), with ``--first_chunk 4``, and the
+                   synchronous, cache-off, lane-off oracle. Per run: TTFT,
+                   latency, tok/s, decode ms per step, overlap ratio, hits,
+                   lanes, copy-on-write copies, K1 launches (32 per
+                   full-prefill dispatch), peak memory, and each chain held
+                   to the oracle's by ``chain_rule``;
 6. slice_int8_fused -- ``--quant int8 --fuse_params`` with a bf16 cache;
 7. checkpoint_7b -- phase 3's bf16 tree written as a sharded HF checkpoint
                    (``convert.write_hf_checkpoint``) into the work directory,
@@ -97,7 +110,9 @@ Phases, each printed on its own line:
                    the CPU, bf16-free f32, with int4 + int8 KV + fused (its
                    chain's sha256 printed), beam (k = 2, 3), speculative
                    (window 1, 2, 4) and Medusa chains, served paged with the int8
-                   cache, and loaded from a checkpoint the port wrote
+                   cache, served with the scheduler defaults (pipelined,
+                   prefix hits, suffix and full lanes; dense f32 and paged
+                   int8), and loaded from a checkpoint the port wrote
                    (plain and with a gated Q-Former);
                    ``serve_http_tiny`` runs ``cli/serve.build_server`` on the
                    card over a tiny bf16 checkpoint (``--model_path DIR``,
@@ -184,6 +199,26 @@ SPLIT_EDGE_N_VALID = (0, 1, 64, 65)
 # The serving phases: the four requests of the slice, then two more over
 # streams 100 and 101 with queries 3 and 2, which wait for rows to free.
 SERVE_EXTRA = [(0, 3, 16), (1, 2, 16)]  # (stream, query, new tokens)
+# The scheduler of the first serve phases: synchronous, no prefix cache,
+# no piggyback lanes (the JAX CLI's defaults are the serve_defaults phase).
+SYNC_NO_CACHE = {"pipeline": False, "prefix_cache": False, "prefill_budget": 0}
+# serve_defaults: the first four requests' budgets (the last two keep
+# SERVE_EXTRA's), and the configurations, as cli/serve flags over
+# "--max_batch 4 --max_len 1024 --chunk 32 --kv_cache int8". The last is
+# the oracle the others' chains are held to. On the paged layout the
+# unbounded run gets a pool twice the default, so that the gate's
+# reclaim does not evict the entries the late requests hit.
+SERVE_DEFAULTS_BUDGETS = (48, 16, 16, 16)
+SERVE_DEFAULTS_CONFIGS = [
+    ("defaults", []),
+    ("unbounded_cache", ["--prefix_cache_mb", "0"]),
+    ("first_chunk_4", ["--first_chunk", "4"]),
+    ("oracle", ["--no_pipeline", "--no_prefix_cache", "--prefill_budget", "0"]),
+]
+UNBOUNDED_PAGED_POOL = ["--kv_pool_blocks", "129"]
+# The lane chunk of the 7B runs (prefill_budget = chunk = 32): the window
+# of the decode_kstep-vs-decode_step gap chain_rule measures.
+SERVE_KSTEP_WINDOW = 32
 # K4 launches per 7B decode step at each decode shape: q, k, v, o; gate,
 # up; down; lm_head, in each of 32 layers but the last.
 INT4_LAUNCHES_PER_STEP = {(4, 4096, 4096): 128, (4, 4096, 11008): 64,
@@ -789,7 +824,7 @@ def run_server(params, cfg, tokenizer, requests, kv_layout: str) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     batcher = ContinuousBatcher(params, cfg, max_batch=4, max_len=1024, chunk=32,
                                 eos_token_id=tokenizer.eos_token_id, kv_quant=True,
-                                kv_layout=kv_layout)
+                                kv_layout=kv_layout, **SYNC_NO_CACHE)
     engine = ServingEngine(batcher, tokenizer, start=False)
     try:
         rids = [engine.submit_ids(i, px, n) for i, px, n in requests]
@@ -813,7 +848,7 @@ def run_server(params, cfg, tokenizer, requests, kv_layout: str) -> tuple:
         "wall_s": wall, "generated_tokens": [len(c) for c in chains],
         "batch_tok_s": sum(len(c) for c in chains) / wall,
         "ttft_s": [st["ttft_s"] for st in stats], "latency_s": [st["latency_s"] for st in stats],
-        "prefill_dispatches": batcher.prefill_dispatches, "segments": batcher.segments,
+        "prefill_dispatches": batcher.prefill_dispatches, "segments": batcher.seg_count,
         "admission_s": batcher.admission_s, "decode_s": batcher.decode_s,
         "decode_steps": batcher.decode_steps,
         "decode_ms_per_step": batcher.decode_s * 1e3 / max(batcher.decode_steps, 1),
@@ -847,7 +882,7 @@ def check_paged_kernel(params, cfg, tokenizer, requests, seed: int) -> tuple:
 
     srv = ContinuousBatcher(params, cfg, max_batch=4, max_len=1024, chunk=32,
                             eos_token_id=tokenizer.eos_token_id, kv_quant=True,
-                            kv_layout="paged")
+                            kv_layout="paged", **SYNC_NO_CACHE)
     rids = [srv.submit(i, px, 2 * MAX_NEW_TOKENS) for i, px, _ in requests[:len(QUERIES)]]
     srv.step()
     if srv.prefill_dispatches != 1 or any(r is None for r in srv.rows):
@@ -923,6 +958,219 @@ def check_paged_kernel(params, cfg, tokenizer, requests, seed: int) -> tuple:
             "whole_table_bound_ms": table_bytes / H100_BYTES_PER_S * 1e3}, chains
 
 
+def serve_defaults_requests(requests):
+    """serve_defaults' six requests: the first four with budgets 48, 16,
+    16, 16, then SERVE_EXTRA's two (stream 0 with query 3 and stream 1 with
+    query 2, 16 tokens each: the streams and system text of requests 1 and
+    2, so their event-block heads are prefix-cache hits)."""
+    return ([(i, px, n) for (i, px, _), n in zip(requests, SERVE_DEFAULTS_BUDGETS)]
+            + list(requests[len(QUERIES):]))
+
+
+def serve_defaults_run(params, cfg, tokenizer, requests, layout: str, flags) -> tuple:
+    """One configuration of ``serve_defaults``: the batcher that
+    ``cli/serve`` builds from ``flags`` (``make_batcher``), stepped in this
+    thread as the ServingEngine's loop steps it, so that the late
+    submission is deterministic. The first four requests are queued before
+    the first step (one admission wave); the last two are submitted right
+    after the first harvest, while row 0 still decodes. After the drain
+    only prefix entries may hold blocks, and none after
+    ``reset_prefix_cache()``. Returns (numbers, chains in request order)."""
+    import torch
+
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+
+    args = cli_serve.build_parser().parse_args(
+        ["--max_batch", "4", "--max_len", "1024", "--chunk", "32", "--kv_cache", "int8",
+         "--kv_layout", layout] + list(flags))
+    torch.cuda.reset_peak_memory_stats()
+    batcher = cli_serve.make_batcher(args, params, cfg, tokenizer, "cuda")
+    rids = [batcher.submit(i, px, n) for i, px, n in requests[:len(QUERIES)]]
+    t0 = time.perf_counter()
+    while batcher.decode_steps == 0:  # until the first harvest
+        batcher.step()
+    t_late = time.perf_counter() - t0
+    rids += [batcher.submit(i, px, n) for i, px, n in requests[len(QUERIES):]]
+    while batcher.queue or any(r is not None for r in batcher.rows):
+        batcher.step()
+    batcher._drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    chains = [batcher.finished[r] for r in rids]
+    statuses = [batcher.finish_status[r] for r in rids]
+    if statuses != ["ok"] * len(rids):
+        raise AssertionError(f"serve_defaults {layout} {flags}: statuses {statuses}")
+    from eventgpt_tpu_torch.models.eventchat import _vocab_size
+
+    vocab = _vocab_size(params)
+    if any(len(c) != n or any(not 0 <= t < vocab for t in c)
+           for c, (_, _, n) in zip(chains, requests)):
+        raise AssertionError(f"serve_defaults {layout} {flags}: malformed chains")
+    stats = [batcher.request_stats[r] for r in rids]
+    pc = batcher.prefix_cache_stats()
+    out = {
+        "flags": " ".join(flags), "kv_layout": layout, "pipeline": batcher.pipeline,
+        "prefix_cache_budget_bytes": pc.get("budget_bytes"),
+        "prefill_budget": batcher.prefill_budget, "lane_chunk": batcher._lane_chunk,
+        "lane_cap": batcher._lane_cap, "first_chunk": batcher.first_chunk,
+        "late_submit_s": t_late, "wall_s": wall, "generated_tokens": [len(c) for c in chains],
+        "batch_tok_s": sum(len(c) for c in chains) / wall,
+        "ttft_s": [st["ttft_s"] for st in stats], "latency_s": [st["latency_s"] for st in stats],
+        "admission_s": batcher.admission_s, "admission_max_s": batcher.admission_max_s,
+        "decode_s": batcher.decode_s, "decode_steps": batcher.decode_steps,
+        "decode_steps_run": batcher.decode_steps_run, "segments": batcher.seg_count,
+        "decode_ms_per_step": batcher.decode_s * 1e3 / max(batcher.decode_steps, 1),
+        "decode_ms_per_step_run": batcher.decode_s * 1e3 / max(batcher.decode_steps_run, 1),
+        "overlap_ratio": batcher.overlap_ratio(), "host_gap_s": batcher.host_gap_s,
+        "overlap_hidden_s": batcher.overlap_hidden_s,
+        "device_segment_s": batcher.device_segment_s, "carry_uploads": batcher.carry_uploads,
+        "dispatches": dict(batcher.dispatches),
+        "prefix_hits": pc.get("hits", 0), "prefix_misses": pc.get("misses", 0),
+        "prefix_evictions": pc.get("evictions", 0), "prefix_entries": pc.get("n_entries", 0),
+        "prefix_bytes": pc.get("bytes", 0),
+        "lanes_started": dict(batcher.lanes_started), "mixed_segments": batcher.mixed_segments,
+        "mixed_boundaries": batcher.mixed_boundaries,
+        "mixed_zero_harvests": batcher.mixed_zero_harvests,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+    if batcher.mixed_zero_harvests:
+        raise AssertionError(f"serve_defaults {layout} {flags}: a lane boundary left live rows "
+                             f"without a token")
+    pool = batcher.pool_stats()
+    if pool is not None:
+        out["cow_copies"] = pool["cow_copies"]
+        out["pool_after_drain"] = pool
+        if pool["free_blocks"] != pool["usable_blocks"] - pc.get("blocks_held", 0):
+            raise AssertionError(f"serve_defaults paged: blocks held after the drain beyond "
+                                 f"the prefix entries': {pool}, {pc.get('blocks_held')}")
+        batcher.reset_prefix_cache()
+        pool = batcher.pool_stats()
+        out["pool_after_reset"] = pool
+        if pool["free_blocks"] != pool["usable_blocks"] or int(batcher.cache["bt"].abs().sum()):
+            raise AssertionError(f"serve_defaults paged: blocks held after "
+                                 f"reset_prefix_cache(): {pool}")
+    del batcher
+    torch.cuda.empty_cache()
+    return out, chains
+
+
+def serve_defaults(eventchat, llama, params, cfg, tokenizer, requests, layout: str, counted,
+                   n_layers: int, smi: str) -> dict:
+    """``serve_defaults`` on one layout: each configuration of
+    SERVE_DEFAULTS_CONFIGS, counted (K1 = 32 per full-prefill dispatch:
+    waves and batch-1 admissions; suffix, lane and chunked admissions run
+    decode_kstep). Every chain is held to the oracle's through
+    ``chain_rule``. The unbounded run must hit the event-block entries of
+    requests 1 and 2 and open a suffix lane. Returns {config: K1 launches}."""
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    reqs = serve_defaults_requests(requests)
+    runs, k1 = {}, {}
+    for name, flags in SERVE_DEFAULTS_CONFIGS:
+        if name == "unbounded_cache" and layout == "paged":
+            flags = flags + UNBOUNDED_PAGED_POOL
+        (numbers, chains), launches = counted(
+            lambda: serve_defaults_run(params, cfg, tokenizer, reqs, layout, flags))
+        full = sum(numbers["dispatches"].get(k, 0) for k in ("full", "wave", "prefix_set"))
+        if launches[FLASH_KERNEL.source] != n_layers * full or full == 0:
+            raise AssertionError(f"serve_defaults {layout} {name}: K1 launches {launches}, want "
+                                 f"{n_layers} x {full} full-prefill dispatches")
+        numbers["k1_launches"] = launches[FLASH_KERNEL.source]
+        numbers["launches"] = launches
+        k1[name] = launches[FLASH_KERNEL.source]
+        runs[name] = (numbers, chains)
+    oracle, want = runs["oracle"]
+    padded = mask = None
+    for name, (numbers, chains) in runs.items():
+        if name != "oracle" and chains != want and padded is None:
+            padded, mask, _ = eventchat.prepare_prefill(
+                params, cfg, [r[0] for r in reqs], [r[1] for r in reqs])
+        rule = (chain_rule(f"serve_defaults {layout} {name}", llama, params, cfg, padded, mask,
+                           want, chains, SERVE_KSTEP_WINDOW, True, tokenizer.eos_token_id)
+                if name != "oracle" else {"rows_identical": [True] * len(chains),
+                                          "divergences": []})
+        numbers["vs_oracle"] = {
+            **rule,
+            "ttft_s_over_oracle": [a / b for a, b in zip(numbers["ttft_s"], oracle["ttft_s"])],
+            "latency_s_over_oracle": [a / b for a, b in zip(numbers["latency_s"],
+                                                            oracle["latency_s"])],
+            "decode_ms_per_step_oracle": oracle["decode_ms_per_step"],
+            "overlap_ratio_oracle": oracle["overlap_ratio"],
+            "wall_s_oracle": oracle["wall_s"]}
+        if name == "unbounded_cache" and (numbers["prefix_hits"] < 2
+                                          or numbers["lanes_started"]["suffix"] < 1):
+            raise AssertionError(f"serve_defaults {layout} unbounded: requests 5 and 6 did not "
+                                 f"hit (hits {numbers['prefix_hits']}, lanes "
+                                 f"{numbers['lanes_started']})")
+        emit(f"serve_defaults_{layout}_{name}",
+             {**numbers, "first_ids": [c[:8] for c in chains], "nvidia_smi": smi})
+    emit(f"serve_defaults_{layout}", {
+        "config": "EventGPT-7B bf16 tree, int8 KV, 4 rows, max_len 1024, chunk 32, six "
+                  "requests (budgets 48, 16, 16, 16, then 16, 16 after the first harvest)",
+        "configs": [n for n, _ in SERVE_DEFAULTS_CONFIGS],
+        "chains_identical_to_oracle": {n: r[1] == want for n, r in runs.items()},
+        "ttft_s": {n: r[0]["ttft_s"] for n, r in runs.items()},
+        "wall_s": {n: r[0]["wall_s"] for n, r in runs.items()},
+        "decode_ms_per_step": {n: r[0]["decode_ms_per_step"] for n, r in runs.items()},
+        "overlap_ratio": {n: r[0]["overlap_ratio"] for n, r in runs.items()},
+        "prefix_hits": {n: r[0]["prefix_hits"] for n, r in runs.items()},
+        "k1_launches": k1, "nvidia_smi": smi})
+    return k1
+
+
+def tiny_serve_defaults_card_vs_cpu(work: str) -> dict:
+    """The tiny f32 model served with the JAX CLI's scheduler defaults
+    (pipelined, the prefix cache, lanes of prefill_budget = chunk) gives
+    the same chains and the same hits, lanes and segments on the card as
+    on the CPU: request A decodes long, B finishes fast, then C (A's
+    stream again: a prefix hit, a suffix lane) and D (a miss, a full
+    lane) join while A decodes; dense f32 and paged int8."""
+    import numpy as np
+    import torch
+
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
+    from eventgpt_tpu_torch.data.tokenizer import ByteTokenizer, tokenize_with_event
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.ops.image import process_event_file
+    from eventgpt_tpu_torch.serve import ContinuousBatcher
+
+    cfg = EventChatConfig.tiny(vocab_size=260)
+    cpu = init_eventchat_params(cfg, torch.Generator().manual_seed(3), torch.float32, "cpu")
+    trees = {"cpu": cpu, "cuda": _to(cpu, "cuda")}
+    px = [np.asarray(process_event_file(os.path.join(work, f"events_{i}.npy"),
+                                        cfg.num_event_frames, cfg.vision.image_size)[1])
+          for i in range(3)]
+    ids = [tokenize_with_event(prepare_event_prompt(q), ByteTokenizer()) for q in QUERIES]
+    first = [(ids[0], px[0], 40), (ids[1], px[1], 6)]
+    late = [(ids[3], px[0], 10), (ids[2], px[2], 8)]
+    out = {}
+    for layout, quant in (("dense", False), ("paged", True)):
+        res = {}
+        for dev, params in trees.items():
+            srv = ContinuousBatcher(params, cfg, max_batch=2, max_len=512, chunk=8,
+                                    eos_token_id=None, kv_quant=quant, kv_layout=layout,
+                                    prefill_budget=8, device=dev)
+            rids = [srv.submit(*r) for r in first]
+            srv.step()
+            srv.step()
+            rids += [srv.submit(*r) for r in late]
+            done = srv.run_until_drained()
+            res[dev] = {"chains": [done[r] for r in rids], "hits": srv._prefix_cache.hits,
+                        "lanes": dict(srv.lanes_started), "segments": srv.seg_count,
+                        "steps_run": srv.decode_steps_run, "dispatches": dict(srv.dispatches)}
+        if res["cpu"] != res["cuda"]:
+            raise AssertionError(f"tiny served defaults differ ({layout}): cpu {res['cpu']} vs "
+                                 f"cuda {res['cuda']}")
+        if res["cuda"]["hits"] < 1 or res["cuda"]["lanes"]["suffix"] < 1:
+            raise AssertionError(f"tiny served defaults ({layout}): no suffix lane: "
+                                 f"{res['cuda']}")
+        out[layout] = {k: v for k, v in res["cuda"].items() if k != "chains"}
+        out[layout]["tokens"] = [len(c) for c in res["cuda"]["chains"]]
+    return {"config": "tiny f32, 2 rows, chunk 8, prefill_budget 8, pipelined, prefix cache; "
+                      "dense f32 and paged int8", **out, "identical": True}
+
+
 def tiny_serve_card_matches_cpu(work: str) -> dict:
     """A tiny f32 model served paged with the int8 cache gives the same
     greedy chains on the card as on the CPU."""
@@ -948,7 +1196,7 @@ def tiny_serve_card_matches_cpu(work: str) -> dict:
     chains = {}
     for dev, params in trees.items():
         srv = ContinuousBatcher(params, cfg, max_batch=2, max_len=512, chunk=8, eos_token_id=None,
-                                kv_quant=True, kv_layout="paged", device=dev)
+                                kv_quant=True, kv_layout="paged", device=dev, **SYNC_NO_CACHE)
         rids = [srv.submit(*r) for r in reqs]
         out = srv.run_until_drained()
         chains[dev] = [out[r] for r in rids]
@@ -2238,6 +2486,12 @@ def main() -> int:
                                     "nvidia_smi": smi})
         if dense_chains != paged_chains:
             raise AssertionError("dense and paged served chains differ")
+
+        # The served path at the JAX CLI's defaults, against the
+        # synchronous, cache-off, lane-off oracle of the same call.
+        serve_defaults_k1 = {layout: serve_defaults(eventchat, llama, params, cfg, tokenizer,
+                                                    requests, layout, counted, n_layers, smi)
+                             for layout in ("paged", "dense")}
         if args.profile:
             emit("profile_serve_paged", profile_call(
                 lambda: run_server(params, cfg, tokenizer, requests, "paged"),
@@ -2432,6 +2686,7 @@ def main() -> int:
         emit("tiny_variants_card_vs_cpu",
              tiny_variants_card_vs_cpu(os.path.join(work, "events_2.npy")))
         emit("tiny_serve_card_vs_cpu", tiny_serve_card_matches_cpu(work))
+        emit("tiny_serve_defaults_card_vs_cpu", tiny_serve_defaults_card_vs_cpu(work))
         emit("tiny_checkpoint_card_vs_cpu", tiny_checkpoint_card_vs_cpu(work))
         emit("serve_http_tiny", serve_http_tiny(work))
         emit("train_tiny_card_vs_cpu", train_tiny_card_vs_cpu(work, train_paths))
@@ -2466,6 +2721,10 @@ def main() -> int:
                              "slice_int4": launches4[FLASH_KERNEL.source],
                              **{name: n[FLASH_KERNEL.source]
                                 for name, n in variant_launches.items()},
+                             "serve_paged_int8kv": serve_launches[FLASH_KERNEL.source],
+                             **{f"serve_defaults_{layout}_{name}": n
+                                for layout, by_config in serve_defaults_k1.items()
+                                for name, n in by_config.items()},
                              **{f"train_stage{st}": run["k1_launches"]
                                 for st, run in train_runs.items()},
                              **{f"train_stage{st}_eval": run["eval"]["k1_inference"]

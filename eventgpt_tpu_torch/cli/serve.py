@@ -16,6 +16,11 @@ Endpoints:
           "ttft_s": x, "latency_s": y}; a forced finish maps to 504
           (deadline), 499 (cancelled) or 500 (non-finite logits).
   POST /cancel       {"rid": id} -> {"rid": id, "cancelled": bool}
+  POST /prefix       {"prefix_prompt": str, optional "event_path"/"event_b64"
+                      when the prefix runs through the event block}
+      -> {"prefix_len": N, "entries": N, "bytes": N}: inserts a prefix-KV
+         cache entry on a running server
+  GET  /prefix_cache -> the prefix cache's entries, budget and counters
   GET  /health       -> {"status": "ok", "active": N, "queued": N}
   GET  /stats        -> engine counters, block-pool state, recent requests
 
@@ -25,16 +30,23 @@ byte, --use_event_qformer, --pretrain_query_embedder,
 --temperature, --max_new_tokens, --dtype, --quant, --fuse_params,
 --kv_cache, --kv_layout, --kv_pool_blocks, --max_queue,
 --default_deadline_s, --max_body_mb, --drain_timeout_s, --host, --port,
---event_root, --conv_mode and --device (default cuda). Every other flag of
-the JAX CLI is accepted and raises ``NotImplementedError`` when set: its
-path is not ported yet. The JAX CLI turns the prefix-KV cache and
-piggyback lanes on by default; here both are off, because neither is
-ported. Chains are the same either way (the JAX package's contract).
+--event_root, --conv_mode, --device (default cuda), and the scheduler's
+flags with the JAX CLI's defaults and meanings: the pipelined scheduler
+(``--no_pipeline`` turns it off), the prefix-KV cache (``--prefix_cache_mb``
+512, 0 = unbounded; ``--no_prefix_cache``; ``--prefix_prompt`` with
+``--prefix_event`` caches a head at startup), piggyback prefill lanes
+(``--prefill_budget`` -1 = ``--chunk`` prompt tokens per boundary, 0 =
+off), the TTFT ramp (``--first_chunk``) and chunked prefill
+(``--prefill_chunk``). Every other flag of the JAX CLI is accepted and
+raises ``NotImplementedError`` when set: its path is not ported yet.
+Chains are the same with every scheduler feature on or off.
 
 Usage:
   python -m eventgpt_tpu_torch.cli.serve --model_path tiny-random \\
       --kv_layout paged --kv_cache int8 [--device cpu] --port 8600
   curl -s localhost:8600/v1/generate -d @req.json   # {"query": ..., "event_b64": ...}
+  curl -s localhost:8600/prefix -d '{"prefix_prompt": "A chat between"}'
+  curl -s localhost:8600/prefix_cache
 """
 
 from __future__ import annotations
@@ -115,6 +127,18 @@ class ServingEngine:
         self._wake.set()
         return rid
 
+    def set_prefix(self, prefix_prompt: str, pixels=None) -> int:
+        """Insert a prefix-KV cache entry (``ContinuousBatcher.set_prefix``)
+        from raw prompt text, which may hold the ``<event>`` placeholder
+        when ``pixels`` carries its stream. Returns the prefix length in
+        cache positions. Safe on a live engine: the prefix prefills its own
+        row cache."""
+        ids = tokenize_with_event(prefix_prompt, self.tokenizer)
+        with self._lock:
+            plen = self.batcher.set_prefix(ids, pixel_values=pixels)
+            self._snapshot = self._build_snapshot_locked()
+        return plen
+
     def cancel(self, rid: int) -> bool:
         """Cancel a queued or in-flight request; its waiter is released with
         the tokens it committed, under status ``cancelled``."""
@@ -173,21 +197,33 @@ class ServingEngine:
             "faults": self.n_faults,
             "admission_s": round(b.admission_s, 3),
             "prefill_dispatches": b.prefill_dispatches,
-            "segments": b.segments,
+            "dispatches": dict(b.dispatches),
+            "segments": b.seg_count,
+            "pipeline": b.pipeline,
+            "overlap_ratio": round(b.overlap_ratio(), 4),
+            "prefill_budget": b.prefill_budget,
+            "lanes_started": dict(b.lanes_started),
+            "mixed_segments": b.mixed_segments,
             "recent": {str(k): {kk: round(vv, 3) for kk, vv in b.request_stats[k].items()}
                        for k in itertools.islice(reversed(b.request_stats), 8)},
         }
         pool = b.pool_stats()
         if pool is not None:
             snap["kv_blocks"] = pool
+        pc = b.prefix_cache_stats()
+        snap["prefix_cache"] = {k: pc[k] for k in ("enabled", "n_entries", "bytes", "hits",
+                                                    "misses", "evictions") if k in pc}
         return snap
 
     def _loop(self) -> None:
         while not self._stop:
             try:
                 with self._lock:
+                    # An in-flight segment left after the last row finished
+                    # is drained by one more step.
                     busy = bool(self.batcher.queue
-                                or any(r is not None for r in self.batcher.rows))
+                                or any(r is not None for r in self.batcher.rows)
+                                or self.batcher._inflight is not None)
                     if busy:
                         self.batcher.step()
                         self._harvest_locked()
@@ -201,8 +237,10 @@ class ServingEngine:
                 self._wake.clear()
 
     def _on_fault(self, e: Exception) -> None:
-        """Fail the in-flight rows (their blocks return to the pool); the
-        queued requests stay for the next step."""
+        """Fail the in-flight rows, lanes and pending admission (their blocks
+        and prefix pins return, and the pipeline's in-flight segment and
+        device carry are dropped); the queued requests stay for the next
+        step."""
         with self._lock:
             self.fault = repr(e)
             self.n_faults += 1
@@ -298,6 +336,9 @@ def make_handler(engine: ServingEngine, cfg, event_root=None, default_budget: in
                                  "queued": s["queued"], "faults": s["faults"]})
             elif self.path == "/stats":
                 self._json(200, engine.stats())
+            elif self.path == "/prefix_cache":
+                # The cache guards its own host state: no engine lock.
+                self._json(200, engine.batcher.prefix_cache_stats())
             else:
                 self._json(404, {"error": f"no route {self.path}"})
 
@@ -328,7 +369,7 @@ def make_handler(engine: ServingEngine, cfg, event_root=None, default_budget: in
                 return None
 
         def do_POST(self):
-            if self.path not in ("/v1/generate", "/cancel"):
+            if self.path not in ("/v1/generate", "/cancel", "/prefix"):
                 self._json(404, {"error": f"no route {self.path}"})
                 return
             payload = self._read_payload()
@@ -341,6 +382,20 @@ def make_handler(engine: ServingEngine, cfg, event_root=None, default_budget: in
                     self._json(400, {"error": str(e)})
                     return
                 self._json(200, {"rid": rid, "cancelled": engine.cancel(rid)})
+                return
+            if self.path == "/prefix":
+                try:
+                    prompt = payload["prefix_prompt"]
+                    pixels = None
+                    if "event_path" in payload or "event_b64" in payload:
+                        pixels = _decode_pixels(payload, cfg, event_root)
+                    plen = engine.set_prefix(prompt, pixels)
+                except (KeyError, ValueError, RuntimeError) as e:  # a bad request
+                    self._json(400, {"error": str(e)})
+                    return
+                st = engine.batcher.prefix_cache_stats()
+                self._json(200, {"prefix_len": plen, "entries": st.get("n_entries", 0),
+                                 "bytes": st.get("bytes", 0)})
                 return
             try:
                 query = payload["query"]
@@ -394,12 +449,7 @@ _UNPORTED = [
     ("--spec_row_window", dict(type=int), "adaptive speculation"),
     ("--spec_head_min_yield", dict(type=float), "adaptive speculation"),
     ("--draft_head", dict(), "Medusa draft heads"),
-    ("--prefill_chunk", dict(type=int), "chunked prefill"),
-    ("--first_chunk", dict(type=int), "the TTFT ramp"),
     ("--warmup", dict(action="store_true"), "warmup (the port compiles nothing ahead)"),
-    ("--prefix_prompt", dict(), "the prefix-KV cache"),
-    ("--prefix_event", dict(), "the prefix-KV cache"),
-    ("--prefix_cache_mb", dict(type=float), "the prefix-KV cache"),
     ("--preempt", dict(action="store_true"), "block-tier preemption"),
     ("--spill_capacity_mb", dict(type=int), "the KV spill store"),
     ("--mem_headroom_mb", dict(type=float), "the memory headroom guard"),
@@ -488,18 +538,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="on SIGTERM/SIGINT, seconds to wait for in-flight requests")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu only when asked)")
-    p.add_argument("--prefill_budget", type=int, default=0,
-                   help="piggyback prefill lanes: not ported, so 0 (off) here, where the "
-                        "JAX CLI defaults to -1 (auto); every admission runs the batched "
-                        "prefill wave, and chains are the same either way. Any other "
-                        "value raises")
-    p.add_argument("--no_prefix_cache", action="store_true",
-                   help="accepted and already the port's state: the prefix-KV cache, on "
-                        "by default in the JAX CLI, is not ported, so every admission "
-                        "prefills in full (the same chains)")
+    p.add_argument("--prefill_chunk", type=int, default=0,
+                   help="chunked prefill: with rows decoding, a full admission advances "
+                        "this many prompt positions per step (must divide 128; 0 = off)")
+    p.add_argument("--prefill_budget", type=int, default=-1,
+                   help="piggyback prefill lanes: prompt tokens folded into each decode "
+                        "dispatch while rows decode (-1 = --chunk, 0 = off: exclusive "
+                        "admission waves)")
+    p.add_argument("--first_chunk", type=int, default=0,
+                   help="TTFT ramp: segments of this many steps while a fresh row owes "
+                        "its first token (0 = off)")
     p.add_argument("--no_pipeline", action="store_true",
-                   help="accepted and already the port's state: it has only the "
-                        "synchronous scheduler (the same chains)")
+                   help="synchronous scheduler: harvest every segment before the next "
+                        "dispatch (the same chains)")
+    p.add_argument("--prefix_prompt", default=None,
+                   help="cache this prompt head's KV at startup (may hold the <event> "
+                        "placeholder when --prefix_event gives the stream)")
+    p.add_argument("--prefix_event", default=None,
+                   help="event stream (.npy) of a --prefix_prompt through the event block")
+    p.add_argument("--prefix_cache_mb", type=float, default=512.0,
+                   help="prefix-KV cache budget in MiB (LRU eviction; 0 = unbounded)")
+    p.add_argument("--no_prefix_cache", action="store_true",
+                   help="turn the prefix-KV cache off: every admission prefills in full "
+                        "(the same chains)")
     p.add_argument("--no_telemetry", action="store_true",
                    help="accepted and already the port's state: telemetry is not ported")
     for flag, kw, what in _UNPORTED:
@@ -519,9 +580,24 @@ def _refuse_unported(args) -> None:
     if any(getattr(args, f[2:]) != 1 for f in _MESH_FLAGS):
         raise NotImplementedError("--mesh_*: the serving mesh is not ported to "
                                   "eventgpt_tpu_torch yet")
-    if args.prefill_budget != 0:
-        raise NotImplementedError(f"--prefill_budget {args.prefill_budget}: piggyback "
-                                  f"prefill lanes are not ported to eventgpt_tpu_torch yet")
+
+
+def make_batcher(args, params, cfg, tokenizer, device):
+    """The ``ContinuousBatcher`` the flags describe, over a prepared tree
+    on ``device``: the JAX CLI's defaults (pipelined, the prefix cache at
+    ``--prefix_cache_mb``, ``--prefill_budget`` -1 = ``--chunk``)."""
+    from eventgpt_tpu_torch.serve import ContinuousBatcher
+
+    _refuse_unported(args)
+    return ContinuousBatcher(
+        params, cfg, max_batch=args.max_batch, max_len=args.max_len, chunk=args.chunk,
+        temperature=args.temperature, eos_token_id=tokenizer.eos_token_id,
+        kv_quant=args.kv_cache == "int8", max_queue=args.max_queue,
+        kv_layout=args.kv_layout, kv_pool_blocks=args.kv_pool_blocks, device=device,
+        prefill_chunk=args.prefill_chunk, first_chunk=args.first_chunk,
+        pipeline=not args.no_pipeline, prefix_cache=not args.no_prefix_cache,
+        prefix_cache_bytes=int(args.prefix_cache_mb * 1024 * 1024),
+        prefill_budget=args.chunk if args.prefill_budget < 0 else args.prefill_budget)
 
 
 def build_engine(args):
@@ -530,19 +606,23 @@ def build_engine(args):
     batcher under one engine."""
     from eventgpt_tpu_torch.cli.infer import load_model, prepare_model
     from eventgpt_tpu_torch.device import resolve_device
-    from eventgpt_tpu_torch.serve import ContinuousBatcher
 
     _refuse_unported(args)
     device = resolve_device(args.device)
     cfg, params, tokenizer = load_model(args.model_path, args.dtype, None, args.tokenizer_path,
                                         device)
     cfg, params = prepare_model(cfg, params, tokenizer, args)
-    batcher = ContinuousBatcher(
-        params, cfg, max_batch=args.max_batch, max_len=args.max_len, chunk=args.chunk,
-        temperature=args.temperature, eos_token_id=tokenizer.eos_token_id,
-        kv_quant=args.kv_cache == "int8", max_queue=args.max_queue,
-        kv_layout=args.kv_layout, kv_pool_blocks=args.kv_pool_blocks, device=device)
-    return cfg, ServingEngine(batcher, tokenizer, args.conv_mode)
+    batcher = make_batcher(args, params, cfg, tokenizer, device)
+    engine = ServingEngine(batcher, tokenizer, args.conv_mode)
+    if args.prefix_prompt:
+        # The startup form of POST /prefix.
+        pixels = None
+        if args.prefix_event:
+            _, pixels = process_event_file(args.prefix_event, cfg.num_event_frames,
+                                           cfg.vision.image_size)
+        plen = engine.set_prefix(args.prefix_prompt, pixels)
+        print(f"[serve] shared prefix cached: {plen} positions", flush=True)
+    return cfg, engine
 
 
 def build_server(args):
@@ -565,7 +645,9 @@ def main(argv=None):
     host, port = httpd.server_address[:2]
     print(f"[serve] listening on http://{host}:{port} (max_batch={args.max_batch}, "
           f"chunk={args.chunk}, kv_layout={args.kv_layout}, kv_cache={args.kv_cache}, "
-          f"device={engine.batcher.device})", flush=True)
+          f"pipeline={engine.batcher.pipeline}, prefix_cache="
+          f"{engine.batcher._prefix_cache is not None}, prefill_budget="
+          f"{engine.batcher.prefill_budget}, device={engine.batcher.device})", flush=True)
     got_signal = threading.Event()
 
     def on_signal(signum, frame):

@@ -1,9 +1,9 @@
 """Continuous-batching serving loop (row-level request scheduling).
 
-Port of ``eventgpt_tpu/serve.py``'s ``ContinuousBatcher`` for this slice of
-the port: one resident KV cache of ``max_batch`` rows whose ROWS are the
-resource -- requests join the running batch as rows free up, instead of
-waiting for the whole batch to drain.
+Port of ``eventgpt_tpu/serve.py``'s ``ContinuousBatcher``: one resident KV
+cache of ``max_batch`` rows whose ROWS are the resource -- requests join
+the running batch as rows free up, instead of waiting for the whole batch
+to drain.
 
   * The cache is dense ((L, max_batch, max_len, KV, hd) per plane) or
     paged (one arena of SEQ_BUCKET-slot blocks plus per-row block tables,
@@ -15,9 +15,32 @@ waiting for the whole batch to drain.
     at the free rows (dense) or scatters it into the rows' pool blocks
     and installs their tables (paged).
   * Decode runs in segments of up to ``chunk`` steps over every row
-    (``_decode_segment``); between segments the host harvests tokens,
-    finishes rows (EOS, budget, deadline, cancel, non-finite logits) and
-    admits queued requests.
+    (``_decode_segment``). The segment computes the next segment's
+    control state (frozen mask, budgets) on the device, and it stops on a
+    per-step "any row live" flag that the host reads one launched step
+    late, so the host never waits on the step it has just launched.
+  * PIPELINED scheduling (``pipeline=True``, the default): segment N+1 is
+    dispatched from that device-resident carry before segment N is
+    fetched, so the host's harvest and admission work runs while the card
+    computes. Anything that changes rows (a deadline, a cancel, an
+    admission into a freed row, a chunked prefill, a finishing lane)
+    drains the pipeline first.
+  * The TTFT ramp (``first_chunk``): while a fresh row owes its first
+    token, segments are ``first_chunk`` steps long and harvested at once.
+  * Chunked prefill (``prefill_chunk``): with rows decoding, a full
+    admission advances one chunk per step through ``llama.decode_kstep``.
+  * The PREFIX-KV cache (``PrefixCache``): a token-id trie of prompt-head
+    KV blocks, filled on admission prefill and by ``set_prefix``, matched
+    longest-prefix at admission (then only the suffix is prefilled),
+    pinned while rows decode from it, LRU-evicted under a byte budget.
+    Dense entries are copies; paged entries alias the row's block run with
+    a refcount, and a consumer re-creates the shared tail block in its own
+    first block (copy-on-write).
+  * Piggyback LANES (``prefill_budget > 0``): with rows decoding, an
+    admission becomes a lane whose prompt advances ``chunk_p`` positions
+    inside every decode dispatch (``_mixed_decode_segment``), so the rows
+    keep committing tokens while it prefills. The lane cache is never
+    quantized; an int8 server quantizes the finished lane once.
   * Frozen and free rows keep flowing through every decode step, as in
     the JAX package; their writes land at slot ``length`` (in the scratch
     block for a free paged row, inside the reservation's slack for an
@@ -29,21 +52,18 @@ The functions on the module update the resident cache in place under
 ``jit`` with donated buffers.
 
 What the port does not have yet raises ``NotImplementedError`` when asked
-for: speculative decoding and Medusa heads, the serving mesh, chunked
-prefill, piggyback lanes (``prefill_budget > 0``), the prefix-KV cache,
-preemption and spill, adaptive speculation buckets, prefill/decode roles,
-the TTFT ramp (``first_chunk``) and the pipelined scheduler. So
-``pipeline`` and ``prefix_cache`` default to False here. The JAX package
-holds chains byte-identical with and without the prefix cache, lanes and
-pipelining (``tests/test_serve.py``, ``tests/test_paged_blocks.py``): the
-defaults change scheduling, not answers.
-
-Greedy chains at f32 equal the JAX ``ContinuousBatcher``'s and the port's
-one-shot ``generate`` (``tests/test_torch_serve.py``).
+for: speculative decoding and Medusa heads in the server, the serving
+mesh, preemption and spill, adaptive speculation buckets, prefill/decode
+roles, ``warmup`` and the memory headroom guard. Greedy chains at f32
+equal the JAX ``ContinuousBatcher``'s and the port's one-shot ``generate``
+with every scheduler feature on or off (``tests/test_torch_serve*.py``,
+``tests/test_torch_prefix_cache.py``, ``tests/test_torch_mixed_segments.py``).
 """
 
 from __future__ import annotations
 
+import hashlib
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -83,30 +103,345 @@ def _bucket(n: int, cap: int) -> int:
     return min((n + _GRAIN - 1) // _GRAIN * _GRAIN, cap)
 
 
+def _h2d(arr, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without a stream synchronize: on the card
+    through a pinned staging copy and an asynchronous transfer (a plain
+    pageable copy would wait for every queued kernel, emptying the
+    pipeline)."""
+    t = torch.tensor(np.asarray(arr))  # a copy: the host may change ``arr`` next
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _fetch_async(tensors: List[torch.Tensor]):
+    """Start copying device tensors to the host: (host tensors, event), the
+    event recorded after the copies (None on the CPU, where the tensors are
+    returned as they are). The harvest waits on the event."""
+    if tensors[0].device.type != "cuda":
+        return tensors, None
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+def _pixels_key(pixel_values) -> bytes:
+    """Content key of an event-pixel array (shape + sha1 of the f32 bytes):
+    the event-block prefix entry's identity check, since token ids alone
+    cannot tell two streams apart. Hashes the host array that ``submit``
+    received; a device tensor is refused, never fetched."""
+    if isinstance(pixel_values, torch.Tensor) and pixel_values.device.type != "cpu":
+        raise TypeError("prefix keys hash host pixels: submit host arrays, not device tensors")
+    arr = np.ascontiguousarray(np.asarray(pixel_values, np.float32))
+    return str(arr.shape).encode() + hashlib.sha1(arr.tobytes()).digest()
+
+
+@dataclass
+class _PrefixEntry:
+    """One cached prompt-head KV block. ``ids`` is the token path (with the
+    event sentinel for a through-event entry); ``pixels_key`` pins an event
+    entry to its stream. ``kv`` holds the (L, 1, bucket, KV, hd) K/V
+    copies of a dense entry; a paged entry is a refcounted run of pool
+    ``blocks`` instead (``kv`` None)."""
+    ids: tuple
+    pixels_key: Optional[bytes]
+    has_event: bool
+    kv: Optional[Dict[str, Any]]
+    length: int          # real cache positions the entry covers
+    bucket: int          # stored block length (the prompt grain)
+    nbytes: int
+    pins: int = 0        # admissions, lanes and rows reading the entry
+    tick: int = 0        # LRU clock at the last insert or hit
+    hits: int = 0
+    blocks: Optional[List[int]] = None
+    # Evicted or replaced while pinned: a paged entry's blocks are
+    # released at its last pin drain (``ContinuousBatcher._drain_entry_pin``).
+    detached: bool = False
+
+
+class PrefixCache:
+    """Token-id trie of prompt-head KV blocks with LRU eviction: the port of
+    the JAX ``PrefixCache``, with its rules.
+
+      * longest-prefix match wins (``lookup``); an event entry never serves
+        a request whose own pixels are another stream;
+      * ``budget`` bytes (0 = unbounded): an insert evicts the least
+        recently used UNPINNED entries until the total fits;
+      * a pinned entry is never evicted; a replaced or evicted paged entry
+        that is pinned keeps its blocks until its last pin drains.
+
+    Host-side dict operations under ``_lock`` (the scheduler inserts and
+    looks up; HTTP handler threads read ``stats()``). ``pool`` is set by a
+    paged server: dropping an entry then decrefs its block run.
+    """
+
+    def __init__(self, budget_bytes: int = 0):
+        self.budget = int(budget_bytes)
+        self.pool: Optional[BlockPool] = None
+        self._root: Dict[str, Any] = {"c": {}, "e": {}}
+        self._lock = threading.Lock()
+        self.bytes = 0
+        self.n_entries = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.insertions = 0
+        self._tick = 0
+
+    def _iter_nodes_locked(self):
+        stack = [self._root]
+        while stack:
+            node = stack.pop()
+            yield node
+            stack.extend(node["c"].values())
+
+    def entries(self) -> List[_PrefixEntry]:
+        with self._lock:
+            return [e for node in self._iter_nodes_locked() for e in node["e"].values()]
+
+    def get(self, ids, pixels_key) -> Optional[_PrefixEntry]:
+        """The entry at exactly this key, or None (insert-on-prefill's dedupe)."""
+        with self._lock:
+            node = self._root
+            for tok in ids:
+                node = node["c"].get(tok)
+                if node is None:
+                    return None
+            return node["e"].get(pixels_key)
+
+    def lookup(self, ids, pixels_key) -> Optional[_PrefixEntry]:
+        """Longest-prefix match: the deepest entry whose token path is a
+        PROPER prefix of ``ids`` and whose stream fits the request -- a
+        text entry needs the event sentinel in the remaining suffix, an
+        event entry needs it consumed and the request's own pixels to be
+        its stream (``pixels_key`` None = session traffic, which inherits
+        the entry's stream). Among entries at one node the most recently
+        used wins. Hits and misses are counted by the caller."""
+        ids = list(ids)
+        sent = ids.index(EVENT_TOKEN_INDEX) if EVENT_TOKEN_INDEX in ids else -1
+        best = None
+        with self._lock:
+            node = self._root
+            for d, tok in enumerate(ids):
+                node = node["c"].get(tok)
+                if node is None:
+                    break
+                if d + 1 >= len(ids):
+                    break  # the entry must be a PROPER prefix
+                cand = None
+                for e in node["e"].values():
+                    if e.has_event:
+                        if sent < 0 or sent > d:
+                            continue  # the sentinel must be inside the entry
+                        if pixels_key is not None and e.pixels_key != pixels_key:
+                            continue  # another stream: never serve this KV
+                    elif sent <= d:
+                        continue  # a text entry: the sentinel must be in the suffix
+                    if cand is None or e.tick > cand.tick:
+                        cand = e
+                if cand is not None:
+                    best = cand  # deeper nodes come later: the longest wins
+        return best
+
+    def count_hit(self, entry: _PrefixEntry) -> None:
+        with self._lock:
+            self._tick += 1
+            entry.tick = self._tick
+            entry.hits += 1
+            self.hits += 1
+
+    def count_miss(self) -> None:
+        with self._lock:
+            self.misses += 1
+
+    def insert(self, entry: _PrefixEntry) -> bool:
+        """Insert (or replace) the entry at its ``(ids, pixels_key)`` key,
+        then evict LRU unpinned entries until the budget holds. False =
+        refused (the entry alone exceeds the budget)."""
+        if self.budget and entry.nbytes > self.budget:
+            return False
+        with self._lock:
+            node = self._root
+            for tok in entry.ids:
+                node = node["c"].setdefault(tok, {"c": {}, "e": {}})
+            old = node["e"].pop(entry.pixels_key, None)
+            if old is not None:
+                self.bytes -= old.nbytes
+                self.n_entries -= 1
+                self._release_blocks_locked(old)
+            self._tick += 1
+            entry.tick = self._tick
+            node["e"][entry.pixels_key] = entry
+            self.bytes += entry.nbytes
+            self.n_entries += 1
+            self.insertions += 1
+            self._evict_locked()
+        return True
+
+    def _evict_locked(self) -> None:
+        if not self.budget:
+            return
+        while self.bytes > self.budget:
+            victim_node, victim_key, victim = None, None, None
+            for node in self._iter_nodes_locked():
+                for key, e in node["e"].items():
+                    if e.pins > 0:
+                        continue
+                    if victim is None or e.tick < victim.tick:
+                        victim_node, victim_key, victim = node, key, e
+            if victim is None:
+                return  # all pinned: over budget until the pins drain
+            del victim_node["e"][victim_key]
+            self.bytes -= victim.nbytes
+            self.n_entries -= 1
+            self.evictions += 1
+            self._release_blocks_locked(victim)
+
+    def _release_blocks_locked(self, entry: _PrefixEntry) -> None:
+        """Drop a detached paged entry's block references (its share only);
+        a pinned entry defers that to its last pin drain."""
+        if entry.blocks and self.pool is not None:
+            if entry.pins > 0:
+                entry.detached = True
+                return
+            self.pool.decref(entry.blocks)
+            entry.blocks = None
+
+    def reclaim_blocks(self, pool: BlockPool, need: int) -> int:
+        """Evict LRU unpinned paged entries until ``pool`` has ``need`` free
+        blocks or nothing evictable is left (the paged admission gate's
+        reclaim). Returns the number of entries evicted."""
+        evicted = 0
+        with self._lock:
+            while pool.free_blocks() < need:
+                victim_node, victim_key, victim = None, None, None
+                for node in self._iter_nodes_locked():
+                    for key, e in node["e"].items():
+                        if e.pins > 0 or not e.blocks:
+                            continue
+                        if victim is None or e.tick < victim.tick:
+                            victim_node, victim_key, victim = node, key, e
+                if victim is None:
+                    break
+                del victim_node["e"][victim_key]
+                self.bytes -= victim.nbytes
+                self.n_entries -= 1
+                self.evictions += 1
+                evicted += 1
+                self._release_blocks_locked(victim)
+        return evicted
+
+    def clear(self) -> None:
+        """Drop every entry (paged blocks under the deferred-on-pins rule);
+        the counters keep counting."""
+        with self._lock:
+            for node in self._iter_nodes_locked():
+                for e in node["e"].values():
+                    self._release_blocks_locked(e)
+            self._root = {"c": {}, "e": {}}
+            self.bytes = 0
+            self.n_entries = 0
+
+    def stats(self) -> Dict[str, Any]:
+        """Snapshot for ``GET /prefix_cache``."""
+        with self._lock:
+            entries = [{"ids_len": len(e.ids), "has_event": e.has_event, "length": e.length,
+                        "bucket": e.bucket, "nbytes": e.nbytes, "pins": e.pins, "hits": e.hits,
+                        "blocks": len(e.blocks) if e.blocks else 0}
+                       for node in self._iter_nodes_locked() for e in node["e"].values()]
+            held = {b for node in self._iter_nodes_locked() for e in node["e"].values()
+                    for b in (e.blocks or ())}
+            return {
+                "entries": sorted(entries, key=lambda d: -d["hits"]),
+                "n_entries": self.n_entries, "bytes": self.bytes, "budget_bytes": self.budget,
+                "blocks_held": len(held),
+                "hits": self.hits, "misses": self.misses, "evictions": self.evictions,
+                "insertions": self.insertions,
+                "hit_ratio": (self.hits / (self.hits + self.misses)
+                              if (self.hits + self.misses) else 0.0),
+            }
+
+
+class _LiveFlags:
+    """Per-step "any row live" flags of a decode segment, which the segment
+    writes and the host reads one launched step late. On the card each
+    flag is an asynchronous copy into pinned memory followed by an event;
+    on the CPU it is the 0-dim result itself. One set per batcher, reused
+    by every segment: a segment's copies queue behind the previous
+    segment's on the one stream."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.host = torch.zeros((n,), dtype=torch.bool, pin_memory=True)
+            self.events = [torch.cuda.Event() for _ in range(n)]
+        else:
+            self.host = [None] * n
+
+
+def _flag_record(flags: _LiveFlags, i: int, live: torch.Tensor) -> None:
+    if flags.cuda:
+        flags.host[i].copy_(live.any(), non_blocking=True)
+        flags.events[i].record()
+    else:
+        flags.host[i] = live.any()
+
+
+def _flag_read(flags: _LiveFlags, i: int) -> bool:
+    """Flag ``i``, waiting for the event recorded with it."""
+    if flags.cuda:
+        flags.events[i].synchronize()
+    return bool(flags.host[i])
+
+
 @torch.inference_mode()
 def _decode_segment(params, cfg: EventChatConfig, logits, cache, generator, frozen, n_rem,
                     chunk: int, eos_token_id: int, temperature: float = 0.0,
-                    top_p: float = 1.0):
+                    top_p: float = 1.0, flags: Optional[_LiveFlags] = None,
+                    after_first_step=None):
     """Up to ``chunk`` decode steps over the shared batch, the cache
     updated in place.
 
     ``frozen`` (B,) bool marks free rows and rows already finished;
-    ``n_rem`` (B,) is each row's remaining budget. Returns (tokens
-    (B, chunk), n_new (B,), done (B,), finite (B,), logits):
-    ``tokens[r, :n_new[r]]`` are row r's newly committed tokens, ``done``
-    marks rows that hit EOS inside this segment, ``finite`` whether each
-    row's final logits are all finite. The loop stops once no row is
-    live, read on the host at every step (the JAX while_loop's cond).
+    ``n_rem`` (B,) int32 is each row's remaining budget. Returns (tokens
+    (B, chunk), n_new (B,), done (B,), finite (B,), logits, frozen_out,
+    n_rem_out, steps): ``tokens[r, :n_new[r]]`` are row r's newly
+    committed tokens, ``done`` marks rows that hit EOS inside this
+    segment, ``finite`` whether each row's final logits are all finite;
+    ``frozen_out``/``n_rem_out`` are the next segment's control state,
+    computed on the device with the host harvest's bookkeeping (freeze on
+    EOS, an exhausted budget or non-finite logits); ``steps`` is the host
+    count of steps run.
+
+    The stop rule: before step t >= 1 the host reads whether any row was
+    live entering step t - 1, a flag written before step t - 1 was
+    launched, and stops when none was. So it never waits on the step it
+    has just launched; at most one step past the last live one runs, and
+    it commits nothing. Synchronous and pipelined schedulers run the same
+    rule, so they run the same steps and draw the same samples.
+
+    ``after_first_step`` is called once the first step is launched: the
+    pipelined scheduler harvests the previous segment there, while the
+    card runs this one (the host launches every step itself, so waiting
+    for the whole launch would hold the previous segment's tokens back by
+    a segment of host time).
     """
     b = logits.shape[0]
     dev = logits.device
+    if flags is None:
+        flags = _LiveFlags(chunk, dev)
     tokens = torch.full((b, chunk), eos_token_id, dtype=torch.int32, device=dev)
     n_new = torch.zeros((b,), dtype=torch.int32, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    eos = torch.tensor(eos_token_id, dtype=torch.int32, device=dev)
+    eos = torch.full((), eos_token_id, dtype=torch.int32, device=dev)
+    live = ~frozen & (n_rem > 0)
+    _flag_record(flags, 0, live)
+    steps = 0
     for t in range(chunk):
-        live = ~(frozen | done) & (n_new < n_rem)
-        if not bool(live.any()):
+        if t and not _flag_read(flags, t - 1):
             break
         nxt = sample(logits, generator, temperature, top_p)
         commit = live
@@ -119,8 +454,59 @@ def _decode_segment(params, cfg: EventChatConfig, logits, cache, generator, froz
         new_logits, cache = llama_mod.decode_step(params["llama"], cfg.llama, emb, cache)
         logits = torch.where(commit[:, None], new_logits, logits)
         cache["length"].copy_(torch.where(commit, cache["length"], cache["length"] - 1))
+        steps += 1
+        live = ~(frozen | done) & (n_new < n_rem)
+        if t + 1 < chunk:
+            _flag_record(flags, t + 1, live)
+        if t == 0 and after_first_step is not None:
+            after_first_step()
     finite = torch.isfinite(logits).all(dim=-1)
-    return tokens, n_new, done, finite, logits
+    n_rem_out = n_rem - n_new
+    frozen_out = frozen | done | (n_rem_out <= 0) | ~finite
+    n_rem_out = torch.where(frozen_out, torch.zeros_like(n_rem_out), n_rem_out)
+    return tokens, n_new, done, finite, logits, frozen_out, n_rem_out, steps
+
+
+@torch.inference_mode()
+def _lane_advance(params, cfg: EventChatConfig, lane_embeds, lane_cache, start, new_len,
+                  last_idx, chunk_p: int):
+    """One piggybacked prefill advance over the K resident lanes: each lane
+    row takes its own ``chunk_p``-wide window of prompt embeddings at
+    ``start`` and runs it through ``decode_kstep`` against its own lane
+    cache row; the length is then pinned to ``new_len`` (positions past
+    the prompt write garbage above it, masked from every read). Idle and
+    ready slots pass ``start == new_len`` and advance nothing real. The
+    lane cache holds ``chunk_p`` slots past the lane bucket, so no window
+    writes out of bounds. Returns (last_logits (K, V), last_hidden (K, D))
+    at each lane's last real window position."""
+    k, s, d = lane_embeds.shape
+    idx = (start[:, None].long() + torch.arange(chunk_p, device=start.device)[None, :])
+    idx = idx.clamp(0, s - 1)
+    emb = torch.gather(lane_embeds, 1, idx[:, :, None].expand(k, chunk_p, d))
+    lane_cache["length"].copy_(start)
+    logits, hidden, _ = llama_mod.decode_kstep(params["llama"], cfg.llama, emb, lane_cache,
+                                               return_hidden=True)
+    rows = torch.arange(k, device=start.device)
+    lane_cache["length"].copy_(new_len)
+    return logits[rows, last_idx.long()], hidden[rows, last_idx.long()]
+
+
+@torch.inference_mode()
+def _mixed_decode_segment(params, cfg: EventChatConfig, logits, cache, generator, frozen, n_rem,
+                          lane_embeds, lane_cache, lane_start, lane_new_len, lane_last_idx,
+                          chunk: int, chunk_p: int, eos_token_id: int, temperature: float = 0.0,
+                          top_p: float = 1.0, flags: Optional[_LiveFlags] = None,
+                          after_first_step=None):
+    """The mixed segment: ``_decode_segment`` plus the piggybacked prefill
+    lanes in one dispatch. The halves touch disjoint state (shared cache
+    rows against lane cache rows), so the decode rows commit tokens in the
+    same dispatch that advances the admissions. Returns the decode outputs
+    followed by ``_lane_advance``'s."""
+    dec = _decode_segment(params, cfg, logits, cache, generator, frozen, n_rem, chunk,
+                          eos_token_id, temperature, top_p, flags, after_first_step)
+    lane = _lane_advance(params, cfg, lane_embeds, lane_cache, lane_start, lane_new_len,
+                         lane_last_idx, chunk_p)
+    return dec + lane
 
 
 def _rows_in_bounds(rows: np.ndarray, limit: int):
@@ -140,6 +526,13 @@ def _ins(buf, src, fn):
         fn(buf["s"], src["s"])
     else:
         fn(buf, src)
+
+
+def _planes(buf, fn):
+    """``fn`` of each plane of a cache buffer (a dict for an int8 one)."""
+    if isinstance(buf, dict):
+        return {"q": fn(buf["q"]), "s": fn(buf["s"])}
+    return fn(buf)
 
 
 @torch.inference_mode()
@@ -183,8 +576,8 @@ def _pool_scatter(buf, dst_blocks: np.ndarray, src) -> None:
     blocks: the position axis splits into S / block_size whole blocks, and
     source block i of the flattened (row, block) order lands at pool block
     ``dst_blocks.reshape(-1)[i]``. Destinations >= n_blocks (the JAX
-    package's drop sentinel: pad rows, blocks beyond a reservation) write
-    nothing."""
+    package's drop sentinel: prefix-aliased blocks, pad rows, blocks
+    beyond a reservation) write nothing."""
     if isinstance(buf, dict):
         _pool_scatter(buf["q"], dst_blocks, src["q"])
         _pool_scatter(buf["s"], dst_blocks, src["s"])
@@ -231,6 +624,107 @@ def _admit_wave_paged(cache, logits_buf, rows: np.ndarray, dst_blocks: np.ndarra
     logits_buf[dst] = wave_logits[src]
 
 
+@torch.inference_mode()
+def _gather_blocks(cache, blocks: Sequence[int]):
+    """Dense (L, 1, m * bs, KV, hd) K/V views of ``m`` pool blocks: a paged
+    prefix entry's KV for the suffix and lane paths (a gather is a copy of
+    the same values a dense entry holds)."""
+    dev = cache["length"].device
+    idx = torch.as_tensor(list(blocks), dtype=torch.long, device=dev)
+
+    def g(buf):
+        x = buf[:, idx]
+        return x.reshape((x.shape[0], 1, x.shape[1] * x.shape[2]) + tuple(x.shape[3:]))
+
+    return _planes(cache["k"], g), _planes(cache["v"], g)
+
+
+def _slice_prefix_block(k, v, row: int, bucket: int):
+    """A copy of cache positions [0, bucket) of batch row ``row``: the dense
+    insert-on-prefill entry (the source row cache is still owed to the
+    admission scatter, and must not be kept alive by a view)."""
+
+    def sl(buf):
+        return buf[:, row:row + 1, :bucket].clone()
+
+    return _planes(k, sl), _planes(v, sl)
+
+
+@torch.inference_mode()
+def _chunk_prefill(params, cfg: EventChatConfig, embeds, cache, start: int, new_len: int,
+                   last_idx: int, chunk: int):
+    """One chunked-admission advance: prompt positions [start, start +
+    chunk) of ``embeds`` (1, S1, D) through ``decode_kstep`` (query i at
+    position start + i sees slots [0, start + i], as in one-shot prefill),
+    then the length pinned to ``new_len``, the real prompt filled so far.
+    ``chunk`` divides the bucket grain, so the window never leaves the
+    bucket. Returns the (1, V) f32 logits at window index ``last_idx``."""
+    cache["length"].fill_(start)
+    logits, _ = llama_mod.decode_kstep(params["llama"], cfg.llama,
+                                       embeds[:, start:start + chunk], cache)
+    cache["length"].fill_(new_len)
+    return logits[:, last_idx]
+
+
+@torch.inference_mode()
+def _prefix_prefill(params, cfg: EventChatConfig, pk, pv, plen, cache, suffix_embeds, new_len,
+                    last_idx):
+    """Admission from cached prefix KV: copy each row's entry block (``pk``/
+    ``pv``, (L, N, s_pre, ...)) into the fresh row cache, pin the length to
+    the entry length ``plen`` and run ONLY the suffix (N, chunk, D) through
+    ``decode_kstep`` -- the attention of prefilling the whole prompt, at
+    the cost of the suffix. Trailing suffix pad writes above ``new_len``.
+    ``plen``/``new_len``/``last_idx`` are (N,) device tensors. Returns the
+    (N, V) logits at each row's last suffix token."""
+
+    def copy(buf, src):
+        buf[:, :, :src.shape[2]] = src.to(buf.dtype)
+
+    _ins(cache["k"], pk, copy)
+    _ins(cache["v"], pv, copy)
+    cache["length"].copy_(plen)
+    logits, _ = llama_mod.decode_kstep(params["llama"], cfg.llama, suffix_embeds, cache)
+    cache["length"].copy_(new_len)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    return logits[rows, last_idx.long()]
+
+
+@torch.inference_mode()
+def _lane_seed(lane_cache, slot: int, pk, pv) -> None:
+    """Copy a prefix entry's KV block into lane row ``slot`` at position 0:
+    the lane then advances only the suffix. The lane cache is never
+    quantized, so an int8 entry block is dequantized here -- the values
+    the suffix path's attention reads."""
+
+    def ins(buf, src):
+        if isinstance(src, dict):
+            src = llama_mod._kv_dequant(src, buf.dtype)
+        buf[:, slot:slot + 1, :src.shape[2]] = src.to(buf.dtype)
+
+    ins(lane_cache["k"], pk)
+    ins(lane_cache["v"], pv)
+
+
+@torch.inference_mode()
+def _lane_extract(lane_k, lane_v, slot: int, pk, pv, bucket: int, quant: bool, plen: int = 0):
+    """Lane row ``slot`` as a (1, bucket) admission row cache. The lane
+    prefills unquantized; an int8 server quantizes it here, once, from the
+    values one-shot prefill's cache write would see. A seeded entry's own
+    (q, s) block is laid over its real region [0, plen) afterwards, so the
+    prefix lands exactly as the suffix path copies it."""
+    k, v = _slice_prefix_block(lane_k, lane_v, slot, bucket)
+    if not quant:
+        return k, v
+    k, v = llama_mod._kv_quantize(k), llama_mod._kv_quantize(v)
+    if pk is not None:
+        def overlay(buf, src):
+            buf[:, :, :plen] = src[:, :, :plen].to(buf.dtype)
+
+        _ins(k, pk, overlay)
+        _ins(v, pv, overlay)
+    return k, v
+
+
 @dataclass
 class _Request:
     rid: int
@@ -247,10 +741,45 @@ class _Request:
     t_done: Optional[float] = None
     # Absolute perf_counter deadline (None = none).
     deadline: Optional[float] = None
-    # Paged layout: the pool blocks this request holds, and whether its
-    # row's device table points at them (reset to scratch at release).
+    # The prefix entry this row admitted from (a pin, drained at finish).
+    prefix_entry: Optional[_PrefixEntry] = None
+    # Paged layout: the pool blocks this request holds at refcount 1
+    # (``owned``) and shared with a prefix entry (``aliased``), and whether
+    # its row's device table points at them (reset to scratch at release).
     kv_blocks_owned: List[int] = field(default_factory=list)
+    kv_blocks_aliased: List[int] = field(default_factory=list)
     kv_bt_written: bool = False
+    # ``_pixels_key`` of the submitted pixels, computed once.
+    pixels_key: Optional[bytes] = None
+
+
+@dataclass
+class _PendingLane:
+    """One piggybacked admission: the row is reserved (frozen), the prompt
+    embeddings sit in lane slot ``slot``, and every mixed segment advances
+    the lane ``chunk_p`` positions until ``filled >= prompt_len``; then
+    the lane row joins the shared cache through ``_finish_admission``. A
+    prefix hit's entry KV was seeded at [0, filled0)."""
+    req: _Request
+    row: int
+    slot: int
+    prompt_len: int
+    filled: int = 0
+    entry: Optional[_PrefixEntry] = None
+    last_logits: Any = None  # (1, V), valid after the final chunk
+
+
+@dataclass
+class _PendingAdmission:
+    """A chunked admission in flight: the row is reserved (frozen), the
+    prompt prefix [0, filled) is prefilled into ``row_cache``, and one
+    chunk advances per scheduler step while the other rows decode."""
+    req: _Request
+    row: int
+    embeds: Any          # (1, S1, D) padded prompt embeddings
+    prompt_len: int
+    row_cache: Any
+    filled: int = 0
 
 
 class ContinuousBatcher:
@@ -262,9 +791,17 @@ class ContinuousBatcher:
 
     Greedy by default (temperature 0); sampling settings apply serverwide.
     Runs on ``device`` (default ``cuda``, which raises without a card);
-    ``params`` must already live there. Single-threaded: the owning
+    ``params`` must already live there. The defaults are the JAX
+    batcher's: pipelined, the prefix cache on, lanes off
+    (``prefill_budget=0``). Single-threaded: the owning
     ``cli.serve.ServingEngine`` serializes every call behind its lock;
-    only ``BlockPool.stats()`` is read from other threads.
+    only ``BlockPool.stats()`` and ``PrefixCache.stats()`` are read from
+    other threads.
+
+    Dispatch-path contract: ``step``, ``_dispatch_segment`` and the
+    segment functions read nothing back from the device, except the
+    segment's lagged stop flag; ``_harvest_segment`` and ``_drain`` are
+    where the host waits (``tests/test_torch_serve_hot_path.py``).
     """
 
     def __init__(
@@ -288,27 +825,27 @@ class ContinuousBatcher:
         mesh=None,
         prefill_chunk: int = 0,
         prefill_budget: int = 0,
-        prefix_cache: bool = False,
+        prefill_lane_chunk: int = 0,
+        prefix_cache: bool = True,
+        prefix_cache_bytes: int = 0,
+        prefix_insert: bool = True,
         preempt: bool = False,
         spill_capacity_mb: int = 0,
         spec_buckets=None,
         role: str = "colocated",
         first_chunk: int = 0,
-        pipeline: bool = False,
+        pipeline: bool = True,
+        mem_headroom_bytes: int = 0,
     ):
         unported = [
-            (speculative, "speculative", "speculative decoding"),
-            (draft_head is not None, "draft_head", "Medusa draft heads"),
+            (speculative, "speculative", "speculative decoding in the server"),
+            (draft_head is not None, "draft_head", "Medusa draft heads in the server"),
             (mesh is not None, "mesh", "the serving mesh"),
-            (prefill_chunk, "prefill_chunk", "chunked prefill"),
-            (prefill_budget > 0, "prefill_budget", "piggyback prefill lanes"),
-            (prefix_cache, "prefix_cache", "the prefix-KV cache"),
             (preempt, "preempt", "block-tier preemption"),
             (spill_capacity_mb, "spill_capacity_mb", "the KV spill store"),
             (spec_buckets, "spec_buckets", "adaptive speculation"),
             (role != "colocated", "role", "prefill/decode roles"),
-            (first_chunk, "first_chunk", "the TTFT ramp"),
-            (pipeline, "pipeline", "the pipelined scheduler"),
+            (mem_headroom_bytes, "mem_headroom_bytes", "the memory headroom guard"),
         ]
         for asked, arg, what in unported:
             if asked:
@@ -317,6 +854,11 @@ class ContinuousBatcher:
                     f"eventgpt_tpu_torch yet")
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got {kv_layout!r}")
+        if prefill_chunk and _GRAIN % prefill_chunk:
+            # A chunk off the grain would let the last chunk's window leave
+            # the bucket (positions out of step with the cache slots).
+            raise ValueError(f"prefill_chunk must divide the prompt bucket grain {_GRAIN}, "
+                             f"got {prefill_chunk}")
         self.device = resolve_device(device)
         embed = params["llama"]["embed_tokens"]
         if embed.device.type != self.device.type:
@@ -328,8 +870,11 @@ class ContinuousBatcher:
         # outgrow the shared cache.
         max_len = (max_len + _GRAIN - 1) // _GRAIN * _GRAIN
         self.max_batch, self.max_len, self.chunk = max_batch, max_len, chunk
+        # The TTFT ramp: while an active row owes its first token, segments
+        # are this long instead of ``chunk`` (0 = off).
+        self.first_chunk = min(int(first_chunk), chunk) if first_chunk else 0
         self.temperature, self.top_p = float(temperature), float(top_p)
-        self.eos = eos_token_id if eos_token_id is not None else -1
+        self.eos = int(eos_token_id) if eos_token_id is not None else -1
         self.eos_token_id = eos_token_id
         # A quantized weight tree computes in bf16, like the JAX package.
         self._dtype = embed.dtype if embed.dtype in (torch.bfloat16, torch.float32) \
@@ -358,9 +903,18 @@ class ContinuousBatcher:
         self.kv_bytes = sum(t.numel() * t.element_size()
                             for plane in (self.cache["k"], self.cache["v"])
                             for t in (plane.values() if isinstance(plane, dict) else [plane]))
+        # Per-position K+V bytes of one cache row: the prefix cache's unit
+        # (an entry's nbytes = bucket * this; int8 halves it).
+        positions = n_blocks * SEQ_BUCKET if self._paged else max_batch * max_len
+        self._kv_pos_bytes = max(1, self.kv_bytes // positions)
+        self._prefix_cache = PrefixCache(int(prefix_cache_bytes)) if prefix_cache else None
+        self.prefix_insert = bool(prefix_insert)
         if self._paged:
-            self._pool = BlockPool(n_blocks, SEQ_BUCKET, block_bytes=self.kv_bytes // n_blocks)
+            self._pool = BlockPool(n_blocks, SEQ_BUCKET,
+                                   block_bytes=SEQ_BUCKET * self._kv_pos_bytes)
             self.block_deferrals = 0
+            if self._prefix_cache is not None:
+                self._prefix_cache.pool = self._pool
         # Vocab from the lm_head leaf: special tokens may have grown it.
         vocab = eventchat._vocab_size(params)
         self.logits = torch.zeros((max_batch, vocab), dtype=torch.float32, device=self.device)
@@ -376,16 +930,86 @@ class ContinuousBatcher:
         self.max_queue = int(max_queue)
         self._n_deadlines = 0
         self._next_rid = 0
-        # Counters: admission and decode host time (each ends in a read of
-        # the device's results), prefill dispatches (each runs the model's
-        # prefill once), decode segments and steps.
+        self.prefill_chunk = int(prefill_chunk)
+        self._pending: Optional[_PendingAdmission] = None
+        self.pipeline = bool(pipeline)
+        # Piggyback lanes: up to ``_lane_cap`` admissions ride the decode
+        # dispatch, each advanced ``_lane_chunk`` prompt positions per
+        # mixed segment (lanes * chunk_p <= prefill_budget tokens).
+        self.prefill_budget = max(int(prefill_budget), 0)
+        lane_chunk = int(prefill_lane_chunk) or min(self.prefill_budget, SEQ_BUCKET)
+        self._lane_chunk = (max(1, min(lane_chunk, self.prefill_budget))
+                            if self.prefill_budget else 0)
+        self._lane_cap = (max(1, min(self.prefill_budget // self._lane_chunk, max_batch))
+                          if self.prefill_budget else 0)
+        self._lanes: List[_PendingLane] = []
+        self._lane_free: List[int] = list(range(self._lane_cap))
+        self._lane_cache = None   # resident (K_cap, S_lane + chunk_p) KV rows
+        self._lane_embeds = None  # resident (K_cap, S_lane, D) prompt embeddings
+        self._lane_bucket = 0     # S_lane: grown to the largest member
+        self._inflight: Optional[dict] = None  # dispatched, not harvested
+        # (frozen, n_rem) on the device as of the last dispatch; None =
+        # stale (the host changed rows, always drained) -> uploaded from
+        # the host mirror at the next dispatch.
+        self._dev_carry = None
+        self._flags = _LiveFlags(chunk, self.device)
+        self.reset_serving_stats()
+
+    def reset_serving_stats(self) -> None:
+        """Zero the phase counters, so that a measured window reports only
+        its own traffic.
+
+        Host time: ``admission_s`` (max ``admission_max_s``) in admission,
+        ``decode_s`` in dispatch and harvest calls. Pipeline overlap
+        (host-observable, the JAX package's definitions):
+        ``device_segment_s`` is the host time blocked on a segment's
+        fetch, ``host_gap_s`` the host time between one fetch's end and
+        the next fetch, ``overlap_hidden_s`` the part of that gap spent
+        while the fetched segment was still running on the card.
+        ``carry_uploads`` counts host-to-device uploads of the frozen/
+        budget state. ``dispatches`` counts admission dispatches by kind:
+        "full" and "wave" run the model's prefill (K1 on the card),
+        "suffix", "suffix_wave", "chunk" and "piggyback" run
+        ``decode_kstep``, "prefix_set" is ``set_prefix``'s prefill."""
         self.admission_s = 0.0
+        self.admission_max_s = 0.0
         self.decode_s = 0.0
         self.prefill_dispatches = 0
-        self.segments = 0
+        self.seg_count = 0
         self.decode_steps = 0
+        self.decode_steps_run = 0
+        self.device_segment_s = 0.0
+        self.host_gap_s = 0.0
+        self.overlap_hidden_s = 0.0
+        self._t_prev_fetch_end: Optional[float] = None
+        self.carry_uploads = 0
+        self.dispatches: Dict[str, int] = {}
+        # Stall-free evidence: harvested segments that carried live lanes
+        # beside live decode rows, those where the rows committed nothing
+        # (0 by construction), prompt positions advanced in lanes, mixed
+        # segments dispatched, and lanes opened by kind.
+        self.mixed_boundaries = 0
+        self.mixed_zero_harvests = 0
+        self.mixed_prefill_tokens = 0
+        self.mixed_segments = 0
+        self.lanes_started = {"full": 0, "suffix": 0}
+
+    def overlap_ratio(self) -> float:
+        """Share of the host's scheduler time hidden behind the card's
+        compute (~0 on the synchronous path, where a fetch starts right
+        after its own dispatch)."""
+        return self.overlap_hidden_s / self.host_gap_s if self.host_gap_s > 0 else 0.0
+
+    def _count_dispatch(self, kind: str) -> None:
+        self.dispatches[kind] = self.dispatches.get(kind, 0) + 1
+        if kind in ("full", "wave"):
+            self.prefill_dispatches += 1
 
     # -- client surface ---------------------------------------------------
+
+    def warmup(self, prompt_lens=None) -> int:
+        raise NotImplementedError("ContinuousBatcher.warmup: the port compiles nothing ahead; "
+                                  "warmup is not ported to eventgpt_tpu_torch yet")
 
     def submit(self, input_ids: Sequence[int], pixel_values, max_new_tokens: int = 64,
                deadline_s: Optional[float] = None) -> int:
@@ -427,17 +1051,35 @@ class ContinuousBatcher:
         self.queue.append(req)
         return rid
 
+    @torch.inference_mode()
     def cancel(self, rid: int) -> bool:
-        """Cancel a queued or in-flight request: it leaves the queue or its
-        row is freed, and it finishes under ``STATUS_CANCELLED`` with the
-        tokens it committed. False when the rid is unknown or finished."""
+        """Cancel a queued, pending, piggybacked or in-flight request: it
+        leaves the queue or its row is freed, and it finishes under
+        ``STATUS_CANCELLED`` with the tokens it committed. False when the
+        rid is unknown or finished."""
         for req in self.queue:
             if req.rid == rid:
                 self.queue.remove(req)
                 self._record_finish(req, STATUS_CANCELLED)
                 return True
+        if self._pending is not None and self._pending.req.rid == rid:
+            p, self._pending = self._pending, None
+            self.rows[p.row] = None  # the row stays frozen; the cache is untouched
+            self._record_finish(p.req, STATUS_CANCELLED)
+            return True
+        for lane in self._lanes:
+            if lane.req.rid == rid:
+                self._drop_lane(lane)
+                self._record_finish(lane.req, STATUS_CANCELLED)
+                return True
         for r, req in enumerate(self.rows):
             if req is not None and req.rid == rid:
+                # Settle the in-flight segment first: the forced finish
+                # applies at the dispatch boundary, with that segment's
+                # tokens kept.
+                self._drain()
+                if self.rows[r] is not req:
+                    return False  # the drained segment finished the row
                 self._finish_row(r, status=STATUS_CANCELLED)
                 return True
         return False
@@ -445,19 +1087,39 @@ class ContinuousBatcher:
     def run_until_drained(self) -> Dict[int, List[int]]:
         while self.queue or any(r is not None for r in self.rows):
             self.step()
+        # A trailing all-frozen segment can still be in flight.
+        self._drain()
         out, self.finished = self.finished, {}
         return out
 
+    def abort_pipeline(self) -> None:
+        """Discard the in-flight segment and the device carry (the engine's
+        fault path): the dangling dispatch's outputs are ignored, and the
+        next dispatch uploads the host's view."""
+        self._inflight = None
+        self._dev_carry = None
+
+    @torch.inference_mode()
     def abort_rows(self) -> List[int]:
-        """Free every row without finishing its request (the engine's
-        fault path fails those requests itself); returns their rids. The
-        rows' pool blocks return to the pool."""
+        """Free every row, lane and pending admission without finishing its
+        request (the engine's fault path fails those requests itself);
+        returns their rids. Pool blocks and prefix pins are returned."""
+        self.abort_pipeline()
+        self._pending = None  # its row is among the rows below
         rids = []
+        for lane in list(self._lanes):
+            self._drop_lane(lane)
+            rids.append(lane.req.rid)
+            if lane.req.deadline is not None:
+                self._n_deadlines -= 1
         for r, req in enumerate(self.rows):
             if req is None:
                 continue
             if self._paged:
                 self._paged_release(req)
+            if req.prefix_entry is not None:
+                self._drain_entry_pin(req.prefix_entry)
+                req.prefix_entry = None
             if req.deadline is not None:
                 self._n_deadlines -= 1
             self.rows[r] = None
@@ -472,24 +1134,354 @@ class ContinuousBatcher:
             return None
         return {**self._pool.stats(), "deferrals": self.block_deferrals}
 
+    # -- the prefix-KV cache ----------------------------------------------
+
+    @torch.inference_mode()
+    def set_prefix(self, input_ids: Sequence[int], pixel_values=None) -> int:
+        """Prefill a shared prompt prefix once and insert it into the
+        prefix cache (an insert, beside the entries admission prefill adds).
+        A text prefix (the system-prompt head) serves suffixes that carry
+        the event sentinel; a prefix through the event block
+        (``pixel_values`` given) serves plain-text suffixes over that one
+        stream. Returns the prefix length in cache positions."""
+        if self._prefix_cache is None:
+            raise RuntimeError("prefix cache is disabled (prefix_cache=False); set_prefix "
+                               "has nowhere to insert")
+        ids = list(input_ids)
+        n_ev = sum(1 for t in ids if t == EVENT_TOKEN_INDEX)
+        if n_ev > 1:
+            raise ValueError(f"prefix may contain at most one event sentinel, got {n_ev}")
+        if n_ev == 1 and pixel_values is None:
+            raise ValueError("prefix contains the event sentinel; pixel_values is required")
+        if n_ev == 1:
+            ev = eventchat.encode_events_batch(self.params, self.cfg,
+                                               self._pixels(pixel_values)[None])
+            embeds = [eventchat.splice_embeddings(self.params, self.cfg, split_at_event(ids),
+                                                  ev[0])]
+        else:
+            tok = _h2d(np.asarray(ids, np.int64), self.device)
+            embeds = [llama_mod.embed_tokens(self.params["llama"], tok)]
+        padded, mask, lens = eventchat._pad_batch(embeds)
+        p_len = int(lens[0])
+        if p_len + SEQ_BUCKET > self.max_len:
+            raise ValueError(f"prefix ({p_len} positions) does not fit server max_len "
+                             f"{self.max_len} with room for a suffix")
+        s1p = _bucket(p_len, self.max_len)
+        padded = F.pad(padded, (0, 0, 0, s1p - p_len))
+        mask = F.pad(mask, (0, s1p - p_len))
+        row_cache = self._new_row_cache(s1p)
+        llama_mod.prefill(self.params["llama"], self.cfg.llama, padded, mask, row_cache,
+                          last_only=True)
+        self._count_dispatch("prefix_set")
+        blocks = None
+        kv = {"k": row_cache["k"], "v": row_cache["v"]}
+        if self._paged:
+            # The operator entry owns its block run (refcount 1 from the
+            # cache); admissions alias it like any other entry.
+            nblk = s1p // self._kv_block_size
+            blocks = self._pool.alloc(nblk)
+            if blocks is None:
+                self._prefix_cache.reclaim_blocks(self._pool, nblk)
+                blocks = self._pool.alloc(nblk)
+            if blocks is None:
+                raise ValueError(f"prefix entry needs {nblk} pool blocks; only "
+                                 f"{self._pool.free_blocks()} free (raise --kv_pool_blocks)")
+            dst = np.asarray(blocks, np.int32)
+            _pool_scatter(self.cache["k"], dst, row_cache["k"])
+            _pool_scatter(self.cache["v"], dst, row_cache["v"])
+            kv = None
+        entry = _PrefixEntry(ids=tuple(ids),
+                             pixels_key=_pixels_key(pixel_values) if n_ev == 1 else None,
+                             has_event=n_ev == 1, kv=kv, blocks=blocks, length=p_len,
+                             bucket=s1p, nbytes=s1p * self._kv_pos_bytes)
+        if not self._prefix_cache.insert(entry):
+            if blocks:
+                self._pool.decref(blocks)
+            raise ValueError(f"prefix entry ({entry.nbytes} bytes at bucket {s1p}) exceeds "
+                             f"the prefix-cache budget {self._prefix_cache.budget} (raise "
+                             f"--prefix_cache_mb)")
+        return p_len
+
+    def reset_prefix_cache(self) -> None:
+        """Swap in a fresh cache of the same budget; the old entries' blocks
+        are released under the deferred-on-pins rule. The supported reset:
+        replacing ``_prefix_cache`` by hand would strand a paged cache's
+        blocks."""
+        if self._prefix_cache is None:
+            return
+        old = self._prefix_cache
+        old.clear()
+        self._prefix_cache = PrefixCache(old.budget)
+        if self._paged:
+            self._prefix_cache.pool = self._pool
+
+    def prefix_cache_stats(self) -> Dict[str, Any]:
+        """Prefix-KV cache snapshot (``GET /prefix_cache``)."""
+        if self._prefix_cache is None:
+            return {"enabled": False}
+        return {"enabled": True, "insert_on_prefill": self.prefix_insert,
+                **self._prefix_cache.stats()}
+
+    def _req_pixels_key(self, req: _Request) -> Optional[bytes]:
+        if req.pixel_values is None:
+            return None
+        if req.pixels_key is None:
+            req.pixels_key = _pixels_key(req.pixel_values)
+        return req.pixels_key
+
+    def _prefix_lookup(self, req) -> Optional[tuple]:
+        """(entry, suffix_ids) of the deepest compatible entry for ``req``'s
+        prompt, or None (full prefill). The wrong-stream guard lives in
+        ``PrefixCache.lookup``."""
+        pc = self._prefix_cache
+        if pc is None or pc.n_entries == 0:
+            return None
+        pk = self._req_pixels_key(req) if isinstance(req, _Request) else (
+            None if req.pixel_values is None else _pixels_key(req.pixel_values))
+        ids = list(req.input_ids)
+        entry = pc.lookup(ids, pk)
+        if entry is None:
+            return None
+        return entry, ids[len(entry.ids):]
+
+    def _prefix_fit(self, entry: _PrefixEntry, suffix_ids) -> Optional[tuple]:
+        """(suf_len, prompt_len, chunk, s1) of a suffix admission against
+        ``entry``, or None when the row bucket cannot hold the entry block
+        and the padded suffix (full prefill instead)."""
+        p_len = entry.length
+        if entry.has_event:
+            suf_len = len(suffix_ids)
+        else:
+            suf_len = (sum(1 for t in suffix_ids if t != EVENT_TOKEN_INDEX)
+                       + self.cfg.num_event_tokens)
+        prompt_len = p_len + suf_len
+        chunk = (suf_len + SEQ_BUCKET - 1) // SEQ_BUCKET * SEQ_BUCKET
+        s1 = _bucket(max(prompt_len, p_len + chunk), self.max_len)
+        if p_len + chunk > s1 or s1 < entry.bucket:
+            return None
+        return suf_len, prompt_len, chunk, s1
+
+    def _suffix_embed(self, entry: _PrefixEntry, pixel_values, suffix_ids, chunk: int,
+                      suf_len: int):
+        """(1, chunk, D) padded suffix embeddings: a through-event entry's
+        suffix is plain text (no CLIP); a text entry's suffix carries the
+        sentinel and pays its own encode."""
+        if entry.has_event:
+            tok = _h2d(np.asarray([suffix_ids], np.int64), self.device)
+            emb = llama_mod.embed_tokens(self.params["llama"], tok)
+        else:
+            ev = eventchat.encode_events_batch(self.params, self.cfg,
+                                               self._pixels(pixel_values)[None])
+            emb = eventchat.splice_embeddings(self.params, self.cfg,
+                                              split_at_event(suffix_ids), ev[0])[None]
+        assert emb.shape[1] == suf_len, (emb.shape, suf_len)
+        return F.pad(emb, (0, 0, 0, chunk - suf_len))
+
+    def _entry_kv(self, entry: _PrefixEntry) -> Dict[str, Any]:
+        """The entry's dense (L, 1, bucket) K/V: its copies (dense) or a
+        gather of its pool blocks (paged)."""
+        if entry.kv is not None:
+            return entry.kv
+        k, v = _gather_blocks(self.cache, entry.blocks)
+        return {"k": k, "v": v}
+
+    def _drain_entry_pin(self, entry: _PrefixEntry) -> None:
+        """Drop one pin; the last drain of a detached paged entry releases
+        its block run."""
+        entry.pins -= 1
+        if entry.pins <= 0 and entry.detached and entry.blocks and self._pool is not None:
+            self._pool.decref(entry.blocks)
+            entry.blocks = None
+            entry.detached = False
+
+    def _prefix_admit(self, entry: _PrefixEntry, pixel_values, suffix_ids):
+        """Suffix-only admission against one entry: (row_cache, row_logits,
+        prompt_len), or None when ``_prefix_fit`` refuses."""
+        fit = self._prefix_fit(entry, suffix_ids)
+        if fit is None:
+            return None
+        suf_len, prompt_len, chunk, s1 = fit
+        emb = self._suffix_embed(entry, pixel_values, suffix_ids, chunk, suf_len)
+        row_cache = self._new_row_cache(s1)
+        ekv = self._entry_kv(entry)
+        last = _prefix_prefill(
+            self.params, self.cfg, ekv["k"], ekv["v"],
+            _h2d(np.asarray([entry.length], np.int32), self.device), row_cache, emb,
+            _h2d(np.asarray([prompt_len], np.int32), self.device),
+            _h2d(np.asarray([suf_len - 1], np.int64), self.device))
+        self._count_dispatch("suffix")
+        return row_cache, last, prompt_len
+
+    @torch.inference_mode()
+    def _admit_suffix_wave(self, members: List[tuple]) -> None:
+        """Batched suffix admission: N prefix hits of one padded (chunk, s1)
+        shape run one stacked entry copy + ``decode_kstep``, scattered
+        into the shared cache like ``_admit_wave``. The entries may differ
+        per member. Members: (req, row, entry, suffix_ids, fit)."""
+        n = len(members)
+        nb = 1 << (n - 1).bit_length()
+        _, _, chunk, s1 = members[0][4]
+        for m in members:
+            self._prefix_cache.count_hit(m[2])
+        s_pre = max(m[2].bucket for m in members)
+
+        def stack(blocks):
+            def pad(buf):
+                return F.pad(buf, (0, 0) * (buf.ndim - 3) + (0, s_pre - buf.shape[2]))
+            padded = [_planes(b, pad) for b in blocks]
+            padded += [padded[0]] * (nb - n)  # pad slots reuse the first block
+            if isinstance(padded[0], dict):
+                return {p: torch.cat([b[p] for b in padded], dim=1) for p in ("q", "s")}
+            return torch.cat(padded, dim=1)
+
+        ekvs = [self._entry_kv(m[2]) for m in members]
+        wave_pk = stack([kv["k"] for kv in ekvs])
+        wave_pv = stack([kv["v"] for kv in ekvs])
+        embs = [self._suffix_embed(m[2], m[0].pixel_values, m[3], chunk, m[4][0])
+                for m in members]
+        emb = torch.cat(embs + [torch.zeros_like(embs[0])] * (nb - n), dim=0)
+        plen = _h2d(np.asarray([m[2].length for m in members] + [1] * (nb - n), np.int32),
+                    self.device)
+        new_len = _h2d(np.asarray([m[4][1] for m in members] + [1] * (nb - n), np.int32),
+                       self.device)
+        last_idx = _h2d(np.asarray([m[4][0] - 1 for m in members] + [0] * (nb - n), np.int64),
+                        self.device)
+        row_cache = self._new_row_cache(s1, batch=nb)
+        last = _prefix_prefill(self.params, self.cfg, wave_pk, wave_pv, plen, row_cache, emb,
+                               new_len, last_idx)
+        self._count_dispatch("suffix_wave")
+        self._scatter_wave([(m[0], m[1]) for m in members], row_cache, last,
+                           [m[4][1] for m in members], entries=[m[2] for m in members])
+        for m in members:
+            # Selection pins drain once the wave read every entry.
+            self._drain_entry_pin(m[2])
+
+    def _insert_prefix_on_prefill(self, req: _Request, row_cache, src_row: int = 0) -> None:
+        """After an admission that prefilled a whole prompt, insert its
+        reusable heads: the TEXT head before the sentinel (any stream) and
+        the head THROUGH the event block (this stream). Repeat heads
+        dedupe on the exact key. Paged entries alias the row's blocks over
+        [0, bucket) -- one incref, no copy; dense entries copy."""
+        pc = self._prefix_cache
+        if pc is None or not self.prefix_insert:
+            return
+        ids = list(req.input_ids)
+        if EVENT_TOKEN_INDEX not in ids:
+            return
+        sent = ids.index(EVENT_TOKEN_INDEX)
+        heads = []
+        if sent >= 1:
+            heads.append((tuple(ids[:sent]), None, False, sent))
+        if req.pixel_values is not None:
+            heads.append((tuple(ids[:sent + 1]), self._req_pixels_key(req), True,
+                          sent + self.cfg.num_event_tokens))
+        for hid, pk, has_ev, hlen in heads:
+            if hlen + SEQ_BUCKET > self.max_len:
+                continue  # no room for any suffix
+            if pc.get(hid, pk) is not None:
+                continue  # already cached
+            bucket = _bucket(hlen, self.max_len)
+            nbytes = bucket * self._kv_pos_bytes
+            if pc.budget and nbytes > pc.budget:
+                continue  # would be refused: skip the copy
+            if self._paged:
+                # Positions < hlen are never rewritten; the creator's own
+                # writes above hlen in the tail block are masked from every
+                # consumer, which pins length = hlen.
+                nblk = bucket // self._kv_block_size
+                run = (req.kv_blocks_aliased + req.kv_blocks_owned)[:nblk]
+                if len(run) < nblk:
+                    continue
+                self._pool.incref(run)
+                if not pc.insert(_PrefixEntry(ids=hid, pixels_key=pk, has_event=has_ev,
+                                              kv=None, blocks=run, length=hlen, bucket=bucket,
+                                              nbytes=nbytes)):
+                    self._pool.decref(run)
+                continue
+            k, v = _slice_prefix_block(row_cache["k"], row_cache["v"], src_row, bucket)
+            pc.insert(_PrefixEntry(ids=hid, pixels_key=pk, has_event=has_ev,
+                                   kv={"k": k, "v": v}, length=hlen, bucket=bucket,
+                                   nbytes=nbytes))
+
     # -- scheduler core ---------------------------------------------------
 
+    @torch.inference_mode()
     def step(self) -> None:
-        """One scheduling iteration: expire deadlines, admit into free rows,
-        run one decode segment, harvest it."""
+        """One scheduling iteration: expire deadlines, admit (or advance a
+        chunked or piggybacked admission), dispatch one decode segment,
+        harvest.
+
+        Pipelined: the segment is dispatched from the device carry first,
+        and the PREVIOUS segment is fetched once its first step is launched,
+        so the harvest runs while the card computes. Anything that changes
+        rows drains the pipeline at the dispatch boundary first; a lane
+        joining does not (it reserves a row on the host and touches only
+        the lane buffers). Without the pipeline, or while the TTFT ramp
+        runs, every segment is harvested in its own step."""
+        piggy = self.prefill_budget > 0 and (len(self._lanes) > 0 or not self.frozen.all())
+        if self._inflight is not None and (
+                self._deadline_expired()
+                or self._pending is not None
+                or any(lane.filled >= lane.prompt_len for lane in self._lanes)
+                or (self.queue and not piggy and any(r is None for r in self.rows))):
+            self._drain()
         self._expire_deadlines()
         t0 = time.perf_counter()
         self._admit()
-        self.admission_s += time.perf_counter() - t0
-        if all(r is None for r in self.rows) or bool(self.frozen.all()):
+        dt = time.perf_counter() - t0
+        self.admission_s += dt
+        self.admission_max_s = max(self.admission_max_s, dt)
+        if all(r is None for r in self.rows):
+            self._drain()  # a trailing all-frozen segment, if any
             return
+        if self.frozen.all() and not self._lanes:
+            # Only reserved (pending) rows: nothing to decode yet. The
+            # mirror lags only toward more frozen, so the carry is all
+            # frozen too. Live lanes fall through: the mixed dispatch
+            # advances them while the decode half idles.
+            self._drain()
+            return
+        chunk = self.chunk
+        ramp = self.first_chunk > 0 and any(
+            req is not None and not self.frozen[r] and req.t_first is None
+            for r, req in enumerate(self.rows))
+        if ramp:
+            chunk = self.first_chunk
         t0 = time.perf_counter()
-        self._harvest_segment(self._dispatch_segment())
+        prev, self._inflight = self._inflight, None
+        rec = self._dispatch_segment(chunk, prev)
+        if self.pipeline and not ramp:
+            self._inflight = rec
+        else:
+            self._harvest_segment(rec)
         self.decode_s += time.perf_counter() - t0
+
+    # A harvest point: the host waits here.
+    def _drain(self) -> None:
+        """Harvest the in-flight segment, if any: afterwards the host mirror
+        of frozen/n_rem is settled and rows may be changed."""
+        if self._inflight is not None:
+            rec, self._inflight = self._inflight, None
+            self._harvest_segment(rec)
+
+    def _deadline_expired(self) -> bool:
+        """Does any live deadline need a forced finish this step? (Gates the
+        pipeline drain: deadline-less traffic never serializes on it.)"""
+        if self._n_deadlines <= 0:
+            return False
+        now = time.perf_counter()
+
+        def expired(req):
+            return req.deadline is not None and now > req.deadline
+
+        return (any(expired(q) for q in self.queue)
+                or (self._pending is not None and expired(self._pending.req))
+                or any(req is not None and expired(req) for req in self.rows))
 
     def _expire_deadlines(self) -> None:
         """Forced finish of every request past its deadline: queued ones
-        leave the queue, active rows are frozen mid-decode, each with
+        leave the queue, a pending admission or a lane is dropped (its row
+        freed), active rows are frozen mid-decode -- each with
         ``STATUS_DEADLINE`` and its committed tokens."""
         if self._n_deadlines <= 0:
             return
@@ -506,39 +1498,112 @@ class ContinuousBatcher:
                 else:
                     keep.append(req)
             self.queue = keep
+        if self._pending is not None and expired(self._pending.req):
+            p, self._pending = self._pending, None
+            self.rows[p.row] = None
+            self._record_finish(p.req, STATUS_DEADLINE)
+        for lane in [x for x in self._lanes if expired(x.req)]:
+            # No drain needed: the lane never touched the decode carry.
+            self._drop_lane(lane)
+            self._record_finish(lane.req, STATUS_DEADLINE)
         for r, req in enumerate(self.rows):
             if req is not None and not self.frozen[r] and expired(req):
-                self._finish_row(r, status=STATUS_DEADLINE)
+                # Settle an in-flight segment first and re-check: its
+                # harvest may have finished the row.
+                self._drain()
+                if self.rows[r] is req and not self.frozen[r]:
+                    self._finish_row(r, status=STATUS_DEADLINE)
 
-    def _dispatch_segment(self) -> dict:
-        frozen = torch.as_tensor(self.frozen, device=self.device)
-        n_rem = torch.as_tensor(self.n_rem.astype(np.int32), device=self.device)
-        tokens, n_new, done, finite, self.logits = _decode_segment(
-            self.params, self.cfg, self.logits, self.cache, self.generator, frozen, n_rem,
-            self.chunk, int(self.eos), self.temperature, self.top_p)
-        self.segments += 1
-        return {"tokens": tokens, "n_new": n_new, "done": done, "fin": finite,
-                "frozen_in": self.frozen.copy()}
+    def _dispatch_segment(self, chunk: Optional[int] = None,
+                          prev: Optional[dict] = None) -> dict:
+        """Dispatch one decode segment (a mixed one with live lanes) on the
+        resident state and advance the device carry, without waiting for
+        the card; ``prev``, the segment in flight, is harvested once this
+        one's first step is launched. Returns the in-flight record
+        ``_harvest_segment`` consumes: host copies of the outputs, started
+        now, and their event."""
+        chunk = chunk or self.chunk
+        harvest_prev = None if prev is None else (lambda: self._harvest_segment(prev))
+        if self._dev_carry is not None:
+            frozen, n_rem = self._dev_carry
+        else:
+            # The host changed rows (always drained): the mirror is
+            # authoritative.
+            frozen = _h2d(self.frozen, self.device)
+            n_rem = _h2d(self.n_rem.astype(np.int32), self.device)
+            self.carry_uploads += 1
+        mixed = len(self._lanes) > 0 and self._lane_cache is not None
+        rec = {"chunk": chunk, "wait_at_dispatch": self.device_segment_s}
+        if mixed:
+            lane_start, lane_new_len, lane_last_idx, lane_adv, lane_tok = self._lane_args()
+            (tokens, n_new, done, fin, self.logits, frozen_out, n_rem_out, steps,
+             lane_last, _lane_hidden) = _mixed_decode_segment(
+                self.params, self.cfg, self.logits, self.cache, self.generator, frozen, n_rem,
+                self._lane_embeds, self._lane_cache, lane_start, lane_new_len, lane_last_idx,
+                chunk, self._lane_chunk, self.eos, self.temperature, self.top_p, self._flags,
+                harvest_prev)
+            # Lane bookkeeping at dispatch: the advance is deterministic, so
+            # the next boundary's lane arguments need no fetch. A finished
+            # lane keeps its last logits on the device.
+            for lane, end in lane_adv:
+                lane.filled = end
+                if lane.filled >= lane.prompt_len:
+                    lane.last_logits = lane_last[lane.slot:lane.slot + 1]
+            if lane_adv:
+                self.mixed_prefill_tokens += lane_tok
+                self.mixed_segments += 1
+                self._count_dispatch("piggyback")
+                rec["n_lanes"] = len(lane_adv)
+        else:
+            (tokens, n_new, done, fin, self.logits, frozen_out, n_rem_out,
+             steps) = _decode_segment(
+                self.params, self.cfg, self.logits, self.cache, self.generator, frozen, n_rem,
+                chunk, self.eos, self.temperature, self.top_p, self._flags, harvest_prev)
+        self._dev_carry = (frozen_out, n_rem_out)
+        self.seg_count += 1
+        self.decode_steps_run += steps
+        rec["host"], rec["event"] = _fetch_async([tokens, n_new, done, fin, frozen])
+        rec["t_dispatch"] = time.perf_counter()
+        return rec
 
+    # A harvest point: the host waits here.
     def _harvest_segment(self, rec: dict) -> None:
-        """Fetch a segment's outputs to the host and apply the row
-        bookkeeping: commit tokens, stamp the first token, decrement
-        budgets, finish EOS / exhausted / non-finite rows."""
-        tokens = rec["tokens"].cpu().numpy()
-        n_new = rec["n_new"].cpu().numpy()
-        done = rec["done"].cpu().numpy()
-        finite = rec["fin"].cpu().numpy()
-        frozen_in = rec["frozen_in"]
+        """Fetch one dispatched segment's outputs (the host blocks here) and
+        apply the row bookkeeping: commit tokens, stamp the first token,
+        decrement budgets, finish EOS / exhausted / non-finite rows -- the
+        transitions the segment already applied to the device carry."""
+        t_fetch = time.perf_counter()
+        if self._t_prev_fetch_end is not None:
+            self.host_gap_s += t_fetch - self._t_prev_fetch_end
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        tokens, n_new, done, finite, frozen_in = (t.numpy() for t in rec["host"])
+        t_end = time.perf_counter()
+        wait = t_end - t_fetch
+        if wait > 1e-4:
+            # The card was still busy when the host arrived: the host work
+            # since this dispatch (minus its own blocked fetches) was hidden.
+            blocked_since = self.device_segment_s - rec["wait_at_dispatch"]
+            self.overlap_hidden_s += max(0.0, t_fetch - rec["t_dispatch"] - blocked_since)
+        self.device_segment_s += wait
+        self._t_prev_fetch_end = t_end
         self.decode_steps += int(n_new.max(initial=0))
+        if rec.get("n_lanes"):
+            live = ~frozen_in
+            if live.any():
+                self.mixed_boundaries += 1
+                if int(n_new[live].sum()) == 0:
+                    self.mixed_zero_harvests += 1
         now = time.perf_counter()
         for r, req in enumerate(self.rows):
-            # Rows frozen at dispatch produced nothing here.
+            # frozen_in is the segment's input mask (the host mirror may be
+            # a segment ahead): rows frozen at dispatch produced nothing.
             if req is None or frozen_in[r]:
                 continue
             if not finite[r]:
                 # Non-finite logits poison only this row: its segment
                 # tokens are discarded and the request fails.
-                self._finish_row(r, status=STATUS_NAN)
+                self._finish_row(r, status=STATUS_NAN, stale_carry=False)
                 continue
             new = tokens[r, : n_new[r]]
             if len(new) and req.t_first is None:
@@ -546,19 +1611,30 @@ class ContinuousBatcher:
             req.tokens.extend(int(t) for t in new)
             self.n_rem[r] -= int(n_new[r])
             if done[r] or self.n_rem[r] <= 0:
-                self._finish_row(r)
+                # The carry froze the row on the device already.
+                self._finish_row(r, stale_carry=False)
 
-    def _finish_row(self, r: int, status: str = STATUS_OK) -> None:
+    def _finish_row(self, r: int, status: str = STATUS_OK, stale_carry: bool = True) -> None:
         req = self.rows[r]
         self.rows[r] = None
         self.frozen[r] = True
         self.n_rem[r] = 0
+        if stale_carry:
+            # A forced finish (deadline, cancel; always drained): the carry
+            # no longer matches the host, so the next dispatch uploads.
+            # Harvest-driven finishes keep it: the segment froze the row on
+            # the device, and dropping the carry would roll it back behind
+            # a segment already in flight.
+            self._dev_carry = None
         self._record_finish(req, status)
 
     def _record_finish(self, req: _Request, status: str) -> None:
         if self._paged:
             # The reservation returns on every terminal path.
             self._paged_release(req)
+        if req.prefix_entry is not None:
+            self._drain_entry_pin(req.prefix_entry)
+            req.prefix_entry = None
         if req.deadline is not None:
             self._n_deadlines -= 1
         ids = req.tokens
@@ -575,6 +1651,123 @@ class ContinuousBatcher:
         self.finished[req.rid] = ids
         self.finish_status[req.rid] = status
 
+    # -- piggyback lanes --------------------------------------------------
+
+    def _ensure_lane_buffers(self, s1: int) -> None:
+        """Allocate (or grow to bucket ``s1``) the resident lane buffers: a
+        (K_cap, S_lane + chunk_p) KV cache, always unquantized, and a
+        (K_cap, S_lane, D) prompt-embedding buffer. Growth pads the
+        position axis, keeping live lanes' state."""
+        s1 = _bucket(s1, self.max_len)
+        if self._lane_cache is not None and s1 <= self._lane_bucket:
+            return
+        d = self.cfg.llama.hidden_size
+        if self._lane_cache is None:
+            self._lane_cache = llama_mod.init_kv_cache(
+                self.cfg.llama, self._lane_cap, s1 + self._lane_chunk, dtype=self._dtype,
+                device=self.device, quant=False)
+            self._lane_embeds = torch.zeros((self._lane_cap, s1, d), dtype=self._dtype,
+                                            device=self.device)
+        else:
+            pad = s1 - self._lane_bucket
+            for plane in ("k", "v"):
+                buf = self._lane_cache[plane]
+                self._lane_cache[plane] = F.pad(buf, (0, 0) * (buf.ndim - 3) + (0, pad))
+            self._lane_embeds = F.pad(self._lane_embeds, (0, 0, 0, pad))
+        self._lane_bucket = s1
+
+    def _start_full_lane(self, req: _Request, row: int) -> None:
+        """A lane for a full-prefill admission: the whole prompt's
+        embeddings load into the lane slot, advanced from position 0."""
+        padded, _, prompt_len = self._prep_request(req)
+        self._ensure_lane_buffers(padded.shape[1])
+        slot = self._lane_free.pop()
+        self._lane_embeds[slot, :padded.shape[1]] = padded[0]
+        self._lanes.append(_PendingLane(req, row, slot, prompt_len))
+        self.lanes_started["full"] += 1
+
+    def _start_suffix_lane(self, req: _Request, row: int, entry: _PrefixEntry, suffix_ids,
+                           fit: tuple) -> None:
+        """A lane for a prefix hit: the entry's KV seeds the lane row at
+        [0, entry.length) and only the suffix embeddings load; the lane
+        advances from ``filled = entry.length``. The lane pins the entry
+        until it finishes (its finish re-reads the entry)."""
+        suf_len, prompt_len, _, s1 = fit
+        self._prefix_cache.count_hit(entry)
+        entry.pins += 1
+        self._ensure_lane_buffers(max(s1, entry.bucket))
+        slot = self._lane_free.pop()
+        ekv = self._entry_kv(entry)
+        _lane_seed(self._lane_cache, slot, ekv["k"], ekv["v"])
+        emb = self._suffix_embed(entry, req.pixel_values, suffix_ids, suf_len, suf_len)
+        plen = entry.length
+        self._lane_embeds[slot, plen:plen + suf_len] = emb[0]
+        self._lanes.append(_PendingLane(req, row, slot, prompt_len, filled=plen, entry=entry))
+        self.lanes_started["suffix"] += 1
+
+    def _lane_args(self) -> tuple:
+        """This boundary's lane inputs over all K_cap slots: (start,
+        new_len, last_idx) on the device, the (lane, end) pairs it advances
+        and their real prompt tokens. Idle and ready slots run a no-op
+        window (start == new_len)."""
+        k = self._lane_cap
+        start = np.zeros((k,), np.int32)
+        new_len = np.zeros((k,), np.int32)
+        last_idx = np.zeros((k,), np.int64)
+        advancing: List[tuple] = []
+        n_tok = 0
+        for lane in self._lanes:
+            start[lane.slot] = lane.filled
+            if lane.filled >= lane.prompt_len:
+                new_len[lane.slot] = lane.filled  # ready: pinned, no advance
+                continue
+            end = min(lane.filled + self._lane_chunk, lane.prompt_len)
+            new_len[lane.slot] = end
+            last_idx[lane.slot] = max(0, min(lane.prompt_len - 1 - lane.filled,
+                                             self._lane_chunk - 1))
+            advancing.append((lane, end))
+            n_tok += end - lane.filled
+        return (_h2d(start, self.device), _h2d(new_len, self.device),
+                _h2d(last_idx, self.device), advancing, n_tok)
+
+    def _drop_lane(self, lane: _PendingLane) -> None:
+        """Remove a lane mid-prefill (cancel, deadline, fault): its slot and
+        its reserved row are freed, its entry pin drained; the lane KV is
+        dead storage."""
+        self._lanes.remove(lane)
+        self._lane_free.append(lane.slot)
+        self.rows[lane.row] = None
+        if self._paged:
+            self._paged_release(lane.req)
+        if lane.entry is not None:
+            self._drain_entry_pin(lane.entry)
+
+    def _finish_ready_lanes(self) -> bool:
+        """Complete every lane whose prompt is prefilled: slice its lane row
+        out and run the normal admission tail (``_finish_admission``: NaN
+        quarantine, insert-on-prefill, scatter, activation). Callers have
+        drained the pipeline (activation rewrites the carry)."""
+        done = False
+        for lane in [x for x in self._lanes if x.filled >= x.prompt_len]:
+            self._lanes.remove(lane)
+            self._lane_free.append(lane.slot)
+            done = True
+            pk = pv = None
+            plen = 0
+            if self.kv_quant and lane.entry is not None:
+                ekv = self._entry_kv(lane.entry)
+                pk, pv, plen = ekv["k"], ekv["v"], lane.entry.length
+            k, v = _lane_extract(self._lane_cache["k"], self._lane_cache["v"], lane.slot, pk,
+                                 pv, self._lane_bucket, self.kv_quant, plen)
+            row_cache = {"k": k, "v": v,
+                         "length": torch.full((1,), lane.prompt_len, dtype=torch.int32,
+                                              device=self.device)}
+            self._finish_admission(lane.req, lane.row, lane.prompt_len, row_cache,
+                                   lane.last_logits, prefix_entry=lane.entry)
+            if lane.entry is not None:
+                self._drain_entry_pin(lane.entry)  # the activation holds its own pin
+        return done
+
     # -- paged KV block pool ----------------------------------------------
 
     def _blocks_needed(self, prompt_len: int, max_new: int) -> int:
@@ -588,12 +1781,18 @@ class ContinuousBatcher:
 
     def _paged_admit_gate(self) -> bool:
         """The queue head admits only when its whole reservation fits the
-        free list; otherwise it stays queued, and finishing rows free the
-        blocks it needs. Deferral changes timing, never a chain."""
+        free list; under pressure the gate first evicts LRU unpinned prefix
+        entries (their runs are the only idle pool capacity), else the head
+        stays queued and finishing rows free the blocks it needs. Deferral
+        changes timing, never a chain."""
         req = self.queue[0]
         need = self._blocks_needed(req.prompt_len, req.max_new_tokens)
         if self._pool.free_blocks() >= need:
             return True
+        if self._prefix_cache is not None:
+            self._prefix_cache.reclaim_blocks(self._pool, need)
+            if self._pool.free_blocks() >= need:
+                return True
         self.block_deferrals += 1
         return False
 
@@ -605,30 +1804,48 @@ class ContinuousBatcher:
         self.queue.appendleft(req)
         self.block_deferrals += 1
 
-    def _paged_reserve(self, req: _Request, s1: int) -> bool:
-        """Allocate the request's reservation; False when the pool cannot
-        cover it now (never a partial grant)."""
+    def _paged_reserve(self, req: _Request, s1: int,
+                       entry: Optional[_PrefixEntry] = None) -> bool:
+        """Allocate the request's reservation, aliasing a prefix entry's
+        full blocks below the divergence point on a hit; False when the
+        pool cannot cover it now (never a partial grant)."""
         cover = min(max(s1, req.prompt_len + req.max_new_tokens + 1), self.max_len)
-        owned = self._pool.alloc(self._pool.blocks_for(cover))
+        total = self._pool.blocks_for(cover)
+        aliased: List[int] = []
+        if entry is not None and entry.blocks:
+            n_shared = min(entry.length // self._kv_block_size, total, len(entry.blocks))
+            aliased = list(entry.blocks[:n_shared])
+        owned = self._pool.alloc(total - len(aliased))
         if owned is None:
             return False
+        if aliased:
+            self._pool.incref(aliased)
+            if entry.length % self._kv_block_size:
+                # The entry ends inside a block: the admission scatter
+                # re-creates that block's shared head in the row's first
+                # OWNED block -- the copy-on-write copy.
+                self._pool.note_cow()
+        req.kv_blocks_aliased = aliased
         req.kv_blocks_owned = owned
         return True
 
     def _paged_bt_row(self, req: _Request) -> np.ndarray:
-        """The row's block table: its reservation, then scratch block 0."""
+        """The row's block table: aliased run, then owned blocks, then
+        scratch block 0."""
         bt = np.full((self._nbpr,), SCRATCH_BLOCK, np.int32)
-        bt[: len(req.kv_blocks_owned)] = req.kv_blocks_owned
+        run = req.kv_blocks_aliased + req.kv_blocks_owned
+        bt[: len(run)] = run
         return bt
 
     def _paged_dst_blocks(self, req: _Request, s1: int) -> np.ndarray:
-        """Scatter destinations of the row's s1-slot prefilled cache; blocks
-        beyond the reservation (a wave's bucket can exceed a short
-        member's) take the drop sentinel n_blocks."""
+        """Scatter destinations of the row's s1-slot prefilled cache:
+        aliased source blocks (shared, never rewritten) and blocks beyond
+        the reservation take the drop sentinel n_blocks."""
         n_src = s1 // self._kv_block_size
         dst = np.full((n_src,), self._pool.n_blocks, np.int32)
-        own = req.kv_blocks_owned[:n_src]
-        dst[: len(own)] = own
+        na = len(req.kv_blocks_aliased)
+        own = req.kv_blocks_owned[: max(n_src - na, 0)]
+        dst[na:na + len(own)] = own
         return dst
 
     def _paged_release(self, req: _Request) -> None:
@@ -637,6 +1854,9 @@ class ContinuousBatcher:
         if req.kv_blocks_owned:
             self._pool.decref(req.kv_blocks_owned)
             req.kv_blocks_owned = []
+        if req.kv_blocks_aliased:
+            self._pool.decref(req.kv_blocks_aliased)
+            req.kv_blocks_aliased = []
         if req.kv_bt_written and req.row >= 0:
             self.cache["bt"][req.row] = SCRATCH_BLOCK
             req.kv_bt_written = False
@@ -644,40 +1864,130 @@ class ContinuousBatcher:
     # -- admission --------------------------------------------------------
 
     def _admit(self) -> bool:
-        """Admit queued requests into free rows: every request ready at this
-        step joins one full-prefill wave (a single request takes the
-        batch-1 path). Returns True when it popped the queue."""
-        wave: List[tuple] = []
-        while self.queue and any(r is None for r in self.rows):
+        """Admit queued requests into free rows. Returns True when it did
+        admission work.
+
+        Per popped request: with ``prefill_budget`` armed and rows decoding
+        (or lanes live), it becomes a piggyback lane -- a prefix hit seeds
+        the lane with the entry, a miss loads the whole prompt -- up to
+        ``_lane_cap`` at once. Otherwise: a prefix hit admits suffix-only
+        (hits of one shape share a wave), a miss with rows decoding and
+        ``prefill_chunk`` set becomes a chunked admission, and the rest
+        join this step's full-prefill wave."""
+        did_work = False
+        if self._lanes:
+            # step() drained when a lane was ready.
+            did_work |= self._finish_ready_lanes()
+        if self._pending is not None:
+            did_work = True
+            self._advance_pending()
+        piggy = self.prefill_budget > 0 and (len(self._lanes) > 0 or not self.frozen.all())
+        wave: List[tuple] = []  # (req, row) full-prefill admissions
+        hits: List[tuple] = []  # (req, row, entry, suffix_ids, fit)
+        while self._pending is None and self.queue and any(r is None for r in self.rows):
+            if piggy and not self._lane_free:
+                break  # lanes at the token budget: the rest stay queued
             if self._paged and not self._paged_admit_gate():
                 break
             req = self.queue.popleft()
+            did_work = True
             row = next(r for r in range(self.max_batch) if self.rows[r] is None)
             # Reserve the row now; it stays frozen until activation.
             self.rows[row] = req
             req.row = row
+            hit = self._prefix_lookup(req) if self._prefix_cache is not None else None
+            if hit is not None:
+                entry, suffix_ids = hit
+                fit = self._prefix_fit(entry, suffix_ids)
+                if fit is not None and self._paged and not self._paged_reserve(req, fit[3],
+                                                                              entry):
+                    self._paged_requeue(req, row)
+                    break
+                if fit is not None:
+                    if piggy:
+                        self._start_suffix_lane(req, row, entry, suffix_ids, fit)
+                        continue
+                    # Selection pin: the entry (and a paged entry's blocks)
+                    # must survive until this boundary's admission read it.
+                    entry.pins += 1
+                    hits.append((req, row, entry, suffix_ids, fit))
+                    continue
+            if self._prefix_cache is not None:
+                self._prefix_cache.count_miss()
             if self._paged and not self._paged_reserve(req, _bucket(req.prompt_len,
                                                                      self.max_len)):
                 self._paged_requeue(req, row)
                 break
+            if piggy:
+                self._start_full_lane(req, row)
+                continue
+            if self.prefill_chunk and not self.frozen.all():
+                # Rows are decoding: a chunked admission, one chunk per step.
+                padded, _, prompt_len = self._prep_request(req)
+                self._pending = _PendingAdmission(req, row, padded, prompt_len,
+                                                  self._new_row_cache(padded.shape[1]))
+                self._advance_pending()
+                break
             wave.append((req, row))
+        # Suffix admissions first, grouped into waves by padded shape.
+        groups: Dict[tuple, List[tuple]] = {}
+        for h in hits:
+            groups.setdefault((h[4][2], h[4][3]), []).append(h)
+        for _, members in sorted(groups.items()):
+            if len(members) == 1:
+                req, row, entry, suffix_ids, _ = members[0]
+                try:
+                    row_cache, row_logits, prompt_len = self._prefix_admit(
+                        entry, req.pixel_values, suffix_ids)
+                    self._prefix_cache.count_hit(entry)
+                    self._finish_admission(req, row, prompt_len, row_cache, row_logits,
+                                           prefix_entry=entry)
+                finally:
+                    self._drain_entry_pin(entry)  # the selection pin
+            else:
+                try:
+                    self._admit_suffix_wave(members)
+                except BaseException:
+                    for m in members:
+                        self._drain_entry_pin(m[2])
+                    raise
         if not wave:
-            return False
+            return did_work
         if len(wave) > 1:
             self._admit_wave(wave)
             return True
         req, row = wave[0]
         padded, mask, prompt_len = self._prep_request(req)
         row_cache = self._new_row_cache(padded.shape[1])
-        with torch.inference_mode():
-            row_logits, row_cache = llama_mod.prefill(
-                self.params["llama"], self.cfg.llama, padded, mask, row_cache, last_only=True)
-        self.prefill_dispatches += 1
+        row_logits, row_cache = llama_mod.prefill(
+            self.params["llama"], self.cfg.llama, padded, mask, row_cache, last_only=True)
+        self._count_dispatch("full")
         self._finish_admission(req, row, prompt_len, row_cache, row_logits)
         return True
 
+    def _advance_pending(self) -> None:
+        """Run one prefill chunk of the pending admission; with no row
+        decoding (nothing to stall) run every remaining chunk at once."""
+        while self._pending is not None:
+            self._advance_pending_one()
+            if self._pending is None or not self.frozen.all():
+                return
+
+    def _advance_pending_one(self) -> None:
+        p = self._pending
+        c = self.prefill_chunk
+        start = p.filled
+        end = min(start + c, p.prompt_len)
+        last = _chunk_prefill(self.params, self.cfg, p.embeds, p.row_cache, start, end,
+                              max(0, min(p.prompt_len - 1 - start, c - 1)), c)
+        self._count_dispatch("chunk")
+        p.filled = end
+        if p.filled >= p.prompt_len:
+            self._pending = None
+            self._finish_admission(p.req, p.row, p.prompt_len, p.row_cache, last)
+
     def _pixels(self, pixel_values) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(pixel_values), device=self.device).to(self._dtype)
+        return _h2d(np.asarray(pixel_values, np.float32), self.device).to(self._dtype)
 
     @torch.inference_mode()
     def _prep_request(self, req: _Request):
@@ -724,14 +2034,18 @@ class ContinuousBatcher:
         wave_cache = self._new_row_cache(s1, batch=nb)
         wave_logits, wave_cache = llama_mod.prefill(
             self.params["llama"], self.cfg.llama, padded, mask, wave_cache, last_only=True)
-        self.prefill_dispatches += 1
+        self._count_dispatch("wave")
         self._scatter_wave(wave, wave_cache, wave_logits, prompt_lens)
 
+    # Reads the wave logits back (the admission NaN quarantine); every
+    # caller has drained the pipeline.
     def _scatter_wave(self, members: List[tuple], wave_cache, wave_logits,
-                      prompt_lens: List[int]) -> None:
-        """Per-member NaN quarantine, the one scatter of every surviving
-        row into the shared cache, then row activation. Quarantined and
-        pad slots keep row ``max_batch`` (written nowhere)."""
+                      prompt_lens: List[int], entries: Optional[List[_PrefixEntry]] = None
+                      ) -> None:
+        """Per-member NaN quarantine, insert-on-prefill, the one scatter of
+        every surviving row into the shared cache, then row activation.
+        Quarantined and pad slots keep row ``max_batch`` (written
+        nowhere)."""
         nb = wave_logits.shape[0]
         rows = np.full((nb,), self.max_batch, np.int32)
         finite = torch.isfinite(wave_logits[: len(members)]).all(dim=-1).cpu().numpy()
@@ -743,6 +2057,7 @@ class ContinuousBatcher:
                 self.frozen[row] = True
                 self._record_finish(req, STATUS_NAN)
                 continue
+            self._insert_prefix_on_prefill(req, wave_cache, src_row=i)
             rows[i] = row
             good.append((i, req, row))
         if self._paged:
@@ -759,10 +2074,12 @@ class ContinuousBatcher:
             _admit_wave(self.cache, self.logits, rows, wave_cache["k"], wave_cache["v"],
                         wave_cache["length"], wave_logits)
         for i, req, row in good:
-            self._activate_row(req, row)
+            self._activate_row(req, row, entries[i] if entries is not None else None)
 
+    # Reads the row logits back (the admission NaN quarantine); every
+    # caller has drained the pipeline.
     def _finish_admission(self, req: _Request, row: int, prompt_len: int, row_cache,
-                          row_logits) -> None:
+                          row_logits, prefix_entry: Optional[_PrefixEntry] = None) -> None:
         """Write the prefilled row into the shared cache and activate it,
         unless its logits are not finite (then the request fails before it
         touches the shared cache)."""
@@ -771,6 +2088,7 @@ class ContinuousBatcher:
             self.frozen[row] = True
             self._record_finish(req, STATUS_NAN)
             return
+        self._insert_prefix_on_prefill(req, row_cache)
         if self._paged:
             s1 = llama_mod._kv_max_len(row_cache)
             _admit_row_paged(self.cache, self.logits, row, self._paged_dst_blocks(req, s1),
@@ -778,11 +2096,17 @@ class ContinuousBatcher:
             req.kv_bt_written = True
         else:
             _admit_row(self.cache, self.logits, row, row_cache, row_logits)
-        self._activate_row(req, row)
+        self._activate_row(req, row, prefix_entry)
 
-    def _activate_row(self, req: _Request, row: int) -> None:
+    def _activate_row(self, req: _Request, row: int,
+                      prefix_entry: Optional[_PrefixEntry] = None) -> None:
         self.rows[row] = req
         req.row = row
+        if prefix_entry is not None:
+            # The row pins its entry while it decodes from it.
+            prefix_entry.pins += 1
+            req.prefix_entry = prefix_entry
         self.frozen[row] = False
         self.n_rem[row] = req.max_new_tokens
-
+        # The host changed frozen/n_rem (drained): upload at the next dispatch.
+        self._dev_carry = None

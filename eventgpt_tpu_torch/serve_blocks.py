@@ -14,10 +14,14 @@ backs which row position is decided here, on the host.
     when its last owner drops it;
   * block 0 is the reserved SCRATCH block: free and finished rows' tables
     point at it, so the unconditional writes of frozen rows during a
-    decode segment land in storage nothing reads.
+    decode segment land in storage nothing reads;
+  * ``cow`` is the copy-on-write primitive: a writer that holds a shared
+    block trades its reference for a private one, and ``note_cow`` counts
+    a copy the serving admission makes through its own scatter. Both
+    count ``cow_copies``.
 
-Copy-on-write, spill/restore and the spill store belong to prefix sharing
-and preemption, which the port does not have yet.
+Spill/restore and the spill store belong to preemption, which the port
+does not have yet.
 
 Threading: the owning ``ContinuousBatcher`` is serialized by its engine,
 but HTTP handler threads read ``stats()``, so every mutation and compound
@@ -62,6 +66,7 @@ class BlockPool:
         self.allocs = 0
         self.frees = 0
         self.alloc_failures = 0
+        self.cow_copies = 0
 
     @property
     def usable(self) -> int:
@@ -115,6 +120,32 @@ class BlockPool:
             self.frees += freed
         return freed
 
+    def cow(self, block: int) -> Optional[int]:
+        """Copy-on-write: trade one reference on a shared ``block`` for a
+        private block. Returns the private block (the caller copies the
+        bytes), ``block`` itself when it is already exclusively owned (no
+        copy), or None when no block is free. Counts only real copies."""
+        with self._lock:
+            self._check_live_locked(block)
+            if self._refs[block] == 1:
+                return block
+            if not self._free:
+                self.alloc_failures += 1
+                return None
+            new = self._free.pop()
+            self._refs[new] = 1
+            self._refs[block] -= 1
+            self.allocs += 1
+            self.cow_copies += 1
+            return new
+
+    def note_cow(self) -> None:
+        """Count a copy-on-write copy made outside ``cow``: the serving
+        admission re-creates a shared block's head in the row's first
+        owned block through its own scatter (copy and write in one)."""
+        with self._lock:
+            self.cow_copies += 1
+
     def ref(self, block: int) -> int:
         with self._lock:
             return self._refs[block]
@@ -141,4 +172,5 @@ class BlockPool:
                 "allocs": self.allocs,
                 "frees": self.frees,
                 "alloc_failures": self.alloc_failures,
+                "cow_copies": self.cow_copies,
             }

@@ -532,3 +532,52 @@ def test_kernel_wrappers_take_the_plain_version_on_the_cpu():
     torch.testing.assert_close(o, da.decode_attention_int8_plain(q, kq, ks, vq, vs, 1, nv),
                                rtol=0, atol=0)
     assert o.dtype == torch.bfloat16 and math.isfinite(o.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_paged_prefix_hit_copies_the_shared_tail_block_before_writing():
+    """A paged prefix hit on the card aliases the entry's full blocks and
+    re-creates the entry's partial tail block in the row's own first block
+    (copy-on-write, counted once) before the row writes there; the entry's
+    bytes are the same after the row decoded, and the chain is the
+    cache-off one."""
+    import numpy as np
+
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.serve import ContinuousBatcher, _pixels_key
+
+    dev = _card()
+    cfg = EventChatConfig.tiny()
+    params = init_eventchat_params(cfg, torch.Generator(device=dev).manual_seed(5),
+                                   torch.float32, dev)
+    pv = np.random.default_rng(0).normal(size=(cfg.num_event_frames, 3, cfg.vision.image_size,
+                                               cfg.vision.image_size)).astype(np.float32)
+    head = [1] + [7] * 70 + [-200]  # the event head: 71 + 10 = 81 positions, 1 full block
+    chains = {}
+    for cache in (False, True):
+        srv = ContinuousBatcher(params, cfg, max_batch=2, max_len=256, chunk=4,
+                                eos_token_id=None, kv_layout="paged", prefix_cache=cache,
+                                device=dev)
+        a = srv.submit(head + [9, 9], pv, 6)
+        srv.run_until_drained()
+        if cache:
+            entry = srv._prefix_cache.get(tuple(head), _pixels_key(pv))
+            assert entry is not None and entry.length == 81 and len(entry.blocks) == 2
+            before = [srv.cache[p][:, entry.blocks].clone() for p in ("k", "v")]
+            assert srv._pool.stats()["cow_copies"] == 0
+        b = srv.submit(head + [3], pv, 8)
+        srv.step()  # the hit admits and its first segment is dispatched
+        if cache:
+            row = next(r for r in srv.rows if r is not None and r.rid == b)
+            table = srv.cache["bt"][row.row].tolist()
+            assert srv._pool.stats()["cow_copies"] == 1
+            assert table[0] == entry.blocks[0]      # the full block is shared
+            assert table[1] != entry.blocks[1]      # the tail block is the row's own
+            assert srv._pool.ref(entry.blocks[0]) == 3  # A's run is gone: entry, text head, row
+        chains[cache] = srv.run_until_drained()[b]
+        if cache:
+            torch.cuda.synchronize()
+            after = [srv.cache[p][:, entry.blocks] for p in ("k", "v")]
+            assert all(torch.equal(x, y) for x, y in zip(before, after))
+    assert chains[True] == chains[False] and len(chains[True]) == 8

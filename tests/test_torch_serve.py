@@ -2,10 +2,11 @@
 against the JAX package.
 
 Greedy chains at f32 must equal the JAX ``ContinuousBatcher``'s token for
-token (run with the prefix cache, lanes and pipelining off, which the port
-does not have; the JAX package holds its chains the same with them on),
-for the dense and the paged layout, each with the f32 and the int8 cache.
-Requests are tests/test_paged_blocks.py::_reqs: three through two rows.
+token (both run with the prefix cache, lanes and pipelining off here;
+``tests/test_torch_serve_pipeline.py``, ``test_torch_prefix_cache.py`` and
+``test_torch_mixed_segments.py`` hold them on), for the dense and the paged
+layout, each with the f32 and the int8 cache. Requests are
+tests/test_paged_blocks.py::_reqs: three through two rows.
 """
 
 import base64
@@ -70,6 +71,9 @@ def setup():
 
 
 def _serve(tp, reqs, **kw):
+    # The oracle's configuration: the synchronous scheduler, no prefix cache.
+    kw.setdefault("pipeline", False)
+    kw.setdefault("prefix_cache", False)
     srv = ContinuousBatcher(tp, TCFG, max_batch=2, max_len=256, chunk=4, eos_token_id=None,
                             device="cpu", **kw)
     rids = [srv.submit(ids, pv, b) for ids, pv, b in reqs]
@@ -186,17 +190,29 @@ def test_cancel_and_deadline_keep_the_other_chains(setup):
     assert out[cancelled] == full[1][:len(out[cancelled])] and len(out[cancelled]) == 4
     assert out[late] == full[2]
     assert out[queued_cancel] == []
+    # The prefix cache's entries hold blocks until it is reset.
+    srv.reset_prefix_cache()
     assert srv._pool.free_blocks() == srv._pool.usable
 
 
 @pytest.mark.parametrize("kw", [
-    dict(speculative=2), dict(prefix_cache=True), dict(pipeline=True),
-    dict(prefill_budget=8), dict(prefill_chunk=64), dict(preempt=True),
+    # The scheduler features are ported; with a feature that is not, they
+    # are still refused.
+    dict(speculative=2), dict(prefix_cache=True, speculative=2),
+    dict(pipeline=True, mesh=object()), dict(prefill_budget=8, role="prefill"),
+    dict(prefill_chunk=64, draft_head={}), dict(preempt=True), dict(spill_capacity_mb=64),
+    dict(role="decode"), dict(spec_buckets="0,2"), dict(mem_headroom_bytes=1 << 30),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_server_features_raise(setup, kw):
     tp, _ = setup
     with pytest.raises(NotImplementedError, match="not ported"):
         ContinuousBatcher(tp, TCFG, device="cpu", **kw)
+
+
+def test_warmup_is_not_ported(setup):
+    srv = ContinuousBatcher(setup[0], TCFG, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        srv.warmup()
 
 
 def test_engine_fault_fails_the_rows_and_serves_on(setup):
@@ -209,11 +225,11 @@ def test_engine_fault_fails_the_rows_and_serves_on(setup):
     real = batcher._dispatch_segment
     calls = []
 
-    def flaky():
+    def flaky(*args, **kw):
         calls.append(1)
         if len(calls) == 1:
             raise RuntimeError("injected")
-        return real()
+        return real(*args, **kw)
 
     batcher._dispatch_segment = flaky
     try:
@@ -225,7 +241,9 @@ def test_engine_fault_fails_the_rows_and_serves_on(setup):
         assert engine.status(first) == "engine_fault" and engine.stats()["faults"] == 1
         second = engine.submit_ids(ids, pv, budget)
         assert engine.result(second, timeout=60) == want["paged", False][0][0]
-        assert batcher._pool.free_blocks() == batcher._pool.usable
+        with engine._lock:  # the prefix cache's entries hold blocks until reset
+            batcher.reset_prefix_cache()
+            assert batcher._pool.free_blocks() == batcher._pool.usable
     finally:
         engine.shutdown()
 
@@ -278,7 +296,12 @@ def test_http_generate_answers_as_the_infer_cli(server, tmp_path):
     conn.request("GET", "/stats")
     stats = json.loads(conn.getresponse().read())
     assert stats["kv_layout"] == "paged" and stats["kv_quant"] is True
-    assert stats["kv_blocks"]["free_blocks"] == stats["kv_blocks"]["usable_blocks"]
+    conn.request("GET", "/prefix_cache")
+    cached = json.loads(conn.getresponse().read())
+    # After the drain only the prefix cache's entries hold blocks.
+    assert cached["enabled"] and cached["n_entries"] >= 1
+    assert stats["kv_blocks"]["free_blocks"] == (stats["kv_blocks"]["usable_blocks"]
+                                                 - cached["blocks_held"])
 
 
 def test_http_refuses_bad_requests(server):
@@ -298,7 +321,8 @@ def test_http_refuses_bad_requests(server):
             assert s.recv(64).startswith(b"HTTP/1.1 " + code)
 
 
-@pytest.mark.parametrize("extra", [["--speculative", "2"], ["--prefill_budget", "-1"],
+@pytest.mark.parametrize("extra", [["--speculative", "2"],
+                                   ["--prefill_budget", "-1", "--speculative", "2"],
                                    ["--mesh_model", "2"], ["--warmup"]],
                          ids=lambda x: x[0])
 def test_cli_refuses_unported_flags(extra):

@@ -1,0 +1,127 @@
+"""A static guard of the port server's dispatch path: no host read of a
+device value between two segment dispatches.
+
+The pipelined scheduler overlaps the host's work with the card's only as
+long as nothing on the dispatch path waits for the card: one stray
+``.item()`` empties the pipeline with no error anywhere. The JAX package's
+``hot-sync`` rule (``eventgpt_tpu/analysis/hot_path.py``) scans only the
+JAX package, so this test scans the port.
+
+It walks ``eventgpt_tpu_torch/serve.py``'s AST from ``ContinuousBatcher.
+step``, ``_dispatch_segment``, ``_decode_segment`` and
+``_mixed_decode_segment`` through every ``self.method()`` call and every
+call of a module-level function, stopping at the two harvest points
+(``_harvest_segment``, ``_drain``), where the host is meant to wait. In
+every function it reaches it flags ``.item()``, ``.cpu()``, ``.tolist()``,
+``.numpy()``, and ``bool()``/``int()``/``float()`` of a call, subscript or
+attribute (the shape of a tensor's scalar read). What it flags must be on
+the allow-list below, each entry with its reason; an entry that no longer
+matches anything fails the test too.
+"""
+
+import ast
+import os
+
+SERVE = os.path.join(os.path.dirname(__file__), os.pardir, "eventgpt_tpu_torch", "serve.py")
+CLASS = "ContinuousBatcher"
+ROOTS = (f"{CLASS}.step", f"{CLASS}._dispatch_segment", "_decode_segment",
+         "_mixed_decode_segment")
+HARVEST = (f"{CLASS}._harvest_segment", f"{CLASS}._drain")
+SYNC_METHODS = ("item", "cpu", "tolist", "numpy")
+SCALAR_CASTS = ("bool", "int", "float")
+
+# (function, source of the flagged expression) -> why it is no hidden sync.
+ALLOWED = {
+    ("_flag_read", "bool(flags.host[i])"):
+        "the segment's stop flag: it waits on the event of a flag written "
+        "before the previous step was launched, never on the step just "
+        "launched (pinned host memory on the card)",
+    (f"{CLASS}._prep_request", "int(lens[0])"):
+        "lens is the host numpy array eventchat._pad_batch returns",
+    (f"{CLASS}._scatter_wave",
+     "torch.isfinite(wave_logits[:len(members)]).all(dim=-1).cpu().numpy()"):
+        "the admission NaN quarantine; every admission that reaches it runs "
+        "after step() drained the pipeline",
+    (f"{CLASS}._scatter_wave",
+     "torch.isfinite(wave_logits[:len(members)]).all(dim=-1).cpu()"):
+        "the same read as the line above",
+    (f"{CLASS}._finish_admission", "bool(torch.isfinite(row_logits).all())"):
+        "the admission NaN quarantine of a single, suffix, chunked or lane "
+        "admission; each runs after step() drained the pipeline",
+}
+
+
+def _functions(tree):
+    """{qualified name: def node} of the module's functions and the
+    batcher's methods."""
+    out = {}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef):
+            out[node.name] = node
+        elif isinstance(node, ast.ClassDef) and node.name == CLASS:
+            for item in node.body:
+                if isinstance(item, ast.FunctionDef):
+                    out[f"{CLASS}.{item.name}"] = item
+    return out
+
+
+def _callees(fn, functions):
+    for node in ast.walk(fn):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if isinstance(f, ast.Name) and f.id in functions:
+            yield f.id
+        elif (isinstance(f, ast.Attribute) and isinstance(f.value, ast.Name)
+              and f.value.id == "self" and f"{CLASS}.{f.attr}" in functions):
+            yield f"{CLASS}.{f.attr}"
+
+
+def _reached(functions):
+    seen, todo = set(), list(ROOTS)
+    while todo:
+        name = todo.pop()
+        if name in seen or name in HARVEST:
+            continue
+        seen.add(name)
+        todo.extend(_callees(functions[name], functions))
+    return seen
+
+
+def _flags(fn):
+    for node in ast.walk(fn):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if isinstance(f, ast.Attribute) and f.attr in SYNC_METHODS:
+            yield ast.unparse(node)
+        elif (isinstance(f, ast.Name) and f.id in SCALAR_CASTS and len(node.args) == 1
+              and isinstance(node.args[0], (ast.Call, ast.Subscript, ast.Attribute))):
+            yield ast.unparse(node)
+
+
+def _findings():
+    with open(SERVE) as fh:
+        tree = ast.parse(fh.read())
+    functions = _functions(tree)
+    reached = _reached(functions)
+    return reached, {(name, src) for name in reached for src in _flags(functions[name])}
+
+
+def test_the_dispatch_path_reads_nothing_back_but_the_allowed():
+    reached, found = _findings()
+    assert set(ROOTS) <= reached
+    assert not set(HARVEST) & reached
+    unexplained = found - set(ALLOWED)
+    assert not unexplained, f"host reads on the dispatch path: {sorted(unexplained)}"
+    stale = set(ALLOWED) - found
+    assert not stale, f"allow-list entries that match nothing: {sorted(stale)}"
+
+
+def test_the_guard_flags_a_stray_read():
+    """The scan itself: a read added to the segment is found."""
+    src = ("def _decode_segment(live):\n"
+           "    if bool(live.any()):\n"
+           "        return live.cpu()\n")
+    fn = ast.parse(src).body[0]
+    assert set(_flags(fn)) == {"bool(live.any())", "live.cpu()"}
