@@ -16,6 +16,9 @@ Phases, each printed on its own line:
                    per thread and blocks per SM), K4 (int4 matmul) at the 7B
                    decode shapes (with the decode plan and the GB/s
                    reached) and prefill shapes; with ``--int4_baseline``
+                   and at the speculative server's M (8, 16: a verify of
+                   4 rows; 32: a lane) with each M's time per 7B forward;
+                   with ``--int4_baseline``
                    or ``--flash_baseline`` also another version of
                    ``csrc/int4_matmul.cu`` or ``csrc/flash_attention.cu``
                    on the same inputs, in turns with K4 or K1 (K1's
@@ -65,7 +68,18 @@ Phases, each printed on its own line:
                    latency, tok/s, decode ms per step, overlap ratio, hits,
                    lanes, copy-on-write copies, K1 launches (32 per
                    full-prefill dispatch), peak memory, and each chain held
-                   to the oracle's by ``chain_rule``;
+                   to the oracle's by ``chain_rule``. ``serve_spec_*``: the
+                   same traffic and defaults with ``--speculative 4``
+                   (paged, dense), ``--spec_buckets 0,2,4`` (paged, dense),
+                   ``--speculative 4 --draft_head`` (a saved random 3-head
+                   stack at 7B width, dense) and ``--speculative 4
+                   --warmup`` (dense; warmup seconds and request 1's TTFT
+                   against the cold lookup run), each held to its layout's
+                   oracle: tokens per verify iteration, the chosen windows,
+                   decode ms per committed token, TTFT, K1 launches;
+                   after ``slice_spec_int4``, ``serve_spec_int4``
+                   (``--quant int4 --speculative 4``, dense) against an int4
+                   oracle, with K4 launches by (path, M);
 6. slice_int8_fused -- ``--quant int8 --fuse_params`` with a bf16 cache;
 7. checkpoint_7b -- phase 3's bf16 tree written as a sharded HF checkpoint
                    (``convert.write_hf_checkpoint``) into the work directory,
@@ -112,7 +126,9 @@ Phases, each printed on its own line:
                    (window 1, 2, 4) and Medusa chains, served paged with the int8
                    cache, served with the scheduler defaults (pipelined,
                    prefix hits, suffix and full lanes; dense f32 and paged
-                   int8), and loaded from a checkpoint the port wrote
+                   int8), served speculatively (lookup, adaptive and
+                   Medusa; ``tiny_serve_spec_card_vs_cpu``), and loaded
+                   from a checkpoint the port wrote
                    (plain and with a gated Q-Former);
                    ``serve_http_tiny`` runs ``cli/serve.build_server`` on the
                    card over a tiny bf16 checkpoint (``--model_path DIR``,
@@ -216,6 +232,17 @@ SERVE_DEFAULTS_CONFIGS = [
     ("oracle", ["--no_pipeline", "--no_prefix_cache", "--prefill_budget", "0"]),
 ]
 UNBOUNDED_PAGED_POOL = ["--kv_pool_blocks", "129"]
+# serve_spec: (layout, kind, cli/serve flags over serve_defaults' base
+# flags); HEADS stands for the saved 7B-width Medusa stack. The warmup run
+# is the dense lookup server warmed first.
+SERVE_SPEC_CONFIGS = [
+    ("paged", "lookup", ["--speculative", "4"]),
+    ("dense", "lookup", ["--speculative", "4"]),
+    ("paged", "adaptive", ["--spec_buckets", "0,2,4"]),
+    ("dense", "adaptive", ["--spec_buckets", "0,2,4"]),
+    ("dense", "medusa", ["--speculative", "4", "--draft_head", "HEADS"]),
+    ("dense", "warmup", ["--speculative", "4", "--warmup"]),
+]
 # The lane chunk of the 7B runs (prefill_budget = chunk = 32): the window
 # of the decode_kstep-vs-decode_step gap chain_rule measures.
 SERVE_KSTEP_WINDOW = 32
@@ -226,6 +253,9 @@ INT4_LAUNCHES_PER_STEP = {(4, 4096, 4096): 128, (4, 4096, 11008): 64,
 # The speculative phases' verify window (4 requests x 4 = M 16, K4's decode
 # path under int4), the Medusa phase's head count and the beam width.
 SPEC_WINDOW, MEDUSA_HEADS, BEAMS = 4, 3, 4
+# K4's M on the speculative server: a verify of 4 rows x window 2 or 4
+# (the decode path), one lane of 32 prompt tokens (the prefill path).
+SPEC_K4_M = (8, 16, 32)
 # decode_kstep vs sequential decode_step logits after 32 bf16 layers: the
 # same arithmetic, but each weight product runs at M = B * window instead of
 # M = B (another GEMM tiling, so another f32 summation order before the bf16
@@ -968,23 +998,33 @@ def serve_defaults_requests(requests):
 
 
 def serve_defaults_run(params, cfg, tokenizer, requests, layout: str, flags) -> tuple:
-    """One configuration of ``serve_defaults``: the batcher that
-    ``cli/serve`` builds from ``flags`` (``make_batcher``), stepped in this
-    thread as the ServingEngine's loop steps it, so that the late
-    submission is deterministic. The first four requests are queued before
-    the first step (one admission wave); the last two are submitted right
-    after the first harvest, while row 0 still decodes. After the drain
-    only prefix entries may hold blocks, and none after
+    """One configuration of ``serve_defaults`` (or ``serve_spec``): the
+    batcher that ``cli/serve`` builds from ``flags`` (``make_batcher``,
+    then ``warmup()`` under ``--warmup``, as ``build_engine`` does),
+    stepped in this thread as the ServingEngine's loop steps it, so that
+    the late submission is deterministic. The first four requests are
+    queued before the first step (one admission wave); the last two are
+    submitted right after the first harvest, while row 0 still decodes.
+    After the drain only prefix entries may hold blocks, and none after
     ``reset_prefix_cache()``. Returns (numbers, chains in request order)."""
     import torch
 
     from eventgpt_tpu_torch.cli import serve as cli_serve
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
 
     args = cli_serve.build_parser().parse_args(
         ["--max_batch", "4", "--max_len", "1024", "--chunk", "32", "--kv_cache", "int8",
          "--kv_layout", layout] + list(flags))
     torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
     batcher = cli_serve.make_batcher(args, params, cfg, tokenizer, "cuda")
+    warm = None
+    if args.warmup:
+        k1_before = FLASH_KERNEL.launches
+        t0 = time.perf_counter()
+        warm = {"functions": batcher.warmup(), "seconds": time.perf_counter() - t0}
+        warm["k1_launches"] = FLASH_KERNEL.launches - k1_before
+    build_s = time.perf_counter() - t_build
     rids = [batcher.submit(i, px, n) for i, px, n in requests[:len(QUERIES)]]
     t0 = time.perf_counter()
     while batcher.decode_steps == 0:  # until the first harvest
@@ -1032,7 +1072,33 @@ def serve_defaults_run(params, cfg, tokenizer, requests, layout: str, flags) -> 
         "mixed_boundaries": batcher.mixed_boundaries,
         "mixed_zero_harvests": batcher.mixed_zero_harvests,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "build_and_warmup_s": build_s,
     }
+    if warm is not None:
+        out["warmup"] = warm
+    if batcher.speculative:
+        committed = sum(len(c) for c in chains) - len(chains)  # the first ones at admission
+        out.update({
+            "speculative": batcher.speculative, "spec_windows": batcher.spec_windows,
+            "medusa_heads": (None if batcher.draft_head is None
+                             else int(batcher.draft_head["w"].shape[0])),
+            "spec_stats": batcher.spec_stats(), "spec_iterations": batcher.spec_iterations,
+            "spec_tokens": batcher.spec_tokens,
+            "tokens_per_iteration": batcher.spec_tokens_per_iteration(),
+            "spec_depth_trace": list(batcher.spec_depth_trace),
+            "decode_ms_per_committed_token": batcher.decode_s * 1e3 / max(committed, 1),
+            "resident_spec_bytes": {
+                "ids_buf": batcher.ids_buf.numel() * batcher.ids_buf.element_size(),
+                "spec_drafts": batcher.spec_drafts.numel() * batcher.spec_drafts.element_size(),
+                "history_host": batcher._history.nbytes if batcher._history is not None else 0,
+                "medusa_heads": (0 if batcher.draft_head is None
+                                 else tree_bytes(batcher.draft_head))}})
+        if batcher.spec_tokens != committed:
+            raise AssertionError(f"serve_spec {layout} {flags}: {batcher.spec_tokens} tokens "
+                                 f"committed in segments, want {committed}")
+    else:
+        out["decode_ms_per_committed_token"] = batcher.decode_s * 1e3 / max(
+            sum(len(c) for c in chains), 1)
     if batcher.mixed_zero_harvests:
         raise AssertionError(f"serve_defaults {layout} {flags}: a lane boundary left live rows "
                              f"without a token")
@@ -1061,7 +1127,8 @@ def serve_defaults(eventchat, llama, params, cfg, tokenizer, requests, layout: s
     waves and batch-1 admissions; suffix, lane and chunked admissions run
     decode_kstep). Every chain is held to the oracle's through
     ``chain_rule``. The unbounded run must hit the event-block entries of
-    requests 1 and 2 and open a suffix lane. Returns {config: K1 launches}."""
+    requests 1 and 2 and open a suffix lane. Returns ({config: K1
+    launches}, (the oracle's numbers, its chains))."""
     from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
 
     reqs = serve_defaults_requests(requests)
@@ -1115,7 +1182,130 @@ def serve_defaults(eventchat, llama, params, cfg, tokenizer, requests, layout: s
         "overlap_ratio": {n: r[0]["overlap_ratio"] for n, r in runs.items()},
         "prefix_hits": {n: r[0]["prefix_hits"] for n, r in runs.items()},
         "k1_launches": k1, "nvidia_smi": smi})
-    return k1
+    return k1, (oracle, want)
+
+
+def medusa_stack(cfg, dtype):
+    """The Medusa phases' random stack at 7B width: MEDUSA_HEADS heads from
+    seed 0, scaled by 1/sqrt(d)."""
+    import torch
+
+    d = cfg.llama.hidden_size
+    return {"w": torch.randn((MEDUSA_HEADS, d, d),
+                             generator=torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda", dtype=dtype) * (1.0 / math.sqrt(d))}
+
+
+def spec_vs_oracle(name, eventchat, llama, params, cfg, tokenizer, reqs, numbers, chains,
+                   oracle) -> dict:
+    """A served speculative run held to the same call's non-speculative
+    oracle on the same traffic: chains through ``chain_rule`` (equal, or
+    apart only at a measured tie), and the times beside the oracle's."""
+    o_numbers, want = oracle
+    padded = mask = None
+    if chains != want:
+        padded, mask, _ = eventchat.prepare_prefill(params, cfg, [r[0] for r in reqs],
+                                                    [r[1] for r in reqs])
+    rule = chain_rule(name, llama, params, cfg, padded, mask, want, chains, SERVE_KSTEP_WINDOW,
+                      True, tokenizer.eos_token_id)
+    return {**rule,
+            "ttft_s_oracle": o_numbers["ttft_s"], "latency_s_oracle": o_numbers["latency_s"],
+            "wall_s_oracle": o_numbers["wall_s"], "batch_tok_s_oracle": o_numbers["batch_tok_s"],
+            "decode_ms_per_step_oracle": o_numbers["decode_ms_per_step"],
+            "decode_ms_per_committed_token_oracle": o_numbers["decode_ms_per_committed_token"],
+            "peak_mem_bytes_oracle": o_numbers["peak_mem_bytes"],
+            "overlap_ratio_oracle": o_numbers["overlap_ratio"]}
+
+
+def serve_spec(eventchat, llama, params, cfg, tokenizer, requests, oracles, counted,
+               n_layers: int, smi: str, work: str) -> dict:
+    """``serve_spec_*``: the speculative server at 7B width through
+    ``cli/serve.make_batcher`` on serve_defaults' traffic and flags, held to
+    the same call's ``serve_defaults`` oracle of its layout. Each run is
+    counted: K1 = 32 per full-prefill dispatch (and per warmed bucket).
+    Returns {run: launches}."""
+    import torch
+
+    from eventgpt_tpu_torch.models.medusa import save_medusa
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    heads_path = os.path.join(work, "medusa_7b.npz")
+    save_medusa(heads_path, medusa_stack(cfg, torch.bfloat16))
+    reqs = serve_defaults_requests(requests)
+    runs, launches_by_run = {}, {}
+    for layout, kind, flags in SERVE_SPEC_CONFIGS:
+        name = "serve_spec_warmup" if kind == "warmup" else f"serve_spec_{layout}_{kind}"
+        flags = [heads_path if f == "HEADS" else f for f in flags]
+        (numbers, chains), launches = counted(
+            lambda: serve_defaults_run(params, cfg, tokenizer, reqs, layout, flags))
+        full = sum(numbers["dispatches"].get(k, 0) for k in ("full", "wave", "prefix_set"))
+        warm_k1 = numbers.get("warmup", {}).get("k1_launches", 0)
+        if full == 0 or launches[FLASH_KERNEL.source] != n_layers * full + warm_k1:
+            raise AssertionError(f"{name}: K1 launches {launches}, want {n_layers} x {full} "
+                                 f"full-prefill dispatches + {warm_k1} in warmup")
+        trace = numbers["spec_depth_trace"]
+        if not set(trace) <= set(numbers["spec_windows"] or (4,)):
+            raise AssertionError(f"{name}: windows {set(trace)} outside the buckets")
+        numbers["vs_oracle"] = spec_vs_oracle(name, eventchat, llama, params, cfg, tokenizer,
+                                              reqs, numbers, chains, oracles[layout])
+        numbers["launches"] = launches
+        runs[name], launches_by_run[name] = numbers, launches
+        emit(name, {**numbers, "first_ids": [c[:8] for c in chains], "nvidia_smi": smi})
+    cold, warm = runs["serve_spec_dense_lookup"], runs["serve_spec_warmup"]
+    emit("serve_spec", {
+        "config": "EventGPT-7B bf16 tree, int8 KV, 4 rows, max_len 1024, chunk 32, the JAX "
+                  "CLI's defaults plus the speculative flags; serve_defaults' six requests",
+        "runs": list(runs),
+        "chains_identical_to_oracle": {n: all(r["vs_oracle"]["rows_identical"])
+                                       for n, r in runs.items()},
+        "tokens_per_iteration": {n: r["tokens_per_iteration"] for n, r in runs.items()},
+        "ttft_s": {n: r["ttft_s"] for n, r in runs.items()},
+        "wall_s": {n: r["wall_s"] for n, r in runs.items()},
+        "decode_ms_per_committed_token": {n: r["decode_ms_per_committed_token"]
+                                          for n, r in runs.items()},
+        "warmup_s": warm["warmup"]["seconds"], "warmup_functions": warm["warmup"]["functions"],
+        "ttft_request1_s": {"warmed": warm["ttft_s"][0], "cold": cold["ttft_s"][0]},
+        "k1_launches": {n: l[FLASH_KERNEL.source] for n, l in launches_by_run.items()},
+        "nvidia_smi": smi})
+    return launches_by_run
+
+
+def serve_spec_int4(eventchat, llama, params_int4, cfg, tokenizer, requests, counted,
+                    n_layers: int, smi: str) -> tuple:
+    """``serve_spec_int4``: ``--quant int4 --speculative 4``, dense, int8 KV,
+    on serve_defaults' traffic, held to an int4 oracle of the same call
+    (synchronous, no prefix cache, no lanes). K4 by (path, M): 225 per
+    verify iteration at M = 4 x 4 = 16 (the decode path), 225 per lane
+    advance at M = 32 (the prefill path), the wave's prefill forward at
+    M = B x T. Returns (launches, K4 launches by (path, M))."""
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+    from eventgpt_tpu_torch.ops.int4_matmul import DECODE_MAX_M, INT4_KERNEL, LAUNCHES_BY_M
+
+    reqs = serve_defaults_requests(requests)
+    oracle, _ = counted(lambda: serve_defaults_run(params_int4, cfg, tokenizer, reqs, "dense",
+                                                   SERVE_DEFAULTS_CONFIGS[-1][1]))
+    (numbers, chains), launches = counted(lambda: serve_defaults_run(
+        params_int4, cfg, tokenizer, reqs, "dense", ["--speculative", str(SPEC_WINDOW)]))
+    by_m = dict(LAUNCHES_BY_M)
+    per_forward = 7 * n_layers + 1
+    m_verify, m_lane = len(QUERIES) * SPEC_WINDOW, SERVE_KSTEP_WINDOW
+    verify_path = "decode" if m_verify <= DECODE_MAX_M else "prefill"
+    want = {(verify_path, m_verify): per_forward * numbers["decode_steps_run"],
+            ("prefill", m_lane): per_forward * numbers["mixed_segments"]}
+    full = sum(numbers["dispatches"].get(k, 0) for k in ("full", "wave", "prefix_set"))
+    if (any(by_m.get(k, 0) != v for k, v in want.items()) or numbers["mixed_segments"] == 0
+            or launches[INT4_KERNEL.source] != sum(by_m.values())
+            or launches[FLASH_KERNEL.source] != n_layers * full or full == 0):
+        raise AssertionError(f"serve_spec_int4: K4 launches by (path, M) {by_m}, want at least "
+                             f"{want}; launches {launches}, {full} full prefills")
+    numbers["vs_oracle"] = spec_vs_oracle("serve_spec_int4", eventchat, llama, params_int4, cfg,
+                                          tokenizer, reqs, numbers, chains, oracle)
+    numbers["launches"] = launches
+    numbers["k4_launches_by_path_m"] = {f"{p} M={m}": c for (p, m), c in sorted(by_m.items())}
+    emit("serve_spec_int4", {"flags": "--quant int4 --kv_cache int8 --speculative 4",
+                             **numbers, "verify_m": m_verify, "lane_m": m_lane,
+                             "first_ids": [c[:8] for c in chains], "nvidia_smi": smi})
+    return launches, by_m
 
 
 def tiny_serve_defaults_card_vs_cpu(work: str) -> dict:
@@ -1169,6 +1359,64 @@ def tiny_serve_defaults_card_vs_cpu(work: str) -> dict:
         out[layout]["tokens"] = [len(c) for c in res["cuda"]["chains"]]
     return {"config": "tiny f32, 2 rows, chunk 8, prefill_budget 8, pipelined, prefix cache; "
                       "dense f32 and paged int8", **out, "identical": True}
+
+
+def tiny_serve_spec_card_vs_cpu(work: str) -> dict:
+    """The tiny f32 model served speculatively (suffix lookup, adaptive
+    buckets, Medusa heads) at the JAX CLI's scheduler defaults gives the
+    same chains on the card as on the CPU, on tiny_serve_defaults' staged
+    traffic; the lookup and adaptive servers also the same verify
+    iterations, tokens and windows (their drafts follow from the
+    chains)."""
+    import numpy as np
+    import torch
+
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
+    from eventgpt_tpu_torch.data.tokenizer import ByteTokenizer, tokenize_with_event
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.ops.image import process_event_file
+    from eventgpt_tpu_torch.serve import ContinuousBatcher
+
+    cfg = EventChatConfig.tiny(vocab_size=260)
+    cpu = init_eventchat_params(cfg, torch.Generator().manual_seed(3), torch.float32, "cpu")
+    trees = {"cpu": cpu, "cuda": _to(cpu, "cuda")}
+    d = cfg.llama.hidden_size
+    w = torch.randn((3, d, d), generator=torch.Generator().manual_seed(4)) * 0.5
+    heads = {"cpu": {"w": w}, "cuda": {"w": w.cuda()}}
+    px = [np.asarray(process_event_file(os.path.join(work, f"events_{i}.npy"),
+                                        cfg.num_event_frames, cfg.vision.image_size)[1])
+          for i in range(3)]
+    ids = [tokenize_with_event(prepare_event_prompt(q), ByteTokenizer()) for q in QUERIES]
+    first = [(ids[0], px[0], 40), (ids[1], px[1], 6)]
+    late = [(ids[3], px[0], 10), (ids[2], px[2], 8)]
+    out = {}
+    for kind, kw in (("lookup", {"speculative": 4}), ("adaptive", {"spec_buckets": "0,2,4"}),
+                     ("medusa", {"speculative": 4, "draft_head": "heads"})):
+        res = {}
+        for dev, params in trees.items():
+            args = dict(kw, draft_head=heads[dev]) if "draft_head" in kw else kw
+            srv = ContinuousBatcher(params, cfg, max_batch=2, max_len=512, chunk=8,
+                                    eos_token_id=None, kv_quant=True, kv_layout="paged",
+                                    prefill_budget=8, device=dev, **args)
+            rids = [srv.submit(*r) for r in first]
+            srv.step()
+            srv.step()
+            rids += [srv.submit(*r) for r in late]
+            done = srv.run_until_drained()
+            res[dev] = {"chains": [done[r] for r in rids], "iterations": srv.spec_iterations,
+                        "tokens": srv.spec_tokens, "windows": list(srv.spec_depth_trace),
+                        "lanes": dict(srv.lanes_started)}
+        same = (res["cpu"]["chains"] == res["cuda"]["chains"] if kind == "medusa"
+                else res["cpu"] == res["cuda"])
+        if not same:
+            raise AssertionError(f"tiny served speculation differs ({kind}): cpu {res['cpu']} "
+                                 f"vs cuda {res['cuda']}")
+        out[kind] = {"cuda": {k: v for k, v in res["cuda"].items() if k != "chains"},
+                     "cpu_iterations": res["cpu"]["iterations"],
+                     "tokens": [len(c) for c in res["cuda"]["chains"]]}
+    return {"config": "tiny f32, paged int8 KV, 2 rows, chunk 8, prefill_budget 8, pipelined, "
+                      "prefix cache", **out, "identical": True}
 
 
 def tiny_serve_card_matches_cpu(work: str) -> dict:
@@ -2380,6 +2628,17 @@ def main() -> int:
         for i, shape in enumerate(INT4_DECODE_SHAPES + prefill_shapes):
             int4_checks[shape] = check_int4_kernel(*shape, seed=10 + i, baseline=baseline)
             emit("kernel_int4_M{}_K{}_N{}".format(*shape), int4_checks[shape])
+        # K4 at the speculative server's M, per 7B forward (225 launches).
+        spec_forward = {}
+        for m in SPEC_K4_M:
+            for i, (_, k, n) in enumerate(INT4_DECODE_SHAPES):
+                int4_checks[m, k, n] = check_int4_kernel(m, k, n, seed=60 + m + i)
+                emit(f"kernel_int4_M{m}_K{k}_N{n}", int4_checks[m, k, n])
+            spec_forward[m] = {key: sum(c * int4_checks[m, k, n][key]
+                                        for (_, k, n), c in INT4_LAUNCHES_PER_STEP.items())
+                               for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        emit("kernel_int4_spec_forward", {"launches_per_forward": 225, "by_m": spec_forward,
+                                          "nvidia_smi": smi})
 
         # 3. the bf16 slice: four requests through generate, as cli/infer
         # calls it. The first run is the counted main path (and the cold
@@ -2488,10 +2747,17 @@ def main() -> int:
             raise AssertionError("dense and paged served chains differ")
 
         # The served path at the JAX CLI's defaults, against the
-        # synchronous, cache-off, lane-off oracle of the same call.
-        serve_defaults_k1 = {layout: serve_defaults(eventchat, llama, params, cfg, tokenizer,
-                                                    requests, layout, counted, n_layers, smi)
-                             for layout in ("paged", "dense")}
+        # synchronous, cache-off, lane-off oracle of the same call; then
+        # the speculative server, held to the same oracles.
+        serve_defaults_k1, oracles = {}, {}
+        for layout in ("paged", "dense"):
+            serve_defaults_k1[layout], oracles[layout] = serve_defaults(
+                eventchat, llama, params, cfg, tokenizer, requests, layout, counted, n_layers,
+                smi)
+        serve_spec_launches = serve_spec(eventchat, llama, params, cfg, tokenizer, requests,
+                                         oracles, counted, n_layers, smi, work)
+        del oracles
+        torch.cuda.empty_cache()
         if args.profile:
             emit("profile_serve_paged", profile_call(
                 lambda: run_server(params, cfg, tokenizer, requests, "paged"),
@@ -2571,6 +2837,8 @@ def main() -> int:
         variant_launches["slice_spec_int4"], spec_by_m4 = slice_spec_int4(
             eventchat, llama, params_int4, cfg, ids, pixels, tokenizer, counted, ids4, warm4,
             n_layers, smi)
+        serve_spec_int4_launches, serve_spec_by_m4 = serve_spec_int4(
+            eventchat, llama, params_int4, cfg, tokenizer, requests, counted, n_layers, smi)
 
         # int4 vs the bf16 prefill of the dequantized weights.
         llama_deq = quant.dequantize_llama_params(llama_int4, torch.bfloat16)
@@ -2687,6 +2955,7 @@ def main() -> int:
              tiny_variants_card_vs_cpu(os.path.join(work, "events_2.npy")))
         emit("tiny_serve_card_vs_cpu", tiny_serve_card_matches_cpu(work))
         emit("tiny_serve_defaults_card_vs_cpu", tiny_serve_defaults_card_vs_cpu(work))
+        emit("tiny_serve_spec_card_vs_cpu", tiny_serve_spec_card_vs_cpu(work))
         emit("tiny_checkpoint_card_vs_cpu", tiny_checkpoint_card_vs_cpu(work))
         emit("serve_http_tiny", serve_http_tiny(work))
         emit("train_tiny_card_vs_cpu", train_tiny_card_vs_cpu(work, train_paths))
@@ -2725,6 +2994,9 @@ def main() -> int:
                              **{f"serve_defaults_{layout}_{name}": n
                                 for layout, by_config in serve_defaults_k1.items()
                                 for name, n in by_config.items()},
+                             **{name: n[FLASH_KERNEL.source]
+                                for name, n in serve_spec_launches.items()},
+                             "serve_spec_int4": serve_spec_int4_launches[FLASH_KERNEL.source],
                              **{f"train_stage{st}": run["k1_launches"]
                                 for st, run in train_runs.items()},
                              **{f"train_stage{st}_eval": run["eval"]["k1_inference"]
@@ -2762,9 +3034,15 @@ def main() -> int:
         "prefill_launches": sum(prefill4.values()),
         "launches_by_path": {"slice_int4": launches4[INT4_KERNEL.source],
                              **{name: n[INT4_KERNEL.source]
-                                for name, n in variant_launches.items()}},
+                                for name, n in variant_launches.items()},
+                             "serve_spec_int4": serve_spec_int4_launches[INT4_KERNEL.source]},
         "slice_spec_int4_launches_by_path_m": {f"{p} M={m}": c
                                                for (p, m), c in sorted(spec_by_m4.items())},
+        "serve_spec_int4_launches_by_path_m": {f"{p} M={m}": c
+                                               for (p, m), c in sorted(serve_spec_by_m4.items())},
+        "forward_ms_by_m": {m: {"ms": f["ms"], "plain_ms": f["plain_ms"],
+                                "bound_ms": f["bound_ms"], "library_ms": f["library_ms"]}
+                            for m, f in spec_forward.items()},
         **({"baseline_ms": sum(INT4_LAUNCHES_PER_STEP[sh] * int4_checks[sh]["baseline_ms"]
                                for sh in INT4_DECODE_SHAPES)} if baseline else {}),
     }, {

@@ -22,7 +22,8 @@ Endpoints:
          cache entry on a running server
   GET  /prefix_cache -> the prefix cache's entries, budget and counters
   GET  /health       -> {"status": "ok", "active": N, "queued": N}
-  GET  /stats        -> engine counters, block-pool state, recent requests
+  GET  /stats        -> engine counters, block-pool state, recent requests,
+                        and under --speculative the speculation counters
 
 Ported flags: --model_path (tiny-random or a checkpoint dir), --tokenizer_path
 byte, --use_event_qformer, --pretrain_query_embedder,
@@ -36,10 +37,16 @@ flags with the JAX CLI's defaults and meanings: the pipelined scheduler
 512, 0 = unbounded; ``--no_prefix_cache``; ``--prefix_prompt`` with
 ``--prefix_event`` caches a head at startup), piggyback prefill lanes
 (``--prefill_budget`` -1 = ``--chunk`` prompt tokens per boundary, 0 =
-off), the TTFT ramp (``--first_chunk``) and chunked prefill
-(``--prefill_chunk``). Every other flag of the JAX CLI is accepted and
-raises ``NotImplementedError`` when set: its path is not ported yet.
-Chains are the same with every scheduler feature on or off.
+off), the TTFT ramp (``--first_chunk``), chunked prefill
+(``--prefill_chunk``), speculative decoding (``--speculative K``: suffix
+lookup drafts, or ``--draft_head heads.npz`` Medusa drafts; ``--spec_buckets
+0,2,4`` chooses the window at each boundary from measured acceptance, tuned
+by ``--spec_ema_alpha``, ``--spec_draft_cost``, ``--spec_row_window`` and
+``--spec_head_min_yield``) and ``--warmup`` (every function a request can
+reach runs once before the server listens). Every other flag of the JAX
+CLI is accepted and raises ``NotImplementedError`` when set: its path is
+not ported yet. Chains are the same with every scheduler feature on or
+off.
 
 Usage:
   python -m eventgpt_tpu_torch.cli.serve --model_path tiny-random \\
@@ -206,7 +213,11 @@ class ServingEngine:
             "mixed_segments": b.mixed_segments,
             "recent": {str(k): {kk: round(vv, 3) for kk, vv in b.request_stats[k].items()}
                        for k in itertools.islice(reversed(b.request_stats), 8)},
+            "speculative": b.speculative,
         }
+        if b.speculative:
+            snap["spec_tokens_per_iteration"] = round(b.spec_tokens_per_iteration(), 2)
+            snap["spec"] = b.spec_stats()
         pool = b.pool_stats()
         if pool is not None:
             snap["kv_blocks"] = pool
@@ -442,14 +453,6 @@ def make_handler(engine: ServingEngine, cfg, event_root=None, default_budget: in
 # Flags of the JAX CLI whose paths are not ported yet: (flag, argparse
 # keywords, what). Each defaults to "off" and raises when set.
 _UNPORTED = [
-    ("--speculative", dict(type=int), "speculative decoding"),
-    ("--spec_buckets", dict(), "adaptive speculation"),
-    ("--spec_ema_alpha", dict(type=float), "adaptive speculation"),
-    ("--spec_draft_cost", dict(type=float), "adaptive speculation"),
-    ("--spec_row_window", dict(type=int), "adaptive speculation"),
-    ("--spec_head_min_yield", dict(type=float), "adaptive speculation"),
-    ("--draft_head", dict(), "Medusa draft heads"),
-    ("--warmup", dict(action="store_true"), "warmup (the port compiles nothing ahead)"),
     ("--preempt", dict(action="store_true"), "block-tier preemption"),
     ("--spill_capacity_mb", dict(type=int), "the KV spill store"),
     ("--mem_headroom_mb", dict(type=float), "the memory headroom guard"),
@@ -563,6 +566,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "(the same chains)")
     p.add_argument("--no_telemetry", action="store_true",
                    help="accepted and already the port's state: telemetry is not ported")
+    p.add_argument("--speculative", type=int, default=0,
+                   help="speculative decoding: a K-token verify window over suffix-lookup "
+                        "drafts (or --draft_head's); 0 = off")
+    p.add_argument("--spec_buckets", default="",
+                   help="adaptive speculation: comma-separated draft-window buckets, e.g. "
+                        "'0,2,4' (0 = the draft-free window 1); each boundary picks one from "
+                        "the measured acceptance and masks low-acceptance rows' drafts; "
+                        "--speculative becomes the default window (the largest when 0). "
+                        "Empty = fixed-K serving")
+    p.add_argument("--spec_ema_alpha", type=float, default=0.3,
+                   help="acceptance-EMA step per harvested segment")
+    p.add_argument("--spec_draft_cost", type=float, default=0.05,
+                   help="relative verify cost of one draft position (the controller's cost "
+                        "model)")
+    p.add_argument("--spec_row_window", type=int, default=4,
+                   help="segments in each row's acceptance window (the per-row depth mask)")
+    p.add_argument("--spec_head_min_yield", type=float, default=0.05,
+                   help="prune draft heads / lookup levels whose yield EMA falls below this")
+    p.add_argument("--draft_head", default=None,
+                   help="Medusa head stack (.npz of either package) drafting instead of the "
+                        "lookup (needs --speculative > 0 or --spec_buckets)")
+    p.add_argument("--warmup", action="store_true",
+                   help="run every function a request can reach once before listening (kernel "
+                        "builds, cuBLAS handles, the allocator's first growth)")
     for flag, kw, what in _UNPORTED:
         p.add_argument(flag, default=None, help=f"{what}: not ported yet, raises when set",
                        **kw)
@@ -586,9 +613,14 @@ def make_batcher(args, params, cfg, tokenizer, device):
     """The ``ContinuousBatcher`` the flags describe, over a prepared tree
     on ``device``: the JAX CLI's defaults (pipelined, the prefix cache at
     ``--prefix_cache_mb``, ``--prefill_budget`` -1 = ``--chunk``)."""
+    from eventgpt_tpu_torch.models.medusa import load_medusa
     from eventgpt_tpu_torch.serve import ContinuousBatcher
 
     _refuse_unported(args)
+    draft_head = None
+    if args.draft_head:
+        embed = params["llama"]["embed_tokens"]
+        draft_head = load_medusa(args.draft_head, dtype=embed.dtype, device=embed.device)
     return ContinuousBatcher(
         params, cfg, max_batch=args.max_batch, max_len=args.max_len, chunk=args.chunk,
         temperature=args.temperature, eos_token_id=tokenizer.eos_token_id,
@@ -597,7 +629,11 @@ def make_batcher(args, params, cfg, tokenizer, device):
         prefill_chunk=args.prefill_chunk, first_chunk=args.first_chunk,
         pipeline=not args.no_pipeline, prefix_cache=not args.no_prefix_cache,
         prefix_cache_bytes=int(args.prefix_cache_mb * 1024 * 1024),
-        prefill_budget=args.chunk if args.prefill_budget < 0 else args.prefill_budget)
+        prefill_budget=args.chunk if args.prefill_budget < 0 else args.prefill_budget,
+        speculative=args.speculative, draft_head=draft_head,
+        spec_buckets=args.spec_buckets or None, spec_ema_alpha=args.spec_ema_alpha,
+        spec_draft_cost=args.spec_draft_cost, spec_row_window=args.spec_row_window,
+        spec_head_min_yield=args.spec_head_min_yield)
 
 
 def build_engine(args):
@@ -613,6 +649,10 @@ def build_engine(args):
                                         device)
     cfg, params = prepare_model(cfg, params, tokenizer, args)
     batcher = make_batcher(args, params, cfg, tokenizer, device)
+    if args.warmup:
+        t0 = time.perf_counter()
+        n = batcher.warmup()
+        print(f"[serve] warmup: {n} functions in {time.perf_counter() - t0:.1f}s", flush=True)
     engine = ServingEngine(batcher, tokenizer, args.conv_mode)
     if args.prefix_prompt:
         # The startup form of POST /prefix.
@@ -647,7 +687,8 @@ def main(argv=None):
           f"chunk={args.chunk}, kv_layout={args.kv_layout}, kv_cache={args.kv_cache}, "
           f"pipeline={engine.batcher.pipeline}, prefix_cache="
           f"{engine.batcher._prefix_cache is not None}, prefill_budget="
-          f"{engine.batcher.prefill_budget}, device={engine.batcher.device})", flush=True)
+          f"{engine.batcher.prefill_budget}, speculative={engine.batcher.speculative}, "
+          f"device={engine.batcher.device})", flush=True)
     got_signal = threading.Event()
 
     def on_signal(signum, frame):

@@ -41,23 +41,37 @@ to drain.
     inside every decode dispatch (``_mixed_decode_segment``), so the rows
     keep committing tokens while it prefills. The lane cache is never
     quantized; an int8 server quantizes the finished lane once.
+  * SPECULATIVE serving (``speculative=K``): each segment runs up to
+    ``chunk // K`` draft-and-verify iterations (``_spec_segment`` over
+    ``eventchat._spec_draft_verify``): drafts by suffix lookup over the
+    row's committed ids (``ids_buf``) and a server-wide ``history`` of
+    served text, or from Medusa heads (``draft_head``) carried in
+    ``spec_drafts``; commits capped at each row's budget. The first token
+    is committed at admission, so the TTFT ramp is dropped. With
+    ``spec_buckets`` the window is chosen at each dispatch boundary by
+    ``serve_spec.SpecController`` from measured acceptance, with a
+    per-row depth mask. A verify window writes ``window`` slots past the
+    last commit, so every reservation carries ``1 + spec_max`` slots of
+    slack.
   * Frozen and free rows keep flowing through every decode step, as in
     the JAX package; their writes land at slot ``length`` (in the scratch
     block for a free paged row, inside the reservation's slack for an
     exhausted one), are masked out of every read, and their ``length`` is
     rolled back, so a row resumes exactly where it stopped.
+  * ``warmup()`` runs every function a request can reach once on the idle
+    server (kernel builds, cuBLAS handles, the allocator's first growth).
 
 The functions on the module update the resident cache in place under
 ``torch.inference_mode``: that takes the place of the JAX package's
 ``jit`` with donated buffers.
 
 What the port does not have yet raises ``NotImplementedError`` when asked
-for: speculative decoding and Medusa heads in the server, the serving
-mesh, preemption and spill, adaptive speculation buckets, prefill/decode
-roles, ``warmup`` and the memory headroom guard. Greedy chains at f32
-equal the JAX ``ContinuousBatcher``'s and the port's one-shot ``generate``
-with every scheduler feature on or off (``tests/test_torch_serve*.py``,
-``tests/test_torch_prefix_cache.py``, ``tests/test_torch_mixed_segments.py``).
+for: the serving mesh, preemption and spill, prefill/decode roles and the
+memory headroom guard. Greedy chains at f32 equal the JAX
+``ContinuousBatcher``'s and the port's one-shot ``generate`` with every
+scheduler feature on or off (``tests/test_torch_serve*.py``,
+``tests/test_torch_prefix_cache.py``, ``tests/test_torch_mixed_segments.py``,
+``tests/test_torch_spec_adaptive.py``).
 """
 
 from __future__ import annotations
@@ -73,12 +87,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from eventgpt_tpu_torch import serve_spec
 from eventgpt_tpu_torch.config import EventChatConfig
 from eventgpt_tpu_torch.constants import EVENT_TOKEN_INDEX, SEQ_BUCKET
 from eventgpt_tpu_torch.data.tokenizer import split_at_event
 from eventgpt_tpu_torch.device import resolve_device
 from eventgpt_tpu_torch.models import eventchat
 from eventgpt_tpu_torch.models import llama as llama_mod
+from eventgpt_tpu_torch.models import medusa as medusa_mod
 from eventgpt_tpu_torch.ops.sampling import sample
 from eventgpt_tpu_torch.serve_blocks import SCRATCH_BLOCK, BlockPool
 
@@ -509,6 +525,138 @@ def _mixed_decode_segment(params, cfg: EventChatConfig, logits, cache, generator
     return dec + lane
 
 
+@torch.inference_mode()
+def _spec_segment(params, cfg: EventChatConfig, cache, generator, ids_buf, base_pos, frozen,
+                  n_rem, n_iters: int, window: int, eos_token_id: int,
+                  temperature: float = 0.0, top_p: float = 1.0, history=None, medusa=None,
+                  drafts=None, depth=None, flags: Optional[_LiveFlags] = None,
+                  after_first_step=None):
+    """Up to ``n_iters`` speculative verify iterations over the shared
+    batch, the serving form of ``eventchat._spec_loop`` (the same drafts
+    and verification), with per-row budgets and a frozen mask. The cache,
+    ``ids_buf`` (B, S) and, in Medusa mode, ``drafts`` are updated in
+    place.
+
+    ``ids_buf`` holds each row's committed ids (-1 over the event block
+    and pad); ``base_pos`` (B,) is the next unwritten slot at segment
+    start. Invariant per active row: ``cache["length"] == base_pos +
+    n_new - 1`` (every committed token but the newest is cached; admission
+    commits the first token). Commits are capped at the remaining budget,
+    and a row is ``done`` only when its EOS lands within that cap.
+    ``drafts`` (B, >= window - 1) carries Medusa drafts from one verify to
+    the next; a bucket touches only its first ``window - 1`` columns.
+    ``depth`` (B,) caps each row's drafts (None = full depth).
+
+    Returns (n_new, done, iterations, frozen_out, n_rem_out, base_pos_out,
+    row_acc, row_off, pos_acc, pos_off) on the device and ``steps``, the
+    host count of iterations run: ``iterations`` counts the verifies that
+    had a live row (the JAX loop's count), ``*_out`` are the next segment's
+    control state, and the four before ``steps`` are the uncapped accepted
+    / offered draft counts per row and per draft position, the adaptive
+    controller's input.
+
+    The stop rule is ``_decode_segment``'s: before iteration t >= 1 the
+    host reads whether any row was live entering iteration t - 1. The one
+    iteration past the last live one commits nothing.
+    """
+    b, s_ids = ids_buf.shape
+    dev = ids_buf.device
+    if flags is None:
+        flags = _LiveFlags(n_iters, dev)
+    bidx = torch.arange(b, device=dev)
+    iarr = torch.arange(window, device=dev)[None, :]
+    d_w = max(window - 1, 0)
+    iarr1 = torch.arange(d_w, device=dev)[None, :]
+    if drafts is None:
+        drafts = torch.zeros((b, d_w), dtype=torch.int32, device=dev)
+    full = torch.full((b,), d_w, dtype=torch.int32, device=dev)
+    offer = full if depth is None else torch.minimum(depth.to(torch.int32), full)
+    n_new = torch.zeros((b,), dtype=torch.int32, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    row_acc = torch.zeros((b,), dtype=torch.int32, device=dev)
+    row_off = torch.zeros((b,), dtype=torch.int32, device=dev)
+    pos_acc = torch.zeros((d_w,), dtype=torch.int32, device=dev)
+    pos_off = torch.zeros((d_w,), dtype=torch.int32, device=dev)
+    live = ~frozen & (n_rem > 0)
+    _flag_record(flags, 0, live)
+    steps = 0
+    for t in range(n_iters):
+        if t and not _flag_read(flags, t - 1):
+            break
+        active = live
+        iters = iters + active.any().to(torch.int32)
+        pos = base_pos + n_new
+        commit, m_count, first_eos, hit, drafts_w = eventchat._spec_draft_verify(
+            params, cfg, ids_buf, pos, cache, generator, window, temperature, top_p,
+            eos_token_id, history=history, medusa=medusa, drafts_in=drafts[:, :d_w],
+            depth=depth)
+        if medusa is not None and d_w:
+            drafts[:, :d_w] = drafts_w
+        m_count, first_eos = m_count.to(torch.int32), first_eos.to(torch.int32)
+        # Acceptance, uncapped by the budget: accepted = m_count - 1 (the
+        # correction is no draft), offered = the row's depth.
+        offered = torch.where(active, offer, 0)
+        acc_i = torch.where(active, m_count - 1, 0)
+        row_acc += acc_i
+        row_off += offered
+        if d_w:
+            pos_acc += ((iarr1 < acc_i[:, None]) & active[:, None]).to(torch.int32).sum(0)
+            pos_off += ((iarr1 < offered[:, None]) & active[:, None]).to(torch.int32).sum(0)
+        cap = torch.where(active, n_rem - n_new, 0)
+        m_eff = torch.minimum(torch.where(hit, first_eos + 1, m_count), cap)
+        # Clipped as the JAX package clips them: torch indexing raises on
+        # the out-of-bounds slot that XLA drops.
+        wpos = (pos[:, None] + iarr).clamp(0, s_ids - 1)
+        cur = ids_buf[bidx[:, None], wpos]
+        ids_buf[bidx[:, None], wpos] = torch.where(iarr < m_eff[:, None],
+                                                   commit.to(ids_buf.dtype), cur)
+        n_new = n_new + m_eff
+        done = done | (active & hit & (first_eos + 1 <= cap))
+        cache["length"] += m_eff.to(cache["length"].dtype)
+        steps += 1
+        live = ~(frozen | done) & (n_new < n_rem)
+        if t + 1 < n_iters:
+            _flag_record(flags, t + 1, live)
+        if t == 0 and after_first_step is not None:
+            after_first_step()
+    n_rem_out = n_rem - n_new
+    frozen_out = frozen | done | (n_rem_out <= 0)
+    n_rem_out = torch.where(frozen_out, torch.zeros_like(n_rem_out), n_rem_out)
+    return (n_new, done, iters, frozen_out, n_rem_out, base_pos + n_new,
+            row_acc, row_off, pos_acc, pos_off, steps)
+
+
+@torch.inference_mode()
+def _mixed_spec_segment(params, cfg: EventChatConfig, cache, generator, ids_buf, base_pos,
+                        frozen, n_rem, lane_embeds, lane_cache, lane_start, lane_new_len,
+                        lane_last_idx, n_iters: int, window: int, chunk_p: int,
+                        eos_token_id: int, temperature: float = 0.0, top_p: float = 1.0,
+                        history=None, medusa=None, drafts=None, depth=None,
+                        flags: Optional[_LiveFlags] = None, after_first_step=None):
+    """The mixed segment, speculative form: ``_spec_segment`` plus the
+    piggybacked prefill lanes in one dispatch (see
+    ``_mixed_decode_segment``); the lane cache keeps its own ``length``.
+    Returns the spec outputs followed by ``_lane_advance``'s."""
+    spec = _spec_segment(params, cfg, cache, generator, ids_buf, base_pos, frozen, n_rem,
+                         n_iters, window, eos_token_id, temperature, top_p, history=history,
+                         medusa=medusa, drafts=drafts, depth=depth, flags=flags,
+                         after_first_step=after_first_step)
+    lane = _lane_advance(params, cfg, lane_embeds, lane_cache, lane_start, lane_new_len,
+                         lane_last_idx, chunk_p)
+    return spec + lane
+
+
+def _gather_new(ids_buf: torch.Tensor, base_pos: torch.Tensor, width: int) -> torch.Tensor:
+    """Per-row window ``ids_buf[r, base_pos[r] : base_pos[r] + width]``
+    (clipped at the edge): the speculative harvest fetches only the slots
+    a segment could have written, not the whole (B, max_len) buffer."""
+    b, s = ids_buf.shape
+    idx = (base_pos[:, None].long()
+           + torch.arange(width, device=ids_buf.device)[None, :]).clamp(0, s - 1)
+    return ids_buf[torch.arange(b, device=ids_buf.device)[:, None], idx]
+
+
 def _rows_in_bounds(rows: np.ndarray, limit: int):
     """Index of the entries of ``rows`` below ``limit``. The JAX scheduler
     marks pad and quarantined wave slots with row ``max_batch`` (and
@@ -658,12 +806,14 @@ def _chunk_prefill(params, cfg: EventChatConfig, embeds, cache, start: int, new_
     position start + i sees slots [0, start + i], as in one-shot prefill),
     then the length pinned to ``new_len``, the real prompt filled so far.
     ``chunk`` divides the bucket grain, so the window never leaves the
-    bucket. Returns the (1, V) f32 logits at window index ``last_idx``."""
+    bucket. Returns the (1, V) f32 logits and the (1, D) final-norm hidden
+    at window index ``last_idx`` (the hidden seeds Medusa drafts)."""
     cache["length"].fill_(start)
-    logits, _ = llama_mod.decode_kstep(params["llama"], cfg.llama,
-                                       embeds[:, start:start + chunk], cache)
+    logits, hidden, _ = llama_mod.decode_kstep(params["llama"], cfg.llama,
+                                               embeds[:, start:start + chunk], cache,
+                                               return_hidden=True)
     cache["length"].fill_(new_len)
-    return logits[:, last_idx]
+    return logits[:, last_idx], hidden[:, last_idx]
 
 
 @torch.inference_mode()
@@ -675,7 +825,8 @@ def _prefix_prefill(params, cfg: EventChatConfig, pk, pv, plen, cache, suffix_em
     ``decode_kstep`` -- the attention of prefilling the whole prompt, at
     the cost of the suffix. Trailing suffix pad writes above ``new_len``.
     ``plen``/``new_len``/``last_idx`` are (N,) device tensors. Returns the
-    (N, V) logits at each row's last suffix token."""
+    (N, V) logits and (N, D) final-norm hidden at each row's last suffix
+    token."""
 
     def copy(buf, src):
         buf[:, :, :src.shape[2]] = src.to(buf.dtype)
@@ -683,10 +834,11 @@ def _prefix_prefill(params, cfg: EventChatConfig, pk, pv, plen, cache, suffix_em
     _ins(cache["k"], pk, copy)
     _ins(cache["v"], pv, copy)
     cache["length"].copy_(plen)
-    logits, _ = llama_mod.decode_kstep(params["llama"], cfg.llama, suffix_embeds, cache)
+    logits, hidden, _ = llama_mod.decode_kstep(params["llama"], cfg.llama, suffix_embeds, cache,
+                                               return_hidden=True)
     cache["length"].copy_(new_len)
     rows = torch.arange(logits.shape[0], device=logits.device)
-    return logits[rows, last_idx.long()]
+    return logits[rows, last_idx.long()], hidden[rows, last_idx.long()]
 
 
 @torch.inference_mode()
@@ -767,6 +919,7 @@ class _PendingLane:
     filled: int = 0
     entry: Optional[_PrefixEntry] = None
     last_logits: Any = None  # (1, V), valid after the final chunk
+    last_hidden: Any = None  # (1, D), the same position: seeds Medusa drafts
 
 
 @dataclass
@@ -836,14 +989,17 @@ class ContinuousBatcher:
         first_chunk: int = 0,
         pipeline: bool = True,
         mem_headroom_bytes: int = 0,
+        history_len: int = 2048,
+        spec_ema_alpha: float = 0.3,
+        spec_draft_cost: float = 0.05,
+        spec_hysteresis: float = 0.05,
+        spec_row_window: int = 4,
+        spec_head_min_yield: float = 0.05,
     ):
         unported = [
-            (speculative, "speculative", "speculative decoding in the server"),
-            (draft_head is not None, "draft_head", "Medusa draft heads in the server"),
             (mesh is not None, "mesh", "the serving mesh"),
             (preempt, "preempt", "block-tier preemption"),
             (spill_capacity_mb, "spill_capacity_mb", "the KV spill store"),
-            (spec_buckets, "spec_buckets", "adaptive speculation"),
             (role != "colocated", "role", "prefill/decode roles"),
             (mem_headroom_bytes, "mem_headroom_bytes", "the memory headroom guard"),
         ]
@@ -871,8 +1027,11 @@ class ContinuousBatcher:
         max_len = (max_len + _GRAIN - 1) // _GRAIN * _GRAIN
         self.max_batch, self.max_len, self.chunk = max_batch, max_len, chunk
         # The TTFT ramp: while an active row owes its first token, segments
-        # are this long instead of ``chunk`` (0 = off).
-        self.first_chunk = min(int(first_chunk), chunk) if first_chunk else 0
+        # are this long instead of ``chunk`` (0 = off). Speculative rows
+        # commit their first token at admission, so no segment could
+        # select it there: the flag is dropped.
+        self.first_chunk = (min(int(first_chunk), chunk)
+                            if first_chunk and not speculative and not spec_buckets else 0)
         self.temperature, self.top_p = float(temperature), float(top_p)
         self.eos = int(eos_token_id) if eos_token_id is not None else -1
         self.eos_token_id = eos_token_id
@@ -918,6 +1077,55 @@ class ContinuousBatcher:
         # Vocab from the lm_head leaf: special tokens may have grown it.
         vocab = eventchat._vocab_size(params)
         self.logits = torch.zeros((max_batch, vocab), dtype=torch.float32, device=self.device)
+        # Speculative serving (window > 0): rows draft from their own
+        # committed ids; admission commits the first token, so no logits
+        # carry between segments. ``spec_buckets`` (e.g. "0,2,4") makes
+        # the window a per-boundary choice of the ``SpecController`` from
+        # measured acceptance, with a per-row depth mask; ``speculative``
+        # is then the default window (the largest bucket when 0). Chains
+        # are the same at any window: verification makes any draft exact.
+        self.speculative = int(speculative)
+        buckets = (serve_spec.parse_spec_buckets(spec_buckets)
+                   if isinstance(spec_buckets, (str, type(None)))
+                   else tuple(sorted({max(int(k), 1) for k in spec_buckets})))
+        self._spec_ctl: Optional[serve_spec.SpecController] = None
+        self.spec_windows: Optional[tuple] = None
+        if buckets:
+            if not self.speculative:
+                self.speculative = max(buckets)
+            self._spec_ctl = serve_spec.SpecController(
+                buckets, default_window=self.speculative, ema_alpha=spec_ema_alpha,
+                draft_cost=spec_draft_cost, hysteresis=spec_hysteresis,
+                row_window=spec_row_window, head_min_yield=spec_head_min_yield,
+                # Drafts and piggybacked prefill share one boundary budget.
+                draft_budget=max(int(prefill_budget), 0))
+            self.spec_windows = self._spec_ctl.windows
+        # The largest window any boundary can select: the slack and the
+        # draft buffer are sized to it.
+        self.spec_max = self._spec_ctl.max_window if self._spec_ctl else self.speculative
+        self.draft_head = draft_head
+        if draft_head is not None:
+            if not self.speculative:
+                raise ValueError("draft_head requires speculative=K > 0 (the heads draft into "
+                                 "the K-token verification window)")
+            n_heads = medusa_mod.num_draft_heads(draft_head)
+            if n_heads < self.spec_max - 1:
+                # At construction: the first draft call would otherwise
+                # raise at admission, mid-drain.
+                raise ValueError(f"draft_head has {n_heads} heads but the largest speculation "
+                                 f"window {self.spec_max} needs {self.spec_max - 1}")
+        if self.speculative:
+            self.ids_buf = torch.full((max_batch, self.max_len), -1, dtype=torch.int32,
+                                      device=self.device)
+            self.base_pos = np.zeros((max_batch,), np.int64)
+            # Medusa drafts carried from one verify to the next, as wide as
+            # the largest bucket; a bucket touches its first W - 1 columns.
+            self.spec_drafts = torch.zeros((max_batch, max(self.spec_max - 1, 0)),
+                                           dtype=torch.int32, device=self.device)
+        # Server-wide served text (prompts and answers of every request),
+        # extra lookup context for the speculative drafts. 0 disables.
+        self._history = (np.full((int(history_len),), -1, np.int64)
+                         if self.speculative and history_len else None)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.frozen = np.ones((max_batch,), bool)  # all rows FREE
@@ -993,6 +1201,17 @@ class ContinuousBatcher:
         self.mixed_prefill_tokens = 0
         self.mixed_segments = 0
         self.lanes_started = {"full": 0, "suffix": 0}
+        # Speculation: committed tokens and verify iterations (their
+        # ratio is the realized acceptance), dispatch boundaries, the sum
+        # of their windows, rows masked below full depth, and the trace
+        # of chosen windows. The controller's own state is policy, not a
+        # statistic, and is not reset.
+        self.spec_iterations = 0
+        self.spec_tokens = 0
+        self.spec_dispatches = 0
+        self.spec_depth_sum = 0
+        self.spec_masked_rows = 0
+        self.spec_depth_trace: deque = deque(maxlen=4096)
 
     def overlap_ratio(self) -> float:
         """Share of the host's scheduler time hidden behind the card's
@@ -1005,11 +1224,139 @@ class ContinuousBatcher:
         if kind in ("full", "wave"):
             self.prefill_dispatches += 1
 
+    def spec_tokens_per_iteration(self) -> float:
+        """Realized acceptance: committed tokens per verify iteration,
+        summed over the batch's rows (one weight pass each)."""
+        return self.spec_tokens / max(self.spec_iterations, 1)
+
+    def spec_stats(self) -> Dict[str, Any]:
+        """Speculation snapshot (``GET /stats``'s ``spec``): accepted tokens
+        per dispatch, the mean chosen window, masked rows, and the adaptive
+        controller's state."""
+        out: Dict[str, Any] = {
+            "speculative": self.speculative,
+            "accepted_per_dispatch": round(self.spec_tokens / max(self.spec_dispatches, 1), 3),
+            "spec_depth_mean": round(self.spec_depth_sum / max(self.spec_dispatches, 1), 3),
+            "masked_rows": self.spec_masked_rows,
+            "dispatches": self.spec_dispatches,
+            "tokens_per_iteration": round(self.spec_tokens_per_iteration(), 3),
+        }
+        if self._spec_ctl is not None:
+            out["adaptive"] = self._spec_ctl.stats()
+        return out
+
     # -- client surface ---------------------------------------------------
 
+    @torch.inference_mode()
     def warmup(self, prompt_lens=None) -> int:
-        raise NotImplementedError("ContinuousBatcher.warmup: the port compiles nothing ahead; "
-                                  "warmup is not ported to eventgpt_tpu_torch yet")
+        """Run every function a request can reach once, on the idle server,
+        so that the first request does not pay for the first calls: on the
+        card the kernel builds (``ops/_build.build_all``, K1 and, for an
+        int4 tree, K4 in parallel), cuBLAS handle and plan creation and
+        the allocator's first growth. The functions, as the JAX package's
+        ``warmup`` compiles them: the vision encoder, one prefill per
+        prompt bucket (``prompt_lens``: prompt lengths in cache positions;
+        default every bucket up to max_len and the context length), the
+        chunked prefill when it is
+        on, the row admission, one segment per speculation bucket (and per
+        ramp length) with every row frozen, the mixed segment with idle
+        lanes when lanes are on, and one suffix admission per prefix-cache
+        entry shape. Returns the number of functions warmed, the count the
+        JAX package's ``warmup`` returns for the same server.
+
+        It runs against the live resident state, which only holds on an
+        idle server: the dummy admission lands in free row 0 (dead storage;
+        a paged one writes no pool block), every cache length is zeroed, and
+        the frozen segments commit nothing. The sampling generator's state
+        is restored afterwards, so the chains are those of a server that
+        was not warmed."""
+        if (self.queue or self._pending is not None or self._lanes
+                or any(r is not None for r in self.rows)):
+            raise RuntimeError("warmup() must run before any request is admitted: it writes "
+                               "dummy state into row 0 and resets cache lengths, which would "
+                               "corrupt in-flight rows")
+        self._drain()  # a trailing all-frozen segment, if any
+        if self.device.type == "cuda":
+            from eventgpt_tpu_torch.ops import quant
+            from eventgpt_tpu_torch.ops._build import build_all
+            from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+            from eventgpt_tpu_torch.ops.int4_matmul import INT4_KERNEL
+
+            layers = self.params["llama"]["layers"]
+            int4 = any(quant.is_quantized4(leaf) for layer in layers for leaf in layer.values())
+            build_all([k for k, used in ((FLASH_KERNEL, self.cfg.llama.attn_impl == "flash"),
+                                         (INT4_KERNEL, int4)) if used])
+        if prompt_lens is None:
+            limit = min(self.max_len, _bucket(self.cfg.llama.max_seq_len, 1 << 30))
+            buckets = list(range(_GRAIN, limit + 1, _GRAIN))
+        else:
+            buckets = sorted({_bucket(max(int(p), 1), self.max_len) for p in prompt_lens})
+        rng_state = self.generator.get_state()
+        n = 0
+        size = self.cfg.vision.image_size
+        pv = torch.zeros((1, self.cfg.num_event_frames, 3, size, size), dtype=self._dtype,
+                         device=self.device)
+        eventchat.encode_events_batch(self.params, self.cfg, pv)
+        n += 1
+        d = self.cfg.llama.hidden_size
+        for s1 in buckets:
+            padded = torch.zeros((1, s1, d), dtype=self._dtype, device=self.device)
+            mask = torch.ones((1, s1), dtype=torch.bool, device=self.device)
+            row_cache = self._new_row_cache(s1)
+            row_logits = llama_mod.prefill(self.params["llama"], self.cfg.llama, padded, mask,
+                                           row_cache, last_only=True,
+                                           return_hidden=self.draft_head is not None)[0]
+            n += 1
+            if self.prefill_chunk:
+                _chunk_prefill(self.params, self.cfg, padded, self._new_row_cache(s1), 0, 1, 0,
+                               self.prefill_chunk)
+                n += 1
+            if self._paged:
+                # Every destination is the drop sentinel: no pool block is
+                # written; row 0's table stays the scratch block.
+                _admit_row_paged(self.cache, self.logits, 0,
+                                 np.full((s1 // self._kv_block_size,), self._pool.n_blocks,
+                                         np.int32),
+                                 np.full((self._nbpr,), SCRATCH_BLOCK, np.int32), row_cache,
+                                 row_logits)
+            else:
+                _admit_row(self.cache, self.logits, 0, row_cache, row_logits)
+            n += 1
+        # The dummy row's frozen writes then land far from the edge.
+        self.cache["length"].zero_()
+        frozen = torch.ones((self.max_batch,), dtype=torch.bool, device=self.device)
+        zeros = torch.zeros((self.max_batch,), dtype=torch.int32, device=self.device)
+        carry = (frozen, zeros, zeros if self.speculative else None)
+        chunks = [None] + ([self.first_chunk] if self.first_chunk else [])
+        windows = list(self.spec_windows) if self.spec_windows else [None]
+        mixed = [False]
+        if self.prefill_budget:
+            self._ensure_lane_buffers(buckets[-1])
+            mixed.append(True)
+        for warm_mixed in mixed:
+            for ck in chunks:
+                for w in windows:
+                    rec = self._dispatch_segment(ck, carry=carry, record=False,
+                                                 warm_mixed=warm_mixed, window=w)
+                    if rec["event"] is not None:
+                        rec["event"].synchronize()
+                    n += 1
+        self._dev_carry = None
+        if self._prefix_cache is not None and self._prefix_cache.n_entries:
+            dummy_pv = np.zeros((self.cfg.num_event_frames, 3, size, size), np.float32)
+            shapes = set()
+            for entry in self._prefix_cache.entries():
+                key = (entry.bucket, entry.has_event, entry.length)
+                if key in shapes:
+                    continue
+                dummy = [0] if entry.has_event else [EVENT_TOKEN_INDEX]
+                if self._prefix_admit(entry, dummy_pv, dummy, record=False) is not None:
+                    shapes.add(key)
+                    n += 1
+        self.generator.set_state(rng_state)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return n
 
     def submit(self, input_ids: Sequence[int], pixel_values, max_new_tokens: int = 64,
                deadline_s: Optional[float] = None) -> int:
@@ -1029,9 +1376,10 @@ class ContinuousBatcher:
                              f"sentinel, got {n_ev}")
         prompt_len = min(len(ids) - 1 + self.cfg.num_event_tokens,
                          self.cfg.llama.max_seq_len)
-        # A finished row's frozen writes land one slot past its last
-        # commit: that slot must stay inside the row.
-        slack = 1
+        # A finished row's frozen writes land one slot (a speculative
+        # row's: one verify window) past its last commit: they must stay
+        # inside the row.
+        slack = 1 + self.spec_max
         if prompt_len + max_new_tokens + slack > self.max_len:
             raise ValueError(f"request does not fit: prompt {prompt_len} + budget "
                              f"{max_new_tokens} exceeds server max_len {self.max_len}")
@@ -1115,6 +1463,8 @@ class ContinuousBatcher:
         for r, req in enumerate(self.rows):
             if req is None:
                 continue
+            if self._spec_ctl is not None:
+                self._spec_ctl.forget(req.rid)
             if self._paged:
                 self._paged_release(req)
             if req.prefix_entry is not None:
@@ -1294,9 +1644,11 @@ class ContinuousBatcher:
             entry.blocks = None
             entry.detached = False
 
-    def _prefix_admit(self, entry: _PrefixEntry, pixel_values, suffix_ids):
+    def _prefix_admit(self, entry: _PrefixEntry, pixel_values, suffix_ids,
+                      record: bool = True):
         """Suffix-only admission against one entry: (row_cache, row_logits,
-        prompt_len), or None when ``_prefix_fit`` refuses."""
+        row_hidden, prompt_len), or None when ``_prefix_fit`` refuses.
+        ``record=False`` (warmup) leaves the dispatch counts alone."""
         fit = self._prefix_fit(entry, suffix_ids)
         if fit is None:
             return None
@@ -1304,13 +1656,14 @@ class ContinuousBatcher:
         emb = self._suffix_embed(entry, pixel_values, suffix_ids, chunk, suf_len)
         row_cache = self._new_row_cache(s1)
         ekv = self._entry_kv(entry)
-        last = _prefix_prefill(
+        last, hidden = _prefix_prefill(
             self.params, self.cfg, ekv["k"], ekv["v"],
             _h2d(np.asarray([entry.length], np.int32), self.device), row_cache, emb,
             _h2d(np.asarray([prompt_len], np.int32), self.device),
             _h2d(np.asarray([suf_len - 1], np.int64), self.device))
-        self._count_dispatch("suffix")
-        return row_cache, last, prompt_len
+        if record:
+            self._count_dispatch("suffix")
+        return row_cache, last, hidden, prompt_len
 
     @torch.inference_mode()
     def _admit_suffix_wave(self, members: List[tuple]) -> None:
@@ -1347,10 +1700,10 @@ class ContinuousBatcher:
         last_idx = _h2d(np.asarray([m[4][0] - 1 for m in members] + [0] * (nb - n), np.int64),
                         self.device)
         row_cache = self._new_row_cache(s1, batch=nb)
-        last = _prefix_prefill(self.params, self.cfg, wave_pk, wave_pv, plen, row_cache, emb,
-                               new_len, last_idx)
+        last, hidden = _prefix_prefill(self.params, self.cfg, wave_pk, wave_pv, plen, row_cache,
+                                       emb, new_len, last_idx)
         self._count_dispatch("suffix_wave")
-        self._scatter_wave([(m[0], m[1]) for m in members], row_cache, last,
+        self._scatter_wave([(m[0], m[1]) for m in members], row_cache, last, hidden,
                            [m[4][1] for m in members], entries=[m[2] for m in members])
         for m in members:
             # Selection pins drain once the wave read every entry.
@@ -1514,55 +1867,134 @@ class ContinuousBatcher:
                 if self.rows[r] is req and not self.frozen[r]:
                     self._finish_row(r, status=STATUS_DEADLINE)
 
-    def _dispatch_segment(self, chunk: Optional[int] = None,
-                          prev: Optional[dict] = None) -> dict:
-        """Dispatch one decode segment (a mixed one with live lanes) on the
-        resident state and advance the device carry, without waiting for
-        the card; ``prev``, the segment in flight, is harvested once this
-        one's first step is launched. Returns the in-flight record
-        ``_harvest_segment`` consumes: host copies of the outputs, started
-        now, and their event."""
+    def _spec_boundary(self, forced: Optional[int] = None, mixed: bool = False,
+                       record: bool = True) -> tuple:
+        """This boundary's speculation window and per-row depth tensor. A
+        fixed-K server returns (K, None). An adaptive one asks the
+        ``SpecController`` (or takes ``forced``: warmup running one
+        bucket) and always passes a depth tensor. ``record=False``
+        (warmup) counts nothing."""
+        if self._spec_ctl is None:
+            w = forced if forced is not None else self.speculative
+            depth = None
+            masked = 0
+        else:
+            w = forced
+            depths = None
+            masked = 0
+            if w is None:
+                live = sum(1 for r, req in enumerate(self.rows)
+                           if req is not None and not self.frozen[r])
+                w = self._spec_ctl.select_window(live_rows=live, mixed=mixed)
+                depths, masked = self._spec_ctl.depths(
+                    [req.rid if req is not None else None for req in self.rows], w)
+            if depths is None:
+                depths = [w - 1] * self.max_batch
+            depth = _h2d(np.asarray(depths, np.int32), self.device)
+        if record:
+            self.spec_dispatches += 1
+            self.spec_depth_sum += w
+            self.spec_masked_rows += masked
+            self.spec_depth_trace.append(w)
+        return w, depth
+
+    def _dispatch_segment(self, chunk: Optional[int] = None, prev: Optional[dict] = None,
+                          carry: Optional[tuple] = None, record: bool = True,
+                          warm_mixed: bool = False, window: Optional[int] = None) -> dict:
+        """Dispatch one decode or speculative segment (a mixed one with
+        live lanes) on the resident state and advance the device carry,
+        without waiting for the card; ``prev``, the segment in flight, is
+        harvested once this one's first step is launched. Returns the
+        in-flight record ``_harvest_segment`` consumes: host copies of the
+        outputs, started now, and their event.
+
+        Warmup passes an all-frozen ``carry`` with ``record=False`` (the
+        resident carry and every counter stay as they are),
+        ``warm_mixed`` for the mixed segment with idle lanes, and
+        ``window`` for one speculation bucket."""
         chunk = chunk or self.chunk
         harvest_prev = None if prev is None else (lambda: self._harvest_segment(prev))
-        if self._dev_carry is not None:
-            frozen, n_rem = self._dev_carry
+        if carry is not None:
+            frozen, n_rem, base_pos = carry
+        elif self._dev_carry is not None:
+            frozen, n_rem, base_pos = self._dev_carry
         else:
             # The host changed rows (always drained): the mirror is
             # authoritative.
             frozen = _h2d(self.frozen, self.device)
             n_rem = _h2d(self.n_rem.astype(np.int32), self.device)
+            base_pos = (_h2d(self.base_pos.astype(np.int32), self.device)
+                        if self.speculative else None)
             self.carry_uploads += 1
-        mixed = len(self._lanes) > 0 and self._lane_cache is not None
+        mixed = (warm_mixed or len(self._lanes) > 0) and self._lane_cache is not None
         rec = {"chunk": chunk, "wait_at_dispatch": self.device_segment_s}
+        lane_out = None
         if mixed:
             lane_start, lane_new_len, lane_last_idx, lane_adv, lane_tok = self._lane_args()
-            (tokens, n_new, done, fin, self.logits, frozen_out, n_rem_out, steps,
-             lane_last, _lane_hidden) = _mixed_decode_segment(
-                self.params, self.cfg, self.logits, self.cache, self.generator, frozen, n_rem,
-                self._lane_embeds, self._lane_cache, lane_start, lane_new_len, lane_last_idx,
-                chunk, self._lane_chunk, self.eos, self.temperature, self.top_p, self._flags,
-                harvest_prev)
+            lane_args = (self._lane_embeds, self._lane_cache, lane_start, lane_new_len,
+                         lane_last_idx)
+        if self.speculative:
+            # The window and depth are chosen on the host before the
+            # dispatch, from what the harvests so far observed.
+            w, depth = self._spec_boundary(window, mixed=mixed and len(self._lanes) > 0,
+                                           record=record)
+            n_iters = max(1, chunk // w)
+            history = (_h2d(self._history.astype(np.int32), self.device)
+                       if self._history is not None else None)
+            kw = dict(history=history, medusa=self.draft_head, drafts=self.spec_drafts,
+                      depth=depth, flags=self._flags, after_first_step=harvest_prev)
+            head = (self.params, self.cfg, self.cache, self.generator, self.ids_buf, base_pos,
+                    frozen, n_rem)
+            if mixed:
+                out = _mixed_spec_segment(*head, *lane_args, n_iters, w, self._lane_chunk,
+                                          self.eos, self.temperature, self.top_p, **kw)
+                out, lane_out = out[:11], out[11:]
+            else:
+                out = _spec_segment(*head, n_iters, w, self.eos, self.temperature, self.top_p,
+                                    **kw)
+            (n_new, done, iters, frozen_out, n_rem_out, base_pos_out,
+             row_acc, row_off, pos_acc, pos_off, steps) = out
+            # Only the slots the segment could have written come back
+            # (n_iters * window <= max(chunk, window) a row), from the
+            # segment's own base.
+            new = _gather_new(self.ids_buf, base_pos, max(chunk, w))
+            rec["spec"] = True
+            host = [new, iters, n_new, done, frozen, row_acc, row_off, pos_acc, pos_off]
+        else:
+            if mixed:
+                out = _mixed_decode_segment(
+                    self.params, self.cfg, self.logits, self.cache, self.generator, frozen,
+                    n_rem, *lane_args, chunk, self._lane_chunk, self.eos, self.temperature,
+                    self.top_p, self._flags, harvest_prev)
+                out, lane_out = out[:8], out[8:]
+            else:
+                out = _decode_segment(
+                    self.params, self.cfg, self.logits, self.cache, self.generator, frozen,
+                    n_rem, chunk, self.eos, self.temperature, self.top_p, self._flags,
+                    harvest_prev)
+            tokens, n_new, done, fin, self.logits, frozen_out, n_rem_out, steps = out
+            base_pos_out = None
+            host = [tokens, n_new, done, fin, frozen]
+        if lane_out is not None:
             # Lane bookkeeping at dispatch: the advance is deterministic, so
             # the next boundary's lane arguments need no fetch. A finished
-            # lane keeps its last logits on the device.
+            # lane keeps its last logits and hidden on the device.
+            lane_last, lane_hidden = lane_out
             for lane, end in lane_adv:
                 lane.filled = end
                 if lane.filled >= lane.prompt_len:
                     lane.last_logits = lane_last[lane.slot:lane.slot + 1]
-            if lane_adv:
+                    lane.last_hidden = lane_hidden[lane.slot:lane.slot + 1]
+            if record and lane_adv:
                 self.mixed_prefill_tokens += lane_tok
                 self.mixed_segments += 1
                 self._count_dispatch("piggyback")
                 rec["n_lanes"] = len(lane_adv)
-        else:
-            (tokens, n_new, done, fin, self.logits, frozen_out, n_rem_out,
-             steps) = _decode_segment(
-                self.params, self.cfg, self.logits, self.cache, self.generator, frozen, n_rem,
-                chunk, self.eos, self.temperature, self.top_p, self._flags, harvest_prev)
-        self._dev_carry = (frozen_out, n_rem_out)
-        self.seg_count += 1
-        self.decode_steps_run += steps
-        rec["host"], rec["event"] = _fetch_async([tokens, n_new, done, fin, frozen])
+        if record:
+            self._dev_carry = (frozen_out, n_rem_out, base_pos_out)
+            self.seg_count += 1
+            self.decode_steps_run += steps
+        rec["host"], rec["event"] = _fetch_async(host)
         rec["t_dispatch"] = time.perf_counter()
         return rec
 
@@ -1577,7 +2009,13 @@ class ContinuousBatcher:
             self.host_gap_s += t_fetch - self._t_prev_fetch_end
         if rec["event"] is not None:
             rec["event"].synchronize()
-        tokens, n_new, done, finite, frozen_in = (t.numpy() for t in rec["host"])
+        spec = rec.get("spec", False)
+        if spec:
+            (new_ids, iters, n_new, done, frozen_in, row_acc, row_off, pos_acc,
+             pos_off) = (t.numpy() for t in rec["host"])
+            tokens = finite = None
+        else:
+            tokens, n_new, done, finite, frozen_in = (t.numpy() for t in rec["host"])
         t_end = time.perf_counter()
         wait = t_end - t_fetch
         if wait > 1e-4:
@@ -1588,6 +2026,16 @@ class ContinuousBatcher:
         self.device_segment_s += wait
         self._t_prev_fetch_end = t_end
         self.decode_steps += int(n_new.max(initial=0))
+        if spec:
+            self.spec_iterations += int(iters)
+            self.spec_tokens += int(n_new.sum())
+            if self._spec_ctl is not None:
+                # The segment's uncapped acceptance feeds the next boundary's
+                # choice (pipelined: one boundary later, deterministically).
+                self._spec_ctl.observe(
+                    [(req.rid, int(row_acc[r]), int(row_off[r]))
+                     for r, req in enumerate(self.rows) if req is not None and not frozen_in[r]],
+                    [int(x) for x in pos_acc], [int(x) for x in pos_off])
         if rec.get("n_lanes"):
             live = ~frozen_in
             if live.any():
@@ -1600,12 +2048,16 @@ class ContinuousBatcher:
             # a segment ahead): rows frozen at dispatch produced nothing.
             if req is None or frozen_in[r]:
                 continue
-            if not finite[r]:
+            if finite is not None and not finite[r]:
                 # Non-finite logits poison only this row: its segment
                 # tokens are discarded and the request fails.
                 self._finish_row(r, status=STATUS_NAN, stale_carry=False)
                 continue
-            new = tokens[r, : n_new[r]]
+            if spec:
+                new = new_ids[r, : n_new[r]]
+                self.base_pos[r] += int(n_new[r])
+            else:
+                new = tokens[r, : n_new[r]]
             if len(new) and req.t_first is None:
                 req.t_first = now
             req.tokens.extend(int(t) for t in new)
@@ -1637,9 +2089,14 @@ class ContinuousBatcher:
             req.prefix_entry = None
         if req.deadline is not None:
             self._n_deadlines -= 1
+        if self._spec_ctl is not None:
+            # The controller's per-row window goes on every terminal path.
+            self._spec_ctl.forget(req.rid)
         ids = req.tokens
         if self.eos_token_id is not None and ids and ids[-1] == self.eos_token_id:
             ids = ids[:-1]
+        if status == STATUS_OK:
+            self._history_append(ids)
         req.t_done = time.perf_counter()
         # Bounded: a long-lived server must not grow host state forever.
         while len(self.request_stats) >= 8192:
@@ -1763,7 +2220,7 @@ class ContinuousBatcher:
                          "length": torch.full((1,), lane.prompt_len, dtype=torch.int32,
                                               device=self.device)}
             self._finish_admission(lane.req, lane.row, lane.prompt_len, row_cache,
-                                   lane.last_logits, prefix_entry=lane.entry)
+                                   lane.last_logits, lane.last_hidden, prefix_entry=lane.entry)
             if lane.entry is not None:
                 self._drain_entry_pin(lane.entry)  # the activation holds its own pin
         return done
@@ -1773,10 +2230,10 @@ class ContinuousBatcher:
     def _blocks_needed(self, prompt_len: int, max_new: int) -> int:
         """Blocks one request reserves at admission: its prompt bucket (the
         admission scatter writes whole blocks) and its decode horizon
-        prompt + budget + slack. The whole horizon is reserved up front,
+        prompt + budget + slack (``submit``'s). The whole horizon is reserved up front,
         so an admitted row can always finish."""
         bucket = _bucket(prompt_len, self.max_len)
-        cover = min(max(bucket, prompt_len + max_new + 1), self.max_len)
+        cover = min(max(bucket, prompt_len + max_new + 1 + self.spec_max), self.max_len)
         return self._pool.blocks_for(cover)
 
     def _paged_admit_gate(self) -> bool:
@@ -1809,7 +2266,8 @@ class ContinuousBatcher:
         """Allocate the request's reservation, aliasing a prefix entry's
         full blocks below the divergence point on a hit; False when the
         pool cannot cover it now (never a partial grant)."""
-        cover = min(max(s1, req.prompt_len + req.max_new_tokens + 1), self.max_len)
+        cover = min(max(s1, req.prompt_len + req.max_new_tokens + 1 + self.spec_max),
+                    self.max_len)
         total = self._pool.blocks_for(cover)
         aliased: List[int] = []
         if entry is not None and entry.blocks:
@@ -1937,11 +2395,11 @@ class ContinuousBatcher:
             if len(members) == 1:
                 req, row, entry, suffix_ids, _ = members[0]
                 try:
-                    row_cache, row_logits, prompt_len = self._prefix_admit(
+                    row_cache, row_logits, row_hidden, prompt_len = self._prefix_admit(
                         entry, req.pixel_values, suffix_ids)
                     self._prefix_cache.count_hit(entry)
                     self._finish_admission(req, row, prompt_len, row_cache, row_logits,
-                                           prefix_entry=entry)
+                                           row_hidden, prefix_entry=entry)
                 finally:
                     self._drain_entry_pin(entry)  # the selection pin
             else:
@@ -1959,10 +2417,13 @@ class ContinuousBatcher:
         req, row = wave[0]
         padded, mask, prompt_len = self._prep_request(req)
         row_cache = self._new_row_cache(padded.shape[1])
-        row_logits, row_cache = llama_mod.prefill(
-            self.params["llama"], self.cfg.llama, padded, mask, row_cache, last_only=True)
+        # Medusa mode also needs the prompt's last hidden: it seeds the
+        # row's first drafts.
+        pre = llama_mod.prefill(self.params["llama"], self.cfg.llama, padded, mask, row_cache,
+                                last_only=True, return_hidden=self.draft_head is not None)
         self._count_dispatch("full")
-        self._finish_admission(req, row, prompt_len, row_cache, row_logits)
+        self._finish_admission(req, row, prompt_len, row_cache, pre[0],
+                               pre[1] if len(pre) == 3 else None)
         return True
 
     def _advance_pending(self) -> None:
@@ -1978,13 +2439,13 @@ class ContinuousBatcher:
         c = self.prefill_chunk
         start = p.filled
         end = min(start + c, p.prompt_len)
-        last = _chunk_prefill(self.params, self.cfg, p.embeds, p.row_cache, start, end,
-                              max(0, min(p.prompt_len - 1 - start, c - 1)), c)
+        last, hidden = _chunk_prefill(self.params, self.cfg, p.embeds, p.row_cache, start, end,
+                                      max(0, min(p.prompt_len - 1 - start, c - 1)), c)
         self._count_dispatch("chunk")
         p.filled = end
         if p.filled >= p.prompt_len:
             self._pending = None
-            self._finish_admission(p.req, p.row, p.prompt_len, p.row_cache, last)
+            self._finish_admission(p.req, p.row, p.prompt_len, p.row_cache, last, hidden)
 
     def _pixels(self, pixel_values) -> torch.Tensor:
         return _h2d(np.asarray(pixel_values, np.float32), self.device).to(self._dtype)
@@ -2032,14 +2493,15 @@ class ContinuousBatcher:
         if nb > n:
             mask[n:, 0] = True
         wave_cache = self._new_row_cache(s1, batch=nb)
-        wave_logits, wave_cache = llama_mod.prefill(
-            self.params["llama"], self.cfg.llama, padded, mask, wave_cache, last_only=True)
+        pre = llama_mod.prefill(self.params["llama"], self.cfg.llama, padded, mask, wave_cache,
+                                last_only=True, return_hidden=self.draft_head is not None)
         self._count_dispatch("wave")
-        self._scatter_wave(wave, wave_cache, wave_logits, prompt_lens)
+        self._scatter_wave(wave, wave_cache, pre[0], pre[1] if len(pre) == 3 else None,
+                           prompt_lens)
 
     # Reads the wave logits back (the admission NaN quarantine); every
     # caller has drained the pipeline.
-    def _scatter_wave(self, members: List[tuple], wave_cache, wave_logits,
+    def _scatter_wave(self, members: List[tuple], wave_cache, wave_logits, wave_hidden,
                       prompt_lens: List[int], entries: Optional[List[_PrefixEntry]] = None
                       ) -> None:
         """Per-member NaN quarantine, insert-on-prefill, the one scatter of
@@ -2074,12 +2536,15 @@ class ContinuousBatcher:
             _admit_wave(self.cache, self.logits, rows, wave_cache["k"], wave_cache["v"],
                         wave_cache["length"], wave_logits)
         for i, req, row in good:
-            self._activate_row(req, row, entries[i] if entries is not None else None)
+            self._activate_row(req, row, prompt_lens[i], wave_logits[i:i + 1],
+                               wave_hidden[i:i + 1] if wave_hidden is not None else None,
+                               entries[i] if entries is not None else None)
 
     # Reads the row logits back (the admission NaN quarantine); every
     # caller has drained the pipeline.
     def _finish_admission(self, req: _Request, row: int, prompt_len: int, row_cache,
-                          row_logits, prefix_entry: Optional[_PrefixEntry] = None) -> None:
+                          row_logits, row_hidden=None,
+                          prefix_entry: Optional[_PrefixEntry] = None) -> None:
         """Write the prefilled row into the shared cache and activate it,
         unless its logits are not finite (then the request fails before it
         touches the shared cache)."""
@@ -2096,17 +2561,73 @@ class ContinuousBatcher:
             req.kv_bt_written = True
         else:
             _admit_row(self.cache, self.logits, row, row_cache, row_logits)
-        self._activate_row(req, row, prefix_entry)
+        self._activate_row(req, row, prompt_len, row_logits, row_hidden, prefix_entry)
 
-    def _activate_row(self, req: _Request, row: int,
-                      prefix_entry: Optional[_PrefixEntry] = None) -> None:
+    def _activate_row(self, req: _Request, row: int, prompt_len: int, row_logits,
+                      row_hidden=None, prefix_entry: Optional[_PrefixEntry] = None) -> None:
         self.rows[row] = req
         req.row = row
         if prefix_entry is not None:
             # The row pins its entry while it decodes from it.
             prefix_entry.pins += 1
             req.prefix_entry = prefix_entry
+        # The host changes frozen/n_rem (and base_pos; drained): upload
+        # at the next dispatch.
+        self._dev_carry = None
+        if self.draft_head is not None and self.spec_max > 1:
+            # The heads at the prompt's last hidden predict the tokens after
+            # the first commit: the row's first drafts, the whole buffer's
+            # width, so that any bucket finds its columns fresh.
+            self.spec_drafts[row] = medusa_mod.medusa_drafts(
+                self.params["llama"], self.draft_head, row_hidden, self.spec_max - 1)[0]
+        if self.speculative:
+            self._admit_speculative(req, row, prompt_len, row_logits)
+            return
         self.frozen[row] = False
         self.n_rem[row] = req.max_new_tokens
-        # The host changed frozen/n_rem (drained): upload at the next dispatch.
-        self._dev_carry = None
+
+    # Reads the first token back (its commit decides EOS and the budget on
+    # the host, as in the JAX package); every caller has drained the
+    # pipeline.
+    def _admit_speculative(self, req: _Request, row: int, prompt_len: int, row_logits) -> None:
+        """A speculative row's admission: its token-id view of the spliced
+        prompt (the lookup context; the text joins the history too) goes
+        into ``ids_buf``, and the prefill's token is committed as the first
+        generated one (the ``_spec_segment`` invariant: cache length ==
+        committed - 1). A zero budget returns zero tokens."""
+        if req.max_new_tokens == 0:
+            req.tokens = []
+            self._finish_row(row)
+            return
+        row_ids = eventchat._spliced_text_ids(split_at_event(req.input_ids),
+                                              self.cfg.num_event_tokens,
+                                              self.cfg.llama.max_seq_len)[:self.max_len]
+        self._history_append(row_ids)
+        t0 = int(sample(row_logits, self.generator, self.temperature, self.top_p)[0])
+        req.t_first = time.perf_counter()
+        ids = np.full((self.max_len,), -1, np.int32)
+        ids[:len(row_ids)] = row_ids
+        ids[prompt_len] = t0
+        self.ids_buf[row] = _h2d(ids, self.device)
+        self.base_pos[row] = prompt_len + 1
+        req.tokens = [t0]
+        self.n_rem[row] = req.max_new_tokens - 1
+        if (self.eos_token_id is not None and t0 == self.eos_token_id) or self.n_rem[row] <= 0:
+            self._finish_row(row)
+        else:
+            self.frozen[row] = False
+
+    def _history_append(self, toks) -> None:
+        """Append prompt text or committed answers to the history ring
+        (the oldest tokens shift out; -1 fillers are dropped)."""
+        if self._history is None:
+            return
+        arr = np.asarray([t for t in toks if t >= 0], np.int64)
+        if not len(arr):
+            return
+        h = len(self._history)
+        if len(arr) >= h:
+            self._history[:] = arr[-h:]
+        else:
+            self._history[:-len(arr)] = self._history[len(arr):]
+            self._history[-len(arr):] = arr

@@ -261,6 +261,24 @@ def test_int4_decode_path_split_k(m, k, n, group):
                                atol=I4_ATOL, rtol=I4_RTOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)])
+@pytest.mark.parametrize("m", [8, 16, 32])
+def test_int4_kernel_at_the_speculative_server_shapes(m, k, n):
+    """The 7B weights at the speculative server's M: a verify window of
+    4 rows x 2 (M = 8) or x 4 (M = 16) on the decode path, a piggyback
+    lane of 32 prompt tokens (M = 32) on the prefill path."""
+    dev = _card()
+    x, q4, s = _int4_case(m, k, n, 128, dev, seed=m + k + n)
+    path = "decode" if m <= i4.DECODE_MAX_M else "prefill"
+    before = i4.LAUNCHES_BY_M[path, m]
+    out = _two_calls_equal(lambda: i4.int4_matmul(x, q4, s), i4.INT4_KERNEL)
+    assert i4.LAUNCHES_BY_M[path, m] == before + 2
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    torch.testing.assert_close(out, i4.int4_matmul_reference(x, q4, s),
+                               atol=I4_ATOL, rtol=I4_RTOL)
+
+
 # K2 vs its plain version: the same arithmetic, summed in another order,
 # with expf against torch.exp (1-2 ulp). That can flip the bf16 rounding of
 # one slot's p * v_s: 2^-8 of that slot's share of the output, |v| <= 1.3

@@ -196,12 +196,13 @@ def test_cancel_and_deadline_keep_the_other_chains(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    # The scheduler features are ported; with a feature that is not, they
-    # are still refused.
-    dict(speculative=2), dict(prefix_cache=True, speculative=2),
+    # The scheduler and speculation features are ported; with a feature
+    # that is not, they are still refused.
+    dict(speculative=2, preempt=True), dict(prefix_cache=True, speculative=2, mesh=object()),
     dict(pipeline=True, mesh=object()), dict(prefill_budget=8, role="prefill"),
-    dict(prefill_chunk=64, draft_head={}), dict(preempt=True), dict(spill_capacity_mb=64),
-    dict(role="decode"), dict(spec_buckets="0,2"), dict(mem_headroom_bytes=1 << 30),
+    dict(prefill_chunk=64, draft_head={}, spill_capacity_mb=64), dict(preempt=True),
+    dict(spill_capacity_mb=64), dict(role="decode"),
+    dict(spec_buckets="0,2", mem_headroom_bytes=1 << 30), dict(mem_headroom_bytes=1 << 30),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_server_features_raise(setup, kw):
     tp, _ = setup
@@ -210,8 +211,17 @@ def test_unported_server_features_raise(setup, kw):
 
 
 def test_warmup_is_not_ported(setup):
-    srv = ContinuousBatcher(setup[0], TCFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """Warmup is ported now: on an idle server it runs (the encoder, a
+    prefill and an admission per bucket, the segment) and the chains
+    after it are the cold server's; with a request queued it refuses."""
+    tp, want = setup
+    srv, rids = _serve(tp, [], kv_layout="paged", kv_quant=True)
+    assert srv.warmup(prompt_lens=[14]) == 4
+    rids = [srv.submit(ids, pv, b) for ids, pv, b in _reqs()]
+    out = srv.run_until_drained()
+    assert [out[r] for r in rids] == want["paged", True][0]
+    srv.submit(*_reqs()[0])
+    with pytest.raises(RuntimeError, match="before any request"):
         srv.warmup()
 
 
@@ -321,9 +331,11 @@ def test_http_refuses_bad_requests(server):
             assert s.recv(64).startswith(b"HTTP/1.1 " + code)
 
 
-@pytest.mark.parametrize("extra", [["--speculative", "2"],
-                                   ["--prefill_budget", "-1", "--speculative", "2"],
-                                   ["--mesh_model", "2"], ["--warmup"]],
+@pytest.mark.parametrize("extra", [["--speculative", "2", "--preempt"],
+                                   ["--prefill_budget", "-1", "--speculative", "2",
+                                    "--role", "decode"],
+                                   ["--mesh_model", "2"],
+                                   ["--warmup", "--spill_capacity_mb", "64"]],
                          ids=lambda x: x[0])
 def test_cli_refuses_unported_flags(extra):
     args = cli_serve.build_parser().parse_args(FLAGS + ["--port", "0"] + extra)

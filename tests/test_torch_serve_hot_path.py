@@ -8,24 +8,32 @@ long as nothing on the dispatch path waits for the card: one stray
 JAX package, so this test scans the port.
 
 It walks ``eventgpt_tpu_torch/serve.py``'s AST from ``ContinuousBatcher.
-step``, ``_dispatch_segment``, ``_decode_segment`` and
-``_mixed_decode_segment`` through every ``self.method()`` call and every
-call of a module-level function, stopping at the two harvest points
+step``, ``_dispatch_segment`` and the segment functions (``_decode_segment``,
+``_spec_segment`` and their mixed forms) through every ``self.method()``
+call and every call of a module-level function, stopping at the two harvest points
 (``_harvest_segment``, ``_drain``), where the host is meant to wait. In
 every function it reaches it flags ``.item()``, ``.cpu()``, ``.tolist()``,
 ``.numpy()``, and ``bool()``/``int()``/``float()`` of a call, subscript or
 attribute (the shape of a tensor's scalar read). What it flags must be on
 the allow-list below, each entry with its reason; an entry that no longer
-matches anything fails the test too.
+matches anything fails the test too. At run time, a speculative harvest
+is one fetch of the slots its segment could write.
 """
 
 import ast
 import os
 
+import numpy as np
+import torch
+
+from eventgpt_tpu_torch import serve
+from eventgpt_tpu_torch.config import EventChatConfig
+from eventgpt_tpu_torch.models.convert import init_eventchat_params
+
 SERVE = os.path.join(os.path.dirname(__file__), os.pardir, "eventgpt_tpu_torch", "serve.py")
 CLASS = "ContinuousBatcher"
 ROOTS = (f"{CLASS}.step", f"{CLASS}._dispatch_segment", "_decode_segment",
-         "_mixed_decode_segment")
+         "_mixed_decode_segment", "_spec_segment", "_mixed_spec_segment")
 HARVEST = (f"{CLASS}._harvest_segment", f"{CLASS}._drain")
 SYNC_METHODS = ("item", "cpu", "tolist", "numpy")
 SCALAR_CASTS = ("bool", "int", "float")
@@ -48,6 +56,11 @@ ALLOWED = {
     (f"{CLASS}._finish_admission", "bool(torch.isfinite(row_logits).all())"):
         "the admission NaN quarantine of a single, suffix, chunked or lane "
         "admission; each runs after step() drained the pipeline",
+    (f"{CLASS}._admit_speculative",
+     "int(sample(row_logits, self.generator, self.temperature, self.top_p)[0])"):
+        "a speculative row's first token, committed at admission (the host "
+        "decides EOS and the budget, as the JAX batcher does); it follows the "
+        "NaN quarantine's read, after step() drained the pipeline",
 }
 
 
@@ -125,3 +138,39 @@ def test_the_guard_flags_a_stray_read():
            "        return live.cpu()\n")
     fn = ast.parse(src).body[0]
     assert set(_flags(fn)) == {"bool(live.any())", "live.cpu()"}
+
+
+def test_a_speculative_harvest_is_one_fetch(monkeypatch):
+    """At run time, with lanes and the pipeline on: every dispatched
+    segment starts exactly one device-to-host fetch (the new ids, the
+    counts and the acceptance together) and is harvested once, and the
+    ids come back only over the slots the segment could have written."""
+    cfg = EventChatConfig.tiny()
+    params = init_eventchat_params(cfg, torch.Generator().manual_seed(0), torch.float32, "cpu")
+    fetches, harvests = [], []
+    real_fetch, real_harvest = serve._fetch_async, serve.ContinuousBatcher._harvest_segment
+
+    def fetch(tensors):
+        fetches.append([tuple(t.shape) for t in tensors])
+        return real_fetch(tensors)
+
+    def harvest(self, rec):
+        harvests.append(rec)
+        return real_harvest(self, rec)
+
+    monkeypatch.setattr(serve, "_fetch_async", fetch)
+    monkeypatch.setattr(serve.ContinuousBatcher, "_harvest_segment", harvest)
+    srv = serve.ContinuousBatcher(params, cfg, max_batch=2, max_len=256, chunk=8,
+                                  eos_token_id=None, spec_buckets="0,2,4", prefill_budget=8,
+                                  device="cpu")
+    size = cfg.vision.image_size
+    pv = np.zeros((cfg.num_event_frames, 3, size, size), np.float32)
+    srv.submit([1, 5, -200, 9], pv, 12)
+    srv.step()
+    srv.submit([2, -200, 7], pv, 6)
+    srv.run_until_drained()
+    assert srv.seg_count == len(fetches) == len(harvests) > 1
+    assert srv.mixed_segments > 0
+    for shapes in fetches:
+        assert len(shapes) == 9  # ids, iterations, n_new, done, frozen, 4 counts
+        assert shapes[0] == (2, 8)  # max(chunk, window) slots a row, not max_len
