@@ -77,6 +77,11 @@ Phases, each printed on its own line:
                    against the cold lookup run), each held to its layout's
                    oracle: tokens per verify iteration, the chosen windows,
                    decode ms per committed token, TTFT, K1 launches;
+                   every served run counts the decode steps and verifies
+                   run with no live row (``idle_steps``/``idle_verifies``,
+                   beside the count recorded before the repair) and fails if one
+                   ran at a lane-only boundary or if a transition to all
+                   frozen added more than one;
                    after ``slice_spec_int4``, ``serve_spec_int4``
                    (``--quant int4 --speculative 4``, dense) against an int4
                    oracle, with K4 launches by (path, M);
@@ -120,6 +125,18 @@ Phases, each printed on its own line:
                    ``lora_last.npz`` through ``merge_lora``, and hold a
                    fresh trainer's resumed step against the same step in
                    memory; with ``--profile``, one more step profiled;
+                   ``medusa_train_7b``: 8 Medusa-head steps (3 heads, batch
+                   2) on the motion corpus through ``scripts/train_medusa``'s
+                   functions (K1 held against its plain version at the
+                   batch's shape first, then 32 forward launches a step, no
+                   backward), again at lr 1e-4 where every head's loss must
+                   fall, the step split into the hidden forward and the
+                   heads' loss + backward + update, only the stack moving,
+                   the heads' gradient held against finite differences of
+                   the loss and the loss after one Adam step of each LR; the
+                   saved stack serves the held-out requests with
+                   ``--speculative 4 --draft_head`` against the oracle, and
+                   the script runs 2 steps on a tiny model in a subprocess;
 9. tiny_*       -- tiny models give the same greedy chain on the card as on
                    the CPU, bf16-free f32, with int4 + int8 KV + fused (its
                    chain's sha256 printed), beam (k = 2, 3), speculative
@@ -136,9 +153,17 @@ Phases, each printed on its own line:
                    ``train_tiny_card_vs_cpu``: one f32 stage-1 and stage-2
                    step agree on the card and the CPU, and ``cli.train``
                    trains 2 steps on the card in a subprocess;
+                   ``tiny_medusa_card_vs_cpu``: ``medusa_loss``, its
+                   gradient and one head step agree on the card and the
+                   CPU; ``medusa_acceptance_tiny``: the acceptance study at
+                   the JAX script's defaults on the card, held to the JAX
+                   gate's bars (random heads 1.0 +- 0.15 tokens an
+                   iteration, trained heads above 1.5 and random + 0.5,
+                   one chain across the three drafts);
 10. kernels     -- one JSON line per the kernel table (K4 with one decode
                    step's and one prefill forward's launches; K1 with its
-                   training launches by path and its backward's numbers),
+                   training and head-training launches by path and its
+                   backward's numbers),
                    then the card's name
                    and power limit, then the result line.
 
@@ -297,6 +322,40 @@ RESUME_LOSS_ATOL = 1e-3
 # arithmetic summed in another order; one Adam step moves each trainable by
 # ~lr, and a gradient's last-bit difference moves its update by ~1e-7.
 TINY_TRAIN_ATOL = 1e-4
+# The verifies before the repair, as PERF.md records them: (with no live
+# row, run), on the same traffic and flags.
+IDLE_VERIFIES_BEFORE_REPAIR = {"serve_spec_paged_lookup": (46, 68),
+                               "serve_spec_dense_lookup": (46, 68),
+                               "serve_spec_paged_adaptive": (46, 68),
+                               "serve_spec_dense_adaptive": (46, 68),
+                               "serve_spec_dense_medusa": (42, 119),
+                               "serve_spec_warmup": (46, 68), "serve_spec_int4": (46, 72)}
+# medusa_train_7b: the motion corpus' size, the head steps, their batch,
+# the heads and the LR; then the 4 held-out requests served with the saved
+# stack, MEDUSA_SERVE_BUDGET tokens each.
+MEDUSA_CORPUS = (16, 4)
+MEDUSA_STEPS, MEDUSA_BATCH, MEDUSA_LR = 8, 2, 1e-3
+# The same steps again at a tenth of the LR, where each head's loss must
+# fall over the steps.
+MEDUSA_LR_LOW = 1e-4
+# The heads' gradient at 7B width on the first batch, f32: the central
+# difference of the loss with step MEDUSA_FD_EPS along a direction agrees
+# with autograd's directional derivative within MEDUSA_FD_RTOL; then the
+# loss after one Adam step of each LR in MEDUSA_LINE_LRS from the zero stack.
+MEDUSA_FD_EPS, MEDUSA_FD_RTOL = 1e-5, 1e-2
+# ... and the training dtype's gradient (bf16 products) points where the f32
+# one does.
+MEDUSA_GRAD_COS = 0.99
+MEDUSA_LINE_LRS = (1e-5, 3e-5, 1e-4, 3e-4, 1e-3)
+MEDUSA_SERVE_BUDGET = 24
+# The tiny f32 head step on the card vs the CPU (TF32 off): the same f32
+# products summed in another order; the loss, its gradient and the first
+# Adam step of a zero stack (each entry moves by ~lr * sign(g)).
+TINY_MEDUSA_ATOL = 1e-5
+# medusa_acceptance_tiny: the JAX gate's bars (tests/test_medusa_acceptance.py):
+# random heads commit ~1 token an iteration, trained heads decisively more.
+ACCEPTANCE_RANDOM, ACCEPTANCE_RANDOM_TOL = 1.0, 0.15
+ACCEPTANCE_TRAINED_MIN, ACCEPTANCE_TRAINED_OVER_RANDOM = 1.5, 0.5
 
 
 # Shards of the 7B checkpoint that checkpoint_7b writes (~3.5 GB each).
@@ -433,9 +492,10 @@ def flash_occupancy() -> dict:
             "blocks_per_sm": blocks.value}
 
 
-def check_flash_kernel(lengths, seed: int, baseline=None) -> dict:
-    """K1 against its plain version at (B, S) = (len(lengths), max(lengths)),
-    32 heads of 128, bf16, right padding; returns error and times. A
+def check_flash_kernel(lengths, seed: int, baseline=None, s=None) -> dict:
+    """K1 against its plain version at (B, S) = (len(lengths), ``s`` or
+    max(lengths)), 32 heads of 128, bf16, right padding; returns error and
+    times. A
     ``baseline`` kernel (``baseline_kernel``) runs through the same wrapper
     on the same inputs: its difference from K1 and its time, timed in turns
     with K1."""
@@ -444,7 +504,7 @@ def check_flash_kernel(lengths, seed: int, baseline=None) -> dict:
 
     from eventgpt_tpu_torch.ops import flash_attention as fa
 
-    b, s, h, hd = len(lengths), max(lengths), 32, 128
+    b, s, h, hd = len(lengths), s or max(lengths), 32, 128
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn((b, s, h, hd), generator=g, device="cuda", dtype=torch.bfloat16)
                for _ in range(3))
@@ -997,6 +1057,50 @@ def serve_defaults_requests(requests):
             + list(requests[len(QUERIES):]))
 
 
+class IdleTally:
+    """What the bar on steps run with no live row reads from a served run:
+    the lane-only boundaries (every row frozen in the host mirror, lanes
+    still filling, nothing queued) and those at which a decode step or a
+    verify ran (must be 0), and the harvests that turned the mirror all
+    frozen (the transitions; each may add at most one idle step or verify:
+    the stop rule's step past the last live one, or, pipelined, the first
+    step of the next segment on a carry the host did not yet know to be
+    all frozen)."""
+
+    def __init__(self, batcher):
+        self.batcher = batcher
+        self.lane_only = self.lane_only_ran = self.transitions = 0
+        harvest = batcher._harvest_segment
+
+        def counted_harvest(rec):
+            before = bool(batcher.frozen.all())
+            harvest(rec)
+            self.transitions += (not before) and bool(batcher.frozen.all())
+
+        batcher._harvest_segment = counted_harvest
+
+    def step(self) -> None:
+        b = self.batcher
+        lane_only = bool(b.frozen.all() and b._lanes and not b.queue
+                         and all(x.filled < x.prompt_len for x in b._lanes))
+        before = b.decode_steps_run
+        b.step()
+        if lane_only:
+            self.lane_only += 1
+            self.lane_only_ran += b.decode_steps_run > before
+
+    def numbers(self, name: str) -> dict:
+        b = self.batcher
+        idle = b.idle_verifies if b.speculative else b.idle_steps
+        out = {"idle_steps": b.idle_steps, "idle_verifies": b.idle_verifies,
+               "steps_run": b.decode_steps_run, "lane_only_boundaries": self.lane_only,
+               "lane_only_boundaries_that_ran": self.lane_only_ran,
+               "transitions_to_all_frozen": self.transitions}
+        if self.lane_only_ran or idle > self.transitions:
+            raise AssertionError(f"{name}: steps run with no live row: {out}")
+        return out
+
+
 def serve_defaults_run(params, cfg, tokenizer, requests, layout: str, flags) -> tuple:
     """One configuration of ``serve_defaults`` (or ``serve_spec``): the
     batcher that ``cli/serve`` builds from ``flags`` (``make_batcher``,
@@ -1025,14 +1129,15 @@ def serve_defaults_run(params, cfg, tokenizer, requests, layout: str, flags) -> 
         warm = {"functions": batcher.warmup(), "seconds": time.perf_counter() - t0}
         warm["k1_launches"] = FLASH_KERNEL.launches - k1_before
     build_s = time.perf_counter() - t_build
+    tally = IdleTally(batcher)
     rids = [batcher.submit(i, px, n) for i, px, n in requests[:len(QUERIES)]]
     t0 = time.perf_counter()
     while batcher.decode_steps == 0:  # until the first harvest
-        batcher.step()
+        tally.step()
     t_late = time.perf_counter() - t0
     rids += [batcher.submit(i, px, n) for i, px, n in requests[len(QUERIES):]]
     while batcher.queue or any(r is not None for r in batcher.rows):
-        batcher.step()
+        tally.step()
     batcher._drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1071,6 +1176,8 @@ def serve_defaults_run(params, cfg, tokenizer, requests, layout: str, flags) -> 
         "lanes_started": dict(batcher.lanes_started), "mixed_segments": batcher.mixed_segments,
         "mixed_boundaries": batcher.mixed_boundaries,
         "mixed_zero_harvests": batcher.mixed_zero_harvests,
+        "no_live_row": tally.numbers(f"serve_defaults {layout} {' '.join(flags)}"),
+        "ttft_s_requests_5_6": [st["ttft_s"] for st in stats[len(QUERIES):]],
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "build_and_warmup_s": build_s,
     }
@@ -1181,6 +1288,7 @@ def serve_defaults(eventchat, llama, params, cfg, tokenizer, requests, layout: s
         "decode_ms_per_step": {n: r[0]["decode_ms_per_step"] for n, r in runs.items()},
         "overlap_ratio": {n: r[0]["overlap_ratio"] for n, r in runs.items()},
         "prefix_hits": {n: r[0]["prefix_hits"] for n, r in runs.items()},
+        "no_live_row": {n: r[0]["no_live_row"] for n, r in runs.items()},
         "k1_launches": k1, "nvidia_smi": smi})
     return k1, (oracle, want)
 
@@ -1263,6 +1371,17 @@ def serve_spec(eventchat, llama, params, cfg, tokenizer, requests, oracles, coun
         "wall_s": {n: r["wall_s"] for n, r in runs.items()},
         "decode_ms_per_committed_token": {n: r["decode_ms_per_committed_token"]
                                           for n, r in runs.items()},
+        "verifies_live_run_idle": {n: (r["spec_iterations"], r["no_live_row"]["steps_run"],
+                                       r["no_live_row"]["idle_verifies"])
+                                   for n, r in runs.items()},
+        "idle_run_before_repair": {n: IDLE_VERIFIES_BEFORE_REPAIR[n] for n in runs},
+        "ttft_s_requests_5_6": {n: r["ttft_s_requests_5_6"] for n, r in runs.items()},
+        "ttft_s_requests_5_6_oracle": {n: r["vs_oracle"]["ttft_s_oracle"][len(QUERIES):]
+                                       for n, r in runs.items()},
+        "batch_tok_s": {n: (r["batch_tok_s"], r["vs_oracle"]["batch_tok_s_oracle"])
+                        for n, r in runs.items()},
+        "wall_s_with_oracle": {n: (r["wall_s"], r["vs_oracle"]["wall_s_oracle"])
+                               for n, r in runs.items()},
         "warmup_s": warm["warmup"]["seconds"], "warmup_functions": warm["warmup"]["functions"],
         "ttft_request1_s": {"warmed": warm["ttft_s"][0], "cold": cold["ttft_s"][0]},
         "k1_launches": {n: l[FLASH_KERNEL.source] for n, l in launches_by_run.items()},
@@ -1304,6 +1423,8 @@ def serve_spec_int4(eventchat, llama, params_int4, cfg, tokenizer, requests, cou
     numbers["k4_launches_by_path_m"] = {f"{p} M={m}": c for (p, m), c in sorted(by_m.items())}
     emit("serve_spec_int4", {"flags": "--quant int4 --kv_cache int8 --speculative 4",
                              **numbers, "verify_m": m_verify, "lane_m": m_lane,
+                             "idle_run_before_repair":
+                                 IDLE_VERIFIES_BEFORE_REPAIR["serve_spec_int4"],
                              "first_ids": [c[:8] for c in chains], "nvidia_smi": smi})
     return launches, by_m
 
@@ -2531,6 +2652,329 @@ def train_tiny_card_vs_cpu(work: str, paths: dict) -> dict:
     return result
 
 
+def medusa_gradient_witness(llama_params, hidden, labels) -> dict:
+    """The heads' gradient at the zero stack, held against the loss itself,
+    and the loss along Adam's first step.
+
+    In f32 (the hidden states and the lm_head cast up): along Adam's first
+    direction u = -g / (|g| + 1e-8) and along -g / max|g|, the central
+    difference (L(eps u) - L(-eps u)) / 2 eps agrees with autograd's
+    <g, u> within MEDUSA_FD_RTOL, or this raises. Then, in the training's
+    own dtype, the loss after the first AdamW step of each LR in
+    MEDUSA_LINE_LRS (that step moves the zero stack to lr u; the decay of a
+    zero stack is zero) on the same batch, and the training dtype's
+    gradient beside the f32 one: their cosine must reach MEDUSA_GRAD_COS."""
+    import torch
+
+    from eventgpt_tpu_torch.models import medusa as medusa_mod
+
+    d = hidden.shape[-1]
+    lp32, h32 = {"lm_head": llama_params["lm_head"].float()}, hidden.float()
+
+    def loss_at(w, lp=lp32, h=h32) -> float:
+        with torch.no_grad():
+            return float(medusa_mod.medusa_loss(lp, {"w": w}, h, labels)[0])
+
+    w0 = torch.zeros((MEDUSA_HEADS, d, d), dtype=torch.float32, device=hidden.device,
+                     requires_grad=True)
+    with torch.enable_grad():
+        (g,) = torch.autograd.grad(medusa_mod.medusa_loss(lp32, {"w": w0}, h32, labels)[0], [w0])
+    adam = -g / (g.abs() + 1e-8)
+    checks = {}
+    for name, u in (("adam_first", adam), ("steepest", -g / g.abs().max())):
+        eps = MEDUSA_FD_EPS
+        numeric = (loss_at(eps * u) - loss_at(-eps * u)) / (2 * eps)
+        autograd = float((g.double() * u.double()).sum())
+        checks[name] = {"finite_difference": numeric, "autograd": autograd,
+                        "rel_err": abs(numeric - autograd) / abs(autograd)}
+    if not all(c["rel_err"] <= MEDUSA_FD_RTOL for c in checks.values()):
+        raise AssertionError(f"medusa head gradient disagrees with the loss: {checks}")
+    del lp32, h32
+    with torch.enable_grad():
+        (g_train,) = torch.autograd.grad(
+            medusa_mod.medusa_loss(llama_params, {"w": w0}, hidden, labels)[0], [w0])
+    train_dtype = {"dtype": str(hidden.dtype),
+                   "rel_diff": float((g_train - g).norm() / g.norm()),
+                   "cosine": float((g_train.double() * g.double()).sum()
+                                   / (g_train.double().norm() * g.double().norm()))}
+    if not train_dtype["cosine"] >= MEDUSA_GRAD_COS:
+        raise AssertionError(f"medusa head gradient in {hidden.dtype} departs from f32's: "
+                             f"{train_dtype}")
+    del g_train
+    zero = torch.zeros_like(g)
+    line = {"0": loss_at(zero, llama_params, hidden)}
+    line.update({repr(lr): loss_at(lr * adam, llama_params, hidden) for lr in MEDUSA_LINE_LRS})
+    return {"eps": MEDUSA_FD_EPS, "rtol": MEDUSA_FD_RTOL, "directional": checks,
+            "train_dtype_gradient": train_dtype,
+            "grad_norm": float(g.norm()), "grad_abs_sum": float(g.abs().sum()),
+            "loss_after_first_adam_step": line}
+
+
+def medusa_train_7b(params, cfg, tokenizer, work: str, smi: str) -> dict:
+    """Medusa-head training at EventGPT-7B width on the bf16 tree already on
+    the card, through ``scripts/train_medusa.train_heads``: the motion
+    corpus (MEDUSA_CORPUS) in the work directory, MEDUSA_STEPS head steps
+    of MEDUSA_BATCH, MEDUSA_HEADS heads, lr MEDUSA_LR (``optax.adamw``'s
+    port). Counted: K1 32 inference launches a step (the hidden forward
+    under no_grad), no training launch and no backward call. Only the stack
+    moves (sampled frozen leaves by sha256). The step is then split on the
+    first batch: the hidden forward, and the heads' loss + backward +
+    update. The saved stack serves the held-out requests through
+    ``cli/serve.make_batcher`` with ``--speculative 4 --draft_head``,
+    against the same call's non-speculative oracle; ``train_medusa`` runs
+    as a subprocess for 2 steps on a tiny model on the card, and refuses
+    ``--quant int4``."""
+    import torch
+
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+    from eventgpt_tpu_torch.data.motion_corpus import build_motion_corpus
+    from eventgpt_tpu_torch.models import llama
+    from eventgpt_tpu_torch.models.eventchat import prepare_prefill
+    from eventgpt_tpu_torch.models.medusa import save_medusa
+    from eventgpt_tpu_torch.ops import flash_attention as fa
+    from eventgpt_tpu_torch.scripts import medusa_acceptance, train_medusa
+    from eventgpt_tpu_torch.train import medusa as medusa_train
+    from eventgpt_tpu_torch.train.data import EventChatDataset, batch_iterator
+    from eventgpt_tpu_torch.train.steps import batch_to_device
+
+    n_layers = cfg.llama.num_layers
+    root = os.path.join(work, "motion")
+    paths = build_motion_corpus(root, *MEDUSA_CORPUS)
+    dataset = EventChatDataset(paths["train"], tokenizer, cfg, event_folder=paths["events"],
+                               conv_version="plain")
+    first = next(batch_iterator(dataset, MEDUSA_BATCH, cfg, shuffle=True, seed=0))
+    # K1 against its plain version at the hidden forward's own shape: the
+    # first batch's padded length and right-padded lengths.
+    flash_check = check_flash_kernel([int(n) for n in first["attn_mask"].sum(1)], seed=11,
+                                     s=int(first["attn_mask"].shape[1]))
+    frozen_hash = _sha_leaves(frozen_sample(params))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.FLASH_KERNEL.launches = 0
+    for key in fa.LAUNCHES_BY_PATH:
+        fa.LAUNCHES_BY_PATH[key] = 0
+    step_ms, t_prev = [], [time.perf_counter()]
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        step_ms.append((now - t_prev[0]) * 1e3)
+        t_prev[0] = now
+
+    t0 = time.perf_counter()
+    heads, last, records = train_medusa.train_heads(
+        cfg, params, dataset, MEDUSA_HEADS, MEDUSA_STEPS, MEDUSA_BATCH, MEDUSA_LR, "cuda",
+        logging_steps=1, log=lambda line: None, on_step=on_step)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    k1 = {"launches": fa.FLASH_KERNEL.launches, "by_path": dict(fa.LAUNCHES_BY_PATH)}
+    want = {"inference": n_layers * MEDUSA_STEPS, "train_forward": 0, "recompute": 0,
+            "backward": 0}
+    if k1["by_path"] != want or k1["launches"] != n_layers * MEDUSA_STEPS:
+        raise AssertionError(f"medusa_train_7b: K1 {k1}, want {want}")
+    losses = [r["loss"] for r in records]
+    if len(records) != MEDUSA_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"medusa_train_7b: losses {losses}")
+    if _sha_leaves(frozen_sample(params)) != frozen_hash:
+        raise AssertionError("medusa_train_7b: a frozen leaf changed")
+    if not bool(heads["w"].abs().sum() > 0):
+        raise AssertionError("medusa_train_7b: the head stack did not move")
+
+    # The same steps at MEDUSA_LR_LOW, from a fresh zero stack.
+    _, low_last, low_records = train_medusa.train_heads(
+        cfg, params, dataset, MEDUSA_HEADS, MEDUSA_STEPS, MEDUSA_BATCH, MEDUSA_LR_LOW, "cuda",
+        logging_steps=1, log=lambda line: None)
+    falls = [b < a for a, b in zip(low_records[0]["per_head"], low_last["per_head"])]
+    if len(low_records) != MEDUSA_STEPS or not all(falls):
+        raise AssertionError(f"medusa_train_7b: at lr {MEDUSA_LR_LOW} the per-head losses "
+                             f"did not fall: {low_records[0]['per_head']} -> "
+                             f"{low_last['per_head']}")
+
+    # The step split on the first batch, from a fresh stack (the trained one
+    # stays as it is): the hidden forward, then loss + backward + update.
+    batch = batch_to_device(first, "cuda")
+    opt = medusa_train.make_adamw(MEDUSA_LR)
+    scratch = medusa_train.init_medusa_state(cfg, params, MEDUSA_HEADS, opt)
+    hidden = medusa_train.medusa_hidden_states(params, cfg, batch)
+    hidden_ms = cuda_time_ms(lambda: medusa_train.medusa_hidden_states(params, cfg, batch),
+                             warmup=1, iters=3)
+    update_ms = cuda_time_ms(lambda: medusa_train.medusa_head_update(
+        scratch, opt, hidden, batch["labels"]), warmup=1, iters=3)
+    witness = medusa_gradient_witness(params["llama"], hidden, batch["labels"])
+    del scratch, hidden, batch
+    heads_path = os.path.join(work, "medusa_trained_7b.npz")
+    save_medusa(heads_path, heads)
+    del heads
+    torch.cuda.empty_cache()
+
+    # The held-out requests served with the saved stack, against the oracle.
+    with open(paths["eval"]) as f:
+        entries = json.load(f)
+    traffic = medusa_acceptance.eval_traffic(cfg, tokenizer, entries, paths["events"])
+    served = {}
+    for name, flags in (("oracle", ["--no_pipeline", "--no_prefix_cache", "--prefill_budget",
+                                    "0"]),
+                        ("medusa", ["--speculative", str(SPEC_WINDOW), "--draft_head",
+                                    heads_path])):
+        args = cli_serve.build_parser().parse_args(
+            ["--max_batch", "4", "--max_len", "1024", "--chunk", "32", "--kv_cache", "int8",
+             "--kv_layout", "dense"] + flags)
+        batcher = cli_serve.make_batcher(args, params, cfg, tokenizer, "cuda")
+        tally = IdleTally(batcher)
+        t1 = time.perf_counter()
+        rids = [batcher.submit(ids, px, MEDUSA_SERVE_BUDGET) for ids, px in traffic]
+        while batcher.queue or any(r is not None for r in batcher.rows):
+            tally.step()
+        batcher._drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        chains = [batcher.finished[r] for r in rids]
+        served[name] = {"chains": chains, "wall_s": wall,
+                        "batch_tok_s": sum(len(c) for c in chains) / wall,
+                        "ttft_s": [batcher.request_stats[r]["ttft_s"] for r in rids],
+                        "no_live_row": tally.numbers(f"medusa_train_7b {name}")}
+        if batcher.speculative:
+            served[name].update({"spec_iterations": batcher.spec_iterations,
+                                 "spec_tokens": batcher.spec_tokens,
+                                 "tokens_per_live_verify": batcher.spec_tokens_per_iteration()})
+        del batcher
+        torch.cuda.empty_cache()
+    want_chains, got = served["oracle"]["chains"], served["medusa"]["chains"]
+    padded = mask = None
+    if got != want_chains:
+        padded, mask, _ = prepare_prefill(params, cfg, [t[0] for t in traffic],
+                                          [t[1] for t in traffic])
+    rule = chain_rule("medusa_train_7b served", llama, params, cfg, padded, mask, want_chains,
+                      got, SERVE_KSTEP_WINDOW, True, tokenizer.eos_token_id)
+    for run in served.values():
+        run["first_ids"] = [c[:8] for c in run.pop("chains")]
+
+    # The script itself, on a tiny model on the card, and its int4 refusal.
+    out = os.path.join(work, "medusa_tiny.npz")
+    t1 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "eventgpt_tpu_torch.scripts.train_medusa", "--model_path",
+         "tiny-random", "--data_path", paths["train"], "--event_folder", paths["events"],
+         "--conv_version", "plain", "--max_steps", "2", "--batch_size", "2",
+         "--logging_steps", "1", "--out", out],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT})
+    lines = [json.loads(x) for x in res.stdout.splitlines() if x.startswith("{")]
+    if (res.returncode != 0 or [x["step"] for x in lines] != [1, 2] or not os.path.exists(out)
+            or not all(math.isfinite(x["loss"]) for x in lines)):
+        raise AssertionError(f"train_medusa on the card exited {res.returncode}: {lines} "
+                             f"{res.stderr[-3000:]}")
+    try:
+        train_medusa.main(["--data_path", paths["train"], "--quant", "int4"])
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    if refused is None:
+        raise AssertionError("train_medusa --quant int4 did not refuse")
+    shutil.rmtree(root, ignore_errors=True)
+    warm = step_ms[1:]
+    return {
+        "config": f"EventGPT-7B bf16 tree (random, seed 0), motion corpus {MEDUSA_CORPUS} "
+                  f"(train, eval), plain conversations, {MEDUSA_HEADS} heads, "
+                  f"{MEDUSA_STEPS} steps of batch {MEDUSA_BATCH}, adamw lr {MEDUSA_LR}",
+        "batch": {"T": int(first["attn_mask"].shape[1]),
+                  "lengths": [int(x) for x in first["attn_mask"].sum(1)]},
+        "train_s": train_s, "step_ms": step_ms, "cold_step_ms": step_ms[0],
+        "warm_step_ms": sum(warm) / len(warm),
+        "split_ms_first_batch": {"hidden_forward_no_grad": hidden_ms,
+                                 "head_loss_backward_update": update_ms},
+        "per_head_loss_first": records[0]["per_head"], "per_head_loss_last": last["per_head"],
+        "loss_first": records[0]["loss"], "loss_last": last["loss"],
+        "losses": losses, "gradient_witness_first_batch": witness,
+        "grad_norm_first": records[0]["grad_norm"], "grad_norm_last": last["grad_norm"],
+        "lr_low": {"lr": MEDUSA_LR_LOW, "losses": [r["loss"] for r in low_records],
+                   "per_head_loss_first": low_records[0]["per_head"],
+                   "per_head_loss_last": low_last["per_head"]},
+        "k1_launches": k1["launches"], "k1_by_path": k1["by_path"],
+        "k1_launches_per_step": k1["launches"] / MEDUSA_STEPS,
+        "kernel_flash_medusa_shape": flash_check,
+        "peak_mem_bytes": peak, "held_before_bytes": held, "peak_above_held_bytes": peak - held,
+        "stack_f32_bytes": MEDUSA_HEADS * cfg.llama.hidden_size ** 2 * 4,
+        "frozen_sha256_unchanged": frozen_hash, "stack_moved": True,
+        "served": {**served, "vs_oracle": rule,
+                   "note": "random 7B weights: acceptance measures the mechanism, not answers"},
+        "cli_subprocess_tiny": {"returncode": 0, "seconds": time.perf_counter() - t1,
+                                "losses": [x["loss"] for x in lines]},
+        "int4_refused": refused[:80], "nvidia_smi": smi,
+    }
+
+
+def tiny_medusa_card_vs_cpu() -> dict:
+    """``medusa_loss``, its gradient and one head step (zero stack,
+    ``make_adamw``) of a tiny f32 model on the card against the CPU, TF32
+    off, within TINY_MEDUSA_ATOL."""
+    import numpy as np
+    import torch
+
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.models import medusa as medusa_mod
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.train import medusa as medusa_train
+    from eventgpt_tpu_torch.train.data import synthetic_multimodal_batch
+    from eventgpt_tpu_torch.train.steps import batch_to_device
+
+    cfg = EventChatConfig.tiny(vocab_size=260)
+    cpu = init_eventchat_params(cfg, torch.Generator().manual_seed(5), torch.float32, "cpu")
+    rng = np.random.default_rng(8)
+    size = cfg.vision.image_size
+    pix = rng.standard_normal((2, cfg.num_event_frames, 3, size, size)).astype(np.float32)
+    host = synthetic_multimodal_batch(cfg, 2, 48, event_offset=5, pixel_values=pix,
+                                      mask_event_labels=True)
+    host["token_ids"] = rng.integers(3, 259, (2, 48)).astype(np.int32)
+    host["labels"] = np.where(host["event_pos"], -100, host["token_ids"]).astype(np.int32)
+    w0 = torch.from_numpy(rng.standard_normal((MEDUSA_HEADS, 64, 64)).astype(np.float32) * 0.1)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = _to(cpu, dev)
+        batch = batch_to_device(host, dev)
+        hidden = medusa_train.medusa_hidden_states(params, cfg, batch)
+        w = w0.to(dev).requires_grad_(True)
+        loss, per_head = medusa_mod.medusa_loss(params["llama"], {"w": w}, hidden,
+                                                batch["labels"])
+        (grad,) = torch.autograd.grad(loss, [w])
+        opt = medusa_train.make_adamw(1e-3)
+        state = medusa_train.init_medusa_state(cfg, params, MEDUSA_HEADS, opt)
+        _, m = medusa_train.make_medusa_train_step(cfg, opt)(state, batch)
+        runs[dev] = [x.detach().cpu() for x in (loss, per_head, grad, m["loss"],
+                                                state.trainable["w"])]
+    names = ("loss", "per_head_loss", "grad", "step_loss", "stack_after_step")
+    diffs = {n: (a - b).abs().max().item() for n, a, b in zip(names, runs["cpu"], runs["cuda"])}
+    if not all(d <= TINY_MEDUSA_ATOL for d in diffs.values()):
+        raise AssertionError(f"tiny Medusa head step differs on the card: {diffs}")
+    return {"config": "EventChatConfig.tiny(vocab 260), f32, batch 2 x 48, 3 heads, lr 1e-3",
+            "max_abs_diff": diffs, "bar": TINY_MEDUSA_ATOL,
+            "loss_cpu": float(runs["cpu"][0]), "loss_cuda": float(runs["cuda"][0])}
+
+
+def medusa_acceptance_tiny(work: str) -> dict:
+    """The port's acceptance study (``scripts/medusa_acceptance``) at the
+    JAX script's defaults on the card, f32: the record, then the JAX gate's
+    bars. ``main`` itself raises when the three drafts' chains differ."""
+    from eventgpt_tpu_torch.scripts import medusa_acceptance
+
+    out = os.path.join(work, "medusa_acceptance")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):  # main prints the record; it is emitted below
+        record = medusa_acceptance.main(["--out_dir", out, "--log_every", "200"])
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(out, ignore_errors=True)
+    trained = record["medusa_trained"]["tokens_per_iteration"]
+    random_ = record["medusa_random"]["tokens_per_iteration"]
+    bars = {"random_within": abs(random_ - ACCEPTANCE_RANDOM) <= ACCEPTANCE_RANDOM_TOL,
+            "trained_above_min": trained > ACCEPTANCE_TRAINED_MIN,
+            "trained_above_random": trained > random_ + ACCEPTANCE_TRAINED_OVER_RANDOM}
+    if not all(bars.values()):
+        raise AssertionError(f"medusa_acceptance_tiny misses the JAX gate's bars: {bars}, "
+                             f"{record}")
+    return {**record, "bars": bars, "seconds": seconds}
+
+
 def main() -> int:
     import argparse
 
@@ -2945,6 +3389,8 @@ def main() -> int:
             train_runs[stage] = train_7b(stage, params, cfg, tokenizer, train_paths, work,
                                          profile_dir=args.profile)
             emit(f"train_stage{stage}_7b", {**train_runs[stage], "nvidia_smi": smi})
+        medusa_7b = medusa_train_7b(params, cfg, tokenizer, work, smi)
+        emit("medusa_train_7b", medusa_7b)
         del params
         torch.cuda.empty_cache()
 
@@ -2959,6 +3405,8 @@ def main() -> int:
         emit("tiny_checkpoint_card_vs_cpu", tiny_checkpoint_card_vs_cpu(work))
         emit("serve_http_tiny", serve_http_tiny(work))
         emit("train_tiny_card_vs_cpu", train_tiny_card_vs_cpu(work, train_paths))
+        emit("tiny_medusa_card_vs_cpu", tiny_medusa_card_vs_cpu())
+        emit("medusa_acceptance_tiny", medusa_acceptance_tiny(work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3000,7 +3448,8 @@ def main() -> int:
                              **{f"train_stage{st}": run["k1_launches"]
                                 for st, run in train_runs.items()},
                              **{f"train_stage{st}_eval": run["eval"]["k1_inference"]
-                                for st, run in train_runs.items()}},
+                                for st, run in train_runs.items()},
+                             "medusa_train": medusa_7b["k1_launches"]},
         "train_launches_by_path": {f"train_stage{st}": run["k1_by_path"]
                                    for st, run in train_runs.items()},
         "train_launches_per_micro_step": {f"train_stage{st}": run["k1_launches_per_micro_step"]

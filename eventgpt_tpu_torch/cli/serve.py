@@ -206,6 +206,10 @@ class ServingEngine:
             "prefill_dispatches": b.prefill_dispatches,
             "dispatches": dict(b.dispatches),
             "segments": b.seg_count,
+            # Steps (verifies when speculative) run, and those run with no
+            # live row.
+            "decode_steps_run": b.decode_steps_run,
+            "idle_steps": b.idle_steps,
             "pipeline": b.pipeline,
             "overlap_ratio": round(b.overlap_ratio(), 4),
             "prefill_budget": b.prefill_budget,
@@ -217,6 +221,8 @@ class ServingEngine:
         }
         if b.speculative:
             snap["spec_tokens_per_iteration"] = round(b.spec_tokens_per_iteration(), 2)
+            snap["spec_iterations"] = b.spec_iterations
+            snap["idle_verifies"] = b.idle_verifies
             snap["spec"] = b.spec_stats()
         pool = b.pool_stats()
         if pool is not None:

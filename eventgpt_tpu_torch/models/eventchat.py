@@ -435,6 +435,18 @@ def _spec_commit_sampled(p: torch.Tensor, drafts: torch.Tensor, u: torch.Tensor,
     return a, _categorical(p_adj, generator)
 
 
+def _spec_sample_accept(p: torch.Tensor, drafts: torch.Tensor,
+                        generator: Optional[torch.Generator]):
+    """``_spec_commit_sampled`` with its own draws, in the order every
+    sampled verify makes them: the (B, W - 1) uniforms of the draft tests,
+    then the correction. A serving segment that skips a verify
+    (``serve._spec_segment``, ``run=False``) calls it too, so that the
+    generator advances as the verify would have advanced it."""
+    b, w, _ = p.shape
+    u = torch.rand((b, w - 1), generator=generator, device=p.device)
+    return _spec_commit_sampled(p, drafts, u, generator)
+
+
 def _spec_draft_verify(params: Params, cfg: EventChatConfig, ids_buf: torch.Tensor,
                        pos: torch.Tensor, cache, generator: Optional[torch.Generator],
                        window: int, temperature: float, top_p: float, eos: int,
@@ -482,9 +494,8 @@ def _spec_draft_verify(params: Params, cfg: EventChatConfig, ids_buf: torch.Tens
     else:
         logits, _ = llama_mod.decode_kstep(params["llama"], cfg.llama, embeds, cache)
     if temperature > 0.0:
-        p = _spec_probs(logits, temperature, top_p)
-        u = torch.rand((b, window - 1), generator=generator, device=device)
-        a, corrected = _spec_commit_sampled(p, drafts, u, generator)
+        a, corrected = _spec_sample_accept(_spec_probs(logits, temperature, top_p), drafts,
+                                           generator)
     else:
         g = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, W)
         a = torch.cumprod((drafts == g[:, :-1]).to(torch.int32), dim=1).sum(dim=1)

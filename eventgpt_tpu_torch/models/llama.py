@@ -335,6 +335,7 @@ def prefill(
     cache: KVCache,
     last_only: bool = False,
     return_hidden: bool = False,
+    with_logits: bool = True,
 ):
     """Run the full prompt; returns (f32 logits, cache filled in place).
 
@@ -344,7 +345,9 @@ def prefill(
     each row's last real token instead of (B, T, V). ``return_hidden``
     returns (logits, final-norm hidden, cache): the hidden is (B, D) at the
     last real token with ``last_only``, (B, T, D) otherwise (the seed of
-    the Medusa heads' first drafts).
+    the Medusa heads' first drafts). ``with_logits=False`` skips the
+    lm_head and gives None in the logits' place (Medusa training needs
+    the hidden states alone).
     """
     if _kv_is_paged(cache):
         # Serving prefills a dense row cache and scatters it into the
@@ -364,7 +367,7 @@ def prefill(
     if last_only:
         idx = (lengths - 1).clamp_min(0).long()
         x = x[torch.arange(b, device=x.device), idx]  # (B, D)
-    logits = _mm_f32(x, params["lm_head"])
+    logits = _mm_f32(x, params["lm_head"]) if with_logits else None
     if return_hidden:
         return logits, x, cache
     return logits, cache

@@ -10,8 +10,8 @@ Logits go through the frozen, possibly quantized ``lm_head`` (K4 under
 ``--quant int4``). Zero heads give the base model's own next-token logits.
 
 Verification makes any draft exact (``models/eventchat._spec_draft_verify``):
-head quality moves the speed, never the chain. Training the heads
-(``medusa_loss``) is not ported.
+head quality moves the speed, never the chain. ``medusa_loss`` is the
+heads' training objective (``train/medusa.py`` fits the stack with it).
 """
 
 from __future__ import annotations
@@ -66,6 +66,36 @@ def medusa_drafts(llama_params: Any, medusa: MedusaParams, x: torch.Tensor,
         raise ValueError(f"window needs {k} drafts but the Medusa stack has {n} heads "
                          f"(train with num_heads >= window - 1)")
     return torch.argmax(medusa_logits(llama_params, medusa, x, k), dim=-1).to(torch.int32)
+
+
+def medusa_loss(llama_params: Any, medusa: MedusaParams, hidden: torch.Tensor,
+                labels: torch.Tensor, ignore_index: int = -100):
+    """Sum over heads of the next-(k+2)-token cross entropy, in f32.
+
+    ``hidden`` (B, T, D) is the final-norm hidden (``llama.prefill`` with
+    ``return_hidden=True``), ``labels`` (B, T) the token ids with
+    ``ignore_index`` masked. Head k at position t scores ``labels[t + k +
+    2]``; positions whose target lies past the end or is ``ignore_index``
+    contribute nothing, and a head with no valid target gives 0.0. Returns
+    (loss, per-head mean cross entropy (K,))."""
+    t = hidden.shape[1]
+    k = num_draft_heads(medusa)
+    logp = torch.log_softmax(medusa_logits(llama_params, medusa, hidden).float(), dim=-1)
+    zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    losses = []
+    for ki in range(k):
+        off = ki + 2
+        val = t - off
+        if val <= 0:
+            losses.append(zero)
+            continue
+        tgt = labels[:, off:].long()                 # (B, T - off)
+        valid = tgt != ignore_index
+        safe = torch.where(valid, tgt, torch.zeros_like(tgt))
+        ce = -torch.gather(logp[:, :val, ki], 2, safe[:, :, None])[:, :, 0]
+        losses.append(torch.where(valid, ce, zero).sum() / valid.sum().clamp_min(1))
+    per_head = torch.stack(losses)
+    return per_head.sum(), per_head
 
 
 def save_medusa(path: str, medusa: MedusaParams) -> None:

@@ -398,12 +398,12 @@ class _LiveFlags:
             self.host = [None] * n
 
 
-def _flag_record(flags: _LiveFlags, i: int, live: torch.Tensor) -> None:
+def _flag_record(flags: _LiveFlags, i: int, any_live: torch.Tensor) -> None:
     if flags.cuda:
-        flags.host[i].copy_(live.any(), non_blocking=True)
+        flags.host[i].copy_(any_live, non_blocking=True)
         flags.events[i].record()
     else:
-        flags.host[i] = live.any()
+        flags.host[i] = any_live
 
 
 def _flag_read(flags: _LiveFlags, i: int) -> bool:
@@ -413,24 +413,40 @@ def _flag_read(flags: _LiveFlags, i: int) -> bool:
     return bool(flags.host[i])
 
 
+def _frozen_reader(flags: _LiveFlags, run: bool, steps: int, n: int):
+    """A segment's ``all_frozen``, for one that ran ``steps`` of at most
+    ``n``: a function telling whether the host knows the segment's
+    ``frozen_out`` is all True. A segment that ran none, or stopped on its
+    flag, knows it. One that ran all ``n`` knows it when no row was live
+    entering its last step, a flag read only when asked: the next dispatch
+    asks before any segment records flags again, so the segment's own end
+    waits on nothing."""
+    if not run or steps < n:
+        return lambda: True
+    return lambda: not _flag_read(flags, n - 1)
+
+
 @torch.inference_mode()
 def _decode_segment(params, cfg: EventChatConfig, logits, cache, generator, frozen, n_rem,
                     chunk: int, eos_token_id: int, temperature: float = 0.0,
                     top_p: float = 1.0, flags: Optional[_LiveFlags] = None,
-                    after_first_step=None):
+                    after_first_step=None, run: bool = True):
     """Up to ``chunk`` decode steps over the shared batch, the cache
     updated in place.
 
     ``frozen`` (B,) bool marks free rows and rows already finished;
     ``n_rem`` (B,) int32 is each row's remaining budget. Returns (tokens
     (B, chunk), n_new (B,), done (B,), finite (B,), logits, frozen_out,
-    n_rem_out, steps): ``tokens[r, :n_new[r]]`` are row r's newly
-    committed tokens, ``done`` marks rows that hit EOS inside this
+    n_rem_out, lived, steps, all_frozen): ``tokens[r, :n_new[r]]`` are
+    row r's newly committed tokens, ``done`` marks rows that hit EOS inside this
     segment, ``finite`` whether each row's final logits are all finite;
     ``frozen_out``/``n_rem_out`` are the next segment's control state,
     computed on the device with the host harvest's bookkeeping (freeze on
-    EOS, an exhausted budget or non-finite logits); ``steps`` is the host
-    count of steps run.
+    EOS, an exhausted budget or non-finite logits); ``lived`` counts on
+    the device the steps that had a live row (the JAX loop's count),
+    ``steps`` is the host count of steps run, and ``all_frozen`` the
+    ``_frozen_reader`` that tells whether the host knows ``frozen_out`` is
+    all True.
 
     The stop rule: before step t >= 1 the host reads whether any row was
     live entering step t - 1, a flag written before step t - 1 was
@@ -439,11 +455,16 @@ def _decode_segment(params, cfg: EventChatConfig, logits, cache, generator, froz
     it commits nothing. Synchronous and pipelined schedulers run the same
     rule, so they run the same steps and draw the same samples.
 
-    ``after_first_step`` is called once the first step is launched: the
-    pipelined scheduler harvests the previous segment there, while the
-    card runs this one (the host launches every step itself, so waiting
-    for the whole launch would hold the previous segment's tokens back by
-    a segment of host time).
+    ``run=False`` is the segment whose carry the host knows is all frozen:
+    it runs no step, as the JAX loop runs none, and makes the draw of the
+    step it skips (the stop rule's first step), so that a scheduler that
+    still launches that step draws the same.
+
+    ``after_first_step`` is called once the first step is launched (at the
+    end when none runs): the pipelined scheduler harvests the previous
+    segment there, while the card runs this one (the host launches every
+    step itself, so waiting for the whole launch would hold the previous
+    segment's tokens back by a segment of host time).
     """
     b = logits.shape[0]
     dev = logits.device
@@ -452,15 +473,20 @@ def _decode_segment(params, cfg: EventChatConfig, logits, cache, generator, froz
     tokens = torch.full((b, chunk), eos_token_id, dtype=torch.int32, device=dev)
     n_new = torch.zeros((b,), dtype=torch.int32, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    lived = torch.zeros((), dtype=torch.int32, device=dev)
     eos = torch.full((), eos_token_id, dtype=torch.int32, device=dev)
     live = ~frozen & (n_rem > 0)
-    _flag_record(flags, 0, live)
+    any_live = live.any()
+    _flag_record(flags, 0, any_live)
     steps = 0
-    for t in range(chunk):
+    if not run:
+        sample(logits, generator, temperature, top_p)
+    for t in range(chunk if run else 0):
         if t and not _flag_read(flags, t - 1):
             break
         nxt = sample(logits, generator, temperature, top_p)
         commit = live
+        lived += any_live
         nxt = torch.where(commit, nxt, eos)
         tokens[:, t] = torch.where(commit, nxt, tokens[:, t])
         n_new = n_new + commit.to(torch.int32)
@@ -473,14 +499,18 @@ def _decode_segment(params, cfg: EventChatConfig, logits, cache, generator, froz
         steps += 1
         live = ~(frozen | done) & (n_new < n_rem)
         if t + 1 < chunk:
-            _flag_record(flags, t + 1, live)
+            any_live = live.any()
+            _flag_record(flags, t + 1, any_live)
         if t == 0 and after_first_step is not None:
             after_first_step()
+    if not steps and after_first_step is not None:
+        after_first_step()
+    all_frozen = _frozen_reader(flags, run, steps, chunk)
     finite = torch.isfinite(logits).all(dim=-1)
     n_rem_out = n_rem - n_new
     frozen_out = frozen | done | (n_rem_out <= 0) | ~finite
     n_rem_out = torch.where(frozen_out, torch.zeros_like(n_rem_out), n_rem_out)
-    return tokens, n_new, done, finite, logits, frozen_out, n_rem_out, steps
+    return tokens, n_new, done, finite, logits, frozen_out, n_rem_out, lived, steps, all_frozen
 
 
 @torch.inference_mode()
@@ -512,16 +542,21 @@ def _mixed_decode_segment(params, cfg: EventChatConfig, logits, cache, generator
                           lane_embeds, lane_cache, lane_start, lane_new_len, lane_last_idx,
                           chunk: int, chunk_p: int, eos_token_id: int, temperature: float = 0.0,
                           top_p: float = 1.0, flags: Optional[_LiveFlags] = None,
-                          after_first_step=None):
+                          after_first_step=None, run: bool = True):
     """The mixed segment: ``_decode_segment`` plus the piggybacked prefill
     lanes in one dispatch. The halves touch disjoint state (shared cache
     rows against lane cache rows), so the decode rows commit tokens in the
-    same dispatch that advances the admissions. Returns the decode outputs
-    followed by ``_lane_advance``'s."""
+    same dispatch that advances the admissions. With ``run=False`` (every
+    row frozen) the lanes advance alone, and the previous segment is
+    harvested once they are launched. Returns the decode outputs followed
+    by ``_lane_advance``'s."""
     dec = _decode_segment(params, cfg, logits, cache, generator, frozen, n_rem, chunk,
-                          eos_token_id, temperature, top_p, flags, after_first_step)
+                          eos_token_id, temperature, top_p, flags,
+                          after_first_step if run else None, run)
     lane = _lane_advance(params, cfg, lane_embeds, lane_cache, lane_start, lane_new_len,
                          lane_last_idx, chunk_p)
+    if not run and after_first_step is not None:
+        after_first_step()
     return dec + lane
 
 
@@ -530,7 +565,7 @@ def _spec_segment(params, cfg: EventChatConfig, cache, generator, ids_buf, base_
                   n_rem, n_iters: int, window: int, eos_token_id: int,
                   temperature: float = 0.0, top_p: float = 1.0, history=None, medusa=None,
                   drafts=None, depth=None, flags: Optional[_LiveFlags] = None,
-                  after_first_step=None):
+                  after_first_step=None, run: bool = True):
     """Up to ``n_iters`` speculative verify iterations over the shared
     batch, the serving form of ``eventchat._spec_loop`` (the same drafts
     and verification), with per-row budgets and a frozen mask. The cache,
@@ -548,16 +583,18 @@ def _spec_segment(params, cfg: EventChatConfig, cache, generator, ids_buf, base_
     ``depth`` (B,) caps each row's drafts (None = full depth).
 
     Returns (n_new, done, iterations, frozen_out, n_rem_out, base_pos_out,
-    row_acc, row_off, pos_acc, pos_off) on the device and ``steps``, the
-    host count of iterations run: ``iterations`` counts the verifies that
-    had a live row (the JAX loop's count), ``*_out`` are the next segment's
-    control state, and the four before ``steps`` are the uncapped accepted
-    / offered draft counts per row and per draft position, the adaptive
-    controller's input.
+    row_acc, row_off, pos_acc, pos_off) on the device, then ``steps``, the
+    host count of iterations run, and ``all_frozen`` (``_decode_segment``'s).
+    ``iterations`` counts the verifies that had a live row (the JAX loop's
+    count), ``*_out`` are the next segment's control state, and the four
+    before ``steps`` are the uncapped accepted / offered draft counts per
+    row and per draft position, the adaptive controller's input.
 
     The stop rule is ``_decode_segment``'s: before iteration t >= 1 the
     host reads whether any row was live entering iteration t - 1. The one
-    iteration past the last live one commits nothing.
+    iteration past the last live one commits nothing. ``run=False`` runs
+    no iteration and makes the draws of the verify it skips, as
+    ``_decode_segment`` makes its step's.
     """
     b, s_ids = ids_buf.shape
     dev = ids_buf.device
@@ -579,13 +616,20 @@ def _spec_segment(params, cfg: EventChatConfig, cache, generator, ids_buf, base_
     pos_acc = torch.zeros((d_w,), dtype=torch.int32, device=dev)
     pos_off = torch.zeros((d_w,), dtype=torch.int32, device=dev)
     live = ~frozen & (n_rem > 0)
-    _flag_record(flags, 0, live)
+    any_live = live.any()
+    _flag_record(flags, 0, any_live)
     steps = 0
-    for t in range(n_iters):
+    if not run and temperature > 0.0:
+        # The skipped verify's draws; they do not depend on the values of
+        # its probabilities and drafts.
+        eventchat._spec_sample_accept(
+            torch.ones((b, window, eventchat._vocab_size(params)), device=dev),
+            torch.full((b, window - 1), -1, dtype=torch.int32, device=dev), generator)
+    for t in range(n_iters if run else 0):
         if t and not _flag_read(flags, t - 1):
             break
         active = live
-        iters = iters + active.any().to(torch.int32)
+        iters += any_live
         pos = base_pos + n_new
         commit, m_count, first_eos, hit, drafts_w = eventchat._spec_draft_verify(
             params, cfg, ids_buf, pos, cache, generator, window, temperature, top_p,
@@ -617,14 +661,18 @@ def _spec_segment(params, cfg: EventChatConfig, cache, generator, ids_buf, base_
         steps += 1
         live = ~(frozen | done) & (n_new < n_rem)
         if t + 1 < n_iters:
-            _flag_record(flags, t + 1, live)
+            any_live = live.any()
+            _flag_record(flags, t + 1, any_live)
         if t == 0 and after_first_step is not None:
             after_first_step()
+    if not steps and after_first_step is not None:
+        after_first_step()
+    all_frozen = _frozen_reader(flags, run, steps, n_iters)
     n_rem_out = n_rem - n_new
     frozen_out = frozen | done | (n_rem_out <= 0)
     n_rem_out = torch.where(frozen_out, torch.zeros_like(n_rem_out), n_rem_out)
     return (n_new, done, iters, frozen_out, n_rem_out, base_pos + n_new,
-            row_acc, row_off, pos_acc, pos_off, steps)
+            row_acc, row_off, pos_acc, pos_off, steps, all_frozen)
 
 
 @torch.inference_mode()
@@ -633,17 +681,20 @@ def _mixed_spec_segment(params, cfg: EventChatConfig, cache, generator, ids_buf,
                         lane_last_idx, n_iters: int, window: int, chunk_p: int,
                         eos_token_id: int, temperature: float = 0.0, top_p: float = 1.0,
                         history=None, medusa=None, drafts=None, depth=None,
-                        flags: Optional[_LiveFlags] = None, after_first_step=None):
+                        flags: Optional[_LiveFlags] = None, after_first_step=None,
+                        run: bool = True):
     """The mixed segment, speculative form: ``_spec_segment`` plus the
     piggybacked prefill lanes in one dispatch (see
-    ``_mixed_decode_segment``); the lane cache keeps its own ``length``.
-    Returns the spec outputs followed by ``_lane_advance``'s."""
+    ``_mixed_decode_segment``, also for ``run``); the lane cache keeps its
+    own ``length``. Returns the spec outputs followed by ``_lane_advance``'s."""
     spec = _spec_segment(params, cfg, cache, generator, ids_buf, base_pos, frozen, n_rem,
                          n_iters, window, eos_token_id, temperature, top_p, history=history,
                          medusa=medusa, drafts=drafts, depth=depth, flags=flags,
-                         after_first_step=after_first_step)
+                         after_first_step=after_first_step if run else None, run=run)
     lane = _lane_advance(params, cfg, lane_embeds, lane_cache, lane_start, lane_new_len,
                          lane_last_idx, chunk_p)
+    if not run and after_first_step is not None:
+        after_first_step()
     return spec + lane
 
 
@@ -1160,6 +1211,7 @@ class ContinuousBatcher:
         # stale (the host changed rows, always drained) -> uploaded from
         # the host mirror at the next dispatch.
         self._dev_carry = None
+        self._dev_carry_frozen = None  # the carry's segment's ``all_frozen``
         self._flags = _LiveFlags(chunk, self.device)
         self.reset_serving_stats()
 
@@ -1186,6 +1238,10 @@ class ContinuousBatcher:
         self.seg_count = 0
         self.decode_steps = 0
         self.decode_steps_run = 0
+        # Decode steps and verifies run with no live row (the stop rule's
+        # one step past the last live one): the JAX loop runs none.
+        self.idle_steps = 0
+        self.idle_verifies = 0
         self.device_segment_s = 0.0
         self.host_gap_s = 0.0
         self.overlap_hidden_s = 0.0
@@ -1791,7 +1847,8 @@ class ContinuousBatcher:
             # Only reserved (pending) rows: nothing to decode yet. The
             # mirror lags only toward more frozen, so the carry is all
             # frozen too. Live lanes fall through: the mixed dispatch
-            # advances them while the decode half idles.
+            # advances them alone, with no decode step and no verify
+            # (``_dispatch_segment``'s ``run``).
             self._drain()
             return
         chunk = self.chunk
@@ -1927,6 +1984,13 @@ class ContinuousBatcher:
                         if self.speculative else None)
             self.carry_uploads += 1
         mixed = (warm_mixed or len(self._lanes) > 0) and self._lane_cache is not None
+        # No step and no verify when the host knows every row is frozen: the
+        # mirror shows it (it lags only toward more frozen), or the segment
+        # before knows that its carry is (its ``all_frozen``, asked here).
+        # The JAX loop runs zero iterations there. Warmup's carry runs its
+        # step.
+        run = carry is not None or not (self.frozen.all() or (
+            self._dev_carry is not None and self._dev_carry_frozen()))
         rec = {"chunk": chunk, "wait_at_dispatch": self.device_segment_s}
         lane_out = None
         if mixed:
@@ -1942,18 +2006,18 @@ class ContinuousBatcher:
             history = (_h2d(self._history.astype(np.int32), self.device)
                        if self._history is not None else None)
             kw = dict(history=history, medusa=self.draft_head, drafts=self.spec_drafts,
-                      depth=depth, flags=self._flags, after_first_step=harvest_prev)
+                      depth=depth, flags=self._flags, after_first_step=harvest_prev, run=run)
             head = (self.params, self.cfg, self.cache, self.generator, self.ids_buf, base_pos,
                     frozen, n_rem)
             if mixed:
                 out = _mixed_spec_segment(*head, *lane_args, n_iters, w, self._lane_chunk,
                                           self.eos, self.temperature, self.top_p, **kw)
-                out, lane_out = out[:11], out[11:]
+                out, lane_out = out[:12], out[12:]
             else:
                 out = _spec_segment(*head, n_iters, w, self.eos, self.temperature, self.top_p,
                                     **kw)
             (n_new, done, iters, frozen_out, n_rem_out, base_pos_out,
-             row_acc, row_off, pos_acc, pos_off, steps) = out
+             row_acc, row_off, pos_acc, pos_off, steps, all_frozen) = out
             # Only the slots the segment could have written come back
             # (n_iters * window <= max(chunk, window) a row), from the
             # segment's own base.
@@ -1965,16 +2029,17 @@ class ContinuousBatcher:
                 out = _mixed_decode_segment(
                     self.params, self.cfg, self.logits, self.cache, self.generator, frozen,
                     n_rem, *lane_args, chunk, self._lane_chunk, self.eos, self.temperature,
-                    self.top_p, self._flags, harvest_prev)
-                out, lane_out = out[:8], out[8:]
+                    self.top_p, self._flags, harvest_prev, run)
+                out, lane_out = out[:10], out[10:]
             else:
                 out = _decode_segment(
                     self.params, self.cfg, self.logits, self.cache, self.generator, frozen,
                     n_rem, chunk, self.eos, self.temperature, self.top_p, self._flags,
-                    harvest_prev)
-            tokens, n_new, done, fin, self.logits, frozen_out, n_rem_out, steps = out
+                    harvest_prev, run)
+            (tokens, n_new, done, fin, self.logits, frozen_out, n_rem_out, lived, steps,
+             all_frozen) = out
             base_pos_out = None
-            host = [tokens, n_new, done, fin, frozen]
+            host = [tokens, n_new, done, fin, frozen, lived]
         if lane_out is not None:
             # Lane bookkeeping at dispatch: the advance is deterministic, so
             # the next boundary's lane arguments need no fetch. A finished
@@ -1992,8 +2057,10 @@ class ContinuousBatcher:
                 rec["n_lanes"] = len(lane_adv)
         if record:
             self._dev_carry = (frozen_out, n_rem_out, base_pos_out)
+            self._dev_carry_frozen = all_frozen
             self.seg_count += 1
             self.decode_steps_run += steps
+            rec["steps"] = steps
         rec["host"], rec["event"] = _fetch_async(host)
         rec["t_dispatch"] = time.perf_counter()
         return rec
@@ -2015,7 +2082,7 @@ class ContinuousBatcher:
              pos_off) = (t.numpy() for t in rec["host"])
             tokens = finite = None
         else:
-            tokens, n_new, done, finite, frozen_in = (t.numpy() for t in rec["host"])
+            tokens, n_new, done, finite, frozen_in, lived = (t.numpy() for t in rec["host"])
         t_end = time.perf_counter()
         wait = t_end - t_fetch
         if wait > 1e-4:
@@ -2027,6 +2094,7 @@ class ContinuousBatcher:
         self._t_prev_fetch_end = t_end
         self.decode_steps += int(n_new.max(initial=0))
         if spec:
+            self.idle_verifies += rec["steps"] - int(iters)
             self.spec_iterations += int(iters)
             self.spec_tokens += int(n_new.sum())
             if self._spec_ctl is not None:
@@ -2036,6 +2104,8 @@ class ContinuousBatcher:
                     [(req.rid, int(row_acc[r]), int(row_off[r]))
                      for r, req in enumerate(self.rows) if req is not None and not frozen_in[r]],
                     [int(x) for x in pos_acc], [int(x) for x in pos_off])
+        else:
+            self.idle_steps += rec["steps"] - int(lived)
         if rec.get("n_lanes"):
             live = ~frozen_in
             if live.any():

@@ -51,6 +51,10 @@ def test_port_imports_no_jax_and_no_jax_package():
             "eventgpt_tpu_torch.train.data",
             "eventgpt_tpu_torch.train.steps",
             "eventgpt_tpu_torch.train.trainer",
+            "eventgpt_tpu_torch.train.medusa",
+            "eventgpt_tpu_torch.data.motion_corpus",
+            "eventgpt_tpu_torch.scripts.train_medusa",
+            "eventgpt_tpu_torch.scripts.medusa_acceptance",
             "eventgpt_tpu_torch.cli.train"} <= set(found["modules"])
     assert found["bad"] == [], f"the port pulled in: {found['bad']}"
 

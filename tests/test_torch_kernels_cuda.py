@@ -599,3 +599,33 @@ def test_paged_prefix_hit_copies_the_shared_tail_block_before_writing():
             after = [srv.cache[p][:, entry.blocks] for p in ("k", "v")]
             assert all(torch.equal(x, y) for x, y in zip(before, after))
     assert chains[True] == chains[False] and len(chains[True]) == 8
+
+
+@pytest.mark.cuda
+def test_medusa_loss_and_gradient_on_the_card_match_the_cpu():
+    """``medusa_loss`` and its gradient at the tiny width, f32 on the card
+    (TF32 off) against the CPU, within 1e-5."""
+    from eventgpt_tpu_torch.models import medusa as medusa_mod
+
+    dev = _card()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = torch.Generator().manual_seed(0)
+        d, v, k = 64, 256, 3
+        hidden = torch.randn((2, 12, d), generator=g)
+        head = torch.randn((v, d), generator=g) * 0.1
+        labels = torch.randint(0, v, (2, 12), generator=g)
+        labels[0, :3] = -100
+        w = torch.randn((k, d, d), generator=g) * 0.1
+        got = {}
+        for device in ("cpu", dev):
+            wd = w.to(device).requires_grad_(True)
+            loss, per_head = medusa_mod.medusa_loss({"lm_head": head.to(device)}, {"w": wd},
+                                                    hidden.to(device), labels.to(device))
+            (grad,) = torch.autograd.grad(loss, [wd])
+            got[str(device)] = (loss.detach().cpu(), per_head.detach().cpu(), grad.cpu())
+        for a, b in zip(got["cpu"], got[str(dev)]):
+            torch.testing.assert_close(b, a, atol=1e-5, rtol=0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
