@@ -84,7 +84,28 @@ Phases, each printed on its own line:
                    frozen added more than one;
                    after ``slice_spec_int4``, ``serve_spec_int4``
                    (``--quant int4 --speculative 4``, dense) against an int4
-                   oracle, with K4 launches by (path, M);
+                   oracle, with K4 launches by (path, M).
+                   ``kernel_flash_preempt_shapes`` holds K1 against its
+                   plain version at the admission wave of the two batch
+                   requests (B = 2) and at one request's full prefill (B =
+                   1), each padded to its prompt bucket;
+                   ``serve_preempt_7b_*``: 3 rows on a 40-block pool, two
+                   batch requests (128 tokens) and, after the first harvest,
+                   an interactive one (16 tokens) that the free blocks
+                   cannot cover: preemption off (it defers), ``--preempt
+                   --spill_capacity_mb 1024`` (the victim's run spills to
+                   pinned host memory and restores) and ``--spill_capacity_mb
+                   0`` (drop and re-prefill), each held to the requests run
+                   alone (``chain_rule``): preemptions, spills, restores,
+                   deferrals, the gather's bytes, copy and allocation ms
+                   and GB/s, restore ms, each victim's way back, TTFT,
+                   latency, ``slo_stats()``, and the pool clean after the
+                   drain. ``serve_handoff_7b_*``: a prefill-role and a
+                   decode-role batcher over the same tree, the four
+                   requests gathered, spliced and drained, plain and with
+                   ``--speculative 4``, against the colocated run: shipped
+                   blocks and bytes, gather and splice ms, the rebased
+                   TTFT, both pools clean;
 6. slice_int8_fused -- ``--quant int8 --fuse_params`` with a bf16 cache;
 7. checkpoint_7b -- phase 3's bf16 tree written as a sharded HF checkpoint
                    (``convert.write_hf_checkpoint``) into the work directory,
@@ -149,7 +170,11 @@ Phases, each printed on its own line:
                    (plain and with a gated Q-Former);
                    ``serve_http_tiny`` runs ``cli/serve.build_server`` on the
                    card over a tiny bf16 checkpoint (``--model_path DIR``,
-                   prefill through K1) and answers two POST /v1/generate;
+                   prefill through K1) and answers three POST /v1/generate
+                   (the third SLO-classed, scored in GET /stats);
+                   ``tiny_preempt_card_vs_cpu``: the CPU tests' preemption
+                   scenario (spill forced, f32 and int8 KV; drop) gives
+                   the same chains and counters on the card;
                    ``train_tiny_card_vs_cpu``: one f32 stage-1 and stage-2
                    step agree on the card and the CPU, and ``cli.train``
                    trains 2 steps on the card in a subprocess;
@@ -324,6 +349,32 @@ RESUME_LOSS_ATOL = 1e-3
 TINY_TRAIN_ATOL = 1e-4
 # The verifies before the repair, as PERF.md records them: (with no live
 # row, run), on the same traffic and flags.
+# serve_preempt_7b: two batch requests (streams 100, 101) of
+# PREEMPT_BATCH_BUDGET tokens reserve 15-16 blocks each of a pool of
+# PREEMPT_POOL_BLOCKS (the scratch block included; one block of 64 int8
+# positions is 17.3 MB at 7B); after the first harvest an interactive one
+# (stream 102, PREEMPT_INTER_BUDGET tokens) needs 14 of the 7-8 free. Each
+# arm is PREEMPT_FLAGS (3 rows, the JAX CLI's scheduler defaults) plus its
+# own.
+PREEMPT_POOL_BLOCKS = 40
+PREEMPT_BATCH_BUDGET = 128
+PREEMPT_INTER_BUDGET = 16
+PREEMPT_BATCH_LATENCY_S = 30.0
+PREEMPT_INTER_TTFT_S = 1.0
+PREEMPT_INTER_ITL_S = 0.25
+PREEMPT_FLAGS = ["--max_batch", "3", "--max_len", "1024", "--chunk", "32", "--kv_cache",
+                 "int8", "--kv_layout", "paged"]
+PREEMPT_ARMS = [
+    ("preempt_off", ["--kv_pool_blocks", str(PREEMPT_POOL_BLOCKS)]),
+    ("spill", ["--kv_pool_blocks", str(PREEMPT_POOL_BLOCKS), "--preempt",
+               "--spill_capacity_mb", "1024"]),
+    ("drop", ["--kv_pool_blocks", str(PREEMPT_POOL_BLOCKS), "--preempt",
+              "--spill_capacity_mb", "0"]),
+    # Exclusive admission: with lanes (the default) the head prefills 32
+    # positions a boundary behind the decoding row; here it prefills at once.
+    ("spill_no_lanes", ["--kv_pool_blocks", str(PREEMPT_POOL_BLOCKS), "--preempt",
+                        "--spill_capacity_mb", "1024", "--prefill_budget", "0"]),
+]
 IDLE_VERIFIES_BEFORE_REPAIR = {"serve_spec_paged_lookup": (46, 68),
                                "serve_spec_dense_lookup": (46, 68),
                                "serve_spec_paged_adaptive": (46, 68),
@@ -1429,6 +1480,428 @@ def serve_spec_int4(eventchat, llama, params_int4, cfg, tokenizer, requests, cou
     return launches, by_m
 
 
+def preempt_oracle_run(params, cfg, tokenizer, req) -> tuple:
+    """One of ``serve_preempt_7b``'s requests alone on an ample pool (the
+    dense capacity), with the arms' flags but no preemption: (numbers,
+    chain)."""
+    import torch
+
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+
+    args = cli_serve.build_parser().parse_args(PREEMPT_FLAGS)
+    batcher = cli_serve.make_batcher(args, params, cfg, tokenizer, "cuda")
+    rid = batcher.submit(*req)
+    t0 = time.perf_counter()
+    chain = batcher.run_until_drained()[rid]
+    torch.cuda.synchronize()
+    st = batcher.request_stats[rid]
+    out = {"wall_s": time.perf_counter() - t0, "ttft_s": st["ttft_s"],
+           "latency_s": st["latency_s"], "itl_s": st["itl_s"], "tokens": len(chain),
+           "admission_s": batcher.admission_s, "dispatches": dict(batcher.dispatches),
+           "param_count": batcher._spill_param_count, "status": batcher.finish_status[rid]}
+    del batcher
+    torch.cuda.empty_cache()
+    return out, chain
+
+
+def preempt_run(params, cfg, tokenizer, reqs, flags) -> tuple:
+    """One arm of ``serve_preempt_7b``: the batcher ``cli/serve`` builds from
+    ``flags`` (``make_batcher``), stepped in this thread. The two batch
+    requests are queued first (one admission wave); the interactive one is
+    submitted after the first harvest, when the free blocks cannot cover
+    it. Each restore is timed between two synchronizes, and so is each
+    victim's way back: from the start of the step that took it from the
+    queue to the end of the step its row went live in. Returns (numbers,
+    chains in request order)."""
+    import torch
+
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+    from eventgpt_tpu_torch.workload import SLO
+
+    args = cli_serve.build_parser().parse_args(PREEMPT_FLAGS + list(flags))
+    torch.cuda.reset_peak_memory_stats()
+    batcher = cli_serve.make_batcher(args, params, cfg, tokenizer, "cuda")
+    restore_ms = []
+    restore = batcher._paged_restore
+
+    def timed_restore(req, row):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = restore(req, row)
+        torch.cuda.synchronize()
+        if ok:
+            restore_ms.append((time.perf_counter() - t0) * 1e3)
+        return ok
+
+    batcher._paged_restore = timed_restore
+    tally = IdleTally(batcher)
+    slos = [SLO("batch", latency_s=PREEMPT_BATCH_LATENCY_S)] * 2 + [
+        SLO("interactive", ttft_s=PREEMPT_INTER_TTFT_S, itl_s=PREEMPT_INTER_ITL_S)]
+    rids = [batcher.submit(*r, slo=slo) for r, slo in zip(reqs[:2], slos)]
+    t0 = time.perf_counter()
+    while batcher.decode_steps == 0:  # until the first harvest
+        tally.step()
+    t_late = time.perf_counter() - t0
+    rids.append(batcher.submit(*reqs[2], slo=slos[2]))
+    victims, back, readmit = set(), {}, []
+    while batcher.queue or any(r is not None for r in batcher.rows):
+        waiting = {q.rid for q in batcher.queue if q.preempts}
+        t_step = time.perf_counter()
+        tally.step()
+        victims |= {q.rid for q in batcher.queue if q.preempts}
+        for rid in waiting - {q.rid for q in batcher.queue}:
+            back[rid] = t_step
+        live = {req.rid for r, req in enumerate(batcher.rows)
+                if req is not None and not batcher.frozen[r]}
+        done = [rid for rid in back if rid in live or rid in batcher.finished]
+        if done:
+            torch.cuda.synchronize()
+            for rid in done:
+                readmit.append(time.perf_counter() - back.pop(rid))
+    batcher._drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    chains = [batcher.finished[r] for r in rids]
+    statuses = [batcher.finish_status[r] for r in rids]
+    stats = [batcher.request_stats[r] for r in rids]
+    pool, spill = batcher.pool_stats(), batcher.spill_stats()
+    pc = batcher.prefix_cache_stats()
+    clean = (pool["free_blocks"] + pool["used_blocks"] == pool["usable_blocks"]
+             and pool["spilled_runs"] == 0 and spill["records"] == 0
+             and pool["free_blocks"] == pool["usable_blocks"] - pc.get("blocks_held", 0))
+    batcher.reset_prefix_cache()
+    after = batcher.pool_stats()
+    clean = clean and after["free_blocks"] == after["usable_blocks"] and not int(
+        batcher.cache["bt"].abs().sum())
+    gathers = [{"bytes": g["bytes"], "blocks": g["blocks"], "alloc_ms": g["alloc_s"] * 1e3,
+                "copy_ms": g["copy_s"] * 1e3, "gb_s": g["bytes"] / max(g["copy_s"], 1e-9) / 1e9}
+               for g in batcher.gather_timings]
+    out = {
+        "flags": " ".join(flags), "statuses": statuses, "late_submit_s": t_late, "wall_s": wall,
+        "generated_tokens": [len(c) for c in chains], "ttft_s": [s["ttft_s"] for s in stats],
+        "latency_s": [s["latency_s"] for s in stats], "itl_s": [s["itl_s"] for s in stats],
+        "slo_met": [s.get("slo_met") for s in stats], "slo_stats": batcher.slo_stats(),
+        "interactive_ttft_s": stats[2]["ttft_s"],
+        "victims": sorted(victims), "victim_latency_s": {r: stats[rids.index(r)]["latency_s"]
+                                                         for r in sorted(victims)},
+        "preemptions": pool["preemptions"], "spills": pool["spills"],
+        "restores": pool["restores"], "deferrals": pool["deferrals"],
+        "block_bytes": pool["block_bytes"], "spill_store": spill, "gathers": gathers,
+        "restore_ms": restore_ms, "readmit_s": readmit,
+        "spill_bw_ewma_gb_s": batcher._spill_bw_Bps / 1e9,
+        "recompute_flops_per_s_policy": batcher._recompute_flops_per_s,
+        "param_count": batcher._spill_param_count,
+        "dispatches": dict(batcher.dispatches), "segments": batcher.seg_count,
+        "lanes_started": dict(batcher.lanes_started),
+        "no_live_row": tally.numbers(f"serve_preempt_7b {' '.join(flags)}"),
+        "pool_after_drain": pool, "pool_after_reset": after, "clean": clean,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+    }
+    del batcher
+    torch.cuda.empty_cache()
+    return out, chains
+
+
+def serve_preempt_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, counted,
+                     n_layers: int, smi: str) -> dict:
+    """``serve_preempt_7b``: block-tier preemption at 7B width. Two batch
+    requests (streams 100, 101, PREEMPT_BATCH_BUDGET tokens) reserve most
+    of a PREEMPT_POOL_BLOCKS pool; after the first harvest an interactive
+    one (stream 102, PREEMPT_INTER_BUDGET tokens) needs more blocks than
+    are free. The arms: preemption off (the head defers), preemption with
+    a host store (the price picks spill at 7B), with none (drop and
+    re-prefill), and with the store but no lanes (the head prefills at
+    once instead of 32 positions a boundary); the oracle runs each request
+    alone on an ample pool.
+    K1 is first held against its plain version at the two shapes this
+    phase adds: the batch pair's admission wave (B=2) and a lone request's
+    full prefill (B=1: the head without lanes or preemption, a victim's
+    re-prefill, the oracles), each padded to its prompt bucket.
+    Chains are held to the oracle's by ``chain_rule``. Fails if an arm's
+    pool is not clean after the drain, if the spill arm does not spill
+    and restore, or if the drop arm spills. Returns ({arm: K1 launches},
+    the K1 checks)."""
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+    from eventgpt_tpu_torch.serve import _bucket
+
+    reqs = [(ids[0], pixels[0], PREEMPT_BATCH_BUDGET), (ids[1], pixels[1], PREEMPT_BATCH_BUDGET),
+            (ids[2], pixels[2], PREEMPT_INTER_BUDGET)]
+    lens = [len(r[0]) - 1 + cfg.num_event_tokens for r in reqs]
+    max_len = int(PREEMPT_FLAGS[PREEMPT_FLAGS.index("--max_len") + 1])
+    flash_checks = [check_flash_kernel(group, seed=seed, s=_bucket(max(group), max_len))
+                    for group, seed in ((lens[:2], 21), (lens[2:], 22))]
+    emit("kernel_flash_preempt_shapes", {"wave_b2": flash_checks[0], "lone_b1": flash_checks[1],
+                                         "nvidia_smi": smi})
+    oracle, want, k1 = [], [], {}
+    for i, req in enumerate(reqs):
+        (numbers, chain), launches = counted(
+            lambda: preempt_oracle_run(params, cfg, tokenizer, req))
+        if numbers["status"] != "ok" or launches[FLASH_KERNEL.source] != n_layers:
+            raise AssertionError(f"serve_preempt_7b oracle {i}: {numbers['status']}, launches "
+                                 f"{launches}, want K1 = {n_layers}")
+        oracle.append(numbers)
+        want.append(chain)
+    k1["oracle"] = n_layers * len(reqs)
+    runs = {}
+    padded = mask = None
+    for arm, flags in PREEMPT_ARMS:
+        (numbers, chains), launches = counted(
+            lambda: preempt_run(params, cfg, tokenizer, reqs, flags))
+        full = sum(numbers["dispatches"].get(k, 0) for k in ("full", "wave", "prefix_set"))
+        if launches[FLASH_KERNEL.source] != n_layers * full or full == 0:
+            raise AssertionError(f"serve_preempt_7b {arm}: K1 launches {launches}, want "
+                                 f"{n_layers} x {full} full-prefill dispatches")
+        if numbers["statuses"] != ["ok"] * 3 or not numbers["clean"]:
+            raise AssertionError(f"serve_preempt_7b {arm}: statuses {numbers['statuses']}, "
+                                 f"pool after the drain {numbers['pool_after_drain']}, after "
+                                 f"the reset {numbers['pool_after_reset']}")
+        bad = (numbers["preemptions"] != 0 or numbers["deferrals"] == 0 if arm == "preempt_off"
+               else numbers["preemptions"] < 1 or numbers["spills"] != 0 if arm == "drop"
+               else numbers["spills"] < 1 or numbers["restores"] < 1)
+        if bad:
+            raise AssertionError(f"serve_preempt_7b {arm}: preemptions {numbers['preemptions']}, "
+                                 f"spills {numbers['spills']}, restores {numbers['restores']}, "
+                                 f"deferrals {numbers['deferrals']}")
+        if chains != want and padded is None:
+            padded, mask, _ = eventchat.prepare_prefill(params, cfg, [r[0] for r in reqs],
+                                                        [r[1] for r in reqs])
+        numbers["vs_oracle"] = chain_rule(f"serve_preempt_7b {arm}", llama, params, cfg, padded,
+                                          mask, want, chains, SERVE_KSTEP_WINDOW, True,
+                                          tokenizer.eos_token_id, PREEMPT_BATCH_BUDGET)
+        numbers["launches"] = launches
+        k1[arm] = launches[FLASH_KERNEL.source]
+        runs[arm] = numbers
+        emit(f"serve_preempt_7b_{arm}", {**numbers, "first_ids": [c[:8] for c in chains],
+                                         "nvidia_smi": smi})
+    spill, drop = runs["spill"], runs["drop"]
+    # The price's two sides on the card: the spill's round trip (the copy
+    # out, the restore) against the drop's way back, and the recompute rate
+    # a full prefill of the interactive request alone implies.
+    inter = oracle[2]
+    prompt_positions = len(ids[2]) - 1 + cfg.num_event_tokens
+    emit("serve_preempt_7b", {
+        "config": "EventGPT-7B bf16 tree, paged int8 KV, 3 rows, max_len 1024, chunk 32, "
+                  f"{PREEMPT_POOL_BLOCKS} pool blocks, the JAX CLI's defaults; streams 100 and "
+                  f"101 batch ({PREEMPT_BATCH_BUDGET} tokens), 102 interactive "
+                  f"({PREEMPT_INTER_BUDGET} tokens) after the first harvest",
+        "arms": list(runs), "block_bytes": spill["block_bytes"],
+        "chains_identical_to_oracle": {a: all(r["vs_oracle"]["rows_identical"])
+                                       for a, r in runs.items()},
+        "interactive_ttft_s": {**{a: r["interactive_ttft_s"] for a, r in runs.items()},
+                               "oracle": inter["ttft_s"]},
+        "victim_latency_s": {a: r["victim_latency_s"] for a, r in runs.items()},
+        "wall_s": {a: r["wall_s"] for a, r in runs.items()},
+        "preemptions_spills_restores_deferrals": {
+            a: (r["preemptions"], r["spills"], r["restores"], r["deferrals"])
+            for a, r in runs.items()},
+        "spill_gathers": spill["gathers"], "restore_ms": spill["restore_ms"],
+        "spill_readmit_s": spill["readmit_s"], "drop_readmit_s": drop["readmit_s"],
+        "spill_round_trip_ms": [g["copy_ms"] for g in spill["gathers"]] + spill["restore_ms"],
+        "policy": {"spill_bw_seed_gb_s": 5.0, "spill_bw_ewma_gb_s": spill["spill_bw_ewma_gb_s"],
+                   "recompute_flops_per_s_seed": spill["recompute_flops_per_s_policy"],
+                   "param_count": spill["param_count"],
+                   "interactive_alone_admission_s": inter["admission_s"],
+                   "interactive_prompt_positions": prompt_positions,
+                   "recompute_flops_per_s_implied": (2.0 * spill["param_count"] * prompt_positions
+                                                     / max(inter["admission_s"], 1e-9))},
+        "slo_stats": {a: r["slo_stats"] for a, r in runs.items()},
+        "oracle": oracle, "k1_launches": k1, "nvidia_smi": smi})
+    return k1, flash_checks
+
+
+def serve_handoff_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, counted,
+                     n_layers: int, smi: str) -> dict:
+    """``serve_handoff_7b``: a prefill-role and a decode-role batcher in this
+    process over the same params, each with its own paged int8 arena, the
+    JAX CLI's defaults, 4 rows: the four 7B requests are prefilled,
+    gathered (``pop_handoffs``), spliced (``import_handoff``) and drained,
+    plain and with ``--speculative 4``, beside a colocated run of the same
+    flags (the oracle). The prefill role runs K1 (32 per full-prefill
+    dispatch), the decode role none. Returns {run: K1 launches}."""
+    import torch
+
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    reqs = [(ids[i], pixels[i], MAX_NEW_TOKENS) for i in range(len(QUERIES))]
+    base = ["--max_batch", "4", "--max_len", "1024", "--chunk", "32", "--kv_cache", "int8",
+            "--kv_layout", "paged"]
+    k1, plain = {}, None
+    padded = mask = None
+    for name, extra in (("plain", []), ("speculative", ["--speculative", str(SPEC_WINDOW)])):
+        args = cli_serve.build_parser().parse_args(base + extra)
+
+        def colocated():
+            b = cli_serve.make_batcher(args, params, cfg, tokenizer, "cuda")
+            rids = [b.submit(*r) for r in reqs]
+            done = b.run_until_drained()
+            return [done[r] for r in rids], [b.request_stats[r]["ttft_s"] for r in rids]
+
+        (oracle, oracle_ttft), launches = counted(colocated)
+        k1[f"{name}_colocated"] = launches[FLASH_KERNEL.source]
+        plain = oracle if plain is None else plain
+        pre = cli_serve.make_batcher(args, params, cfg, tokenizer, "cuda", role="prefill")
+        dec = cli_serve.make_batcher(args, params, cfg, tokenizer, "cuda", role="decode")
+        splice_ms = []
+        splice = dec._handoff_splice
+
+        def timed_splice(req, row):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ok = splice(req, row)
+            torch.cuda.synchronize()
+            if ok:
+                splice_ms.append((time.perf_counter() - t0) * 1e3)
+            return ok
+
+        dec._handoff_splice = timed_splice
+
+        def prefill_leg():
+            rids = [pre.submit(*r) for r in reqs]
+            for _ in range(100):
+                if len(pre.handoff_ready) == len(rids):
+                    break
+                pre.step()
+            return rids, pre.pop_handoffs()
+
+        t0 = time.perf_counter()
+        (pre_rids, outs), pre_launches = counted(prefill_leg)
+        prefill_s = time.perf_counter() - t0
+        if [o["rid"] for o in outs] != pre_rids or pre.seg_count:
+            raise AssertionError(f"serve_handoff_7b {name}: outbox {[o['rid'] for o in outs]} "
+                                 f"for {pre_rids}, {pre.seg_count} segments on the prefill role")
+
+        def decode_leg():
+            rids = []
+            for o in outs:
+                rids.append(dec.import_handoff(
+                    o["input_ids"], o["max_new_tokens"], o["rec"], tokens=o["tokens"],
+                    prompt_len=o["prompt_len"], deadline_s=o["deadline_s"], slo=o["slo"],
+                    elapsed_s=o["elapsed_s"] + time.perf_counter() - o["t_gather"],
+                    ttft_s=o["ttft_s"]))
+            done = dec.run_until_drained()
+            return [done[r] for r in rids], rids
+
+        t0 = time.perf_counter()
+        (chains, dec_rids), dec_launches = counted(decode_leg)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        full = sum(pre.dispatches.get(k, 0) for k in ("full", "wave"))
+        if (pre_launches[FLASH_KERNEL.source] != n_layers * full or full == 0
+                or dec_launches[FLASH_KERNEL.source] != 0):
+            raise AssertionError(f"serve_handoff_7b {name}: K1 launches {pre_launches} "
+                                 f"(prefill, {full} full prefills), {dec_launches} (decode)")
+        pools = {}
+        for role, b in (("prefill", pre), ("decode", dec)):
+            st = b.pool_stats()
+            held = b.prefix_cache_stats().get("blocks_held", 0)
+            b.reset_prefix_cache()
+            after = b.pool_stats()
+            pools[role] = {"after_drain": st, "after_reset": after}
+            if (st["free_blocks"] + st["used_blocks"] != st["usable_blocks"]
+                    or st["free_blocks"] != st["usable_blocks"] - held
+                    or after["free_blocks"] != after["usable_blocks"]
+                    or int(b.cache["bt"].abs().sum())):
+                raise AssertionError(f"serve_handoff_7b {name}: the {role} pool is not clean: "
+                                     f"{pools[role]}")
+        statuses = [dec.finish_status[r] for r in dec_rids]
+        if statuses != ["ok"] * len(reqs) or dec.handoffs_spliced != len(reqs):
+            raise AssertionError(f"serve_handoff_7b {name}: statuses {statuses}, "
+                                 f"{dec.handoffs_spliced} spliced")
+        rules = {}
+        for ref_name, ref in (("colocated", oracle), ("plain_colocated", plain)):
+            if chains != ref and padded is None:
+                padded, mask, _ = eventchat.prepare_prefill(params, cfg, ids, pixels)
+            rules[ref_name] = chain_rule(f"serve_handoff_7b {name} vs {ref_name}", llama,
+                                         params, cfg, padded, mask, ref, chains,
+                                         SERVE_KSTEP_WINDOW, True, tokenizer.eos_token_id)
+        gathers = list(pre.gather_timings)
+        k1[f"{name}_prefill_role"] = pre_launches[FLASH_KERNEL.source]
+        k1[f"{name}_decode_role"] = dec_launches[FLASH_KERNEL.source]
+        emit(f"serve_handoff_7b_{name}", {
+            "flags": " ".join(extra), "vs_colocated": rules["colocated"],
+            "vs_plain_colocated": rules["plain_colocated"],
+            "shipped_blocks": [o["rec"]["n_blocks"] for o in outs],
+            "reserved_blocks": [o["rec"]["n_total"] for o in outs],
+            "shipped_bytes": [o["rec"]["nbytes_kv"] for o in outs],
+            "prompt_lengths": [o["prompt_len"] for o in outs],
+            "gather_ms": [g["copy_s"] * 1e3 for g in gathers],
+            "gather_alloc_ms": [g["alloc_s"] * 1e3 for g in gathers],
+            "gather_gb_s": [g["bytes"] / max(g["copy_s"], 1e-9) / 1e9 for g in gathers],
+            "splice_ms": splice_ms, "prefill_leg_s": prefill_s, "decode_leg_s": decode_s,
+            "rebased_ttft_s": [dec.request_stats[r]["ttft_s"] for r in dec_rids],
+            "colocated_ttft_s": oracle_ttft,
+            "latency_s": [dec.request_stats[r]["latency_s"] for r in dec_rids],
+            "handoffs": {"gathered": pre.handoffs_gathered,
+                         "gathered_bytes": pre.handoffs_gathered_bytes,
+                         "spliced": dec.handoffs_spliced,
+                         "spliced_bytes": dec.handoffs_spliced_bytes},
+            "pools": pools, "launches": {"prefill": pre_launches, "decode": dec_launches},
+            "first_ids": [c[:8] for c in chains], "nvidia_smi": smi})
+        del pre, dec
+        torch.cuda.empty_cache()
+    return k1
+
+
+def tiny_preempt_card_vs_cpu() -> dict:
+    """The tiny preemption scenario of the CPU tests (one batch row on a
+    4-block pool, then an interactive arrival that evicts it) on the card
+    and on the CPU: spill forced (recompute priced at 1 FLOP/s), f32 and
+    with the int8 cache, and the drop arm. Chains and the preemption
+    counters must be equal."""
+    import numpy as np
+    import torch
+
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.serve import ContinuousBatcher
+    from eventgpt_tpu_torch.workload import SLO
+
+    cfg = EventChatConfig.tiny()
+    cpu = init_eventchat_params(cfg, torch.Generator().manual_seed(5), torch.float32, "cpu")
+    trees = {"cpu": cpu, "cuda": _to(cpu, "cuda")}
+    size = cfg.vision.image_size
+
+    def pv(seed):
+        return np.random.default_rng(seed).normal(
+            size=(cfg.num_event_frames, 3, size, size)).astype(np.float32)
+
+    out = {}
+    for arm, spill_mb, quant in (("spill", 64, False), ("spill_int8", 64, True),
+                                 ("drop", 0, False)):
+        res = {}
+        for dev, params in trees.items():
+            srv = ContinuousBatcher(params, cfg, max_batch=2, max_len=256, chunk=4,
+                                    eos_token_id=None, kv_layout="paged", kv_pool_blocks=4,
+                                    preempt=True, spill_capacity_mb=spill_mb, kv_quant=quant,
+                                    device=dev)
+            srv._recompute_flops_per_s = 1.0
+            rb = srv.submit([1, 5, -200, 9, 9], pv(0), 40, slo=SLO("batch", latency_s=60.0))
+            for _ in range(6):
+                srv.step()
+            ri = srv.submit([3, -200, 11, 4], pv(1), 12, slo=SLO("interactive", ttft_s=30.0))
+            done = srv.run_until_drained()
+            st = srv.pool_stats()
+            res[dev] = {"chains": [done[rb], done[ri]],
+                        "counts": [st["preemptions"], st["spills"], st["restores"],
+                                   st["deferrals"]],
+                        "clean": st["spilled_runs"] == 0
+                        and srv.spill_stats()["records"] == 0}
+        if res["cpu"] != res["cuda"]:
+            raise AssertionError(f"tiny preemption ({arm}) differs: cpu {res['cpu']} vs cuda "
+                                 f"{res['cuda']}")
+        counts = res["cuda"]["counts"]
+        preemptions, spills, restores, _ = counts
+        arm_ok = spills >= 1 and restores >= 1 if spill_mb else spills == 0
+        if preemptions < 1 or not arm_ok or not res["cuda"]["clean"]:
+            raise AssertionError(f"tiny preemption ({arm}): counts {counts}, clean "
+                                 f"{res['cuda']['clean']}")
+        out[arm] = {"preemptions_spills_restores_deferrals": counts,
+                    "tokens": [len(c) for c in res["cuda"]["chains"]]}
+    return {"config": "tiny f32, paged, 2 rows, chunk 4, 4 pool blocks, batch 40 tokens then "
+                      "interactive 12", **out, "identical": True}
+
+
 def tiny_serve_defaults_card_vs_cpu(work: str) -> dict:
     """The tiny f32 model served with the JAX CLI's scheduler defaults
     (pipelined, the prefix cache, lanes of prefill_budget = chunk) gives
@@ -1580,7 +2053,8 @@ def serve_http_tiny(work: str) -> dict:
     """``cli/serve.build_server`` on the default device (the card) over a
     tiny bf16 checkpoint the port wrote, loaded through ``--model_path``
     (head_dim 128, so that prefill takes K1, the default on the card),
-    paged with the int8 cache: two POST /v1/generate answer 200."""
+    paged with the int8 cache: three POST /v1/generate answer 200, the
+    third with ``slo_class`` interactive, which ``GET /stats`` scores."""
     import base64
     import dataclasses
     import http.client
@@ -1612,18 +2086,26 @@ def serve_http_tiny(work: str) -> dict:
     thread.start()
     answers = []
     try:
-        for i in range(2):
+        # The third request carries an SLO class: scored in /stats.
+        for i, extra in ((0, {}), (1, {}), (0, {"slo_class": "interactive"})):
             with open(os.path.join(work, f"events_{i}.npy"), "rb") as f:
-                body = json.dumps({"query": QUERIES[i],
+                body = json.dumps({"query": QUERIES[i], **extra,
                                    "event_b64": base64.b64encode(f.read()).decode()})
             conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=300)
             conn.request("POST", "/v1/generate", body=body)
             res = conn.getresponse()
             obj = json.loads(res.read())
-            if res.status != 200 or obj.get("status") != "ok":
+            if res.status != 200 or obj.get("status") != "ok" or (
+                    extra and obj.get("slo_class") != "interactive"):
                 raise AssertionError(f"POST /v1/generate answered {res.status}: {obj}")
             answers.append({"code": res.status, "tokens": obj["tokens"],
-                            "latency_s": obj["latency_s"], "answer": obj["answer"]})
+                            "latency_s": obj["latency_s"], "answer": obj["answer"],
+                            **({"slo_met": obj.get("slo_met")} if extra else {})})
+        conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=60)
+        conn.request("GET", "/stats")
+        slo = json.loads(conn.getresponse().read())["slo"]
+        if slo["classes"].get("interactive", {}).get("finished") != 1:
+            raise AssertionError(f"GET /stats did not score the classed request: {slo}")
         device = str(engine.batcher.device)
         k1 = FLASH_KERNEL.launches
     finally:
@@ -1635,7 +2117,7 @@ def serve_http_tiny(work: str) -> dict:
     if k1 == 0:
         raise AssertionError("the served checkpoint did not launch K1")
     return {"device": device, "model_path": "tiny bf16 checkpoint (LLaMA d=256, 2 heads of 128)",
-            "k1_launches": k1, "answers": answers}
+            "k1_launches": k1, "answers": answers, "slo": slo}
 
 
 def tree_mismatches(a, b, path: str = "params") -> list:
@@ -2023,12 +2505,13 @@ def kstep_vs_step(llama, params, cfg, padded, mask, chains, start: int, window: 
 
 
 def chain_rule(name, llama, params, cfg, padded, mask, plain, got, window: int,
-               kv_quant: bool, eos: int) -> dict:
+               kv_quant: bool, eos: int, new_tokens: int = MAX_NEW_TOKENS) -> dict:
     """Hold speculative chains to the plain greedy ones. A row that differs
     passes only where its first divergent step is a rounding tie: the plain
     path's top-2 logit margin there (replayed on the plain chains) below
     the largest |decode_kstep - decode_step| logit gap on that prefix.
-    Anything else raises."""
+    Anything else raises. ``new_tokens`` is the longest chain's budget (the
+    replay cache holds the prompt and that many more)."""
     import torch
 
     report = []
@@ -2038,12 +2521,12 @@ def chain_rule(name, llama, params, cfg, padded, mask, plain, got, window: int,
         s = next((i for i, (a, b) in enumerate(zip(p_row, g_row)) if a != b),
                  min(len(p_row), len(g_row)))
         logits, _ = replay_logits(llama, params, cfg, padded, mask, plain, s,
-                                  _bucket_len(padded.shape[1], MAX_NEW_TOKENS), kv_quant, eos)
+                                  _bucket_len(padded.shape[1], new_tokens), kv_quant, eos)
         top2 = torch.topk(logits[s][r].float(), 2).values
         margin = (top2[0] - top2[1]).item()
         start = max(0, s - window)
         gap = kstep_vs_step(llama, params, cfg, padded, mask, plain, start, window,
-                            _bucket_len(padded.shape[1], MAX_NEW_TOKENS + 2 * window),
+                            _bucket_len(padded.shape[1], new_tokens + 2 * window),
                             kv_quant, eos)
         report.append({"row": r, "first_divergent_step": s, "plain_top2_margin": margin,
                        "kstep_vs_step_max_abs": gap, "window_start": start,
@@ -3202,6 +3685,14 @@ def main() -> int:
                                          oracles, counted, n_layers, smi, work)
         del oracles
         torch.cuda.empty_cache()
+        # Block-tier preemption with the host spill store, and the
+        # prefill-to-decode handoff between two batchers of this process.
+        preempt_k1, preempt_flash = serve_preempt_7b(eventchat, llama, params, cfg, tokenizer,
+                                                     ids, pixels, counted, n_layers, smi)
+        flash_checks += tuple(preempt_flash)
+        handoff_k1 = serve_handoff_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels,
+                                      counted, n_layers, smi)
+        torch.cuda.empty_cache()
         if args.profile:
             emit("profile_serve_paged", profile_call(
                 lambda: run_server(params, cfg, tokenizer, requests, "paged"),
@@ -3402,6 +3893,7 @@ def main() -> int:
         emit("tiny_serve_card_vs_cpu", tiny_serve_card_matches_cpu(work))
         emit("tiny_serve_defaults_card_vs_cpu", tiny_serve_defaults_card_vs_cpu(work))
         emit("tiny_serve_spec_card_vs_cpu", tiny_serve_spec_card_vs_cpu(work))
+        emit("tiny_preempt_card_vs_cpu", tiny_preempt_card_vs_cpu())
         emit("tiny_checkpoint_card_vs_cpu", tiny_checkpoint_card_vs_cpu(work))
         emit("serve_http_tiny", serve_http_tiny(work))
         emit("train_tiny_card_vs_cpu", train_tiny_card_vs_cpu(work, train_paths))
@@ -3445,6 +3937,8 @@ def main() -> int:
                              **{name: n[FLASH_KERNEL.source]
                                 for name, n in serve_spec_launches.items()},
                              "serve_spec_int4": serve_spec_int4_launches[FLASH_KERNEL.source],
+                             **{f"serve_preempt_7b_{arm}": n for arm, n in preempt_k1.items()},
+                             **{f"serve_handoff_7b_{run}": n for run, n in handoff_k1.items()},
                              **{f"train_stage{st}": run["k1_launches"]
                                 for st, run in train_runs.items()},
                              **{f"train_stage{st}_eval": run["eval"]["k1_inference"]

@@ -11,10 +11,15 @@ Endpoints:
                       "event_path": .npy path under --event_root |
                       "event_b64": base64 .npy bytes,
                       "max_new_tokens": int = --max_new_tokens,
-                      "deadline_s": float (optional)}
+                      "deadline_s": float (optional),
+                      "slo_class": "interactive" | "batch" (optional), with
+                      optional per-request "slo_ttft_s" / "slo_itl_s" /
+                      "slo_latency_s" overrides of the class targets}
       -> {"answer": str, "tokens": N, "rid": id, "status": "ok",
-          "ttft_s": x, "latency_s": y}; a forced finish maps to 504
-          (deadline), 499 (cancelled) or 500 (non-finite logits).
+          "ttft_s": x, "latency_s": y[, "slo_class", "slo_met"]}; a forced
+          finish maps to 504 (deadline), 499 (cancelled), 500 (non-finite
+          logits) or 503 (resource_exhausted: no blocks, no victim and no
+          spill room, with a class-aware Retry-After).
   POST /cancel       {"rid": id} -> {"rid": id, "cancelled": bool}
   POST /prefix       {"prefix_prompt": str, optional "event_path"/"event_b64"
                       when the prefix runs through the event block}
@@ -22,8 +27,10 @@ Endpoints:
          cache entry on a running server
   GET  /prefix_cache -> the prefix cache's entries, budget and counters
   GET  /health       -> {"status": "ok", "active": N, "queued": N}
-  GET  /stats        -> engine counters, block-pool state, recent requests,
-                        and under --speculative the speculation counters
+  GET  /stats        -> engine counters, block-pool state (preemptions,
+                        spills, restores, deferrals) and spill store, SLO
+                        attainment, the role, recent requests, and under
+                        --speculative the speculation counters
 
 Ported flags: --model_path (tiny-random or a checkpoint dir), --tokenizer_path
 byte, --use_event_qformer, --pretrain_query_embedder,
@@ -43,10 +50,15 @@ lookup drafts, or ``--draft_head heads.npz`` Medusa drafts; ``--spec_buckets
 0,2,4`` chooses the window at each boundary from measured acceptance, tuned
 by ``--spec_ema_alpha``, ``--spec_draft_cost``, ``--spec_row_window`` and
 ``--spec_head_min_yield``) and ``--warmup`` (every function a request can
-reach runs once before the server listens). Every other flag of the JAX
-CLI is accepted and raises ``NotImplementedError`` when set: its path is
-not ported yet. Chains are the same with every scheduler feature on or
-off.
+reach runs once before the server listens), block-tier preemption
+(``--preempt``: an interactive request the free blocks cannot cover evicts
+batch rows, each spilled to a host-RAM store of ``--spill_capacity_mb`` or
+dropped for re-prefill) and the SLO classes (``--slo_interactive_ttft_s``,
+``--slo_interactive_itl_s``, ``--slo_batch_latency_s``, ``--slo_window``).
+Every other flag of the JAX CLI is accepted and raises
+``NotImplementedError`` when set: its path is not ported yet (``--role``
+comes with process fleets, the memory flags with telemetry). Chains are
+the same with every scheduler feature on or off.
 
 Usage:
   python -m eventgpt_tpu_torch.cli.serve --model_path tiny-random \\
@@ -60,8 +72,10 @@ from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import itertools
 import json
+import math
 import os
 import tempfile
 import threading
@@ -73,6 +87,26 @@ from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
 from eventgpt_tpu_torch.data.tokenizer import tokenize_with_event
 from eventgpt_tpu_torch.ops.image import process_event_file
 from eventgpt_tpu_torch.serve import QueueFullError
+from eventgpt_tpu_torch.workload import SLO
+
+# The class-aware Retry-After of a refused request: the port's copy of the
+# JAX package's ``fleet.retry_after_s`` and its constants.
+_RETRY_BASE_S = {"interactive": 1.0, "batch": 4.0}
+_RETRY_MAX_S = 60.0
+
+
+def retry_after_s(slo_class: str, goodput_ratio: float = 1.0, queue_depth: int = 0,
+                  max_queue: int = 0) -> float:
+    """Seconds a refused client should wait: the class's base (batch backs
+    off harder than interactive), scaled linearly up to 4x as the windowed
+    SLO attainment falls below 1, and again by the relative queue pressure
+    when known; at most ``_RETRY_MAX_S``."""
+    base = _RETRY_BASE_S.get(slo_class, _RETRY_BASE_S["batch"])
+    g = min(max(float(goodput_ratio), 0.0), 1.0)
+    scale = 1.0 + 3.0 * (1.0 - g)
+    if max_queue > 0 and queue_depth > 0:
+        scale *= 1.0 + min(queue_depth / float(max_queue), 1.0)
+    return min(base * scale, _RETRY_MAX_S)
 
 
 class ServingEngine:
@@ -120,15 +154,16 @@ class ServingEngine:
     # -- client side ------------------------------------------------------
 
     def submit(self, query: str, pixels, max_new_tokens: int,
-               deadline_s: Optional[float] = None) -> int:
+               deadline_s: Optional[float] = None, slo: Optional[SLO] = None) -> int:
         ids = tokenize_with_event(prepare_event_prompt(query, self.conv_mode), self.tokenizer)
-        return self.submit_ids(ids, pixels, max_new_tokens, deadline_s=deadline_s)
+        return self.submit_ids(ids, pixels, max_new_tokens, deadline_s=deadline_s, slo=slo)
 
     def submit_ids(self, ids, pixels, max_new_tokens: int,
-                   deadline_s: Optional[float] = None) -> int:
+                   deadline_s: Optional[float] = None, slo: Optional[SLO] = None) -> int:
         """``submit`` for a tokenized prompt."""
         with self._lock:
-            rid = self.batcher.submit(ids, pixels, max_new_tokens, deadline_s=deadline_s)
+            rid = self.batcher.submit(ids, pixels, max_new_tokens, deadline_s=deadline_s,
+                                      slo=slo)
             self._done[rid] = threading.Event()
             self.n_requests += 1
         self._wake.set()
@@ -183,6 +218,14 @@ class ServingEngine:
         return {"uptime_s": round(time.time() - self.t_start, 1),
                 "requests": self.n_requests, **self._snapshot}
 
+    def goodput_ratio(self) -> float:
+        """The windowed SLO attainment, 1.0 while the window is empty (no
+        evidence of overload): the Retry-After derivation reads it."""
+        slo = self._snapshot.get("slo", {})
+        if not slo.get("window_n"):
+            return 1.0
+        return float(slo.get("goodput_ratio", 1.0))
+
     def shutdown(self) -> None:
         self._stop = True
         self._wake.set()
@@ -218,6 +261,8 @@ class ServingEngine:
             "recent": {str(k): {kk: round(vv, 3) for kk, vv in b.request_stats[k].items()}
                        for k in itertools.islice(reversed(b.request_stats), 8)},
             "speculative": b.speculative,
+            "slo": b.slo_stats(),
+            "role": b.role,
         }
         if b.speculative:
             snap["spec_tokens_per_iteration"] = round(b.spec_tokens_per_iteration(), 2)
@@ -227,6 +272,7 @@ class ServingEngine:
         pool = b.pool_stats()
         if pool is not None:
             snap["kv_blocks"] = pool
+            snap["spill"] = b.spill_stats()
         pc = b.prefix_cache_stats()
         snap["prefix_cache"] = {k: pc[k] for k in ("enabled", "n_entries", "bytes", "hits",
                                                     "misses", "evictions") if k in pc}
@@ -323,12 +369,25 @@ def _decode_pixels(payload: Dict[str, Any], cfg, event_root=None):
 
 
 _STATUS_CODES = {"ok": 200, "deadline_exceeded": 504, "cancelled": 499,
-                 "nan_quarantined": 500}
+                 "resource_exhausted": 503, "nan_quarantined": 500}
+
+
+def default_slo_classes(args=None) -> Dict[str, SLO]:
+    """The server's SLO class targets: the ``--slo_*`` flags (0 disarms a
+    target), or the JAX CLI's defaults without ``args``."""
+    ttft = 1.0 if args is None else args.slo_interactive_ttft_s
+    itl = 0.25 if args is None else args.slo_interactive_itl_s
+    latency = 30.0 if args is None else args.slo_batch_latency_s
+    return {"interactive": SLO("interactive", ttft_s=ttft or None, itl_s=itl or None),
+            "batch": SLO("batch", latency_s=latency or None)}
 
 
 def make_handler(engine: ServingEngine, cfg, event_root=None, default_budget: int = 64,
                  max_body_bytes: int = 32 * 1024 * 1024,
-                 default_deadline_s: Optional[float] = None):
+                 default_deadline_s: Optional[float] = None,
+                 slo_classes: Optional[Dict[str, SLO]] = None):
+    if slo_classes is None:
+        slo_classes = default_slo_classes()
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
@@ -421,15 +480,35 @@ def make_handler(engine: ServingEngine, cfg, event_root=None, default_budget: in
                 deadline = float(deadline) if deadline else None
                 if payload.get("stream"):
                     raise ValueError("streaming responses are not ported yet")
+                slo = None
+                if "slo_class" in payload:
+                    # The class set is closed: an unknown name is the
+                    # client's fault.
+                    name = str(payload["slo_class"])
+                    if name not in slo_classes:
+                        raise ValueError(f"unknown slo_class {name!r}: one of "
+                                         f"{sorted(slo_classes)}")
+                    slo = slo_classes[name]
+                    overrides = {k[4:]: float(payload[k])
+                                 for k in ("slo_ttft_s", "slo_itl_s", "slo_latency_s")
+                                 if k in payload}
+                    if overrides:
+                        slo = dataclasses.replace(slo, **overrides)
                 pixels = _decode_pixels(payload, cfg, event_root)
             except Exception as e:  # a bad request, not a server fault
                 self._json(400, {"error": str(e)})
                 return
             t0 = time.perf_counter()
             try:
-                rid = engine.submit(query, pixels, budget, deadline_s=deadline)
+                rid = engine.submit(query, pixels, budget, deadline_s=deadline, slo=slo)
             except QueueFullError as e:
-                self._json(429, {"error": str(e)}, headers={"Retry-After": "1"})
+                # Backpressure: the client backs off by its class and the
+                # engine's windowed attainment, as on a 503 below.
+                cls_name = slo.name if slo is not None else "batch"
+                ra = retry_after_s(cls_name, engine.goodput_ratio())
+                self._json(429, {"error": str(e), "slo_class": cls_name,
+                                 "retry_after_s": round(ra, 3)},
+                           headers={"Retry-After": str(max(1, math.ceil(ra)))})
                 return
             except ValueError as e:  # the request does not fit the server
                 self._json(400, {"error": str(e)})
@@ -448,9 +527,21 @@ def make_handler(engine: ServingEngine, cfg, event_root=None, default_budget: in
             obj = {"answer": text, "tokens": len(toks), "rid": rid, "status": status,
                    "ttft_s": round(stats.get("ttft_s", 0.0), 3),
                    "latency_s": round(stats.get("latency_s", time.perf_counter() - t0), 3)}
+            if slo is not None:
+                obj["slo_class"] = slo.name
+                if "slo_met" in stats:
+                    obj["slo_met"] = bool(stats["slo_met"])
             code = _STATUS_CODES.get(status, 500)
             if code != 200:
                 obj["error"] = status
+            if code == 503:
+                # Both tiers spent: the client backs off by its class and
+                # the engine's windowed attainment.
+                ra = retry_after_s(slo.name if slo is not None else "batch",
+                                   engine.goodput_ratio())
+                obj["retry_after_s"] = round(ra, 3)
+                self._json(code, obj, headers={"Retry-After": str(max(1, math.ceil(ra)))})
+                return
             self._json(code, obj)
 
     return Handler
@@ -459,10 +550,10 @@ def make_handler(engine: ServingEngine, cfg, event_root=None, default_budget: in
 # Flags of the JAX CLI whose paths are not ported yet: (flag, argparse
 # keywords, what). Each defaults to "off" and raises when set.
 _UNPORTED = [
-    ("--preempt", dict(action="store_true"), "block-tier preemption"),
-    ("--spill_capacity_mb", dict(type=int), "the KV spill store"),
-    ("--mem_headroom_mb", dict(type=float), "the memory headroom guard"),
-    ("--mem_capacity_mb", dict(type=float), "the memory headroom guard"),
+    ("--mem_headroom_mb", dict(type=float),
+     "the memory headroom guard (ROADMAP Queue 1 item 6, telemetry)"),
+    ("--mem_capacity_mb", dict(type=float),
+     "the memory headroom guard (ROADMAP Queue 1 item 6, telemetry)"),
     ("--breaker_threshold", dict(type=int), "the circuit breaker"),
     ("--breaker_cooldown_s", dict(type=float), "the circuit breaker"),
     ("--heartbeat_dir", dict(), "the serving heartbeat"),
@@ -481,14 +572,11 @@ _UNPORTED = [
     ("--procfleet_respawn_backoff_s", dict(type=float), "process fleets"),
     ("--procfleet_crash_window_s", dict(type=float), "process fleets"),
     ("--procfleet_crash_limit", dict(type=int), "process fleets"),
-    ("--role", dict(), "prefill/decode roles"),
+    ("--role", dict(),
+     "the per-slot worker role (ROADMAP Queue 1 item 4, with process fleets)"),
     ("--worker", dict(action="store_true"), "process-fleet workers"),
     ("--worker_ready_file", dict(), "process-fleet workers"),
     ("--worker_slot", dict(type=int), "process-fleet workers"),
-    ("--slo_interactive_ttft_s", dict(type=float), "SLO classes"),
-    ("--slo_interactive_itl_s", dict(type=float), "SLO classes"),
-    ("--slo_batch_latency_s", dict(type=float), "SLO classes"),
-    ("--slo_window", dict(type=int), "SLO classes"),
     ("--journey_keep", dict(type=int), "the flight recorder"),
     ("--series_interval_s", dict(type=float), "the time-series store"),
     ("--series_keep", dict(type=int), "the time-series store"),
@@ -593,6 +681,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--draft_head", default=None,
                    help="Medusa head stack (.npz of either package) drafting instead of the "
                         "lookup (needs --speculative > 0 or --spec_buckets)")
+    p.add_argument("--preempt", action="store_true",
+                   help="block-tier preemption (paged layout): when the free blocks cannot "
+                        "cover an interactive request, evict batch rows (worst deadline "
+                        "headroom first); each victim spills its KV run to host RAM "
+                        "(--spill_capacity_mb) or drops and re-prefills, whichever the "
+                        "bytes-against-FLOPs price says is cheaper. The same chains")
+    p.add_argument("--spill_capacity_mb", type=int, default=0,
+                   help="host-RAM budget for preempted KV runs (0 = no store: every "
+                        "preemption drops and re-prefills)")
+    p.add_argument("--slo_interactive_ttft_s", type=float, default=1.0,
+                   help="interactive-class TTFT target, scored at finish (0 disarms)")
+    p.add_argument("--slo_interactive_itl_s", type=float, default=0.25,
+                   help="interactive-class mean inter-token gap target (0 disarms)")
+    p.add_argument("--slo_batch_latency_s", type=float, default=30.0,
+                   help="batch-class end-to-end latency target (0 disarms)")
+    p.add_argument("--slo_window", type=int, default=256,
+                   help="scored finishes in the windowed goodput ratio")
     p.add_argument("--warmup", action="store_true",
                    help="run every function a request can reach once before listening (kernel "
                         "builds, cuBLAS handles, the allocator's first growth)")
@@ -611,14 +716,16 @@ def _refuse_unported(args) -> None:
         if val is not None and val is not False:
             raise NotImplementedError(f"{flag}: {what} is not ported to eventgpt_tpu_torch yet")
     if any(getattr(args, f[2:]) != 1 for f in _MESH_FLAGS):
-        raise NotImplementedError("--mesh_*: the serving mesh is not ported to "
-                                  "eventgpt_tpu_torch yet")
+        raise NotImplementedError("--mesh_*: the serving mesh (ROADMAP Queue 1 item 8) is not "
+                                  "ported to eventgpt_tpu_torch yet")
 
 
-def make_batcher(args, params, cfg, tokenizer, device):
+def make_batcher(args, params, cfg, tokenizer, device, role: str = "colocated"):
     """The ``ContinuousBatcher`` the flags describe, over a prepared tree
     on ``device``: the JAX CLI's defaults (pipelined, the prefix cache at
-    ``--prefix_cache_mb``, ``--prefill_budget`` -1 = ``--chunk``)."""
+    ``--prefix_cache_mb``, ``--prefill_budget`` -1 = ``--chunk``). ``role``
+    makes a prefill or decode batcher for an in-process handoff (the
+    ``--role`` flag waits for process fleets)."""
     from eventgpt_tpu_torch.models.medusa import load_medusa
     from eventgpt_tpu_torch.serve import ContinuousBatcher
 
@@ -639,7 +746,8 @@ def make_batcher(args, params, cfg, tokenizer, device):
         speculative=args.speculative, draft_head=draft_head,
         spec_buckets=args.spec_buckets or None, spec_ema_alpha=args.spec_ema_alpha,
         spec_draft_cost=args.spec_draft_cost, spec_row_window=args.spec_row_window,
-        spec_head_min_yield=args.spec_head_min_yield)
+        spec_head_min_yield=args.spec_head_min_yield, preempt=args.preempt,
+        spill_capacity_mb=args.spill_capacity_mb, slo_window=args.slo_window, role=role)
 
 
 def build_engine(args):
@@ -679,7 +787,8 @@ def build_server(args):
         (args.host, args.port),
         make_handler(engine, cfg, args.event_root, default_budget=args.max_new_tokens,
                      max_body_bytes=int(args.max_body_mb * 1024 * 1024),
-                     default_deadline_s=args.default_deadline_s or None))
+                     default_deadline_s=args.default_deadline_s or None,
+                     slo_classes=default_slo_classes(args)))
     return httpd, engine
 
 
@@ -694,7 +803,7 @@ def main(argv=None):
           f"pipeline={engine.batcher.pipeline}, prefix_cache="
           f"{engine.batcher._prefix_cache is not None}, prefill_budget="
           f"{engine.batcher.prefill_budget}, speculative={engine.batcher.speculative}, "
-          f"device={engine.batcher.device})", flush=True)
+          f"preempt={engine.batcher.preempt}, device={engine.batcher.device})", flush=True)
     got_signal = threading.Event()
 
     def on_signal(signum, frame):

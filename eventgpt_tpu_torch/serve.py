@@ -60,18 +60,36 @@ to drain.
     rolled back, so a row resumes exactly where it stopped.
   * ``warmup()`` runs every function a request can reach once on the idle
     server (kernel builds, cuBLAS handles, the allocator's first growth).
+  * SLO classes (``submit(slo=)``, ``workload.SLO``): every terminal path
+    scores the request against its class targets (``slo_stats()``);
+    scheduling reads the class only for preemption.
+  * Block-tier PREEMPTION (``preempt``, paged): an ``interactive`` queue
+    head that the free list cannot cover evicts ``batch`` rows, worst
+    deadline headroom first. Each victim's exclusively owned block run is
+    gathered to host RAM (``serve_blocks.SpillStore``, budget
+    ``spill_capacity_mb``) and restored byte-exact through the paged
+    admission scatter, or released for re-prefill, whichever the JAX
+    package's closed-form price favours; the victim re-queues at the back.
+  * Prefill/decode ROLES (``role``, paged): a ``prefill`` batcher admits
+    only and moves each activated row into an outbox of gathered block-run
+    records (``pop_handoffs``); a ``decode`` batcher splices such a record
+    into its own arena (``import_handoff``) instead of prefilling. The
+    record is an in-process dict of host tensors.
+  * ``export_requests()`` strips every unfinished request out of the
+    scheduler (the drain seam of fleets) and returns its re-admission
+    record.
 
 The functions on the module update the resident cache in place under
 ``torch.inference_mode``: that takes the place of the JAX package's
 ``jit`` with donated buffers.
 
 What the port does not have yet raises ``NotImplementedError`` when asked
-for: the serving mesh, preemption and spill, prefill/decode roles and the
-memory headroom guard. Greedy chains at f32 equal the JAX
-``ContinuousBatcher``'s and the port's one-shot ``generate`` with every
-scheduler feature on or off (``tests/test_torch_serve*.py``,
+for: the serving mesh and the memory headroom guard. Greedy chains at f32
+equal the JAX ``ContinuousBatcher``'s and the port's one-shot ``generate``
+with every scheduler feature on or off (``tests/test_torch_serve*.py``,
 ``tests/test_torch_prefix_cache.py``, ``tests/test_torch_mixed_segments.py``,
-``tests/test_torch_spec_adaptive.py``).
+``tests/test_torch_spec_adaptive.py``, ``tests/test_torch_preempt_spill.py``,
+``tests/test_torch_handoff.py``).
 """
 
 from __future__ import annotations
@@ -96,7 +114,8 @@ from eventgpt_tpu_torch.models import eventchat
 from eventgpt_tpu_torch.models import llama as llama_mod
 from eventgpt_tpu_torch.models import medusa as medusa_mod
 from eventgpt_tpu_torch.ops.sampling import sample
-from eventgpt_tpu_torch.serve_blocks import SCRATCH_BLOCK, BlockPool
+from eventgpt_tpu_torch.serve_blocks import SCRATCH_BLOCK, BlockPool, BlockPoolError, SpillStore
+from eventgpt_tpu_torch.workload import SLO, SLO_CLASSES
 
 
 class QueueFullError(RuntimeError):
@@ -107,10 +126,13 @@ class QueueFullError(RuntimeError):
 # Terminal request statuses (``ContinuousBatcher.finish_status``). "ok"
 # covers both EOS and budget exhaustion; the others are forced finishes
 # whose row was freed without spending the rest of the budget.
+# "resource_exhausted": an interactive head found neither blocks nor
+# victims, and the spill store cannot take one more block (HTTP 503).
 STATUS_OK = "ok"
 STATUS_DEADLINE = "deadline_exceeded"
 STATUS_CANCELLED = "cancelled"
 STATUS_NAN = "nan_quarantined"
+STATUS_RESOURCE = "resource_exhausted"
 
 _GRAIN = 2 * SEQ_BUCKET  # prompt buckets and max_len round to this
 
@@ -142,6 +164,53 @@ def _fetch_async(tensors: List[torch.Tensor]):
     ev = torch.cuda.Event()
     ev.record()
     return host, ev
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict / list tree (a parameter tree, or a
+    record whose planes may be {"q", "s"} dicts), in order."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _to_host(tree):
+    """Copy a record of device tensors to host memory: (host record,
+    seconds of the allocation, seconds of the copy). On the card the host
+    buffers are pinned and the copy is timed alone, once the tensors are
+    computed and the buffers allocated. On the CPU the tensors are fresh
+    copies already (a gather) and come back as they are."""
+    src = _leaves(tree)
+    if src[0].device.type != "cuda":
+        return tree, 0.0, 0.0
+    torch.cuda.synchronize(src[0].device)
+    t0 = time.perf_counter()
+    host = _map_tree(tree, lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True))
+    t1 = time.perf_counter()
+    for h, t in zip(_leaves(host), src):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.synchronize(src[0].device)
+    return host, t1 - t0, time.perf_counter() - t1
+
+
+def _on_device(x, device: torch.device) -> torch.Tensor:
+    """A record plane (a host tensor, or a numpy array from a record the
+    JAX package gathered) on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x))
+    return x.to(device, non_blocking=True)
 
 
 def _pixels_key(pixel_values) -> bytes:
@@ -348,6 +417,30 @@ class PrefixCache:
                 self.evictions += 1
                 evicted += 1
                 self._release_blocks_locked(victim)
+        return evicted
+
+    def evict_covering(self, blocks) -> int:
+        """Evict every unpinned entry whose block run meets ``blocks``: the
+        spill path's sweep. An insert-on-prefill entry aliases its creator
+        row's run at refcount 2, and the pool refuses to spill a block
+        another owner could read, so preempting that row first evicts the
+        idle entries riding its blocks. Pinned entries stay (a lane or a
+        selected admission still reads them; the caller then drops the
+        victim instead). Returns the number of entries evicted."""
+        want = set(blocks)
+        if not want:
+            return 0
+        evicted = 0
+        with self._lock:
+            for node in self._iter_nodes_locked():
+                for key in [k for k, e in node["e"].items()
+                            if e.pins <= 0 and e.blocks and not want.isdisjoint(e.blocks)]:
+                    victim = node["e"].pop(key)
+                    self.bytes -= victim.nbytes
+                    self.n_entries -= 1
+                    self.evictions += 1
+                    evicted += 1
+                    self._release_blocks_locked(victim)
         return evicted
 
     def clear(self) -> None:
@@ -938,10 +1031,13 @@ class _Request:
     row: int = -1
     # Cache positions the prompt occupies (text + event tokens).
     prompt_len: int = 0
-    # perf_counter stamps at submit / first committed token / completion.
+    # perf_counter stamps at submit / first committed token / completion,
+    # and of the last harvest that committed tokens for the row (the
+    # request's mean inter-token gap, ``request_stats[rid]["itl_s"]``).
     t_submit: float = 0.0
     t_first: Optional[float] = None
     t_done: Optional[float] = None
+    t_last: Optional[float] = None
     # Absolute perf_counter deadline (None = none).
     deadline: Optional[float] = None
     # The prefix entry this row admitted from (a pin, drained at finish).
@@ -954,6 +1050,18 @@ class _Request:
     kv_bt_written: bool = False
     # ``_pixels_key`` of the submitted pixels, computed once.
     pixels_key: Optional[bytes] = None
+    # The class and targets the request is scored against at finish
+    # (None = unscored).
+    slo: Optional[SLO] = None
+    # Preemption: while a spilled victim waits re-queued, its pool spill
+    # registry entry (None: dropped for re-prefill, or never preempted);
+    # the spill store holds its record under ``rid``. ``preempts`` counts
+    # its evictions.
+    spill_run: Optional[int] = None
+    preempts: int = 0
+    # Decode role: the gathered block-run record the request arrived with;
+    # admission splices it instead of prefilling, then clears it.
+    handoff_rec: Optional[Dict[str, Any]] = None
 
 
 @dataclass
@@ -1046,13 +1154,12 @@ class ContinuousBatcher:
         spec_hysteresis: float = 0.05,
         spec_row_window: int = 4,
         spec_head_min_yield: float = 0.05,
+        slo_window: int = 256,
     ):
         unported = [
-            (mesh is not None, "mesh", "the serving mesh"),
-            (preempt, "preempt", "block-tier preemption"),
-            (spill_capacity_mb, "spill_capacity_mb", "the KV spill store"),
-            (role != "colocated", "role", "prefill/decode roles"),
-            (mem_headroom_bytes, "mem_headroom_bytes", "the memory headroom guard"),
+            (mesh is not None, "mesh", "the serving mesh (ROADMAP Queue 1 item 8)"),
+            (mem_headroom_bytes, "mem_headroom_bytes",
+             "the memory headroom guard (ROADMAP Queue 1 item 6)"),
         ]
         for asked, arg, what in unported:
             if asked:
@@ -1061,6 +1168,21 @@ class ContinuousBatcher:
                     f"eventgpt_tpu_torch yet")
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got {kv_layout!r}")
+        # "colocated" admits and decodes. "prefill" only admits: each
+        # activated row's block run is gathered into ``handoff_ready``
+        # (``_handoff_sweep``). "decode" also takes gathered records
+        # (``import_handoff``). The record moves block runs, so the split
+        # roles need the paged layout.
+        if role not in ("colocated", "prefill", "decode"):
+            raise ValueError(f"role must be 'colocated', 'prefill' or 'decode', got {role!r}")
+        if role != "colocated" and kv_layout != "paged":
+            raise ValueError(f"role={role!r} requires kv_layout='paged' (the handoff moves "
+                             f"block runs)")
+        self.role = role
+        if role == "prefill":
+            # Lanes advance only inside a decode dispatch, which a prefill
+            # role never runs: they would starve.
+            prefill_budget = 0
         if prefill_chunk and _GRAIN % prefill_chunk:
             # A chunk off the grain would let the last chunk's window leave
             # the bucket (positions out of step with the cache slots).
@@ -1110,9 +1232,7 @@ class ContinuousBatcher:
             self.cache = llama_mod.init_kv_cache(cfg.llama, max_batch, max_len,
                                                  dtype=self._dtype, device=self.device,
                                                  quant=self.kv_quant)
-        self.kv_bytes = sum(t.numel() * t.element_size()
-                            for plane in (self.cache["k"], self.cache["v"])
-                            for t in (plane.values() if isinstance(plane, dict) else [plane]))
+        self.kv_bytes = _nbytes([self.cache["k"], self.cache["v"]])
         # Per-position K+V bytes of one cache row: the prefix cache's unit
         # (an entry's nbytes = bucket * this; int8 halves it).
         positions = n_blocks * SEQ_BUCKET if self._paged else max_batch * max_len
@@ -1125,6 +1245,28 @@ class ContinuousBatcher:
             self.block_deferrals = 0
             if self._prefix_cache is not None:
                 self._prefix_cache.pool = self._pool
+        # Block-tier preemption (paged only): an interactive head that the
+        # free list cannot cover evicts batch rows, each spilled to the
+        # host store or dropped for re-prefill by the price below.
+        self.preempt = bool(preempt) and self._paged
+        self._spill_store: Optional[SpillStore] = (
+            SpillStore(max(int(spill_capacity_mb), 0) * (1 << 20)) if self._paged else None)
+        self.preemptions = 0
+        # The spill-or-recompute price, the JAX package's: a device-to-host
+        # bandwidth EWMA (re-measured at every gather) against ~2 * params
+        # * positions FLOPs re-prefilled at an assumed rate. The constants
+        # set timing, never a chain.
+        self._spill_bw_Bps = 5e9
+        self._spill_param_count = max(_nbytes(params) // 2, 1)
+        self._recompute_flops_per_s = 5e12
+        # The prefill role's outbox of gathered records (``pop_handoffs``)
+        # and the handoff counters of both roles.
+        self.handoff_ready: List[Dict[str, Any]] = []
+        self.handoffs_gathered = 0
+        self.handoffs_gathered_bytes = 0
+        self.handoffs_spliced = 0
+        self.handoffs_spliced_bytes = 0
+        self._slo_window_len = max(int(slo_window), 1)
         # Vocab from the lm_head leaf: special tokens may have grown it.
         vocab = eventchat._vocab_size(params)
         self.logits = torch.zeros((max_batch, vocab), dtype=torch.float32, device=self.device)
@@ -1268,6 +1410,30 @@ class ContinuousBatcher:
         self.spec_depth_sum = 0
         self.spec_masked_rows = 0
         self.spec_depth_trace: deque = deque(maxlen=4096)
+        # SLO attainment: (class, met) -> finished requests, and the ring of
+        # the last ``slo_window`` scored finishes (the windowed goodput).
+        self.slo_counts: Dict[tuple, int] = {}
+        self._slo_window: deque = deque(maxlen=self._slo_window_len)
+        # Each block-run gather to the host (a spill or a handoff):
+        # {"kind", "bytes", "blocks", "alloc_s", "copy_s"}; on the card the
+        # copy into pinned memory is timed apart from its allocation.
+        self.gather_timings: deque = deque(maxlen=256)
+
+    def slo_stats(self) -> Dict[str, Any]:
+        """SLO attainment: per class the finished and met counts and their
+        ratio, and the goodput ratio over the last ``slo_window`` scored
+        finishes (``GET /stats``'s ``slo``)."""
+        classes: Dict[str, Dict[str, Any]] = {}
+        for (name, met), n in sorted(self.slo_counts.items()):
+            c = classes.setdefault(name, {"finished": 0, "met": 0})
+            c["finished"] += n
+            if met:
+                c["met"] += n
+        for c in classes.values():
+            c["attainment"] = c["met"] / c["finished"] if c["finished"] else 0.0
+        w = len(self._slo_window)
+        return {"classes": classes, "window_n": w, "window_size": self._slo_window_len,
+                "goodput_ratio": (sum(self._slo_window) / w) if w else 0.0}
 
     def overlap_ratio(self) -> float:
         """Share of the host's scheduler time hidden behind the card's
@@ -1415,13 +1581,18 @@ class ContinuousBatcher:
         return n
 
     def submit(self, input_ids: Sequence[int], pixel_values, max_new_tokens: int = 64,
-               deadline_s: Optional[float] = None) -> int:
+               deadline_s: Optional[float] = None, slo: Optional[SLO] = None) -> int:
         """Enqueue one request; raises at once if it cannot fit, so one bad
         request never tears down the serving loop mid-drain.
 
         ``deadline_s``: seconds from now after which the request finishes
-        with ``STATUS_DEADLINE`` and the tokens committed so far. Raises
-        ``QueueFullError`` when the queue is at ``max_queue``."""
+        with ``STATUS_DEADLINE`` and the tokens committed so far. ``slo``:
+        its class and targets (``workload.SLO``), scored at finish; the
+        class must be one of ``SLO_CLASSES``. Raises ``QueueFullError``
+        when the queue is at ``max_queue``."""
+        if slo is not None and slo.name not in SLO_CLASSES:
+            raise ValueError(f"unknown SLO class {slo.name!r}: one of {SLO_CLASSES} (class "
+                             f"names are metric labels and must stay a closed set)")
         if self.max_queue and len(self.queue) >= self.max_queue:
             raise QueueFullError(f"admission queue is full ({len(self.queue)}/"
                                  f"{self.max_queue} requests queued); retry later")
@@ -1448,6 +1619,7 @@ class ContinuousBatcher:
         self._next_rid += 1
         req = _Request(rid, ids, pixel_values, max_new_tokens)
         req.prompt_len = prompt_len
+        req.slo = slo
         req.t_submit = time.perf_counter()
         if deadline_s is not None:
             req.deadline = req.t_submit + float(deadline_s)
@@ -1496,6 +1668,64 @@ class ContinuousBatcher:
         out, self.finished = self.finished, {}
         return out
 
+    @torch.inference_mode()
+    def export_requests(self) -> List[Dict[str, Any]]:
+        """The drain seam: settle the pipeline, then strip every unfinished
+        request (active rows, lanes, the pending chunked admission, the
+        queue) out of the scheduler and return their re-admission records
+        in rid order: ids, pixels, budget, the remaining deadline headroom
+        and the SLO. Committed tokens are dropped (a survivor re-decodes
+        from the prompt; greedy chains are deterministic per row). Pool
+        blocks, spill runs and prefix pins are released in the JAX
+        batcher's order, and every block table is reset to scratch.
+        Nothing reaches ``finished``: the requests are moving, not over."""
+        self._drain()
+        by_rid: Dict[int, _Request] = {}
+        for req in self.queue:
+            by_rid[req.rid] = req
+        self.queue.clear()
+        if self._pending is not None:
+            p, self._pending = self._pending, None
+            self.rows[p.row] = None
+            by_rid[p.req.rid] = p.req
+        for lane in self._lanes:
+            self.rows[lane.row] = None  # the lane KV is dead storage
+            if lane.entry is not None:
+                self._drain_entry_pin(lane.entry)
+            by_rid[lane.req.rid] = lane.req
+        self._lanes = []
+        self._lane_free = list(range(self._lane_cap))
+        for r, req in enumerate(self.rows):
+            if req is None:
+                continue
+            self.rows[r] = None
+            self.frozen[r] = True
+            self.n_rem[r] = 0
+            by_rid[req.rid] = req
+        self._dev_carry = None
+        now = time.perf_counter()
+        out: List[Dict[str, Any]] = []
+        for rid in sorted(by_rid):
+            req = by_rid[rid]
+            if self._paged:
+                req.kv_bt_written = False  # every table resets below
+                self._paged_release(req)
+                self._drop_spill(req)
+            if req.prefix_entry is not None:
+                self._drain_entry_pin(req.prefix_entry)
+                req.prefix_entry = None
+            if req.deadline is not None:
+                self._n_deadlines -= 1
+            if self._spec_ctl is not None:
+                self._spec_ctl.forget(req.rid)
+            out.append({"rid": req.rid, "input_ids": list(req.input_ids),
+                        "pixel_values": req.pixel_values, "max_new_tokens": req.max_new_tokens,
+                        "deadline_s": req.deadline - now if req.deadline is not None else None,
+                        "slo": req.slo})
+        if self._paged:
+            self.cache["bt"].zero_()
+        return out
+
     def abort_pipeline(self) -> None:
         """Discard the in-flight segment and the device carry (the engine's
         fault path): the dangling dispatch's outputs are ignored, and the
@@ -1507,7 +1737,9 @@ class ContinuousBatcher:
     def abort_rows(self) -> List[int]:
         """Free every row, lane and pending admission without finishing its
         request (the engine's fault path fails those requests itself);
-        returns their rids. Pool blocks and prefix pins are returned."""
+        returns their rids. Pool blocks and prefix pins are returned. A
+        spilled victim waits in the queue, which stays: its run and record
+        stay restorable."""
         self.abort_pipeline()
         self._pending = None  # its row is among the rows below
         rids = []
@@ -1535,10 +1767,19 @@ class ContinuousBatcher:
         return rids
 
     def pool_stats(self) -> Optional[Dict[str, Any]]:
-        """The block pool's snapshot with the deferral count (paged only)."""
+        """The block pool's snapshot with the deferral and preemption
+        counts (paged only)."""
         if not self._paged:
             return None
-        return {**self._pool.stats(), "deferrals": self.block_deferrals}
+        return {**self._pool.stats(), "deferrals": self.block_deferrals,
+                "preemptions": self.preemptions}
+
+    def spill_stats(self) -> Optional[Dict[str, Any]]:
+        """The spill store's snapshot and whether preemption is armed
+        (paged only)."""
+        if not self._paged:
+            return None
+        return {**self._spill_store.stats(), "preempt": self.preempt}
 
     # -- the prefix-KV cache ----------------------------------------------
 
@@ -1840,6 +2081,12 @@ class ContinuousBatcher:
         dt = time.perf_counter() - t0
         self.admission_s += dt
         self.admission_max_s = max(self.admission_max_s, dt)
+        if self.role == "prefill":
+            # Admission is the prefill role's whole job: each activated row
+            # leaves through the handoff outbox, and nothing is dispatched
+            # (so nothing is ever in flight).
+            self._handoff_sweep()
+            return
         if all(r is None for r in self.rows):
             self._drain()  # a trailing all-frozen segment, if any
             return
@@ -2128,8 +2375,10 @@ class ContinuousBatcher:
                 self.base_pos[r] += int(n_new[r])
             else:
                 new = tokens[r, : n_new[r]]
-            if len(new) and req.t_first is None:
-                req.t_first = now
+            if len(new):
+                if req.t_first is None:
+                    req.t_first = now
+                req.t_last = now
             req.tokens.extend(int(t) for t in new)
             self.n_rem[r] -= int(n_new[r])
             if done[r] or self.n_rem[r] <= 0:
@@ -2152,8 +2401,10 @@ class ContinuousBatcher:
 
     def _record_finish(self, req: _Request, status: str) -> None:
         if self._paged:
-            # The reservation returns on every terminal path.
+            # The reservation returns on every terminal path, and so do the
+            # spill run and record of a request that ends while spilled.
             self._paged_release(req)
+            self._drop_spill(req)
         if req.prefix_entry is not None:
             self._drain_entry_pin(req.prefix_entry)
             req.prefix_entry = None
@@ -2174,7 +2425,21 @@ class ContinuousBatcher:
         while len(self.finish_status) >= 8192:
             self.finish_status.pop(next(iter(self.finish_status)))
         ttft = (req.t_first if req.t_first is not None else req.t_done) - req.t_submit
-        self.request_stats[req.rid] = {"ttft_s": ttft, "latency_s": req.t_done - req.t_submit}
+        latency = req.t_done - req.t_submit
+        # The mean inter-token gap, the first token excluded (that interval
+        # is the TTFT); tokens land in harvest-sized groups.
+        n_commit = len(req.tokens)
+        itl = ((req.t_last - req.t_first) / (n_commit - 1)
+               if req.t_first is not None and req.t_last is not None and n_commit > 1 else 0.0)
+        self.request_stats[req.rid] = {"ttft_s": ttft, "latency_s": latency, "itl_s": itl}
+        if req.slo is not None:
+            # Scored on every terminal path: a forced finish stays in the
+            # denominator (a never-committed one on its t_done stand-in).
+            met = req.slo.met(ttft, itl, latency)
+            key = (req.slo.name, met)
+            self.slo_counts[key] = self.slo_counts.get(key, 0) + 1
+            self._slo_window.append(met)
+            self.request_stats[req.rid]["slo_met"] = float(met)
         self.finished[req.rid] = ids
         self.finish_status[req.rid] = status
 
@@ -2309,9 +2574,13 @@ class ContinuousBatcher:
     def _paged_admit_gate(self) -> bool:
         """The queue head admits only when its whole reservation fits the
         free list; under pressure the gate first evicts LRU unpinned prefix
-        entries (their runs are the only idle pool capacity), else the head
-        stays queued and finishing rows free the blocks it needs. Deferral
-        changes timing, never a chain."""
+        entries (their runs are the only idle pool capacity), then, with
+        ``preempt`` and an interactive head, evicts batch rows
+        (``_preempt_for``); else the head stays queued and finishing rows
+        free the blocks it needs. An interactive head that finds no victim
+        while the spill store cannot take one more block is refused at once
+        (``STATUS_RESOURCE``) rather than left to wait past its deadline.
+        Deferral and preemption change timing, never a chain."""
         req = self.queue[0]
         need = self._blocks_needed(req.prompt_len, req.max_new_tokens)
         if self._pool.free_blocks() >= need:
@@ -2320,6 +2589,14 @@ class ContinuousBatcher:
             self._prefix_cache.reclaim_blocks(self._pool, need)
             if self._pool.free_blocks() >= need:
                 return True
+        if self.preempt and self._preempt_for(req, need):
+            return True
+        if (self.preempt and req.slo is not None and req.slo.name == "interactive"
+                and self._spill_store.enabled
+                and not self._spill_store.would_fit(self._pool.block_bytes or 1)):
+            self.queue.popleft()
+            self._record_finish(req, STATUS_RESOURCE)
+            return False
         self.block_deferrals += 1
         return False
 
@@ -2389,6 +2666,320 @@ class ContinuousBatcher:
             self.cache["bt"][req.row] = SCRATCH_BLOCK
             req.kv_bt_written = False
 
+    def _drop_spill(self, req: _Request) -> None:
+        """Forget a spilled request's run and host record (it ends or
+        leaves while spilled: the one exit of a spill but its restore)."""
+        if req.spill_run is not None:
+            self._pool.drop_spilled(req.spill_run)
+            req.spill_run = None
+            self._spill_store.drop(req.rid)
+
+    # -- block-tier preemption and the host spill store -------------------
+
+    def _preempt_for(self, req: _Request, need: int) -> bool:
+        """Evict batch rows, worst deadline headroom first (a row with no
+        deadline has nothing to miss and goes first), until the interactive
+        head's ``need`` blocks are free. An interactive row is never a
+        victim and a batch head never evicts; free, pending and lane rows
+        (frozen) never are victims. Returns whether the head now fits."""
+        if req.slo is None or req.slo.name != "interactive":
+            return False
+        # Rows change only drained: the pipelined scheduler may have a
+        # segment in flight, and its harvest may itself free the blocks.
+        self._drain()
+        if self._pool.free_blocks() >= need:
+            return True
+        now = time.perf_counter()
+        victims = []
+        for r, vic in enumerate(self.rows):
+            if vic is None or self.frozen[r]:
+                continue
+            if vic.slo is not None and vic.slo.name == "interactive":
+                continue
+            headroom = vic.deadline - now if vic.deadline is not None else float("-inf")
+            victims.append((headroom, r, vic))
+        if not victims:
+            return False
+        victims.sort(key=lambda x: (x[0], x[1]))
+        for _, r, vic in victims:
+            if self._pool.free_blocks() >= need:
+                break
+            if self.rows[r] is not vic or self.frozen[r]:
+                continue  # the drain's harvest finished it
+            self._preempt_row(vic)
+        return self._pool.free_blocks() >= need
+
+    @torch.inference_mode()
+    def _preempt_row(self, vic: _Request) -> None:
+        """Evict one active row: spill its KV run to the host store when the
+        price says so (falling back to a drop when the store or the pool
+        refuses), else release its blocks for re-prefill, dropping its
+        committed tokens (the re-admission re-decodes them). Either way it
+        re-queues at the back."""
+        row = vic.row
+        if not (self._spill_choose(vic) and self._spill_victim(vic)):
+            self._paged_release(vic)
+            vic.tokens = []
+        if vic.prefix_entry is not None:
+            self._drain_entry_pin(vic.prefix_entry)
+            vic.prefix_entry = None
+        self.rows[row] = None
+        vic.row = -1
+        self.frozen[row] = True
+        self.n_rem[row] = 0
+        if self.speculative:
+            self.base_pos[row] = 0
+        if self._spec_ctl is not None:
+            self._spec_ctl.forget(vic.rid)
+        # The host changed rows under the device carry (drained).
+        self._dev_carry = None
+        vic.preempts += 1
+        self.preemptions += 1
+        self.queue.append(vic)
+
+    def _spill_choose(self, vic: _Request) -> bool:
+        """The spill-or-recompute price: spill only an exclusively owned run
+        that fits the store's budget, and only when its round trip (out and
+        back at the measured gather rate) costs less than re-prefilling the
+        positions so far (~2 * params * positions FLOPs at the assumed
+        rate)."""
+        store = self._spill_store
+        if store is None or not store.enabled or vic.kv_blocks_aliased or not vic.kv_blocks_owned:
+            return False
+        if any(self._pool.ref(b) != 1 for b in vic.kv_blocks_owned):
+            # Idle insert-on-prefill entries alias the run (refcount 2):
+            # evict them; a surviving pin is a live reader, so drop.
+            if self._prefix_cache is not None:
+                self._prefix_cache.evict_covering(vic.kv_blocks_owned)
+            if any(self._pool.ref(b) != 1 for b in vic.kv_blocks_owned):
+                return False
+        nbytes = len(vic.kv_blocks_owned) * (self._pool.block_bytes or self._kv_block_size)
+        if not store.would_fit(nbytes):
+            return False
+        positions = vic.prompt_len + len(vic.tokens)
+        spill_s = 2.0 * nbytes / max(self._spill_bw_Bps, 1.0)
+        recompute_s = (2.0 * self._spill_param_count * positions
+                       / max(self._recompute_flops_per_s, 1.0))
+        return spill_s <= recompute_s
+
+    def _spill_victim(self, vic: _Request) -> bool:
+        """One spill: the gather and the store's admission come before any
+        pool change, so a refusal leaves the pool and the victim's
+        reservation as they were (the caller drops instead)."""
+        rec = self._gather_spill_record(vic)
+        if not self._spill_store.put(vic.rid, rec, rec["nbytes_kv"]):
+            return False
+        try:
+            run_id = self._pool.spill_out(vic.kv_blocks_owned)
+        except BlockPoolError:
+            self._spill_store.drop(vic.rid)
+            return False
+        vic.spill_run = run_id
+        vic.kv_blocks_owned = []
+        if vic.kv_bt_written and vic.row >= 0:
+            # The dead row's table points at scratch before its blocks are
+            # handed out again.
+            self.cache["bt"][vic.row] = SCRATCH_BLOCK
+            vic.kv_bt_written = False
+        return True
+
+    # A harvest point: the host waits here, at a drained admission boundary
+    # (a spill or a handoff), outside the pipelined dispatch.
+    @torch.inference_mode()
+    def _gather_spill_record(self, vic: _Request, blocks: Optional[List[int]] = None,
+                             kind: str = "spill") -> Dict[str, Any]:
+        """A row's whole re-activation state, gathered to host memory: its
+        block run's K/V (``_gather_blocks``; an int8 arena's scale planes
+        with it), cache length, logits row and, speculative, its ``ids_buf``
+        row, ``base_pos`` and Medusa drafts. Whole blocks are copied byte
+        for byte, so the restore scatter reproduces the row exactly.
+        ``blocks`` overrides the run (the handoff ships the table's run up
+        to the length); the default is the spill's owned run. The bandwidth
+        EWMA of the price reads the copy's time alone."""
+        row = vic.row
+        block_ids = vic.kv_blocks_owned if blocks is None else blocks
+        k, v = _gather_blocks(self.cache, block_ids)
+        dev = {"k": k, "v": v, "length": self.cache["length"][row].clone(),
+               "logits": self.logits[row].clone()}
+        if self.speculative:
+            dev["ids"] = self.ids_buf[row].clone()
+        if self.draft_head is not None and self.spec_max > 1:
+            dev["drafts"] = self.spec_drafts[row].clone()
+        host, alloc_s, copy_s = _to_host(dev)
+        nbytes = _nbytes(host)
+        if copy_s > 0.0:
+            self._spill_bw_Bps = 0.7 * self._spill_bw_Bps + 0.3 * nbytes / max(copy_s, 1e-6)
+        self.gather_timings.append({"kind": kind, "bytes": nbytes, "blocks": len(block_ids),
+                                    "alloc_s": alloc_s, "copy_s": copy_s})
+        host["n_blocks"] = len(block_ids)
+        host["nbytes_kv"] = nbytes
+        host["base_pos"] = int(self.base_pos[row]) if self.speculative else 0
+        return host
+
+    @torch.inference_mode()
+    def _install_record(self, req: _Request, row: int, rec: Dict[str, Any],
+                        blocks: List[int], n_ship: int) -> None:
+        """The restore and the splice: the record's planes scatter into
+        ``blocks[:n_ship]`` through the paged admission (``_admit_row_paged``),
+        the row's table, length and logits are installed, and the row goes
+        live with its speculative state."""
+        req.kv_blocks_owned = blocks
+        req.kv_blocks_aliased = []
+        dev = self.device
+        row_cache = {"k": _map_tree(rec["k"], lambda t: _on_device(t, dev)),
+                     "v": _map_tree(rec["v"], lambda t: _on_device(t, dev)),
+                     "length": _on_device(rec["length"], dev).reshape(1)}
+        _admit_row_paged(self.cache, self.logits, row, np.asarray(blocks[:n_ship], np.int32),
+                         self._paged_bt_row(req), row_cache,
+                         _on_device(rec["logits"], dev)[None])
+        req.kv_bt_written = True
+        self.rows[row] = req
+        req.row = row
+        self.frozen[row] = False
+        self.n_rem[row] = req.max_new_tokens - len(req.tokens)
+        if self.speculative:
+            self.ids_buf[row] = _on_device(rec["ids"], dev)
+            self.base_pos[row] = rec["base_pos"]
+        if "drafts" in rec:
+            self.spec_drafts[row] = _on_device(rec["drafts"], dev)
+        # The host changed rows (drained): the next dispatch uploads.
+        self._dev_carry = None
+
+    def _paged_restore(self, req: _Request, row: int) -> bool:
+        """Re-admit a spilled request: fresh blocks from the pool's spill
+        registry, then its record through the paged admission scatter.
+        False when the pool cannot cover the run now (the caller re-queues;
+        the run and the record stay)."""
+        rec = self._spill_store.peek(req.rid)
+        if rec is None:
+            raise BlockPoolError(f"request {req.rid} has spill_run={req.spill_run} but no "
+                                 f"spill record")
+        blocks = self._pool.restore(req.spill_run, rec["n_blocks"])
+        if blocks is None:
+            return False
+        self._spill_store.take(req.rid)
+        req.spill_run = None
+        self._install_record(req, row, rec, blocks, len(blocks))
+        return True
+
+    # -- prefill/decode roles: the block-run handoff ----------------------
+
+    def _handoff_sweep(self) -> None:
+        """Prefill role (``step`` calls it instead of dispatching): every
+        activated row leaves through the handoff outbox, so the next
+        admission finds free rows and blocks. Pending and lane rows stay
+        until they activate."""
+        for row, req in enumerate(self.rows):
+            if req is None or self.frozen[row]:
+                continue
+            if self.n_rem[row] <= 0:
+                # The budget was met at admission (a speculative row's first
+                # token): nothing is left to decode.
+                self._finish_row(row)
+                continue
+            self._handoff_gather(req)
+
+    def _handoff_gather(self, req: _Request) -> None:
+        """Gather one activated row into a handoff record and tear the row
+        down. The record is the spill record plus routing state: the KV of
+        the table's run up to the row's length (nothing past the length is
+        read before it is written), with ``n_total`` naming the whole
+        reservation the decode side allocates again. Prefix-aliased blocks
+        ship in the run: the decode side owns a private copy."""
+        row = req.row
+        length = req.prompt_len + len(req.tokens)
+        run = req.kv_blocks_aliased + req.kv_blocks_owned
+        n_ship = min(max(self._pool.blocks_for(length), 1), len(run))
+        rec = self._gather_spill_record(req, blocks=run[:n_ship], kind="handoff")
+        rec["n_total"] = len(run)
+        self._paged_release(req)
+        if req.prefix_entry is not None:
+            self._drain_entry_pin(req.prefix_entry)
+            req.prefix_entry = None
+        self.rows[row] = None
+        req.row = -1
+        self.frozen[row] = True
+        self.n_rem[row] = 0
+        if self.speculative:
+            self.base_pos[row] = 0
+        if self._spec_ctl is not None:
+            self._spec_ctl.forget(req.rid)
+        if req.deadline is not None:
+            self._n_deadlines -= 1
+        self._dev_carry = None
+        now = time.perf_counter()
+        self.handoffs_gathered += 1
+        self.handoffs_gathered_bytes += rec["nbytes_kv"]
+        # Durations, not stamps: the decode side rebases its own clock.
+        self.handoff_ready.append({
+            "rid": req.rid, "input_ids": list(req.input_ids), "tokens": list(req.tokens),
+            "max_new_tokens": req.max_new_tokens, "prompt_len": req.prompt_len,
+            "t_gather": now, "elapsed_s": now - req.t_submit,
+            "ttft_s": req.t_first - req.t_submit if req.t_first is not None else None,
+            "deadline_s": req.deadline - now if req.deadline is not None else None,
+            "slo": req.slo, "preempts": req.preempts, "rec": rec})
+
+    def pop_handoffs(self) -> List[Dict[str, Any]]:
+        """Take the handoff outbox."""
+        out, self.handoff_ready = self.handoff_ready, []
+        return out
+
+    def import_handoff(self, input_ids: Sequence[int], max_new_tokens: int, rec: Dict[str, Any],
+                       tokens: Sequence[int] = (), prompt_len: int = 0,
+                       deadline_s: Optional[float] = None, slo: Optional[SLO] = None,
+                       elapsed_s: float = 0.0, ttft_s: Optional[float] = None) -> int:
+        """Decode role (or colocated): accept a prefill batcher's gathered
+        record. The request queues like a submit but is spliced at
+        admission (``_handoff_splice``), never prefilled, and it bypasses
+        ``max_queue`` (it was admitted already, and its KV exists nowhere
+        else). The record's planes may be host tensors or numpy arrays.
+        The clock is rebased by the prefill leg: ``t_submit`` moves
+        ``elapsed_s`` into the past and ``t_first`` to ``ttft_s`` after it,
+        so the stats and the SLO score the request's whole life; the
+        deadline (remaining headroom) starts now."""
+        if self.role == "prefill":
+            raise ValueError("a prefill-role scheduler cannot import handoffs")
+        if not self._paged:
+            raise ValueError("import_handoff requires kv_layout='paged'")
+        if slo is not None and slo.name not in SLO_CLASSES:
+            raise ValueError(f"unknown SLO class {slo.name!r}: one of {SLO_CLASSES}")
+        need = self._blocks_needed(int(prompt_len), max_new_tokens)
+        if need > self._pool.usable:
+            raise ValueError(f"handoff does not fit: needs {need} KV blocks, the pool holds "
+                             f"{self._pool.usable} (raise --kv_pool_blocks)")
+        rid = self._next_rid
+        self._next_rid += 1
+        req = _Request(rid, list(input_ids), None, max_new_tokens)
+        req.tokens = list(tokens)
+        req.prompt_len = int(prompt_len)
+        req.slo = slo
+        now = time.perf_counter()
+        req.t_submit = now - max(float(elapsed_s or 0.0), 0.0)
+        if ttft_s is not None:
+            req.t_first = req.t_submit + float(ttft_s)
+        if deadline_s is not None:
+            req.deadline = now + float(deadline_s)
+            self._n_deadlines += 1
+        req.handoff_rec = rec
+        self.queue.append(req)
+        return rid
+
+    def _handoff_splice(self, req: _Request, row: int) -> bool:
+        """Splice an imported record into the local arena: fresh owned
+        blocks for the whole reservation (``n_total``), then the shipped
+        run through the paged admission scatter. False when the pool cannot
+        cover the reservation now (the caller re-queues)."""
+        rec = req.handoff_rec
+        total = rec.get("n_total", rec["n_blocks"])
+        blocks = self._pool.alloc(total)
+        if blocks is None:
+            return False
+        req.handoff_rec = None
+        self._install_record(req, row, rec, blocks, rec["n_blocks"])
+        self.handoffs_spliced += 1
+        self.handoffs_spliced_bytes += rec.get("nbytes_kv", 0)
+        return True
+
     # -- admission --------------------------------------------------------
 
     def _admit(self) -> bool:
@@ -2423,6 +3014,20 @@ class ContinuousBatcher:
             # Reserve the row now; it stays frozen until activation.
             self.rows[row] = req
             req.row = row
+            if self._paged and req.spill_run is not None:
+                # A spilled victim restores its gathered KV instead of
+                # prefilling; the gate checked the same reservation, so a
+                # failure here is only a race.
+                if self._paged_restore(req, row):
+                    continue
+                self._paged_requeue(req, row)
+                break
+            if self._paged and req.handoff_rec is not None:
+                # An imported handoff splices through the same seam.
+                if self._handoff_splice(req, row):
+                    continue
+                self._paged_requeue(req, row)
+                break
             hit = self._prefix_lookup(req) if self._prefix_cache is not None else None
             if hit is not None:
                 entry, suffix_ids = hit

@@ -18,10 +18,11 @@ backs which row position is decided here, on the host.
   * ``cow`` is the copy-on-write primitive: a writer that holds a shared
     block trades its reference for a private one, and ``note_cow`` counts
     a copy the serving admission makes through its own scatter. Both
-    count ``cow_copies``.
-
-Spill/restore and the spill store belong to preemption, which the port
-does not have yet.
+    count ``cow_copies``;
+  * the spill registry (``spill_out``/``restore``/``drop_spilled``): a
+    preempted row's exclusively owned run leaves the arena (its bytes
+    already gathered to the host ``SpillStore``) and comes back as fresh
+    blocks. Every call validates before it mutates anything.
 
 Threading: the owning ``ContinuousBatcher`` is serialized by its engine,
 but HTTP handler threads read ``stats()``, so every mutation and compound
@@ -67,6 +68,13 @@ class BlockPool:
         self.frees = 0
         self.alloc_failures = 0
         self.cow_copies = 0
+        # Spill registry: run id -> the block count of a run whose bytes
+        # left the arena for the host store. Its blocks returned to the
+        # free list at spill time; ``restore`` allocates that many again.
+        self._spilled: Dict[int, int] = {}
+        self._next_spill_id = 0
+        self.spills = 0
+        self.restores = 0
 
     @property
     def usable(self) -> int:
@@ -146,6 +154,66 @@ class BlockPool:
         with self._lock:
             self.cow_copies += 1
 
+    def spill_out(self, blocks: Sequence[int]) -> int:
+        """Evict an exclusively owned run from the arena: every block must
+        be live at refcount 1 (an aliased block has another owner whose
+        table would dangle: ``BlockPoolError``, nothing changed, and the
+        caller drops and re-prefills instead). The blocks return to the
+        free list (the caller gathered their bytes already); the returned
+        run id names the registry entry ``restore`` checks. A second spill
+        of the same blocks raises: the first one freed them."""
+        blocks = list(blocks)
+        with self._lock:
+            for b in blocks:
+                self._check_live_locked(b)
+                if self._refs[b] != 1:
+                    raise BlockPoolError(
+                        f"block {b} has refcount {self._refs[b]}: spill-while-pinned refused "
+                        f"(an aliased owner would dangle)")
+            for b in blocks:
+                self._refs[b] = 0
+                self._free.append(b)
+            run_id = self._next_spill_id
+            self._next_spill_id += 1
+            self._spilled[run_id] = len(blocks)
+            self.frees += len(blocks)
+            self.spills += 1
+        return run_id
+
+    def restore(self, run_id: int, n: int) -> Optional[List[int]]:
+        """Re-admit a spilled run: ``n`` fresh blocks at refcount 1 (the
+        caller scatters the host bytes back), or None when fewer are free;
+        the run then stays registered. An unknown, restored or dropped run
+        raises."""
+        with self._lock:
+            if run_id not in self._spilled:
+                raise BlockPoolError(f"spill run {run_id} is not registered (already "
+                                     f"restored, dropped, or never spilled)")
+            n = max(int(n), 0)
+            if n > len(self._free):
+                self.alloc_failures += 1
+                return None
+            out = [self._free.pop() for _ in range(n)]
+            for b in out:
+                self._refs[b] = 1
+            del self._spilled[run_id]
+            self.allocs += n
+            self.restores += 1
+        return out
+
+    def drop_spilled(self, run_id: int) -> None:
+        """Forget a spilled run without restoring it (its request finished
+        or left). An unknown run raises: two owners thought they held it."""
+        with self._lock:
+            if run_id not in self._spilled:
+                raise BlockPoolError(f"spill run {run_id} is not registered (double drop, or "
+                                     f"already restored)")
+            del self._spilled[run_id]
+
+    def spilled_runs(self) -> int:
+        with self._lock:
+            return len(self._spilled)
+
     def ref(self, block: int) -> int:
         with self._lock:
             return self._refs[block]
@@ -173,4 +241,100 @@ class BlockPool:
                 "frees": self.frees,
                 "alloc_failures": self.alloc_failures,
                 "cow_copies": self.cow_copies,
+                "spills": self.spills,
+                "restores": self.restores,
+                "spilled_runs": len(self._spilled),
+            }
+
+
+class SpillStore:
+    """Host-RAM store of spilled KV runs, one record per preempted request:
+    its gathered K/V planes and the state its re-activation needs (length,
+    logits row, speculative ids), as host tensors (pinned on a card). A
+    byte budget (``--spill_capacity_mb``) bounds the resident bytes:
+    ``put`` refuses a record over it (the caller drops and re-prefills)
+    and never evicts, since a record is live request state, not a cache
+    entry. ``stats()`` carries the bytes (the JAX store also prices them
+    into its memory ledger, which the port does not have).
+
+    Threading: as ``BlockPool``: mutations and ``stats()`` hold ``_lock``.
+    """
+
+    def __init__(self, capacity_bytes: int):
+        self.capacity_bytes = max(int(capacity_bytes), 0)
+        self._lock = threading.Lock()
+        self._recs: Dict[Any, Dict[str, Any]] = {}
+        self.used_bytes = 0
+        self.puts = 0
+        self.takes = 0
+        self.drops = 0
+        self.rejects = 0
+
+    @property
+    def enabled(self) -> bool:
+        return self.capacity_bytes > 0
+
+    def would_fit(self, nbytes: int) -> bool:
+        with self._lock:
+            return self.capacity_bytes - self.used_bytes >= int(nbytes)
+
+    def put(self, rid, record: Dict[str, Any], nbytes: int) -> bool:
+        """Admit one record, or refuse (False) when the budget cannot cover
+        it. A second record for one request raises."""
+        nbytes = int(nbytes)
+        with self._lock:
+            if rid in self._recs:
+                raise BlockPoolError(f"request {rid} already holds a spill record "
+                                     f"(double spill?)")
+            if nbytes > self.capacity_bytes - self.used_bytes:
+                self.rejects += 1
+                return False
+            record = dict(record)
+            record["nbytes"] = nbytes
+            self._recs[rid] = record
+            self.used_bytes += nbytes
+            self.puts += 1
+        return True
+
+    def peek(self, rid) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            return self._recs.get(rid)
+
+    def take(self, rid) -> Dict[str, Any]:
+        """Remove and return a record (its restore succeeded). An unknown
+        request raises: a double restore, or one never spilled."""
+        with self._lock:
+            rec = self._recs.pop(rid, None)
+            if rec is None:
+                raise BlockPoolError(f"request {rid} holds no spill record (double restore, "
+                                     f"or never spilled)")
+            self.used_bytes -= int(rec["nbytes"])
+            self.takes += 1
+        return rec
+
+    def drop(self, rid) -> None:
+        """Discard a record without restoring it. An unknown request is a
+        no-op: terminal sweeps may repeat."""
+        with self._lock:
+            rec = self._recs.pop(rid, None)
+            if rec is None:
+                return
+            self.used_bytes -= int(rec["nbytes"])
+            self.drops += 1
+
+    def clear(self) -> None:
+        with self._lock:
+            self._recs.clear()
+            self.used_bytes = 0
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "capacity_bytes": self.capacity_bytes,
+                "used_bytes": self.used_bytes,
+                "records": len(self._recs),
+                "puts": self.puts,
+                "takes": self.takes,
+                "drops": self.drops,
+                "rejects": self.rejects,
             }

@@ -40,6 +40,7 @@ def test_port_imports_no_jax_and_no_jax_package():
             "eventgpt_tpu_torch.ops.quant",
             "eventgpt_tpu_torch.serve",
             "eventgpt_tpu_torch.serve_blocks",
+            "eventgpt_tpu_torch.workload",
             "eventgpt_tpu_torch.cli.infer",
             "eventgpt_tpu_torch.cli.serve",
             "eventgpt_tpu_torch.cli.export",

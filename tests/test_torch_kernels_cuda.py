@@ -629,3 +629,53 @@ def test_medusa_loss_and_gradient_on_the_card_match_the_cpu():
             torch.testing.assert_close(b, a, atol=1e-5, rtol=0)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_spill_gather_to_pinned_host_and_restore_are_bit_exact(quant):
+    """A preemption's round trip on the card: a block run of a paged arena
+    gathered (``_gather_blocks``), copied into pinned host memory
+    (``_to_host``) and scattered back into other blocks through the paged
+    admission (``_admit_row_paged``) comes back bit for bit, an int8
+    arena's scale planes included."""
+    import numpy as np
+
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.models import llama
+    from eventgpt_tpu_torch.serve import (_admit_row_paged, _gather_blocks, _leaves, _map_tree,
+                                          _to_host)
+
+    dev = _card()
+    cfg = EventChatConfig.tiny().llama
+    cache = llama.init_paged_kv_cache(cfg, 2, 256, 10, 64, dtype=torch.bfloat16, device=dev,
+                                      quant=quant)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for plane in ("k", "v"):
+        for t in _leaves(cache[plane]):
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=g, device=dev))
+            else:
+                t.copy_(torch.randn(t.shape, generator=g, device=dev).to(t.dtype))
+    cache["length"][1] = 150
+    logits = torch.randn((2, 300), generator=g, device=dev)
+    run, dst = [5, 2, 7], [1, 9, 3]
+    k, v = _gather_blocks(cache, run)
+    rec, alloc_s, copy_s = _to_host({"k": k, "v": v, "length": cache["length"][1].clone(),
+                                     "logits": logits[1].clone()})
+    assert all(t.device.type == "cpu" and t.is_pinned() for t in _leaves(rec))
+    assert alloc_s >= 0.0 and copy_s > 0.0
+    want = {p: _map_tree(cache[p], lambda t: t[:, run].clone()) for p in ("k", "v")}
+    bt = np.zeros((4,), np.int32)
+    bt[:3] = dst
+    row_cache = {p: _map_tree(rec[p], lambda t: t.to(dev)) for p in ("k", "v")}
+    row_cache["length"] = rec["length"].to(dev).reshape(1)
+    _admit_row_paged(cache, logits, 0, np.asarray(dst, np.int32), bt, row_cache,
+                     rec["logits"].to(dev)[None])
+    torch.cuda.synchronize()
+    for p in ("k", "v"):
+        for got, exp in zip(_leaves(_map_tree(cache[p], lambda t: t[:, dst])),
+                            _leaves(want[p])):
+            assert torch.equal(got, exp)
+    assert cache["bt"][0].tolist() == bt.tolist() and int(cache["length"][0]) == 150
+    assert torch.equal(logits[0], logits[1])

@@ -196,12 +196,16 @@ def test_cancel_and_deadline_keep_the_other_chains(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    # The scheduler and speculation features are ported; with a feature
-    # that is not, they are still refused.
-    dict(speculative=2, preempt=True), dict(prefix_cache=True, speculative=2, mesh=object()),
-    dict(pipeline=True, mesh=object()), dict(prefill_budget=8, role="prefill"),
-    dict(prefill_chunk=64, draft_head={}, spill_capacity_mb=64), dict(preempt=True),
-    dict(spill_capacity_mb=64), dict(role="decode"),
+    # The scheduler, speculation, preemption, spill and role features are
+    # ported; with a feature that is not (the mesh, the memory headroom
+    # guard), they are still refused.
+    dict(speculative=2, preempt=True, mesh=object()),
+    dict(prefix_cache=True, speculative=2, mesh=object()),
+    dict(pipeline=True, mesh=object()),
+    dict(prefill_budget=8, role="prefill", kv_layout="paged", mem_headroom_bytes=1 << 30),
+    dict(prefill_chunk=64, draft_head={}, spill_capacity_mb=64, mesh=object()),
+    dict(preempt=True, kv_layout="paged", mem_headroom_bytes=1 << 30),
+    dict(spill_capacity_mb=64, mesh=object()), dict(role="decode", mesh=object()),
     dict(spec_buckets="0,2", mem_headroom_bytes=1 << 30), dict(mem_headroom_bytes=1 << 30),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_server_features_raise(setup, kw):
@@ -331,11 +335,12 @@ def test_http_refuses_bad_requests(server):
             assert s.recv(64).startswith(b"HTTP/1.1 " + code)
 
 
-@pytest.mark.parametrize("extra", [["--speculative", "2", "--preempt"],
+@pytest.mark.parametrize("extra", [["--speculative", "2", "--preempt", "--mem_headroom_mb", "64"],
                                    ["--prefill_budget", "-1", "--speculative", "2",
                                     "--role", "decode"],
                                    ["--mesh_model", "2"],
-                                   ["--warmup", "--spill_capacity_mb", "64"]],
+                                   ["--warmup", "--spill_capacity_mb", "64",
+                                    "--mem_capacity_mb", "64"]],
                          ids=lambda x: x[0])
 def test_cli_refuses_unported_flags(extra):
     args = cli_serve.build_parser().parse_args(FLAGS + ["--port", "0"] + extra)

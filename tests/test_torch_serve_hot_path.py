@@ -13,8 +13,8 @@ step``, ``_dispatch_segment`` and the segment functions (``_decode_segment``,
 call and every call of a module-level function, stopping at the two harvest points
 (``_harvest_segment``, ``_drain``), where the host is meant to wait. In
 every function it reaches it flags ``.item()``, ``.cpu()``, ``.tolist()``,
-``.numpy()``, and ``bool()``/``int()``/``float()`` of a call, subscript or
-attribute (the shape of a tensor's scalar read). What it flags must be on
+``.numpy()``, ``.synchronize()``, and ``bool()``/``int()``/``float()`` of a
+call, subscript or attribute (the shape of a tensor's scalar read). What it flags must be on
 the allow-list below, each entry with its reason; an entry that no longer
 matches anything fails the test too. At run time, a speculative harvest
 is one fetch of the slots its segment could write.
@@ -35,7 +35,7 @@ CLASS = "ContinuousBatcher"
 ROOTS = (f"{CLASS}.step", f"{CLASS}._dispatch_segment", "_decode_segment",
          "_mixed_decode_segment", "_spec_segment", "_mixed_spec_segment")
 HARVEST = (f"{CLASS}._harvest_segment", f"{CLASS}._drain")
-SYNC_METHODS = ("item", "cpu", "tolist", "numpy")
+SYNC_METHODS = ("item", "cpu", "tolist", "numpy", "synchronize")
 SCALAR_CASTS = ("bool", "int", "float")
 
 # (function, source of the flagged expression) -> why it is no hidden sync.
@@ -44,6 +44,16 @@ ALLOWED = {
         "the segment's stop flag: it waits on the event of a flag written "
         "before the previous step was launched, never on the step just "
         "launched (pinned host memory on the card)",
+    ("_flag_read", "flags.events[i].synchronize()"):
+        "the wait of the stop flag's read on the line above",
+    ("_to_host", "torch.cuda.synchronize(src[0].device)"):
+        "the spill gather (_gather_spill_record, from _preempt_for) and the "
+        "handoff gather (_handoff_gather, from the prefill role's sweep) copy a "
+        "block run to the host: host waits at a drained admission boundary "
+        "(the preemption decision drains first; the prefill role never "
+        "dispatches), outside the pipelined dispatch, as in the JAX package",
+    (f"{CLASS}._gather_spill_record", "int(self.base_pos[row])"):
+        "base_pos is the host numpy mirror of the speculative rows' positions",
     (f"{CLASS}._prep_request", "int(lens[0])"):
         "lens is the host numpy array eventchat._pad_batch returns",
     (f"{CLASS}._scatter_wave",
@@ -134,10 +144,11 @@ def test_the_dispatch_path_reads_nothing_back_but_the_allowed():
 def test_the_guard_flags_a_stray_read():
     """The scan itself: a read added to the segment is found."""
     src = ("def _decode_segment(live):\n"
+           "    torch.cuda.synchronize()\n"
            "    if bool(live.any()):\n"
            "        return live.cpu()\n")
     fn = ast.parse(src).body[0]
-    assert set(_flags(fn)) == {"bool(live.any())", "live.cpu()"}
+    assert set(_flags(fn)) == {"bool(live.any())", "live.cpu()", "torch.cuda.synchronize()"}
 
 
 def test_a_speculative_harvest_is_one_fetch(monkeypatch):
