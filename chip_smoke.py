@@ -105,7 +105,29 @@ Phases, each printed on its own line:
                    requests gathered, spliced and drained, plain and with
                    ``--speculative 4``, against the colocated run: shipped
                    blocks and bytes, gather and splice ms, the rebased
-                   TTFT, both pools clean;
+                   TTFT, both pools clean. ``serve_fleet_7b``:
+                   ``cli/serve --fleet 2`` (``make_engine``: two replicas
+                   over the tree) and one engine, each given the four
+                   requests, then streams 100 and 101 again as repeated
+                   sessions: routing, each repeat pinned to its first
+                   request's replica and hitting its prefix cache, prefix
+                   hits and K1 launches by replica (counted by the
+                   launching thread, 32 per full prefill), TTFT and wall
+                   against one engine, chains held to the oracle.
+                   ``serve_fleet_chaos_7b_{lanes,waves}``: a replica killed
+                   mid-decode by ``fleet.replica_kill``, its requests
+                   drained and re-decoded on the survivor (the moved
+                   requests, the survivor's K1 after the kill, the time
+                   from the kill to each one's first token), pools clean,
+                   the replica restarted and given a new session; with
+                   lanes and with exclusive waves. ``serve_breaker_7b``:
+                   ``serve.dispatch`` faults with the pipeline on, the
+                   breaker opened (``/health`` and a POST 503 with
+                   Retry-After) and closed by a clean request after the
+                   cooldown. ``handoff_wire_7b``: the plain handoff records
+                   through ``rpc.dumps_frame``/``loads_frame`` (bytes, ms to
+                   encode and to decode) and spliced to the in-process
+                   chains;
 6. slice_int8_fused -- ``--quant int8 --fuse_params`` with a bf16 cache;
 7. checkpoint_7b -- phase 3's bf16 tree written as a sharded HF checkpoint
                    (``convert.write_hf_checkpoint``) into the work directory,
@@ -175,6 +197,8 @@ Phases, each printed on its own line:
                    ``tiny_preempt_card_vs_cpu``: the CPU tests' preemption
                    scenario (spill forced, f32 and int8 KV; drop) gives
                    the same chains and counters on the card;
+                   ``tiny_fleet_card_vs_cpu``: the same fleet traffic and
+                   kill, with identical routing and chains on both;
                    ``train_tiny_card_vs_cpu``: one f32 stage-1 and stage-2
                    step agree on the card and the CPU, and ``cli.train``
                    trains 2 steps on the card in a subprocess;
@@ -1717,15 +1741,15 @@ def serve_handoff_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, coun
     gathered (``pop_handoffs``), spliced (``import_handoff``) and drained,
     plain and with ``--speculative 4``, beside a colocated run of the same
     flags (the oracle). The prefill role runs K1 (32 per full-prefill
-    dispatch), the decode role none. Returns {run: K1 launches}."""
+    dispatch), the decode role none. Returns ({run: K1 launches}, the plain
+    run's outbox records and handed-off chains, for ``handoff_wire_7b``)."""
     import torch
 
     from eventgpt_tpu_torch.cli import serve as cli_serve
     from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
 
     reqs = [(ids[i], pixels[i], MAX_NEW_TOKENS) for i in range(len(QUERIES))]
-    base = ["--max_batch", "4", "--max_len", "1024", "--chunk", "32", "--kv_cache", "int8",
-            "--kv_layout", "paged"]
+    base = FLEET_FLAGS
     k1, plain = {}, None
     padded = mask = None
     for name, extra in (("plain", []), ("speculative", ["--speculative", str(SPEC_WINDOW)])):
@@ -1816,6 +1840,8 @@ def serve_handoff_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, coun
                                          params, cfg, padded, mask, ref, chains,
                                          SERVE_KSTEP_WINDOW, True, tokenizer.eos_token_id)
         gathers = list(pre.gather_timings)
+        if name == "plain":
+            wire = (outs, chains)
         k1[f"{name}_prefill_role"] = pre_launches[FLASH_KERNEL.source]
         k1[f"{name}_decode_role"] = dec_launches[FLASH_KERNEL.source]
         emit(f"serve_handoff_7b_{name}", {
@@ -1840,7 +1866,584 @@ def serve_handoff_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, coun
             "first_ids": [c[:8] for c in chains], "nvidia_smi": smi})
         del pre, dec
         torch.cuda.empty_cache()
+    return k1, wire
+
+
+FLEET_FLAGS = ["--max_batch", "4", "--max_len", "1024", "--chunk", "32", "--kv_cache", "int8",
+               "--kv_layout", "paged"]
+ORACLE_FLAGS = ["--no_pipeline", "--no_prefix_cache", "--prefill_budget", "0"]
+# The chaos phase's segments are 8 steps, so that a request is seen
+# mid-decode (tokens committed, budget left) before the kill, and the
+# supervisor probes every 5 ms, so that the kill lands within a few ms of
+# the state it was armed on. Its arms: piggyback lanes of 32 prompt
+# positions a boundary (the budget the other served phases have at chunk
+# 32; the default, --chunk, would be 8) and exclusive admission.
+CHAOS_ARMS = [("lanes", ["--chunk", "8", "--fleet_probe_interval_s", "0.005",
+                         "--prefill_budget", "32"]),
+              ("waves", ["--chunk", "8", "--fleet_probe_interval_s", "0.005",
+                         "--prefill_budget", "0"])]
+BREAKER_FLAGS = ["--max_batch", "2", "--breaker_threshold", "3", "--breaker_cooldown_s", "2"]
+CHAOS_BUDGET = 64  # two segments past a row seen mid-decode leave it unfinished
+WAIT_S = 300.0  # the bound of every wait on a served state at 7B
+
+
+def wait_for(cond, what: str, bound_s: float = WAIT_S) -> float:
+    """Poll ``cond`` until it holds; its wall seconds. Raises past the bound."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > bound_s:
+            raise AssertionError(f"timed out after {bound_s} s waiting for {what}")
+        time.sleep(0.002)
+    return time.perf_counter() - t0
+
+
+def serve_oracle(params, cfg, tokenizer, reqs, flags=()) -> list:
+    """The single-engine oracle of a served phase: the synchronous, cache-off,
+    lane-off batcher of ``FLEET_FLAGS`` (plus ``flags``) run to the drain."""
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+
+    args = cli_serve.build_parser().parse_args(FLEET_FLAGS + list(flags) + ORACLE_FLAGS)
+    batcher = cli_serve.make_batcher(args, params, cfg, tokenizer, "cuda")
+    rids = [batcher.submit(*r) for r in reqs]
+    done = batcher.run_until_drained()
+    return [done[r] for r in rids]
+
+
+def hold_to_oracle(name, eventchat, llama, params, cfg, tokenizer, reqs, want, chains,
+                   new_tokens: int = MAX_NEW_TOKENS) -> dict:
+    """``chain_rule`` of served chains against the oracle's on ``reqs``."""
+    padded = mask = None
+    if chains != want:
+        padded, mask, _ = eventchat.prepare_prefill(params, cfg, [r[0] for r in reqs],
+                                                    [r[1] for r in reqs])
+    return chain_rule(name, llama, params, cfg, padded, mask, want, chains, SERVE_KSTEP_WINDOW,
+                      True, tokenizer.eos_token_id, new_tokens)
+
+
+def replica_threads(fleet) -> list:
+    """Per replica, the set of scheduler threads that step its batcher (a
+    restart runs on a fresh one): the keys of its K1 launches by thread."""
+    import threading
+
+    seen = []
+    for rep in fleet.replicas:
+        b, idents = rep.engine.batcher, set()
+
+        def traced(step=b.step, idents=idents):
+            idents.add(threading.get_ident())
+            step()
+
+        b.step = traced
+        seen.append(idents)
+    return seen
+
+
+def replica_k1(fleet, threads, n_layers: int, name: str) -> list:
+    """Each replica's K1 launches by its threads, held to 32 per full-prefill
+    dispatch of its batcher; their sum is every launch counted."""
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    per = [sum(FLASH_KERNEL.launches_by_thread[t] for t in idents) for idents in threads]
+    full = [sum(rep.engine.batcher.dispatches.get(k, 0) for k in ("full", "wave", "prefix_set"))
+            for rep in fleet.replicas]
+    if per != [n_layers * f for f in full] or sum(per) != FLASH_KERNEL.launches:
+        raise AssertionError(f"{name}: K1 launches by replica {per}, want {n_layers} x {full} "
+                             f"full prefills, of {FLASH_KERNEL.launches} counted")
+    return per
+
+
+def pool_clean(batcher, name: str) -> dict:
+    """After a drain only prefix entries hold blocks."""
+    st = batcher.pool_stats()
+    held = batcher.prefix_cache_stats().get("blocks_held", 0)
+    if (st["free_blocks"] + st["used_blocks"] != st["usable_blocks"]
+            or st["free_blocks"] != st["usable_blocks"] - held or st["spilled_runs"]):
+        raise AssertionError(f"{name}: the pool is not clean after the drain: {st}, "
+                             f"{held} held by prefix entries")
+    return {**st, "prefix_blocks_held": held}
+
+
+def scheduler_numbers(b) -> dict:
+    """Where a batcher's time went: admission, decode segments (host time
+    blocked on fetches, the host's gaps between them) and its steps."""
+    return {"admission_s": b.admission_s, "decode_s": b.decode_s,
+            "decode_steps": b.decode_steps, "decode_steps_run": b.decode_steps_run,
+            "decode_ms_per_step": b.decode_s * 1e3 / max(b.decode_steps, 1),
+            "device_segment_s": b.device_segment_s, "host_gap_s": b.host_gap_s,
+            "overlap_ratio": b.overlap_ratio(), "segments": b.seg_count,
+            "dispatches": dict(b.dispatches)}
+
+
+def fleet_traffic(engine, reqs) -> tuple:
+    """The four requests, then (once they are answered) streams 100 and 101
+    again as repeated sessions, through ``submit_ids``/``result``: (chains,
+    ids, wall seconds)."""
+    t0 = time.perf_counter()
+    first = [engine.submit_ids(*r) for r in reqs[:len(QUERIES)]]
+    chains = [engine.result(f, timeout=WAIT_S) for f in first]
+    late = [engine.submit_ids(*r) for r in reqs[len(QUERIES):]]
+    chains += [engine.result(f, timeout=WAIT_S) for f in late]
+    return chains, first + late, time.perf_counter() - t0
+
+
+def serve_fleet_7b(eventchat, llama, params, cfg, tokenizer, requests, counted, n_layers: int,
+                   smi: str) -> dict:
+    """``serve_fleet_7b``: ``cli/serve --fleet 2`` (``make_engine``: two
+    batchers over the held tree, each with its own paged int8 pool, behind
+    the prefix-affinity router) and one engine of the same flags, each
+    given the four requests and then streams 100 and 101 again as repeated
+    sessions; both held to the single-engine oracle. Affinity must pin each
+    repeat to its first request's replica, where it hits the prefix cache.
+    Returns {run: K1 launches}."""
+    import torch
+
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    want = serve_oracle(params, cfg, tokenizer, requests)
+    parser = cli_serve.build_parser()
+    k1 = {}
+
+    def one_engine():
+        engine = cli_serve.make_engine(parser.parse_args(FLEET_FLAGS), params, cfg, tokenizer,
+                                       "cuda")
+        try:
+            chains, rids, wall = fleet_traffic(engine, requests)
+            b = engine.batcher
+            stats = [b.request_stats[r] for r in rids]
+            pool_clean(b, "serve_fleet_7b")
+            return chains, wall, stats, b.prefix_cache_stats(), scheduler_numbers(b)
+        finally:
+            engine.shutdown()
+
+    (one, one_wall, one_stats, one_pc, one_sched), launches = counted(one_engine)
+    k1["one_engine"] = launches[FLASH_KERNEL.source]
+
+    def fleet_run():
+        fleet = cli_serve.make_engine(parser.parse_args(FLEET_FLAGS + ["--fleet", "2"]), params,
+                                      cfg, tokenizer, "cuda")
+        threads = replica_threads(fleet)
+        try:
+            chains, frids, wall = fleet_traffic(fleet, requests)
+            homes = [fleet.replica_of(f) for f in frids]
+            per_k1 = replica_k1(fleet, threads, n_layers, "serve_fleet_7b")
+            reps = []
+            for rep, k in zip(fleet.replicas, per_k1):
+                b = rep.engine.batcher
+                pc = b.prefix_cache_stats()
+                reps.append({"replica": rep.idx, "routed": homes.count(rep.idx),
+                             "prefix_hits": pc["hits"], "prefix_misses": pc["misses"],
+                             "prefix_entries": pc["n_entries"], "k1_launches": k,
+                             "scheduler": scheduler_numbers(b),
+                             "pool": pool_clean(b, f"serve_fleet_7b replica {rep.idx}")})
+            stats = [fleet.batcher.request_stats.get(f) for f in frids]
+            return chains, wall, homes, reps, stats, fleet.fleet_stats()
+        finally:
+            fleet.shutdown()
+
+    torch.cuda.reset_peak_memory_stats()
+    (chains, wall, homes, reps, stats, fl), launches = counted(fleet_run)
+    peak = torch.cuda.max_memory_allocated()
+    k1["fleet"] = launches[FLASH_KERNEL.source]
+    n = len(QUERIES)
+    repeat_home = [homes[st] for st, _, _ in SERVE_EXTRA]
+    if homes[n:] != repeat_home or any(reps[h]["prefix_hits"] < 1 for h in homes[n:]):
+        raise AssertionError(f"serve_fleet_7b: the repeated sessions went to {homes[n:]} (their "
+                             f"first requests' replicas: {repeat_home}) or missed: {reps}")
+    if sorted(set(homes)) != [0, 1]:
+        raise AssertionError(f"serve_fleet_7b: one replica took all the traffic: {homes}")
+    rules = {run: hold_to_oracle(f"serve_fleet_7b {run}", eventchat, llama, params, cfg,
+                                 tokenizer, requests, want, got)
+             for run, got in (("one_engine", one), ("fleet", chains))}
+    emit("serve_fleet_7b", {
+        "config": "EventGPT-7B bf16 tree, cli/serve --fleet 2 --max_batch 4 --max_len 1024 "
+                  "--chunk 32 --kv_cache int8 --kv_layout paged (the JAX CLI's defaults "
+                  "otherwise), two replicas in one process on one card",
+        "requests": [f"stream {100 + i} query {i}" for i in range(n)]
+        + [f"stream {100 + st} query {q} (repeated session)" for st, q, _ in SERVE_EXTRA],
+        "routed_to": homes, "per_replica": reps, "fleet": fl,
+        "ttft_s": [s["ttft_s"] for s in stats], "latency_s": [s["latency_s"] for s in stats],
+        "wall_s": wall, "one_engine": {"ttft_s": [s["ttft_s"] for s in one_stats],
+                                       "latency_s": [s["latency_s"] for s in one_stats],
+                                       "wall_s": one_wall, "prefix_hits": one_pc["hits"],
+                                       "prefix_misses": one_pc["misses"],
+                                       "scheduler": one_sched},
+        "fleet_wall_over_one_engine": wall / one_wall, "vs_oracle": rules["fleet"],
+        "one_engine_vs_oracle": rules["one_engine"], "k1_launches": k1,
+        "peak_mem_bytes": peak, "first_ids": [c[:8] for c in chains], "nvidia_smi": smi})
     return k1
+
+
+def fleet_chaos_run(params, cfg, tokenizer, reqs, new_session, flags, n_layers: int,
+                    name: str) -> tuple:
+    """One arm of ``serve_fleet_chaos_7b``: a two-replica fleet takes the
+    four requests; once each replica has a row with committed tokens and
+    budget left, ``fleet.replica_kill:n=1`` is armed, and the supervisor's next tick kills
+    the busiest replica. Its requests drain through ``export_requests`` and
+    re-decode on the survivor. Once they are moved, ``restart_replica``
+    brings the dead replica back and a new session must route to it (the
+    survivor is busy). Returns (numbers, chains of the four and the new
+    session)."""
+    import torch
+
+    from eventgpt_tpu_torch import faults
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    args = cli_serve.build_parser().parse_args(FLEET_FLAGS + list(flags) + ["--fleet", "2"])
+    fleet = cli_serve.make_engine(args, params, cfg, tokenizer, "cuda")
+    threads = replica_threads(fleet)
+    kill = fleet.kill_replica
+    at_kill, submitted = {}, {}
+
+    def timed_kill(idx):
+        rows = fleet.replicas[idx].engine.batcher.rows
+        at_kill.update(t=time.perf_counter(), idx=idx,
+                       k1=[sum(FLASH_KERNEL.launches_by_thread[t] for t in ts) for ts in threads],
+                       dispatches=[dict(rep.engine.batcher.dispatches) for rep in fleet.replicas],
+                       tokens={r.rid: len(r.tokens) for r in rows if r is not None})
+        moved = kill(idx)
+        at_kill.update(moved=moved, t_moved=time.perf_counter())
+        return moved
+
+    fleet.kill_replica = timed_kill
+    for rep in fleet.replicas:
+        def traced(*a, submit=rep.engine.submit_ids, idx=rep.idx, **kw):
+            rid = submit(*a, **kw)
+            submitted[idx, rid] = time.perf_counter()
+            return rid
+
+        rep.engine.submit_ids = traced
+    try:
+        frids = [fleet.submit_ids(*r) for r in reqs]
+        homes = [fleet.replica_of(f) for f in frids]
+        wait_for(lambda: all(any(r is not None and 0 < len(r.tokens) <= CHAOS_BUDGET // 2
+                                 for r in rep.engine.batcher.rows) for rep in fleet.replicas),
+                 f"{name}: a row mid-decode on each replica")
+        faults.configure("fleet.replica_kill:n=1")
+        wait_for(lambda: "moved" in at_kill, f"{name}: the scripted kill")
+        faults.disable()
+        dead = at_kill["idx"]
+        survivor = 1 - dead
+        moved = [f for f in frids if fleet._requests[f].failovers]
+        if (not moved or at_kill["moved"] != len(moved)
+                or not any(0 < n < CHAOS_BUDGET for n in at_kill["tokens"].values())):
+            raise AssertionError(f"{name}: the kill moved {at_kill['moved']} requests "
+                                 f"({moved}); rows at the kill: {at_kill['tokens']}")
+        fleet.restart_replica(dead)
+        survivor_depth = fleet.replicas[survivor].depth()
+        f_new = fleet.submit_ids(*new_session)
+        if fleet.replica_of(f_new) != dead:
+            raise AssertionError(f"{name}: the new session went to replica "
+                                 f"{fleet.replica_of(f_new)}, not the restarted {dead} "
+                                 f"(survivor depth {survivor_depth})")
+        chains = [fleet.result(f, timeout=WAIT_S) for f in frids + [f_new]]
+        wait_for(lambda: all(not rep.engine.batcher.queue and all(
+            r is None for r in rep.engine.batcher.rows) for rep in fleet.replicas),
+            f"{name}: the drain")
+        per_k1 = replica_k1(fleet, threads, n_layers, name)
+        first_token = []
+        for f in moved:
+            freq = fleet._requests[f]
+            st = fleet.replicas[freq.replica].engine.batcher.request_stats[freq.rid]
+            first_token.append(submitted[freq.replica, freq.rid] + st["ttft_s"] - at_kill["t"])
+        statuses = [fleet.status(f) for f in frids + [f_new]]
+        if statuses != ["ok"] * len(statuses):
+            raise AssertionError(f"{name}: statuses {statuses}")
+        numbers = {
+            "flags": " ".join(flags), "routed_to": homes, "killed": dead,
+            "rows_at_kill_tokens": at_kill["tokens"], "moved_requests": moved,
+            "moved_to": [fleet.replica_of(f) for f in moved],
+            "kill_s": at_kill["t_moved"] - at_kill["t"],
+            "first_token_after_kill_s": first_token,
+            "k1_by_replica": per_k1,
+            "k1_survivor_after_kill": per_k1[survivor] - at_kill["k1"][survivor],
+            "k1_dead_before_kill": at_kill["k1"][dead],
+            "new_session_replica": fleet.replica_of(f_new),
+            "survivor_depth_at_new_session": survivor_depth,
+            "pools": [pool_clean(rep.engine.batcher, f"{name} replica {rep.idx}")
+                      for rep in fleet.replicas],
+            "survivor_dispatches_after_kill": {
+                k: n - at_kill["dispatches"][survivor].get(k, 0)
+                for k, n in fleet.replicas[survivor].engine.batcher.dispatches.items()},
+            "scheduler": [scheduler_numbers(rep.engine.batcher) for rep in fleet.replicas],
+            "fleet": fleet.fleet_stats()}
+        return numbers, chains
+    finally:
+        faults.disable()
+        fleet.shutdown()
+        del fleet
+        torch.cuda.empty_cache()
+
+
+def serve_fleet_chaos_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, counted,
+                         n_layers: int, smi: str) -> dict:
+    """``serve_fleet_chaos_7b``: ``fleet_chaos_run`` in each of CHAOS_ARMS,
+    held to the single-engine oracle (the new session is stream 100's frames
+    mirrored, query 1). Returns {arm: K1 launches}."""
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    reqs = [(ids[i], pixels[i], CHAOS_BUDGET) for i in range(len(QUERIES))]
+    new_session = (ids[1], pixels[0][..., ::-1].copy(), 16)
+    k1 = {}
+    for arm, flags in CHAOS_ARMS:
+        want = serve_oracle(params, cfg, tokenizer, reqs + [new_session], flags)
+        (numbers, chains), launches = counted(
+            lambda: fleet_chaos_run(params, cfg, tokenizer, reqs, new_session, flags, n_layers,
+                                    f"serve_fleet_chaos_7b {arm}"))
+        k1[arm] = launches[FLASH_KERNEL.source]
+        rule = hold_to_oracle(f"serve_fleet_chaos_7b {arm}", eventchat, llama, params, cfg,
+                              tokenizer, reqs + [new_session], want, chains, CHAOS_BUDGET)
+        emit(f"serve_fleet_chaos_7b_{arm}", {**numbers, "vs_oracle": rule, "k1_launches": k1[arm],
+                                            "first_ids": [c[:8] for c in chains],
+                                            "nvidia_smi": smi})
+    return k1
+
+
+def serve_breaker_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, work: str,
+                     counted, n_layers: int, smi: str) -> dict:
+    """``serve_breaker_7b``: one engine from ``make_engine`` (2 rows, breaker
+    threshold 3, cooldown 2 s, pipelined) at 7B, under ``make_handler``.
+    ``serve.dispatch:n=2``: the second dispatch faults with the first
+    segment in flight; the rows then in flight end as ``engine_fault``, the
+    queued requests survive and the restarted scheduler's chains equal the
+    oracle's. Then ``serve.dispatch:every=1,times=3`` over six requests: the
+    third fault in a row opens the breaker and fails the queue; ``GET
+    /health`` reads 503 ``degraded`` and a POST gets a 503, each with the
+    remaining cooldown as Retry-After, and ``submit`` is refused; after the
+    cooldown a clean request closes the breaker. Returns {run: K1
+    launches}."""
+    import base64
+    import http.client
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from eventgpt_tpu_torch import faults
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    reqs = [(ids[i], pixels[i], MAX_NEW_TOKENS) for i in range(len(QUERIES))]
+    want = serve_oracle(params, cfg, tokenizer, reqs, ["--max_batch", "2"])
+    args = cli_serve.build_parser().parse_args(FLEET_FLAGS + BREAKER_FLAGS)
+    engine = cli_serve.make_engine(args, params, cfg, tokenizer, "cuda")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), cli_serve.make_handler(engine, cfg))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+
+    def ask(method, path, obj=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request(method, path, body=None if obj is None else json.dumps(obj))
+        res = conn.getresponse()
+        return res.status, dict(res.getheaders()), json.loads(res.read())
+
+    def served(batch):
+        """Submit every request, then each one's chain, or None if it failed."""
+        rids = [engine.submit_ids(*r) for r in batch]
+        out = []
+        for rid in rids:
+            try:
+                out.append(engine.result(rid, timeout=WAIT_S))
+            except RuntimeError:
+                out.append(None)
+        return out
+
+    k1 = {}
+    try:
+        faults.configure("serve.dispatch:n=2")
+        got, launches = counted(lambda: served(reqs))
+        k1["one_fault"] = launches[FLASH_KERNEL.source]
+        failed = [i for i, c in enumerate(got) if c is None]
+        kept = [i for i, c in enumerate(got) if c is not None]
+        if not failed or not kept or engine.n_faults != 1 or engine.breaker_open():
+            raise AssertionError(f"serve_breaker_7b: {failed} failed, {kept} served, "
+                                 f"{engine.n_faults} faults, breaker {engine.breaker_open()}")
+        rule = hold_to_oracle("serve_breaker_7b", eventchat, llama, params, cfg, tokenizer,
+                              [reqs[i] for i in kept], [want[i] for i in kept],
+                              [got[i] for i in kept])
+        one_fault = {"failed_requests": failed, "served_requests": kept, "vs_oracle": rule,
+                     "statuses": [engine.status(r) for r in range(len(reqs))],
+                     "restarts": engine.n_restarts, "k1_launches": k1["one_fault"]}
+        faults.configure("serve.dispatch:every=1,times=3")
+        streak = reqs + reqs[:2]
+        t0 = time.perf_counter()
+        got, launches = counted(lambda: served(streak))
+        k1["streak"] = launches[FLASH_KERNEL.source]
+        if any(c is not None for c in got) or not engine.breaker_open() or engine.n_faults != 4:
+            raise AssertionError(f"serve_breaker_7b: after the streak {engine.n_faults} faults, "
+                                 f"breaker open {engine.breaker_open()}, served "
+                                 f"{[c is not None for c in got]}")
+        t_open = time.perf_counter()
+        code, headers, health = ask("GET", "/health")
+        with open(os.path.join(work, "events_0.npy"), "rb") as f:
+            b64 = base64.b64encode(f.read()).decode()
+        post_code, post_headers, post = ask("POST", "/v1/generate",
+                                            {"query": QUERIES[0], "event_b64": b64})
+        try:
+            engine.submit_ids(*reqs[0])
+            refused = False
+        except RuntimeError:
+            refused = True
+        if (code != 503 or health["status"] != "degraded" or post_code != 503 or not refused
+                or int(headers["Retry-After"]) < 1 or int(post_headers["Retry-After"]) < 1):
+            raise AssertionError(f"serve_breaker_7b: the open breaker answered /health {code} "
+                                 f"{health}, POST {post_code} {post}, submit refused {refused}")
+        half_open_s = wait_for(lambda: not engine.breaker_open(), "the half-open breaker")
+        clean, launches = counted(lambda: served(reqs[:1]))
+        k1["clean"] = launches[FLASH_KERNEL.source]
+        closed_code, _, closed = ask("GET", "/health")
+        if clean[0] != want[0] or engine.fault is not None or closed_code != 200:
+            raise AssertionError(f"serve_breaker_7b: after the cooldown the clean request gave "
+                                 f"the oracle's chain: {clean[0] == want[0]}, fault "
+                                 f"{engine.fault}, /health {closed_code}")
+        emit("serve_breaker_7b", {
+            "flags": " ".join(FLEET_FLAGS + BREAKER_FLAGS), "one_fault": one_fault,
+            "streak": {"requests": len(streak), "faults": engine.n_faults,
+                       "restarts": engine.n_restarts, "streak_s": t_open - t0,
+                       "health": {"code": code, "retry_after": headers["Retry-After"], **health},
+                       "post": {"code": post_code, "retry_after": post_headers["Retry-After"],
+                                **post},
+                       "submit_refused": refused, "half_open_after_s": half_open_s,
+                       "k1_launches": k1["streak"]},
+            "closed": {"health_code": closed_code, "restarts": closed["restarts"],
+                       "chain_equals_oracle": True, "k1_launches": k1["clean"]},
+            "nvidia_smi": smi})
+        return k1
+    finally:
+        faults.disable()
+        httpd.shutdown()
+        httpd.server_close()
+        engine.shutdown()
+
+
+def handoff_wire_7b(params, cfg, tokenizer, outs, want, counted, smi: str) -> int:
+    """``handoff_wire_7b``: ``serve_handoff_7b``'s plain records through the
+    RPC wire (``rpc.dumps_frame``, then ``rpc.loads_frame``), every plane bit
+    for bit, then spliced into a fresh decode-role batcher and drained to the
+    in-process handoff's chains; bytes per record and ms to encode and to
+    decode. Returns the decode role's K1 launches (0: a splice is a
+    scatter)."""
+    import torch
+
+    from eventgpt_tpu_torch import rpc
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    def leaves(x):
+        if isinstance(x, dict):
+            return [t for v in x.values() for t in leaves(v)]
+        return [x] if isinstance(x, torch.Tensor) else []
+
+    wired, frame_bytes, enc_ms, dec_ms = [], [], [], []
+    for o in outs:
+        msg = {k: v for k, v in o.items() if k != "t_gather"}
+        t0 = time.perf_counter()
+        buf = rpc.dumps_frame(msg)
+        t1 = time.perf_counter()
+        back = rpc.loads_frame(buf)
+        t2 = time.perf_counter()
+        for got, sent in zip(leaves(back["rec"]), leaves(msg["rec"])):
+            if got.dtype != sent.dtype or not torch.equal(got.reshape(-1).view(torch.uint8),
+                                                          sent.reshape(-1).view(torch.uint8)):
+                raise AssertionError("handoff_wire_7b: a plane changed on the wire")
+        frame_bytes.append(len(buf))
+        enc_ms.append((t1 - t0) * 1e3)
+        dec_ms.append((t2 - t1) * 1e3)
+        wired.append((o, back))
+        del buf
+    args = cli_serve.build_parser().parse_args(FLEET_FLAGS)
+    dec = cli_serve.make_batcher(args, params, cfg, tokenizer, "cuda", role="decode")
+
+    def decode_leg():
+        rids = [dec.import_handoff(
+            b["input_ids"], b["max_new_tokens"], b["rec"], tokens=b["tokens"],
+            prompt_len=b["prompt_len"], deadline_s=b["deadline_s"], slo=b["slo"],
+            elapsed_s=b["elapsed_s"] + time.perf_counter() - o["t_gather"], ttft_s=b["ttft_s"])
+            for o, b in wired]
+        done = dec.run_until_drained()
+        return [done[r] for r in rids]
+
+    chains, launches = counted(decode_leg)
+    if chains != want or launches[FLASH_KERNEL.source] != 0:
+        raise AssertionError(f"handoff_wire_7b: chains equal the in-process handoff's: "
+                             f"{chains == want}; K1 launches {launches} (want 0)")
+    emit("handoff_wire_7b", {
+        "records": len(outs), "frame_bytes": frame_bytes,
+        "kv_bytes": [o["rec"]["nbytes_kv"] for o in outs],
+        "encode_ms": enc_ms, "decode_ms": dec_ms,
+        "encode_gb_s": [n / max(ms, 1e-9) / 1e6 for n, ms in zip(frame_bytes, enc_ms)],
+        "decode_gb_s": [n / max(ms, 1e-9) / 1e6 for n, ms in zip(frame_bytes, dec_ms)],
+        "over_the_socket_frame_cap": [n > rpc.MAX_MSG_BYTES for n in frame_bytes],
+        "chains_equal_in_process_handoff": True, "pool": pool_clean(dec, "handoff_wire_7b"),
+        "k1_launches": 0, "nvidia_smi": smi})
+    del dec
+    torch.cuda.empty_cache()
+    return launches[FLASH_KERNEL.source]
+
+
+def tiny_fleet_card_vs_cpu() -> dict:
+    """The fleet traffic and kill on a tiny f32 model, on the card and on the
+    CPU: two engines with parked loops take the four requests (routed by
+    least queue), replica 0's batcher steps once (its rows admitted, one
+    segment in flight), ``kill_replica(0)`` moves its requests to replica 1,
+    the loops start; after ``restart_replica(0)`` the two repeated sessions
+    follow their pins and a new one goes to the idle replica 0. Chains,
+    routing and failovers must be identical."""
+    import numpy as np
+    import torch
+
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.data.tokenizer import ByteTokenizer
+    from eventgpt_tpu_torch.fleet import Fleet
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.serve import ContinuousBatcher
+
+    cfg = EventChatConfig.tiny(vocab_size=260)
+    cpu = init_eventchat_params(cfg, torch.Generator().manual_seed(4), torch.float32, "cpu")
+    size = cfg.vision.image_size
+
+    def pv(seed):
+        rng = np.random.default_rng(seed)
+        return rng.normal(size=(cfg.num_event_frames, 3, size, size)).astype(np.float32)
+
+    head = [1, 7, 7, -200, 9, 10, 11]
+    first = [(head + [20 + i], pv(i), 10) for i in range(4)]
+    later = [(head + [30], pv(0), 6), (head + [31], pv(1), 6), (head + [32], pv(9), 6)]
+    runs = {}
+    for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+        tok = ByteTokenizer()
+        engines = [cli_serve.ServingEngine(
+            ContinuousBatcher(params, cfg, max_batch=2, max_len=256, chunk=2, eos_token_id=None,
+                              kv_quant=True, kv_layout="paged", device=dev), tok, start=False)
+            for _ in range(2)]
+        fleet = Fleet(engines, tok, probe_interval_s=0.01)
+        try:
+            frids = [fleet.submit_ids(*r) for r in first]
+            homes = [fleet.replica_of(f) for f in frids]
+            with engines[0]._lock:
+                engines[0].batcher.step()
+            moved = fleet.kill_replica(0)
+            for eng in engines:
+                eng.start()
+            chains = [fleet.result(f, timeout=WAIT_S) for f in frids]
+            fleet.restart_replica(0)
+            late = [fleet.submit_ids(*r) for r in later[:2]]
+            chains += [fleet.result(f, timeout=WAIT_S) for f in late]
+            f_new = fleet.submit_ids(*later[2])
+            chains.append(fleet.result(f_new, timeout=WAIT_S))
+            runs[dev] = {"chains": chains, "routed_to": homes, "moved": moved,
+                         "after": [fleet.replica_of(f) for f in frids + late + [f_new]],
+                         "failovers": fleet.n_failovers}
+        finally:
+            fleet.shutdown()
+    if runs["cpu"] != runs["cuda"]:
+        raise AssertionError(f"tiny fleet differs: cpu {runs['cpu']} vs cuda {runs['cuda']}")
+    if runs["cuda"]["moved"] < 1 or runs["cuda"]["after"][-1] != 0:
+        raise AssertionError(f"tiny fleet: the kill moved nothing or the new session did not "
+                             f"go to the restarted replica: {runs['cuda']}")
+    return {"config": "tiny f32, paged, int8 KV, 2 replicas of 2 rows, chunk 2", "identical": True,
+            **{k: v for k, v in runs["cuda"].items() if k != "chains"},
+            "tokens": [len(c) for c in runs["cuda"]["chains"]]}
 
 
 def tiny_preempt_card_vs_cpu() -> dict:
@@ -3508,6 +4111,7 @@ def main() -> int:
         by path and shape are left in ``LAUNCHES_BY_SHAPE`` for the caller."""
         for k in kernels:
             k.launches = 0
+            k.launches_by_thread.clear()
         LAUNCHES_BY_SHAPE.clear()
         LAUNCHES_BY_M.clear()
         out = run()
@@ -3690,8 +4294,19 @@ def main() -> int:
         preempt_k1, preempt_flash = serve_preempt_7b(eventchat, llama, params, cfg, tokenizer,
                                                      ids, pixels, counted, n_layers, smi)
         flash_checks += tuple(preempt_flash)
-        handoff_k1 = serve_handoff_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels,
+        handoff_k1, handoff_plain = serve_handoff_7b(eventchat, llama, params, cfg, tokenizer,
+                                                     ids, pixels, counted, n_layers, smi)
+        torch.cuda.empty_cache()
+        # Fleets: two replicas over the tree, routed by prefix affinity; a
+        # replica killed mid-decode; the breaker; the handoff over the wire.
+        fleet_k1 = serve_fleet_7b(eventchat, llama, params, cfg, tokenizer, requests, counted,
+                                  n_layers, smi)
+        chaos_k1 = serve_fleet_chaos_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels,
+                                        counted, n_layers, smi)
+        breaker_k1 = serve_breaker_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, work,
                                       counted, n_layers, smi)
+        wire_k1 = handoff_wire_7b(params, cfg, tokenizer, *handoff_plain, counted, smi)
+        del handoff_plain
         torch.cuda.empty_cache()
         if args.profile:
             emit("profile_serve_paged", profile_call(
@@ -3894,6 +4509,7 @@ def main() -> int:
         emit("tiny_serve_defaults_card_vs_cpu", tiny_serve_defaults_card_vs_cpu(work))
         emit("tiny_serve_spec_card_vs_cpu", tiny_serve_spec_card_vs_cpu(work))
         emit("tiny_preempt_card_vs_cpu", tiny_preempt_card_vs_cpu())
+        emit("tiny_fleet_card_vs_cpu", tiny_fleet_card_vs_cpu())
         emit("tiny_checkpoint_card_vs_cpu", tiny_checkpoint_card_vs_cpu(work))
         emit("serve_http_tiny", serve_http_tiny(work))
         emit("train_tiny_card_vs_cpu", train_tiny_card_vs_cpu(work, train_paths))
@@ -3939,6 +4555,10 @@ def main() -> int:
                              "serve_spec_int4": serve_spec_int4_launches[FLASH_KERNEL.source],
                              **{f"serve_preempt_7b_{arm}": n for arm, n in preempt_k1.items()},
                              **{f"serve_handoff_7b_{run}": n for run, n in handoff_k1.items()},
+                             **{f"serve_fleet_7b_{run}": n for run, n in fleet_k1.items()},
+                             **{f"serve_fleet_chaos_7b_{arm}": n for arm, n in chaos_k1.items()},
+                             **{f"serve_breaker_7b_{run}": n for run, n in breaker_k1.items()},
+                             "handoff_wire_7b_decode_role": wire_k1,
                              **{f"train_stage{st}": run["k1_launches"]
                                 for st, run in train_runs.items()},
                              **{f"train_stage{st}_eval": run["eval"]["k1_inference"]

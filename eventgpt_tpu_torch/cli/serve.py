@@ -4,7 +4,9 @@ Port of ``eventgpt_tpu/cli/serve.py`` for this slice of the port: one
 process owns the card and the resident decode batch
 (``eventgpt_tpu_torch/serve.py``); a stdlib ThreadingHTTPServer feeds it
 through a thread-safe ``ServingEngine``, whose scheduler thread steps the
-batcher while work exists.
+batcher while work exists, restarts after a fault and opens a circuit
+breaker after a streak of them. With ``--fleet N`` the handler serves a
+``fleet.Fleet`` of N engines over one weight tree through the same surface.
 
 Endpoints:
   POST /v1/generate  {"query": str,
@@ -19,14 +21,21 @@ Endpoints:
           "ttft_s": x, "latency_s": y[, "slo_class", "slo_met"]}; a forced
           finish maps to 504 (deadline), 499 (cancelled), 500 (non-finite
           logits) or 503 (resource_exhausted: no blocks, no victim and no
-          spill room, with a class-aware Retry-After).
+          spill room, with a class-aware Retry-After); a full queue or a
+          fleet's shed is a 429, and an open breaker (or a fleet with no
+          routable replica) a 503, each with a Retry-After (the breaker's
+          remaining cooldown while it is open).
   POST /cancel       {"rid": id} -> {"rid": id, "cancelled": bool}
   POST /prefix       {"prefix_prompt": str, optional "event_path"/"event_b64"
                       when the prefix runs through the event block}
       -> {"prefix_len": N, "entries": N, "bytes": N}: inserts a prefix-KV
          cache entry on a running server
   GET  /prefix_cache -> the prefix cache's entries, budget and counters
-  GET  /health       -> {"status": "ok", "active": N, "queued": N}
+  GET  /health       -> {"status": "ok", "active": N, "queued": N, "faults": N,
+                        "restarts": N}; 503 {"status": "degraded", ...} with
+                        Retry-After while the breaker is open
+  GET  /fleet        -> (``--fleet``) replicas, routable, pins, shed, failovers,
+                        kills, per-replica state and the policy
   GET  /stats        -> engine counters, block-pool state (preemptions,
                         spills, restores, deferrals) and spill store, SLO
                         attainment, the role, recent requests, and under
@@ -54,11 +63,16 @@ reach runs once before the server listens), block-tier preemption
 (``--preempt``: an interactive request the free blocks cannot cover evicts
 batch rows, each spilled to a host-RAM store of ``--spill_capacity_mb`` or
 dropped for re-prefill) and the SLO classes (``--slo_interactive_ttft_s``,
-``--slo_interactive_itl_s``, ``--slo_batch_latency_s``, ``--slo_window``).
-Every other flag of the JAX CLI is accepted and raises
-``NotImplementedError`` when set: its path is not ported yet (``--role``
-comes with process fleets, the memory flags with telemetry). Chains are
-the same with every scheduler feature on or off.
+``--slo_interactive_itl_s``, ``--slo_batch_latency_s``, ``--slo_window``),
+the engine's resilience (``--breaker_threshold``, ``--breaker_cooldown_s``,
+``--heartbeat_dir``), the in-process fleet (``--fleet``,
+``--fleet_shed_goodput``, ``--fleet_shed_queue``, ``--fleet_probe_interval_s``,
+``--fleet_heartbeat_stale_s``, ``--fleet_restart_s``) and ``--faults`` (or
+``EGPT_FAULTS``). Every other flag of the JAX CLI is accepted and raises
+``NotImplementedError`` when set: its path is not ported yet (process fleets,
+``--role`` and the workers come with ``fleet_proc.py``, the memory, journey,
+series, trace and profile flags with telemetry). Chains are the same with
+every scheduler feature on or off.
 
 Usage:
   python -m eventgpt_tpu_torch.cli.serve --model_path tiny-random \\
@@ -66,6 +80,9 @@ Usage:
   curl -s localhost:8600/v1/generate -d @req.json   # {"query": ..., "event_b64": ...}
   curl -s localhost:8600/prefix -d '{"prefix_prompt": "A chat between"}'
   curl -s localhost:8600/prefix_cache
+  python -m eventgpt_tpu_torch.cli.serve --model_path tiny-random --fleet 2 \\
+      --faults 'fleet.replica_kill:n=40' [--device cpu] --port 8600
+  curl -s localhost:8600/fleet
 """
 
 from __future__ import annotations
@@ -81,32 +98,16 @@ import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
+from eventgpt_tpu_torch import faults
 from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
 from eventgpt_tpu_torch.data.tokenizer import tokenize_with_event
+from eventgpt_tpu_torch.fleet import Fleet, FleetShedError, retry_after_s
 from eventgpt_tpu_torch.ops.image import process_event_file
 from eventgpt_tpu_torch.serve import QueueFullError
+from eventgpt_tpu_torch.train.resilience import Heartbeat
 from eventgpt_tpu_torch.workload import SLO
-
-# The class-aware Retry-After of a refused request: the port's copy of the
-# JAX package's ``fleet.retry_after_s`` and its constants.
-_RETRY_BASE_S = {"interactive": 1.0, "batch": 4.0}
-_RETRY_MAX_S = 60.0
-
-
-def retry_after_s(slo_class: str, goodput_ratio: float = 1.0, queue_depth: int = 0,
-                  max_queue: int = 0) -> float:
-    """Seconds a refused client should wait: the class's base (batch backs
-    off harder than interactive), scaled linearly up to 4x as the windowed
-    SLO attainment falls below 1, and again by the relative queue pressure
-    when known; at most ``_RETRY_MAX_S``."""
-    base = _RETRY_BASE_S.get(slo_class, _RETRY_BASE_S["batch"])
-    g = min(max(float(goodput_ratio), 0.0), 1.0)
-    scale = 1.0 + 3.0 * (1.0 - g)
-    if max_queue > 0 and queue_depth > 0:
-        scale *= 1.0 + min(queue_depth / float(max_queue), 1.0)
-    return min(base * scale, _RETRY_MAX_S)
 
 
 class ServingEngine:
@@ -117,14 +118,24 @@ class ServingEngine:
     parks when no work exists. HTTP handler threads only prepare requests
     (event file -> pixels, tokenize) and wait on per-request events.
 
-    A scheduler exception fails the in-flight rows (their waiters get the
-    fault), keeps the queued requests for the next step, and the loop goes
-    on. ``/health`` and ``/stats`` read a snapshot rebuilt after every
+    A scheduler exception fails the in-flight rows, lanes and pending
+    admission (their waiters get the fault), keeps the queued requests, and
+    restarts the scheduler on a fresh thread after a short backoff. A
+    circuit breaker counts consecutive faults: at ``breaker_threshold`` it
+    trips, the queued requests fail too, ``/health`` reads ``degraded`` and
+    submits are refused (503) until ``breaker_cooldown_s`` has passed; then
+    it is half-open, and the first clean step closes it. ``heartbeat_dir``
+    arms the trainer's liveness file (``train/resilience.Heartbeat``).
+    ``kill()``/``revive()`` take the engine out of service and back for a
+    fleet. ``/health`` and ``/stats`` read a snapshot rebuilt after every
     step, so they answer while the scheduler holds the lock through a
-    decode segment.
+    segment; the fault counters are written under the lock and read without
+    it.
     """
 
     def __init__(self, batcher, tokenizer, conv_mode: str = "eventgpt_v1",
+                 breaker_threshold: int = 3, breaker_cooldown_s: float = 5.0,
+                 heartbeat_dir: Optional[str] = None, heartbeat_interval_s: float = 1.0,
                  start: bool = True):
         self.batcher = batcher
         self.tokenizer = tokenizer
@@ -140,6 +151,17 @@ class ServingEngine:
         self.t_start = time.time()
         self.fault: Optional[str] = None  # repr of the last scheduler fault
         self.n_faults = 0
+        self.n_restarts = 0
+        self._consec_faults = 0  # faults with no clean step between them
+        self._t_fault = 0.0  # monotonic time of the last fault
+        self.breaker_threshold = max(int(breaker_threshold), 1)
+        self.breaker_cooldown_s = float(breaker_cooldown_s)
+        # A killed engine parks its loop and refuses submits until revive().
+        self._dead = False
+        self._n_steps = 0
+        self._heartbeat = Heartbeat(heartbeat_dir) if heartbeat_dir else None
+        self._hb_interval = float(heartbeat_interval_s)
+        self._last_beat = 0.0
         self._snapshot: Dict[str, Any] = self._build_snapshot_locked()
         self._thread = threading.Thread(target=self._loop, daemon=True)
         if start:
@@ -153,6 +175,23 @@ class ServingEngine:
 
     # -- client side ------------------------------------------------------
 
+    def breaker_open(self) -> bool:
+        """True while the breaker refuses work: the fault streak reached the
+        threshold and the cooldown has not passed (after it, half-open)."""
+        return (self._consec_faults >= self.breaker_threshold
+                and time.monotonic() - self._t_fault < self.breaker_cooldown_s)
+
+    def breaker_retry_after_s(self) -> Optional[float]:
+        """The breaker's remaining cooldown (at least 1 s) while it is open,
+        else None: the Retry-After of a breaker 503."""
+        if not self.breaker_open():
+            return None
+        return max(self.breaker_cooldown_s - (time.monotonic() - self._t_fault), 1.0)
+
+    def _refuse_if_down(self) -> None:
+        if self.breaker_open() or self._dead:
+            raise RuntimeError(f"serving engine is down: {self.fault}")
+
     def submit(self, query: str, pixels, max_new_tokens: int,
                deadline_s: Optional[float] = None, slo: Optional[SLO] = None) -> int:
         ids = tokenize_with_event(prepare_event_prompt(query, self.conv_mode), self.tokenizer)
@@ -160,8 +199,12 @@ class ServingEngine:
 
     def submit_ids(self, ids, pixels, max_new_tokens: int,
                    deadline_s: Optional[float] = None, slo: Optional[SLO] = None) -> int:
-        """``submit`` for a tokenized prompt."""
+        """``submit`` for a tokenized prompt (a fleet's entry point)."""
+        self._refuse_if_down()
         with self._lock:
+            # Again under the lock: a trip or a kill meanwhile has swept the
+            # waiters, and a waiter added after the sweep would wait forever.
+            self._refuse_if_down()
             rid = self.batcher.submit(ids, pixels, max_new_tokens, deadline_s=deadline_s,
                                       slo=slo)
             self._done[rid] = threading.Event()
@@ -189,6 +232,8 @@ class ServingEngine:
             if ok:
                 self._harvest_locked()
                 self._snapshot = self._build_snapshot_locked()
+        if ok:
+            self._wake.set()
         return ok
 
     def status(self, rid: int) -> str:
@@ -210,13 +255,95 @@ class ServingEngine:
         with self._lock:
             self._done.pop(rid, None)
             if rid not in self._answers:
-                raise RuntimeError(f"serving engine fault: "
+                raise RuntimeError(f"serving engine is down: "
                                    f"{self.fault or self._status.get(rid, 'unknown fault')}")
             return self._answers.pop(rid)
 
+    def try_result(self, rid: int):
+        """A fleet supervisor's non-blocking collection: ``(tokens, status)``
+        once the request is over, ``(None, "engine_fault")`` when a fault
+        failed it, else None. Consuming, like ``result``."""
+        with self._lock:
+            if rid in self._answers:
+                self._done.pop(rid, None)
+                return self._answers.pop(rid), self._status.get(rid, "ok")
+            if self._status.get(rid) == "engine_fault":
+                self._done.pop(rid, None)
+                return None, "engine_fault"
+        return None
+
+    def try_status(self, rid: int) -> Optional[str]:
+        """A request's terminal status once it is known, else None (not
+        consuming)."""
+        with self._lock:
+            return self._status.get(rid)
+
+    def kill(self) -> List[Dict[str, Any]]:
+        """Take the engine out of service (a fleet's replica death): deliver
+        what has finished, strip every unfinished request out of the batcher
+        (``export_requests``) and return their re-admission records. The
+        export settles the in-flight segment first, which can finish a
+        request after the first harvest, so the engine harvests again. The
+        exported requests' waiter state is dropped: the fleet owns them. The
+        loop parks and submits are refused until ``revive()``. The flag is
+        raised before the lock is taken: the loop, which takes the lock again
+        as soon as it lets it go, sees it and parks, so that the kill does
+        not wait for the running requests to end."""
+        self._dead = True
+        with self._lock:
+            self._harvest_locked()
+            recs = self.batcher.export_requests()
+            self._harvest_locked()
+            for rec in recs:
+                self._done.pop(rec["rid"], None)
+                self._abandoned.discard(rec["rid"])
+            self._snapshot = self._build_snapshot_locked()
+        self._wake.set()
+        return recs
+
+    def revive(self) -> None:
+        """Back into service after ``kill``, with a closed breaker."""
+        with self._lock:
+            self._dead = False
+            self._consec_faults = 0
+            self.fault = None
+            self._snapshot = self._build_snapshot_locked()
+        self._wake.set()
+
+    @property
+    def alive(self) -> bool:
+        return not self._dead
+
+    def collect_handoffs(self) -> List[Dict[str, Any]]:
+        """Drain a prefill-role batcher's handoff outbox (empty otherwise)."""
+        with self._lock:
+            return self.batcher.pop_handoffs()
+
+    def import_handoff(self, ids, max_new_tokens: int, rec, tokens=(), prompt_len: int = 0,
+                       deadline_s=None, slo=None, elapsed_s: float = 0.0, ttft_s=None) -> int:
+        """Splice a prefill role's gathered record into this decode-role
+        batcher (``ContinuousBatcher.import_handoff``), behind the same
+        breaker and kill gate as ``submit_ids``: a degraded engine refuses,
+        so that the record goes elsewhere."""
+        self._refuse_if_down()
+        with self._lock:
+            self._refuse_if_down()
+            rid = self.batcher.import_handoff(
+                ids, max_new_tokens, rec, tokens=tokens, prompt_len=prompt_len,
+                deadline_s=deadline_s, slo=slo, elapsed_s=elapsed_s, ttft_s=ttft_s)
+            self._done[rid] = threading.Event()
+            self.n_requests += 1
+        self._wake.set()
+        return rid
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The stats snapshot (stale by at most one step)."""
+        return self._snapshot
+
     def stats(self) -> Dict[str, Any]:
         return {"uptime_s": round(time.time() - self.t_start, 1),
-                "requests": self.n_requests, **self._snapshot}
+                "requests": self.n_requests,
+                "status": "degraded" if self.breaker_open() else "ok", **self._snapshot}
 
     def goodput_ratio(self) -> float:
         """The windowed SLO attainment, 1.0 while the window is empty (no
@@ -229,8 +356,11 @@ class ServingEngine:
     def shutdown(self) -> None:
         self._stop = True
         self._wake.set()
-        if self._thread.is_alive():
-            self._thread.join(timeout=10)
+        thread = self._thread
+        if thread.is_alive():
+            thread.join(timeout=10)
+        if self._thread is not thread and self._thread.is_alive():
+            self._thread.join(timeout=10)  # a restart raced the stop
 
     # -- scheduler thread -------------------------------------------------
 
@@ -245,6 +375,7 @@ class ServingEngine:
             "kv_layout": b.kv_layout,
             "kv_quant": b.kv_quant,
             "faults": self.n_faults,
+            "restarts": self.n_restarts,
             "admission_s": round(b.admission_s, 3),
             "prefill_dispatches": b.prefill_dispatches,
             "dispatches": dict(b.dispatches),
@@ -281,33 +412,74 @@ class ServingEngine:
     def _loop(self) -> None:
         while not self._stop:
             try:
+                faults.maybe_fail("serve.loop")
                 with self._lock:
-                    # An in-flight segment left after the last row finished
-                    # is drained by one more step.
-                    busy = bool(self.batcher.queue
-                                or any(r is not None for r in self.batcher.rows)
-                                or self.batcher._inflight is not None)
+                    # A killed engine parks. An in-flight segment left after
+                    # the last row finished is drained by one more step.
+                    b = self.batcher
+                    busy = not self._dead and bool(
+                        b.queue or any(r is not None for r in b.rows) or b._inflight is not None)
                     if busy:
-                        self.batcher.step()
+                        b.step()
                         self._harvest_locked()
+                        self._n_steps += 1
+                        if self._consec_faults:
+                            # A clean step ends the streak: the breaker closes.
+                            self._consec_faults = 0
+                            self.fault = None
                         self._snapshot = self._build_snapshot_locked()
             except Exception as e:  # a scheduler fault must be loud
                 self._on_fault(e)
-                time.sleep(0.05)
-                continue
-            if not busy:
+                if not self._stop:
+                    # Restart on a fresh thread after a backoff that grows
+                    # with the streak, so that a hard fault loop cannot spin.
+                    time.sleep(min(0.05 * self._consec_faults, 0.5))
+                    with self._lock:
+                        self.n_restarts += 1
+                    self._thread = threading.Thread(target=self._loop, daemon=True)
+                    self._thread.start()
+                return
+            self._maybe_beat()
+            if busy:
+                time.sleep(0)  # a thread waiting on the lock may take it between steps
+            else:
                 self._wake.wait(timeout=0.1)
                 self._wake.clear()
 
+    def _maybe_beat(self) -> None:
+        """The serving heartbeat: the trainer's file format and staleness
+        rule, with the step count, queue depth and breaker state."""
+        if self._heartbeat is None:
+            return
+        now = time.monotonic()
+        if now - self._last_beat < self._hb_interval:
+            return
+        self._last_beat = now
+        s = self._snapshot
+        try:
+            self._heartbeat.beat(self._n_steps,
+                                 status="degraded" if self.breaker_open() else "ok",
+                                 active=s.get("active_rows", 0), queued=s.get("queued", 0),
+                                 faults=self.n_faults, restarts=self.n_restarts)
+        except OSError:
+            pass  # liveness reporting must never kill the scheduler
+
     def _on_fault(self, e: Exception) -> None:
-        """Fail the in-flight rows, lanes and pending admission (their blocks
-        and prefix pins return, and the pipeline's in-flight segment and
-        device carry are dropped); the queued requests stay for the next
-        step."""
+        """One scheduler fault: fail the in-flight rows, lanes and pending
+        admission (their blocks and prefix pins return, and the in-flight
+        segment and the device carry are dropped); the queued requests stay
+        for the restarted scheduler, unless this fault trips the breaker,
+        which fails them too."""
         with self._lock:
             self.fault = repr(e)
             self.n_faults += 1
-            for rid in self.batcher.abort_rows():
+            self._consec_faults += 1
+            self._t_fault = time.monotonic()
+            tripped = self._consec_faults >= self.breaker_threshold
+            failed = self.batcher.abort_rows()
+            if tripped:
+                failed += [rec["rid"] for rec in self.batcher.export_requests()]
+            for rid in failed:
                 self._status[rid] = "engine_fault"
                 if rid in self._done:
                     self._done[rid].set()  # result() finds no answer: raises
@@ -382,7 +554,7 @@ def default_slo_classes(args=None) -> Dict[str, SLO]:
             "batch": SLO("batch", latency_s=latency or None)}
 
 
-def make_handler(engine: ServingEngine, cfg, event_root=None, default_budget: int = 64,
+def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
                  max_body_bytes: int = 32 * 1024 * 1024,
                  default_deadline_s: Optional[float] = None,
                  slo_classes: Optional[Dict[str, SLO]] = None):
@@ -405,13 +577,33 @@ def make_handler(engine: ServingEngine, cfg, event_root=None, default_budget: in
             self.end_headers()
             self.wfile.write(body)
 
+        def _retry_after(self, cls_name: str) -> float:
+            """A 503's backoff: the breaker's remaining cooldown while it is
+            open, else the class-aware hint from the windowed goodput."""
+            ra = engine.breaker_retry_after_s() if hasattr(engine, "breaker_retry_after_s") \
+                else None
+            return ra if ra is not None else retry_after_s(cls_name, engine.goodput_ratio())
+
         def do_GET(self):
             if self.path == "/health":
+                if engine.breaker_open():
+                    # The balancer drains this server until the half-open
+                    # probe; probes and clients share one backoff.
+                    ra = self._retry_after("batch")
+                    self._json(503, {"status": "degraded", "error": engine.fault,
+                                     "faults": engine.n_faults, "restarts": engine.n_restarts,
+                                     "retry_after_s": round(ra, 3)},
+                               headers={"Retry-After": str(max(1, math.ceil(ra)))})
+                    return
                 s = engine.stats()
                 self._json(200, {"status": "ok", "active": s["active_rows"],
-                                 "queued": s["queued"], "faults": s["faults"]})
+                                 "queued": s["queued"], "faults": engine.n_faults,
+                                 "restarts": engine.n_restarts})
             elif self.path == "/stats":
                 self._json(200, engine.stats())
+            elif self.path == "/fleet" and hasattr(engine, "fleet_stats"):
+                # Topology, policy and per-replica health; fleets only.
+                self._json(200, engine.fleet_stats())
             elif self.path == "/prefix_cache":
                 # The cache guards its own host state: no engine lock.
                 self._json(200, engine.batcher.prefix_cache_stats())
@@ -501,17 +693,26 @@ def make_handler(engine: ServingEngine, cfg, event_root=None, default_budget: in
             t0 = time.perf_counter()
             try:
                 rid = engine.submit(query, pixels, budget, deadline_s=deadline, slo=slo)
-            except QueueFullError as e:
+            except (QueueFullError, FleetShedError) as e:
                 # Backpressure: the client backs off by its class and the
-                # engine's windowed attainment, as on a 503 below.
+                # windowed attainment (a shed carries its own hint).
                 cls_name = slo.name if slo is not None else "batch"
-                ra = retry_after_s(cls_name, engine.goodput_ratio())
+                ra = getattr(e, "retry_after_s", None)
+                if ra is None:
+                    ra = retry_after_s(cls_name, engine.goodput_ratio())
                 self._json(429, {"error": str(e), "slo_class": cls_name,
                                  "retry_after_s": round(ra, 3)},
                            headers={"Retry-After": str(max(1, math.ceil(ra)))})
                 return
             except ValueError as e:  # the request does not fit the server
                 self._json(400, {"error": str(e)})
+                return
+            except RuntimeError as e:
+                # The engine is down (the breaker is open, or no replica is
+                # routable): the 503 that /health advertises.
+                ra = self._retry_after(slo.name if slo is not None else "batch")
+                self._json(503, {"error": str(e), "retry_after_s": round(ra, 3)},
+                           headers={"Retry-After": str(max(1, math.ceil(ra)))})
                 return
             try:
                 toks = engine.result(rid)
@@ -554,15 +755,6 @@ _UNPORTED = [
      "the memory headroom guard (ROADMAP Queue 1 item 6, telemetry)"),
     ("--mem_capacity_mb", dict(type=float),
      "the memory headroom guard (ROADMAP Queue 1 item 6, telemetry)"),
-    ("--breaker_threshold", dict(type=int), "the circuit breaker"),
-    ("--breaker_cooldown_s", dict(type=float), "the circuit breaker"),
-    ("--heartbeat_dir", dict(), "the serving heartbeat"),
-    ("--fleet", dict(type=int), "fleet serving"),
-    ("--fleet_shed_goodput", dict(type=float), "fleet serving"),
-    ("--fleet_shed_queue", dict(type=int), "fleet serving"),
-    ("--fleet_probe_interval_s", dict(type=float), "fleet serving"),
-    ("--fleet_heartbeat_stale_s", dict(type=float), "fleet serving"),
-    ("--fleet_restart_s", dict(type=float), "fleet serving"),
     ("--proc_fleet", dict(type=int), "process fleets"),
     ("--proc_fleet_roles", dict(), "prefill/decode disaggregation"),
     ("--procfleet_handoff_retries", dict(type=int), "process fleets"),
@@ -583,7 +775,6 @@ _UNPORTED = [
     ("--trace_buffer", dict(type=int), "span tracing"),
     ("--trace_out", dict(), "span tracing"),
     ("--profile_dir", dict(), "POST /profile"),
-    ("--faults", dict(), "fault injection"),
 ]
 _MESH_FLAGS = ("--mesh_data", "--mesh_fsdp", "--mesh_model")
 
@@ -698,6 +889,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="batch-class end-to-end latency target (0 disarms)")
     p.add_argument("--slo_window", type=int, default=256,
                    help="scored finishes in the windowed goodput ratio")
+    p.add_argument("--breaker_threshold", type=int, default=3,
+                   help="consecutive scheduler faults that trip the circuit breaker (health "
+                        "-> degraded, POSTs 503)")
+    p.add_argument("--breaker_cooldown_s", type=float, default=5.0,
+                   help="seconds the tripped breaker refuses work before the half-open probe "
+                        "admits traffic again")
+    p.add_argument("--heartbeat_dir", default=None,
+                   help="directory of the serving heartbeat.json (the trainer's format; with "
+                        "--fleet one replicaN/ per replica; unset = off)")
+    p.add_argument("--fleet", type=int, default=0,
+                   help="N ServingEngine replicas behind the prefix-affinity router (0/1 = one "
+                        "engine); they share the weight tree, each owns its KV pool, "
+                        "generator and scheduler thread")
+    p.add_argument("--fleet_shed_goodput", type=float, default=0.5,
+                   help="shed batch-class requests while the fleet's windowed goodput ratio is "
+                        "below this (0 disarms)")
+    p.add_argument("--fleet_shed_queue", type=int, default=0,
+                   help="shed batch-class requests while the queued requests are at or above "
+                        "this (0 disarms)")
+    p.add_argument("--fleet_probe_interval_s", type=float, default=0.05,
+                   help="the supervisor's probe and collection period")
+    p.add_argument("--fleet_heartbeat_stale_s", type=float, default=5.0,
+                   help="heartbeat age that makes a replica unroutable")
+    p.add_argument("--fleet_restart_s", type=float, default=0.0,
+                   help="revive a killed replica after this many seconds (0 = only by the "
+                        "operator)")
+    p.add_argument("--faults", default=None,
+                   help="arm fault injection (faults.py grammar, e.g. 'serve.dispatch:n=3'); "
+                        "EGPT_FAULTS works too")
     p.add_argument("--warmup", action="store_true",
                    help="run every function a request can reach once before listening (kernel "
                         "builds, cuBLAS handles, the allocator's first growth)")
@@ -752,22 +972,19 @@ def make_batcher(args, params, cfg, tokenizer, device, role: str = "colocated"):
 
 def build_engine(args):
     """(cfg, engine): the model loaded and prepared on ``--device`` as
-    ``cli/infer`` does it (``load_model``, ``prepare_model``), and one
-    batcher under one engine."""
+    ``cli/infer`` does it (``load_model``, ``prepare_model``), then the
+    engine of ``make_engine`` over it."""
     from eventgpt_tpu_torch.cli.infer import load_model, prepare_model
     from eventgpt_tpu_torch.device import resolve_device
 
     _refuse_unported(args)
+    if args.faults:
+        faults.configure(args.faults)
     device = resolve_device(args.device)
     cfg, params, tokenizer = load_model(args.model_path, args.dtype, None, args.tokenizer_path,
                                         device)
     cfg, params = prepare_model(cfg, params, tokenizer, args)
-    batcher = make_batcher(args, params, cfg, tokenizer, device)
-    if args.warmup:
-        t0 = time.perf_counter()
-        n = batcher.warmup()
-        print(f"[serve] warmup: {n} functions in {time.perf_counter() - t0:.1f}s", flush=True)
-    engine = ServingEngine(batcher, tokenizer, args.conv_mode)
+    engine = make_engine(args, params, cfg, tokenizer, device)
     if args.prefix_prompt:
         # The startup form of POST /prefix.
         pixels = None
@@ -777,6 +994,35 @@ def build_engine(args):
         plen = engine.set_prefix(args.prefix_prompt, pixels)
         print(f"[serve] shared prefix cached: {plen} positions", flush=True)
     return cfg, engine
+
+
+def make_engine(args, params, cfg, tokenizer, device):
+    """The engine the flags describe over a prepared tree on ``device``:
+    one ``ServingEngine``, or with ``--fleet N`` a ``Fleet`` of N engines,
+    each over its own batcher (KV pool, generator, scheduler thread) and
+    heartbeat directory ``--heartbeat_dir/replicaI``."""
+    n_fleet = args.fleet if args.fleet > 1 else 1
+    batchers = [make_batcher(args, params, cfg, tokenizer, device) for _ in range(n_fleet)]
+    if args.warmup:
+        t0 = time.perf_counter()
+        n = sum(b.warmup() for b in batchers)
+        print(f"[serve] warmup: {n} functions in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    def engine_of(batcher, hb_dir):
+        return ServingEngine(batcher, tokenizer, args.conv_mode,
+                             breaker_threshold=args.breaker_threshold,
+                             breaker_cooldown_s=args.breaker_cooldown_s, heartbeat_dir=hb_dir)
+
+    if n_fleet == 1:
+        return engine_of(batchers[0], args.heartbeat_dir)
+    hb = args.heartbeat_dir
+    return Fleet([engine_of(b, os.path.join(hb, f"replica{i}") if hb else None)
+                  for i, b in enumerate(batchers)], tokenizer, args.conv_mode,
+                 probe_interval_s=args.fleet_probe_interval_s,
+                 heartbeat_stale_s=args.fleet_heartbeat_stale_s,
+                 shed_goodput_ratio=args.fleet_shed_goodput,
+                 shed_queue_depth=args.fleet_shed_queue,
+                 replica_restart_s=args.fleet_restart_s or None)
 
 
 def build_server(args):
@@ -798,12 +1044,12 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     httpd, engine = build_server(args)
     host, port = httpd.server_address[:2]
+    b = engine.replicas[0].engine.batcher if isinstance(engine, Fleet) else engine.batcher
     print(f"[serve] listening on http://{host}:{port} (max_batch={args.max_batch}, "
           f"chunk={args.chunk}, kv_layout={args.kv_layout}, kv_cache={args.kv_cache}, "
-          f"pipeline={engine.batcher.pipeline}, prefix_cache="
-          f"{engine.batcher._prefix_cache is not None}, prefill_budget="
-          f"{engine.batcher.prefill_budget}, speculative={engine.batcher.speculative}, "
-          f"preempt={engine.batcher.preempt}, device={engine.batcher.device})", flush=True)
+          f"pipeline={b.pipeline}, prefix_cache={b._prefix_cache is not None}, "
+          f"prefill_budget={b.prefill_budget}, speculative={b.speculative}, "
+          f"preempt={b.preempt}, fleet={max(args.fleet, 1)}, device={b.device})", flush=True)
     got_signal = threading.Event()
 
     def on_signal(signum, frame):

@@ -18,7 +18,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
+from collections import Counter
 from typing import Dict, List, Optional, Sequence, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
@@ -40,9 +42,12 @@ def _nvcc() -> str:
 class CudaKernel:
     """One kernel source: its built library and a count of its launches.
 
-    ``launches`` is a plain integer that the kernel's wrapper raises by one
-    at each launch and nowhere else, so a run can show that its main path
-    went through the kernel.
+    ``launches`` is an integer that the kernel's wrapper raises by one at
+    each launch and nowhere else (``count_launch``), so a run can show that
+    its main path went through the kernel; ``launches_by_thread`` splits the
+    same count by the launching thread (a fleet replica's scheduler). The
+    counts and the library load each take a lock: fleet replicas launch
+    from several threads.
     """
 
     def __init__(self, source: str, signatures: Dict[str, tuple]):
@@ -51,7 +56,10 @@ class CudaKernel:
         self.signatures = {**signatures,
                            "egpt_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int])}
         self.launches = 0
+        self.launches_by_thread: Counter = Counter()
         self._lib: Optional[ctypes.CDLL] = None
+        self._load_lock = threading.Lock()
+        self._count_lock = threading.Lock()
         self.build_log = ""
         self.build_seconds = 0.0
 
@@ -94,17 +102,30 @@ class CudaKernel:
         os.replace(tmp, self.library_path())
 
     def lib(self) -> ctypes.CDLL:
-        """The loaded library, built first if needed."""
+        """The loaded library, built first if needed (once, whichever thread
+        asks first)."""
         if self._lib is None:
-            if not os.path.exists(self.library_path()):
-                build_all([self])
-            lib = ctypes.CDLL(self.library_path())
-            for name, (restype, argtypes) in self.signatures.items():
-                fn = getattr(lib, name)
-                fn.restype = restype
-                fn.argtypes = argtypes
-            self._lib = lib
+            with self._load_lock:
+                if self._lib is None:
+                    if not os.path.exists(self.library_path()):
+                        build_all([self])
+                    lib = ctypes.CDLL(self.library_path())
+                    for name, (restype, argtypes) in self.signatures.items():
+                        fn = getattr(lib, name)
+                        fn.restype = restype
+                        fn.argtypes = argtypes
+                    self._lib = lib
         return self._lib
+
+    def count_launch(self, *tallies) -> None:
+        """One launch: ``launches`` and each ``(counter, key)`` of ``tallies``
+        go up by one together, under the kernel's lock, so that launches from
+        several threads are all counted."""
+        with self._count_lock:
+            self.launches += 1
+            self.launches_by_thread[threading.get_ident()] += 1
+            for counter, key in tallies:
+                counter[key] += 1
 
     def check(self, err: int) -> None:
         """Raise if a C entry point returned a CUDA error."""

@@ -215,7 +215,7 @@ def decode_attention_int8(q, k_q, k_s, v_q, v_s, li, n_valid) -> torch.Tensor:
         nv.data_ptr(), out.data_ptr(), part.data_ptr(), int(out.dtype == torch.bfloat16), li,
         b, s_len, kv, g, hd, split, n_split, 1.0 / math.sqrt(hd), stream)
     DECODE_INT8_KERNEL.check(err)
-    DECODE_INT8_KERNEL.launches += 1
+    DECODE_INT8_KERNEL.count_launch()
     return out
 
 
@@ -295,5 +295,5 @@ def decode_attention_int8_paged(q, k_q, k_s, v_q, v_s, li, block_tables,
         int(out.dtype == torch.bfloat16), li, b, n_blocks, bs, nbpr, kv, g, hd, split, n_split,
         1.0 / math.sqrt(hd), stream)
     PAGED_INT8_KERNEL.check(err)
-    PAGED_INT8_KERNEL.launches += 1
+    PAGED_INT8_KERNEL.count_launch()
     return out

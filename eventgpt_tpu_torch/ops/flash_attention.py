@@ -131,8 +131,7 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_u8.data_ptr(),
         out.data_ptr(), b, s, h, int(causal), 1.0 / math.sqrt(hd), stream)
     FLASH_KERNEL.check(err)
-    FLASH_KERNEL.launches += 1
-    LAUNCHES_BY_PATH[path] += 1
+    FLASH_KERNEL.count_launch((LAUNCHES_BY_PATH, path))
     return out
 
 

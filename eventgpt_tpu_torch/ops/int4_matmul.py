@@ -151,8 +151,6 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor) -> torch.Ten
     err = lib.egpt_int4_matmul(xb.data_ptr(), q4.data_ptr(), s.data_ptr(), out.data_ptr(),
                                m, k, n, group, stream)
     INT4_KERNEL.check(err)
-    INT4_KERNEL.launches += 1
     path = "prefill" if decode_plan(m, k, n, group) is None else "decode"
-    LAUNCHES_BY_SHAPE[path, k, n] += 1
-    LAUNCHES_BY_M[path, m] += 1
+    INT4_KERNEL.count_launch((LAUNCHES_BY_SHAPE, (path, k, n)), (LAUNCHES_BY_M, (path, m)))
     return out

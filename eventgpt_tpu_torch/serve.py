@@ -105,7 +105,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from eventgpt_tpu_torch import serve_spec
+from eventgpt_tpu_torch import faults, serve_spec
 from eventgpt_tpu_torch.config import EventChatConfig
 from eventgpt_tpu_torch.constants import EVENT_TOKEN_INDEX, SEQ_BUCKET
 from eventgpt_tpu_torch.data.tokenizer import split_at_event
@@ -1951,6 +1951,11 @@ class ContinuousBatcher:
             return None
         suf_len, prompt_len, chunk, s1 = fit
         emb = self._suffix_embed(entry, pixel_values, suffix_ids, chunk, suf_len)
+        if record:
+            # The entry copy is a fault site: a fault here lands with a row
+            # reserved and the entry about to be read.
+            faults.maybe_fail("serve.prefix_copy")
+            faults.maybe_delay("serve.prefix_copy")
         row_cache = self._new_row_cache(s1)
         ekv = self._entry_kv(entry)
         last, hidden = _prefix_prefill(
@@ -1973,6 +1978,8 @@ class ContinuousBatcher:
         _, _, chunk, s1 = members[0][4]
         for m in members:
             self._prefix_cache.count_hit(m[2])
+        faults.maybe_fail("serve.prefix_copy")
+        faults.maybe_delay("serve.prefix_copy")
         s_pre = max(m[2].bucket for m in members)
 
         def stack(blocks):
@@ -2068,6 +2075,8 @@ class ContinuousBatcher:
         joining does not (it reserves a row on the host and touches only
         the lane buffers). Without the pipeline, or while the TTFT ramp
         runs, every segment is harvested in its own step."""
+        faults.maybe_fail("serve.step")
+        faults.maybe_delay("serve.step")
         piggy = self.prefill_budget > 0 and (len(self._lanes) > 0 or not self.frozen.all())
         if self._inflight is not None and (
                 self._deadline_expired()
@@ -2187,11 +2196,18 @@ class ContinuousBatcher:
             depths = None
             masked = 0
             if w is None:
-                live = sum(1 for r, req in enumerate(self.rows)
-                           if req is not None and not self.frozen[r])
-                w = self._spec_ctl.select_window(live_rows=live, mixed=mixed)
-                depths, masked = self._spec_ctl.depths(
-                    [req.rid if req is not None else None for req in self.rows], w)
+                try:
+                    # The choice is a fault site: a trip takes the fixed
+                    # default window at full depth for this boundary.
+                    faults.maybe_fail("serve.spec_adapt")
+                    faults.maybe_delay("serve.spec_adapt")
+                    live = sum(1 for r, req in enumerate(self.rows)
+                               if req is not None and not self.frozen[r])
+                    w = self._spec_ctl.select_window(live_rows=live, mixed=mixed)
+                    depths, masked = self._spec_ctl.depths(
+                        [req.rid if req is not None else None for req in self.rows], w)
+                except faults.InjectedFault:
+                    w, depths, masked = self._spec_ctl.default_window, None, 0
             if depths is None:
                 depths = [w - 1] * self.max_batch
             depth = _h2d(np.asarray(depths, np.int32), self.device)
@@ -2215,8 +2231,20 @@ class ContinuousBatcher:
         Warmup passes an all-frozen ``carry`` with ``record=False`` (the
         resident carry and every counter stay as they are),
         ``warm_mixed`` for the mixed segment with idle lanes, and
-        ``window`` for one speculation bucket."""
+        ``window`` for one speculation bucket.
+
+        The dispatch boundary is the ``serve.dispatch`` fault site (not in
+        warmup): a fault there lands with ``prev`` possibly in flight, which
+        the engine's fault path drops with the device carry. Its pinned host
+        buffers are not reused before their copies end (the caching host
+        allocator records the copy's stream), and the live-flag buffers are
+        written only in stream order. With live lanes the lane boundary is
+        the ``serve.mixed_dispatch`` site: a trip re-queues every lane
+        (``_requeue_lanes``) and the boundary dispatches a plain segment."""
         chunk = chunk or self.chunk
+        if record:
+            faults.maybe_fail("serve.dispatch")
+            faults.maybe_delay("serve.dispatch")
         harvest_prev = None if prev is None else (lambda: self._harvest_segment(prev))
         if carry is not None:
             frozen, n_rem, base_pos = carry
@@ -2231,6 +2259,13 @@ class ContinuousBatcher:
                         if self.speculative else None)
             self.carry_uploads += 1
         mixed = (warm_mixed or len(self._lanes) > 0) and self._lane_cache is not None
+        if mixed and self._lanes:
+            try:
+                faults.maybe_fail("serve.mixed_dispatch")
+                faults.maybe_delay("serve.mixed_dispatch")
+            except faults.InjectedFault:
+                self._requeue_lanes()
+                mixed = False
         # No step and no verify when the host knows every row is frozen: the
         # mirror shows it (it lags only toward more frozen), or the segment
         # before knows that its carry is (its ``all_frozen``, asked here).
@@ -2486,6 +2521,10 @@ class ContinuousBatcher:
         until it finishes (its finish re-reads the entry)."""
         suf_len, prompt_len, _, s1 = fit
         self._prefix_cache.count_hit(entry)
+        # The copy boundary's fault site, before the lane's pin, so that a
+        # tripped admission leaks none.
+        faults.maybe_fail("serve.prefix_copy")
+        faults.maybe_delay("serve.prefix_copy")
         entry.pins += 1
         self._ensure_lane_buffers(max(s1, entry.bucket))
         slot = self._lane_free.pop()
@@ -2533,6 +2572,22 @@ class ContinuousBatcher:
             self._paged_release(lane.req)
         if lane.entry is not None:
             self._drain_entry_pin(lane.entry)
+
+    def _requeue_lanes(self) -> None:
+        """The ``serve.mixed_dispatch`` fault's handler: every lane's request
+        goes back to the front of the queue in its order, its row, slot,
+        reservation and entry pin are released, and the decode rows are not
+        touched. The request re-admits from scratch later."""
+        for lane in reversed(self._lanes):
+            self.rows[lane.row] = None  # the row stays frozen; the lane KV is dead
+            lane.req.row = -1
+            if self._paged:
+                self._paged_release(lane.req)
+            if lane.entry is not None:
+                self._drain_entry_pin(lane.entry)
+            self.queue.appendleft(lane.req)
+        self._lanes = []
+        self._lane_free = list(range(self._lane_cap))
 
     def _finish_ready_lanes(self) -> bool:
         """Complete every lane whose prompt is prefilled: slice its lane row
@@ -2684,6 +2739,11 @@ class ContinuousBatcher:
         (frozen) never are victims. Returns whether the head now fits."""
         if req.slo is None or req.slo.name != "interactive":
             return False
+        try:
+            faults.maybe_fail("serve.preempt")
+            faults.maybe_delay("serve.preempt")
+        except faults.InjectedFault:
+            return False  # this admission defers; no victim is touched
         # Rows change only drained: the pipelined scheduler may have a
         # segment in flight, and its harvest may itself free the blocks.
         self._drain()
@@ -2765,8 +2825,15 @@ class ContinuousBatcher:
     def _spill_victim(self, vic: _Request) -> bool:
         """One spill: the gather and the store's admission come before any
         pool change, so a refusal leaves the pool and the victim's
-        reservation as they were (the caller drops instead)."""
-        rec = self._gather_spill_record(vic)
+        reservation as they were (the caller drops instead). The gather is
+        the ``serve.spill`` fault site: a trip there drops the victim with
+        the pool intact."""
+        try:
+            faults.maybe_fail("serve.spill")
+            faults.maybe_delay("serve.spill")
+            rec = self._gather_spill_record(vic)
+        except faults.InjectedFault:
+            return False
         if not self._spill_store.put(vic.rid, rec, rec["nbytes_kv"]):
             return False
         try:
@@ -2993,6 +3060,8 @@ class ContinuousBatcher:
         (hits of one shape share a wave), a miss with rows decoding and
         ``prefill_chunk`` set becomes a chunked admission, and the rest
         join this step's full-prefill wave."""
+        faults.maybe_fail("serve.admit")
+        faults.maybe_delay("serve.admit")
         did_work = False
         if self._lanes:
             # step() drained when a lane was ready.
@@ -3066,24 +3135,25 @@ class ContinuousBatcher:
         groups: Dict[tuple, List[tuple]] = {}
         for h in hits:
             groups.setdefault((h[4][2], h[4][3]), []).append(h)
-        for _, members in sorted(groups.items()):
-            if len(members) == 1:
-                req, row, entry, suffix_ids, _ = members[0]
-                try:
+        ordered = [members for _, members in sorted(groups.items())]
+        for gi, members in enumerate(ordered):
+            try:
+                if len(members) == 1:
+                    req, row, entry, suffix_ids, _ = members[0]
                     row_cache, row_logits, row_hidden, prompt_len = self._prefix_admit(
                         entry, req.pixel_values, suffix_ids)
                     self._prefix_cache.count_hit(entry)
                     self._finish_admission(req, row, prompt_len, row_cache, row_logits,
                                            row_hidden, prefix_entry=entry)
-                finally:
                     self._drain_entry_pin(entry)  # the selection pin
-            else:
-                try:
-                    self._admit_suffix_wave(members)
-                except BaseException:
-                    for m in members:
-                        self._drain_entry_pin(m[2])
-                    raise
+                else:
+                    self._admit_suffix_wave(members)  # drains its members' pins
+            except BaseException:
+                # A fault: this group's selection pins and the later groups'
+                # drain, or the entries would stay pinned for good.
+                for m in (m for later in ordered[gi:] for m in later):
+                    self._drain_entry_pin(m[2])
+                raise
         if not wave:
             return did_work
         if len(wave) > 1:

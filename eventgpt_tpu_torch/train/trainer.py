@@ -39,7 +39,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from eventgpt_tpu_torch import checkpoint as ckpt
-from eventgpt_tpu_torch import constants
+from eventgpt_tpu_torch import constants, faults
 from eventgpt_tpu_torch.config import EventChatConfig
 from eventgpt_tpu_torch.device import resolve_device
 from eventgpt_tpu_torch.models.convert import lora_from_jax, projector_params_to_jax
@@ -345,6 +345,9 @@ class Trainer:
 
             try:
                 for dt_iter, host_batch in timed_iter(it):
+                    # The micro-batch boundary is a fault site.
+                    faults.maybe_fail("train.step")
+                    faults.maybe_delay("train.step")
                     if shutdown.globally_requested():
                         self.save(f"preempt_step{step}")
                         last_metrics = {**last_metrics, "preempted": True,

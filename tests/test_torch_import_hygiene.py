@@ -41,6 +41,9 @@ def test_port_imports_no_jax_and_no_jax_package():
             "eventgpt_tpu_torch.serve",
             "eventgpt_tpu_torch.serve_blocks",
             "eventgpt_tpu_torch.workload",
+            "eventgpt_tpu_torch.faults",
+            "eventgpt_tpu_torch.fleet",
+            "eventgpt_tpu_torch.rpc",
             "eventgpt_tpu_torch.cli.infer",
             "eventgpt_tpu_torch.cli.serve",
             "eventgpt_tpu_torch.cli.export",
@@ -104,3 +107,58 @@ def test_the_scan_sees_lazy_imports():
            "import importlib\nk = importlib.import_module('tokenizers')\n")
     assert {m for _, m in _imported_roots(ast.parse(src))} >= {
         "safetensors", "transformers", "sentencepiece", "tokenizers"}
+
+
+def _fault_sites(tree):
+    """(line, site) of every ``maybe_fail("site")`` call with a literal
+    site in a module's AST."""
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call)
+                and getattr(node.func, "attr", getattr(node.func, "id", None)) == "maybe_fail"
+                and node.args and isinstance(node.args[0], ast.Constant)
+                and isinstance(node.args[0].value, str)):
+            yield node.lineno, node.args[0].value
+
+
+def _scan(root, pattern=".py"):
+    for dirpath, _, files in os.walk(root):
+        for name in sorted(files):
+            if name.endswith(pattern):
+                path = os.path.join(dirpath, name)
+                with open(path) as f:
+                    yield path, ast.parse(f.read(), path)
+
+
+def _armed_specs():
+    """Every string literal of the port's tests (where fault specs live)."""
+    out = set()
+    for path, tree in _scan(os.path.join(REPO, "tests")):
+        if os.path.basename(path).startswith("test_torch_"):
+            out |= {n.value for n in ast.walk(tree)
+                    if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+    return out
+
+
+def test_every_port_fault_site_is_a_jax_site_and_armed_by_a_test():
+    """The port's counterpart of the JAX lint's rule 4: each fault site the
+    port wires is one the JAX package wires, and some ``tests/test_torch_*``
+    arms it (a ``site:`` clause in a spec), so its handling runs."""
+    port = {}
+    for path, tree in _scan(os.path.join(REPO, "eventgpt_tpu_torch")):
+        for line, site in _fault_sites(tree):
+            port.setdefault(site, f"{os.path.relpath(path, REPO)}:{line}")
+    jax_sites = {site for _, tree in _scan(os.path.join(REPO, "eventgpt_tpu"))
+                 for _, site in _fault_sites(tree)}
+    assert {"serve.step", "serve.dispatch", "serve.loop", "fleet.replica_kill",
+            "procfleet.rpc", "train.step"} <= set(port)
+    assert not set(port) - jax_sites, {s: port[s] for s in set(port) - jax_sites}
+    specs = _armed_specs()
+    unarmed = {s: where for s, where in port.items()
+               if not any(f"{s}:" in spec for spec in specs)}
+    assert not unarmed, f"fault sites no test arms: {unarmed}"
+
+
+def test_the_site_scan_sees_calls_and_specs():
+    src = ("from x import faults\nfaults.maybe_fail('a.b')\nmaybe_fail(\"c.d\")\n"
+           "faults.maybe_delay('e.f')\nfaults.maybe_fail(name)\n")
+    assert [s for _, s in _fault_sites(ast.parse(src))] == ["a.b", "c.d"]

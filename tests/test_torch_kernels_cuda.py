@@ -78,6 +78,49 @@ def test_flash_kernel_two_launches_are_bit_equal(causal):
 
 
 @pytest.mark.cuda
+def test_flash_kernel_from_two_threads_counts_every_launch():
+    """Fleet replicas launch K1 from their own scheduler threads, each on a
+    fresh library load: two threads that launch at once lose no count, the
+    per-thread tally splits it exactly, and every output equals the plain
+    version's."""
+    import threading
+
+    dev = _card()
+    fa.FLASH_KERNEL._lib = None  # both threads race the first load
+    n_calls = 200
+    inputs = []
+    for t in range(2):
+        g = torch.Generator(device=dev).manual_seed(40 + t)
+        q, k, v = (torch.randn((2, 200, 4, 128), generator=g, device=dev, dtype=torch.bfloat16)
+                   for _ in range(3))
+        valid = torch.arange(200, device=dev)[None, :] < torch.tensor([200, 131], device=dev)[:, None]
+        inputs.append((q, k, v, valid))
+    before, by_thread = fa.FLASH_KERNEL.launches, dict(fa.FLASH_KERNEL.launches_by_thread)
+    outs, idents, start = [None, None], [None, None], threading.Barrier(2)
+
+    def run(t):
+        idents[t] = threading.get_ident()
+        start.wait()
+        q, k, v, valid = inputs[t]
+        for _ in range(n_calls):
+            outs[t] = fa.flash_attention(q, k, v, valid=valid)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    assert fa.FLASH_KERNEL.launches == before + 2 * n_calls
+    for t in range(2):
+        assert fa.FLASH_KERNEL.launches_by_thread[idents[t]] - by_thread.get(idents[t], 0) \
+            == n_calls
+        q, k, v, valid = inputs[t]
+        ref = fa.flash_attention_reference(q, k, v, valid, True)
+        assert (outs[t].float() - ref.float()).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take():
     dev = _card()
     q = torch.randn((1, 64, 2, 128), device=dev, dtype=torch.bfloat16)
