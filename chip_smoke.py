@@ -149,8 +149,29 @@ Phases, each printed on its own line:
                    directory with ``--use_event_qformer
                    --pretrain_query_embedder --pretrain_attention_layers``;
                    the four requests run on 32 event tokens each, cold then
-                   warm. The
-                   directory is deleted when the phases end;
+                   warm. Process fleets over the same directory:
+                   ``serve_procfleet_7b`` (``cli/serve --proc_fleet 2``
+                   with ``serve_fleet_7b``'s flags and traffic: two worker
+                   processes loading the checkpoint onto the card, routing
+                   and affinity hits, K1 by worker from each worker's
+                   ``stats`` op, boot, wall, TTFTs and decode ms per step
+                   against this call's one engine and ``--fleet 2``, the
+                   card's used memory and each worker's peak),
+                   ``serve_procfleet_chaos_7b`` (the same fleet, the four
+                   of 64 tokens, the busiest worker SIGKILLed by
+                   ``procfleet.worker_kill`` mid-decode, its requests
+                   redone on the survivor, kill to first token, the
+                   respawn's boot and a new session on it) and
+                   ``serve_disagg_7b`` (``--proc_fleet_roles 1:1``: the
+                   records cross as runs of capped frames, bytes and
+                   frames per message, ``handoff_s`` per record, the
+                   rebased TTFT, K1 on the prefill worker only, both
+                   pools clean), each held to its oracle. While the
+                   workers are up the script's tree waits on the host,
+                   after a garbage collection (the bytes it held before
+                   and after each are printed); each oracle runs before
+                   the spawn and the chains are held to it after the
+                   shutdown. The directory is deleted when the phases end;
 8. training     -- on the same bf16 tree, after ``slice_qformer``:
                    ``kernel_flash_grad`` holds K1's autograd Function at
                    the first training batch's shape (B = 2, T = 832, 32
@@ -199,6 +220,9 @@ Phases, each printed on its own line:
                    the same chains and counters on the card;
                    ``tiny_fleet_card_vs_cpu``: the same fleet traffic and
                    kill, with identical routing and chains on both;
+                   ``tiny_procfleet_card_vs_cpu``: tiny ``--proc_fleet 2``
+                   workers on the card and on the CPU, identical routing
+                   and chains;
                    ``train_tiny_card_vs_cpu``: one f32 stage-1 and stage-2
                    step agree on the card and the CPU, and ``cli.train``
                    trains 2 steps on the card in a subprocess;
@@ -1994,7 +2018,8 @@ def serve_fleet_7b(eventchat, llama, params, cfg, tokenizer, requests, counted, 
     given the four requests and then streams 100 and 101 again as repeated
     sessions; both held to the single-engine oracle. Affinity must pin each
     repeat to its first request's replica, where it hits the prefix cache.
-    Returns {run: K1 launches}."""
+    Returns ({run: K1 launches}, the oracle's chains and the walls, TTFTs and
+    decode ms per step of both runs, which the process fleet is set beside)."""
     import torch
 
     from eventgpt_tpu_torch.cli import serve as cli_serve
@@ -2071,7 +2096,12 @@ def serve_fleet_7b(eventchat, llama, params, cfg, tokenizer, requests, counted, 
         "fleet_wall_over_one_engine": wall / one_wall, "vs_oracle": rules["fleet"],
         "one_engine_vs_oracle": rules["one_engine"], "k1_launches": k1,
         "peak_mem_bytes": peak, "first_ids": [c[:8] for c in chains], "nvidia_smi": smi})
-    return k1
+    ref = {"want": want, "fleet_wall_s": wall, "one_engine_wall_s": one_wall,
+           "fleet_ttft_s": [s["ttft_s"] for s in stats],
+           "one_engine_ttft_s": [s["ttft_s"] for s in one_stats],
+           "fleet_decode_ms_per_step": [r["scheduler"]["decode_ms_per_step"] for r in reps],
+           "one_engine_decode_ms_per_step": one_sched["decode_ms_per_step"]}
+    return k1, ref
 
 
 def fleet_chaos_run(params, cfg, tokenizer, reqs, new_session, flags, n_layers: int,
@@ -2443,6 +2473,416 @@ def tiny_fleet_card_vs_cpu() -> dict:
                              f"go to the restarted replica: {runs['cuda']}")
     return {"config": "tiny f32, paged, int8 KV, 2 replicas of 2 rows, chunk 2", "identical": True,
             **{k: v for k, v in runs["cuda"].items() if k != "chains"},
+            "tokens": [len(c) for c in runs["cuda"]["chains"]]}
+
+
+# The process fleet's 7B workers load the checkpoint that ``checkpoint_7b``
+# wrote. A boot imports torch, starts a CUDA context and loads 14.2 GB.
+PROCFLEET_BOOT_S = 600.0
+
+
+def procfleet_args(ckpt: str, *flags):
+    """``cli/serve --proc_fleet 2`` over the 7B checkpoint with
+    ``FLEET_FLAGS`` (each worker on the card, as ``--device`` defaults)."""
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+
+    return cli_serve.build_parser().parse_args(
+        ["--model_path", ckpt, "--tokenizer_path", "byte", "--proc_fleet", "2",
+         "--procfleet_spawn_timeout_s", str(PROCFLEET_BOOT_S), *FLEET_FLAGS, *flags])
+
+
+def smi_used_mib() -> list:
+    """The card's used memory in MiB, by ``nvidia-smi`` (every process)."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return [int(x) for x in res.stdout.split()]
+
+
+def worker_numbers(fleet, n_layers: int, name: str, only=None) -> list:
+    """Each worker's (or the ``only`` ones') ``stats`` op: its kernel launches
+    (K1 held to 32 per full-prefill dispatch of its own batcher), scheduler
+    numbers, prefix counters, pool and peak device memory, and its boot
+    time."""
+    out = []
+    for slot in fleet.slots if only is None else [fleet.slots[i] for i in only]:
+        st = fleet.worker_stats(slot.idx)
+        k1 = st["launches"]["flash_attention.cu"]
+        full = sum(st["dispatches"].get(k, 0) for k in ("full", "wave", "prefix_set"))
+        if k1 != n_layers * full:
+            raise AssertionError(f"{name}: worker {slot.idx} launched K1 {k1} times for {full} "
+                                 f"full prefills (want {n_layers} each)")
+        sched = st["scheduler"]
+        out.append({"worker": slot.idx, "role": slot.role, "generation": slot.generation,
+                    "boot_s": slot.t_ready - slot.t_spawn, "launches": st["launches"], "k1": k1,
+                    "dispatches": st["dispatches"], "requests": st["requests"],
+                    "prefix_hits": st["prefix_cache"].get("hits", 0),
+                    "prefix_misses": st["prefix_cache"].get("misses", 0),
+                    "scheduler": {**sched, "decode_ms_per_step":
+                                  sched["decode_s"] * 1e3 / max(sched["decode_steps"], 1)},
+                    "kv_blocks": st.get("kv_blocks"), "handoff": st.get("handoff"),
+                    "cuda_max_allocated": st.get("cuda_memory", {}).get("max_allocated"),
+                    "cuda_max_reserved": st.get("cuda_memory", {}).get("max_reserved")})
+    return out
+
+
+def procfleet_pools_clean(fleet, name: str) -> list:
+    """After a drain only prefix entries hold blocks, on every worker (a fresh
+    snapshot each)."""
+    out = []
+    for slot in fleet.slots:
+        snap = fleet._rpc(slot, "snapshot", deadline_s=30.0)
+        st, held = snap["kv_blocks"], snap["prefix_cache"].get("blocks_held", 0)
+        if (st["free_blocks"] != st["usable_blocks"] - held or st["spilled_runs"]
+                or snap["handoff"]["pending"]):
+            raise AssertionError(f"{name}: worker {slot.idx}'s pool is not clean after the "
+                                 f"drain: {st}, {held} held by prefix entries, handoff "
+                                 f"{snap['handoff']}")
+        out.append({"worker": slot.idx, "free_blocks": st["free_blocks"],
+                    "usable_blocks": st["usable_blocks"], "prefix_blocks_held": held})
+    return out
+
+
+def tree_to_(tree, device) -> None:
+    """Move every tensor leaf of ``tree`` to ``device`` in place: its dicts
+    and lists stay the objects they are, so every holder of the tree sees
+    the move (a leaf held twice moves once). No closure: a recursive inner
+    function would sit in a reference cycle with the memo, and the old
+    leaves would outlive the call until the next garbage collection."""
+    moved, stack = {}, [tree]
+    while stack:
+        node = stack.pop()
+        for k, v in list(node.items() if isinstance(node, dict) else enumerate(node)):
+            if isinstance(v, (dict, list)):
+                stack.append(v)
+            elif hasattr(v, "to"):
+                if id(v) not in moved:
+                    moved[id(v)] = (v, v.to(device))
+                node[k] = moved[id(v)][1]
+
+
+def card_room(params) -> dict:
+    """Clear the script's share of the card before worker processes load
+    their own 7B trees: collect Python garbage (objects of earlier phases
+    left in reference cycles), then move the held tree to the host until
+    ``tree_to_(params, "cuda")``. The bytes the script holds at each step;
+    the peak counter starts again here."""
+    import gc
+
+    import torch
+
+    out = {"allocated": torch.cuda.memory_allocated()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["after_gc"] = torch.cuda.memory_allocated()
+    tree_to_(params, "cpu")
+    torch.cuda.empty_cache()
+    out["tree_on_host"] = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def procfleet_chaos_requests(ids, pixels) -> tuple:
+    """``serve_procfleet_chaos_7b``'s traffic: the four of 64 tokens, and
+    the new session that must route to the respawned worker (stream 100's
+    frames mirrored, query 1)."""
+    return ([(ids[i], pixels[i], CHAOS_BUDGET) for i in range(len(QUERIES))],
+            (ids[1], pixels[0][..., ::-1].copy(), 16))
+
+
+def procfleet_chaos(fleet, reqs, new_session, counted, n_layers: int, smi: str) -> tuple:
+    """``serve_procfleet_chaos_7b`` on the colocated fleet: the four of 64
+    tokens; ``procfleet.worker_kill:n=1`` SIGKILLs the busiest worker once
+    its rows hold 32 tokens of 64; its requests redo on the survivor from the
+    coordinator's records, the slot respawns, and a new session routes to
+    it. Returns (the phase's numbers, the chains of ``reqs`` and the new
+    session, which the caller holds to the single-engine oracle once the
+    workers are gone, the K1 launches by worker)."""
+    from eventgpt_tpu_torch import faults
+
+    fleet.reset_stats()
+    at_kill = {}
+    kill = fleet.kill_worker
+
+    def timed_kill(idx):
+        at_kill.update(t=time.perf_counter(), idx=idx,
+                       inflight=[s.inflight for s in fleet.slots])
+        kill(idx)
+
+    fleet.kill_worker = timed_kill
+
+    def mid_decode():
+        # The worker the kill takes (the busiest): its second segment is in
+        # flight, so its rows hold 32 tokens of 64 (steps count at dispatch).
+        slot = max(fleet.slots, key=lambda s: (s.inflight, -s.idx))
+        snap = fleet._rpc(slot, "snapshot", deadline_s=30.0)
+        return snap["active_rows"] > 0 and snap["decode_steps_run"] >= 2 * 32
+
+    def run():
+        frids = [fleet.submit_ids(*r) for r in reqs]
+        homes = [fleet.worker_of(f) for f in frids]
+        wait_for(mid_decode, "serve_procfleet_chaos_7b: the busiest worker mid-decode")
+        faults.configure("procfleet.worker_kill:n=1")
+        wait_for(lambda: fleet.n_deaths >= 1, "serve_procfleet_chaos_7b: the scripted SIGKILL")
+        faults.disable()
+        chains = [fleet.result(f, timeout=WAIT_S) for f in frids]
+        return frids, homes, chains
+
+    try:
+        (frids, homes, chains), launches = counted(run)
+    finally:
+        faults.disable()
+        fleet.kill_worker = kill
+    victim, survivor = at_kill["idx"], 1 - at_kill["idx"]
+    moved = [f for f in frids if fleet._requests[f].failovers]
+    if not moved or any(fleet.worker_of(f) != survivor for f in moved):
+        raise AssertionError(f"serve_procfleet_chaos_7b: the kill of worker {victim} moved "
+                             f"{moved} to {[fleet.worker_of(f) for f in moved]}")
+    first_token = [fleet._requests[f].t_assign + fleet._requests[f].stats["ttft_s"] - at_kill["t"]
+                   for f in moved]
+    survivor_stats = worker_numbers(fleet, n_layers, "serve_procfleet_chaos_7b",
+                                    only=[survivor])[0]
+    respawn_s = wait_for(lambda: all(s.state == "ok" for s in fleet.slots),
+                         "serve_procfleet_chaos_7b: the respawn")
+    f_new = fleet.submit_ids(*new_session)
+    chains.append(fleet.result(f_new, timeout=WAIT_S))
+    if fleet.worker_of(f_new) != victim:
+        raise AssertionError(f"serve_procfleet_chaos_7b: the new session went to worker "
+                             f"{fleet.worker_of(f_new)}, not the respawned {victim}")
+    workers = worker_numbers(fleet, n_layers, "serve_procfleet_chaos_7b respawned")
+    statuses = [fleet.status(f) for f in frids + [f_new]]
+    if statuses != ["ok"] * len(statuses) or launches["flash_attention.cu"]:
+        raise AssertionError(f"serve_procfleet_chaos_7b: statuses {statuses}, coordinator "
+                             f"launches {launches}")
+    slot = fleet.slots[victim]
+    numbers = {
+        "flags": " ".join(FLEET_FLAGS), "routed_to": homes, "killed": victim,
+        "inflight_at_kill": at_kill["inflight"], "moved_requests": moved,
+        "moved_to": [fleet.worker_of(f) for f in moved],
+        "first_token_after_kill_s": first_token,
+        "survivor_after_kill": {k: survivor_stats[k] for k in ("k1", "dispatches", "scheduler")},
+        "respawn": {"generation": slot.generation, "boot_s": slot.t_ready - slot.t_spawn,
+                    "crashes": len(slot.crashes), "respawns": fleet.n_respawns,
+                    "wait_after_results_s": respawn_s},
+        "new_session_worker": fleet.worker_of(f_new), "respawned_k1": workers[victim]["k1"],
+        "cuda_max_allocated_by_worker": [w["cuda_max_allocated"] for w in workers],
+        "fleet": fleet.fleet_stats(), "first_ids": [c[:8] for c in chains], "nvidia_smi": smi}
+    return numbers, chains, {"survivor_after_kill": survivor_stats["k1"],
+                             "respawned": workers[victim]["k1"]}
+
+
+def serve_procfleet_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, requests,
+                       ckpt: str, fleet_ref: dict, counted, n_layers: int, smi: str) -> dict:
+    """``serve_procfleet_7b``: ``cli/serve --proc_fleet 2`` (two worker
+    processes, each loading the 7B checkpoint onto the card with
+    ``FLEET_FLAGS``) given ``serve_fleet_7b``'s traffic, held to its oracle:
+    routing and affinity hits, K1 by worker (each worker's ``stats`` op),
+    boot, wall, TTFTs and each worker's decode ms per step against one engine
+    and the in-process ``--fleet 2`` of this call; then
+    ``serve_procfleet_chaos_7b`` on the same fleet; then
+    ``serve_disagg_7b``. While the workers are up the script's tree waits on
+    the host (``card_room``), so the card holds the two workers and little
+    else; the oracles run before the spawn and the chains are held to them
+    after the shutdown. Returns {run: K1 launches by worker}."""
+    import torch
+
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+
+    want = fleet_ref["want"]
+    chaos_reqs, new_session = procfleet_chaos_requests(ids, pixels)
+    chaos_want = serve_oracle(params, cfg, tokenizer, chaos_reqs + [new_session])
+    memory = card_room(params)
+    k1 = {}
+    try:
+        used = {"before": smi_used_mib()}
+        t0 = time.perf_counter()
+        _, fleet = cli_serve.build_engine(procfleet_args(ckpt))
+        boot_s = time.perf_counter() - t0
+        try:
+            used["workers_up"] = smi_used_mib()
+            (chains, frids, wall), launches = counted(lambda: fleet_traffic(fleet, requests))
+            used["after_traffic"] = smi_used_mib()
+            homes = [fleet.worker_of(f) for f in frids]
+            workers = worker_numbers(fleet, n_layers, "serve_procfleet_7b")
+            n = len(QUERIES)
+            repeat_home = [homes[st] for st, _, _ in SERVE_EXTRA]
+            if (homes[n:] != repeat_home or sorted(set(homes)) != [0, 1]
+                    or any(workers[h]["prefix_hits"] < 1 for h in homes[n:])):
+                raise AssertionError(f"serve_procfleet_7b: routed {homes}, the repeats' first "
+                                     f"requests on {repeat_home}; workers {workers}")
+            if ([w["k1"] for w in workers] != [n_layers, n_layers]
+                    or launches["flash_attention.cu"]):
+                raise AssertionError(f"serve_procfleet_7b: K1 by worker "
+                                     f"{[w['k1'] for w in workers]} (want {n_layers} + "
+                                     f"{n_layers}), coordinator {launches}")
+            stats = [fleet.batcher.request_stats.get(f) for f in frids]
+            k1["colocated"] = [w["k1"] for w in workers]
+            colocated = {
+                "config": "EventGPT-7B bf16 checkpoint, cli/serve --proc_fleet 2 "
+                          + " ".join(FLEET_FLAGS) + ", two worker processes on one card",
+                "boot_s": boot_s, "routed_to": homes, "per_worker": workers,
+                "ttft_s": [s["ttft_s"] for s in stats],
+                "latency_s": [s["latency_s"] for s in stats], "wall_s": wall,
+                "in_process_fleet": {k: v for k, v in fleet_ref.items() if k != "want"},
+                "wall_over_in_process_fleet": wall / fleet_ref["fleet_wall_s"],
+                "wall_over_one_engine": wall / fleet_ref["one_engine_wall_s"],
+                "smi_used_mib": used, "fleet": fleet.fleet_stats(),
+                "first_ids": [c[:8] for c in chains], "nvidia_smi": smi}
+            chaos, chaos_chains, k1["chaos"] = procfleet_chaos(
+                fleet, chaos_reqs, new_session, counted, n_layers, smi)
+        finally:
+            fleet.shutdown()
+        memory["max_allocated_workers_up"] = torch.cuda.max_memory_allocated()
+    finally:
+        tree_to_(params, "cuda")
+    colocated["script_memory"] = memory
+    colocated["vs_oracle"] = hold_to_oracle("serve_procfleet_7b", eventchat, llama, params, cfg,
+                                            tokenizer, requests, want, chains)
+    emit("serve_procfleet_7b", colocated)
+    chaos["vs_oracle"] = hold_to_oracle("serve_procfleet_chaos_7b", eventchat, llama, params, cfg,
+                                        tokenizer, chaos_reqs + [new_session], chaos_want,
+                                        chaos_chains, CHAOS_BUDGET)
+    emit("serve_procfleet_chaos_7b", chaos)
+    k1["disagg"] = serve_disagg_7b(eventchat, llama, params, cfg, tokenizer, requests[:len(QUERIES)],
+                                   want[:len(QUERIES)], ckpt, counted, n_layers, smi)
+    return k1
+
+
+def serve_disagg_7b(eventchat, llama, params, cfg, tokenizer, reqs, want, ckpt: str, counted,
+                    n_layers: int, smi: str) -> list:
+    """``serve_disagg_7b``: ``--proc_fleet 2 --proc_fleet_roles 1:1`` on the
+    four requests. The prefill worker admits them as one wave, each record
+    (13-14 blocks, 225-242 MB) crosses to the coordinator and on to the
+    decode worker as a run of capped frames; chains held to the colocated
+    oracle once the workers are gone, both pools clean after the drain, K1
+    32 on the prefill worker and 0 on the decode worker. Reports each
+    message's bytes and frames, the coordinator's collect-to-import seconds
+    per record and the rebased TTFT. Returns the K1 launches by worker."""
+    import torch
+
+    from eventgpt_tpu_torch import rpc
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+
+    memory = card_room(params)
+    sizes = {"sent": [], "received": []}
+    send, recv = rpc.send_frames, rpc.recv_msg
+
+    def send_frames(sock, data):
+        sizes["sent"].append(len(data))
+        return send(sock, data)
+
+    def recv_msg(sock):
+        data = recv(sock)
+        sizes["received"].append(len(data))
+        return data
+
+    try:
+        t0 = time.perf_counter()
+        _, fleet = cli_serve.build_engine(procfleet_args(ckpt, "--proc_fleet_roles", "1:1"))
+        boot_s = time.perf_counter() - t0
+        rpc.send_frames, rpc.recv_msg = send_frames, recv_msg
+        try:
+            used = {"workers_up": smi_used_mib()}
+
+            def run():
+                t0 = time.perf_counter()
+                frids = [fleet.submit_ids(*r) for r in reqs]
+                chains = [fleet.result(f, timeout=WAIT_S) for f in frids]
+                return chains, frids, time.perf_counter() - t0
+
+            (chains, frids, wall), launches = counted(run)
+            used["after_traffic"] = smi_used_mib()
+            workers = worker_numbers(fleet, n_layers, "serve_disagg_7b")
+            pools = procfleet_pools_clean(fleet, "serve_disagg_7b")
+            fl = fleet.fleet_stats()
+            if ([w["k1"] for w in workers] != [n_layers, 0] or launches["flash_attention.cu"]
+                    or fl["handoffs"]["shipped"] != len(reqs) or fl["handoffs"]["redos"]
+                    or any(fleet.worker_of(f) != 1 for f in frids)):
+                raise AssertionError(f"serve_disagg_7b: K1 by worker "
+                                     f"{[w['k1'] for w in workers]} (want {n_layers}, 0), "
+                                     f"handoffs {fl['handoffs']}, ended on "
+                                     f"{[fleet.worker_of(f) for f in frids]}")
+            big_sent = [n for n in sizes["sent"] if n > rpc.MAX_MSG_BYTES]
+            big_received = [n for n in sizes["received"] if n > rpc.MAX_MSG_BYTES]
+            if len(big_sent) != len(reqs):
+                raise AssertionError(f"serve_disagg_7b: {len(big_sent)} import messages above "
+                                     f"the frame cap, want {len(reqs)}: {sizes}")
+            stats = [fleet.batcher.request_stats.get(f) for f in frids]
+            numbers = {
+                "config": "EventGPT-7B bf16 checkpoint, cli/serve --proc_fleet 2 "
+                          "--proc_fleet_roles 1:1 " + " ".join(FLEET_FLAGS),
+                "boot_s": boot_s, "per_worker": workers, "pools": pools,
+                "import_messages": {"bytes": big_sent,
+                                    "frames": [rpc.run_frames(n) for n in big_sent]},
+                "collect_messages": {"bytes": big_received,
+                                     "frames": [rpc.run_frames(n) for n in big_received]},
+                "kv_bytes_shipped": fl["handoffs"]["bytes"],
+                "handoff_s": [fleet._requests[f].handoff_s for f in frids],
+                "rebased_ttft_s": [s["ttft_s"] for s in stats],
+                "latency_s": [s["latency_s"] for s in stats], "wall_s": wall,
+                "smi_used_mib": used, "fleet": fl, "first_ids": [c[:8] for c in chains],
+                "nvidia_smi": smi}
+        finally:
+            rpc.send_frames, rpc.recv_msg = send, recv
+            fleet.shutdown()
+        memory["max_allocated_workers_up"] = torch.cuda.max_memory_allocated()
+    finally:
+        tree_to_(params, "cuda")
+    numbers["script_memory"] = memory
+    numbers["vs_oracle"] = hold_to_oracle("serve_disagg_7b", eventchat, llama, params, cfg,
+                                          tokenizer, reqs, want, chains)
+    emit("serve_disagg_7b", numbers)
+    return [w["k1"] for w in workers]
+
+
+def tiny_procfleet_card_vs_cpu(work: str) -> dict:
+    """Tiny f32 workers (``--proc_fleet 2``, paged int8 KV, dense attention)
+    on the card and on the CPU over one checkpoint the port wrote, with the
+    same traffic: four requests, then two repeated sessions. Chains and
+    routing must be identical."""
+    import numpy as np
+    import torch
+
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params, write_hf_checkpoint
+
+    cfg = EventChatConfig.tiny(vocab_size=260)
+    ckpt = os.path.join(work, "tiny_procfleet_checkpoint")
+    write_hf_checkpoint(init_eventchat_params(cfg, torch.Generator().manual_seed(4),
+                                              torch.float32, "cpu"), cfg, ckpt)
+    size = cfg.vision.image_size
+
+    def pv(seed):
+        rng = np.random.default_rng(seed)
+        return rng.normal(size=(cfg.num_event_frames, 3, size, size)).astype(np.float32)
+
+    head = [1, 7, 7, -200, 9, 10, 11]
+    first = [(head + [20 + i], pv(i), 10) for i in range(4)]
+    later = [(head + [30], pv(0), 6), (head + [31], pv(1), 6)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        args = cli_serve.build_parser().parse_args([
+            "--model_path", ckpt, "--tokenizer_path", "byte", "--dtype", "float32",
+            "--attn_impl", "dense", "--device", dev, "--proc_fleet", "2", "--max_batch", "2",
+            "--chunk", "2", "--max_len", "256", "--kv_layout", "paged", "--kv_pool_blocks", "12",
+            "--kv_cache", "int8"])
+        _, fleet = cli_serve.build_engine(args)
+        try:
+            frids = [fleet.submit_ids(*r) for r in first]
+            chains = [fleet.result(f, timeout=WAIT_S) for f in frids]
+            late = [fleet.submit_ids(*r) for r in later]
+            chains += [fleet.result(f, timeout=WAIT_S) for f in late]
+            runs[dev] = {"chains": chains, "routed_to": [fleet.worker_of(f) for f in frids + late],
+                         "k1": [fleet.worker_stats(i)["launches"]["flash_attention.cu"]
+                                for i in range(2)]}
+        finally:
+            fleet.shutdown()
+    if runs["cpu"] != runs["cuda"]:
+        raise AssertionError(f"tiny process fleet differs: cpu {runs['cpu']} vs cuda "
+                             f"{runs['cuda']}")
+    return {"config": "tiny f32 checkpoint, --proc_fleet 2, paged int8 KV, 2 rows a worker, "
+                      "chunk 2, dense attention", "identical": True,
+            "routed_to": runs["cuda"]["routed_to"], "k1": runs["cuda"]["k1"],
             "tokens": [len(c) for c in runs["cuda"]["chains"]]}
 
 
@@ -4240,7 +4680,9 @@ def main() -> int:
                                         "finite": finite, "same_greedy_first_token": same_first})
         if not finite or diff > PREFILL_LOGIT_ATOL:
             raise AssertionError(f"flash vs dense prefill logits differ by {diff}")
-        del logits, cache
+        # ``_`` is the last prefill's cache (1.8 GB): names left bound
+        # after a phase hold the card until the run ends.
+        del logits, cache, _
         torch.cuda.empty_cache()
 
         # The decoding variants on the bf16 tree: speculative (lookup and
@@ -4299,8 +4741,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         # Fleets: two replicas over the tree, routed by prefix affinity; a
         # replica killed mid-decode; the breaker; the handoff over the wire.
-        fleet_k1 = serve_fleet_7b(eventchat, llama, params, cfg, tokenizer, requests, counted,
-                                  n_layers, smi)
+        fleet_k1, fleet_ref = serve_fleet_7b(eventchat, llama, params, cfg, tokenizer, requests,
+                                             counted, n_layers, smi)
         chaos_k1 = serve_fleet_chaos_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels,
                                         counted, n_layers, smi)
         breaker_k1 = serve_breaker_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, work,
@@ -4397,7 +4839,7 @@ def main() -> int:
             cache = llama.init_kv_cache(cfg.llama, b, t, dtype=padded.dtype, device=padded.device)
             with torch.inference_mode():
                 first[name], _ = llama.prefill(lp, cfg.llama, padded, mask, cache, last_only=True)
-        del llama_deq, cache
+        del llama_deq, lp, cache, _
         torch.cuda.empty_cache()
         diff = (first["int4"] - first["dequant_bf16"]).abs().max().item()
         finite = bool(torch.isfinite(first["int4"]).all())
@@ -4438,7 +4880,7 @@ def main() -> int:
                          for li in (0, n_layers - 1)]
         for chk in decode_checks:
             emit("kernel_decode_int8", chk)
-        del caches, params_int4, llama_int4, padded, mask
+        del caches, cache, emb, params_int4, llama_int4, padded, mask
         torch.cuda.empty_cache()
 
         # 6. --quant int8 --fuse_params, bf16 cache: a short run warms the
@@ -4473,6 +4915,11 @@ def main() -> int:
                 "cli_subprocess_tiny": cli_subprocess_tiny(work, counted), "nvidia_smi": smi})
             emit("slice_qformer", {**slice_qformer(cfg, ckpt, ids, pixels, counted),
                                    "nvidia_smi": smi})
+            # Process fleets: worker processes loading this checkpoint.
+            procfleet_k1 = serve_procfleet_7b(eventchat, llama, params, cfg, tokenizer, ids,
+                                              pixels, requests, ckpt, fleet_ref, counted,
+                                              n_layers, smi)
+            del fleet_ref
         finally:
             shutil.rmtree(ckpt, ignore_errors=True)
             shutil.rmtree(os.path.join(work, "qformer_7b"), ignore_errors=True)
@@ -4510,6 +4957,7 @@ def main() -> int:
         emit("tiny_serve_spec_card_vs_cpu", tiny_serve_spec_card_vs_cpu(work))
         emit("tiny_preempt_card_vs_cpu", tiny_preempt_card_vs_cpu())
         emit("tiny_fleet_card_vs_cpu", tiny_fleet_card_vs_cpu())
+        emit("tiny_procfleet_card_vs_cpu", tiny_procfleet_card_vs_cpu(work))
         emit("tiny_checkpoint_card_vs_cpu", tiny_checkpoint_card_vs_cpu(work))
         emit("serve_http_tiny", serve_http_tiny(work))
         emit("train_tiny_card_vs_cpu", train_tiny_card_vs_cpu(work, train_paths))
@@ -4559,6 +5007,13 @@ def main() -> int:
                              **{f"serve_fleet_chaos_7b_{arm}": n for arm, n in chaos_k1.items()},
                              **{f"serve_breaker_7b_{run}": n for run, n in breaker_k1.items()},
                              "handoff_wire_7b_decode_role": wire_k1,
+                             "serve_procfleet_7b_by_worker": procfleet_k1["colocated"],
+                             "serve_procfleet_chaos_7b_survivor_after_kill":
+                                 procfleet_k1["chaos"]["survivor_after_kill"],
+                             "serve_procfleet_chaos_7b_respawned":
+                                 procfleet_k1["chaos"]["respawned"],
+                             "serve_disagg_7b_prefill_worker": procfleet_k1["disagg"][0],
+                             "serve_disagg_7b_decode_worker": procfleet_k1["disagg"][1],
                              **{f"train_stage{st}": run["k1_launches"]
                                 for st, run in train_runs.items()},
                              **{f"train_stage{st}_eval": run["eval"]["k1_inference"]

@@ -6,7 +6,10 @@ process owns the card and the resident decode batch
 through a thread-safe ``ServingEngine``, whose scheduler thread steps the
 batcher while work exists, restarts after a fault and opens a circuit
 breaker after a streak of them. With ``--fleet N`` the handler serves a
-``fleet.Fleet`` of N engines over one weight tree through the same surface.
+``fleet.Fleet`` of N engines over one weight tree through the same surface;
+with ``--proc_fleet N`` a ``fleet_proc.ProcFleet`` coordinator, which loads
+no model and spawns N worker processes (this module with ``--worker``), each
+owning an engine and its model on the card, behind the same surface.
 
 Endpoints:
   POST /v1/generate  {"query": str,
@@ -35,7 +38,10 @@ Endpoints:
                         "restarts": N}; 503 {"status": "degraded", ...} with
                         Retry-After while the breaker is open
   GET  /fleet        -> (``--fleet``) replicas, routable, pins, shed, failovers,
-                        kills, per-replica state and the policy
+                        kills, per-replica state and the policy; (``--proc_fleet``)
+                        workers, routable, pins, failovers, deaths, respawns,
+                        kills, crash loops, roles, handoffs, per-worker state and
+                        the policy
   GET  /stats        -> engine counters, block-pool state (preemptions,
                         spills, restores, deferrals) and spill store, SLO
                         attainment, the role, recent requests, and under
@@ -47,7 +53,8 @@ byte, --use_event_qformer, --pretrain_query_embedder,
 --temperature, --max_new_tokens, --dtype, --quant, --fuse_params,
 --kv_cache, --kv_layout, --kv_pool_blocks, --max_queue,
 --default_deadline_s, --max_body_mb, --drain_timeout_s, --host, --port,
---event_root, --conv_mode, --device (default cuda), and the scheduler's
+--event_root, --conv_mode, --device (default cuda), --attn_impl (as in
+``cli/infer``), and the scheduler's
 flags with the JAX CLI's defaults and meanings: the pipelined scheduler
 (``--no_pipeline`` turns it off), the prefix-KV cache (``--prefix_cache_mb``
 512, 0 = unbounded; ``--no_prefix_cache``; ``--prefix_prompt`` with
@@ -67,12 +74,14 @@ dropped for re-prefill) and the SLO classes (``--slo_interactive_ttft_s``,
 the engine's resilience (``--breaker_threshold``, ``--breaker_cooldown_s``,
 ``--heartbeat_dir``), the in-process fleet (``--fleet``,
 ``--fleet_shed_goodput``, ``--fleet_shed_queue``, ``--fleet_probe_interval_s``,
-``--fleet_heartbeat_stale_s``, ``--fleet_restart_s``) and ``--faults`` (or
-``EGPT_FAULTS``). Every other flag of the JAX CLI is accepted and raises
-``NotImplementedError`` when set: its path is not ported yet (process fleets,
-``--role`` and the workers come with ``fleet_proc.py``, the memory, journey,
-series, trace and profile flags with telemetry). Chains are the same with
-every scheduler feature on or off.
+``--fleet_heartbeat_stale_s``, ``--fleet_restart_s``), the process fleet
+(``--proc_fleet``, ``--proc_fleet_roles P:D`` with ``--kv_layout paged``,
+``--procfleet_*``; a worker's ``--worker``, ``--worker_ready_file``,
+``--worker_slot`` and ``--role``, set by the coordinator per slot) and
+``--faults`` (or ``EGPT_FAULTS``). Every other flag of the JAX CLI is
+accepted and raises ``NotImplementedError`` when set: its path is not ported
+yet (the memory, journey, series, trace and profile flags come with
+telemetry). Chains are the same with every scheduler feature on or off.
 
 Usage:
   python -m eventgpt_tpu_torch.cli.serve --model_path tiny-random \\
@@ -83,6 +92,8 @@ Usage:
   python -m eventgpt_tpu_torch.cli.serve --model_path tiny-random --fleet 2 \\
       --faults 'fleet.replica_kill:n=40' [--device cpu] --port 8600
   curl -s localhost:8600/fleet
+  python -m eventgpt_tpu_torch.cli.serve --model_path tiny-random --proc_fleet 2 \\
+      [--proc_fleet_roles 1:1 --kv_layout paged] [--device cpu] --port 8600
 """
 
 from __future__ import annotations
@@ -104,6 +115,7 @@ from eventgpt_tpu_torch import faults
 from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
 from eventgpt_tpu_torch.data.tokenizer import tokenize_with_event
 from eventgpt_tpu_torch.fleet import Fleet, FleetShedError, retry_after_s
+from eventgpt_tpu_torch.fleet_proc import ProcFleet
 from eventgpt_tpu_torch.ops.image import process_event_file
 from eventgpt_tpu_torch.serve import QueueFullError
 from eventgpt_tpu_torch.train.resilience import Heartbeat
@@ -317,7 +329,10 @@ class ServingEngine:
     def collect_handoffs(self) -> List[Dict[str, Any]]:
         """Drain a prefill-role batcher's handoff outbox (empty otherwise)."""
         with self._lock:
-            return self.batcher.pop_handoffs()
+            out = self.batcher.pop_handoffs()
+            if out:
+                self._snapshot = self._build_snapshot_locked()
+            return out
 
     def import_handoff(self, ids, max_new_tokens: int, rec, tokens=(), prompt_len: int = 0,
                        deadline_s=None, slo=None, elapsed_s: float = 0.0, ttft_s=None) -> int:
@@ -404,6 +419,13 @@ class ServingEngine:
         if pool is not None:
             snap["kv_blocks"] = pool
             snap["spill"] = b.spill_stats()
+            # A process fleet's decode placement reads the free bytes.
+            snap["kv_free_blocks"] = b._pool.free_blocks()
+            snap["kv_free_bytes"] = b._pool.free_bytes()
+        snap["handoff"] = {"pending": len(b.handoff_ready), "gathered": b.handoffs_gathered,
+                           "gathered_bytes": b.handoffs_gathered_bytes,
+                           "spliced": b.handoffs_spliced,
+                           "spliced_bytes": b.handoffs_spliced_bytes}
         pc = b.prefix_cache_stats()
         snap["prefix_cache"] = {k: pc[k] for k in ("enabled", "n_entries", "bytes", "hits",
                                                     "misses", "evictions") if k in pc}
@@ -755,26 +777,12 @@ _UNPORTED = [
      "the memory headroom guard (ROADMAP Queue 1 item 6, telemetry)"),
     ("--mem_capacity_mb", dict(type=float),
      "the memory headroom guard (ROADMAP Queue 1 item 6, telemetry)"),
-    ("--proc_fleet", dict(type=int), "process fleets"),
-    ("--proc_fleet_roles", dict(), "prefill/decode disaggregation"),
-    ("--procfleet_handoff_retries", dict(type=int), "process fleets"),
-    ("--procfleet_rpc_deadline_s", dict(type=float), "process fleets"),
-    ("--procfleet_rpc_retries", dict(type=int), "process fleets"),
-    ("--procfleet_spawn_timeout_s", dict(type=float), "process fleets"),
-    ("--procfleet_respawn_backoff_s", dict(type=float), "process fleets"),
-    ("--procfleet_crash_window_s", dict(type=float), "process fleets"),
-    ("--procfleet_crash_limit", dict(type=int), "process fleets"),
-    ("--role", dict(),
-     "the per-slot worker role (ROADMAP Queue 1 item 4, with process fleets)"),
-    ("--worker", dict(action="store_true"), "process-fleet workers"),
-    ("--worker_ready_file", dict(), "process-fleet workers"),
-    ("--worker_slot", dict(type=int), "process-fleet workers"),
-    ("--journey_keep", dict(type=int), "the flight recorder"),
-    ("--series_interval_s", dict(type=float), "the time-series store"),
-    ("--series_keep", dict(type=int), "the time-series store"),
-    ("--trace_buffer", dict(type=int), "span tracing"),
-    ("--trace_out", dict(), "span tracing"),
-    ("--profile_dir", dict(), "POST /profile"),
+    ("--journey_keep", dict(type=int), "the flight recorder (ROADMAP Queue 1 item 6)"),
+    ("--series_interval_s", dict(type=float), "the time-series store (ROADMAP Queue 1 item 6)"),
+    ("--series_keep", dict(type=int), "the time-series store (ROADMAP Queue 1 item 6)"),
+    ("--trace_buffer", dict(type=int), "span tracing (ROADMAP Queue 1 item 6)"),
+    ("--trace_out", dict(), "span tracing (ROADMAP Queue 1 item 6)"),
+    ("--profile_dir", dict(), "POST /profile (ROADMAP Queue 1 item 6)"),
 ]
 _MESH_FLAGS = ("--mesh_data", "--mesh_fsdp", "--mesh_model")
 
@@ -826,6 +834,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="on SIGTERM/SIGINT, seconds to wait for in-flight requests")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu only when asked)")
+    p.add_argument("--attn_impl", default=None, choices=["dense", "flash"],
+                   help="prefill attention, as in cli/infer (default: flash, K1, on the card; "
+                        "dense on the CPU)")
     p.add_argument("--prefill_chunk", type=int, default=0,
                    help="chunked prefill: with rows decoding, a full admission advances "
                         "this many prompt positions per step (must divide 128; 0 = off)")
@@ -915,6 +926,43 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fleet_restart_s", type=float, default=0.0,
                    help="revive a killed replica after this many seconds (0 = only by the "
                         "operator)")
+    p.add_argument("--proc_fleet", type=int, default=0,
+                   help="N worker processes behind the RPC coordinator (0/1 = no process "
+                        "fleet); each loads its own model and owns an engine; the coordinator "
+                        "loads only the config and the tokenizer")
+    p.add_argument("--proc_fleet_roles", default=None,
+                   help="'P:D' splits the process fleet into P prefill and D decode workers "
+                        "(needs --kv_layout paged: the handoff ships paged KV block runs)")
+    p.add_argument("--procfleet_rpc_deadline_s", type=float, default=15.0,
+                   help="the deadline of one coordinator-to-worker RPC (connect, send, answer)")
+    p.add_argument("--procfleet_rpc_retries", type=int, default=3,
+                   help="transport retries per RPC (backoff with jitter under the deadline; "
+                        "mutating ops never retry once sent)")
+    p.add_argument("--procfleet_spawn_timeout_s", type=float, default=180.0,
+                   help="seconds a spawned worker may take to become ready before its slot "
+                        "books a crash")
+    p.add_argument("--procfleet_respawn_backoff_s", type=float, default=0.25,
+                   help="first respawn backoff of a slot after a worker death (doubles per "
+                        "consecutive crash)")
+    p.add_argument("--procfleet_crash_window_s", type=float, default=60.0,
+                   help="crashes older than this stop counting toward the crash-loop breaker")
+    p.add_argument("--procfleet_crash_limit", type=int, default=3,
+                   help="crashes inside the window that give a slot up (the fleet serves on "
+                        "with the others)")
+    p.add_argument("--procfleet_handoff_retries", type=int, default=3,
+                   help="decode workers a handoff record is tried on before its request "
+                        "redoes from its prefill")
+    p.add_argument("--role", default="colocated", choices=["colocated", "prefill", "decode"],
+                   help="this engine's serving role (set per slot by a --proc_fleet_roles "
+                        "coordinator)")
+    p.add_argument("--worker", action="store_true",
+                   help="run as one process-fleet worker: one engine served over the RPC "
+                        "ops instead of HTTP (spawned by the --proc_fleet coordinator; needs "
+                        "--worker_ready_file)")
+    p.add_argument("--worker_ready_file", default=None,
+                   help="where the worker writes its {port, pid} readiness handshake")
+    p.add_argument("--worker_slot", type=int, default=0,
+                   help="the coordinator's slot index of this worker (informational)")
     p.add_argument("--faults", default=None,
                    help="arm fault injection (faults.py grammar, e.g. 'serve.dispatch:n=3'); "
                         "EGPT_FAULTS works too")
@@ -940,12 +988,107 @@ def _refuse_unported(args) -> None:
                                   "ported to eventgpt_tpu_torch yet")
 
 
-def make_batcher(args, params, cfg, tokenizer, device, role: str = "colocated"):
+# Every flag that shapes a worker's model, batcher or engine crosses to the
+# --worker processes (they load their own model and share no state). The
+# forwarding is declared here so that tests can check that every entry
+# round-trips and that every parser flag is classified: forwarded,
+# coordinator-only, set per slot, or still refused. Kinds: "value" is always
+# forwarded as --dest str(value), "opt" only when set, "flag" (store_true)
+# only when true. The port forwards its own --device and --attn_impl, and the
+# Q-Former flags, which the JAX declaration leaves with the coordinator
+# (ROADMAP Queue 3).
+WORKER_FORWARDED_FLAGS = (
+    ("model_path", "value", "tiny-random"),
+    ("conv_mode", "value", "eventgpt_v1"),
+    ("dtype", "value", "bfloat16"),
+    ("device", "value", "cuda"),
+    ("attn_impl", "opt", None),
+    ("quant", "value", "none"),
+    ("kv_cache", "value", "bf16"),
+    ("kv_layout", "value", "dense"),
+    ("kv_pool_blocks", "value", 0),
+    ("spill_capacity_mb", "value", 0),
+    ("max_batch", "value", 4),
+    ("max_len", "value", 1024),
+    ("chunk", "value", 128),
+    ("temperature", "value", 0.0),
+    ("speculative", "value", 0),
+    ("prefill_chunk", "value", 0),
+    ("prefill_budget", "value", -1),
+    ("first_chunk", "value", 0),
+    ("max_queue", "value", 256),
+    ("prefix_cache_mb", "value", 512.0),
+    ("breaker_threshold", "value", 3),
+    ("breaker_cooldown_s", "value", 5.0),
+    ("slo_window", "value", 256),
+    ("spec_ema_alpha", "value", 0.3),
+    ("spec_draft_cost", "value", 0.05),
+    ("spec_row_window", "value", 4),
+    ("spec_head_min_yield", "value", 0.05),
+    ("spec_buckets", "opt", ""),
+    ("tokenizer_path", "opt", None),
+    ("draft_head", "opt", None),
+    ("pretrain_query_embedder", "opt", None),
+    ("pretrain_attention_layers", "opt", None),
+    ("use_event_qformer", "flag", False),
+    ("preempt", "flag", False),
+    ("fuse_params", "flag", False),
+    ("no_pipeline", "flag", False),
+    ("no_prefix_cache", "flag", False),
+    ("no_telemetry", "flag", False),
+    ("warmup", "flag", False),
+)
+
+# Flags that stay with the coordinator: the HTTP front end, the fleet's
+# topology and policy, the SLO targets (they travel inside each submit's
+# SLO), --faults (EGPT_FAULTS crosses in the environment), the startup
+# prefix (installed through the set_prefix op) and the mesh (a worker owns
+# one card).
+WORKER_COORDINATOR_ONLY = frozenset({
+    "host", "port", "event_root", "max_body_mb", "max_new_tokens", "default_deadline_s",
+    "prefix_prompt", "prefix_event",
+    "heartbeat_dir",  # per slot: the coordinator appends the slot's own directory
+    "fleet", "proc_fleet", "proc_fleet_roles", "drain_timeout_s", "fleet_shed_goodput",
+    "fleet_shed_queue", "fleet_probe_interval_s", "fleet_heartbeat_stale_s", "fleet_restart_s",
+    "procfleet_rpc_deadline_s", "procfleet_rpc_retries", "procfleet_spawn_timeout_s",
+    "procfleet_respawn_backoff_s", "procfleet_crash_window_s", "procfleet_crash_limit",
+    "procfleet_handoff_retries", "slo_interactive_ttft_s", "slo_interactive_itl_s",
+    "slo_batch_latency_s", "faults", "mesh_data", "mesh_fsdp", "mesh_model",
+})
+
+# Flags the coordinator appends per slot (``ProcFleet._spawn``).
+WORKER_PER_SLOT = frozenset({"worker", "worker_ready_file", "worker_slot", "role"})
+
+# Flags the port still refuses (_UNPORTED): classified, and not forwarded
+# while they stay refused; each is filed anew when its item is ported.
+WORKER_UNPORTED = frozenset(flag[2:] for flag, _, _ in _UNPORTED)
+
+
+def _worker_argv(args) -> list:
+    """A worker's command line: the coordinator's model and engine flags
+    behind ``--worker``, from ``WORKER_FORWARDED_FLAGS``. A worker of a
+    ``--device cpu`` coordinator runs on the CPU, any other on the card."""
+    import sys
+
+    argv = [sys.executable, "-m", "eventgpt_tpu_torch.cli.serve", "--worker"]
+    for dest, kind, default in WORKER_FORWARDED_FLAGS:
+        val = getattr(args, dest, default)
+        if kind == "flag":
+            if val:
+                argv.append(f"--{dest}")
+        elif kind == "opt":
+            if val:
+                argv += [f"--{dest}", str(val)]
+        else:
+            argv += [f"--{dest}", str(val)]
+    return argv
+
+
+def make_batcher(args, params, cfg, tokenizer, device, role: Optional[str] = None):
     """The ``ContinuousBatcher`` the flags describe, over a prepared tree
     on ``device``: the JAX CLI's defaults (pipelined, the prefix cache at
     ``--prefix_cache_mb``, ``--prefill_budget`` -1 = ``--chunk``). ``role``
-    makes a prefill or decode batcher for an in-process handoff (the
-    ``--role`` flag waits for process fleets)."""
+    (default ``--role``) makes a prefill or decode batcher."""
     from eventgpt_tpu_torch.models.medusa import load_medusa
     from eventgpt_tpu_torch.serve import ContinuousBatcher
 
@@ -967,24 +1110,31 @@ def make_batcher(args, params, cfg, tokenizer, device, role: str = "colocated"):
         spec_buckets=args.spec_buckets or None, spec_ema_alpha=args.spec_ema_alpha,
         spec_draft_cost=args.spec_draft_cost, spec_row_window=args.spec_row_window,
         spec_head_min_yield=args.spec_head_min_yield, preempt=args.preempt,
-        spill_capacity_mb=args.spill_capacity_mb, slo_window=args.slo_window, role=role)
+        spill_capacity_mb=args.spill_capacity_mb, slo_window=args.slo_window,
+        role=args.role if role is None else role)
 
 
-def build_engine(args):
+def build_engine(args, force_single: bool = False):
     """(cfg, engine): the model loaded and prepared on ``--device`` as
     ``cli/infer`` does it (``load_model``, ``prepare_model``), then the
-    engine of ``make_engine`` over it."""
+    engine of ``make_engine`` over it; with ``--proc_fleet N`` a
+    ``ProcFleet`` coordinator, which loads only the config and the
+    tokenizer. ``force_single`` (a worker) builds one engine whatever the
+    fleet flags say: a worker never spawns a fleet of its own."""
     from eventgpt_tpu_torch.cli.infer import load_model, prepare_model
     from eventgpt_tpu_torch.device import resolve_device
 
     _refuse_unported(args)
     if args.faults:
         faults.configure(args.faults)
-    device = resolve_device(args.device)
-    cfg, params, tokenizer = load_model(args.model_path, args.dtype, None, args.tokenizer_path,
-                                        device)
-    cfg, params = prepare_model(cfg, params, tokenizer, args)
-    engine = make_engine(args, params, cfg, tokenizer, device)
+    if args.proc_fleet > 1 and not force_single:
+        cfg, engine = make_proc_fleet(args)
+    else:
+        device = resolve_device(args.device)
+        cfg, params, tokenizer = load_model(args.model_path, args.dtype, args.attn_impl,
+                                            args.tokenizer_path, device)
+        cfg, params = prepare_model(cfg, params, tokenizer, args)
+        engine = make_engine(args, params, cfg, tokenizer, device, force_single=force_single)
     if args.prefix_prompt:
         # The startup form of POST /prefix.
         pixels = None
@@ -996,12 +1146,44 @@ def build_engine(args):
     return cfg, engine
 
 
-def make_engine(args, params, cfg, tokenizer, device):
+def make_proc_fleet(args):
+    """(cfg, ProcFleet) of ``--proc_fleet N``: the coordinator loads no
+    model, only the config (the handler's pixel preprocessing) and the
+    tokenizer (submits and the routing key); each worker runs
+    ``_worker_argv(args)``. Roles without the paged layout fail here, not
+    as a crash loop of workers that cannot boot."""
+    from eventgpt_tpu_torch.config import EventChatConfig, from_hf_config
+    from eventgpt_tpu_torch.data.tokenizer import load_tokenizer
+
+    if args.proc_fleet_roles and args.kv_layout != "paged":
+        raise ValueError("--proc_fleet_roles requires --kv_layout paged (the prefill->decode "
+                         "handoff ships paged KV block runs)")
+    if args.model_path == "tiny-random":
+        cfg = EventChatConfig.tiny()
+        tokenizer = load_tokenizer("byte")
+    else:
+        tokenizer = load_tokenizer(args.tokenizer_path or args.model_path)
+        with open(os.path.join(args.model_path, "config.json")) as f:
+            cfg = from_hf_config(json.load(f), device="cpu")
+    fleet = ProcFleet(
+        _worker_argv(args), args.proc_fleet, tokenizer=tokenizer, conv_mode=args.conv_mode,
+        roles=args.proc_fleet_roles or None, handoff_retries=args.procfleet_handoff_retries,
+        heartbeat_dir=args.heartbeat_dir, probe_interval_s=args.fleet_probe_interval_s,
+        heartbeat_stale_s=args.fleet_heartbeat_stale_s,
+        rpc_deadline_s=args.procfleet_rpc_deadline_s, rpc_retries=args.procfleet_rpc_retries,
+        spawn_timeout_s=args.procfleet_spawn_timeout_s,
+        respawn_backoff_s=args.procfleet_respawn_backoff_s,
+        crash_window_s=args.procfleet_crash_window_s, crash_limit=args.procfleet_crash_limit,
+        shutdown_drain_s=args.drain_timeout_s)
+    return cfg, fleet
+
+
+def make_engine(args, params, cfg, tokenizer, device, force_single: bool = False):
     """The engine the flags describe over a prepared tree on ``device``:
-    one ``ServingEngine``, or with ``--fleet N`` a ``Fleet`` of N engines,
-    each over its own batcher (KV pool, generator, scheduler thread) and
-    heartbeat directory ``--heartbeat_dir/replicaI``."""
-    n_fleet = args.fleet if args.fleet > 1 else 1
+    one ``ServingEngine``, or with ``--fleet N`` (unless ``force_single``)
+    a ``Fleet`` of N engines, each over its own batcher (KV pool, generator,
+    scheduler thread) and heartbeat directory ``--heartbeat_dir/replicaI``."""
+    n_fleet = args.fleet if args.fleet > 1 and not force_single else 1
     batchers = [make_batcher(args, params, cfg, tokenizer, device) for _ in range(n_fleet)]
     if args.warmup:
         t0 = time.perf_counter()
@@ -1041,15 +1223,32 @@ def build_server(args):
 def main(argv=None):
     import signal
 
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.worker:
+        # A process-fleet worker: one engine, the RPC ops instead of HTTP.
+        # serve_worker installs its own SIGTERM/SIGINT handlers.
+        from eventgpt_tpu_torch.fleet_proc import serve_worker
+
+        if not args.worker_ready_file:
+            parser.error("--worker requires --worker_ready_file")
+        _, engine = build_engine(args, force_single=True)
+        return serve_worker(engine, args.worker_ready_file)
     httpd, engine = build_server(args)
     host, port = httpd.server_address[:2]
-    b = engine.replicas[0].engine.batcher if isinstance(engine, Fleet) else engine.batcher
-    print(f"[serve] listening on http://{host}:{port} (max_batch={args.max_batch}, "
-          f"chunk={args.chunk}, kv_layout={args.kv_layout}, kv_cache={args.kv_cache}, "
-          f"pipeline={b.pipeline}, prefix_cache={b._prefix_cache is not None}, "
-          f"prefill_budget={b.prefill_budget}, speculative={b.speculative}, "
-          f"preempt={b.preempt}, fleet={max(args.fleet, 1)}, device={b.device})", flush=True)
+    if isinstance(engine, ProcFleet):
+        print(f"[serve] listening on http://{host}:{port} (proc_fleet={args.proc_fleet}, "
+              f"roles={args.proc_fleet_roles}, max_batch={args.max_batch}, chunk={args.chunk}, "
+              f"kv_layout={args.kv_layout}, kv_cache={args.kv_cache}, device={args.device})",
+              flush=True)
+    else:
+        b = engine.replicas[0].engine.batcher if isinstance(engine, Fleet) else engine.batcher
+        print(f"[serve] listening on http://{host}:{port} (max_batch={args.max_batch}, "
+              f"chunk={args.chunk}, kv_layout={args.kv_layout}, kv_cache={args.kv_cache}, "
+              f"pipeline={b.pipeline}, prefix_cache={b._prefix_cache is not None}, "
+              f"prefill_budget={b.prefill_budget}, speculative={b.speculative}, "
+              f"preempt={b.preempt}, fleet={max(args.fleet, 1)}, device={b.device})",
+              flush=True)
     got_signal = threading.Event()
 
     def on_signal(signum, frame):
@@ -1075,4 +1274,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+
+    sys.exit(main())

@@ -23,6 +23,14 @@ response, each framed as a 4-byte big-endian length and a payload.
 
 The ``procfleet.rpc`` fault site fires per attempt, before any byte moves.
 
+A message of at most ``MAX_MSG_BYTES`` is one frame, the JAX package's
+bytes. A larger one (a 7B KV handoff record, hundreds of MB) crosses as a
+run of frames: the length prefix ``RUN_MARK`` (above the cap, so a JAX peer
+refuses it), a u32 frame count and a u64 total, then that many ordinary
+frames of at most ``MAX_MSG_BYTES`` each. The total is bounded by
+``MAX_RUN_BYTES``. Any other length prefix above the cap is refused as
+corrupt, as in the JAX package.
+
 Wire values beyond JSON: a numpy array or a host tensor is
 ``{"__nd__": [shape, dtype, b64]}``, bytes are ``{"__b64__": ...}``, and
 ``workload.SLO`` is ``{"__slo__": {...}}`` (an allowed type, not general
@@ -57,9 +65,13 @@ from eventgpt_tpu_torch import faults
 _LEN = struct.Struct(">I")
 # One socket frame holds a pixel stream or an exported request batch; 64 MiB
 # is far above those and far below "a corrupt length prefix allocates the
-# host away". A 7B handoff record (hundreds of MB) is larger: it crosses a
-# frame (``dumps_frame``) but not this socket framing.
+# host away". A 7B handoff record (225-242 MB) is larger: it crosses as a
+# run of frames (``send_frames``), whose total is bounded by MAX_RUN_BYTES,
+# which holds four such records.
 MAX_MSG_BYTES = 64 * 1024 * 1024
+MAX_RUN_BYTES = 1024 * 1024 * 1024
+RUN_MARK = 0xFFFFFFFF
+_RUN_HEAD = struct.Struct(">IQ")  # frame count, total bytes
 
 # torch dtype <-> the wire's dtype tag (numpy's name; "bfloat16" has none).
 _TAGS = {torch.float32: "float32", torch.float64: "float64", torch.float16: "float16",
@@ -228,10 +240,33 @@ def loads_frame(data: bytes) -> Any:
 # -- socket framing --------------------------------------------------------
 
 def send_msg(sock: socket.socket, data: bytes) -> None:
+    """``data`` as one frame; above ``MAX_MSG_BYTES`` it raises."""
     if len(data) > MAX_MSG_BYTES:
         raise RpcError(f"message of {len(data)} bytes exceeds the {MAX_MSG_BYTES}-byte "
                        f"frame cap")
     sock.sendall(_LEN.pack(len(data)) + data)
+
+
+def run_frames(n: int) -> int:
+    """The frames a message of ``n`` bytes crosses in (1 up to the cap)."""
+    return max(-(-n // MAX_MSG_BYTES), 1)
+
+
+def send_frames(sock: socket.socket, data: bytes) -> None:
+    """``data`` as one frame when it fits the cap, else as a run of capped
+    frames behind the run header; above ``MAX_RUN_BYTES`` it raises."""
+    n = len(data)
+    if n <= MAX_MSG_BYTES:
+        send_msg(sock, data)
+        return
+    if n > MAX_RUN_BYTES:
+        raise RpcError(f"message of {n} bytes exceeds the {MAX_RUN_BYTES}-byte run cap")
+    sock.sendall(_LEN.pack(RUN_MARK) + _RUN_HEAD.pack(run_frames(n), n))
+    view = memoryview(data)
+    for off in range(0, n, MAX_MSG_BYTES):
+        part = view[off:off + MAX_MSG_BYTES]
+        sock.sendall(_LEN.pack(len(part)))
+        sock.sendall(part)
 
 
 def _recv_exact(sock: socket.socket, n: int) -> bytes:
@@ -244,8 +279,39 @@ def _recv_exact(sock: socket.socket, n: int) -> bytes:
     return bytes(buf)
 
 
+def _recv_into(sock: socket.socket, view: memoryview) -> None:
+    got = 0
+    while got < len(view):
+        n = sock.recv_into(view[got:], min(len(view) - got, 1 << 22))
+        if not n:
+            raise RpcError(f"connection closed mid-frame ({got}/{len(view)} bytes)")
+        got += n
+
+
+def _recv_run(sock: socket.socket) -> bytearray:
+    count, total = _RUN_HEAD.unpack(_recv_exact(sock, _RUN_HEAD.size))
+    if not MAX_MSG_BYTES < total <= MAX_RUN_BYTES or count != run_frames(total):
+        raise RpcError(f"bad run header: {count} frames of {total} bytes (the run cap is "
+                       f"{MAX_RUN_BYTES}; corrupt prefix?)")
+    buf = bytearray(total)
+    view = memoryview(buf)
+    off = 0
+    for i in range(count):
+        (m,) = _LEN.unpack(_recv_exact(sock, _LEN.size))
+        if m == 0 or m > MAX_MSG_BYTES or off + m > total:
+            raise RpcError(f"frame {i} of a run holds {m} bytes at offset {off} of {total}")
+        _recv_into(sock, view[off:off + m])
+        off += m
+    if off != total:
+        raise RpcError(f"a run of {count} frames ended at {off} of {total} bytes")
+    return buf
+
+
 def recv_msg(sock: socket.socket) -> bytes:
+    """One message: a frame, or a run of frames behind a run header."""
     (n,) = _LEN.unpack(_recv_exact(sock, _LEN.size))
+    if n == RUN_MARK:
+        return _recv_run(sock)
     if n > MAX_MSG_BYTES:
         raise RpcError(f"frame of {n} bytes exceeds the {MAX_MSG_BYTES}-byte cap "
                        f"(corrupt prefix?)")
@@ -282,7 +348,7 @@ def call(addr: Tuple[str, int], op: str, payload: Optional[dict] = None, *,
             with socket.create_connection(addr, timeout=remaining) as s:
                 s.settimeout(max(t_deadline - time.monotonic(), 0.001))
                 sent = True
-                send_msg(s, request)
+                send_frames(s, request)
                 resp = loads_frame(recv_msg(s))
             if "error" in resp:
                 err = resp["error"]
@@ -364,6 +430,6 @@ class RpcServer:
             except Exception as e:  # a handler's error is data
                 resp = {"error": {"type": type(e).__name__, "msg": str(e)}}
             try:
-                send_msg(conn, dumps_frame(resp))
+                send_frames(conn, dumps_frame(resp))
             except (OSError, RpcError, TypeError):
                 pass  # the client went away, or the result cannot be encoded

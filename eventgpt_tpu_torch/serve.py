@@ -3083,6 +3083,12 @@ class ContinuousBatcher:
             # Reserve the row now; it stays frozen until activation.
             self.rows[row] = req
             req.row = row
+            if self._paged and (req.spill_run is not None or req.handoff_rec is not None):
+                # Installing a record makes the row live at once: the
+                # in-flight segment is harvested first, or the row would
+                # decode from that segment's stale state (lanes armed skip
+                # step()'s drain; ROADMAP Queue 3, F3).
+                self._drain()
             if self._paged and req.spill_run is not None:
                 # A spilled victim restores its gathered KV instead of
                 # prefilling; the gate checked the same reservation, so a

@@ -48,7 +48,7 @@ class BlockPool:
     """Refcounted free-list allocator over ``n_blocks`` blocks of
     ``block_size`` positions. ``n_blocks`` counts the scratch block, so
     ``usable`` (= n_blocks - 1) is what admission can hand out.
-    ``block_bytes`` is carried for ``stats()`` only."""
+    ``block_bytes`` is carried for ``stats()`` and ``free_bytes()``."""
 
     def __init__(self, n_blocks: int, block_size: int, block_bytes: int = 0):
         if n_blocks < 2:
@@ -88,6 +88,13 @@ class BlockPool:
     def used_blocks(self) -> int:
         with self._lock:
             return self.usable - len(self._free)
+
+    def free_bytes(self) -> int:
+        """Free capacity in bytes (``free_blocks * block_bytes``): the
+        headroom a process fleet places handoffs by, which compares across
+        workers of different geometry where block counts do not."""
+        with self._lock:
+            return len(self._free) * self.block_bytes
 
     def blocks_for(self, positions: int) -> int:
         """Blocks covering ``positions`` KV slots (ceil at the block grain)."""

@@ -15,8 +15,10 @@ speculative and mixed-lane configurations:
 - a JAX prefill worker's record (numpy planes) spliced into the port's
   decode batcher gives the JAX chain, and the port's record, converted to
   numpy, spliced into the JAX decode batcher gives the port's.
-Also: a splice beside local traffic, role validation, the prefill role's
-refusals, the oversized-import refusal and the whole-life stats.
+Also: a splice beside local traffic, splices under an in-flight segment
+with lanes armed (the port drains first; the JAX batcher does not, F3), role
+validation, the prefill role's refusals, the oversized-import refusal and the
+whole-life stats.
 """
 
 import time
@@ -247,3 +249,38 @@ def test_import_rebases_stats_and_keeps_deadline_and_slo(trees):
     dec.run_until_drained()
     assert dec.request_stats[rid2]["ttft_s"] == pytest.approx(0.011, abs=1e-6)
     _assert_pool_clean(dec)
+
+
+def test_a_splice_under_an_in_flight_segment_drains_first(trees):
+    """The decode role imports records one at a time while its rows decode,
+    pipelined with lanes armed (``prefill_budget``), as a decode worker of a
+    process fleet does: each splice must drain the in-flight segment first,
+    and every chain equals the colocated one. The JAX batcher does not drain
+    there, and a record spliced into a row freed under that segment decodes
+    two stale tokens first (ROADMAP Queue 3, F3)."""
+    kw = {"chunk": 2, "prefill_budget": 2, "eos_token_id": 2}
+    reqs = [([1, 7, 7, -200, 9, 10, 11, 80 + i], _pv(400 + i), 12) for i in range(4)]
+    ref = _port(trees, **kw)
+    rids = [ref.submit(*r) for r in reqs]
+    done = ref.run_until_drained()
+    want = [done[r] for r in rids]
+    jref = _jax(trees, **kw)
+    rids = [jref.submit(*r) for r in reqs]
+    done = jref.run_until_drained()
+    assert [done[r] for r in rids] == want
+
+    def interleaved(make):
+        pre, dec = make(trees, role="prefill", **kw), make(trees, role="decode", **kw)
+        got = []
+        for r in reqs:
+            out = _gather_one(pre, *r)
+            got.append(dec.import_handoff(out["input_ids"], out["max_new_tokens"], out["rec"],
+                                          tokens=out["tokens"], prompt_len=out["prompt_len"]))
+            dec.step()
+        done = dec.run_until_drained()
+        _assert_pool_clean(dec)
+        return [done[r] for r in got]
+
+    assert interleaved(_port) == want
+    jax_chains = interleaved(_jax)
+    assert jax_chains[:2] == want[:2] and jax_chains != want

@@ -44,6 +44,7 @@ def test_port_imports_no_jax_and_no_jax_package():
             "eventgpt_tpu_torch.faults",
             "eventgpt_tpu_torch.fleet",
             "eventgpt_tpu_torch.rpc",
+            "eventgpt_tpu_torch.fleet_proc",
             "eventgpt_tpu_torch.cli.infer",
             "eventgpt_tpu_torch.cli.serve",
             "eventgpt_tpu_torch.cli.export",

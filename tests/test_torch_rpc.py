@@ -6,6 +6,9 @@ package's (``tests/test_rpc.py``'s cases), on the CPU.
 - ``call``: a round trip, a remote error as data, the deadline on a dead
   endpoint, a ``procfleet.rpc`` trip absorbed by the retries, the retries
   exhausted, no retry after a non-idempotent send, the frame cap.
+- Above the frame cap, a message crosses as a run of capped frames behind a
+  run header (count and total, the total under ``MAX_RUN_BYTES``); a
+  corrupt run is refused. The JAX wire refuses such messages.
 - The raw frame: arrays ride uninflated after the header; plain payloads
   stay JSON; truncations are loud; it crosses a live server.
 - Across the packages: for a record of numpy-native dtypes the port's
@@ -177,6 +180,100 @@ def test_frame_cap_rejects_corrupt_length_prefix():
         server.stop()
     with pytest.raises(rpc.RpcError, match="frame cap"):
         rpc.send_msg(None, b"\x00" * (rpc.MAX_MSG_BYTES + 1))
+
+
+def _socket_pair_send(data):
+    """``data`` through ``send_frames`` on one end of a socket pair (in a
+    thread) and ``recv_msg`` on the other: (what arrived, the bytes that
+    crossed the socket)."""
+    a, b = socket.socketpair()
+    wire = bytearray()
+
+    class Tap:
+        def sendall(self, buf):
+            wire.extend(buf)
+            a.sendall(buf)
+
+    sender = threading.Thread(target=rpc.send_frames, args=(Tap(), data), daemon=True)
+    try:
+        sender.start()
+        b.settimeout(30)
+        got = rpc.recv_msg(b)
+        sender.join(timeout=30)
+        return bytes(got), bytes(wire)
+    finally:
+        a.close()
+        b.close()
+
+
+def test_a_message_above_the_cap_crosses_in_capped_frames():
+    """Above ``MAX_MSG_BYTES`` a message crosses as a run: the run mark, the
+    frame count and the total, then frames of at most the cap; at most the
+    cap it is one frame, the JAX bytes."""
+    small = b"\x01" * 1000
+    got, wire = _socket_pair_send(small)
+    assert got == small and wire == len(small).to_bytes(4, "big") + small
+    big = bytes(np.random.default_rng(0).integers(0, 256, rpc.MAX_MSG_BYTES + 4097, np.uint8))
+    got, wire = _socket_pair_send(big)
+    assert got == big
+    assert rpc.run_frames(len(big)) == 2
+    head = rpc.RUN_MARK.to_bytes(4, "big") + (2).to_bytes(4, "big") + len(big).to_bytes(8, "big")
+    assert wire.startswith(head)
+    first = int.from_bytes(wire[16:20], "big")
+    assert first == rpc.MAX_MSG_BYTES
+    second = 20 + first
+    assert int.from_bytes(wire[second:second + 4], "big") == 4097
+    assert len(wire) == 16 + 2 * 4 + len(big)
+    # Over a live server, both ways: a 7B-sized plane in a call and back.
+    server = _echo_server()
+    try:
+        plane = torch.from_numpy(np.frombuffer(big, np.int8).copy())
+        out = rpc.call(server.addr, "import_handoff", {"rec": {"q": plane}}, deadline_s=60)
+        _same(out["payload"]["rec"]["q"], plane)
+    finally:
+        server.stop()
+
+
+def test_runs_at_a_small_cap_and_the_run_cap(monkeypatch):
+    monkeypatch.setattr(rpc, "MAX_MSG_BYTES", 1000)
+    monkeypatch.setattr(rpc, "MAX_RUN_BYTES", 4000)
+    data = bytes(range(256)) * 10  # 2560 bytes: three frames
+    got, wire = _socket_pair_send(data)
+    assert got == data and int.from_bytes(wire[4:8], "big") == 3
+    assert len(wire) == 16 + 3 * 4 + len(data)
+    with pytest.raises(rpc.RpcError, match="run cap"):
+        rpc.send_frames(None, b"\x00" * 4001)
+    with pytest.raises(rpc.RpcError, match="frame cap"):
+        rpc.send_msg(None, b"\x00" * 1001)
+
+
+@pytest.mark.parametrize("bad", ["count", "total_small", "total_large", "overrun", "short"])
+def test_a_corrupt_run_is_refused(monkeypatch, bad):
+    monkeypatch.setattr(rpc, "MAX_MSG_BYTES", 1000)
+    monkeypatch.setattr(rpc, "MAX_RUN_BYTES", 4000)
+    count, total, frames = 3, 2500, [1000, 1000, 500]
+    if bad == "count":
+        count = 2
+    elif bad == "total_small":
+        count, total = 1, 900
+    elif bad == "total_large":
+        count, total = 5, 4500
+    elif bad == "overrun":
+        frames = [1000, 1000, 1000]
+    elif bad == "short":
+        frames = [1000, 1000, 400]
+    msg = (rpc.RUN_MARK.to_bytes(4, "big") + count.to_bytes(4, "big") + total.to_bytes(8, "big")
+           + b"".join(n.to_bytes(4, "big") + b"\x00" * n for n in frames))
+    a, b = socket.socketpair()
+    try:
+        a.sendall(msg)
+        a.shutdown(socket.SHUT_WR)
+        b.settimeout(5)
+        with pytest.raises(rpc.RpcError):
+            rpc.recv_msg(b)
+    finally:
+        a.close()
+        b.close()
 
 
 def _record(as_tensor: bool):

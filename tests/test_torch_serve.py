@@ -337,7 +337,7 @@ def test_http_refuses_bad_requests(server):
 
 @pytest.mark.parametrize("extra", [["--speculative", "2", "--preempt", "--mem_headroom_mb", "64"],
                                    ["--prefill_budget", "-1", "--speculative", "2",
-                                    "--role", "decode"],
+                                    "--series_keep", "8"],
                                    ["--mesh_model", "2"],
                                    ["--warmup", "--spill_capacity_mb", "64",
                                     "--mem_capacity_mb", "64"]],
