@@ -149,7 +149,22 @@ Phases, each printed on its own line:
                    directory with ``--use_event_qformer
                    --pretrain_query_embedder --pretrain_attention_layers``;
                    the four requests run on 32 event tokens each, cold then
-                   warm. Process fleets over the same directory:
+                   warm. ``serve_telemetry_7b``: ``python -m
+                   eventgpt_tpu_torch.cli.serve`` over the directory as a
+                   subprocess (paged int8 KV, 4 rows, chunk 32, the JAX CLI's
+                   telemetry defaults), three runs one at a time on
+                   ``serve_defaults``' six requests over HTTP: armed, with
+                   ``--no_telemetry``, and armed with the headroom guard set
+                   under the ledger's total and a 2 s ``POST /profile``
+                   over the first requests (after ``--warmup``); each run's
+                   chains held to the oracle, K1 equal armed and disarmed,
+                   ``/metrics``
+                   counts, journeys whose phases sum to their latency, one
+                   queued/active trace pair per request, the ``--trace_out``
+                   file, the ledger's reconciliation (at least 0.9 of the
+                   process's allocated bytes), the guard's deferrals, K1 by
+                   name in the capture; the wall and decode ms per step of
+                   each run side by side. Process fleets over the same directory:
                    ``serve_procfleet_7b`` (``cli/serve --proc_fleet 2``
                    with ``serve_fleet_7b``'s flags and traffic: two worker
                    processes loading the checkpoint onto the card, routing
@@ -222,14 +237,17 @@ Phases, each printed on its own line:
                    kill, with identical routing and chains on both;
                    ``tiny_procfleet_card_vs_cpu``: tiny ``--proc_fleet 2``
                    workers on the card and on the CPU, identical routing
-                   and chains;
+                   and chains; ``tiny_telemetry_card_vs_cpu``: the tiny
+                   server at the scheduler defaults with journeys armed,
+                   the same chains, journey event kinds and serving
+                   counters on both;
                    ``train_tiny_card_vs_cpu``: one f32 stage-1 and stage-2
                    step agree on the card and the CPU, and ``cli.train``
                    trains 2 steps on the card in a subprocess;
                    ``tiny_medusa_card_vs_cpu``: ``medusa_loss``, its
                    gradient and one head step agree on the card and the
                    CPU; ``medusa_acceptance_tiny``: the acceptance study at
-                   the JAX script's defaults on the card, held to the JAX
+                   the JAX gate's scale on the card, held to the JAX
                    gate's bars (random heads 1.0 +- 0.15 tokens an
                    iteration, trained heads above 1.5 and random + 0.5,
                    one chain across the three drafts);
@@ -451,8 +469,11 @@ MEDUSA_SERVE_BUDGET = 24
 # products summed in another order; the loss, its gradient and the first
 # Adam step of a zero stack (each entry moves by ~lr * sign(g)).
 TINY_MEDUSA_ATOL = 1e-5
-# medusa_acceptance_tiny: the JAX gate's bars (tests/test_medusa_acceptance.py):
-# random heads commit ~1 token an iteration, trained heads decisively more.
+# medusa_acceptance_tiny: the JAX gate's scale and bars
+# (tests/test_medusa_acceptance.py): random heads commit ~1 token an
+# iteration, trained heads decisively more.
+ACCEPTANCE_ARGS = ["--n_train", "48", "--n_eval", "8", "--finetune_steps", "200",
+                   "--medusa_steps", "200", "--budget", "40"]
 ACCEPTANCE_RANDOM, ACCEPTANCE_RANDOM_TOL = 1.0, 0.15
 ACCEPTANCE_TRAINED_MIN, ACCEPTANCE_TRAINED_OVER_RANDOM = 1.5, 0.5
 
@@ -465,8 +486,14 @@ CKPT_SHARDS = 4
 INT4_PREFILL_LAUNCHES = {(4096, 11008): 64, (11008, 4096): 32, (4096, 4096): 128}
 
 
+_T_START = time.perf_counter()
+
+
 def emit(phase: str, payload: dict) -> None:
-    print(f"{phase}: {json.dumps(payload)}", flush=True)
+    """One phase's line; ``t_s`` is the script's wall seconds at the line
+    (the run's time budget read phase by phase)."""
+    print(f"{phase}: {json.dumps({**payload, 't_s': time.perf_counter() - _T_START})}",
+          flush=True)
 
 
 def digest(chains) -> str:
@@ -1389,6 +1416,11 @@ def serve_defaults(eventchat, llama, params, cfg, tokenizer, requests, layout: s
         "prefix_hits": {n: r[0]["prefix_hits"] for n, r in runs.items()},
         "no_live_row": {n: r[0]["no_live_row"] for n, r in runs.items()},
         "k1_launches": k1, "nvidia_smi": smi})
+    # The ties verified here: serve_telemetry_7b holds its chains to the same
+    # oracle and replays only (row, step) pairs not seen here.
+    oracle["verified_ties"] = {(d["row"], d["first_divergent_step"]): d
+                               for numbers, _ in runs.values()
+                               for d in numbers["vs_oracle"]["divergences"]}
     return k1, (oracle, want)
 
 
@@ -2479,6 +2511,18 @@ def tiny_fleet_card_vs_cpu() -> dict:
 # The process fleet's 7B workers load the checkpoint that ``checkpoint_7b``
 # wrote. A boot imports torch, starts a CUDA context and loads 14.2 GB.
 PROCFLEET_BOOT_S = 600.0
+# serve_telemetry_7b: the served flags; the bound of a server's boot; the
+# profile window, which starts PROFILE_LEAD_S before the guarded run's
+# requests (that server runs --warmup, so the first request's prefill comes
+# within a second, inside the window, with no lazy module loading in it);
+# the ledger's reconciliation bar (the JAX package's,
+# tests/test_memory_ledger.py).
+TELEMETRY_FLAGS = ["--max_batch", "4", "--max_len", "1024", "--chunk", "32", "--kv_cache",
+                   "int8", "--kv_layout", "paged"]
+TELEMETRY_BOOT_S = 600.0
+PROFILE_SECONDS = 2.0
+PROFILE_LEAD_S = 0.3
+RECONCILE_MIN = 0.9
 
 
 def procfleet_args(ckpt: str, *flags):
@@ -2832,6 +2876,387 @@ def serve_disagg_7b(eventchat, llama, params, cfg, tokenizer, reqs, want, ckpt: 
                                           tokenizer, reqs, want, chains)
     emit("serve_disagg_7b", numbers)
     return [w["k1"] for w in workers]
+
+
+class ServerProcess:
+    """``python -m eventgpt_tpu_torch.cli.serve ARGV --port 0`` as a user
+    starts it, its stderr in ``log_path``; the port comes from its listening
+    line. ``stop()`` sends SIGTERM (the CLI drains, writes ``--trace_out``
+    and exits) and waits for the exit, so that the card's memory is free
+    before the next phase."""
+
+    def __init__(self, argv, log_path: str):
+        import re
+        import threading
+
+        env = dict(os.environ, PYTHONIOENCODING="utf-8",
+                   PYTHONPATH=os.pathsep.join([ROOT] + [x for x in [os.environ.get("PYTHONPATH")]
+                                                        if x]))
+        self.log_path = log_path
+        self._log = open(log_path, "w")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "eventgpt_tpu_torch.cli.serve", *argv, "--port", "0"],
+            stdout=subprocess.PIPE, stderr=self._log, cwd=ROOT, env=env, text=True)
+        self.lines, self.port = [], None
+        pat = re.compile(r"listening on http://[^:]+:(\d+) ")
+
+        def read():
+            for line in self.proc.stdout:
+                self.lines.append(line.rstrip("\n"))
+                m = pat.search(line)
+                if m and self.port is None:
+                    self.port = int(m.group(1))
+
+        self._reader = threading.Thread(target=read, daemon=True)
+        self._reader.start()
+        try:
+            wait_for(lambda: self.port is not None or self.proc.poll() is not None,
+                     "the server's listening line", TELEMETRY_BOOT_S)
+        except AssertionError:
+            self.stop()
+            raise
+        if self.port is None:
+            self.stop()
+            raise AssertionError(f"the server exited {self.proc.returncode} before listening: "
+                                 f"{self.log_tail()}")
+        self.boot_s = time.perf_counter() - t0
+
+    def log_tail(self) -> str:
+        self._log.flush()
+        with open(self.log_path) as f:
+            return f.read()[-3000:]
+
+    def request(self, method: str, path: str, obj=None, timeout: float = WAIT_S):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=timeout)
+        conn.request(method, path, body=None if obj is None else json.dumps(obj))
+        res = conn.getresponse()
+        body = res.read()
+        ctype = res.getheader("Content-Type", "")
+        return res.status, (json.loads(body) if "json" in ctype else body.decode())
+
+    def get(self, path: str):
+        code, body = self.request("GET", path)
+        if code != 200:
+            raise AssertionError(f"GET {path} answered {code}: {body}")
+        return body
+
+    def stop(self) -> int:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+        self._reader.join(timeout=10)
+        self._log.close()
+        return self.proc.returncode
+
+
+def telemetry_requests() -> list:
+    """``serve_defaults``' six requests as HTTP payloads, in its order: the
+    four streams (budgets 48, 16, 16, 16), then SERVE_EXTRA's two."""
+    first = [{"query": QUERIES[i], "event_path": f"events_{i}.npy", "max_new_tokens": n}
+             for i, n in enumerate(SERVE_DEFAULTS_BUDGETS)]
+    return first + [{"query": QUERIES[q], "event_path": f"events_{st}.npy", "max_new_tokens": n}
+                    for st, q, n in SERVE_EXTRA]
+
+
+def telemetry_run(ckpt: str, work: str, name: str, extra=(), profile: bool = False,
+                  armed: bool = True) -> dict:
+    """One ``cli/serve`` process over the 7B checkpoint with
+    ``TELEMETRY_FLAGS`` (+ ``extra``): the four first requests at once, the
+    two late ones after the first harvest (``segments`` in ``/stats``),
+    every answer with its ids and journey. With ``profile`` a ``POST
+    /profile`` of PROFILE_SECONDS starts PROFILE_LEAD_S before the first
+    requests (a 0 s capture before it starts the profiler once). Then the
+    telemetry routes are read, and the process is stopped."""
+    import threading
+
+    reqs = telemetry_requests()
+    trace_out = os.path.join(work, f"{name}_trace.json")
+    argv = ["--model_path", ckpt, "--tokenizer_path", "byte", "--event_root", work,
+            *TELEMETRY_FLAGS, "--trace_out", trace_out, *extra]
+    if profile:
+        # Only here: --profile_dir also arms the dispatch ranges for the run.
+        argv += ["--profile_dir", os.path.join(work, f"{name}_profile")]
+    srv = ServerProcess(argv, os.path.join(work, f"{name}.log"))
+    out = {"argv": argv, "boot_s": srv.boot_s}
+    try:
+        if profile:
+            code, warm = srv.request("POST", "/profile", {"seconds": 0})
+            if code != 200:
+                raise AssertionError(f"{name}: POST /profile {{seconds: 0}} answered {code}: {warm}")
+        results = [None] * len(reqs)
+
+        def send(i):
+            results[i] = srv.request("POST", "/v1/generate",
+                                     {**reqs[i], "return_ids": True, "debug": True})
+
+        def capture():
+            out["profile"] = srv.request("POST", "/profile", {"seconds": PROFILE_SECONDS})
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(QUERIES))]
+        if profile:
+            threads.insert(0, threading.Thread(target=capture))
+            threads[0].start()
+            time.sleep(PROFILE_LEAD_S)
+        t0 = time.perf_counter()
+        for th in threads[int(profile):]:
+            th.start()
+
+        def harvested():
+            time.sleep(0.05)
+            return srv.get("/stats")["segments"] >= 1
+
+        out["late_submit_s"] = wait_for(harvested, f"{name}: the first harvest")
+        late = [threading.Thread(target=send, args=(i,)) for i in range(len(QUERIES), len(reqs))]
+        for th in late:
+            th.start()
+        for th in threads + late:
+            th.join(timeout=WAIT_S)
+        out["wall_s"] = time.perf_counter() - t0
+        bad = [r for r in results if r is None or r[0] != 200 or r[1].get("status") != "ok"]
+        if bad:
+            raise AssertionError(f"{name}: answers {bad}; {srv.log_tail()}")
+        out["chains"] = [r[1]["ids"] for r in results]
+        out["rids"] = [r[1]["rid"] for r in results]
+        out["ttft_s"] = [r[1]["ttft_s"] for r in results]
+        stats = srv.get("/stats")
+        out["stats"] = {k: stats[k] for k in ("decode_s", "decode_steps", "decode_steps_run",
+                                              "segments", "dispatches", "prefix_cache",
+                                              "lanes_started", "overlap_ratio", "launches",
+                                              "memory", "metrics", "alerts")}
+        out["decode_ms_per_step"] = stats["decode_s"] * 1e3 / max(stats["decode_steps"], 1)
+        out["metrics_text"] = srv.get("/metrics")
+        if armed:
+            out["requests"] = srv.get("/requests")["requests"]
+            out["journeys"] = [srv.get(f"/request?rid={rid}") for rid in out["rids"]]
+            out["debug_equals_route"] = [
+                r[1]["debug"]["rid"] == rid for r, rid in zip(results, out["rids"])]
+            out["trace"] = srv.get("/trace")
+            out["memory"] = srv.get("/memory")
+            out["series"] = srv.get("/series?n=4")
+            out["alerts"] = srv.get("/alerts")
+        else:
+            out["trace_code"] = srv.request("GET", "/trace")[0]
+    finally:
+        out["exit_code"] = srv.stop()
+        out["stdout_tail"] = srv.lines[-4:]
+    if out["exit_code"] != 0:
+        raise AssertionError(f"{name}: the server exited {out['exit_code']}: {srv.log_tail()}")
+    if armed:
+        out["trace_out_events"] = len(trace_events(trace_out))
+    return out
+
+
+def trace_events(path: str) -> list:
+    """A Chrome trace written by ``obs.trace`` (one event a line)."""
+    from eventgpt_tpu_torch.obs.trace import load_trace
+
+    return load_trace(path)
+
+
+def metric_value(text: str, sample: str) -> float:
+    """The value of one sample line (``name{labels}``) of a Prometheus text."""
+    for line in text.splitlines():
+        if line.startswith(sample + " "):
+            return float(line.split()[-1])
+    raise AssertionError(f"no sample {sample} in /metrics")
+
+
+def serve_telemetry_7b(eventchat, llama, params, cfg, tokenizer, requests, oracle_chains,
+                       ckpt: str, work: str, n_layers: int, smi: str, ties=None) -> dict:
+    """The port's telemetry on the served 7B path, through the real entry
+    point: three ``cli/serve`` processes over the 7B checkpoint with the
+    JAX CLI's defaults (paged int8 KV, 4 rows, chunk 32), one at a time, on
+    ``serve_defaults``' traffic. Armed at the defaults; ``--no_telemetry``;
+    armed with the headroom guard set below the ledger's total (admissions
+    while rows decode defer until they drain), ``--warmup`` and a profile
+    capture over its first requests. Every run's chains held to
+    ``serve_defaults``' oracle (``hold_to_oracle``), K1 equal armed and
+    disarmed; the armed run's metrics, journeys, trace, trace file and
+    ledger reconciliation; the guard's deferrals; the capture names K1.
+    ``ties``: {(row, first divergent step): report} already verified on the
+    same oracle (``serve_defaults``'), not replayed again. Returns {run: K1
+    launches}."""
+    reqs = serve_defaults_requests(requests)
+    runs = {"armed": telemetry_run(ckpt, work, "telemetry_armed")}
+    runs["no_telemetry"] = telemetry_run(ckpt, work, "telemetry_off", ["--no_telemetry"],
+                                         armed=False)
+    total_mib = runs["armed"]["stats"]["memory"]["total_bytes"] / 2 ** 20
+    guard = ["--mem_capacity_mb", str(math.ceil(total_mib) + 64), "--mem_headroom_mb", "128"]
+    runs["guarded"] = telemetry_run(ckpt, work, "telemetry_guard", guard + ["--warmup"],
+                                    profile=True)
+    k1 = {n: r["stats"]["launches"]["flash_attention.cu"] for n, r in runs.items()}
+    armed, off, guarded = runs["armed"], runs["no_telemetry"], runs["guarded"]
+    n = len(reqs)
+    problems = []
+    # Over HTTP the admission paths follow the arrival times (which lanes
+    # ride which decode steps, the first wave's size), and bf16 chains
+    # follow the paths at rounding ties: every run is held to the oracle
+    # (identical, or a divergence at a measured tie). Exact equality armed
+    # against disarmed at one schedule is the CPU tests' (bytes equal).
+    same_paths = armed["stats"]["dispatches"] == off["stats"]["dispatches"]
+    if k1["armed"] != k1["no_telemetry"] or k1["armed"] % n_layers or not k1["armed"]:
+        problems.append(f"K1 launches {k1}")
+    text = armed["metrics_text"]
+    counts = {"requests_ok": metric_value(text, 'egpt_serve_requests_total{status="ok"}'),
+              "ttft_count": metric_value(text, "egpt_serve_ttft_seconds_count")}
+    if counts != {"requests_ok": n, "ttft_count": n}:
+        problems.append(f"/metrics counts {counts}, want {n}")
+    statuses = sorted((r["rid"], r["status"]) for r in armed["requests"])
+    if statuses != sorted((rid, "ok") for rid in armed["rids"]):
+        problems.append(f"/requests {statuses}")
+    phase_gaps = [abs(sum(j["phases"].values()) - j["e2e_s"]) for j in armed["journeys"]]
+    if max(phase_gaps) > 1e-9 or not all(armed["debug_equals_route"]):
+        problems.append(f"journey phases off their latency by {phase_gaps}")
+    pairs = {}
+    for e in armed["trace"]["traceEvents"]:
+        if e.get("cat") == "request":
+            pairs.setdefault(e["id"], []).append((e["name"], e["ph"]))
+    want_pairs = [("queued", "b"), ("queued", "e"), ("active", "b"), ("active", "e")]
+    if sorted(pairs) != sorted(armed["rids"]) or any(p != want_pairs for p in pairs.values()):
+        problems.append(f"/trace request events {pairs}")
+    if not armed["trace_out_events"]:
+        problems.append("--trace_out wrote no events")
+    rec = armed["memory"]["reconcile"]
+    if rec["accounted_ratio"] < RECONCILE_MIN:
+        problems.append(f"the ledger accounts {rec['accounted_ratio']} of the live bytes")
+    if off["trace_code"] != 404:
+        problems.append(f"--no_telemetry /trace answered {off['trace_code']}")
+    deferrals = metric_value(guarded["metrics_text"], "egpt_mem_guard_deferrals_total")
+    if deferrals < 1 or guarded["stats"]["memory"]["guard"]["deferrals"] < 1:
+        problems.append(f"the guard deferred {deferrals} times")
+    code, prof = guarded["profile"]
+    names, ranges = set(), {}
+    if code == 200:
+        with open(prof["trace_file"]) as f:
+            evs = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in evs}
+        for key in ("flash_fwd_kernel", "serve.segment_dispatch"):
+            ranges[key] = sum(key in e.get("name", "") for e in evs)
+    if code != 200 or not any("flash_fwd_kernel" in x for x in names):
+        problems.append(f"POST /profile answered {code}: {prof}; K1 in the capture: "
+                        f"{ranges.get('flash_fwd_kernel')}")
+    # A divergence's margin and gap depend on the oracle's row and the first
+    # divergent step only: each (row, step) is replayed once across the runs.
+    hold, seen = {}, dict(ties or {})
+    for r, run in runs.items():
+        first = {i: next(k for k, (a, b) in enumerate(zip(o + [None], c + [None])) if a != b)
+                 for i, (o, c) in enumerate(zip(oracle_chains, run["chains"])) if o != c}
+        got = [oracle_chains[i] if (i, first.get(i)) in seen else c
+               for i, c in enumerate(run["chains"])]
+        hold[r] = hold_to_oracle(f"serve_telemetry_7b {r}", eventchat, llama, params, cfg,
+                                 tokenizer, reqs, oracle_chains, got, SERVE_DEFAULTS_BUDGETS[0])
+        seen.update({(d["row"], d["first_divergent_step"]): d for d in hold[r]["divergences"]})
+        hold[r] = {"rows_identical": [i not in first for i in range(len(reqs))],
+                   "divergences": [seen[i, k] for i, k in sorted(first.items())]}
+    summary = {
+        "config": "python -m eventgpt_tpu_torch.cli.serve over checkpoint_7b: EventGPT-7B bf16, "
+                  "paged int8 KV, 4 rows, max_len 1024, chunk 32, the JAX CLI's defaults "
+                  "(pipelined, prefix cache 512 MiB, lanes of 32); serve_defaults' six requests "
+                  "over HTTP (event_path under --event_root)",
+        "k1_launches": k1, "same_admission_paths_armed_disarmed": same_paths,
+        "chains_equal_armed_disarmed": armed["chains"] == off["chains"],
+        "chains_equal_guarded_armed": guarded["chains"] == armed["chains"],
+        "vs_oracle": hold, "metrics": counts,
+        "wall_s": {r: runs[r]["wall_s"] for r in runs},
+        "decode_ms_per_step": {r: runs[r]["decode_ms_per_step"] for r in runs},
+        "decode_steps": {r: runs[r]["stats"]["decode_steps"] for r in runs},
+        "decode_steps_run": {r: runs[r]["stats"]["decode_steps_run"] for r in runs},
+        "ttft_s": {r: runs[r]["ttft_s"] for r in runs},
+        "boot_s": {r: runs[r]["boot_s"] for r in runs},
+        "late_submit_s": {r: runs[r]["late_submit_s"] for r in runs},
+        "dispatches": {r: runs[r]["stats"]["dispatches"] for r in runs},
+        "journey_phases": [j["phases"] for j in armed["journeys"]],
+        "journey_causes": [j.get("cause") for j in armed["journeys"]],
+        "journey_event_kinds": [[e["kind"] for e in j["events"]] for j in armed["journeys"]],
+        "trace_events": len(armed["trace"]["traceEvents"]),
+        "trace_dropped": armed["trace"]["droppedEvents"],
+        "trace_out_events": armed["trace_out_events"],
+        "memory": {"components": armed["memory"]["components"],
+                   "owner": armed["memory"]["owner"], "total_bytes":
+                       armed["memory"]["total_bytes"], "reconcile": rec,
+                   "estimate": armed["memory"]["estimate"]["components"],
+                   "compiled": armed["memory"]["compiled"]},
+        "series_samples": armed["series"].get("samples"),
+        "alerts_active": armed["alerts"].get("active"),
+        "guard": {"argv": guard, "deferrals_metric": deferrals,
+                  "stats": guarded["stats"]["memory"]["guard"]},
+        "profile": {"code": code, "seconds": PROFILE_SECONDS,
+                    "all_threads": prof.get("all_threads") if code == 200 else None,
+                    "events_by_name": ranges,
+                    "engine_thread_ranges_in_capture": ranges.get("serve.segment_dispatch", 0) > 0},
+        "nvidia_smi": smi}
+    emit("serve_telemetry_7b", summary)
+    if problems:
+        raise AssertionError(f"serve_telemetry_7b: {problems}")
+    return k1
+
+
+def tiny_telemetry_card_vs_cpu(work: str) -> dict:
+    """The tiny f32 server at the JAX CLI's defaults with the flight
+    recorder armed, on the card and on the CPU, on
+    ``tiny_serve_defaults_card_vs_cpu``'s traffic: the same chains, the same
+    journey event kinds per request, and the same serving counters of the
+    registry (its times aside)."""
+    import numpy as np
+    import torch
+
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
+    from eventgpt_tpu_torch.data.tokenizer import ByteTokenizer, tokenize_with_event
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.obs import journey as obs_journey
+    from eventgpt_tpu_torch.obs import metrics as obs_metrics
+    from eventgpt_tpu_torch.ops.image import process_event_file
+    from eventgpt_tpu_torch.serve import ContinuousBatcher
+
+    cfg = EventChatConfig.tiny(vocab_size=260)
+    cpu = init_eventchat_params(cfg, torch.Generator().manual_seed(3), torch.float32, "cpu")
+    trees = {"cpu": cpu, "cuda": _to(cpu, "cuda")}
+    px = [np.asarray(process_event_file(os.path.join(work, f"events_{i}.npy"),
+                                        cfg.num_event_frames, cfg.vision.image_size)[1])
+          for i in range(3)]
+    ids = [tokenize_with_event(prepare_event_prompt(q), ByteTokenizer()) for q in QUERIES]
+    first = [(ids[0], px[0], 40), (ids[1], px[1], 6)]
+    late = [(ids[3], px[0], 10), (ids[2], px[2], 8)]
+    counters = ("egpt_serve_requests_total", "egpt_serve_tokens_total",
+                "egpt_serve_segments_total", "egpt_serve_prefill_dispatches_total",
+                "egpt_serve_prefix_cache_hits_total", "egpt_serve_mixed_segments_total")
+    prev = obs_journey.active()
+    obs_journey.configure(64)
+    res = {}
+    try:
+        for dev, params in trees.items():
+            obs_metrics.REGISTRY.reset()
+            srv = ContinuousBatcher(params, cfg, max_batch=2, max_len=512, chunk=8,
+                                    eos_token_id=None, kv_quant=True, kv_layout="paged",
+                                    prefill_budget=8, device=dev)
+            rids = [srv.submit(*r) for r in first]
+            srv.step()
+            srv.step()
+            rids += [srv.submit(*r) for r in late]
+            done = srv.run_until_drained()
+            summary = obs_metrics.REGISTRY.summary(("egpt_serve_",))
+            res[dev] = {"chains": [done[r] for r in rids],
+                        "kinds": [[e["kind"] for e in srv.journey(r)["events"]] for r in rids],
+                        "statuses": [srv.journey(r)["status"] for r in rids],
+                        "counters": {k: summary[k] for k in counters}}
+    finally:
+        obs_journey._recorder = prev
+    if res["cpu"] != res["cuda"]:
+        raise AssertionError(f"tiny telemetry differs: cpu {res['cpu']} vs cuda {res['cuda']}")
+    return {"config": "tiny f32, 2 rows, chunk 8, paged int8 KV, prefill_budget 8, pipelined, "
+                      "prefix cache; journeys armed", "identical": True,
+            "kinds": res["cuda"]["kinds"], "counters": res["cuda"]["counters"],
+            "tokens": [len(c) for c in res["cuda"]["chains"]]}
 
 
 def tiny_procfleet_card_vs_cpu(work: str) -> dict:
@@ -3985,7 +4410,7 @@ def train_7b(stage: int, params, cfg, tokenizer, paths: dict, work: str,
                              f"{K1_BACKWARD_PER_MICRO} backward calls")
     records = [json.loads(line) for line in open(trainer.metrics_path)]
     steps = [r for r in records if "loss" in r and "event" not in r]
-    tele = [json.loads(line) for line in open(trainer.telemetry_path)]
+    tele = [json.loads(line) for line in open(trainer.telemetry.path)]
     losses = [r["loss"] for r in steps]
     if len(steps) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"stage {stage}: losses {losses}")
@@ -4480,14 +4905,17 @@ def tiny_medusa_card_vs_cpu() -> dict:
 
 def medusa_acceptance_tiny(work: str) -> dict:
     """The port's acceptance study (``scripts/medusa_acceptance``) at the
-    JAX script's defaults on the card, f32: the record, then the JAX gate's
-    bars. ``main`` itself raises when the three drafts' chains differ."""
+    JAX gate's scale (ACCEPTANCE_ARGS: a third of the script's default
+    steps, which kept the whole run inside its time limit) on the card,
+    f32: the record, then the JAX gate's bars. ``main`` itself raises when
+    the three drafts' chains differ."""
     from eventgpt_tpu_torch.scripts import medusa_acceptance
 
     out = os.path.join(work, "medusa_acceptance")
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(sys.stderr):  # main prints the record; it is emitted below
-        record = medusa_acceptance.main(["--out_dir", out, "--log_every", "200"])
+        record = medusa_acceptance.main(["--out_dir", out, "--log_every", "200",
+                                         *ACCEPTANCE_ARGS])
     seconds = time.perf_counter() - t0
     shutil.rmtree(out, ignore_errors=True)
     trained = record["medusa_trained"]["tokens_per_iteration"]
@@ -4729,6 +5157,8 @@ def main() -> int:
                 smi)
         serve_spec_launches = serve_spec(eventchat, llama, params, cfg, tokenizer, requests,
                                          oracles, counted, n_layers, smi, work)
+        # serve_telemetry_7b's oracle over HTTP, and the ties verified on it.
+        defaults_oracle, defaults_ties = oracles["paged"][1], oracles["paged"][0]["verified_ties"]
         del oracles
         torch.cuda.empty_cache()
         # Block-tier preemption with the host spill store, and the
@@ -4915,6 +5345,12 @@ def main() -> int:
                 "cli_subprocess_tiny": cli_subprocess_tiny(work, counted), "nvidia_smi": smi})
             emit("slice_qformer", {**slice_qformer(cfg, ckpt, ids, pixels, counted),
                                    "nvidia_smi": smi})
+            # The telemetry of the served path, through cli/serve processes
+            # over this checkpoint, one at a time.
+            torch.cuda.empty_cache()
+            telemetry_k1 = serve_telemetry_7b(eventchat, llama, params, cfg, tokenizer,
+                                              requests, defaults_oracle, ckpt, work, n_layers,
+                                              smi, defaults_ties)
             # Process fleets: worker processes loading this checkpoint.
             procfleet_k1 = serve_procfleet_7b(eventchat, llama, params, cfg, tokenizer, ids,
                                               pixels, requests, ckpt, fleet_ref, counted,
@@ -4955,6 +5391,7 @@ def main() -> int:
         emit("tiny_serve_card_vs_cpu", tiny_serve_card_matches_cpu(work))
         emit("tiny_serve_defaults_card_vs_cpu", tiny_serve_defaults_card_vs_cpu(work))
         emit("tiny_serve_spec_card_vs_cpu", tiny_serve_spec_card_vs_cpu(work))
+        emit("tiny_telemetry_card_vs_cpu", tiny_telemetry_card_vs_cpu(work))
         emit("tiny_preempt_card_vs_cpu", tiny_preempt_card_vs_cpu())
         emit("tiny_fleet_card_vs_cpu", tiny_fleet_card_vs_cpu())
         emit("tiny_procfleet_card_vs_cpu", tiny_procfleet_card_vs_cpu(work))
@@ -5014,6 +5451,8 @@ def main() -> int:
                                  procfleet_k1["chaos"]["respawned"],
                              "serve_disagg_7b_prefill_worker": procfleet_k1["disagg"][0],
                              "serve_disagg_7b_decode_worker": procfleet_k1["disagg"][1],
+                             **{f"serve_telemetry_7b_{run}": n
+                                for run, n in telemetry_k1.items()},
                              **{f"train_stage{st}": run["k1_launches"]
                                 for st, run in train_runs.items()},
                              **{f"train_stage{st}_eval": run["eval"]["k1_inference"]

@@ -42,6 +42,7 @@ from eventgpt_tpu_torch.models import convert, eventchat
 from eventgpt_tpu_torch.models import medusa as medusa_mod
 from eventgpt_tpu_torch.models import qformer as qformer_mod
 from eventgpt_tpu_torch.models.llama import fuse_llama_params, resize_token_embeddings
+from eventgpt_tpu_torch.obs import memory as obs_memory
 from eventgpt_tpu_torch.ops.image import process_event_file
 from eventgpt_tpu_torch.ops.quant import quantize_llama_params
 
@@ -155,7 +156,8 @@ def prepare_model(cfg, params, tokenizer, args):
     with its component files found beside the checkpoint or given by
     ``--pretrain_*``; special tokens; the embedding resize; ``--fuse_params``;
     ``--quant``. Fusing and quantizing replace leaves in place, one at a
-    time, so the card never holds two full trees. Returns (cfg, params).
+    time, so the card never holds two full trees. The prepared tree is
+    registered in the memory ledger. Returns (cfg, params).
     """
     st = getattr(args, "spatial_temporal_encoder", None)
     if st is not None and st != cfg.use_spatio_temporal_pool:
@@ -200,6 +202,11 @@ def prepare_model(cfg, params, tokenizer, args):
         fuse_llama_params(params["llama"])
     if args.quant in ("int8", "int4"):
         quantize_llama_params(params["llama"], bits=4 if args.quant == "int4" else 8)
+    # The weight tree is resident from here on: the memory ledger counts it
+    # at this boundary, under the identity a batcher over the same tree
+    # registers again (a no-op resize).
+    obs_memory.LEDGER.register("weights", f"shared/params-{id(params):x}",
+                               obs_memory.params_bytes(params))
     return cfg, params
 
 

@@ -17,6 +17,8 @@ Endpoints:
                       "event_b64": base64 .npy bytes,
                       "max_new_tokens": int = --max_new_tokens,
                       "deadline_s": float (optional),
+                      "debug": true (optional: the answer carries its journey),
+                      "return_ids": true (optional: and its token ids),
                       "slo_class": "interactive" | "batch" (optional), with
                       optional per-request "slo_ttft_s" / "slo_itl_s" /
                       "slo_latency_s" overrides of the class targets}
@@ -44,8 +46,27 @@ Endpoints:
                         the policy
   GET  /stats        -> engine counters, block-pool state (preemptions,
                         spills, restores, deferrals) and spill store, SLO
-                        attainment, the role, recent requests, and under
-                        --speculative the speculation counters
+                        attainment, the role, recent requests, under
+                        --speculative the speculation counters, the memory
+                        ledger's summary (``memory``), the registry's serving
+                        summary (``metrics``), the alerts and each kernel's
+                        launches in this process (``launches``)
+  GET  /metrics      -> the metrics registry as Prometheus text (0.0.4)
+  GET  /trace[?rid=N] -> the trace ring as Chrome trace events (404 when
+                        --trace_buffer 0 or --no_telemetry)
+  GET  /request?rid=N -> one request's journey: events, phases, cause
+  GET  /requests[?n=N] -> the last finished requests' index
+  GET  /series[?window_s=S&n=N] -> the sampled time series and its windows
+  GET  /alerts       -> the burn-rate alert rules' state and transition log
+  GET  /memory       -> the ledger, its reconciliation with the card's
+                        allocated bytes, the static estimate
+  POST /profile      {"seconds": S in [0, 120]} -> a torch.profiler capture of
+                        S seconds of the running server, written as a Chrome
+                        trace into --profile_dir (else a temporary dir): 400 on
+                        bad seconds, 409 while another capture runs
+  With --fleet or --proc_fleet the fleets' journeys, series, alerts and
+  memory are not ported yet (ROADMAP Queue 1 item 6b): those routes answer
+  501.
 
 Ported flags: --model_path (tiny-random or a checkpoint dir), --tokenizer_path
 byte, --use_event_qformer, --pretrain_query_embedder,
@@ -78,10 +99,17 @@ the engine's resilience (``--breaker_threshold``, ``--breaker_cooldown_s``,
 (``--proc_fleet``, ``--proc_fleet_roles P:D`` with ``--kv_layout paged``,
 ``--procfleet_*``; a worker's ``--worker``, ``--worker_ready_file``,
 ``--worker_slot`` and ``--role``, set by the coordinator per slot) and
-``--faults`` (or ``EGPT_FAULTS``). Every other flag of the JAX CLI is
-accepted and raises ``NotImplementedError`` when set: its path is not ported
-yet (the memory, journey, series, trace and profile flags come with
-telemetry). Chains are the same with every scheduler feature on or off.
+``--faults`` (or ``EGPT_FAULTS``), and telemetry at the JAX CLI's defaults:
+the registry, a trace ring of ``--trace_buffer`` 65536 events
+(``--trace_out`` writes it at shutdown), a flight recorder of
+``--journey_keep`` 512 journeys, a series store sampling every
+``--series_interval_s`` 1.0 s into ``--series_keep`` 512 samples with the
+burn-rate alerts, ``--profile_dir`` for ``POST /profile`` (and the
+dispatch ranges), and the memory headroom guard (``--mem_headroom_mb``,
+``--mem_capacity_mb``; off by default). ``--no_telemetry`` disarms the
+registry, the tracer, the recorder and the series store. ``--mesh_*``
+raise ``NotImplementedError``: the serving mesh is not ported yet. Chains
+are the same with every scheduler feature and telemetry on or off.
 
 Usage:
   python -m eventgpt_tpu_torch.cli.serve --model_path tiny-random \\
@@ -115,7 +143,12 @@ from eventgpt_tpu_torch import faults
 from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
 from eventgpt_tpu_torch.data.tokenizer import tokenize_with_event
 from eventgpt_tpu_torch.fleet import Fleet, FleetShedError, retry_after_s
-from eventgpt_tpu_torch.fleet_proc import ProcFleet
+from eventgpt_tpu_torch.fleet_proc import ProcFleet, kernel_launches
+from eventgpt_tpu_torch.obs import journey as obs_journey
+from eventgpt_tpu_torch.obs import metrics as obs_metrics
+from eventgpt_tpu_torch.obs import profiling as obs_profiling
+from eventgpt_tpu_torch.obs import series as obs_series
+from eventgpt_tpu_torch.obs import trace as obs_trace
 from eventgpt_tpu_torch.ops.image import process_event_file
 from eventgpt_tpu_torch.serve import QueueFullError
 from eventgpt_tpu_torch.train.resilience import Heartbeat
@@ -137,7 +170,9 @@ class ServingEngine:
     trips, the queued requests fail too, ``/health`` reads ``degraded`` and
     submits are refused (503) until ``breaker_cooldown_s`` has passed; then
     it is half-open, and the first clean step closes it. ``heartbeat_dir``
-    arms the trainer's liveness file (``train/resilience.Heartbeat``).
+    arms the trainer's liveness file (``train/resilience.Heartbeat``);
+    ``trace_out`` names the Chrome trace file the trace ring is written to
+    at shutdown.
     ``kill()``/``revive()`` take the engine out of service and back for a
     fleet. ``/health`` and ``/stats`` read a snapshot rebuilt after every
     step, so they answer while the scheduler holds the lock through a
@@ -148,8 +183,9 @@ class ServingEngine:
     def __init__(self, batcher, tokenizer, conv_mode: str = "eventgpt_v1",
                  breaker_threshold: int = 3, breaker_cooldown_s: float = 5.0,
                  heartbeat_dir: Optional[str] = None, heartbeat_interval_s: float = 1.0,
-                 start: bool = True):
+                 start: bool = True, trace_out: Optional[str] = None):
         self.batcher = batcher
+        self.trace_out = trace_out
         self.tokenizer = tokenizer
         self.conv_mode = conv_mode
         self._lock = threading.Lock()
@@ -358,7 +394,35 @@ class ServingEngine:
     def stats(self) -> Dict[str, Any]:
         return {"uptime_s": round(time.time() - self.t_start, 1),
                 "requests": self.n_requests,
-                "status": "degraded" if self.breaker_open() else "ok", **self._snapshot}
+                "status": "degraded" if self.breaker_open() else "ok", **self._snapshot,
+                # The registry's view of what /metrics exposes, the alerts,
+                # and the kernels this process launched.
+                "metrics": obs_metrics.serve_summary(), "alerts": obs_series.alert_stats(),
+                **kernel_launches()}
+
+    # The telemetry surfaces read state that guards itself (the recorder,
+    # the series store, the ledger): no engine lock, so that they answer
+    # while the scheduler holds it through a segment.
+    def journey(self, rid: int) -> Optional[Dict[str, Any]]:
+        """One request's journey (``GET /request?rid=N``)."""
+        return self.batcher.journey(rid)
+
+    def journeys(self, n: int = 64) -> List[Dict[str, Any]]:
+        """Recent finished journeys (``GET /requests``)."""
+        return self.batcher.journey_index(n)
+
+    def series(self, window_s: Optional[float] = None, n: Optional[int] = None) -> Dict[str, Any]:
+        """The ``GET /series`` payload."""
+        return obs_series.snapshot(window_s=window_s, n=n)
+
+    def alerts(self) -> Dict[str, Any]:
+        """The ``GET /alerts`` payload."""
+        return obs_series.alerts()
+
+    def memory_stats(self) -> Dict[str, Any]:
+        """The ``GET /memory`` payload (the reconciliation reads the
+        allocator, or walks the CPU's live tensors, outside the lock)."""
+        return self.batcher.memory_stats()
 
     def goodput_ratio(self) -> float:
         """The windowed SLO attainment, 1.0 while the window is empty (no
@@ -376,6 +440,10 @@ class ServingEngine:
             thread.join(timeout=10)
         if self._thread is not thread and self._thread.is_alive():
             self._thread.join(timeout=10)  # a restart raced the stop
+        tracer = obs_trace.active()
+        if self.trace_out and tracer is not None:
+            n = tracer.write(self.trace_out)
+            print(f"[serve] wrote {n} trace events to {self.trace_out}", flush=True)
 
     # -- scheduler thread -------------------------------------------------
 
@@ -392,6 +460,8 @@ class ServingEngine:
             "faults": self.n_faults,
             "restarts": self.n_restarts,
             "admission_s": round(b.admission_s, 3),
+            "decode_s": round(b.decode_s, 4),
+            "decode_steps": b.decode_steps,
             "prefill_dispatches": b.prefill_dispatches,
             "dispatches": dict(b.dispatches),
             "segments": b.seg_count,
@@ -409,6 +479,8 @@ class ServingEngine:
             "speculative": b.speculative,
             "slo": b.slo_stats(),
             "role": b.role,
+            # The ledger's host ints (the reconciliation is GET /memory's).
+            "memory": b.memory_summary(),
         }
         if b.speculative:
             snap["spec_tokens_per_iteration"] = round(b.spec_tokens_per_iteration(), 2)
@@ -449,6 +521,7 @@ class ServingEngine:
                             # A clean step ends the streak: the breaker closes.
                             self._consec_faults = 0
                             self.fault = None
+                            obs_metrics.SERVE_BREAKER_OPEN.set(0)
                         self._snapshot = self._build_snapshot_locked()
             except Exception as e:  # a scheduler fault must be loud
                 self._on_fault(e)
@@ -458,6 +531,7 @@ class ServingEngine:
                     time.sleep(min(0.05 * self._consec_faults, 0.5))
                     with self._lock:
                         self.n_restarts += 1
+                    obs_metrics.SERVE_SCHED_RESTARTS.inc()
                     self._thread = threading.Thread(target=self._loop, daemon=True)
                     self._thread.start()
                 return
@@ -498,9 +572,16 @@ class ServingEngine:
             self._consec_faults += 1
             self._t_fault = time.monotonic()
             tripped = self._consec_faults >= self.breaker_threshold
+        obs_metrics.SERVE_SCHED_FAULTS.inc()
+        obs_trace.instant("scheduler_fault", cat="engine", error=repr(e))
+        if tripped:
+            obs_metrics.SERVE_BREAKER_OPEN.set(1)
+            obs_trace.instant("breaker_trip", cat="engine")
+        with self._lock:
             failed = self.batcher.abort_rows()
             if tripped:
-                failed += [rec["rid"] for rec in self.batcher.export_requests()]
+                failed += [rec["rid"] for rec in
+                           self.batcher.export_requests(journey_status="engine_fault")]
             for rid in failed:
                 self._status[rid] = "engine_fault"
                 if rid in self._done:
@@ -562,6 +643,9 @@ def _decode_pixels(payload: Dict[str, Any], cfg, event_root=None):
     raise ValueError("request needs event_path or event_b64")
 
 
+# A telemetry route the engine refuses (the fleets' half, not ported yet).
+_REFUSED = object()
+
 _STATUS_CODES = {"ok": 200, "deadline_exceeded": 504, "cancelled": 499,
                  "resource_exhausted": 503, "nan_quarantined": 500}
 
@@ -606,7 +690,87 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
                 else None
             return ra if ra is not None else retry_after_s(cls_name, engine.goodput_ratio())
 
+        def _telemetry(self, fn, *args, **kw):
+            """A telemetry surface's payload, or ``_REFUSED`` after answering
+            501: the fleets' journeys, series, alerts and memory are not
+            ported yet."""
+            try:
+                return fn(*args, **kw)
+            except NotImplementedError as e:
+                self._json(501, {"error": str(e)})
+                return _REFUSED
+
+        def _telemetry_get(self, route, query) -> bool:
+            """The telemetry routes; False when ``route`` is none of them."""
+            if route == "/request":
+                try:
+                    rid = int(query["rid"][0])
+                except (KeyError, ValueError, IndexError):
+                    self._json(400, {"error": "need ?rid=N"})
+                    return True
+                rec = self._telemetry(engine.journey, rid)
+                if rec is None:
+                    self._json(404, {"error": f"no journey for rid {rid} (unknown, evicted from "
+                                              f"the retention ring, or the recorder is "
+                                              f"disarmed: --journey_keep)"})
+                elif rec is not _REFUSED:
+                    self._json(200, rec)
+            elif route == "/requests":
+                try:
+                    n = int(query.get("n", ["64"])[0])
+                except ValueError:
+                    self._json(400, {"error": "bad ?n="})
+                    return True
+                recs = self._telemetry(engine.journeys, n)
+                if recs is not _REFUSED:
+                    self._json(200, {"requests": recs, "enabled": obs_journey.enabled()})
+            elif route == "/series":
+                try:
+                    window_s = float(query["window_s"][0]) if "window_s" in query else None
+                    n = int(query["n"][0]) if "n" in query else None
+                except (ValueError, IndexError):
+                    self._json(400, {"error": "bad ?window_s= or ?n="})
+                    return True
+                out = self._telemetry(engine.series, window_s=window_s, n=n)
+                if out is not _REFUSED:
+                    self._json(200, out)
+            elif route in ("/alerts", "/memory"):
+                out = self._telemetry(engine.alerts if route == "/alerts" else engine.memory_stats)
+                if out is not _REFUSED:
+                    self._json(200, out)
+            elif route == "/trace":
+                tracer = obs_trace.active()
+                if tracer is None:
+                    self._json(404, {"error": "tracing disarmed (--trace_buffer 0)"})
+                    return True
+                evs = tracer.events()
+                if "rid" in query:
+                    try:
+                        rid = int(query["rid"][0])
+                    except (ValueError, IndexError):
+                        self._json(400, {"error": "bad ?rid="})
+                        return True
+                    evs = [e for e in evs
+                           if e.get("id") == rid or (e.get("args") or {}).get("rid") == rid]
+                self._json(200, {"traceEvents": evs, "droppedEvents": tracer.dropped()})
+            elif route == "/metrics":
+                # Rendered outside the engine lock: it answers mid-segment.
+                body = obs_metrics.REGISTRY.render_prometheus().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            else:
+                return False
+            return True
+
         def do_GET(self):
+            from urllib.parse import parse_qs, urlsplit
+
+            split = urlsplit(self.path)
+            if self._telemetry_get(split.path, parse_qs(split.query)):
+                return
             if self.path == "/health":
                 if engine.breaker_open():
                     # The balancer drains this server until the half-open
@@ -659,11 +823,32 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
                 return None
 
         def do_POST(self):
-            if self.path not in ("/v1/generate", "/cancel", "/prefix"):
+            if self.path not in ("/v1/generate", "/cancel", "/prefix", "/profile"):
                 self._json(404, {"error": f"no route {self.path}"})
                 return
             payload = self._read_payload()
             if payload is None:
+                return
+            if self.path == "/profile":
+                # A torch.profiler window over the running server: this
+                # handler thread waits it out while the scheduler serves.
+                try:
+                    seconds = float(payload.get("seconds", 2.0))
+                    if not 0.0 <= seconds <= 120.0:
+                        raise ValueError(f"seconds must be in [0, 120], got {seconds}")
+                except (TypeError, ValueError, AttributeError) as e:
+                    self._json(400, {"error": str(e)})
+                    return
+                try:
+                    d = obs_profiling.capture(seconds)
+                except obs_profiling.CaptureBusyError as e:
+                    self._json(409, {"error": str(e)})
+                    return
+                except Exception as e:
+                    self._json(500, {"error": str(e)})
+                    return
+                self._json(200, {"profile_dir": d, "seconds": seconds,
+                                 **obs_profiling.last_capture()})
                 return
             if self.path == "/cancel":
                 try:
@@ -754,6 +939,15 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
                 obj["slo_class"] = slo.name
                 if "slo_met" in stats:
                     obj["slo_met"] = bool(stats["slo_met"])
+            if payload.get("debug"):
+                # The request's journey rides its answer (GET /request?rid=N);
+                # a fleet's journeys are not ported yet.
+                try:
+                    obj["debug"] = engine.journey(rid)
+                except NotImplementedError:
+                    obj["debug"] = None
+            if payload.get("return_ids"):
+                obj["ids"] = [int(t) for t in toks]
             code = _STATUS_CODES.get(status, 500)
             if code != 200:
                 obj["error"] = status
@@ -770,20 +964,7 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
     return Handler
 
 
-# Flags of the JAX CLI whose paths are not ported yet: (flag, argparse
-# keywords, what). Each defaults to "off" and raises when set.
-_UNPORTED = [
-    ("--mem_headroom_mb", dict(type=float),
-     "the memory headroom guard (ROADMAP Queue 1 item 6, telemetry)"),
-    ("--mem_capacity_mb", dict(type=float),
-     "the memory headroom guard (ROADMAP Queue 1 item 6, telemetry)"),
-    ("--journey_keep", dict(type=int), "the flight recorder (ROADMAP Queue 1 item 6)"),
-    ("--series_interval_s", dict(type=float), "the time-series store (ROADMAP Queue 1 item 6)"),
-    ("--series_keep", dict(type=int), "the time-series store (ROADMAP Queue 1 item 6)"),
-    ("--trace_buffer", dict(type=int), "span tracing (ROADMAP Queue 1 item 6)"),
-    ("--trace_out", dict(), "span tracing (ROADMAP Queue 1 item 6)"),
-    ("--profile_dir", dict(), "POST /profile (ROADMAP Queue 1 item 6)"),
-]
+# The serving mesh's flags: accepted, and refused unless 1 (not ported yet).
 _MESH_FLAGS = ("--mesh_data", "--mesh_fsdp", "--mesh_model")
 
 
@@ -861,7 +1042,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="turn the prefix-KV cache off: every admission prefills in full "
                         "(the same chains)")
     p.add_argument("--no_telemetry", action="store_true",
-                   help="accepted and already the port's state: telemetry is not ported")
+                   help="disarm the metrics registry, the span tracer, the flight recorder "
+                        "and the series store (the same chains; the registry stops counting)")
+    p.add_argument("--mem_headroom_mb", type=float, default=0.0,
+                   help="admission headroom guard: defer an admission wave while the memory "
+                        "ledger predicts it would leave less than this many MiB of the card "
+                        "free (0 = off; GET /memory shows the ledger)")
+    p.add_argument("--mem_capacity_mb", type=float, default=0.0,
+                   help="the capacity the guard budgets against (0 = the card's total; the "
+                        "CPU reports none, so set it there)")
+    p.add_argument("--journey_keep", type=int, default=512,
+                   help="flight recorder: keep the last N finished request journeys (GET "
+                        "/requests, GET /request?rid=N; 0 disarms)")
+    p.add_argument("--series_interval_s", type=float, default=1.0,
+                   help="time-series store cadence: one registry sample and alert evaluation "
+                        "per interval (GET /series, GET /alerts; 0 disarms)")
+    p.add_argument("--series_keep", type=int, default=512,
+                   help="time-series ring length in samples (0 disarms)")
+    p.add_argument("--trace_buffer", type=int, default=65536,
+                   help="trace ring capacity in events (GET /trace; 0 disarms tracing)")
+    p.add_argument("--trace_out", default=None,
+                   help="write the trace ring as Chrome trace events (Perfetto, "
+                        "chrome://tracing) to this file at shutdown")
+    p.add_argument("--profile_dir", default=None,
+                   help="where POST /profile writes its torch.profiler traces; setting it also "
+                        "arms the per-dispatch profiler ranges (unset: a temporary dir)")
     p.add_argument("--speculative", type=int, default=0,
                    help="speculative decoding: a K-token verify window over suffix-lookup "
                         "drafts (or --draft_head's); 0 = off")
@@ -969,9 +1174,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", action="store_true",
                    help="run every function a request can reach once before listening (kernel "
                         "builds, cuBLAS handles, the allocator's first growth)")
-    for flag, kw, what in _UNPORTED:
-        p.add_argument(flag, default=None, help=f"{what}: not ported yet, raises when set",
-                       **kw)
     for flag in _MESH_FLAGS:
         p.add_argument(flag, type=int, default=1,
                        help="the serving mesh: not ported yet, raises unless 1")
@@ -979,10 +1181,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    for flag, kw, what in _UNPORTED:
-        val = getattr(args, flag[2:])
-        if val is not None and val is not False:
-            raise NotImplementedError(f"{flag}: {what} is not ported to eventgpt_tpu_torch yet")
     if any(getattr(args, f[2:]) != 1 for f in _MESH_FLAGS):
         raise NotImplementedError("--mesh_*: the serving mesh (ROADMAP Queue 1 item 8) is not "
                                   "ported to eventgpt_tpu_torch yet")
@@ -1018,9 +1216,14 @@ WORKER_FORWARDED_FLAGS = (
     ("first_chunk", "value", 0),
     ("max_queue", "value", 256),
     ("prefix_cache_mb", "value", 512.0),
+    ("mem_headroom_mb", "value", 0.0),
+    ("mem_capacity_mb", "value", 0.0),
     ("breaker_threshold", "value", 3),
     ("breaker_cooldown_s", "value", 5.0),
     ("slo_window", "value", 256),
+    ("journey_keep", "value", 512),
+    ("series_interval_s", "value", 1.0),
+    ("series_keep", "value", 512),
     ("spec_ema_alpha", "value", 0.3),
     ("spec_draft_cost", "value", 0.05),
     ("spec_row_window", "value", 4),
@@ -1041,9 +1244,10 @@ WORKER_FORWARDED_FLAGS = (
 
 # Flags that stay with the coordinator: the HTTP front end, the fleet's
 # topology and policy, the SLO targets (they travel inside each submit's
-# SLO), --faults (EGPT_FAULTS crosses in the environment), the startup
-# prefix (installed through the set_prefix op) and the mesh (a worker owns
-# one card).
+# SLO), the coordinator's telemetry sinks (the trace ring, its file and the
+# profile destination), --faults (EGPT_FAULTS crosses in the environment),
+# the startup prefix (installed through the set_prefix op) and the mesh (a
+# worker owns one card).
 WORKER_COORDINATOR_ONLY = frozenset({
     "host", "port", "event_root", "max_body_mb", "max_new_tokens", "default_deadline_s",
     "prefix_prompt", "prefix_event",
@@ -1053,15 +1257,12 @@ WORKER_COORDINATOR_ONLY = frozenset({
     "procfleet_rpc_deadline_s", "procfleet_rpc_retries", "procfleet_spawn_timeout_s",
     "procfleet_respawn_backoff_s", "procfleet_crash_window_s", "procfleet_crash_limit",
     "procfleet_handoff_retries", "slo_interactive_ttft_s", "slo_interactive_itl_s",
-    "slo_batch_latency_s", "faults", "mesh_data", "mesh_fsdp", "mesh_model",
+    "slo_batch_latency_s", "trace_buffer", "trace_out", "profile_dir", "faults", "mesh_data",
+    "mesh_fsdp", "mesh_model",
 })
 
 # Flags the coordinator appends per slot (``ProcFleet._spawn``).
 WORKER_PER_SLOT = frozenset({"worker", "worker_ready_file", "worker_slot", "role"})
-
-# Flags the port still refuses (_UNPORTED): classified, and not forwarded
-# while they stay refused; each is filed anew when its item is ported.
-WORKER_UNPORTED = frozenset(flag[2:] for flag, _, _ in _UNPORTED)
 
 
 def _worker_argv(args) -> list:
@@ -1111,7 +1312,37 @@ def make_batcher(args, params, cfg, tokenizer, device, role: Optional[str] = Non
         spec_draft_cost=args.spec_draft_cost, spec_row_window=args.spec_row_window,
         spec_head_min_yield=args.spec_head_min_yield, preempt=args.preempt,
         spill_capacity_mb=args.spill_capacity_mb, slo_window=args.slo_window,
+        mem_headroom_bytes=int(args.mem_headroom_mb * (1 << 20)),
+        mem_capacity_bytes=int(args.mem_capacity_mb * (1 << 20)),
         role=args.role if role is None else role)
+
+
+def arm_telemetry(args) -> None:
+    """Telemetry at the JAX CLI's defaults: the registry counts, a trace
+    ring of ``--trace_buffer`` events, a flight recorder of
+    ``--journey_keep`` journeys, a series store sampling every
+    ``--series_interval_s`` into ``--series_keep`` samples with the alert
+    rules (the ``mem_shrink`` rule judges ``--mem_capacity_mb``), each
+    disarmed by a 0; ``--no_telemetry`` disarms all four. ``--profile_dir``
+    sets the capture destination and arms the profiler ranges."""
+    if args.no_telemetry:
+        obs_metrics.configure(False)
+        obs_trace.disable()
+        obs_journey.disable()
+        obs_series.disable()
+    else:
+        obs_metrics.configure(True)
+        if args.trace_buffer > 0:
+            obs_trace.configure(args.trace_buffer)
+        if args.journey_keep > 0:
+            obs_journey.configure(args.journey_keep)
+        if args.series_interval_s > 0 and args.series_keep > 0:
+            obs_series.configure(
+                interval_s=args.series_interval_s, keep=args.series_keep,
+                mem_capacity_bytes=(int(args.mem_capacity_mb * (1 << 20))
+                                    if args.mem_capacity_mb > 0 else None))
+    if args.profile_dir:
+        obs_profiling.configure(args.profile_dir)
 
 
 def build_engine(args, force_single: bool = False):
@@ -1125,6 +1356,7 @@ def build_engine(args, force_single: bool = False):
     from eventgpt_tpu_torch.device import resolve_device
 
     _refuse_unported(args)
+    arm_telemetry(args)
     if args.faults:
         faults.configure(args.faults)
     if args.proc_fleet > 1 and not force_single:
@@ -1193,7 +1425,8 @@ def make_engine(args, params, cfg, tokenizer, device, force_single: bool = False
     def engine_of(batcher, hb_dir):
         return ServingEngine(batcher, tokenizer, args.conv_mode,
                              breaker_threshold=args.breaker_threshold,
-                             breaker_cooldown_s=args.breaker_cooldown_s, heartbeat_dir=hb_dir)
+                             breaker_cooldown_s=args.breaker_cooldown_s, heartbeat_dir=hb_dir,
+                             trace_out=args.trace_out if n_fleet == 1 else None)
 
     if n_fleet == 1:
         return engine_of(batchers[0], args.heartbeat_dir)
@@ -1270,6 +1503,12 @@ def main(argv=None):
                 time.sleep(0.05)
             time.sleep(0.25)  # handler threads write their responses
         engine.shutdown()
+        tracer = obs_trace.active()
+        if args.trace_out and tracer is not None and not isinstance(engine, ServingEngine):
+            # A fleet's coordinator: its own ring (a single engine writes
+            # its ring in its shutdown).
+            n = tracer.write(args.trace_out)
+            print(f"[serve] wrote {n} trace events to {args.trace_out}", flush=True)
         httpd.server_close()
 
 

@@ -7,8 +7,10 @@ newest ``ckpt_*`` under ``--output_dir``), ``--tokenizer_path`` (``byte``,
 as ``cli/infer`` takes it: the HF tokenizer is not ported) and ``--device``
 (default ``cuda``; ``cpu`` only when asked). The model loads through
 ``cli/infer.load_model``; the Q-Former gate-in and the ``--pretrain_*``
-component files load as in the JAX CLI. ``--trace_out`` and, through the
-trainer, ``--mesh_*`` and ``--profile_dir`` raise ``NotImplementedError``.
+component files load as in the JAX CLI. ``--trace_out FILE`` arms the span
+tracer (a ring of 65536 events) for the run and writes it there as Chrome
+trace events at the end; ``--profile_dir`` captures the trainer's profile
+window. Through the trainer, ``--mesh_*`` raise ``NotImplementedError``.
 
 Usage (projector warm-up on a toy dataset, on the CPU):
   python -m eventgpt_tpu_torch.cli.train --model_path tiny-random \\
@@ -32,6 +34,7 @@ from eventgpt_tpu_torch.config import QFormerConfig
 from eventgpt_tpu_torch.device import resolve_device
 from eventgpt_tpu_torch.models import qformer as qformer_mod
 from eventgpt_tpu_torch.models.convert import projector_params_from_jax
+from eventgpt_tpu_torch.obs import trace as obs_trace
 from eventgpt_tpu_torch.train.args import DataArguments, ModelArguments, TrainingArguments
 from eventgpt_tpu_torch.train.trainer import Trainer, refuse_unported
 
@@ -65,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="checkpoint dir, or 'auto' for the newest ckpt_* under "
                              "--output_dir")
     parser.add_argument("--trace_out", type=str, default=None,
-                        help="not ported (the span tracer); raises")
+                        help="write the run's trace spans as Chrome trace events (Perfetto, "
+                             "chrome://tracing) to this file at the end")
     parser.add_argument("--tokenizer_path", type=str, default=None,
                         help="'byte' for a checkpoint dir (the HF tokenizer is not ported)")
     parser.add_argument("--device", type=str, default="cuda",
@@ -123,9 +127,6 @@ def build_trainer(margs: ModelArguments, dargs: DataArguments, targs: TrainingAr
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    if args.trace_out:
-        raise NotImplementedError(
-            "--trace_out: the span tracer (obs) is not ported to eventgpt_tpu_torch yet")
     margs = _extract(args, ModelArguments)
     dargs = _extract(args, DataArguments)
     targs = _extract(args, TrainingArguments)
@@ -138,7 +139,13 @@ def main(argv=None):
             trainer.resume(latest)
     elif args.resume_from:
         trainer.resume(args.resume_from)
-    metrics = trainer.train()
+    tracer = obs_trace.configure(65536) if args.trace_out else None
+    try:
+        metrics = trainer.train()
+    finally:
+        if tracer is not None:
+            n = tracer.write(args.trace_out)
+            logging.getLogger(__name__).info("wrote %d trace events to %s", n, args.trace_out)
     print(metrics)
     return metrics
 

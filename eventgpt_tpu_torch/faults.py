@@ -36,18 +36,17 @@ admission), ``serve.spec_adapt`` (the adaptive window choice: the boundary
 takes the fixed default window at full depth), ``serve.preempt`` (that
 admission defers instead, no victim touched), ``serve.spill`` (inside the
 gather-to-host boundary, before any pool change: the victim drops and
-re-prefills), ``serve.loop`` (``cli/serve.ServingEngine``'s scheduler
+re-prefills), ``serve.mem_guard`` (the memory headroom guard's decision:
+the boundary admits as if the guard were off), ``serve.loop`` (``cli/serve.ServingEngine``'s scheduler
 thread), ``fleet.route`` / ``fleet.probe`` / ``fleet.replica_kill``
 (``fleet.Fleet``), ``procfleet.rpc`` (``rpc.call``, per attempt) and
 ``train.step`` (the trainer's micro-batch boundary).
 
 Injected failures raise ``InjectedFault`` (a ``RuntimeError``): the handling
-layers treat it exactly like a real fault.
-
-The JAX module also counts each fire in a Prometheus counter
-(``egpt_fault_trips_total``). The port has no metrics registry yet (ROADMAP
-Queue 1 item 6, telemetry), so it counts fires in ``stats()`` only; the
-counter comes with that item.
+layers treat it exactly like a real fault. Every fire also counts in the
+Prometheus counter ``egpt_fault_trips_total{site,kind}`` (``obs/metrics.py``),
+so a chaos drill shows on ``/metrics`` beside the breaker and restart
+counters it provokes; a site outside the counter's enum counts as ``other``.
 """
 
 from __future__ import annotations
@@ -57,6 +56,8 @@ import random
 import threading
 import time
 from typing import Dict, Optional
+
+from eventgpt_tpu_torch.obs import metrics as obs_metrics
 
 
 class InjectedFault(RuntimeError):
@@ -173,6 +174,14 @@ def stats() -> Dict[str, Dict[str, int]]:
     return _registry.stats() if _registry is not None else {}
 
 
+def _site_label(site: str) -> str:
+    """The bounded metric label of a fault site: a site of the counter's
+    enum labels truthfully, anything else (a test's synthetic site) folds
+    into ``other``."""
+    enum = obs_metrics.METRIC_LABELS["egpt_fault_trips_total"]["site"]
+    return site if site in enum else "other"
+
+
 def maybe_fail(site: str) -> None:
     """Raise ``InjectedFault`` when the armed plan fires this call of
     ``site``."""
@@ -180,6 +189,7 @@ def maybe_fail(site: str) -> None:
         return
     s = _registry.check(site, want_delay=False)
     if s is not None:
+        obs_metrics.FAULT_TRIPS.inc(site=_site_label(site), kind="fail")
         raise InjectedFault(f"injected fault at {site} (call #{s.calls}, fire #{s.fires})")
 
 
@@ -191,6 +201,7 @@ def maybe_delay(site: str) -> float:
     s = _registry.check(site, want_delay=True)
     if s is None:
         return 0.0
+    obs_metrics.FAULT_TRIPS.inc(site=_site_label(site), kind="delay")
     time.sleep(s.delay_s)
     return s.delay_s
 

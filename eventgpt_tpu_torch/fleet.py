@@ -36,10 +36,10 @@ The lock order is fleet before engine: ``submit_ids`` holds the fleet's lock
 across ``engine.submit_ids``, and ``kill_replica`` calls ``engine.kill``
 outside it (a kill holds the engine lock through a whole drain). The flight
 recorder's journeys, the time series and alerts, the memory ledger and the
-Prometheus gauges of the JAX fleet read its ``obs`` package, which the port
-does not have yet (ROADMAP Queue 1 item 6, telemetry): ``journey``,
-``journeys``, ``series``, ``alerts`` and ``memory_stats`` raise
-``NotImplementedError``, and ``stats`` leaves those parts out. Streaming
+Prometheus gauges of the JAX fleet are the fleets' half of telemetry, not
+ported yet (ROADMAP Queue 1 item 6b; each replica's engine has its own):
+``journey``, ``journeys``, ``series``, ``alerts`` and ``memory_stats``
+raise ``NotImplementedError``, and ``stats`` leaves those parts out. Streaming
 responses are not ported either.
 """
 
@@ -61,7 +61,7 @@ from eventgpt_tpu_torch.constants import EVENT_TOKEN_INDEX
 # has latency headroom by definition, so it is told to stay away longer.
 _RETRY_BASE_S = {"interactive": 1.0, "batch": 4.0}
 _RETRY_MAX_S = 60.0
-_TELEMETRY = "the port's telemetry (ROADMAP Queue 1 item 6) is not ported yet"
+_TELEMETRY = "the fleets' telemetry (ROADMAP Queue 1 item 6b) is not ported yet"
 
 
 class FleetShedError(RuntimeError):

@@ -51,8 +51,8 @@ socket frame and crosses as a run of capped frames (``rpc.send_frames``);
 
 The JAX coordinator also keeps flight-recorder journeys (stitched across
 processes), time series, alerts, per-worker memory ledgers and Prometheus
-gauges, all of which read its ``obs`` package; the port has no telemetry
-yet (ROADMAP Queue 1 item 6): ``journey``, ``journeys``, ``series``,
+gauges: the fleets' half of telemetry, not ported yet (ROADMAP Queue 1
+item 6b; each worker's engine arms its own): ``journey``, ``journeys``, ``series``,
 ``alerts`` and ``memory_stats`` raise ``NotImplementedError``, the workers'
 ``journey``/``series``/``alerts``/``memory`` ops answer with that remote
 error, and ``stats`` leaves those parts out. Streaming is not ported

@@ -83,8 +83,17 @@ The functions on the module update the resident cache in place under
 ``torch.inference_mode``: that takes the place of the JAX package's
 ``jit`` with donated buffers.
 
+Telemetry (``eventgpt_tpu_torch/obs``), at the JAX batcher's sites: the
+``egpt_serve_*`` metrics, the request lifecycle as async trace events and
+flight-recorder journeys, the memory ledger's components, and the memory
+headroom guard (``mem_headroom_bytes``: an admission boundary whose wave
+the ledger predicts past capacity - headroom defers, which changes timing,
+never a chain). It reads host values the scheduler already holds: no
+device read is added to the dispatch path, and chains are byte-identical
+with telemetry armed or disarmed.
+
 What the port does not have yet raises ``NotImplementedError`` when asked
-for: the serving mesh and the memory headroom guard. Greedy chains at f32
+for: the serving mesh. Greedy chains at f32
 equal the JAX ``ContinuousBatcher``'s and the port's one-shot ``generate``
 with every scheduler feature on or off (``tests/test_torch_serve*.py``,
 ``tests/test_torch_prefix_cache.py``, ``tests/test_torch_mixed_segments.py``,
@@ -113,6 +122,12 @@ from eventgpt_tpu_torch.device import resolve_device
 from eventgpt_tpu_torch.models import eventchat
 from eventgpt_tpu_torch.models import llama as llama_mod
 from eventgpt_tpu_torch.models import medusa as medusa_mod
+from eventgpt_tpu_torch.obs import journey as obs_journey
+from eventgpt_tpu_torch.obs import memory as obs_memory
+from eventgpt_tpu_torch.obs import metrics as obs_metrics
+from eventgpt_tpu_torch.obs import profiling as obs_profiling
+from eventgpt_tpu_torch.obs import series as obs_series
+from eventgpt_tpu_torch.obs import trace as obs_trace
 from eventgpt_tpu_torch.ops.sampling import sample
 from eventgpt_tpu_torch.serve_blocks import SCRATCH_BLOCK, BlockPool, BlockPoolError, SpillStore
 from eventgpt_tpu_torch.workload import SLO, SLO_CLASSES
@@ -133,6 +148,13 @@ STATUS_DEADLINE = "deadline_exceeded"
 STATUS_CANCELLED = "cancelled"
 STATUS_NAN = "nan_quarantined"
 STATUS_RESOURCE = "resource_exhausted"
+
+# Forced-finish statuses -> the flight-recorder event that marks them.
+_JOURNEY_FORCED_KIND = {
+    STATUS_DEADLINE: "deadline",
+    STATUS_CANCELLED: "cancel",
+    STATUS_NAN: "nan_quarantine",
+}
 
 _GRAIN = 2 * SEQ_BUCKET  # prompt buckets and max_len round to this
 
@@ -260,7 +282,10 @@ class PrefixCache:
 
     Host-side dict operations under ``_lock`` (the scheduler inserts and
     looks up; HTTP handler threads read ``stats()``). ``pool`` is set by a
-    paged server: dropping an entry then decrefs its block run.
+    paged server: dropping an entry then decrefs its block run. The entry
+    bytes are one ``prefix_cache`` entry of the memory ledger under
+    ``_mem_key``, resized inside the same critical section as ``bytes``
+    (lock order: ``_lock`` -> the ledger's -> the metrics').
     """
 
     def __init__(self, budget_bytes: int = 0):
@@ -275,6 +300,7 @@ class PrefixCache:
         self.evictions = 0
         self.insertions = 0
         self._tick = 0
+        self._mem_key = f"pc{id(self):x}/entries"
 
     def _iter_nodes_locked(self):
         stack = [self._root]
@@ -337,10 +363,12 @@ class PrefixCache:
             entry.tick = self._tick
             entry.hits += 1
             self.hits += 1
+        obs_metrics.SERVE_PREFIX_HITS.inc()
 
     def count_miss(self) -> None:
         with self._lock:
             self.misses += 1
+        obs_metrics.SERVE_PREFIX_MISSES.inc()
 
     def insert(self, entry: _PrefixEntry) -> bool:
         """Insert (or replace) the entry at its ``(ids, pixels_key)`` key,
@@ -364,6 +392,9 @@ class PrefixCache:
             self.n_entries += 1
             self.insertions += 1
             self._evict_locked()
+            self._export_gauges_locked()
+            obs_memory.LEDGER.resize("prefix_cache", self._mem_key, self.bytes)
+        obs_metrics.SERVE_PREFIX_INSERTIONS.inc()
         return True
 
     def _evict_locked(self) -> None:
@@ -384,6 +415,7 @@ class PrefixCache:
             self.n_entries -= 1
             self.evictions += 1
             self._release_blocks_locked(victim)
+            obs_metrics.SERVE_PREFIX_EVICTIONS.inc()
 
     def _release_blocks_locked(self, entry: _PrefixEntry) -> None:
         """Drop a detached paged entry's block references (its share only);
@@ -417,6 +449,10 @@ class PrefixCache:
                 self.evictions += 1
                 evicted += 1
                 self._release_blocks_locked(victim)
+                obs_metrics.SERVE_PREFIX_EVICTIONS.inc()
+            if evicted:
+                self._export_gauges_locked()
+                obs_memory.LEDGER.resize("prefix_cache", self._mem_key, self.bytes)
         return evicted
 
     def evict_covering(self, blocks) -> int:
@@ -441,7 +477,23 @@ class PrefixCache:
                     self.evictions += 1
                     evicted += 1
                     self._release_blocks_locked(victim)
+                    obs_metrics.SERVE_PREFIX_EVICTIONS.inc()
+            if evicted:
+                self._export_gauges_locked()
+                obs_memory.LEDGER.resize("prefix_cache", self._mem_key, self.bytes)
         return evicted
+
+    def _export_gauges_locked(self) -> None:
+        obs_metrics.SERVE_PREFIX_BYTES.set(self.bytes)
+        obs_metrics.SERVE_PREFIX_ENTRIES.set(self.n_entries)
+
+    def __del__(self):
+        # A dropped cache leaves no stale bytes in the ledger (best effort:
+        # interpreter teardown may have torn the ledger down first).
+        try:
+            obs_memory.LEDGER.release("prefix_cache", self._mem_key)
+        except Exception:
+            pass
 
     def clear(self) -> None:
         """Drop every entry (paged blocks under the deferred-on-pins rule);
@@ -453,6 +505,8 @@ class PrefixCache:
             self._root = {"c": {}, "e": {}}
             self.bytes = 0
             self.n_entries = 0
+            self._export_gauges_locked()
+            obs_memory.LEDGER.resize("prefix_cache", self._mem_key, 0)
 
     def stats(self) -> Dict[str, Any]:
         """Snapshot for ``GET /prefix_cache``."""
@@ -1038,6 +1092,12 @@ class _Request:
     t_first: Optional[float] = None
     t_done: Optional[float] = None
     t_last: Optional[float] = None
+    # An imported handoff rebases ``t_submit`` into the past; its journey
+    # leg stays local and begins here.
+    t_journey: Optional[float] = None
+    # The request's open async trace span: "queued" until it leaves the
+    # queue, then "active"; the terminal path closes whichever is open.
+    phase: str = "queued"
     # Absolute perf_counter deadline (None = none).
     deadline: Optional[float] = None
     # The prefix entry this row admitted from (a pin, drained at finish).
@@ -1148,6 +1208,7 @@ class ContinuousBatcher:
         first_chunk: int = 0,
         pipeline: bool = True,
         mem_headroom_bytes: int = 0,
+        mem_capacity_bytes: int = 0,
         history_len: int = 2048,
         spec_ema_alpha: float = 0.3,
         spec_draft_cost: float = 0.05,
@@ -1156,16 +1217,10 @@ class ContinuousBatcher:
         spec_head_min_yield: float = 0.05,
         slo_window: int = 256,
     ):
-        unported = [
-            (mesh is not None, "mesh", "the serving mesh (ROADMAP Queue 1 item 8)"),
-            (mem_headroom_bytes, "mem_headroom_bytes",
-             "the memory headroom guard (ROADMAP Queue 1 item 6)"),
-        ]
-        for asked, arg, what in unported:
-            if asked:
-                raise NotImplementedError(
-                    f"ContinuousBatcher({arg}=...): {what} is not ported to "
-                    f"eventgpt_tpu_torch yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                "ContinuousBatcher(mesh=...): the serving mesh (ROADMAP Queue 1 item 8) is "
+                "not ported to eventgpt_tpu_torch yet")
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got {kv_layout!r}")
         # "colocated" admits and decodes. "prefill" only admits: each
@@ -1195,6 +1250,12 @@ class ContinuousBatcher:
                              f"{embed.device}")
         self.device = embed.device
         self.params, self.cfg = params, cfg
+        # Telemetry identities: this server's ledger entries live under
+        # ``_mem_owner/`` (a fleet's replicas each report their share), and
+        # its journeys under a process-unique owner id (request ids are
+        # per batcher).
+        self._mem_owner = f"b{id(self):x}"
+        self._journey_owner = obs_journey.register_owner(self._mem_owner)
         # A max_len off the prompt grain would let a bucketed row cache
         # outgrow the shared cache.
         max_len = (max_len + _GRAIN - 1) // _GRAIN * _GRAIN
@@ -1250,7 +1311,8 @@ class ContinuousBatcher:
         # host store or dropped for re-prefill by the price below.
         self.preempt = bool(preempt) and self._paged
         self._spill_store: Optional[SpillStore] = (
-            SpillStore(max(int(spill_capacity_mb), 0) * (1 << 20)) if self._paged else None)
+            SpillStore(max(int(spill_capacity_mb), 0) * (1 << 20), owner=self._mem_owner)
+            if self._paged else None)
         self.preemptions = 0
         # The spill-or-recompute price, the JAX package's: a device-to-host
         # bandwidth EWMA (re-measured at every gather) against ~2 * params
@@ -1355,7 +1417,64 @@ class ContinuousBatcher:
         self._dev_carry = None
         self._dev_carry_frozen = None  # the carry's segment's ``all_frozen``
         self._flags = _LiveFlags(chunk, self.device)
+        self._register_memory(params, draft_head, max_batch)
+        # The admission headroom guard: a boundary defers its wave while the
+        # ledger predicts it past capacity - headroom (0 = off). Capacity:
+        # the explicit override, else the card's total (0 on the CPU: the
+        # guard is inert there without one).
+        self.mem_headroom_bytes = max(int(mem_headroom_bytes), 0)
+        self._mem_capacity = int(mem_capacity_bytes) or (
+            obs_memory.device_capacity_bytes(self.device) if self.mem_headroom_bytes else 0)
+        self.mem_deferrals = 0
+        # The last chosen speculation window: journeys record a switch.
+        self._spec_last_window = self.speculative
         self.reset_serving_stats()
+
+    def _register_memory(self, params, draft_head, max_batch: int) -> None:
+        """The resident buffers' ledger entries, the JAX batcher's: the
+        weight tree keyed by its identity (replicas over one tree register
+        it once), every other component under this server's owner."""
+        led = obs_memory.LEDGER
+        if self._prefix_cache is not None:
+            self._prefix_cache._mem_key = f"{self._mem_owner}/prefix_cache"
+        led.register("weights", f"shared/params-{id(params):x}", obs_memory.params_bytes(params))
+        if self._paged:
+            led.register("kv_pool", f"{self._mem_owner}/kv_pool",
+                         obs_memory.params_bytes([self.cache["k"], self.cache["v"]]))
+            led.register("kv_block_table", f"{self._mem_owner}/kv_block_table",
+                         obs_memory.params_bytes([self.cache["bt"], self.cache["length"]]))
+        else:
+            led.register("kv_cache", f"{self._mem_owner}/kv_cache",
+                         obs_memory.params_bytes(self.cache))
+        led.register("logits", f"{self._mem_owner}/logits", obs_memory.params_bytes(self.logits))
+        if self.speculative:
+            led.register("ids_buf", f"{self._mem_owner}/ids_buf",
+                         obs_memory.params_bytes(self.ids_buf))
+            led.register("draft", f"{self._mem_owner}/spec_drafts",
+                         obs_memory.params_bytes(self.spec_drafts))
+        if draft_head is not None:
+            led.register("draft", f"shared/medusa-{id(draft_head):x}",
+                         obs_memory.params_bytes(draft_head))
+        if self.pipeline:
+            # The device carry: frozen (bool), n_rem (int32) and, speculative,
+            # base_pos (int32) per row.
+            led.register("carry", f"{self._mem_owner}/carry",
+                         max_batch * (1 + 4 + (4 if self.speculative else 0)))
+
+    def __del__(self):
+        # A dropped batcher leaves no owner-keyed bytes in the ledger; the
+        # shared weight entry stays (the tree may outlive this server).
+        owner = getattr(self, "_mem_owner", None)
+        if owner is None:
+            return
+        try:
+            for comp, key in (("kv_cache", "kv_cache"), ("kv_pool", "kv_pool"),
+                              ("kv_block_table", "kv_block_table"), ("logits", "logits"),
+                              ("ids_buf", "ids_buf"), ("draft", "spec_drafts"),
+                              ("carry", "carry"), ("lanes", "lanes"), ("spill", "spill")):
+                obs_memory.LEDGER.release(comp, f"{owner}/{key}")
+        except Exception:
+            pass
 
     def reset_serving_stats(self) -> None:
         """Zero the phase counters, so that a measured window reports only
@@ -1445,6 +1564,8 @@ class ContinuousBatcher:
         self.dispatches[kind] = self.dispatches.get(kind, 0) + 1
         if kind in ("full", "wave"):
             self.prefill_dispatches += 1
+        if kind != "prefix_set":  # set_prefix's prefill is no admission
+            obs_metrics.SERVE_PREFILL_DISPATCHES.inc(kind=kind)
 
     def spec_tokens_per_iteration(self) -> float:
         """Realized acceptance: committed tokens per verify iteration,
@@ -1625,6 +1746,13 @@ class ContinuousBatcher:
             req.deadline = req.t_submit + float(deadline_s)
             self._n_deadlines += 1
         self.queue.append(req)
+        obs_metrics.SERVE_QUEUE_DEPTH.set(len(self.queue))
+        slo_field = {"slo_class": slo.name} if slo is not None else {}
+        obs_trace.async_begin("queued", rid, prompt_len=prompt_len, budget=max_new_tokens,
+                              **slo_field)
+        obs_journey.begin(self._journey_owner, rid, t=req.t_submit, prompt_len=prompt_len,
+                          budget=max_new_tokens, **slo_field)
+        obs_series.note_submit()
         return rid
 
     @torch.inference_mode()
@@ -1669,7 +1797,7 @@ class ContinuousBatcher:
         return out
 
     @torch.inference_mode()
-    def export_requests(self) -> List[Dict[str, Any]]:
+    def export_requests(self, journey_status: str = "exported") -> List[Dict[str, Any]]:
         """The drain seam: settle the pipeline, then strip every unfinished
         request (active rows, lanes, the pending chunked admission, the
         queue) out of the scheduler and return their re-admission records
@@ -1678,7 +1806,9 @@ class ContinuousBatcher:
         from the prompt; greedy chains are deterministic per row). Pool
         blocks, spill runs and prefix pins are released in the JAX
         batcher's order, and every block table is reset to scratch.
-        Nothing reaches ``finished``: the requests are moving, not over."""
+        Nothing reaches ``finished``: the requests are moving, not over.
+        Their journeys here close as ``journey_status`` (the engine's
+        breaker trip, which fails them, passes ``engine_fault``)."""
         self._drain()
         by_rid: Dict[int, _Request] = {}
         for req in self.queue:
@@ -1718,12 +1848,22 @@ class ContinuousBatcher:
                 self._n_deadlines -= 1
             if self._spec_ctl is not None:
                 self._spec_ctl.forget(req.rid)
+            # Not over but moving: this server's timeline closes as
+            # "exported" (finish_status is never written).
+            if journey_status == "exported":
+                obs_trace.async_end(req.phase, req.rid, status="exported")
+                obs_journey.event(self._journey_owner, req.rid, "exported", t=now)
+            obs_journey.finish(self._journey_owner, req.rid, journey_status,
+                               t_submit=req.t_submit, t_done=now,
+                               slo_class=req.slo.name if req.slo is not None else None)
             out.append({"rid": req.rid, "input_ids": list(req.input_ids),
                         "pixel_values": req.pixel_values, "max_new_tokens": req.max_new_tokens,
                         "deadline_s": req.deadline - now if req.deadline is not None else None,
                         "slo": req.slo})
         if self._paged:
             self.cache["bt"].zero_()
+        obs_metrics.SERVE_QUEUE_DEPTH.set(0)
+        obs_metrics.SERVE_ACTIVE_ROWS.set(0)
         return out
 
     def abort_pipeline(self) -> None:
@@ -1736,10 +1876,16 @@ class ContinuousBatcher:
     @torch.inference_mode()
     def abort_rows(self) -> List[int]:
         """Free every row, lane and pending admission without finishing its
-        request (the engine's fault path fails those requests itself);
-        returns their rids. Pool blocks and prefix pins are returned. A
-        spilled victim waits in the queue, which stays: its run and record
-        stay restorable."""
+        request (the engine's fault path fails those requests itself; their
+        journeys close here as ``engine_fault``); returns their rids. Pool
+        blocks and prefix pins are returned. A spilled victim waits in the
+        queue, which stays: its run and record stay restorable."""
+        t_sweep = time.perf_counter()
+        for req in self.rows:  # lanes and the pending admission hold rows too
+            if req is not None:
+                obs_journey.finish(self._journey_owner, req.rid, "engine_fault",
+                                   t_submit=req.t_submit, t_done=t_sweep,
+                                   slo_class=req.slo.name if req.slo is not None else None)
         self.abort_pipeline()
         self._pending = None  # its row is among the rows below
         rids = []
@@ -1858,7 +2004,11 @@ class ContinuousBatcher:
             return
         old = self._prefix_cache
         old.clear()
+        # The old cache's key moves aside: its release at collection must
+        # not drop the new cache's entry (the same owner-derived key).
+        old._mem_key = f"{self._mem_owner}/prefix_cache_dropped{id(old):x}"
         self._prefix_cache = PrefixCache(old.budget)
+        self._prefix_cache._mem_key = f"{self._mem_owner}/prefix_cache"
         if self._paged:
             self._prefix_cache.pool = self._pool
 
@@ -1868,6 +2018,60 @@ class ContinuousBatcher:
             return {"enabled": False}
         return {"enabled": True, "insert_on_prefill": self.prefix_insert,
                 **self._prefix_cache.stats()}
+
+    # -- telemetry surfaces -----------------------------------------------
+
+    def journey(self, rid: int) -> Optional[Dict[str, Any]]:
+        """One request's flight-recorder timeline and, once finished, its
+        phase decomposition and dominant cause (``GET /request?rid=N``);
+        None when the recorder is disarmed or the rid left its ring."""
+        return obs_journey.get(self._journey_owner, rid)
+
+    def journey_index(self, n: int = 64) -> List[Dict[str, Any]]:
+        """Recent finished requests, newest first (``GET /requests``)."""
+        return obs_journey.index(self._journey_owner, n)
+
+    def memory_summary(self) -> Dict[str, Any]:
+        """The cheap ledger view (host ints; ``/stats``' ``memory``): the
+        process totals, this server's components, the guard's state and,
+        paged, the pool and the spill store."""
+        s = obs_memory.LEDGER.summary()
+        s["owner"] = obs_memory.LEDGER.snapshot(self._mem_owner)
+        s["guard"] = {"headroom_bytes": self.mem_headroom_bytes,
+                      "capacity_bytes": self._mem_capacity, "deferrals": self.mem_deferrals}
+        if self._paged:
+            s["kv_blocks"] = self.pool_stats()
+            s["spill"] = self.spill_stats()
+        return s
+
+    def memory_estimate(self) -> Dict[str, Any]:
+        """The static capacity model at this server's config
+        (``obs.memory.estimate``), which equals its live buffers."""
+        return obs_memory.estimate(
+            self.cfg, max_batch=self.max_batch, max_len=self.max_len, kv_quant=self.kv_quant,
+            dtype_bytes=torch.finfo(self._dtype).bits // 8,
+            speculative=self.spec_max, prefill_budget=self.prefill_budget,
+            prefill_lane_chunk=self._lane_chunk, lane_bucket=self._lane_bucket or None,
+            prefix_cache_bytes=self._prefix_cache.budget if self._prefix_cache is not None else 0,
+            weights_bytes=obs_memory.params_bytes(self.params), vocab=self.logits.shape[1],
+            kv_layout=self.kv_layout, kv_pool_blocks=self._pool.n_blocks if self._paged else 0,
+            kv_block_size=self._kv_block_size if self._paged else 0)
+
+    def memory_stats(self) -> Dict[str, Any]:
+        """The ``GET /memory`` payload: the summary, a fresh reconciliation
+        against the device's allocated bytes, the static estimate and the
+        compiled footprint (unavailable in eager PyTorch)."""
+        out = self.memory_summary()
+        out["reconcile"] = obs_memory.LEDGER.reconcile(self.device)
+        out["estimate"] = self.memory_estimate()
+        out["compiled"] = self.compiled_footprint()
+        return out
+
+    def compiled_footprint(self) -> Dict[str, Any]:
+        """The JAX batcher's XLA footprint of its segment executable; the
+        port's segments are eager, so the probe reports it unavailable."""
+        return {"segment": "spec" if self.speculative else "decode", "chunk": self.chunk,
+                **obs_memory.compiled_stats()}
 
     def _req_pixels_key(self, req: _Request) -> Optional[bytes]:
         if req.pixel_values is None:
@@ -1950,6 +2154,7 @@ class ContinuousBatcher:
         if fit is None:
             return None
         suf_len, prompt_len, chunk, s1 = fit
+        t0 = time.perf_counter()
         emb = self._suffix_embed(entry, pixel_values, suffix_ids, chunk, suf_len)
         if record:
             # The entry copy is a fault site: a fault here lands with a row
@@ -1965,6 +2170,10 @@ class ContinuousBatcher:
             _h2d(np.asarray([suf_len - 1], np.int64), self.device))
         if record:
             self._count_dispatch("suffix")
+            tr = obs_trace.active()
+            if tr is not None:
+                tr.complete("prefix_copy", t0, time.perf_counter(), cat="sched",
+                            args={"plen": entry.length, "suffix": suf_len})
         return row_cache, last, hidden, prompt_len
 
     @torch.inference_mode()
@@ -1980,6 +2189,7 @@ class ContinuousBatcher:
             self._prefix_cache.count_hit(m[2])
         faults.maybe_fail("serve.prefix_copy")
         faults.maybe_delay("serve.prefix_copy")
+        t0 = time.perf_counter()
         s_pre = max(m[2].bucket for m in members)
 
         def stack(blocks):
@@ -2007,8 +2217,12 @@ class ContinuousBatcher:
         last, hidden = _prefix_prefill(self.params, self.cfg, wave_pk, wave_pv, plen, row_cache,
                                        emb, new_len, last_idx)
         self._count_dispatch("suffix_wave")
+        tr = obs_trace.active()
+        if tr is not None:
+            tr.complete("prefix_copy", t0, time.perf_counter(), cat="sched", args={"wave": n})
         self._scatter_wave([(m[0], m[1]) for m in members], row_cache, last, hidden,
-                           [m[4][1] for m in members], entries=[m[2] for m in members])
+                           [m[4][1] for m in members], entries=[m[2] for m in members],
+                           path="suffix_wave")
         for m in members:
             # Selection pins drain once the wave read every entry.
             self._drain_entry_pin(m[2])
@@ -2086,10 +2300,16 @@ class ContinuousBatcher:
             self._drain()
         self._expire_deadlines()
         t0 = time.perf_counter()
-        self._admit()
+        admitted = self._admit()
         dt = time.perf_counter() - t0
         self.admission_s += dt
         self.admission_max_s = max(self.admission_max_s, dt)
+        if admitted:
+            # Only boundaries that did admission work are observed.
+            obs_metrics.SERVE_ADMISSION.observe(dt)
+            tr = obs_trace.active()
+            if tr is not None:
+                tr.complete("admit", t0, t0 + dt, cat="sched")
         if self.role == "prefill":
             # Admission is the prefill role's whole job: each activated row
             # leaves through the handoff outbox, and nothing is dispatched
@@ -2216,6 +2436,15 @@ class ContinuousBatcher:
             self.spec_depth_sum += w
             self.spec_masked_rows += masked
             self.spec_depth_trace.append(w)
+            obs_metrics.SERVE_SPEC_DEPTH.observe(w)
+            if masked:
+                obs_metrics.SERVE_SPEC_MASKED.inc(masked)
+            if w != self._spec_last_window:
+                # A window switch lands in every live row's timeline.
+                self._spec_last_window = w
+                for r, req in enumerate(self.rows):
+                    if req is not None and not self.frozen[r]:
+                        obs_journey.event(self._journey_owner, req.rid, "spec_depth", window=w)
         return w, depth
 
     def _dispatch_segment(self, chunk: Optional[int] = None, prev: Optional[dict] = None,
@@ -2274,6 +2503,14 @@ class ContinuousBatcher:
         run = carry is not None or not (self.frozen.all() or (
             self._dev_carry is not None and self._dev_carry_frozen()))
         rec = {"chunk": chunk, "wait_at_dispatch": self.device_segment_s}
+        if record:
+            # Warmup's dispatches stay out of the telemetry as they stay out
+            # of the counters. Occupancy: the rows unfrozen on the host.
+            obs_metrics.SERVE_SEGMENTS.inc()
+            obs_metrics.SERVE_OCCUPANCY.observe(sum(1 for f in self.frozen if not f))
+        t_disp0 = time.perf_counter()
+        ann = obs_profiling.annotation("serve.segment_dispatch")
+        ann.__enter__()
         lane_out = None
         if mixed:
             lane_start, lane_new_len, lane_last_idx, lane_adv, lane_tok = self._lane_args()
@@ -2336,6 +2573,9 @@ class ContinuousBatcher:
                 self.mixed_prefill_tokens += lane_tok
                 self.mixed_segments += 1
                 self._count_dispatch("piggyback")
+                obs_metrics.SERVE_MIXED_SEGMENTS.inc()
+                obs_metrics.SERVE_MIXED_LANES.observe(len(lane_adv))
+                obs_metrics.SERVE_MIXED_PREFILL_TOKENS.inc(lane_tok)
                 rec["n_lanes"] = len(lane_adv)
         if record:
             self._dev_carry = (frozen_out, n_rem_out, base_pos_out)
@@ -2344,7 +2584,12 @@ class ContinuousBatcher:
             self.decode_steps_run += steps
             rec["steps"] = steps
         rec["host"], rec["event"] = _fetch_async(host)
+        ann.__exit__(None, None, None)
         rec["t_dispatch"] = time.perf_counter()
+        tr = obs_trace.active()
+        if tr is not None:
+            tr.complete("dispatch", t_disp0, rec["t_dispatch"], cat="sched",
+                        args={"chunk": chunk})
         return rec
 
     # A harvest point: the host waits here.
@@ -2355,7 +2600,9 @@ class ContinuousBatcher:
         transitions the segment already applied to the device carry."""
         t_fetch = time.perf_counter()
         if self._t_prev_fetch_end is not None:
-            self.host_gap_s += t_fetch - self._t_prev_fetch_end
+            gap = t_fetch - self._t_prev_fetch_end
+            self.host_gap_s += gap
+            obs_metrics.SERVE_HOST_GAP.inc(gap)
         if rec["event"] is not None:
             rec["event"].synchronize()
         spec = rec.get("spec", False)
@@ -2371,8 +2618,16 @@ class ContinuousBatcher:
             # The card was still busy when the host arrived: the host work
             # since this dispatch (minus its own blocked fetches) was hidden.
             blocked_since = self.device_segment_s - rec["wait_at_dispatch"]
-            self.overlap_hidden_s += max(0.0, t_fetch - rec["t_dispatch"] - blocked_since)
+            hidden = max(0.0, t_fetch - rec["t_dispatch"] - blocked_since)
+            self.overlap_hidden_s += hidden
+            obs_metrics.SERVE_OVERLAP_HIDDEN.inc(hidden)
         self.device_segment_s += wait
+        # Observed here, at the harvest, from the clocks just read.
+        obs_metrics.SERVE_SEGMENT.observe(wait)
+        tr = obs_trace.active()
+        if tr is not None:
+            tr.complete("segment_fetch", t_fetch, t_end, cat="sched",
+                        args={"wait_s": round(wait, 6)})
         self._t_prev_fetch_end = t_end
         self.decode_steps += int(n_new.max(initial=0))
         if spec:
@@ -2386,6 +2641,7 @@ class ContinuousBatcher:
                     [(req.rid, int(row_acc[r]), int(row_off[r]))
                      for r, req in enumerate(self.rows) if req is not None and not frozen_in[r]],
                     [int(x) for x in pos_acc], [int(x) for x in pos_off])
+                obs_metrics.SERVE_SPEC_ACCEPT.set(self._spec_ctl.accept_ema or 0.0)
         else:
             self.idle_steps += rec["steps"] - int(lived)
         if rec.get("n_lanes"):
@@ -2411,9 +2667,16 @@ class ContinuousBatcher:
             else:
                 new = tokens[r, : n_new[r]]
             if len(new):
+                obs_journey.event(self._journey_owner, req.rid, "segment", t=now,
+                                  tokens=len(new))
                 if req.t_first is None:
                     req.t_first = now
+                elif req.t_last is not None:
+                    # The per-token gap of this harvest interval, weighted by
+                    # its tokens (a row's first harvest lies inside its TTFT).
+                    obs_metrics.SERVE_ITL.observe((now - req.t_last) / len(new), n=len(new))
                 req.t_last = now
+                obs_metrics.SERVE_TOKENS.inc(len(new))
             req.tokens.extend(int(t) for t in new)
             self.n_rem[r] -= int(n_new[r])
             if done[r] or self.n_rem[r] <= 0:
@@ -2467,6 +2730,12 @@ class ContinuousBatcher:
         itl = ((req.t_last - req.t_first) / (n_commit - 1)
                if req.t_first is not None and req.t_last is not None and n_commit > 1 else 0.0)
         self.request_stats[req.rid] = {"ttft_s": ttft, "latency_s": latency, "itl_s": itl}
+        if req.t_first is not None:
+            # A request that never committed has no first token.
+            obs_metrics.SERVE_TTFT.observe(ttft)
+        obs_metrics.SERVE_LATENCY.observe(latency)
+        obs_metrics.SERVE_REQUESTS.inc(status=status)
+        met = None
         if req.slo is not None:
             # Scored on every terminal path: a forced finish stays in the
             # denominator (a never-committed one on its t_done stand-in).
@@ -2475,6 +2744,28 @@ class ContinuousBatcher:
             self.slo_counts[key] = self.slo_counts.get(key, 0) + 1
             self._slo_window.append(met)
             self.request_stats[req.rid]["slo_met"] = float(met)
+            cls = req.slo.name
+            obs_metrics.SERVE_SLO_REQUESTS.inc(slo_class=cls, met="true" if met else "false")
+            if req.t_first is not None:
+                obs_metrics.SERVE_SLO_TTFT.observe(ttft, slo_class=cls)
+            if n_commit > 1:
+                obs_metrics.SERVE_SLO_ITL.observe(itl, slo_class=cls)
+            obs_metrics.SERVE_SLO_LATENCY.observe(latency, slo_class=cls)
+            obs_metrics.SERVE_SLO_GOODPUT.set(sum(self._slo_window) / len(self._slo_window))
+        obs_metrics.SERVE_ACTIVE_ROWS.set(sum(r is not None for r in self.rows))
+        obs_metrics.SERVE_QUEUE_DEPTH.set(len(self.queue))
+        slo_fields = {"slo_class": req.slo.name, "slo_met": met} if req.slo is not None else {}
+        obs_trace.async_end(req.phase, req.rid, status=status, tokens=len(ids), **slo_fields)
+        forced_kind = _JOURNEY_FORCED_KIND.get(status)
+        if forced_kind is not None:
+            obs_journey.event(self._journey_owner, req.rid, forced_kind, t=req.t_done)
+        jrec = obs_journey.finish(
+            self._journey_owner, req.rid, status,
+            t_submit=req.t_journey if req.t_journey is not None else req.t_submit,
+            t_done=req.t_done, slo_class=req.slo.name if req.slo is not None else None,
+            slo_met=met)
+        if jrec is not None and req.slo is not None and not met:
+            obs_metrics.SERVE_SLO_MISS_CAUSE.inc(slo_class=req.slo.name, cause=jrec["cause"])
         self.finished[req.rid] = ids
         self.finish_status[req.rid] = status
 
@@ -2502,6 +2793,9 @@ class ContinuousBatcher:
                 self._lane_cache[plane] = F.pad(buf, (0, 0) * (buf.ndim - 3) + (0, pad))
             self._lane_embeds = F.pad(self._lane_embeds, (0, 0, 0, pad))
         self._lane_bucket = s1
+        # The one resident allocation that moves mid-service.
+        obs_memory.LEDGER.resize("lanes", f"{self._mem_owner}/lanes",
+                                 obs_memory.params_bytes([self._lane_cache, self._lane_embeds]))
 
     def _start_full_lane(self, req: _Request, row: int) -> None:
         """A lane for a full-prefill admission: the whole prompt's
@@ -2512,6 +2806,8 @@ class ContinuousBatcher:
         self._lane_embeds[slot, :padded.shape[1]] = padded[0]
         self._lanes.append(_PendingLane(req, row, slot, prompt_len))
         self.lanes_started["full"] += 1
+        obs_journey.event(self._journey_owner, req.rid, "lane_join", slot=slot, filled=0,
+                          prompt_len=prompt_len)
 
     def _start_suffix_lane(self, req: _Request, row: int, entry: _PrefixEntry, suffix_ids,
                            fit: tuple) -> None:
@@ -2526,6 +2822,7 @@ class ContinuousBatcher:
         faults.maybe_fail("serve.prefix_copy")
         faults.maybe_delay("serve.prefix_copy")
         entry.pins += 1
+        t0 = time.perf_counter()
         self._ensure_lane_buffers(max(s1, entry.bucket))
         slot = self._lane_free.pop()
         ekv = self._entry_kv(entry)
@@ -2533,8 +2830,14 @@ class ContinuousBatcher:
         emb = self._suffix_embed(entry, req.pixel_values, suffix_ids, suf_len, suf_len)
         plen = entry.length
         self._lane_embeds[slot, plen:plen + suf_len] = emb[0]
+        tr = obs_trace.active()
+        if tr is not None:
+            tr.complete("prefix_copy", t0, time.perf_counter(), cat="sched",
+                        args={"plen": plen, "suffix": suf_len, "lane": slot})
         self._lanes.append(_PendingLane(req, row, slot, prompt_len, filled=plen, entry=entry))
         self.lanes_started["suffix"] += 1
+        obs_journey.event(self._journey_owner, req.rid, "lane_join", slot=slot, filled=plen,
+                          prompt_len=prompt_len)
 
     def _lane_args(self) -> tuple:
         """This boundary's lane inputs over all K_cap slots: (start,
@@ -2588,6 +2891,7 @@ class ContinuousBatcher:
             self.queue.appendleft(lane.req)
         self._lanes = []
         self._lane_free = list(range(self._lane_cap))
+        obs_metrics.SERVE_QUEUE_DEPTH.set(len(self.queue))
 
     def _finish_ready_lanes(self) -> bool:
         """Complete every lane whose prompt is prefilled: slice its lane row
@@ -2609,8 +2913,11 @@ class ContinuousBatcher:
             row_cache = {"k": k, "v": v,
                          "length": torch.full((1,), lane.prompt_len, dtype=torch.int32,
                                               device=self.device)}
+            obs_journey.event(self._journey_owner, lane.req.rid, "lane_finish", slot=lane.slot,
+                              prompt_len=lane.prompt_len)
             self._finish_admission(lane.req, lane.row, lane.prompt_len, row_cache,
-                                   lane.last_logits, lane.last_hidden, prefix_entry=lane.entry)
+                                   lane.last_logits, lane.last_hidden, prefix_entry=lane.entry,
+                                   path="lane")
             if lane.entry is not None:
                 self._drain_entry_pin(lane.entry)  # the activation holds its own pin
         return done
@@ -2650,10 +2957,19 @@ class ContinuousBatcher:
                 and self._spill_store.enabled
                 and not self._spill_store.would_fit(self._pool.block_bytes or 1)):
             self.queue.popleft()
+            obs_metrics.SERVE_QUEUE_DEPTH.set(len(self.queue))
             self._record_finish(req, STATUS_RESOURCE)
             return False
-        self.block_deferrals += 1
+        self._paged_defer(req, need)
         return False
+
+    def _paged_defer(self, req: _Request, need: int) -> None:
+        self.block_deferrals += 1
+        obs_metrics.SERVE_KV_BLOCK_DEFERRALS.inc()
+        free = self._pool.free_blocks()
+        obs_trace.instant("kv_block_defer", cat="mem", need_blocks=need, free_blocks=free)
+        obs_journey.event(self._journey_owner, req.rid, "kv_block_defer", need_blocks=need,
+                          free_blocks=free)
 
     def _paged_requeue(self, req: _Request, row: int) -> None:
         """Undo a pop whose reservation failed: free the row and put the
@@ -2661,7 +2977,8 @@ class ContinuousBatcher:
         self.rows[row] = None
         req.row = -1
         self.queue.appendleft(req)
-        self.block_deferrals += 1
+        obs_metrics.SERVE_QUEUE_DEPTH.set(len(self.queue))
+        self._paged_defer(req, self._blocks_needed(req.prompt_len, req.max_new_tokens))
 
     def _paged_reserve(self, req: _Request, s1: int,
                        entry: Optional[_PrefixEntry] = None) -> bool:
@@ -2777,7 +3094,9 @@ class ContinuousBatcher:
         committed tokens (the re-admission re-decodes them). Either way it
         re-queues at the back."""
         row = vic.row
+        mode = "spill"
         if not (self._spill_choose(vic) and self._spill_victim(vic)):
+            mode = "drop"
             self._paged_release(vic)
             vic.tokens = []
         if vic.prefix_entry is not None:
@@ -2793,9 +3112,16 @@ class ContinuousBatcher:
             self._spec_ctl.forget(vic.rid)
         # The host changed rows under the device carry (drained).
         self._dev_carry = None
+        obs_trace.async_end("active", vic.rid, status="preempted")
+        obs_trace.async_begin("queued", vic.rid)
+        vic.phase = "queued"
         vic.preempts += 1
         self.preemptions += 1
         self.queue.append(vic)
+        obs_metrics.SERVE_QUEUE_DEPTH.set(len(self.queue))
+        obs_metrics.SERVE_ACTIVE_ROWS.set(sum(r is not None for r in self.rows))
+        obs_metrics.SERVE_PREEMPTIONS.inc(mode=mode)
+        obs_journey.event(self._journey_owner, vic.rid, "preempt", mode=mode, row=row)
 
     def _spill_choose(self, vic: _Request) -> bool:
         """The spill-or-recompute price: spill only an exclusively owned run
@@ -2848,6 +3174,8 @@ class ContinuousBatcher:
             # handed out again.
             self.cache["bt"][vic.row] = SCRATCH_BLOCK
             vic.kv_bt_written = False
+        obs_journey.event(self._journey_owner, vic.rid, "spill", bytes=rec["nbytes_kv"],
+                          blocks=rec["n_blocks"])
         return True
 
     # A harvest point: the host waits here, at a drained admission boundary
@@ -2927,6 +3255,13 @@ class ContinuousBatcher:
         self._spill_store.take(req.rid)
         req.spill_run = None
         self._install_record(req, row, rec, blocks, len(blocks))
+        obs_trace.async_end("queued", req.rid)
+        obs_trace.async_begin("active", req.rid)
+        req.phase = "active"
+        obs_metrics.SERVE_RESTORES.inc()
+        obs_metrics.SERVE_ACTIVE_ROWS.set(sum(r is not None for r in self.rows))
+        obs_journey.event(self._journey_owner, req.rid, "restore", row=row,
+                          blocks=rec["n_blocks"])
         return True
 
     # -- prefill/decode roles: the block-run handoff ----------------------
@@ -2975,8 +3310,17 @@ class ContinuousBatcher:
             self._n_deadlines -= 1
         self._dev_carry = None
         now = time.perf_counter()
+        obs_trace.async_end(req.phase, req.rid, status="handoff")
         self.handoffs_gathered += 1
         self.handoffs_gathered_bytes += rec["nbytes_kv"]
+        obs_metrics.PROCFLEET_HANDOFFS.inc(stage="gathered")
+        obs_metrics.SERVE_ACTIVE_ROWS.set(sum(r is not None for r in self.rows))
+        obs_journey.event(self._journey_owner, req.rid, "kv_handoff", stage="gathered",
+                          bytes=rec["nbytes_kv"], blocks=rec["n_blocks"])
+        # Not over but moving: the prefill leg's journey closes as
+        # "handoff" (finish_status is never written) and rides the record.
+        obs_journey.finish(self._journey_owner, req.rid, "handoff", t_submit=req.t_submit,
+                           t_done=now, slo_class=req.slo.name if req.slo is not None else None)
         # Durations, not stamps: the decode side rebases its own clock.
         self.handoff_ready.append({
             "rid": req.rid, "input_ids": list(req.input_ids), "tokens": list(req.tokens),
@@ -2984,7 +3328,8 @@ class ContinuousBatcher:
             "t_gather": now, "elapsed_s": now - req.t_submit,
             "ttft_s": req.t_first - req.t_submit if req.t_first is not None else None,
             "deadline_s": req.deadline - now if req.deadline is not None else None,
-            "slo": req.slo, "preempts": req.preempts, "rec": rec})
+            "slo": req.slo, "preempts": req.preempts,
+            "journey": obs_journey.get(self._journey_owner, req.rid), "rec": rec})
 
     def pop_handoffs(self) -> List[Dict[str, Any]]:
         """Take the handoff outbox."""
@@ -3022,6 +3367,7 @@ class ContinuousBatcher:
         req.slo = slo
         now = time.perf_counter()
         req.t_submit = now - max(float(elapsed_s or 0.0), 0.0)
+        req.t_journey = now
         if ttft_s is not None:
             req.t_first = req.t_submit + float(ttft_s)
         if deadline_s is not None:
@@ -3029,6 +3375,13 @@ class ContinuousBatcher:
             self._n_deadlines += 1
         req.handoff_rec = rec
         self.queue.append(req)
+        obs_metrics.SERVE_QUEUE_DEPTH.set(len(self.queue))
+        obs_trace.async_begin("queued", rid, prompt_len=req.prompt_len, budget=max_new_tokens)
+        # No note_submit: the arrival counted at the prefill side. The
+        # journey leg is local (t=now, not the rebased stamp).
+        obs_journey.begin(self._journey_owner, rid, t=now, prompt_len=req.prompt_len,
+                          budget=max_new_tokens,
+                          **({"slo_class": slo.name} if slo is not None else {}))
         return rid
 
     def _handoff_splice(self, req: _Request, row: int) -> bool:
@@ -3043,8 +3396,16 @@ class ContinuousBatcher:
             return False
         req.handoff_rec = None
         self._install_record(req, row, rec, blocks, rec["n_blocks"])
+        obs_trace.async_end("queued", req.rid)
+        obs_trace.async_begin("active", req.rid)
+        req.phase = "active"
+        nbytes = rec.get("nbytes_kv", 0)
         self.handoffs_spliced += 1
-        self.handoffs_spliced_bytes += rec.get("nbytes_kv", 0)
+        self.handoffs_spliced_bytes += nbytes
+        obs_metrics.PROCFLEET_HANDOFFS.inc(stage="spliced")
+        obs_metrics.SERVE_ACTIVE_ROWS.set(sum(r is not None for r in self.rows))
+        obs_journey.event(self._journey_owner, req.rid, "kv_handoff", stage="spliced", row=row,
+                          blocks=rec["n_blocks"], bytes=nbytes)
         return True
 
     # -- admission --------------------------------------------------------
@@ -3070,15 +3431,28 @@ class ContinuousBatcher:
             did_work = True
             self._advance_pending()
         piggy = self.prefill_budget > 0 and (len(self._lanes) > 0 or not self.frozen.all())
+        # The memory headroom guard: a wave the ledger predicts past
+        # capacity - headroom stays queued this boundary.
+        mem_defer = self._mem_guard_defers()
         wave: List[tuple] = []  # (req, row) full-prefill admissions
         hits: List[tuple] = []  # (req, row, entry, suffix_ids, fit)
-        while self._pending is None and self.queue and any(r is None for r in self.rows):
+        while (self._pending is None and self.queue and not mem_defer
+               and any(r is None for r in self.rows)):
             if piggy and not self._lane_free:
                 break  # lanes at the token budget: the rest stay queued
             if self._paged and not self._paged_admit_gate():
                 break
             req = self.queue.popleft()
             did_work = True
+            t_deq = time.perf_counter()
+            obs_metrics.SERVE_QUEUE_DEPTH.set(len(self.queue))
+            obs_metrics.SERVE_QUEUE_WAIT.observe(t_deq - req.t_submit)
+            obs_journey.event(self._journey_owner, req.rid, "queue", t=t_deq,
+                              depth=len(self.queue))
+            if req.phase == "queued":
+                obs_trace.async_end("queued", req.rid)
+                obs_trace.async_begin("active", req.rid)
+                req.phase = "active"
             row = next(r for r in range(self.max_batch) if self.rows[r] is None)
             # Reserve the row now; it stays frozen until activation.
             self.rows[row] = req
@@ -3103,7 +3477,14 @@ class ContinuousBatcher:
                     continue
                 self._paged_requeue(req, row)
                 break
-            hit = self._prefix_lookup(req) if self._prefix_cache is not None else None
+            hit = None
+            if self._prefix_cache is not None:
+                t0 = time.perf_counter()
+                hit = self._prefix_lookup(req)
+                tr = obs_trace.active()
+                if tr is not None:
+                    tr.complete("prefix_lookup", t0, time.perf_counter(), cat="sched",
+                                args={"hit": hit is not None})
             if hit is not None:
                 entry, suffix_ids = hit
                 fit = self._prefix_fit(entry, suffix_ids)
@@ -3112,6 +3493,8 @@ class ContinuousBatcher:
                     self._paged_requeue(req, row)
                     break
                 if fit is not None:
+                    obs_journey.event(self._journey_owner, req.rid, "prefix", hit=True,
+                                      matched=entry.length, entry_tokens=len(entry.ids))
                     if piggy:
                         self._start_suffix_lane(req, row, entry, suffix_ids, fit)
                         continue
@@ -3122,6 +3505,7 @@ class ContinuousBatcher:
                     continue
             if self._prefix_cache is not None:
                 self._prefix_cache.count_miss()
+                obs_journey.event(self._journey_owner, req.rid, "prefix", hit=False)
             if self._paged and not self._paged_reserve(req, _bucket(req.prompt_len,
                                                                      self.max_len)):
                 self._paged_requeue(req, row)
@@ -3143,6 +3527,7 @@ class ContinuousBatcher:
             groups.setdefault((h[4][2], h[4][3]), []).append(h)
         ordered = [members for _, members in sorted(groups.items())]
         for gi, members in enumerate(ordered):
+            obs_metrics.SERVE_ADMISSION_WAVE.observe(len(members))
             try:
                 if len(members) == 1:
                     req, row, entry, suffix_ids, _ = members[0]
@@ -3150,7 +3535,7 @@ class ContinuousBatcher:
                         entry, req.pixel_values, suffix_ids)
                     self._prefix_cache.count_hit(entry)
                     self._finish_admission(req, row, prompt_len, row_cache, row_logits,
-                                           row_hidden, prefix_entry=entry)
+                                           row_hidden, prefix_entry=entry, path="suffix")
                     self._drain_entry_pin(entry)  # the selection pin
                 else:
                     self._admit_suffix_wave(members)  # drains its members' pins
@@ -3162,6 +3547,7 @@ class ContinuousBatcher:
                 raise
         if not wave:
             return did_work
+        obs_metrics.SERVE_ADMISSION_WAVE.observe(len(wave))
         if len(wave) > 1:
             self._admit_wave(wave)
             return True
@@ -3175,6 +3561,53 @@ class ContinuousBatcher:
         self._count_dispatch("full")
         self._finish_admission(req, row, prompt_len, row_cache, pre[0],
                                pre[1] if len(pre) == 3 else None)
+        return True
+
+    def _mem_next_wave_bytes(self) -> int:
+        """Predicted device bytes of admitting the queue heads that could
+        land this boundary (one per free row): a paged head's whole block
+        reservation; a dense head's prompt-bucket row cache, doubled when
+        insert-on-prefill also copies a prefix entry. Conservative on
+        purpose: a guard that under-predicts is a guard that runs out."""
+        free = sum(1 for r in self.rows if r is None)
+        heads = [req for i, req in enumerate(self.queue) if i < free]
+        if self._paged:
+            return sum(self._blocks_needed(req.prompt_len, req.max_new_tokens)
+                       * self._pool.block_bytes for req in heads)
+        factor = 2 if self._prefix_cache is not None and self.prefix_insert else 1
+        return sum(factor * _bucket(req.prompt_len, self.max_len) * self._kv_pos_bytes
+                   for req in heads)
+
+    def _mem_guard_defers(self) -> bool:
+        """One headroom-guard decision per admission boundary: True defers
+        the wave (timing only; the chains are unchanged). Off without a
+        headroom or a capacity; never defers an idle server, where nothing
+        in flight would ever free the bytes. The decision is the
+        ``serve.mem_guard`` fault site: a trip admits as if the guard were
+        off."""
+        if not (self.mem_headroom_bytes and self._mem_capacity and self.queue):
+            return False
+        if self._pending is None and not self._lanes and all(r is None for r in self.rows):
+            return False
+        try:
+            faults.maybe_fail("serve.mem_guard")
+            faults.maybe_delay("serve.mem_guard")
+        except faults.InjectedFault:
+            return False
+        predicted = self._mem_next_wave_bytes()
+        if obs_memory.LEDGER.total() + predicted <= self._mem_capacity - self.mem_headroom_bytes:
+            return False
+        self.mem_deferrals += 1
+        obs_metrics.MEM_GUARD_DEFERRALS.inc()
+        obs_trace.instant("mem_guard_defer", cat="mem", predicted_bytes=predicted)
+        if obs_journey.enabled():
+            # In the timeline of every head that could have admitted.
+            free = sum(1 for r in self.rows if r is None)
+            for i, q in enumerate(self.queue):
+                if i >= free:
+                    break
+                obs_journey.event(self._journey_owner, q.rid, "mem_guard_defer",
+                                  predicted_bytes=predicted)
         return True
 
     def _advance_pending(self) -> None:
@@ -3196,7 +3629,8 @@ class ContinuousBatcher:
         p.filled = end
         if p.filled >= p.prompt_len:
             self._pending = None
-            self._finish_admission(p.req, p.row, p.prompt_len, p.row_cache, last, hidden)
+            self._finish_admission(p.req, p.row, p.prompt_len, p.row_cache, last, hidden,
+                                   path="chunk")
 
     def _pixels(self, pixel_values) -> torch.Tensor:
         return _h2d(np.asarray(pixel_values, np.float32), self.device).to(self._dtype)
@@ -3248,13 +3682,13 @@ class ContinuousBatcher:
                                 last_only=True, return_hidden=self.draft_head is not None)
         self._count_dispatch("wave")
         self._scatter_wave(wave, wave_cache, pre[0], pre[1] if len(pre) == 3 else None,
-                           prompt_lens)
+                           prompt_lens, path="wave")
 
     # Reads the wave logits back (the admission NaN quarantine); every
     # caller has drained the pipeline.
     def _scatter_wave(self, members: List[tuple], wave_cache, wave_logits, wave_hidden,
-                      prompt_lens: List[int], entries: Optional[List[_PrefixEntry]] = None
-                      ) -> None:
+                      prompt_lens: List[int], entries: Optional[List[_PrefixEntry]] = None,
+                      path: str = "wave") -> None:
         """Per-member NaN quarantine, insert-on-prefill, the one scatter of
         every surviving row into the shared cache, then row activation.
         Quarantined and pad slots keep row ``max_batch`` (written
@@ -3287,6 +3721,7 @@ class ContinuousBatcher:
             _admit_wave(self.cache, self.logits, rows, wave_cache["k"], wave_cache["v"],
                         wave_cache["length"], wave_logits)
         for i, req, row in good:
+            obs_journey.event(self._journey_owner, req.rid, "admit", path=path, row=row)
             self._activate_row(req, row, prompt_lens[i], wave_logits[i:i + 1],
                                wave_hidden[i:i + 1] if wave_hidden is not None else None,
                                entries[i] if entries is not None else None)
@@ -3295,7 +3730,8 @@ class ContinuousBatcher:
     # caller has drained the pipeline.
     def _finish_admission(self, req: _Request, row: int, prompt_len: int, row_cache,
                           row_logits, row_hidden=None,
-                          prefix_entry: Optional[_PrefixEntry] = None) -> None:
+                          prefix_entry: Optional[_PrefixEntry] = None,
+                          path: str = "full") -> None:
         """Write the prefilled row into the shared cache and activate it,
         unless its logits are not finite (then the request fails before it
         touches the shared cache)."""
@@ -3312,6 +3748,7 @@ class ContinuousBatcher:
             req.kv_bt_written = True
         else:
             _admit_row(self.cache, self.logits, row, row_cache, row_logits)
+        obs_journey.event(self._journey_owner, req.rid, "admit", path=path, row=row)
         self._activate_row(req, row, prompt_len, row_logits, row_hidden, prefix_entry)
 
     def _activate_row(self, req: _Request, row: int, prompt_len: int, row_logits,
@@ -3322,6 +3759,7 @@ class ContinuousBatcher:
             # The row pins its entry while it decodes from it.
             prefix_entry.pins += 1
             req.prefix_entry = prefix_entry
+        obs_metrics.SERVE_ACTIVE_ROWS.set(sum(r is not None for r in self.rows))
         # The host changes frozen/n_rem (and base_pos; drained): upload
         # at the next dispatch.
         self._dev_carry = None

@@ -27,12 +27,21 @@ backs which row position is decided here, on the host.
 Threading: the owning ``ContinuousBatcher`` is serialized by its engine,
 but HTTP handler threads read ``stats()``, so every mutation and compound
 read holds ``_lock``.
+
+Telemetry, at the JAX pool's sites: the ``egpt_serve_kv_blocks_used`` /
+``_free`` gauges after every move of the free list, and the
+``egpt_serve_kv_alloc_failures_total`` / ``egpt_serve_kv_cow_copies_total``
+counters. The ``SpillStore`` prices its records into the memory ledger's
+``spill`` component.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Any, Dict, List, Optional, Sequence
+
+from eventgpt_tpu_torch.obs import memory as obs_memory
+from eventgpt_tpu_torch.obs import metrics as obs_metrics
 
 # Free and finished rows' block tables point here.
 SCRATCH_BLOCK = 0
@@ -107,11 +116,13 @@ class BlockPool:
         with self._lock:
             if n > len(self._free):
                 self.alloc_failures += 1
+                obs_metrics.SERVE_KV_ALLOC_FAILURES.inc()
                 return None
             out = [self._free.pop() for _ in range(n)]
             for b in out:
                 self._refs[b] = 1
             self.allocs += n
+            self._export_gauges_locked()
         return out
 
     def incref(self, blocks: Sequence[int]) -> None:
@@ -133,6 +144,7 @@ class BlockPool:
                     self._free.append(b)
                     freed += 1
             self.frees += freed
+            self._export_gauges_locked()
         return freed
 
     def cow(self, block: int) -> Optional[int]:
@@ -146,12 +158,15 @@ class BlockPool:
                 return block
             if not self._free:
                 self.alloc_failures += 1
+                obs_metrics.SERVE_KV_ALLOC_FAILURES.inc()
                 return None
             new = self._free.pop()
             self._refs[new] = 1
             self._refs[block] -= 1
             self.allocs += 1
             self.cow_copies += 1
+            obs_metrics.SERVE_KV_COW_COPIES.inc()
+            self._export_gauges_locked()
             return new
 
     def note_cow(self) -> None:
@@ -160,6 +175,7 @@ class BlockPool:
         owned block through its own scatter (copy and write in one)."""
         with self._lock:
             self.cow_copies += 1
+        obs_metrics.SERVE_KV_COW_COPIES.inc()
 
     def spill_out(self, blocks: Sequence[int]) -> int:
         """Evict an exclusively owned run from the arena: every block must
@@ -185,6 +201,7 @@ class BlockPool:
             self._spilled[run_id] = len(blocks)
             self.frees += len(blocks)
             self.spills += 1
+            self._export_gauges_locked()
         return run_id
 
     def restore(self, run_id: int, n: int) -> Optional[List[int]]:
@@ -199,6 +216,7 @@ class BlockPool:
             n = max(int(n), 0)
             if n > len(self._free):
                 self.alloc_failures += 1
+                obs_metrics.SERVE_KV_ALLOC_FAILURES.inc()
                 return None
             out = [self._free.pop() for _ in range(n)]
             for b in out:
@@ -206,6 +224,7 @@ class BlockPool:
             del self._spilled[run_id]
             self.allocs += n
             self.restores += 1
+            self._export_gauges_locked()
         return out
 
     def drop_spilled(self, run_id: int) -> None:
@@ -232,6 +251,10 @@ class BlockPool:
             raise BlockPoolError(f"block {b} out of range")
         if self._refs[b] <= 0:
             raise BlockPoolError(f"block {b} is free (double free?)")
+
+    def _export_gauges_locked(self) -> None:
+        obs_metrics.SERVE_KV_BLOCKS_FREE.set(len(self._free))
+        obs_metrics.SERVE_KV_BLOCKS_USED.set(self.usable - len(self._free))
 
     def stats(self) -> Dict[str, Any]:
         """Snapshot for ``GET /stats`` and the smoke run's record."""
@@ -261,14 +284,18 @@ class SpillStore:
     byte budget (``--spill_capacity_mb``) bounds the resident bytes:
     ``put`` refuses a record over it (the caller drops and re-prefills)
     and never evicts, since a record is live request state, not a cache
-    entry. ``stats()`` carries the bytes (the JAX store also prices them
-    into its memory ledger, which the port does not have).
+    entry. The resident bytes are the memory ledger's ``spill`` component
+    under ``{owner}/spill``, as in the JAX store: host bytes, which the
+    ledger prices but ``reconcile`` does not find on the card (pinned host
+    memory is not in ``torch.cuda.memory_allocated``).
 
-    Threading: as ``BlockPool``: mutations and ``stats()`` hold ``_lock``.
+    Threading: as ``BlockPool``: mutations and ``stats()`` hold ``_lock``;
+    the ledger and metric locks are leaves below it.
     """
 
-    def __init__(self, capacity_bytes: int):
+    def __init__(self, capacity_bytes: int, owner: str = "spill"):
         self.capacity_bytes = max(int(capacity_bytes), 0)
+        self._mem_key = f"{owner}/spill"
         self._lock = threading.Lock()
         self._recs: Dict[Any, Dict[str, Any]] = {}
         self.used_bytes = 0
@@ -301,6 +328,9 @@ class SpillStore:
             self._recs[rid] = record
             self.used_bytes += nbytes
             self.puts += 1
+            obs_memory.LEDGER.resize("spill", self._mem_key, self.used_bytes)
+            obs_metrics.SERVE_SPILL_STORE_BYTES.set(self.used_bytes)
+            obs_metrics.SERVE_SPILL_BYTES.inc(nbytes)
         return True
 
     def peek(self, rid) -> Optional[Dict[str, Any]]:
@@ -317,6 +347,8 @@ class SpillStore:
                                      f"or never spilled)")
             self.used_bytes -= int(rec["nbytes"])
             self.takes += 1
+            obs_memory.LEDGER.resize("spill", self._mem_key, self.used_bytes)
+            obs_metrics.SERVE_SPILL_STORE_BYTES.set(self.used_bytes)
         return rec
 
     def drop(self, rid) -> None:
@@ -328,11 +360,15 @@ class SpillStore:
                 return
             self.used_bytes -= int(rec["nbytes"])
             self.drops += 1
+            obs_memory.LEDGER.resize("spill", self._mem_key, self.used_bytes)
+            obs_metrics.SERVE_SPILL_STORE_BYTES.set(self.used_bytes)
 
     def clear(self) -> None:
         with self._lock:
             self._recs.clear()
             self.used_bytes = 0
+            obs_memory.LEDGER.release("spill", self._mem_key)
+            obs_metrics.SERVE_SPILL_STORE_BYTES.set(0)
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:

@@ -3,9 +3,8 @@
 ``ModelArguments``, ``DataArguments`` and ``TrainingArguments`` field for
 field with the JAX package's defaults, so both packages' ``cli/train`` take
 the same flags. In the port, ``mesh_*`` other than one device,
-``mesh_context > 1``, ``profile_dir`` and the sequence-parallel
-``attn_impl`` values raise ``NotImplementedError`` in ``train/trainer.py``;
-``telemetry`` writes the JAX record without its ``registry`` key.
+``mesh_context > 1`` and the sequence-parallel ``attn_impl`` values raise
+``NotImplementedError`` in ``train/trainer.py``.
 """
 
 from __future__ import annotations
@@ -98,7 +97,7 @@ class TrainingArguments:
     # the data-wait vs compute split. Off = no extra host work.
     telemetry: bool = True
     # Profiler capture of optimizer steps [profile_start_step,
-    # profile_start_step + profile_num_steps); not ported (raises).
+    # profile_start_step + profile_num_steps), a torch.profiler trace.
     profile_dir: str = ""
     profile_start_step: int = 2
     profile_num_steps: int = 2

@@ -34,6 +34,8 @@ from eventgpt_tpu_torch.models import clip as clip_mod
 from eventgpt_tpu_torch.models import eventchat
 from eventgpt_tpu_torch.models import llama as llama_mod
 from eventgpt_tpu_torch.models import projector as proj_mod
+from eventgpt_tpu_torch.obs import profiling as obs_profiling
+from eventgpt_tpu_torch.obs import trace as obs_trace
 from eventgpt_tpu_torch.train.lora import LoraConfig, apply_lora, init_lora_params
 from eventgpt_tpu_torch.train.optim import AdamW, global_norm, tree_leaves
 
@@ -203,7 +205,15 @@ def split_stage2(params: Params, cfg: EventChatConfig, lora_cfg: LoraConfig,
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Batch:
     """Host batch -> tensors on ``device``; to a CUDA device through pinned
-    memory and non-blocking copies, so the host goes on while they land."""
+    memory and non-blocking copies, so the host goes on while they land.
+    A trace span and a profiler range name it (no-ops when disarmed): it is
+    the second half of the trainer's data-wait split."""
+    with obs_trace.span("batch_to_device", cat="train"), \
+            obs_profiling.annotation("batch_to_device"):
+        return _batch_to_device(batch, device)
+
+
+def _batch_to_device(batch: Dict[str, np.ndarray], device) -> Batch:
     device = torch.device(device)
     out = {}
     for k, v in batch.items():

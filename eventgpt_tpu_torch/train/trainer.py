@@ -17,11 +17,16 @@ weights and the AdamW moments stay f32, cast to the compute dtype inside
 the combine. The loss and gradient norm stay on the device and are read
 back on logging and save steps only.
 
+Telemetry, as in the JAX trainer: the ``egpt_train_*`` metrics, a
+``telemetry.jsonl`` record per optimizer step with the registry's
+``egpt_train_*`` summary under ``registry``, a ``torch.profiler`` range
+around each micro-step while profiling is armed, and with ``profile_dir`` a
+capture of optimizer steps ``[profile_start_step, + profile_num_steps)``
+written there as a Chrome trace.
+
 Not ported, and refused with ``NotImplementedError``: a mesh other than one
-device (``mesh_*``, ``mesh_context > 1``), the sequence-parallel
-``attn_impl`` values and ``profile_dir``. The telemetry record carries the
-JAX keys without ``registry`` (the metrics registry is not ported), and
-there are no fault-injection sites. f32 training on the card with
+device (``mesh_*``, ``mesh_context > 1``) and the sequence-parallel
+``attn_impl`` values. f32 training on the card with
 ``attn_impl="flash"`` raises ``ValueError``: the flash kernel takes bf16
 only (pass ``attn_impl="dense"``).
 """
@@ -45,6 +50,8 @@ from eventgpt_tpu_torch.device import resolve_device
 from eventgpt_tpu_torch.models.convert import lora_from_jax, projector_params_to_jax
 from eventgpt_tpu_torch.models.llama import resize_token_embeddings
 from eventgpt_tpu_torch.models.qformer import save_qformer_components
+from eventgpt_tpu_torch.obs import metrics as obs_metrics
+from eventgpt_tpu_torch.obs import profiling as obs_profiling
 from eventgpt_tpu_torch.train import steps as steps_mod
 from eventgpt_tpu_torch.train.args import DataArguments, ModelArguments, TrainingArguments
 from eventgpt_tpu_torch.train.data import EventChatDataset, batch_iterator
@@ -80,10 +87,6 @@ def refuse_unported(train_args: TrainingArguments) -> None:
         raise NotImplementedError(
             f"attn_impl={train_args.attn_impl!r}: sequence-parallel attention is not ported "
             f"to eventgpt_tpu_torch yet")
-    if train_args.profile_dir:
-        raise NotImplementedError(
-            "profile_dir: the training profiler capture is not ported to eventgpt_tpu_torch "
-            "yet")
 
 
 class Trainer:
@@ -204,8 +207,14 @@ class Trainer:
         self.train_step = steps_mod.make_train_step(cfg, self.optimizer, self.combine)
         self.eval_step = steps_mod.make_eval_step(cfg, self.combine)
         self.metrics_path = os.path.join(train_args.output_dir, "metrics.jsonl")
-        self.telemetry_path = (os.path.join(train_args.output_dir, "telemetry.jsonl")
-                               if train_args.telemetry else None)
+        self.telemetry = (obs_metrics.JsonlSink(
+            os.path.join(train_args.output_dir, "telemetry.jsonl"))
+            if train_args.telemetry else None)
+        self._profiling = False
+        if train_args.profile_dir:
+            # Arms the micro-step ranges; the capture window opens at
+            # profile_start_step (_maybe_profile).
+            obs_profiling.configure(train_args.profile_dir)
         self.heartbeat = Heartbeat(train_args.output_dir)
         self._last_ckpt: Optional[str] = None
         if train_args.on_divergence not in ("raise", "rewind"):
@@ -293,6 +302,29 @@ class Trainer:
         finally:
             if own_shutdown:
                 shutdown.uninstall()
+            if self._profiling:
+                # Training ended inside the capture window: write it.
+                obs_profiling.stop_trace()
+                self._profiling = False
+
+    def _maybe_profile(self, step: int) -> None:
+        """Open and close the ``profile_dir`` capture at optimizer-step
+        boundaries: steps [profile_start_step, + profile_num_steps) run
+        inside one ``torch.profiler`` capture (a start above 1 keeps the
+        first step's kernel builds and allocator growth out)."""
+        targs = self.targs
+        if not targs.profile_dir:
+            return
+        start = max(int(targs.profile_start_step), 1)
+        stop = start + max(int(targs.profile_num_steps), 1)
+        if not self._profiling and step + 1 == start:
+            obs_profiling.start_trace(targs.profile_dir)
+            self._profiling = True
+            self._log({"event": "profile_start", "step": step + 1, "dir": targs.profile_dir})
+        elif self._profiling and step + 1 >= stop:
+            obs_profiling.stop_trace()
+            self._profiling = False
+            self._log({"event": "profile_stop", "step": step})
 
     def _train_loop(self, shutdown: GracefulShutdown) -> Dict[str, float]:
         targs = self.targs
@@ -332,6 +364,7 @@ class Trainer:
             win_data_wait = 0.0
             t_window = time.perf_counter()
             diverged = False
+            self._maybe_profile(step)
 
             def timed_iter(src):
                 src = iter(src)
@@ -357,10 +390,15 @@ class Trainer:
                         return last_metrics
                     t0 = time.perf_counter()
                     batch = steps_mod.batch_to_device(host_batch, self.device)
-                    win_data_wait += dt_iter + (time.perf_counter() - t0)
-                    self.state, metrics = self.train_step(self.state, batch)
+                    dt_data = dt_iter + (time.perf_counter() - t0)
+                    win_data_wait += dt_data
+                    obs_metrics.TRAIN_DATA_WAIT.observe(dt_data)
+                    with obs_profiling.step_annotation(micro):
+                        self.state, metrics = self.train_step(self.state, batch)
                     micro += 1
-                    tokens_seen += int(host_batch["attn_mask"].sum())
+                    tok_n = int(host_batch["attn_mask"].sum())
+                    tokens_seen += tok_n
+                    obs_metrics.TRAIN_TOKENS.inc(tok_n)
                     window.append((metrics["loss"], metrics["grad_norm"]))
                     if micro % accum:
                         continue  # gradients still accumulating
@@ -407,7 +445,14 @@ class Trainer:
                     # data wait (iterator + host-to-device) and compute.
                     step_wall = time.perf_counter() - t_window
                     compute_s = max(step_wall - win_data_wait, 0.0)
-                    if self.telemetry_path is not None:
+                    obs_metrics.TRAIN_STEP_SECONDS.observe(step_wall)
+                    obs_metrics.TRAIN_COMPUTE.observe(compute_s)
+                    obs_metrics.TRAIN_STEPS.inc()
+                    if need_log:
+                        obs_metrics.TRAIN_LOSS.set(loss)
+                        obs_metrics.TRAIN_GRAD_NORM.set(gnorm)
+                    if self.telemetry is not None:
+                        os.makedirs(targs.output_dir, exist_ok=True)
                         rec = {"step": step, "micro": micro,
                                "step_wall_s": round(step_wall, 6),
                                "data_wait_s": round(win_data_wait, 6),
@@ -416,7 +461,10 @@ class Trainer:
                         if need_log:
                             rec["loss"] = loss
                             rec["grad_norm"] = gnorm
-                        self._append(self.telemetry_path, rec)
+                        # The registry's view, as /metrics would show it.
+                        rec["registry"] = obs_metrics.REGISTRY.summary(("egpt_train_",))
+                        self.telemetry.write(rec)
+                    self._maybe_profile(step)
                     win_data_wait = 0.0
                     window.clear()
                     t_window = time.perf_counter()

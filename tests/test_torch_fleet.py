@@ -13,6 +13,8 @@ replicas over one tiny tree.
   sequence equal the JAX fleet's, by queue depth and by windowed goodput;
   only ``batch`` is ever shed.
 - A kill re-pins the session to the survivor; the revived replica rejoins.
+- The fleets' telemetry (journeys, series, alerts, memory) is refused by
+  name, and its HTTP routes answer 501 at the CLI's telemetry defaults.
 Multi-thread legs wait on states, each with a bound.
 """
 
@@ -286,3 +288,40 @@ def test_the_telemetry_parts_wait_for_their_item(trees):
         fleet.shutdown()
     with pytest.raises(ValueError, match="at least one"):
         tfleet.Fleet([])
+
+
+def test_the_fleet_telemetry_routes_answer_501_at_the_defaults(trees):
+    """Behind the HTTP handler, at the CLI's telemetry defaults, a fleet's
+    journey, series, alert and memory routes answer 501 naming the item;
+    the process-wide routes (metrics, trace) answer as for one engine."""
+    import http.client
+    import json
+    from http.server import ThreadingHTTPServer
+
+    args = tcli.build_parser().parse_args(["--device", "cpu", "--fleet", "2"])
+    tcli.arm_telemetry(args)
+    fleet = _fleet(trees, "torch", n=1)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), tcli.make_handler(fleet, TCFG))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        for path in ("/request?rid=0", "/requests", "/series", "/alerts", "/memory"):
+            conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=30)
+            conn.request("GET", path)
+            res = conn.getresponse()
+            assert res.status == 501, path
+            assert "item 6b" in json.loads(res.read())["error"], path
+        for path in ("/metrics", "/trace"):
+            conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=30)
+            conn.request("GET", path)
+            res = conn.getresponse()
+            res.read()
+            assert res.status == 200, path
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        fleet.shutdown()
+        args.no_telemetry = True
+        tcli.arm_telemetry(args)
+        from eventgpt_tpu_torch.obs import metrics as tmetrics
+
+        tmetrics.configure(True)

@@ -306,6 +306,25 @@ def test_the_telemetry_parts_are_refused_by_name():
         fleet.stream_queue(0)
 
 
+def test_the_coordinators_telemetry_routes_answer_501():
+    """Behind the HTTP handler the coordinator's refusals are a 501 naming
+    the item, not a crashed handler."""
+    import http.client
+
+    fleet = object.__new__(tfp.ProcFleet)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), tcli.make_handler(fleet, None))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        for path in ("/request?rid=3", "/requests", "/series", "/alerts", "/memory"):
+            conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=30)
+            conn.request("GET", path)
+            res = conn.getresponse()
+            assert res.status == 501 and b"item 6b" in res.read(), path
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
 class _Outbox:
     """An engine whose handoff outbox holds three records of 3 KiB planes."""
 
@@ -365,12 +384,13 @@ def test_worker_argv_round_trips_every_forwarded_flag():
 
 
 def test_every_parser_flag_is_classified_and_the_jax_forwarding_kept():
-    """Every flag of the port's parser is forwarded, coordinator-only, set
-    per slot, or still refused; every flag the JAX CLI forwards is forwarded
-    by the port or refused by it; the port adds only its --device and
+    """Every flag of the port's parser is forwarded, coordinator-only or set
+    per slot; every flag the JAX CLI forwards is forwarded by the port (the
+    telemetry flags since they are ported), and its coordinator's telemetry
+    sinks stay with the coordinator; the port adds only its --device and
     --attn_impl and the Q-Former flags."""
     forwarded = {dest for dest, _, _ in tcli.WORKER_FORWARDED_FLAGS}
-    classes = (tcli.WORKER_COORDINATOR_ONLY, tcli.WORKER_PER_SLOT, tcli.WORKER_UNPORTED)
+    classes = (tcli.WORKER_COORDINATOR_ONLY, tcli.WORKER_PER_SLOT)
     for i, a in enumerate((forwarded,) + classes):
         for b in ((forwarded,) + classes)[i + 1:]:
             assert not a & b, a & b
@@ -379,11 +399,12 @@ def test_every_parser_flag_is_classified_and_the_jax_forwarding_kept():
     assert not unclassified, f"unclassified serving flags {sorted(unclassified)}"
     assert not (forwarded | tcli.WORKER_PER_SLOT) - dests
     jax_forwarded = {dest for dest, _, _ in jcli.WORKER_FORWARDED_FLAGS}
-    assert jax_forwarded - forwarded <= tcli.WORKER_UNPORTED
+    assert jax_forwarded <= forwarded
     assert forwarded - jax_forwarded == {"device", "attn_impl", "use_event_qformer",
                                          "pretrain_query_embedder", "pretrain_attention_layers"}
     assert tcli.WORKER_PER_SLOT == jcli.WORKER_PER_SLOT
-    assert "--proc_fleet" not in {flag for flag, _, _ in tcli._UNPORTED}
+    assert {"trace_buffer", "trace_out", "profile_dir", "proc_fleet"} <= \
+        tcli.WORKER_COORDINATOR_ONLY & jcli.WORKER_COORDINATOR_ONLY
 
 
 def test_roles_without_the_paged_layout_fail_at_the_coordinator():

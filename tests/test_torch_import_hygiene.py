@@ -60,7 +60,14 @@ def test_port_imports_no_jax_and_no_jax_package():
             "eventgpt_tpu_torch.data.motion_corpus",
             "eventgpt_tpu_torch.scripts.train_medusa",
             "eventgpt_tpu_torch.scripts.medusa_acceptance",
-            "eventgpt_tpu_torch.cli.train"} <= set(found["modules"])
+            "eventgpt_tpu_torch.cli.train",
+            "eventgpt_tpu_torch.obs",
+            "eventgpt_tpu_torch.obs.metrics",
+            "eventgpt_tpu_torch.obs.trace",
+            "eventgpt_tpu_torch.obs.journey",
+            "eventgpt_tpu_torch.obs.memory",
+            "eventgpt_tpu_torch.obs.series",
+            "eventgpt_tpu_torch.obs.profiling"} <= set(found["modules"])
     assert found["bad"] == [], f"the port pulled in: {found['bad']}"
 
 

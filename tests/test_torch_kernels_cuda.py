@@ -121,6 +121,36 @@ def test_flash_kernel_from_two_threads_counts_every_launch():
 
 
 @pytest.mark.cuda
+def test_a_profile_capture_names_the_flash_kernel(tmp_path):
+    """``obs.profiling.capture``'s machinery around one K1 call: the Chrome
+    trace it writes names ``flash_fwd_kernel`` and the range around it."""
+    import json
+
+    from eventgpt_tpu_torch.obs import profiling
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((2, 333, 4, 128), generator=g, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    valid = torch.ones((2, 333), dtype=torch.bool, device=dev)
+    fa.flash_attention(q, k, v, valid=valid, causal=True)  # the build, outside the capture
+    torch.cuda.synchronize()
+    profiling.configure(str(tmp_path))  # arms the ranges
+    try:
+        profiling.start_trace()
+        with profiling.annotation("k1_call"):
+            fa.flash_attention(q, k, v, valid=valid, causal=True)
+        torch.cuda.synchronize()
+        path = profiling.stop_trace()
+    finally:
+        profiling.configure(None)
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("flash_fwd_kernel" in n for n in names), sorted(names)[:40]
+    assert "k1_call" in names
+
+
+@pytest.mark.cuda
 def test_flash_kernel_refuses_what_it_does_not_take():
     dev = _card()
     q = torch.randn((1, 64, 2, 128), device=dev, dtype=torch.bfloat16)

@@ -196,17 +196,17 @@ def test_cancel_and_deadline_keep_the_other_chains(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    # The scheduler, speculation, preemption, spill and role features are
-    # ported; with a feature that is not (the mesh, the memory headroom
-    # guard), they are still refused.
+    # The scheduler, speculation, preemption, spill and role features and
+    # the memory headroom guard are ported; with a feature that is not (the
+    # mesh), they are still refused.
     dict(speculative=2, preempt=True, mesh=object()),
     dict(prefix_cache=True, speculative=2, mesh=object()),
     dict(pipeline=True, mesh=object()),
-    dict(prefill_budget=8, role="prefill", kv_layout="paged", mem_headroom_bytes=1 << 30),
+    dict(prefill_budget=8, role="prefill", kv_layout="paged", mesh=object()),
     dict(prefill_chunk=64, draft_head={}, spill_capacity_mb=64, mesh=object()),
-    dict(preempt=True, kv_layout="paged", mem_headroom_bytes=1 << 30),
+    dict(preempt=True, kv_layout="paged", mesh=object()),
     dict(spill_capacity_mb=64, mesh=object()), dict(role="decode", mesh=object()),
-    dict(spec_buckets="0,2", mem_headroom_bytes=1 << 30), dict(mem_headroom_bytes=1 << 30),
+    dict(spec_buckets="0,2", mesh=object()), dict(mem_headroom_bytes=1 << 30, mesh=object()),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_server_features_raise(setup, kw):
     tp, _ = setup
@@ -335,12 +335,15 @@ def test_http_refuses_bad_requests(server):
             assert s.recv(64).startswith(b"HTTP/1.1 " + code)
 
 
-@pytest.mark.parametrize("extra", [["--speculative", "2", "--preempt", "--mem_headroom_mb", "64"],
+# The telemetry flags are ported: each case sets some of them beside a
+# mesh flag, which is still refused.
+@pytest.mark.parametrize("extra", [["--speculative", "2", "--preempt", "--mem_headroom_mb", "64",
+                                    "--mesh_fsdp", "2"],
                                    ["--prefill_budget", "-1", "--speculative", "2",
-                                    "--series_keep", "8"],
+                                    "--series_keep", "8", "--mesh_data", "2"],
                                    ["--mesh_model", "2"],
                                    ["--warmup", "--spill_capacity_mb", "64",
-                                    "--mem_capacity_mb", "64"]],
+                                    "--mem_capacity_mb", "64", "--mesh_model", "2"]],
                          ids=lambda x: x[0])
 def test_cli_refuses_unported_flags(extra):
     args = cli_serve.build_parser().parse_args(FLAGS + ["--port", "0"] + extra)

@@ -14,6 +14,8 @@ Streams are written with ``synthetic_event_stream`` into ``tmp_path``.
   through an injected ``GracefulShutdown``; eval during and after
   training; ``freeze_mm_mlp_adapter``; the refusals of the unported
   options; and ``python -m eventgpt_tpu_torch.cli.train --device cpu``.
+- Telemetry: the ``telemetry.jsonl`` records and their ``registry`` key,
+  the trace spans, the ``profile_dir`` capture and ``--trace_out``.
 """
 
 import json
@@ -247,19 +249,66 @@ def test_eval_freeze_and_telemetry(jparams, data, tmp_path):
     tele = [json.loads(line) for line in open(os.path.join(tmp_path / "ev", "telemetry.jsonl"))]
     assert [r["step"] for r in tele] == [1, 2, 3]
     assert set(tele[0]) == {"step", "micro", "step_wall_s", "data_wait_s", "compute_s",
-                            "tokens_seen", "loss", "grad_norm"}
+                            "tokens_seen", "loss", "grad_norm", "registry"}
     assert not os.path.exists(tmp_path / "ev" / "projector_last.npz")
     assert os.path.exists(tmp_path / "ev" / "lora_last.npz")
     with pytest.raises(ValueError, match="freeze_mm_mlp_adapter"):
         _port_trainer(jparams, data, tmp_path / "x", freeze_mm_mlp_adapter=True)
 
 
+# profile_dir is ported; its slot holds the other sequence-parallel value.
 @pytest.mark.parametrize("flag", [{"mesh_fsdp": 2}, {"mesh_context": 2},
-                                  {"profile_dir": "p"}, {"attn_impl": "ring"},
+                                  {"attn_impl": "ulysses"}, {"attn_impl": "ring"},
                                   {"remat_policy": "dots_saveable"}])
 def test_unported_options_raise(jparams, data, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         _port_trainer(jparams, data, tmp_path / "x", **flag)
+
+
+def test_telemetry_registry_profile_and_trace_out_match_jax(jparams, data, tmp_path):
+    """Two steps in each package, both registries zeroed and both tracers
+    armed: the ``telemetry.jsonl`` records carry the same keys, the same
+    ``registry`` names and the same step and token counts, and the traces
+    the same span names; the port's ``profile_dir`` capture of step 2
+    writes a trace that loads. ``cli/train --trace_out`` writes its spans."""
+    from eventgpt_tpu.obs import metrics as jmetrics
+    from eventgpt_tpu.obs import trace as jtrace
+    from eventgpt_tpu_torch.obs import metrics as tmetrics
+    from eventgpt_tpu_torch.obs import trace as ttrace
+
+    out = {}
+    for pkg, make, met, trc in (("torch", _port_trainer, tmetrics, ttrace),
+                                ("jax", _jax_trainer, jmetrics, jtrace)):
+        met.REGISTRY.reset()
+        tracer = trc.configure(4096)
+        extra = {"profile_dir": str(tmp_path / "prof")} if pkg == "torch" else {}
+        tr = make(jparams, data, tmp_path / pkg, max_steps=2, **extra)
+        try:
+            tr.train()
+        finally:
+            trc.disable()
+        tele = [json.loads(line) for line in open(tmp_path / pkg / "telemetry.jsonl")]
+        reg = tele[-1]["registry"]
+        out[pkg] = ([sorted(r) for r in tele], sorted(reg), reg["egpt_train_steps_total"],
+                    reg["egpt_train_tokens_total"],
+                    {(e["name"], e["cat"]) for e in tracer.events()})
+    assert out["torch"] == out["jax"]
+    assert out["torch"][2] == 2 and ("batch_to_device", "train") in out["torch"][4]
+    events = [json.loads(line) for line in open(tmp_path / "torch" / "metrics.jsonl")]
+    # The window opens after step 1; the run ends inside it, and train()
+    # closes the capture on its way out.
+    assert [(e["event"], e["step"]) for e in events
+            if e.get("event", "").startswith("profile_")] == [("profile_start", 2)]
+    traces = [f for f in os.listdir(tmp_path / "prof") if f.endswith(".json")]
+    assert len(traces) == 1
+    with open(tmp_path / "prof" / traces[0]) as f:
+        assert json.load(f)["traceEvents"]
+    path = str(tmp_path / "cli_trace.json")
+    tcli.main(["--model_path", "tiny-random", "--data_path", os.path.join(data, "qa.json"),
+               "--event_folder", data, "--device", "cpu", "--bf16", "false", "--max_steps", "1",
+               "--per_device_train_batch_size", "2", "--output_dir", str(tmp_path / "cli"),
+               "--trace_out", path])
+    assert {e["name"] for e in ttrace.load_trace(path)} == {"batch_to_device"}
 
 
 def test_find_latest_checkpoint_orders_as_jax(tmp_path):
@@ -295,9 +344,11 @@ def test_cli_train_subprocess_and_auto_resume(data, tmp_path):
     assert steps == [1, 2, 3]
 
 
-@pytest.mark.parametrize("argv,exc", [(["--trace_out", "t.json"], NotImplementedError),
+# --trace_out and --profile_dir are ported; their slots hold the other
+# refused mesh flags.
+@pytest.mark.parametrize("argv,exc", [(["--mesh_fsdp", "2"], NotImplementedError),
                                       (["--mesh_data", "2"], NotImplementedError),
-                                      (["--profile_dir", "p"], NotImplementedError)])
+                                      (["--mesh_context", "2"], NotImplementedError)])
 def test_cli_refuses_unported_flags(data, tmp_path, argv, exc):
     with pytest.raises(exc):
         tcli.main(["--model_path", "tiny-random", "--data_path", os.path.join(data, "qa.json"),
