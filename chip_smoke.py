@@ -2030,16 +2030,157 @@ def scheduler_numbers(b) -> dict:
             "dispatches": dict(b.dispatches)}
 
 
-def fleet_traffic(engine, reqs) -> tuple:
+def fleet_traffic(engine, reqs, streamed=()) -> tuple:
     """The four requests, then (once they are answered) streams 100 and 101
     again as repeated sessions, through ``submit_ids``/``result``: (chains,
-    ids, wall seconds)."""
+    ids, wall seconds). The first four's ``streamed`` indices go out with
+    ``stream=True`` (a process fleet delivers them at their finish): each
+    queue must hold the chain ``result`` gives, then the end sentinel."""
     t0 = time.perf_counter()
-    first = [engine.submit_ids(*r) for r in reqs[:len(QUERIES)]]
+    first = [engine.submit_ids(*r, stream=i in streamed)
+             for i, r in enumerate(reqs[:len(QUERIES)])]
     chains = [engine.result(f, timeout=WAIT_S) for f in first]
+    for i in streamed:
+        delivered = stream_delivered(engine, first[i])
+        if delivered != [chains[i], None]:
+            raise AssertionError(f"request {i}'s stream delivered {delivered}, not its chain "
+                                 f"{chains[i]} and the end")
     late = [engine.submit_ids(*r) for r in reqs[len(QUERIES):]]
     chains += [engine.result(f, timeout=WAIT_S) for f in late]
     return chains, first + late, time.perf_counter() - t0
+
+
+def stream_delivered(fleet, frid) -> list:
+    """What a process fleet's stream queue holds once the request is over:
+    its lists up to the end sentinel (or the fault)."""
+    q = fleet.stream_queue(frid)
+    out = [q.get(timeout=WAIT_S)]
+    while isinstance(out[-1], list):
+        out.append(q.get(timeout=WAIT_S))
+    return out
+
+
+def procfleet_telemetry(fleet, frids, name: str, handoffs: bool = False) -> dict:
+    """A process fleet's telemetry after its traffic: ``fleet_journeys`` of
+    the coordinator (stitched from the workers' phase durations); its
+    ``series``, ``alerts`` and ``memory_stats`` answered by every worker;
+    each worker's ledger reconciled against its own ``cuda_memory`` (its
+    ``stats`` op, read just after): the live bytes the ledger read are the
+    allocator's, and the ledger accounts for RECONCILE_MIN of them."""
+    journeys, problems = fleet_journeys(fleet, frids, name, handoffs)
+    series, alerts, mem = fleet.series(n=4), fleet.alerts(), fleet.memory_stats()
+    workers = []
+    for slot, sw, aw, mw in zip(fleet.slots, series["workers"], alerts["workers"],
+                                mem["workers"]):
+        allocated = fleet.worker_stats(slot.idx).get("cuda_memory", {}).get("allocated")
+        rec = mw.get("reconcile") or {}
+        w = {"worker": slot.idx, "series_samples": sw.get("samples"),
+             "alerts_active": aw.get("active"), "reconcile": rec, "cuda_allocated": allocated,
+             "ledger_total_bytes": mw.get("total_bytes")}
+        if (any("error" in x for x in (sw, aw, mw)) or not sw.get("enabled")
+                or "rules" not in aw or not allocated
+                or abs(rec.get("live_bytes", 0) - allocated) > 0.01 * allocated
+                or rec.get("accounted_ratio", 0.0) < RECONCILE_MIN):
+            problems.append(f"{name}: worker {slot.idx}'s telemetry {w}")
+        workers.append(w)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"journeys": journeys, "workers": workers,
+            "coordinator_series_samples": series["coordinator"].get("samples"),
+            "aggregate": series["aggregate"], "alerts_active": alerts["active"],
+            "metrics": fleet.stats()["metrics"]}
+
+
+def arm_fleet_telemetry() -> None:
+    """The registry zeroed and counting and the flight recorder armed, for
+    an in-process fleet phase (``disarm_fleet_telemetry`` after it): the
+    script's process arms neither, and a fleet's journeys need both."""
+    from eventgpt_tpu_torch.obs import journey as obs_journey
+    from eventgpt_tpu_torch.obs import metrics as obs_metrics
+
+    obs_metrics.configure(True)
+    obs_metrics.REGISTRY.reset()
+    obs_journey.configure(512)
+
+
+def disarm_fleet_telemetry() -> None:
+    from eventgpt_tpu_torch.obs import journey as obs_journey
+
+    obs_journey.disable()
+
+
+def metric_sum(text: str, name: str) -> float:
+    """The sum of every sample of ``name`` (any labels) in a Prometheus
+    text; 0 when it has none."""
+    return sum(float(line.split()[-1]) for line in text.splitlines()
+               if line.startswith((name + " ", name + "{")))
+
+
+def fleet_journeys(fleet, frids, name: str, handoffs: bool = False) -> tuple:
+    """One stitched journey a request, from the fleet's ``journey`` (the
+    in-process router's or a process coordinator's): finished ``ok``, its
+    failover events and assignments those of the request (one assignment
+    more for a shipped handoff), phases summing to its latency. Returns
+    (numbers, problems)."""
+    problems, out = [], []
+    index = {r["rid"] for r in fleet.journeys(4096)}
+    for f in frids:
+        j = fleet.journey(f)
+        freq = fleet._requests[f]
+        if j is None or not j.get("finished"):
+            problems.append(f"{name}: request {f} has no finished journey: {j}")
+            continue
+        kinds = [e["kind"] for e in j["events"]]
+        gap = abs(sum(j["phases"].values()) - j["e2e_s"])
+        legs = 1 + freq.failovers + kinds.count("kv_handoff")
+        if (j["status"] != "ok" or f not in index or gap > 1e-6
+                or kinds.count("failover") != freq.failovers or len(j["assignments"]) != legs
+                or (handoffs and "kv_handoff" not in kinds)):
+            problems.append(f"{name}: request {f}'s journey: status {j['status']}, events "
+                            f"{kinds}, {len(j['assignments'])} assignments for "
+                            f"{freq.failovers} failovers, phases off e2e by {gap}")
+        out.append({"frid": f, "events": kinds, "phases": j["phases"], "e2e_s": j["e2e_s"],
+                    "assignments": [(a.get("replica", a.get("worker")), a["rid"],
+                                     (a["journey"] or {}).get("status"))
+                                    for a in j["assignments"]]})
+    return out, problems
+
+
+def fleet_telemetry(fleet, frids, name: str) -> dict:
+    """The in-process fleet's telemetry after its traffic (armed by
+    ``arm_fleet_telemetry``): ``fleet_journeys``; ``memory_stats``'
+    reconciliation beside ``torch.cuda.memory_allocated`` read at once; and
+    ``egpt_fleet_routed_total`` and ``egpt_fleet_failovers_total`` in the
+    metrics text equal to the fleet's own counters (a route per submit and
+    per failover)."""
+    import torch
+
+    from eventgpt_tpu_torch.obs import metrics as obs_metrics
+
+    journeys, problems = fleet_journeys(fleet, frids, name)
+    mem = fleet.memory_stats()
+    allocated = torch.cuda.memory_allocated()
+    text = obs_metrics.REGISTRY.render_prometheus()
+    counters = {"routed_total": metric_sum(text, "egpt_fleet_routed_total"),
+                "failovers_total": metric_sum(text, "egpt_fleet_failovers_total"),
+                "fleet_requests": fleet.n_requests, "fleet_failovers": fleet.n_failovers}
+    if (counters["routed_total"] != fleet.n_requests + fleet.n_failovers
+            or counters["failovers_total"] != fleet.n_failovers):
+        problems.append(f"{name}: /metrics {counters}")
+    if [r["replica"] for r in mem["replicas"]] != [rep.idx for rep in fleet.replicas]:
+        problems.append(f"{name}: memory_stats replicas {mem['replicas']}")
+    if abs(mem["reconcile"]["live_bytes"] - allocated) > 0.01 * allocated:
+        problems.append(f"{name}: the reconciliation read {mem['reconcile']['live_bytes']} live "
+                        f"bytes, the allocator {allocated}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"journeys": journeys, "metrics": counters,
+            "memory": {"reconcile": mem["reconcile"], "cuda_allocated": allocated,
+                       "total_bytes": mem["total_bytes"],
+                       "replicas": [{"replica": r["replica"],
+                                     "bytes": sum(r["components"].values())}
+                                    for r in mem["replicas"]]},
+            "alerts_active": fleet.alerts().get("active")}
 
 
 def serve_fleet_7b(eventchat, llama, params, cfg, tokenizer, requests, counted, n_layers: int,
@@ -2077,11 +2218,13 @@ def serve_fleet_7b(eventchat, llama, params, cfg, tokenizer, requests, counted, 
     k1["one_engine"] = launches[FLASH_KERNEL.source]
 
     def fleet_run():
+        arm_fleet_telemetry()
         fleet = cli_serve.make_engine(parser.parse_args(FLEET_FLAGS + ["--fleet", "2"]), params,
                                       cfg, tokenizer, "cuda")
         threads = replica_threads(fleet)
         try:
             chains, frids, wall = fleet_traffic(fleet, requests)
+            telemetry = fleet_telemetry(fleet, frids, "serve_fleet_7b")
             homes = [fleet.replica_of(f) for f in frids]
             per_k1 = replica_k1(fleet, threads, n_layers, "serve_fleet_7b")
             reps = []
@@ -2094,12 +2237,13 @@ def serve_fleet_7b(eventchat, llama, params, cfg, tokenizer, requests, counted, 
                              "scheduler": scheduler_numbers(b),
                              "pool": pool_clean(b, f"serve_fleet_7b replica {rep.idx}")})
             stats = [fleet.batcher.request_stats.get(f) for f in frids]
-            return chains, wall, homes, reps, stats, fleet.fleet_stats()
+            return chains, wall, homes, reps, stats, fleet.fleet_stats(), telemetry
         finally:
             fleet.shutdown()
+            disarm_fleet_telemetry()
 
     torch.cuda.reset_peak_memory_stats()
-    (chains, wall, homes, reps, stats, fl), launches = counted(fleet_run)
+    (chains, wall, homes, reps, stats, fl, telemetry), launches = counted(fleet_run)
     peak = torch.cuda.max_memory_allocated()
     k1["fleet"] = launches[FLASH_KERNEL.source]
     n = len(QUERIES)
@@ -2127,7 +2271,8 @@ def serve_fleet_7b(eventchat, llama, params, cfg, tokenizer, requests, counted, 
                                        "scheduler": one_sched},
         "fleet_wall_over_one_engine": wall / one_wall, "vs_oracle": rules["fleet"],
         "one_engine_vs_oracle": rules["one_engine"], "k1_launches": k1,
-        "peak_mem_bytes": peak, "first_ids": [c[:8] for c in chains], "nvidia_smi": smi})
+        "telemetry": telemetry, "peak_mem_bytes": peak, "first_ids": [c[:8] for c in chains],
+        "nvidia_smi": smi})
     ref = {"want": want, "fleet_wall_s": wall, "one_engine_wall_s": one_wall,
            "fleet_ttft_s": [s["ttft_s"] for s in stats],
            "one_engine_ttft_s": [s["ttft_s"] for s in one_stats],
@@ -2153,6 +2298,7 @@ def fleet_chaos_run(params, cfg, tokenizer, reqs, new_session, flags, n_layers: 
     from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
 
     args = cli_serve.build_parser().parse_args(FLEET_FLAGS + list(flags) + ["--fleet", "2"])
+    arm_fleet_telemetry()
     fleet = cli_serve.make_engine(args, params, cfg, tokenizer, "cuda")
     threads = replica_threads(fleet)
     kill = fleet.kill_replica
@@ -2229,11 +2375,13 @@ def fleet_chaos_run(params, cfg, tokenizer, reqs, new_session, flags, n_layers: 
                 k: n - at_kill["dispatches"][survivor].get(k, 0)
                 for k, n in fleet.replicas[survivor].engine.batcher.dispatches.items()},
             "scheduler": [scheduler_numbers(rep.engine.batcher) for rep in fleet.replicas],
-            "fleet": fleet.fleet_stats()}
+            "fleet": fleet.fleet_stats(),
+            "telemetry": fleet_telemetry(fleet, frids + [f_new], name)}
         return numbers, chains
     finally:
         faults.disable()
         fleet.shutdown()
+        disarm_fleet_telemetry()
         del fleet
         torch.cuda.empty_cache()
 
@@ -2520,6 +2668,9 @@ PROCFLEET_BOOT_S = 600.0
 TELEMETRY_FLAGS = ["--max_batch", "4", "--max_len", "1024", "--chunk", "32", "--kv_cache",
                    "int8", "--kv_layout", "paged"]
 TELEMETRY_BOOT_S = 600.0
+# The requests of ``telemetry_requests`` that go out with "stream": true: one
+# of the first four, one of the late two.
+TELEMETRY_STREAMED = (1, 4)
 PROFILE_SECONDS = 2.0
 PROFILE_LEAD_S = 0.3
 RECONCILE_MIN = 0.9
@@ -2662,7 +2813,9 @@ def procfleet_chaos(fleet, reqs, new_session, counted, n_layers: int, smi: str) 
         return snap["active_rows"] > 0 and snap["decode_steps_run"] >= 2 * 32
 
     def run():
-        frids = [fleet.submit_ids(*r) for r in reqs]
+        # Streamed, so that the moved requests' streams must survive the
+        # redo (delivered at the finish).
+        frids = [fleet.submit_ids(*r, stream=True) for r in reqs]
         homes = [fleet.worker_of(f) for f in frids]
         wait_for(mid_decode, "serve_procfleet_chaos_7b: the busiest worker mid-decode")
         faults.configure("procfleet.worker_kill:n=1")
@@ -2681,6 +2834,11 @@ def procfleet_chaos(fleet, reqs, new_session, counted, n_layers: int, smi: str) 
     if not moved or any(fleet.worker_of(f) != survivor for f in moved):
         raise AssertionError(f"serve_procfleet_chaos_7b: the kill of worker {victim} moved "
                              f"{moved} to {[fleet.worker_of(f) for f in moved]}")
+    delivered = [stream_delivered(fleet, f) for f in frids]
+    if delivered != [[c, None] for c in chains]:
+        raise AssertionError(f"serve_procfleet_chaos_7b: the streams delivered "
+                             f"{[[x if x is None else len(x) for x in d] for d in delivered]}, "
+                             f"not each chain and the end")
     first_token = [fleet._requests[f].t_assign + fleet._requests[f].stats["ttft_s"] - at_kill["t"]
                    for f in moved]
     survivor_stats = worker_numbers(fleet, n_layers, "serve_procfleet_chaos_7b",
@@ -2693,6 +2851,7 @@ def procfleet_chaos(fleet, reqs, new_session, counted, n_layers: int, smi: str) 
         raise AssertionError(f"serve_procfleet_chaos_7b: the new session went to worker "
                              f"{fleet.worker_of(f_new)}, not the respawned {victim}")
     workers = worker_numbers(fleet, n_layers, "serve_procfleet_chaos_7b respawned")
+    telemetry = procfleet_telemetry(fleet, frids + [f_new], "serve_procfleet_chaos_7b")
     statuses = [fleet.status(f) for f in frids + [f_new]]
     if statuses != ["ok"] * len(statuses) or launches["flash_attention.cu"]:
         raise AssertionError(f"serve_procfleet_chaos_7b: statuses {statuses}, coordinator "
@@ -2708,6 +2867,8 @@ def procfleet_chaos(fleet, reqs, new_session, counted, n_layers: int, smi: str) 
                     "crashes": len(slot.crashes), "respawns": fleet.n_respawns,
                     "wait_after_results_s": respawn_s},
         "new_session_worker": fleet.worker_of(f_new), "respawned_k1": workers[victim]["k1"],
+        "streamed_moved_delivered": [len(delivered[frids.index(f)][0]) for f in moved],
+        "telemetry": telemetry,
         "cuda_max_allocated_by_worker": [w["cuda_max_allocated"] for w in workers],
         "fleet": fleet.fleet_stats(), "first_ids": [c[:8] for c in chains], "nvidia_smi": smi}
     return numbers, chains, {"survivor_after_kill": survivor_stats["k1"],
@@ -2743,10 +2904,12 @@ def serve_procfleet_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, re
         boot_s = time.perf_counter() - t0
         try:
             used["workers_up"] = smi_used_mib()
-            (chains, frids, wall), launches = counted(lambda: fleet_traffic(fleet, requests))
+            (chains, frids, wall), launches = counted(
+                lambda: fleet_traffic(fleet, requests, streamed=(0,)))
             used["after_traffic"] = smi_used_mib()
             homes = [fleet.worker_of(f) for f in frids]
             workers = worker_numbers(fleet, n_layers, "serve_procfleet_7b")
+            telemetry = procfleet_telemetry(fleet, frids, "serve_procfleet_7b")
             n = len(QUERIES)
             repeat_home = [homes[st] for st, _, _ in SERVE_EXTRA]
             if (homes[n:] != repeat_home or sorted(set(homes)) != [0, 1]
@@ -2769,6 +2932,7 @@ def serve_procfleet_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, re
                 "in_process_fleet": {k: v for k, v in fleet_ref.items() if k != "want"},
                 "wall_over_in_process_fleet": wall / fleet_ref["fleet_wall_s"],
                 "wall_over_one_engine": wall / fleet_ref["one_engine_wall_s"],
+                "streamed": [0], "telemetry": telemetry,
                 "smi_used_mib": used, "fleet": fleet.fleet_stats(),
                 "first_ids": [c[:8] for c in chains], "nvidia_smi": smi}
             chaos, chaos_chains, k1["chaos"] = procfleet_chaos(
@@ -2836,6 +3000,9 @@ def serve_disagg_7b(eventchat, llama, params, cfg, tokenizer, reqs, want, ckpt: 
             (chains, frids, wall), launches = counted(run)
             used["after_traffic"] = smi_used_mib()
             workers = worker_numbers(fleet, n_layers, "serve_disagg_7b")
+            journeys, problems = fleet_journeys(fleet, frids, "serve_disagg_7b", handoffs=True)
+            if problems:
+                raise AssertionError("; ".join(problems))
             pools = procfleet_pools_clean(fleet, "serve_disagg_7b")
             fl = fleet.fleet_stats()
             if ([w["k1"] for w in workers] != [n_layers, 0] or launches["flash_attention.cu"]
@@ -2861,6 +3028,7 @@ def serve_disagg_7b(eventchat, llama, params, cfg, tokenizer, reqs, want, ckpt: 
                                      "frames": [rpc.run_frames(n) for n in big_received]},
                 "kv_bytes_shipped": fl["handoffs"]["bytes"],
                 "handoff_s": [fleet._requests[f].handoff_s for f in frids],
+                "journeys": journeys,
                 "rebased_ttft_s": [s["ttft_s"] for s in stats],
                 "latency_s": [s["latency_s"] for s in stats], "wall_s": wall,
                 "smi_used_mib": used, "fleet": fl, "first_ids": [c[:8] for c in chains],
@@ -2937,6 +3105,9 @@ class ServerProcess:
         ctype = res.getheader("Content-Type", "")
         return res.status, (json.loads(body) if "json" in ctype else body.decode())
 
+    def stream(self, obj, timeout: float = WAIT_S) -> tuple:
+        return http_stream(self.port, obj, timeout)
+
     def get(self, path: str):
         code, body = self.request("GET", path)
         if code != 200:
@@ -2972,8 +3143,10 @@ def telemetry_run(ckpt: str, work: str, name: str, extra=(), profile: bool = Fal
     """One ``cli/serve`` process over the 7B checkpoint with
     ``TELEMETRY_FLAGS`` (+ ``extra``): the four first requests at once, the
     two late ones after the first harvest (``segments`` in ``/stats``),
-    every answer with its ids and journey. With ``profile`` a ``POST
-    /profile`` of PROFILE_SECONDS starts PROFILE_LEAD_S before the first
+    every answer with its ids and journey; TELEMETRY_STREAMED's go out
+    streamed (the client stamps its first delta; the ``done`` record carries
+    the ids, the TTFT comes from ``/stats``' recent requests). With
+    ``profile`` a ``POST /profile`` of PROFILE_SECONDS starts PROFILE_LEAD_S before the first
     requests (a 0 s capture before it starts the profiler once). Then the
     telemetry routes are read, and the process is stopped."""
     import threading
@@ -2995,8 +3168,16 @@ def telemetry_run(ckpt: str, work: str, name: str, extra=(), profile: bool = Fal
         results = [None] * len(reqs)
 
         def send(i):
-            results[i] = srv.request("POST", "/v1/generate",
-                                     {**reqs[i], "return_ids": True, "debug": True})
+            if i not in TELEMETRY_STREAMED:
+                results[i] = srv.request("POST", "/v1/generate",
+                                         {**reqs[i], "return_ids": True, "debug": True})
+                return
+            code, events, first_event, first_delta = srv.stream({**reqs[i], "return_ids": True})
+            done = events[-1] if events else {}
+            results[i] = (code, {**done, "stream": {
+                "events": len(events), "first_event_s": first_event,
+                "first_delta_s": first_delta, "answer_chars": len(done.get("answer", "")),
+                "deltas_equal_answer": stream_text(events).strip() == done.get("answer")}})
 
         def capture():
             out["profile"] = srv.request("POST", "/profile", {"seconds": PROFILE_SECONDS})
@@ -3026,19 +3207,23 @@ def telemetry_run(ckpt: str, work: str, name: str, extra=(), profile: bool = Fal
             raise AssertionError(f"{name}: answers {bad}; {srv.log_tail()}")
         out["chains"] = [r[1]["ids"] for r in results]
         out["rids"] = [r[1]["rid"] for r in results]
-        out["ttft_s"] = [r[1]["ttft_s"] for r in results]
         stats = srv.get("/stats")
+        out["ttft_s"] = [r[1]["ttft_s"] if "ttft_s" in r[1]
+                         else stats["recent"][str(r[1]["rid"])]["ttft_s"] for r in results]
+        out["streamed"] = {i: {**results[i][1]["stream"], "ttft_s": out["ttft_s"][i]}
+                           for i in TELEMETRY_STREAMED}
         out["stats"] = {k: stats[k] for k in ("decode_s", "decode_steps", "decode_steps_run",
                                               "segments", "dispatches", "prefix_cache",
                                               "lanes_started", "overlap_ratio", "launches",
-                                              "memory", "metrics", "alerts")}
+                                              "memory", "metrics", "alerts", "lock_wait_s")}
         out["decode_ms_per_step"] = stats["decode_s"] * 1e3 / max(stats["decode_steps"], 1)
         out["metrics_text"] = srv.get("/metrics")
         if armed:
             out["requests"] = srv.get("/requests")["requests"]
             out["journeys"] = [srv.get(f"/request?rid={rid}") for rid in out["rids"]]
             out["debug_equals_route"] = [
-                r[1]["debug"]["rid"] == rid for r, rid in zip(results, out["rids"])]
+                r[1]["debug"]["rid"] == rid for i, (r, rid) in enumerate(zip(results, out["rids"]))
+                if i not in TELEMETRY_STREAMED]
             out["trace"] = srv.get("/trace")
             out["memory"] = srv.get("/memory")
             out["series"] = srv.get("/series?n=4")
@@ -3053,6 +3238,42 @@ def telemetry_run(ckpt: str, work: str, name: str, extra=(), profile: bool = Fal
     if armed:
         out["trace_out_events"] = len(trace_events(trace_out))
     return out
+
+
+def http_stream(port: int, obj, timeout: float = WAIT_S) -> tuple:
+    """POST /v1/generate with "stream": true to a local server: (status, the
+    NDJSON events, seconds from the request to the first event and to the
+    first delta as the client reads them; None for an answer with no
+    text)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/generate", body=json.dumps({**obj, "stream": True}))
+    res = conn.getresponse()
+    events, first_event, first_delta = [], None, None
+    for line in res:
+        if not line.strip():
+            continue
+        ev = json.loads(line)
+        now = time.perf_counter() - t0
+        if first_event is None:
+            first_event = now
+        if first_delta is None and ("delta" in ev or "restart" in ev):
+            first_delta = now
+        events.append(ev)
+    return res.status, events, first_event, first_delta
+
+
+def stream_text(events) -> str:
+    """The text a streaming client builds from its deltas and restarts."""
+    text = ""
+    for ev in events:
+        if "delta" in ev:
+            text += ev["delta"]
+        elif "restart" in ev:
+            text = ev["restart"]
+    return text
 
 
 def trace_events(path: str) -> list:
@@ -3130,6 +3351,17 @@ def serve_telemetry_7b(eventchat, llama, params, cfg, tokenizer, requests, oracl
         problems.append(f"the ledger accounts {rec['accounted_ratio']} of the live bytes")
     if off["trace_code"] != 404:
         problems.append(f"--no_telemetry /trace answered {off['trace_code']}")
+    for r in ("armed", "no_telemetry"):
+        # The random 7B weights' answers are mostly empty text (token ids
+        # past the byte range decode to nothing), and an empty answer sends
+        # no delta: the first event is then the done record.
+        bad = {i: st for i, st in runs[r]["streamed"].items()
+               if not st["deltas_equal_answer"] or st["first_event_s"] is None
+               or (st["answer_chars"] > 0) != (st["first_delta_s"] is not None)}
+        if bad:
+            problems.append(f"{r}: streamed requests {bad}")
+    submits = [j["t_submit"] for j in armed["journeys"]]
+    first_wave = sorted(submits[:len(QUERIES)])
     deferrals = metric_value(guarded["metrics_text"], "egpt_mem_guard_deferrals_total")
     if deferrals < 1 or guarded["stats"]["memory"]["guard"]["deferrals"] < 1:
         problems.append(f"the guard deferred {deferrals} times")
@@ -3171,6 +3403,10 @@ def serve_telemetry_7b(eventchat, llama, params, cfg, tokenizer, requests, oracl
         "decode_steps": {r: runs[r]["stats"]["decode_steps"] for r in runs},
         "decode_steps_run": {r: runs[r]["stats"]["decode_steps_run"] for r in runs},
         "ttft_s": {r: runs[r]["ttft_s"] for r in runs},
+        "streamed": {r: runs[r]["streamed"] for r in runs},
+        "first_wave_submit_spread_s": first_wave[-1] - first_wave[0],
+        "armed_submit_offsets_s": [t - min(submits) for t in submits],
+        "lock_wait_s": {r: runs[r]["stats"]["lock_wait_s"] for r in runs},
         "boot_s": {r: runs[r]["boot_s"] for r in runs},
         "late_submit_s": {r: runs[r]["late_submit_s"] for r in runs},
         "dispatches": {r: runs[r]["stats"]["dispatches"] for r in runs},
@@ -3257,6 +3493,61 @@ def tiny_telemetry_card_vs_cpu(work: str) -> dict:
                       "prefix cache; journeys armed", "identical": True,
             "kinds": res["cuda"]["kinds"], "counters": res["cuda"]["counters"],
             "tokens": [len(c) for c in res["cuda"]["chains"]]}
+
+
+def tiny_stream_card_vs_cpu(work: str) -> dict:
+    """A streamed request through the tiny f32 server's HTTP handler on the
+    card and on the CPU (the byte vocabulary, so the answer has text): the
+    same NDJSON events, the deltas concatenating to the ``done`` answer, and
+    the time to the first delta beside the request's TTFT on each."""
+    import base64
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from eventgpt_tpu_torch.cli import serve as cli_serve
+    from eventgpt_tpu_torch.config import EventChatConfig
+    from eventgpt_tpu_torch.data.tokenizer import ByteTokenizer
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params
+    from eventgpt_tpu_torch.serve import ContinuousBatcher
+
+    cfg = EventChatConfig.tiny(vocab_size=260)
+    cpu = init_eventchat_params(cfg, torch.Generator().manual_seed(3), torch.float32, "cpu")
+    with open(os.path.join(work, "events_0.npy"), "rb") as f:
+        b64 = base64.b64encode(f.read()).decode()
+    res = {}
+    for dev, params in (("cpu", cpu), ("cuda", _to(cpu, "cuda"))):
+        engine = cli_serve.ServingEngine(
+            ContinuousBatcher(params, cfg, max_batch=2, max_len=512, chunk=8, eos_token_id=None,
+                              device=dev), ByteTokenizer())
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), cli_serve.make_handler(engine, cfg))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            code, events, first_event, first_delta = http_stream(
+                httpd.server_address[1], {"query": QUERIES[0], "event_b64": b64,
+                                          "max_new_tokens": 40, "return_ids": True})
+            done = events[-1]
+            res[dev] = {"code": code, "events": events, "first_event_s": first_event,
+                        "first_delta_s": first_delta,
+                        "ttft_s": engine.batcher.request_stats[done["rid"]]["ttft_s"],
+                        "deltas_equal_answer": stream_text(events).strip() == done["answer"]}
+        finally:
+            httpd.shutdown()
+            engine.shutdown()
+            httpd.server_close()
+    card, host = res["cuda"], res["cpu"]
+    if (card["events"] != host["events"] or card["code"] != 200 or not card["deltas_equal_answer"]
+            or card["first_delta_s"] is None or card["events"][-1].get("status") != "ok"):
+        raise AssertionError(f"tiny streamed request: card {card}, cpu {host}")
+    return {"config": "tiny f32 (vocab 260), 2 rows, chunk 8, one request of 40 tokens over "
+                      "HTTP with \"stream\": true", "identical": True,
+            "events": len(card["events"]),
+            "deltas": sum("delta" in e for e in card["events"]),
+            "restarts": sum("restart" in e for e in card["events"]),
+            "answer_chars": len(card["events"][-1]["answer"]),
+            "first_delta_s": {d: r["first_delta_s"] for d, r in res.items()},
+            "ttft_s": {d: r["ttft_s"] for d, r in res.items()}}
 
 
 def tiny_procfleet_card_vs_cpu(work: str) -> dict:
@@ -5392,6 +5683,7 @@ def main() -> int:
         emit("tiny_serve_defaults_card_vs_cpu", tiny_serve_defaults_card_vs_cpu(work))
         emit("tiny_serve_spec_card_vs_cpu", tiny_serve_spec_card_vs_cpu(work))
         emit("tiny_telemetry_card_vs_cpu", tiny_telemetry_card_vs_cpu(work))
+        emit("tiny_stream_card_vs_cpu", tiny_stream_card_vs_cpu(work))
         emit("tiny_preempt_card_vs_cpu", tiny_preempt_card_vs_cpu())
         emit("tiny_fleet_card_vs_cpu", tiny_fleet_card_vs_cpu())
         emit("tiny_procfleet_card_vs_cpu", tiny_procfleet_card_vs_cpu(work))

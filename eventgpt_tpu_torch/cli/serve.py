@@ -16,6 +16,9 @@ Endpoints:
                       "event_path": .npy path under --event_root |
                       "event_b64": base64 .npy bytes,
                       "max_new_tokens": int = --max_new_tokens,
+                      "stream": true (optional: a chunked NDJSON body of
+                      {"delta"} / {"restart"} events and a last {"done"}, which
+                      carries the ids with "return_ids"),
                       "deadline_s": float (optional),
                       "debug": true (optional: the answer carries its journey),
                       "return_ids": true (optional: and its token ids),
@@ -64,9 +67,14 @@ Endpoints:
                         S seconds of the running server, written as a Chrome
                         trace into --profile_dir (else a temporary dir): 400 on
                         bad seconds, 409 while another capture runs
-  With --fleet or --proc_fleet the fleets' journeys, series, alerts and
-  memory are not ported yet (ROADMAP Queue 1 item 6b): those routes answer
-  501.
+  With --fleet the journeys are stitched across a request's assignments,
+  and the series, alerts and memory are the process's with each replica's
+  share; with --proc_fleet the coordinator's journeys are stitched from the
+  workers' phase durations, and the series, alerts and memory gather each
+  worker's over RPC beside the coordinator's own. A process fleet delivers
+  a streamed request at its finish (one delta), so it can fail over; the
+  in-process fleet ends a streamed request on a killed replica with the
+  fault.
 
 Ported flags: --model_path (tiny-random or a checkpoint dir), --tokenizer_path
 byte, --use_event_qformer, --pretrain_query_embedder,
@@ -128,11 +136,13 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import dataclasses
 import itertools
 import json
 import math
 import os
+import queue
 import tempfile
 import threading
 import time
@@ -161,7 +171,17 @@ class ServingEngine:
     The batcher is single-threaded by design; the engine serializes every
     call behind ``_lock`` and runs the scheduler on its own thread, which
     parks when no work exists. HTTP handler threads only prepare requests
-    (event file -> pixels, tokenize) and wait on per-request events.
+    (event file -> pixels, tokenize) and wait on per-request events, or
+    read a streamed request's queue of cumulative token lists.
+
+    The lock is handed over fairly at the step boundary: a caller from
+    outside the loop (``submit_ids``, ``cancel``, ``set_prefix``,
+    ``kill``, ``revive``, ``import_handoff``, the collections) announces
+    itself before it takes the lock (``_locked``), and after each step the
+    loop does not take the lock again while announced callers wait, for at
+    most ``HANDOFF_WAIT_S``, so that a stuck caller cannot stall it.
+    Python's lock is not fair: without the hand-off the loop, which takes
+    the lock again at once, kept a submit waiting through whole requests.
 
     A scheduler exception fails the in-flight rows, lanes and pending
     admission (their waiters get the fault), keeps the queued requests, and
@@ -180,6 +200,9 @@ class ServingEngine:
     it.
     """
 
+    # The longest the loop waits at a step boundary for announced callers.
+    HANDOFF_WAIT_S = 0.05
+
     def __init__(self, batcher, tokenizer, conv_mode: str = "eventgpt_v1",
                  breaker_threshold: int = 3, breaker_cooldown_s: float = 5.0,
                  heartbeat_dir: Optional[str] = None, heartbeat_interval_s: float = 1.0,
@@ -189,11 +212,19 @@ class ServingEngine:
         self.tokenizer = tokenizer
         self.conv_mode = conv_mode
         self._lock = threading.Lock()
+        # Callers announced for the lock, and the loop's wait for them; the
+        # announced acquisitions, their seconds of waiting and the longest.
+        self._turn = threading.Condition()
+        self._waiting = 0
+        self._lock_waits = {"n": 0, "total_s": 0.0, "max_s": 0.0}
         self._wake = threading.Event()
         self._stop = False
         self._done: Dict[int, threading.Event] = {}
         self._answers: Dict[int, list] = {}
         self._status: Dict[int, str] = {}
+        # A streamed request's queue and the tokens already put on it.
+        self._streams: Dict[int, queue.Queue] = {}
+        self._sent: Dict[int, int] = {}
         self._abandoned: set = set()  # timed-out rids: dropped at harvest
         self.n_requests = 0
         self.t_start = time.time()
@@ -223,6 +254,26 @@ class ServingEngine:
 
     # -- client side ------------------------------------------------------
 
+    @contextlib.contextmanager
+    def _locked(self):
+        """The engine lock for a caller from outside the loop, announced
+        first, so that the loop hands it over at its next step boundary."""
+        with self._turn:
+            self._waiting += 1
+        t0 = time.perf_counter()
+        try:
+            with self._lock:
+                waited = time.perf_counter() - t0
+                w = self._lock_waits
+                w["n"] += 1
+                w["total_s"] += waited
+                w["max_s"] = max(w["max_s"], waited)
+                yield
+        finally:
+            with self._turn:
+                self._waiting -= 1
+                self._turn.notify_all()
+
     def breaker_open(self) -> bool:
         """True while the breaker refuses work: the fault streak reached the
         threshold and the cooldown has not passed (after it, half-open)."""
@@ -240,25 +291,37 @@ class ServingEngine:
         if self.breaker_open() or self._dead:
             raise RuntimeError(f"serving engine is down: {self.fault}")
 
-    def submit(self, query: str, pixels, max_new_tokens: int,
+    def submit(self, query: str, pixels, max_new_tokens: int, stream: bool = False,
                deadline_s: Optional[float] = None, slo: Optional[SLO] = None) -> int:
         ids = tokenize_with_event(prepare_event_prompt(query, self.conv_mode), self.tokenizer)
-        return self.submit_ids(ids, pixels, max_new_tokens, deadline_s=deadline_s, slo=slo)
+        return self.submit_ids(ids, pixels, max_new_tokens, stream=stream,
+                               deadline_s=deadline_s, slo=slo)
 
-    def submit_ids(self, ids, pixels, max_new_tokens: int,
+    def submit_ids(self, ids, pixels, max_new_tokens: int, stream: bool = False,
                    deadline_s: Optional[float] = None, slo: Optional[SLO] = None) -> int:
-        """``submit`` for a tokenized prompt (a fleet's entry point)."""
+        """``submit`` for a tokenized prompt (a fleet's entry point). A
+        ``stream`` request's tokens arrive on ``stream_queue(rid)``."""
         self._refuse_if_down()
-        with self._lock:
+        with self._locked():
             # Again under the lock: a trip or a kill meanwhile has swept the
             # waiters, and a waiter added after the sweep would wait forever.
             self._refuse_if_down()
             rid = self.batcher.submit(ids, pixels, max_new_tokens, deadline_s=deadline_s,
                                       slo=slo)
             self._done[rid] = threading.Event()
+            if stream:
+                self._streams[rid] = queue.Queue()
+                self._sent[rid] = 0
             self.n_requests += 1
         self._wake.set()
         return rid
+
+    def stream_queue(self, rid: int) -> queue.Queue:
+        """A streamed request's queue of cumulative token-id lists, ended by
+        ``None`` (finished ``ok``), ``{"status": s}`` (a forced finish) or
+        ``{"fault": repr}`` (an engine fault): a consumer surfaces a dict,
+        it does not decode it."""
+        return self._streams[rid]
 
     def set_prefix(self, prefix_prompt: str, pixels=None) -> int:
         """Insert a prefix-KV cache entry (``ContinuousBatcher.set_prefix``)
@@ -267,7 +330,7 @@ class ServingEngine:
         cache positions. Safe on a live engine: the prefix prefills its own
         row cache."""
         ids = tokenize_with_event(prefix_prompt, self.tokenizer)
-        with self._lock:
+        with self._locked():
             plen = self.batcher.set_prefix(ids, pixel_values=pixels)
             self._snapshot = self._build_snapshot_locked()
         return plen
@@ -275,7 +338,7 @@ class ServingEngine:
     def cancel(self, rid: int) -> bool:
         """Cancel a queued or in-flight request; its waiter is released with
         the tokens it committed, under status ``cancelled``."""
-        with self._lock:
+        with self._locked():
             ok = self.batcher.cancel(rid)
             if ok:
                 self._harvest_locked()
@@ -292,7 +355,7 @@ class ServingEngine:
         """Block until the request finishes; returns its token ids."""
         ev = self._done[rid]
         if not ev.wait(timeout):
-            with self._lock:
+            with self._locked():
                 # Take an answer that landed meanwhile, or have the harvest
                 # drop it: nobody waits for it any more.
                 self._done.pop(rid, None)
@@ -300,7 +363,7 @@ class ServingEngine:
                     return self._answers.pop(rid)
                 self._abandoned.add(rid)
             raise TimeoutError(f"request {rid} did not finish in {timeout}s")
-        with self._lock:
+        with self._locked():
             self._done.pop(rid, None)
             if rid not in self._answers:
                 raise RuntimeError(f"serving engine is down: "
@@ -311,7 +374,7 @@ class ServingEngine:
         """A fleet supervisor's non-blocking collection: ``(tokens, status)``
         once the request is over, ``(None, "engine_fault")`` when a fault
         failed it, else None. Consuming, like ``result``."""
-        with self._lock:
+        with self._locked():
             if rid in self._answers:
                 self._done.pop(rid, None)
                 return self._answers.pop(rid), self._status.get(rid, "ok")
@@ -321,10 +384,14 @@ class ServingEngine:
         return None
 
     def try_status(self, rid: int) -> Optional[str]:
-        """A request's terminal status once it is known, else None (not
-        consuming)."""
-        with self._lock:
-            return self._status.get(rid)
+        """A request's terminal status once it is known and, for a streamed
+        request, delivered through its queue (a fleet supervisor's
+        collection of a stream); else None. Not consuming."""
+        with self._locked():
+            st = self._status.get(rid)
+            if st is not None and rid not in self._streams:
+                return st
+        return None
 
     def kill(self) -> List[Dict[str, Any]]:
         """Take the engine out of service (a fleet's replica death): deliver
@@ -332,18 +399,21 @@ class ServingEngine:
         (``export_requests``) and return their re-admission records. The
         export settles the in-flight segment first, which can finish a
         request after the first harvest, so the engine harvests again. The
-        exported requests' waiter state is dropped: the fleet owns them. The
-        loop parks and submits are refused until ``revive()``. The flag is
-        raised before the lock is taken: the loop, which takes the lock again
-        as soon as it lets it go, sees it and parks, so that the kill does
-        not wait for the running requests to end."""
+        exported requests' waiter and stream state is dropped: the fleet owns
+        them. The loop parks and submits are refused until ``revive()``. The
+        flag is raised before the lock is taken, and the kill announces
+        itself: the loop hands the lock over at its next step boundary, sees
+        the flag and parks."""
         self._dead = True
-        with self._lock:
+        with self._locked():
+            self._push_stream_deltas_locked()
             self._harvest_locked()
             recs = self.batcher.export_requests()
             self._harvest_locked()
             for rec in recs:
                 self._done.pop(rec["rid"], None)
+                self._streams.pop(rec["rid"], None)
+                self._sent.pop(rec["rid"], None)
                 self._abandoned.discard(rec["rid"])
             self._snapshot = self._build_snapshot_locked()
         self._wake.set()
@@ -351,7 +421,7 @@ class ServingEngine:
 
     def revive(self) -> None:
         """Back into service after ``kill``, with a closed breaker."""
-        with self._lock:
+        with self._locked():
             self._dead = False
             self._consec_faults = 0
             self.fault = None
@@ -364,7 +434,7 @@ class ServingEngine:
 
     def collect_handoffs(self) -> List[Dict[str, Any]]:
         """Drain a prefill-role batcher's handoff outbox (empty otherwise)."""
-        with self._lock:
+        with self._locked():
             out = self.batcher.pop_handoffs()
             if out:
                 self._snapshot = self._build_snapshot_locked()
@@ -377,7 +447,7 @@ class ServingEngine:
         breaker and kill gate as ``submit_ids``: a degraded engine refuses,
         so that the record goes elsewhere."""
         self._refuse_if_down()
-        with self._lock:
+        with self._locked():
             self._refuse_if_down()
             rid = self.batcher.import_handoff(
                 ids, max_new_tokens, rec, tokens=tokens, prompt_len=prompt_len,
@@ -398,7 +468,8 @@ class ServingEngine:
                 # The registry's view of what /metrics exposes, the alerts,
                 # and the kernels this process launched.
                 "metrics": obs_metrics.serve_summary(), "alerts": obs_series.alert_stats(),
-                **kernel_launches()}
+                # How long callers from outside the loop waited for the lock.
+                "lock_wait_s": dict(self._lock_waits), **kernel_launches()}
 
     # The telemetry surfaces read state that guards itself (the recorder,
     # the series store, the ledger): no engine lock, so that they answer
@@ -515,6 +586,7 @@ class ServingEngine:
                         b.queue or any(r is not None for r in b.rows) or b._inflight is not None)
                     if busy:
                         b.step()
+                        self._push_stream_deltas_locked()
                         self._harvest_locked()
                         self._n_steps += 1
                         if self._consec_faults:
@@ -537,7 +609,9 @@ class ServingEngine:
                 return
             self._maybe_beat()
             if busy:
-                time.sleep(0)  # a thread waiting on the lock may take it between steps
+                # The fair hand-off: announced callers take the lock first.
+                with self._turn:
+                    self._turn.wait_for(lambda: not self._waiting, timeout=self.HANDOFF_WAIT_S)
             else:
                 self._wake.wait(timeout=0.1)
                 self._wake.clear()
@@ -584,10 +658,26 @@ class ServingEngine:
                            self.batcher.export_requests(journey_status="engine_fault")]
             for rid in failed:
                 self._status[rid] = "engine_fault"
-                if rid in self._done:
+                if rid in self._streams:
+                    # A dict sentinel, not None: the stream's reader surfaces
+                    # the fault instead of ending the body as done.
+                    self._streams.pop(rid).put({"fault": self.fault})
+                    self._sent.pop(rid, None)
+                    self._done.pop(rid, None)
+                elif rid in self._done:
                     self._done[rid].set()  # result() finds no answer: raises
                 self._abandoned.discard(rid)
             self._snapshot = self._build_snapshot_locked()
+
+    def _push_stream_deltas_locked(self) -> None:
+        """Put each live streamed row's tokens on its queue when it grew."""
+        for req in self.batcher.rows:
+            if req is None or req.rid not in self._streams:
+                continue
+            n = len(req.tokens)
+            if n > self._sent[req.rid]:
+                self._streams[req.rid].put(list(req.tokens[:n]))
+                self._sent[req.rid] = n
 
     def _harvest_locked(self) -> None:
         if not self.batcher.finished:
@@ -601,6 +691,17 @@ class ServingEngine:
             while len(self._status) >= 8192:
                 self._status.pop(next(iter(self._status)))
             self._status[rid] = status
+            if rid in self._streams:
+                # The reader holds its own reference to the queue: all engine
+                # state of a streamed request goes here (it never calls
+                # result()). None ends a finish ``ok``; a status dict a
+                # forced finish, which the reader surfaces.
+                q = self._streams.pop(rid)
+                q.put(list(toks))
+                q.put(None if status == "ok" else {"status": status})
+                self._sent.pop(rid, None)
+                self._done.pop(rid, None)
+                continue
             self._answers[rid] = toks
             if rid in self._done:
                 self._done[rid].set()
@@ -642,9 +743,6 @@ def _decode_pixels(payload: Dict[str, Any], cfg, event_root=None):
         return pixels
     raise ValueError("request needs event_path or event_b64")
 
-
-# A telemetry route the engine refuses (the fleets' half, not ported yet).
-_REFUSED = object()
 
 _STATUS_CODES = {"ok": 200, "deadline_exceeded": 504, "cancelled": 499,
                  "resource_exhausted": 503, "nan_quarantined": 500}
@@ -690,16 +788,6 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
                 else None
             return ra if ra is not None else retry_after_s(cls_name, engine.goodput_ratio())
 
-        def _telemetry(self, fn, *args, **kw):
-            """A telemetry surface's payload, or ``_REFUSED`` after answering
-            501: the fleets' journeys, series, alerts and memory are not
-            ported yet."""
-            try:
-                return fn(*args, **kw)
-            except NotImplementedError as e:
-                self._json(501, {"error": str(e)})
-                return _REFUSED
-
         def _telemetry_get(self, route, query) -> bool:
             """The telemetry routes; False when ``route`` is none of them."""
             if route == "/request":
@@ -708,12 +796,12 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
                 except (KeyError, ValueError, IndexError):
                     self._json(400, {"error": "need ?rid=N"})
                     return True
-                rec = self._telemetry(engine.journey, rid)
+                rec = engine.journey(rid)
                 if rec is None:
                     self._json(404, {"error": f"no journey for rid {rid} (unknown, evicted from "
                                               f"the retention ring, or the recorder is "
                                               f"disarmed: --journey_keep)"})
-                elif rec is not _REFUSED:
+                else:
                     self._json(200, rec)
             elif route == "/requests":
                 try:
@@ -721,9 +809,8 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
                 except ValueError:
                     self._json(400, {"error": "bad ?n="})
                     return True
-                recs = self._telemetry(engine.journeys, n)
-                if recs is not _REFUSED:
-                    self._json(200, {"requests": recs, "enabled": obs_journey.enabled()})
+                self._json(200, {"requests": engine.journeys(n),
+                                 "enabled": obs_journey.enabled()})
             elif route == "/series":
                 try:
                     window_s = float(query["window_s"][0]) if "window_s" in query else None
@@ -731,13 +818,9 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
                 except (ValueError, IndexError):
                     self._json(400, {"error": "bad ?window_s= or ?n="})
                     return True
-                out = self._telemetry(engine.series, window_s=window_s, n=n)
-                if out is not _REFUSED:
-                    self._json(200, out)
+                self._json(200, engine.series(window_s=window_s, n=n))
             elif route in ("/alerts", "/memory"):
-                out = self._telemetry(engine.alerts if route == "/alerts" else engine.memory_stats)
-                if out is not _REFUSED:
-                    self._json(200, out)
+                self._json(200, engine.alerts() if route == "/alerts" else engine.memory_stats())
             elif route == "/trace":
                 tracer = obs_trace.active()
                 if tracer is None:
@@ -877,8 +960,6 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
                 budget = int(payload.get("max_new_tokens", default_budget))
                 deadline = payload.get("deadline_s", default_deadline_s)
                 deadline = float(deadline) if deadline else None
-                if payload.get("stream"):
-                    raise ValueError("streaming responses are not ported yet")
                 slo = None
                 if "slo_class" in payload:
                     # The class set is closed: an unknown name is the
@@ -897,9 +978,11 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
             except Exception as e:  # a bad request, not a server fault
                 self._json(400, {"error": str(e)})
                 return
+            stream = bool(payload.get("stream", False))
             t0 = time.perf_counter()
             try:
-                rid = engine.submit(query, pixels, budget, deadline_s=deadline, slo=slo)
+                rid = engine.submit(query, pixels, budget, stream=stream, deadline_s=deadline,
+                                    slo=slo)
             except (QueueFullError, FleetShedError) as e:
                 # Backpressure: the client backs off by its class and the
                 # windowed attainment (a shed carries its own hint).
@@ -921,6 +1004,15 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
                 self._json(503, {"error": str(e), "retry_after_s": round(ra, 3)},
                            headers={"Retry-After": str(max(1, math.ceil(ra)))})
                 return
+            if stream:
+                try:
+                    self._stream_response(rid, bool(payload.get("return_ids")))
+                except OSError:
+                    # The client went away mid-stream: no second status line
+                    # goes into a started chunked body; the engine drops the
+                    # orphaned queue at the harvest.
+                    pass
+                return
             try:
                 toks = engine.result(rid)
             except RuntimeError as e:
@@ -941,11 +1033,8 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
                     obj["slo_met"] = bool(stats["slo_met"])
             if payload.get("debug"):
                 # The request's journey rides its answer (GET /request?rid=N);
-                # a fleet's journeys are not ported yet.
-                try:
-                    obj["debug"] = engine.journey(rid)
-                except NotImplementedError:
-                    obj["debug"] = None
+                # a fleet's is stitched across its assignments.
+                obj["debug"] = engine.journey(rid)
             if payload.get("return_ids"):
                 obj["ids"] = [int(t) for t in toks]
             code = _STATUS_CODES.get(status, 500)
@@ -960,6 +1049,65 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
                 self._json(code, obj, headers={"Retry-After": str(max(1, math.ceil(ra)))})
                 return
             self._json(code, obj)
+
+        def _stream_response(self, rid: int, return_ids: bool = False) -> None:
+            """A chunked NDJSON body, one event a line: ``{"delta": text}``
+            for new text, ``{"restart": text}`` when a longer decode rewrites
+            earlier text (the cumulative decode is not prefix-stable), and a
+            last ``{"done": true, "answer": ...}`` with the status, or with
+            the fault as ``error``. Trailing U+FFFD is held back: a multibyte
+            character split across segments decodes as one first, and a
+            chunked body cannot take bytes back; a tail that never resolves
+            goes out with the last delta. Applying the deltas and restarts in
+            order gives the answer. ``return_ids`` adds the token ids to the
+            last record."""
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+
+            def chunk(obj) -> None:
+                line = (json.dumps(obj) + "\n").encode()
+                self.wfile.write(f"{len(line):x}\r\n".encode())
+                self.wfile.write(line + b"\r\n")
+
+            sent = ""
+
+            def emit(new_text: str) -> None:
+                nonlocal sent
+                if new_text == sent:
+                    return
+                if new_text.startswith(sent):
+                    chunk({"delta": new_text[len(sent):], "rid": rid})
+                else:
+                    chunk({"restart": new_text, "rid": rid})
+                sent = new_text
+
+            q = engine.stream_queue(rid)
+            text, ids = "", []
+            while True:
+                toks = q.get()
+                if toks is None:
+                    break
+                if isinstance(toks, dict):
+                    if "status" in toks:  # a forced finish: terminal
+                        break
+                    chunk({"done": True, "rid": rid, "error": toks["fault"],
+                           "answer": sent.strip()})
+                    self.wfile.write(b"0\r\n\r\n")
+                    return
+                ids = toks
+                text = engine.tokenizer.batch_decode([toks], skip_special_tokens=True)[0]
+                emit(text.rstrip("\ufffd"))
+            emit(text)  # the held-back tail, rewritten or not
+            status = engine.status(rid)
+            final = {"done": True, "rid": rid, "answer": sent.strip(), "status": status}
+            if status != "ok":
+                final["error"] = status
+            if return_ids:
+                final["ids"] = [int(t) for t in ids]
+            chunk(final)
+            self.wfile.write(b"0\r\n\r\n")
 
     return Handler
 

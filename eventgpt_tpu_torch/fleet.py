@@ -32,15 +32,22 @@ Fault sites: ``fleet.route`` (the submit falls back to least-queue),
 ``fleet.probe`` (the probed replica is unroutable until a clean probe) and
 ``fleet.replica_kill`` (the trip is the kill, of the busiest replica).
 
+Streaming: a streamed request reads its replica engine's queue. It does not
+fail over (its bytes have left through the chunked body): on a killed
+replica it finishes ``engine_fault`` and its queue gets the fault sentinel.
+
+Telemetry: the router keeps its own flight-recorder timeline of each request
+(route, shed, failover, repin) under a fleet owner; ``journey`` attaches each
+assignment's replica timeline, and a finished request's phases are stitched
+across its assignments (the final one's phases and ``failover_redo_s``). The
+replicas are threads of one process, so the registry, the series store, the
+alerts and the memory ledger are the process's: ``series``, ``alerts`` and
+``memory_stats`` answer from them with each replica's share beside, and the
+``egpt_fleet_*`` metrics count routes, sheds, failovers and deaths.
+
 The lock order is fleet before engine: ``submit_ids`` holds the fleet's lock
 across ``engine.submit_ids``, and ``kill_replica`` calls ``engine.kill``
-outside it (a kill holds the engine lock through a whole drain). The flight
-recorder's journeys, the time series and alerts, the memory ledger and the
-Prometheus gauges of the JAX fleet are the fleets' half of telemetry, not
-ported yet (ROADMAP Queue 1 item 6b; each replica's engine has its own):
-``journey``, ``journeys``, ``series``, ``alerts`` and ``memory_stats``
-raise ``NotImplementedError``, and ``stats`` leaves those parts out. Streaming
-responses are not ported either.
+outside it (a kill holds the engine lock through a whole drain).
 """
 
 from __future__ import annotations
@@ -56,12 +63,16 @@ import torch
 
 from eventgpt_tpu_torch import faults
 from eventgpt_tpu_torch.constants import EVENT_TOKEN_INDEX
+from eventgpt_tpu_torch.obs import journey as obs_journey
+from eventgpt_tpu_torch.obs import memory as obs_memory
+from eventgpt_tpu_torch.obs import metrics as obs_metrics
+from eventgpt_tpu_torch.obs import series as obs_series
+from eventgpt_tpu_torch.obs import trace as obs_trace
 
 # Per-class base backoff of a refused request's Retry-After: batch traffic
 # has latency headroom by definition, so it is told to stay away longer.
 _RETRY_BASE_S = {"interactive": 1.0, "batch": 4.0}
 _RETRY_MAX_S = 60.0
-_TELEMETRY = "the fleets' telemetry (ROADMAP Queue 1 item 6b) is not ported yet"
 
 
 class FleetShedError(RuntimeError):
@@ -73,6 +84,11 @@ class FleetShedError(RuntimeError):
         super().__init__(msg)
         self.slo_class = slo_class
         self.retry_after_s = retry_after_s
+
+
+def _ledger_summary() -> Dict[str, Any]:
+    """The process memory ledger's totals (host ints), for ``stats``."""
+    return obs_memory.LEDGER.summary()
 
 
 def retry_after_s(slo_class: str, goodput_ratio: float = 1.0, queue_depth: int = 0,
@@ -117,6 +133,7 @@ class _FleetRequest:
     deadline: Optional[float]  # absolute perf_counter, or None
     slo: Any
     key: tuple
+    stream: bool
     replica: int
     rid: int
     t_submit: float
@@ -125,6 +142,9 @@ class _FleetRequest:
     tokens: Optional[List[int]] = None
     status: str = "ok"
     stats: Dict[str, float] = field(default_factory=dict)
+    # The replica engine's queue, held so that a dead replica's fault can
+    # still reach the streaming client.
+    stream_q: Any = None
 
 
 @dataclass
@@ -190,10 +210,11 @@ class _FleetBatcherView:
 
 class Fleet:
     """The replica supervisor and router, with the client surface of a
-    ``ServingEngine`` (submit, result, status, cancel, stats, breaker_open,
-    set_prefix), so that ``cli/serve.make_handler`` serves a fleet as it
-    is. The routing table, the request map's writes and the counters move
-    under ``_lock``; ``result`` waits without it. Replica ``state`` is
+    ``ServingEngine`` (submit, result, status, cancel, stream_queue, stats,
+    breaker_open, set_prefix, journey, series, alerts, memory_stats), so
+    that ``cli/serve.make_handler`` serves a fleet as it is. The routing
+    table, the request map's writes and the counters move under ``_lock``;
+    ``result`` waits without it. Replica ``state`` is
     written by the supervisor, and by the operator's kill and restart."""
 
     def __init__(self, engines: Sequence[Any], tokenizer=None, conv_mode: str = "eventgpt_v1",
@@ -228,6 +249,11 @@ class Fleet:
         self.n_kills = 0
         self.n_route_faults = 0
         self.fault: Any = None  # repr of the last replica loss
+        # The router's own timelines (route, shed, failover, repin); each
+        # replica's decode timeline is under its batcher's owner.
+        self._journey_owner = obs_journey.register_owner("fleet")
+        obs_metrics.FLEET_REPLICAS.set(len(self.replicas))
+        obs_metrics.FLEET_ROUTABLE.set(len(self.replicas))
         self._thread = threading.Thread(target=self._supervise, daemon=True)
         self._thread.start()
 
@@ -264,35 +290,60 @@ class Fleet:
     def queue_depth(self) -> int:
         return sum(len(r.engine.batcher.queue) for r in self.replicas)
 
-    def submit(self, query: str, pixels, max_new_tokens: int,
+    def submit(self, query: str, pixels, max_new_tokens: int, stream: bool = False,
                deadline_s: Optional[float] = None, slo=None) -> int:
         from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
         from eventgpt_tpu_torch.data.tokenizer import tokenize_with_event
 
         ids = tokenize_with_event(prepare_event_prompt(query, self.conv_mode), self.tokenizer)
-        return self.submit_ids(ids, pixels, max_new_tokens, deadline_s=deadline_s, slo=slo)
+        return self.submit_ids(ids, pixels, max_new_tokens, stream=stream,
+                               deadline_s=deadline_s, slo=slo)
 
     def submit_ids(self, input_ids: Sequence[int], pixels, max_new_tokens: int,
-                   deadline_s: Optional[float] = None, slo=None) -> int:
+                   stream: bool = False, deadline_s: Optional[float] = None, slo=None) -> int:
         """Route one request: the shed check, a replica (affinity, else the
         least queue), the submit there. Raises ``FleetShedError`` (a policy
-        shed), the replica's ``QueueFullError``, or ``RuntimeError`` when no
-        replica is routable."""
-        self._maybe_shed(slo)
+        shed, which gets a journey of its own), the replica's
+        ``QueueFullError``, or ``RuntimeError`` when no replica is
+        routable."""
+        try:
+            self._maybe_shed(slo)
+        except FleetShedError:
+            if obs_journey.enabled():
+                with self._lock:
+                    frid = self._next_frid
+                    self._next_frid += 1
+                t = time.perf_counter()
+                cls = getattr(slo, "name", None)
+                obs_journey.begin(self._journey_owner, frid, t=t, slo_class=cls)
+                obs_journey.event(self._journey_owner, frid, "shed", t=t)
+                obs_journey.finish(self._journey_owner, frid, "shed", t_submit=t, t_done=t,
+                                   slo_class=cls)
+            raise
         key = affinity_key(input_ids, pixels)
         with self._lock:
-            rep, _ = self._route_locked(key)
-            rid = rep.engine.submit_ids(list(input_ids), pixels, max_new_tokens,
+            rep, reason = self._route_locked(key)
+            rid = rep.engine.submit_ids(list(input_ids), pixels, max_new_tokens, stream=stream,
                                         deadline_s=deadline_s, slo=slo)
+            obs_metrics.FLEET_ROUTED.inc(reason=reason)
             frid = self._next_frid
             self._next_frid += 1
-            self._requests[frid] = _FleetRequest(
+            freq = _FleetRequest(
                 frid=frid, input_ids=list(input_ids), pixel_values=pixels,
                 max_new_tokens=max_new_tokens,
                 deadline=(time.perf_counter() + deadline_s if deadline_s is not None else None),
-                slo=slo, key=key, replica=rep.idx, rid=rid, t_submit=time.perf_counter())
+                slo=slo, key=key, stream=stream, replica=rep.idx, rid=rid,
+                t_submit=time.perf_counter())
+            if stream:
+                freq.stream_q = rep.engine.stream_queue(rid)
+            self._requests[frid] = freq
             self._pins[key] = rep.idx
             self.n_requests += 1
+            obs_journey.begin(self._journey_owner, frid, t=freq.t_submit, budget=max_new_tokens,
+                              **({"slo_class": slo.name} if slo is not None else {}))
+            obs_journey.event(self._journey_owner, frid, "route", t=freq.t_submit,
+                              replica=rep.idx, replica_rid=rid, reason=reason)
+        obs_metrics.FLEET_QUEUE_DEPTH.set(self.queue_depth())
         return frid
 
     def result(self, frid: int, timeout: float = 600.0) -> List[int]:
@@ -321,7 +372,7 @@ class Fleet:
         return rep.engine.cancel(freq.rid)
 
     def stream_queue(self, frid: int):
-        raise NotImplementedError("streaming responses are not ported to eventgpt_tpu_torch yet")
+        return self._requests[frid].stream_q
 
     def set_prefix(self, prefix_prompt: str, pixels=None) -> int:
         """An operator's prefix insert, on every routable replica: a session
@@ -344,6 +395,9 @@ class Fleet:
                 "goodput_ratio": s.get("slo", {}).get("goodput_ratio", 0.0),
                 "prefix_cache_hit_ratio":
                     rep.engine.batcher.prefix_cache_stats().get("hit_ratio", 0.0),
+                # The replica's own ledger components (its pool, lanes...);
+                # the shared weight tree is in the process totals once.
+                "memory_bytes": sum(s.get("memory", {}).get("owner", {}).values()),
             })
         with self._lock:
             n_pins = len(self._pins)
@@ -361,6 +415,10 @@ class Fleet:
                 "shed": shed, "failovers": self.n_failovers, "kills": self.n_kills,
                 "route_faults": self.n_route_faults, "per_replica": reps,
             },
+            "metrics": obs_metrics.REGISTRY.summary(("egpt_serve_", "egpt_fleet_")),
+            # One process: its ledger and its alert store are the fleet's.
+            "memory": _ledger_summary(),
+            "alerts": obs_series.alert_stats(),
         }
 
     def fleet_stats(self) -> Dict[str, Any]:
@@ -387,20 +445,30 @@ class Fleet:
             c["attainment"] = c["met"] / c["finished"] if c["finished"] else 0.0
         return {"classes": classes, "goodput_ratio": self.goodput_ratio()}
 
-    def journey(self, frid: int):
-        raise NotImplementedError(f"fleet journeys: {_TELEMETRY}")
+    def memory_stats(self) -> Dict[str, Any]:
+        """The fleet's ``GET /memory``: the process ledger's totals and its
+        reconciliation against the replicas' device (the weight tree once:
+        the replicas share it), and each replica's own components."""
+        out = obs_memory.LEDGER.summary()
+        out["reconcile"] = obs_memory.LEDGER.reconcile(self.replicas[0].engine.batcher.device)
+        out["replicas"] = [{"replica": rep.idx,
+                            "components": obs_memory.LEDGER.snapshot(rep.engine.batcher._mem_owner)}
+                           for rep in self.replicas]
+        return out
 
-    def journeys(self, n: int = 64):
-        raise NotImplementedError(f"fleet journeys: {_TELEMETRY}")
+    def series(self, window_s: Optional[float] = None, n: Optional[int] = None) -> Dict[str, Any]:
+        """The fleet's ``GET /series``: the process's store (it samples the
+        fleet gauges and every replica's serve gauges), and each replica's
+        state and queue beside it."""
+        out = obs_series.snapshot(window_s=window_s, n=n)
+        out["per_replica"] = [{"replica": rep.idx, "state": rep.state,
+                               "queued": rep.engine.snapshot().get("queued", 0)}
+                              for rep in self.replicas]
+        return out
 
-    def series(self, window_s: Optional[float] = None, n: Optional[int] = None):
-        raise NotImplementedError(f"fleet series: {_TELEMETRY}")
-
-    def alerts(self):
-        raise NotImplementedError(f"fleet alerts: {_TELEMETRY}")
-
-    def memory_stats(self):
-        raise NotImplementedError(f"the fleet's memory ledger: {_TELEMETRY}")
+    def alerts(self) -> Dict[str, Any]:
+        """The fleet's ``GET /alerts``: the process store's rules."""
+        return obs_series.alerts()
 
     def reset_stats(self) -> None:
         """Zero the fleet's own counters (the replicas' are their callers')."""
@@ -448,6 +516,8 @@ class Fleet:
                            max_queue=max(self.shed_queue_depth, 1))
         with self._lock:
             self.n_shed["batch"] = self.n_shed.get("batch", 0) + 1
+        obs_metrics.FLEET_SHED.inc(slo_class="batch")
+        obs_trace.instant("fleet_shed", cat="fleet", why=why)
         raise FleetShedError(f"fleet shed batch-class request ({why}); retry in ~{ra:.0f}s",
                              "batch", ra)
 
@@ -468,7 +538,9 @@ class Fleet:
     def kill_replica(self, idx: int) -> int:
         """Kill one replica now (the operator's call and the chaos handler):
         mark it dead, drain its unfinished requests and re-route them to
-        survivors. Returns the number of requests moved."""
+        survivors. Returns the number of requests moved. A streamed request
+        does not fail over (its bytes have left): it finishes
+        ``engine_fault`` and its queue gets the fault sentinel."""
         rep = self.replicas[idx]
         if rep.state == "dead":
             return 0
@@ -478,6 +550,9 @@ class Fleet:
         with self._lock:
             self.n_kills += 1
             self.fault = f"replica {idx} killed"
+        obs_metrics.FLEET_REPLICA_DEATHS.inc()
+        obs_trace.instant("replica_kill", cat="fleet")
+        self._export_routable_gauge()
         exported = rep.engine.kill()  # outside the fleet lock: fleet -> engine
         by_rid = {rec["rid"]: rec for rec in exported}
         moved = 0
@@ -485,12 +560,18 @@ class Fleet:
             for freq in [f for f in self._requests.values()
                          if f.replica == idx and not f.done.is_set()]:
                 rec = by_rid.get(freq.rid)
+                if freq.stream:
+                    self._finish_locked(freq, None, "engine_fault")
+                    if freq.stream_q is not None:
+                        freq.stream_q.put({"fault": self.fault})
+                    continue
                 if rec is None:
                     # Finished at the engine but not collected: the kill
                     # harvested it, so the next collection delivers it.
                     continue
                 self._failover_locked(freq, rec.get("deadline_s"))
                 moved += 1
+        obs_metrics.FLEET_QUEUE_DEPTH.set(self.queue_depth())
         return moved
 
     def restart_replica(self, idx: int) -> None:
@@ -498,6 +579,8 @@ class Fleet:
         rep = self.replicas[idx]
         rep.engine.revive()
         rep.state = "ok"
+        obs_trace.instant("replica_restart", cat="fleet")
+        self._export_routable_gauge()
 
     def _failover_locked(self, freq: _FleetRequest, deadline_s: Optional[float]) -> None:
         """Re-route one request to a survivor (the caller holds the lock).
@@ -521,13 +604,88 @@ class Fleet:
             self.fault = repr(e)
             self._finish_locked(freq, None, "engine_fault")
             return
+        old_replica = freq.replica
         freq.replica = rep.idx
         self._pins[freq.key] = rep.idx
         self.n_failovers += 1
+        obs_metrics.FLEET_FAILOVERS.inc()
+        obs_metrics.FLEET_ROUTED.inc(reason="repin")
+        obs_journey.event(self._journey_owner, freq.frid, "failover", from_replica=old_replica,
+                          to_replica=rep.idx, replica_rid=freq.rid)
+        obs_journey.event(self._journey_owner, freq.frid, "repin", replica=rep.idx)
+
+    @staticmethod
+    def _assignments_of(events) -> List[tuple]:
+        """(replica, rid) of each assignment, from a fleet journey's route
+        and failover events (raw or exported)."""
+        out = []
+        for ev in events:
+            if ev.get("kind") == "route":
+                out.append((ev.get("replica"), ev.get("replica_rid")))
+            elif ev.get("kind") == "failover":
+                out.append((ev.get("to_replica"), ev.get("replica_rid")))
+        return out
+
+    def _stitch_locked(self, freq: _FleetRequest):
+        """(t_submit, t_done, phases) of the whole request across its
+        assignments: the final assignment's phases, and ``failover_redo_s``
+        from the first replica submit to the final one (the time the
+        abandoned assignments cost). The phases partition [first submit,
+        final done]. None when the recorder is disarmed or the replica
+        timelines are gone."""
+        raw = obs_journey.raw(self._journey_owner, freq.frid)
+        if raw is None:
+            return None
+        raws = []
+        for rep_idx, rid in self._assignments_of(raw["events"]):
+            if rep_idx is None or rid is None or not 0 <= rep_idx < len(self.replicas):
+                continue
+            b = self.replicas[rep_idx].engine.batcher
+            r = obs_journey.raw(getattr(b, "_journey_owner", -1), rid)
+            if r is not None:
+                raws.append(r)
+        final = next((r for r in reversed(raws) if r.get("finished") and r.get("phases")), None)
+        if final is None:
+            return None
+        phases = dict(final["phases"])
+        phases["failover_redo_s"] = max(final["t_submit"] - raws[0]["t_submit"], 0.0)
+        return raws[0]["t_submit"], final["t_done"], phases
+
+    def journey(self, frid: int) -> Optional[Dict[str, Any]]:
+        """``GET /request?rid=N`` over the fleet: the router's timeline with
+        each assignment's replica timeline, and the stitched phases stored
+        at the finish."""
+        rec = obs_journey.get(self._journey_owner, frid)
+        if rec is None:
+            return None
+        legs = []
+        for rep_idx, rid in self._assignments_of(rec["events"]):
+            jr = None
+            if rep_idx is not None and rid is not None and 0 <= rep_idx < len(self.replicas):
+                jr = self.replicas[rep_idx].engine.batcher.journey(rid)
+            legs.append({"replica": rep_idx, "rid": rid, "journey": jr})
+        rec["assignments"] = legs
+        return rec
+
+    def journeys(self, n: int = 64) -> List[Dict[str, Any]]:
+        """The last finished fleet requests (``GET /requests``)."""
+        return obs_journey.index(self._journey_owner, n)
 
     def _finish_locked(self, freq: _FleetRequest, tokens, status: str) -> None:
         freq.tokens = tokens
         freq.status = status
+        if obs_journey.enabled():
+            # Closed before the waiter is released: a client that reads the
+            # journey right after result() sees it finished and stitched.
+            stitched = self._stitch_locked(freq)
+            slo_met = freq.stats.get("slo_met")
+            obs_journey.finish(
+                self._journey_owner, freq.frid, status,
+                t_submit=stitched[0] if stitched else freq.t_submit,
+                t_done=stitched[1] if stitched else None,
+                slo_class=getattr(freq.slo, "name", None),
+                slo_met=bool(slo_met) if slo_met is not None else None,
+                phases=stitched[2] if stitched else None, failovers=freq.failovers)
         freq.done.set()
         # A bounded map of finished requests; a live one is never evicted.
         while len(self._requests) >= 8192:
@@ -554,6 +712,8 @@ class Fleet:
                     if pool:
                         self.kill_replica(max(pool, key=lambda r: (r.depth(), -r.idx)).idx)
                 self._collect()
+                self._export_routable_gauge()
+                obs_metrics.FLEET_QUEUE_DEPTH.set(self.queue_depth())
             except Exception as e:  # supervision must survive
                 with self._lock:
                     self.fault = repr(e)
@@ -584,11 +744,18 @@ class Fleet:
     def _collect(self) -> None:
         """Deliver finished requests and fail over those a scheduler fault
         failed (the queued ones that a fault below the breaker kept are
-        served by the restarted scheduler)."""
+        served by the restarted scheduler). A streamed request is over once
+        its engine delivered its end through the queue."""
         with self._lock:
             live = [f for f in self._requests.values() if not f.done.is_set()]
         for freq in live:
             rep = self.replicas[freq.replica]
+            if freq.stream:
+                st = rep.engine.try_status(freq.rid)
+                if st is not None:
+                    with self._lock:
+                        self._finish_locked(freq, [], st)
+                continue
             got = rep.engine.try_result(freq.rid)
             if got is None:
                 continue
@@ -601,3 +768,6 @@ class Fleet:
                     continue
                 freq.stats = dict(rep.engine.batcher.request_stats.get(freq.rid, {}))
                 self._finish_locked(freq, tokens, status)
+
+    def _export_routable_gauge(self) -> None:
+        obs_metrics.FLEET_ROUTABLE.set(sum(r.routable for r in self.replicas))

@@ -49,15 +49,24 @@ socket frame and crosses as a run of capped frames (``rpc.send_frames``);
 ``collect_handoffs`` answers with the unacked records up to
 ``rpc.MAX_RUN_BYTES`` and leaves the rest for the next collect.
 
-The JAX coordinator also keeps flight-recorder journeys (stitched across
-processes), time series, alerts, per-worker memory ledgers and Prometheus
-gauges: the fleets' half of telemetry, not ported yet (ROADMAP Queue 1
-item 6b; each worker's engine arms its own): ``journey``, ``journeys``, ``series``,
-``alerts`` and ``memory_stats`` raise ``NotImplementedError``, the workers'
-``journey``/``series``/``alerts``/``memory`` ops answer with that remote
-error, and ``stats`` leaves those parts out. Streaming is not ported
-(``stream_queue`` raises). A worker's ``stats`` op carries each kernel's
-launch count, so the coordinator can show which worker launched what.
+Telemetry across processes: the coordinator keeps its own flight-recorder
+timeline of each request (route, worker_lost, failover, repin, respawn,
+kv_handoff) and stitches a finished request's phases from durations, since
+worker clocks do not compare: the final assignment's worker-measured phases,
+a disaggregated request's prefill-leg phases (carried by its handoff record)
+and ``handoff_s`` (the coordinator's collect-to-import wall), and
+``failover_redo_s`` (from the coordinator's submit to the final assignment).
+``journey`` attaches each assignment's worker timeline over RPC; ``series``,
+``alerts`` and ``memory_stats`` gather each worker's store, rules and ledger
+over RPC beside the coordinator's own (a worker that does not answer reports
+an error entry); the ``egpt_procfleet_*`` metrics count deaths, respawns,
+failovers by path, crash loops, handoffs and RPC retries. A worker's
+``stats`` op carries each kernel's launch count, so the coordinator can show
+which worker launched what.
+
+Streaming is delivered at the finish: one cumulative delta, then the engine
+queue's end sentinel. Nothing leaves before the request is over, so, unlike
+the in-process fleet's, a streamed request fails over here.
 
 A torch-light stub worker (``python -m eventgpt_tpu_torch.fleet_proc
 --stub_worker``) serves the same RPC surface over a deterministic fake
@@ -69,6 +78,7 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import signal
 import subprocess
 import sys
@@ -80,7 +90,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from eventgpt_tpu_torch import faults, rpc
-from eventgpt_tpu_torch.fleet import _TELEMETRY, affinity_key
+from eventgpt_tpu_torch.fleet import affinity_key
+from eventgpt_tpu_torch.obs import journey as obs_journey
+from eventgpt_tpu_torch.obs import metrics as obs_metrics
+from eventgpt_tpu_torch.obs import series as obs_series
+from eventgpt_tpu_torch.obs import trace as obs_trace
 
 # The repository root, put on a worker's PYTHONPATH so that ``-m
 # eventgpt_tpu_torch...`` resolves wherever the coordinator runs from.
@@ -147,9 +161,9 @@ class WorkerHandler:
     """The RPC op table over one ``ServingEngine`` (or the stub).
 
     Ops: ping, submit_ids, try_result, try_results, try_status, cancel,
-    export_requests, snapshot, stats, set_prefix, reset_stats, shutdown,
-    collect_handoffs, ack_handoffs, import_handoff; journey, series, alerts
-    and memory answer with a ``NotImplementedError`` (telemetry).
+    export_requests, snapshot, stats, memory, series, alerts, journey,
+    set_prefix, reset_stats, shutdown, collect_handoffs, ack_handoffs,
+    import_handoff.
 
     ``try_result`` is idempotent here: the engine pops a delivered answer,
     so a retried poll whose first response was lost would find nothing.
@@ -181,7 +195,9 @@ class WorkerHandler:
         tokens, status = got
         rec = {"tokens": tokens, "status": status,
                "stats": dict(self.engine.batcher.request_stats.get(rid, {})),
-               "journey": None}  # the flight recorder waits for telemetry
+               # The worker's timeline, phases included: the coordinator
+               # stitches on these durations.
+               "journey": self.engine.journey(rid)}
         with self._lock:
             self._delivered[rid] = rec
             while len(self._delivered) > self.REPLAY_CAP:
@@ -244,6 +260,9 @@ class WorkerHandler:
             pc = dict(eng.batcher.prefix_cache_stats())
             pc.pop("entries", None)  # per-entry dumps do not add up
             s["prefix_cache"] = pc
+            # The active alert rules ride the probe, for the coordinator's
+            # /stats without another RPC.
+            s["alerts_active"] = eng.alerts().get("active", [])
             return s
         if op == "stats":
             b = eng.batcher
@@ -258,14 +277,26 @@ class WorkerHandler:
                                       "reserved": torch.cuda.memory_reserved(),
                                       "max_reserved": torch.cuda.max_memory_reserved()}
             return out
-        if op in ("journey", "series", "alerts", "memory"):
-            raise NotImplementedError(f"the worker's {op} op: {_TELEMETRY}")
+        if op == "memory":
+            return eng.memory_stats()
+        if op == "series":
+            # Ages relative to the worker's own clock: no absolute stamp
+            # crosses the process boundary.
+            return eng.series(window_s=p.get("window_s"), n=p.get("n"))
+        if op == "alerts":
+            return eng.alerts()
+        if op == "journey":
+            return eng.journey(int(p["rid"]))
         if op == "set_prefix":
             return eng.set_prefix(p["prefix_prompt"], p.get("pixel_values"))
         if op == "reset_stats":
             b = eng.batcher
             if hasattr(b, "reset_serving_stats"):
                 b.reset_serving_stats()
+            obs_metrics.REGISTRY.reset()
+            from eventgpt_tpu_torch.obs import memory as obs_memory
+
+            obs_memory.LEDGER.reset_peak()
             _reset_kernel_launches()
             return True
         if op == "collect_handoffs":
@@ -374,9 +405,11 @@ class _StubEngine:
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
-    def submit_ids(self, ids, pixels, max_new_tokens, deadline_s=None, slo=None) -> int:
+    def submit_ids(self, ids, pixels, max_new_tokens, stream=False, deadline_s=None,
+                   slo=None) -> int:
         if not self.alive:
             raise RuntimeError("stub engine is down (killed)")
+        obs_series.note_submit()
         with self._lock:
             rid = self._next_rid
             self._next_rid += 1
@@ -470,7 +503,8 @@ class _StubEngine:
         with self._lock:
             # Pool headroom that shrinks with load, so that decode placement
             # is exercised at stub speed.
-            return {"active_rows": len(self._reqs), "queued": 0, "slo": {}, "role": self.role,
+            return {"active_rows": len(self._reqs), "queued": 0, "slo": {}, "memory": {},
+                    "role": self.role,
                     "kv_free_bytes": (1 << 20) - 4096 * len(self._reqs),
                     "kv_free_blocks": 256 - len(self._reqs),
                     "handoff": {"pending": len(self._handoffs),
@@ -479,6 +513,20 @@ class _StubEngine:
 
     def stats(self) -> dict:
         return {"stub": True, **self.snapshot()}
+
+    def memory_stats(self) -> dict:
+        return {"stub": True}
+
+    def series(self, window_s=None, n=None) -> dict:
+        # A real store (``_stub_main`` arms one), so that the coordinator's
+        # gathering is held over sampled rings.
+        return obs_series.snapshot(window_s=window_s, n=n)
+
+    def alerts(self) -> dict:
+        return obs_series.alerts()
+
+    def journey(self, rid):
+        return None
 
     def set_prefix(self, prompt, pixels=None) -> int:
         return 0
@@ -498,6 +546,7 @@ def _stub_main(argv=None) -> int:
     p.add_argument("--token_delay_s", type=float, default=0.005)
     p.add_argument("--role", default="colocated", choices=("colocated", "prefill", "decode"))
     args = p.parse_args(argv)
+    obs_series.configure(interval_s=0.02, keep=256)
     engine = _StubEngine(token_delay_s=args.token_delay_s, role=args.role)
     if args.heartbeat_dir:
         from eventgpt_tpu_torch.train.resilience import Heartbeat
@@ -530,9 +579,10 @@ def stub_worker_cmd(token_delay_s: float = 0.005) -> List[str]:
 class _ProcRequest:
     """One request the coordinator owns to its end. ``worker``/``rid`` are
     the current assignment; ``t_assign`` is its coordinator-clock stamp
-    (worker clocks do not compare across processes). ``handoff_s`` is the
-    coordinator-measured collect-to-import wall of its handoffs, reset on a
-    redo, which restarts the chain."""
+    (worker clocks do not compare across processes). ``prefill_phases``
+    (the closed prefill leg's phases, carried by the handoff record) and
+    ``handoff_s`` (the coordinator-measured collect-to-import wall of its
+    handoffs) are reset on a redo, which restarts the chain."""
     frid: int
     input_ids: List[int]
     pixel_values: Any
@@ -540,14 +590,18 @@ class _ProcRequest:
     deadline: Optional[float]  # absolute coordinator perf_counter, or None
     slo: Any
     key: tuple
+    stream: bool
     worker: int
     rid: int
+    t_submit: float
     t_assign: float
     failovers: int = 0
     done: threading.Event = field(default_factory=threading.Event)
     tokens: Optional[List[int]] = None
     status: str = "ok"
     stats: Dict[str, float] = field(default_factory=dict)
+    stream_q: Any = None
+    prefill_phases: Optional[Dict[str, float]] = None
     handoff_s: float = 0.0
 
 
@@ -564,6 +618,7 @@ class WorkerSlot:
     generation: int = 0  # spawn attempts (the ready file's key)
     t_spawn: float = 0.0  # monotonic
     t_ready: float = 0.0  # monotonic
+    t_dead: float = 0.0  # monotonic
     t_respawn: float = 0.0  # monotonic: a respawn is allowed after this
     crashes: List[float] = field(default_factory=list)  # monotonic stamps
     consec_crashes: int = 0
@@ -573,6 +628,8 @@ class WorkerSlot:
     ready_file: str = ""
     hb_dir: Optional[str] = None
     log_path: str = ""
+    # Live requests this slot's death moved: their journeys get the respawn.
+    respawn_frids: List[int] = field(default_factory=list)
 
     @property
     def routable(self) -> bool:
@@ -619,9 +676,10 @@ class _ProcBatcherView:
 
 class ProcFleet:
     """Coordinator over N worker processes with the client surface of a
-    ``ServingEngine`` (submit, result, status, cancel, stats, breaker_open,
-    set_prefix). The routing table and the request map's writes move under
-    ``_lock``; ``result`` waits without it. Submits make their RPC under
+    ``ServingEngine`` (submit, result, status, cancel, stream_queue, stats,
+    breaker_open, set_prefix, journey, series, alerts, memory_stats). The
+    routing table and the request map's writes move under ``_lock``;
+    ``result`` waits without it. Submits make their RPC under
     the lock (workers never call back, so the order cannot invert);
     collection and probes make theirs outside it."""
 
@@ -700,7 +758,9 @@ class ProcFleet:
         # and a drain's flush must not ship one replayed record together.
         self._pump_lock = threading.Lock()
         self.fault: Any = None
+        self._journey_owner = obs_journey.register_owner("procfleet")
         self.slots = [self._make_slot(i) for i in range(n_workers)]
+        obs_metrics.PROCFLEET_WORKERS.set(n_workers)
         for slot in self.slots:
             self._spawn(slot)
         self._wait_boot()
@@ -747,6 +807,7 @@ class ProcFleet:
         slot.state = "starting"
         slot.t_spawn = time.monotonic()
         slot.addr = None
+        obs_trace.instant("worker_spawn", cat="procfleet")
         return True
 
     def _wait_boot(self) -> None:
@@ -762,6 +823,7 @@ class ProcFleet:
             if all(s.state in ("ok", "failed") for s in self.slots):
                 break
             time.sleep(0.02)
+        self._export_routable_gauge()
         if not any(s.routable for s in self.slots):
             states = {s.idx: s.state for s in self.slots}
             self.shutdown()
@@ -786,6 +848,7 @@ class ProcFleet:
             slot.state = "ok"
             slot.t_ready = time.monotonic()
             slot.consec_crashes = 0
+            self._export_routable_gauge()
             return
         if time.monotonic() - slot.t_spawn > self.spawn_timeout_s:
             self._kill_proc(slot)
@@ -799,6 +862,7 @@ class ProcFleet:
         now = time.monotonic()
         slot.proc = None
         slot.addr = None
+        slot.t_dead = now
         slot.crashes.append(now)
         slot.crashes = [t for t in slot.crashes if now - t <= self.crash_window_s]
         slot.consec_crashes += 1
@@ -808,11 +872,14 @@ class ProcFleet:
             slot.state = "failed"
             with self._lock:
                 self.n_crash_looped += 1
+            obs_metrics.PROCFLEET_CRASH_LOOPS.inc()
+            obs_trace.instant("worker_crash_loop", cat="procfleet")
         else:
             slot.state = "dead"
             backoff = min(self.respawn_backoff_s * (2.0 ** max(slot.consec_crashes - 1, 0)),
                           self.respawn_backoff_max_s)
             slot.t_respawn = now + backoff
+        self._export_routable_gauge()
 
     def _maybe_respawn(self, slot: WorkerSlot) -> None:
         if slot.state != "dead" or time.monotonic() < slot.t_respawn:
@@ -820,6 +887,14 @@ class ProcFleet:
         if self._spawn(slot):
             with self._lock:
                 self.n_respawns += 1
+            obs_metrics.PROCFLEET_RESPAWNS.inc()
+            # The respawn is part of the story of each live request that
+            # this slot's death moved.
+            frids, slot.respawn_frids = slot.respawn_frids, []
+            for frid in frids:
+                freq = self._requests.get(frid)
+                if freq is not None and not freq.done.is_set():
+                    obs_journey.event(self._journey_owner, frid, "respawn", worker=slot.idx)
 
     def _kill_proc(self, slot: WorkerSlot) -> None:
         if slot.proc is None:
@@ -875,25 +950,29 @@ class ProcFleet:
     def queue_depth(self) -> int:
         return sum(s.snapshot.get("queued", 0) for s in self.slots)
 
-    def submit(self, query: str, pixels, max_new_tokens: int,
+    def submit(self, query: str, pixels, max_new_tokens: int, stream: bool = False,
                deadline_s: Optional[float] = None, slo=None) -> int:
         from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
         from eventgpt_tpu_torch.data.tokenizer import tokenize_with_event
 
         ids = tokenize_with_event(prepare_event_prompt(query, self.conv_mode), self.tokenizer)
-        return self.submit_ids(ids, pixels, max_new_tokens, deadline_s=deadline_s, slo=slo)
+        return self.submit_ids(ids, pixels, max_new_tokens, stream=stream,
+                               deadline_s=deadline_s, slo=slo)
 
     def submit_ids(self, input_ids: Sequence[int], pixels, max_new_tokens: int,
-                   deadline_s: Optional[float] = None, slo=None) -> int:
+                   stream: bool = False, deadline_s: Optional[float] = None, slo=None) -> int:
         """Route one request (affinity, else the least in flight) and submit
         it over RPC. A submit is never retried once its bytes left: an
         unreachable worker is marked suspect and the next candidate tried,
-        so transport trouble costs locality, not service."""
+        so transport trouble costs locality, not service. A ``stream``
+        request is delivered on ``stream_queue(frid)`` at its finish."""
+        # The fleet's arrivals are sensed here: a worker sees its share.
+        obs_series.note_submit()
         key = affinity_key(input_ids, pixels)
         with self._lock:
             tried: set = set()
             while True:
-                slot, _ = self._route_locked(key, exclude=tried)
+                slot, reason = self._route_locked(key, exclude=tried)
                 try:
                     rid = self._rpc(slot, "submit_ids",
                                     {"input_ids": list(input_ids), "pixel_values": pixels,
@@ -906,20 +985,29 @@ class ProcFleet:
                 except rpc.RpcError as e:
                     tried.add(slot.idx)
                     slot.state = "suspect"
+                    self._export_routable_gauge()
                     if not any(s.routable for s in self.slots):
                         raise RuntimeError(f"no routable worker accepted the submit: "
                                            f"{e!r}") from e
             t = time.perf_counter()
             frid = self._next_frid
             self._next_frid += 1
-            self._requests[frid] = _ProcRequest(
+            freq = _ProcRequest(
                 frid=frid, input_ids=list(input_ids), pixel_values=pixels,
                 max_new_tokens=int(max_new_tokens),
                 deadline=t + deadline_s if deadline_s is not None else None, slo=slo, key=key,
-                worker=slot.idx, rid=rid, t_assign=t)
+                stream=stream, worker=slot.idx, rid=rid, t_submit=t, t_assign=t)
+            if stream:
+                freq.stream_q = queue.Queue()
+            self._requests[frid] = freq
             self._pins[key] = slot.idx
             self.n_requests += 1
             slot.inflight += 1
+            obs_metrics.FLEET_ROUTED.inc(reason=reason)
+            obs_journey.begin(self._journey_owner, frid, t=t, budget=max_new_tokens,
+                              **({"slo_class": slo.name} if slo is not None else {}))
+            obs_journey.event(self._journey_owner, frid, "route", t=t, worker=slot.idx,
+                              worker_rid=rid, reason=reason)
         return frid
 
     def result(self, frid: int, timeout: float = 600.0) -> List[int]:
@@ -950,7 +1038,7 @@ class ProcFleet:
             return False
 
     def stream_queue(self, frid: int):
-        raise NotImplementedError("streaming responses are not ported to eventgpt_tpu_torch yet")
+        return self._requests[frid].stream_q
 
     def set_prefix(self, prefix_prompt: str, pixels=None) -> int:
         """An operator's prefix insert, on every routable worker."""
@@ -993,6 +1081,8 @@ class ProcFleet:
                 "crashes": len(slot.crashes), "kills": slot.kills,
                 "goodput_ratio": s.get("slo", {}).get("goodput_ratio", 0.0),
                 "prefix_cache_hit_ratio": s.get("prefix_cache", {}).get("hit_ratio", 0.0),
+                # The worker's own components: each process holds its weights.
+                "memory_bytes": sum(s.get("memory", {}).get("owner", {}).values()),
             })
         with self._lock:
             n_pins = len(self._pins)
@@ -1019,6 +1109,15 @@ class ProcFleet:
                 },
                 "per_worker": per,
             },
+            "metrics": obs_metrics.REGISTRY.summary(("egpt_serve_", "egpt_procfleet_")),
+            # Each worker accounts its own bytes (GET /memory has the full
+            # ledgers); the alerts are the coordinator's store and each
+            # worker's active rules from the last probe.
+            "memory": {"per_worker": [{"worker": p["worker"], "memory_bytes": p["memory_bytes"]}
+                                      for p in per]},
+            "alerts": {**obs_series.alert_stats(),
+                       "workers_active": sorted({r for slot in self.slots
+                                                 for r in slot.snapshot.get("alerts_active", [])})},
         }
 
     def fleet_stats(self) -> Dict[str, Any]:
@@ -1038,20 +1137,86 @@ class ProcFleet:
         launches and, on the card, its device memory."""
         return self._rpc(self.slots[idx], "stats", deadline_s=10.0)
 
-    def journey(self, frid: int):
-        raise NotImplementedError(f"process-fleet journeys: {_TELEMETRY}")
+    def _gather(self, op: str, payload: Optional[dict] = None) -> List[Dict[str, Any]]:
+        """One telemetry op on every worker: its answer, or an error entry
+        when it does not answer within the deadline (the route does not
+        stall on it)."""
+        out = []
+        for slot in self.slots:
+            entry = {"worker": slot.idx, "state": slot.state}
+            if slot.addr is not None:
+                try:
+                    entry.update(self._rpc(slot, op, payload, deadline_s=10.0))
+                except rpc.RpcError as e:
+                    entry["error"] = repr(e)
+            out.append(entry)
+        return out
 
-    def journeys(self, n: int = 64):
-        raise NotImplementedError(f"process-fleet journeys: {_TELEMETRY}")
+    def memory_stats(self) -> Dict[str, Any]:
+        """``GET /memory`` of a process fleet: each worker's own ledger and
+        its reconciliation, over RPC."""
+        return {"proc_fleet": True, "workers": self._gather("memory")}
 
-    def series(self, window_s: Optional[float] = None, n: Optional[int] = None):
-        raise NotImplementedError(f"process-fleet series: {_TELEMETRY}")
+    def series(self, window_s: Optional[float] = None, n: Optional[int] = None) -> Dict[str, Any]:
+        """``GET /series`` of a process fleet: the coordinator's store, each
+        worker's over RPC (ages against each store's own clock), and their
+        aggregate over the answering workers (rates and depths sum, the
+        attainment floors take the worst)."""
+        workers = self._gather("series", {"window_s": window_s, "n": n})
+        agg: Dict[str, float] = {}
+        for w in workers:
+            d = w.get("derived") or {}
+            for key in ("request_rate_per_s", "token_rate_per_s", "submit_rate_per_s",
+                        "queue_depth_last"):
+                if key in d:
+                    agg[key] = round(agg.get(key, 0.0) + d[key], 6)
+            for key in ("goodput_ratio_min", "attainment_windowed"):
+                if key in d:
+                    agg[key] = min(agg.get(key, 1.0), d[key])
+        return {"proc_fleet": True, "coordinator": obs_series.snapshot(window_s=window_s, n=n),
+                "workers": workers, "aggregate": agg}
 
-    def alerts(self):
-        raise NotImplementedError(f"process-fleet alerts: {_TELEMETRY}")
+    def alerts(self) -> Dict[str, Any]:
+        """``GET /alerts`` of a process fleet: the coordinator's rules and
+        each worker's, over RPC."""
+        workers = self._gather("alerts")
+        return {"proc_fleet": True, "coordinator": obs_series.alerts(), "workers": workers,
+                "active": sorted({r for w in workers for r in w.get("active", [])})}
 
-    def memory_stats(self):
-        raise NotImplementedError(f"the workers' memory ledgers: {_TELEMETRY}")
+    def journey(self, frid: int) -> Optional[Dict[str, Any]]:
+        """The coordinator's timeline of a request with each assignment's
+        worker timeline over RPC, and the phases stitched at its finish."""
+        rec = obs_journey.get(self._journey_owner, frid)
+        if rec is None:
+            return None
+        legs = []
+        for w_idx, rid in self._assignments_of(rec["events"]):
+            jr = None
+            if (w_idx is not None and rid is not None and 0 <= w_idx < len(self.slots)
+                    and self.slots[w_idx].addr is not None):
+                try:
+                    jr = self._rpc(self.slots[w_idx], "journey", {"rid": rid}, deadline_s=5.0)
+                except rpc.RpcError:
+                    jr = None
+            legs.append({"worker": w_idx, "rid": rid, "journey": jr})
+        rec["assignments"] = legs
+        return rec
+
+    def journeys(self, n: int = 64) -> List[Dict[str, Any]]:
+        return obs_journey.index(self._journey_owner, n)
+
+    @staticmethod
+    def _assignments_of(events) -> List[tuple]:
+        """(worker, rid) of each assignment: the route, each failover, and
+        a disaggregated request's decode leg (its shipped handoff)."""
+        out = []
+        for ev in events:
+            if ev.get("kind") == "route":
+                out.append((ev.get("worker"), ev.get("worker_rid")))
+            elif ev.get("kind") == "failover" or (ev.get("kind") == "kv_handoff"
+                                                  and ev.get("stage") == "shipped"):
+                out.append((ev.get("to_worker"), ev.get("worker_rid")))
+        return out
 
     def reset_stats(self, clear_prefix_cache: bool = False) -> None:
         """Zero the coordinator's counters and each routable worker's
@@ -1124,6 +1289,7 @@ class ProcFleet:
             slot.proc.kill()
         except OSError:
             pass
+        obs_trace.instant("worker_kill", cat="procfleet")
 
     def drain_worker(self, idx: int) -> int:
         """Graceful drain: export the worker's unfinished requests over RPC
@@ -1138,6 +1304,7 @@ class ProcFleet:
         slot.kills += 1
         with self._lock:
             self.n_kills += 1
+        self._export_routable_gauge()
         if slot.role == "prefill":
             # Gathered records are neither queued nor in flight on the
             # worker any more: ship them before the export misses them.
@@ -1186,7 +1353,9 @@ class ProcFleet:
         slot.proc = None
         slot.addr = None
         slot.state = "dead"
+        slot.t_dead = now
         slot.t_respawn = now + self.respawn_backoff_s
+        self._export_routable_gauge()
         return moved
 
     def _on_worker_lost(self, slot: WorkerSlot, why: str, graceful: bool,
@@ -1198,6 +1367,8 @@ class ProcFleet:
         with self._lock:
             self.n_deaths += 1
             self.fault = why
+        obs_metrics.PROCFLEET_WORKER_DEATHS.inc()
+        obs_trace.instant("worker_lost", cat="procfleet", why=why)
         by_rid = {rec["rid"]: rec for rec in (exported or [])}
         moved = 0
         with self._lock:
@@ -1208,12 +1379,16 @@ class ProcFleet:
                     # Finished at the worker, not collected yet: the drain's
                     # collect pass delivers it.
                     continue
+                if not graceful:
+                    obs_journey.event(self._journey_owner, freq.frid, "worker_lost",
+                                      worker=slot.idx)
                 rec = by_rid.get(freq.rid)
                 deadline_s = (rec.get("deadline_s") if rec is not None
                               else (freq.deadline - time.perf_counter()
                                     if freq.deadline is not None else None))
                 if self._failover_locked(freq, deadline_s, path):
                     moved += 1
+                    slot.respawn_frids.append(freq.frid)
         return moved
 
     def _failover_locked(self, freq: _ProcRequest, deadline_s: Optional[float], path: str,
@@ -1248,21 +1423,80 @@ class ProcFleet:
                 tried.add(slot.idx)
                 if isinstance(e, rpc.RpcError):
                     slot.state = "suspect"
+                    self._export_routable_gauge()
                 self.fault = repr(e)
         old = freq.worker
         self.slots[old].inflight = max(self.slots[old].inflight - 1, 0)
         freq.worker = slot.idx
         freq.rid = rid
         freq.t_assign = time.perf_counter()
-        freq.handoff_s = 0.0  # the abandoned chain's handoffs are redo time
+        # The abandoned chain's prefill and handoff legs are redo time.
+        freq.prefill_phases = None
+        freq.handoff_s = 0.0
         slot.inflight += 1
         self._pins[freq.key] = slot.idx
         self.n_failovers += 1
+        obs_metrics.PROCFLEET_FAILOVERS.inc(path="drain" if path == "drain" else "redo")
+        obs_metrics.FLEET_ROUTED.inc(reason="repin")
+        obs_journey.event(self._journey_owner, freq.frid, "failover", from_worker=old,
+                          to_worker=slot.idx, worker_rid=rid, path=path)
+        obs_journey.event(self._journey_owner, freq.frid, "repin", worker=slot.idx)
         return True
 
-    def _finish_locked(self, freq: _ProcRequest, tokens, status: str) -> None:
+    def _stitch_locked(self, freq: _ProcRequest, worker_journey: Optional[dict]):
+        """(t_submit, t_done, phases) stitched from durations: the final
+        assignment's worker-measured phases, a disaggregated request's
+        prefill-leg phases added keywise and its ``handoff_s``, and
+        ``failover_redo_s`` (the coordinator's wall from its submit to the
+        final assignment). The phases sum to the span by construction.
+        Without the worker's timeline (its recorder disarmed, or the worker
+        gone) a moved or handed-off request still charges its redo and
+        handoff, and the rest of the span goes to ``decode_s``."""
+        redo = max(freq.t_assign - freq.t_submit, 0.0) if freq.failovers else 0.0
+        if worker_journey is None or not worker_journey.get("phases"):
+            if not freq.failovers and not freq.handoff_s:
+                return None
+            t_done = time.perf_counter()
+            phases = {k: 0.0 for k in obs_journey.PHASE_KEYS}
+            phases["handoff_s"] = freq.handoff_s
+            phases["decode_s"] = max(t_done - freq.t_submit - redo - freq.handoff_s, 0.0)
+            phases["failover_redo_s"] = redo
+            return freq.t_submit, t_done, phases
+        phases = dict(worker_journey["phases"])
+        leg_e2e = sum(v for k, v in worker_journey["phases"].items()
+                      if k not in ("failover_redo_s", "handoff_s"))
+        prefill_e2e = 0.0
+        for k, v in (freq.prefill_phases or {}).items():
+            if k in ("failover_redo_s", "handoff_s"):
+                continue
+            phases[k] = phases.get(k, 0.0) + v
+            prefill_e2e += v
+        phases["handoff_s"] = freq.handoff_s
+        phases["failover_redo_s"] = redo
+        return freq.t_submit, freq.t_submit + redo + prefill_e2e + freq.handoff_s + leg_e2e, phases
+
+    def _finish_locked(self, freq: _ProcRequest, tokens, status: str,
+                       worker_journey: Optional[dict] = None) -> None:
         freq.tokens = tokens
         freq.status = status
+        if obs_journey.enabled():
+            stitched = self._stitch_locked(freq, worker_journey)
+            slo_met = freq.stats.get("slo_met")
+            obs_journey.finish(
+                self._journey_owner, freq.frid, status,
+                t_submit=stitched[0] if stitched else freq.t_submit,
+                t_done=stitched[1] if stitched else None,
+                slo_class=getattr(freq.slo, "name", None),
+                slo_met=bool(slo_met) if slo_met is not None else None,
+                phases=stitched[2] if stitched else None, failovers=freq.failovers)
+        if freq.stream and freq.stream_q is not None:
+            # Delivered at the finish: one cumulative delta and the engine
+            # queue's end sentinel, or the fault.
+            if tokens is not None:
+                freq.stream_q.put(list(tokens))
+                freq.stream_q.put(None if status == "ok" else {"status": status})
+            else:
+                freq.stream_q.put({"fault": str(self.fault)})
         if 0 <= freq.worker < len(self.slots):
             s = self.slots[freq.worker]
             s.inflight = max(s.inflight - 1, 0)
@@ -1290,6 +1524,7 @@ class ProcFleet:
                         self.kill_worker(max(pool, key=lambda s: (s.inflight, -s.idx)).idx)
                 self._pump_handoffs()
                 self._collect()
+                self._export_routable_gauge()
             except Exception as e:  # supervision must survive
                 with self._lock:
                     self.fault = repr(e)
@@ -1333,12 +1568,14 @@ class ProcFleet:
             slot.snapshot = self._rpc(slot, "snapshot", deadline_s=5.0) or {}
             if slot.state == "suspect":
                 slot.state = "ok"
+                self._export_routable_gauge()
         except rpc.RpcError:
             if slot.state == "suspect":
                 # Second strike: drain it (a failed drain escalates to redo).
                 self.drain_worker(slot.idx)
             else:
                 slot.state = "suspect"
+                self._export_routable_gauge()
 
     def _collect(self) -> None:
         """Harvest finished requests, one ``try_results`` per worker holding
@@ -1370,7 +1607,8 @@ class ProcFleet:
                         self._failover_locked(freq, remaining, "redo")
                         continue
                     freq.stats = dict(rec.get("stats") or {})
-                    self._finish_locked(freq, rec["tokens"], rec["status"])
+                    self._finish_locked(freq, rec["tokens"], rec["status"],
+                                        worker_journey=rec.get("journey"))
 
     # -- the prefill/decode handoff pump ----------------------------------
 
@@ -1427,6 +1665,7 @@ class ProcFleet:
         hid = f"{src.idx}.{src.generation}:{src_rid}"
         rec = out.get("rec") or {}
         nbytes = int(rec.get("nbytes_kv", 0))
+        n_blocks = int(rec.get("n_blocks", 0))
         t0 = time.perf_counter()
         tried: set = set()
         attempts = 0
@@ -1458,6 +1697,7 @@ class ProcFleet:
                     self.fault = f"handoff {hid} -> worker {dslot.idx}: {e!r}"
                 if isinstance(e, rpc.RpcError):
                     dslot.state = "suspect"
+                    self._export_routable_gauge()
         if rid2 is None:
             if attempts == 0:
                 return False  # no decode worker up: keep it replayable
@@ -1481,19 +1721,31 @@ class ProcFleet:
                 src.inflight = max(src.inflight - 1, 0)
                 freq.worker = dslot.idx
                 freq.rid = int(rid2)
+                freq.prefill_phases = (out.get("journey") or {}).get("phases") or None
                 freq.handoff_s += dt
                 dslot.inflight += 1
                 self.n_handoffs += 1
                 self.n_handoff_bytes += nbytes
-        if moved and not already:
-            # The request finished or failed over while it shipped: cancel
-            # the orphan import (a missed cancel decodes into the replay
-            # cache and ages out; it never double-delivers).
-            try:
-                self._rpc(dslot, "cancel", {"rid": int(rid2)}, deadline_s=5.0)
-            except rpc.RpcError:
-                pass
+        if moved:
+            if not already:
+                # The request finished or failed over while it shipped:
+                # cancel the orphan import (a missed cancel decodes into the
+                # replay cache and ages out; it never double-delivers).
+                try:
+                    self._rpc(dslot, "cancel", {"rid": int(rid2)}, deadline_s=5.0)
+                except rpc.RpcError:
+                    pass
+            return True
+        obs_metrics.PROCFLEET_HANDOFFS.inc(stage="shipped")
+        obs_metrics.PROCFLEET_HANDOFF_BYTES.inc(nbytes)
+        obs_metrics.PROCFLEET_HANDOFF_SECONDS.observe(dt)
+        obs_journey.event(self._journey_owner, freq.frid, "kv_handoff", stage="shipped",
+                          from_worker=src.idx, to_worker=dslot.idx, worker_rid=int(rid2),
+                          bytes=nbytes, blocks=n_blocks)
         return True
+
+    def _export_routable_gauge(self) -> None:
+        obs_metrics.PROCFLEET_ROUTABLE.set(sum(s.routable for s in self.slots))
 
     # -- shutdown ---------------------------------------------------------
 

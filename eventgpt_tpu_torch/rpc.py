@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from eventgpt_tpu_torch import faults
+from eventgpt_tpu_torch.obs import metrics as obs_metrics
 
 _LEN = struct.Struct(">I")
 # One socket frame holds a pixel stream or an exported request batch; 64 MiB
@@ -367,6 +368,7 @@ def call(addr: Tuple[str, int], op: str, payload: Optional[dict] = None, *,
                                      f"attempt(s): {e!r}") from e
                 raise RpcError(f"rpc {op!r} to {addr} failed after {attempt} attempt(s): "
                                f"{e!r}") from e
+            obs_metrics.PROCFLEET_RPC_RETRIES.inc()
             delay = min(backoff_s * (2.0 ** (attempt - 1)), backoff_max_s)
             delay *= 1.0 + 0.5 * rng.random()  # decorrelating jitter
             time.sleep(max(min(delay, t_deadline - time.monotonic()), 0.0))

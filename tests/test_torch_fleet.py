@@ -13,8 +13,20 @@ replicas over one tiny tree.
   sequence equal the JAX fleet's, by queue depth and by windowed goodput;
   only ``batch`` is ever shed.
 - A kill re-pins the session to the survivor; the revived replica rejoins.
-- The fleets' telemetry (journeys, series, alerts, memory) is refused by
-  name, and its HTTP routes answer 501 at the CLI's telemetry defaults.
+- The fleets' telemetry (journeys, series, alerts, memory) answers, a
+  streamed request reads its replica's queue, and the telemetry routes
+  answer 200 at the CLI's telemetry defaults.
+- Telemetry in lockstep: one scripted scenario on each package's fleet,
+  its recorder, registry and series store armed (the store on an injected
+  clock): with the loops parked, two plain requests and a streamed one are
+  routed, the queued depth fires ``queue_trend``, a batch request is shed
+  and replica 0 is killed; the loops resume, the moved request finishes on
+  the survivor, the replica restarts. Equal field for field, times aside:
+  the stitched journeys (the moved one with its failover and both
+  assignments; the streamed one ``engine_fault``; the shed one ``shed``),
+  the stream's fault sentinel, the ``egpt_fleet_*`` samples (equal to the
+  fleet's own counters), the series keys, the alerts, and the shapes of
+  ``memory_stats`` and ``stats``.
 Multi-thread legs wait on states, each with a bound.
 """
 
@@ -34,6 +46,9 @@ from eventgpt_tpu import workload as jwork
 from eventgpt_tpu.cli import serve as jcli
 from eventgpt_tpu.data.tokenizer import load_tokenizer as jtok
 from eventgpt_tpu.models import eventchat as jchat
+from eventgpt_tpu.obs import journey as jjourney
+from eventgpt_tpu.obs import metrics as jmetrics
+from eventgpt_tpu.obs import series as jseries
 from eventgpt_tpu_torch import config as tcfg
 from eventgpt_tpu_torch import faults as tfaults
 from eventgpt_tpu_torch import fleet as tfleet
@@ -41,6 +56,9 @@ from eventgpt_tpu_torch import workload as twork
 from eventgpt_tpu_torch.cli import serve as tcli
 from eventgpt_tpu_torch.data.tokenizer import load_tokenizer as ttok
 from eventgpt_tpu_torch.models.convert import params_from_jax
+from eventgpt_tpu_torch.obs import journey as tjourney
+from eventgpt_tpu_torch.obs import metrics as tmetrics
+from eventgpt_tpu_torch.obs import series as tseries
 from eventgpt_tpu_torch.serve import ContinuousBatcher
 
 JCFG = jcfg.EventChatConfig.tiny()
@@ -277,13 +295,24 @@ def test_failover_repins_the_session_to_the_survivor(trees):
 
 
 def test_the_telemetry_parts_wait_for_their_item(trees):
+    """The parts that waited for their items answer now: the telemetry
+    surfaces (recorder disarmed: no journeys) and a streamed request's
+    queue, whose last list is the plain request's chain."""
     fleet = _fleet(trees, "torch", n=1)
     try:
-        for call in (lambda: fleet.journey(0), fleet.journeys, fleet.series, fleet.alerts,
-                     fleet.memory_stats, lambda: fleet.stream_queue(0)):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                call()
-        assert not {"metrics", "memory", "alerts"} & set(fleet.stats())
+        assert fleet.journey(0) is None and fleet.journeys() == []
+        assert [r["replica"] for r in fleet.series()["per_replica"]] == [0]
+        assert "enabled" in fleet.alerts()
+        mem = fleet.memory_stats()
+        assert {"reconcile", "replicas", "components"} <= set(mem)
+        assert [r["replica"] for r in mem["replicas"]] == [0]
+        assert {"metrics", "memory", "alerts"} <= set(fleet.stats())
+        plain = fleet.result(fleet.submit_ids(_ids((5,)), _pv(5), 4), timeout=WAIT_S)
+        q = fleet.stream_queue(fleet.submit_ids(_ids((5,)), _pv(5), 4, stream=True))
+        got = []
+        while (item := q.get(timeout=WAIT_S)) is not None:
+            got.append(item)
+        assert got[-1] == plain and all(got[i] == got[-1][:len(got[i])] for i in range(len(got)))
     finally:
         fleet.shutdown()
     with pytest.raises(ValueError, match="at least one"):
@@ -292,8 +321,11 @@ def test_the_telemetry_parts_wait_for_their_item(trees):
 
 def test_the_fleet_telemetry_routes_answer_501_at_the_defaults(trees):
     """Behind the HTTP handler, at the CLI's telemetry defaults, a fleet's
-    journey, series, alert and memory routes answer 501 naming the item;
-    the process-wide routes (metrics, trace) answer as for one engine."""
+    journey, series, alert and memory routes answer 200 (they answered 501
+    until the fleets' telemetry was ported): the request's stitched
+    journey with its assignment, the fleet's series and memory with each
+    replica's part; the process-wide routes (metrics, trace) answer as for
+    one engine."""
     import http.client
     import json
     from http.server import ThreadingHTTPServer
@@ -304,12 +336,23 @@ def test_the_fleet_telemetry_routes_answer_501_at_the_defaults(trees):
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), tcli.make_handler(fleet, TCFG))
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     try:
-        for path in ("/request?rid=0", "/requests", "/series", "/alerts", "/memory"):
+        frid = fleet.submit_ids(_ids((6,)), _pv(6), 3)
+        fleet.result(frid, timeout=WAIT_S)
+        bodies = {}
+        for path in (f"/request?rid={frid}", "/requests", "/series", "/alerts", "/memory"):
             conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=30)
             conn.request("GET", path)
             res = conn.getresponse()
-            assert res.status == 501, path
-            assert "item 6b" in json.loads(res.read())["error"], path
+            assert res.status == 200, path
+            bodies[path.split("?")[0]] = json.loads(res.read())
+        j = bodies["/request"]
+        assert j["finished"] and j["status"] == "ok"
+        assert [(a["replica"], a["journey"]["status"]) for a in j["assignments"]] == [(0, "ok")]
+        assert sum(j["phases"].values()) == pytest.approx(j["e2e_s"], abs=1e-9)
+        assert [r["rid"] for r in bodies["/requests"]["requests"]] == [frid]
+        assert [r["replica"] for r in bodies["/series"]["per_replica"]] == [0]
+        assert "rules" in bodies["/alerts"]
+        assert [r["replica"] for r in bodies["/memory"]["replicas"]] == [0]
         for path in ("/metrics", "/trace"):
             conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=30)
             conn.request("GET", path)
@@ -322,6 +365,130 @@ def test_the_fleet_telemetry_routes_answer_501_at_the_defaults(trees):
         fleet.shutdown()
         args.no_telemetry = True
         tcli.arm_telemetry(args)
-        from eventgpt_tpu_torch.obs import metrics as tmetrics
-
         tmetrics.configure(True)
+
+
+# (journey, metrics, series) of each package.
+OBS = {"jax": (jjourney, jmetrics, jseries), "torch": (tjourney, tmetrics, tseries)}
+# Journey fields that hold times (or the recorder's owner numbering).
+TIMED = {"t_s", "e2e_s", "t_submit", "t_done", "owner", "cause", "since_age_s",
+         "last_change_age_s", "age_s"}
+
+
+@pytest.fixture
+def armed():
+    """Each package's registry zeroed and counting, its recorder armed;
+    both disarmed again after the test."""
+    prev = {p: m[1].REGISTRY.enabled for p, m in OBS.items()}
+    for journey, metrics, series in OBS.values():
+        metrics.configure(True)
+        metrics.REGISTRY.reset()
+        journey.configure(64)
+    yield
+    for name, (journey, metrics, series) in OBS.items():
+        journey.disable()
+        series.disable()
+        metrics.REGISTRY.reset()
+        metrics.configure(prev[name])
+
+
+def _untimed(obj):
+    """``obj`` without its times: journey and alert dicts compare on the
+    rest; phase dicts on their keys."""
+    if isinstance(obj, dict):
+        return {k: (sorted(v) if k == "phases" and isinstance(v, dict) else _untimed(v))
+                for k, v in obj.items() if k not in TIMED}
+    if isinstance(obj, list):
+        return [_untimed(v) for v in obj]
+    return obj
+
+
+def _fleet_samples(metrics):
+    return sorted(line for line in metrics.REGISTRY.render_prometheus().splitlines()
+                  if line.startswith("egpt_fleet_"))
+
+
+def _scenario(trees, pkg):
+    journey, metrics, series = OBS[pkg]
+    fl, work = (tfleet, twork) if pkg == "torch" else (jfleet, jwork)
+    clock = [100.0]
+    store = series.configure(interval_s=1.0, keep=64, autostart=False, queue_min=2.0,
+                             queue_ratio=1.0, arm_samples=1, clear_samples=1,
+                             clock=lambda: clock[0])
+
+    def tick():
+        clock[0] += 1.0
+        store.sample_once()
+
+    fleet = _fleet(trees, pkg, park=True)  # nothing is admitted until the kill is done
+    out = {}
+    try:
+        f0 = fleet.submit_ids(_ids((40,)), _pv(40), 4)
+        tick()
+        f1 = fleet.submit_ids(_ids((41,)), _pv(41), 4)
+        tick()
+        fs = fleet.submit_ids(_ids((42,)), _pv(42), 4, stream=True)
+        tick()
+        out["replicas"] = [fleet.replica_of(f) for f in (f0, f1, fs)]
+        fleet._overloaded = lambda: (True, "forced by the test")
+        with pytest.raises(fl.FleetShedError):
+            fleet.submit_ids(_ids((43,)), _pv(43), 4, slo=work.SLO("batch", latency_s=30.0))
+        del fleet._overloaded
+        out["moved"] = fleet.kill_replica(0)
+        out["stream"] = fleet.stream_queue(fs).get(timeout=WAIT_S)
+        _unpark(fleet)
+        out["chains"] = [list(map(int, fleet.result(f, timeout=WAIT_S))) for f in (f0, f1)]
+        out["status"] = [fleet.status(f) for f in (f0, f1, fs)]
+        _wait(lambda: all((fleet.journey(f) or {}).get("finished") for f in (f0, f1, fs)),
+              "the fleet journeys to finish")
+        fleet.restart_replica(0)
+        _wait(lambda: metrics.FLEET_QUEUE_DEPTH.value() == 0 and fleet.queue_depth() == 0,
+              "the supervisor to export the drained queue")
+        for _ in range(3):
+            tick()
+        journeys = {name: fleet.journey(f) for name, f in (("moved", f0), ("plain", f1),
+                                                            ("stream", fs))}
+        for name, j in journeys.items():
+            assert sum(j["phases"].values()) == pytest.approx(j["e2e_s"], abs=1e-9), name
+        out["journeys"] = _untimed(journeys)
+        out["index"] = sorted(_untimed(fleet.journeys()), key=lambda r: r["rid"])
+        out["samples"] = _fleet_samples(metrics)
+        out["counters"] = {"routed": metrics.FLEET_ROUTED.total(),
+                           "failovers": metrics.FLEET_FAILOVERS.total(),
+                           "own": (fleet.n_requests + fleet.n_failovers, fleet.n_failovers)}
+        srs = fleet.series(n=8)
+        out["series"] = (sorted(srs), sorted(srs["derived"]), srs["per_replica"])
+        out["alerts"] = _untimed(fleet.alerts())
+        mem = fleet.memory_stats()
+        out["memory"] = (sorted(mem), sorted(mem["reconcile"]),
+                         [(r["replica"], sorted(r["components"])) for r in mem["replicas"]])
+        st = fleet.stats()
+        out["stats"] = (sorted(st), sorted(st["fleet"]), sorted(st["fleet"]["per_replica"][0]),
+                        sorted(st["memory"]), sorted(st["alerts"]))
+        return out
+    finally:
+        fleet.shutdown()
+        series.disable()
+
+
+def test_fleet_journeys_metrics_series_alerts_and_memory_equal_jax(trees, armed):
+    got = {pkg: _scenario(trees, pkg) for pkg in OBS}
+    for key in got["jax"]:
+        assert got["torch"][key] == got["jax"][key], key
+    out = got["torch"]
+    assert out["replicas"] == [0, 1, 0] and out["moved"] == 1
+    assert out["stream"] == {"fault": "replica 0 killed"}
+    assert out["status"] == ["ok", "ok", "engine_fault"]
+    moved = out["journeys"]["moved"]
+    assert [e["kind"] for e in moved["events"]] == ["submit", "route", "failover", "repin",
+                                                     "finish"]
+    assert [(a["replica"], a["journey"]["status"]) for a in moved["assignments"]] == [
+        (0, "exported"), (1, "ok")]
+    assert "failover_redo_s" in moved["phases"]
+    assert out["journeys"]["stream"]["status"] == "engine_fault"
+    assert [r["status"] for r in out["index"]].count("shed") == 1
+    assert out["counters"]["routed"] == out["counters"]["own"][0] == 4
+    assert out["counters"]["failovers"] == out["counters"]["own"][1] == 1
+    assert 'egpt_fleet_shed_total{slo_class="batch"} 1' in out["samples"]
+    assert "egpt_fleet_replica_deaths_total 1" in out["samples"]
+    assert "queue_trend" in [e["rule"] for e in out["alerts"]["log"]]

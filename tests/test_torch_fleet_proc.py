@@ -9,6 +9,7 @@ capped ``collect_handoffs``. Every wait is bounded, and every fleet shuts
 down (its workers with it) in a ``finally``."""
 
 import json
+import queue
 import threading
 import time
 import urllib.request
@@ -290,36 +291,66 @@ def test_handoff_exhaustion_falls_back_to_redo_and_http_decisions_equal_jax():
                             "status": "ok"}
 
 
-def test_the_telemetry_parts_are_refused_by_name():
-    """The coordinator's journeys, series, alerts and memory, and the
-    workers' ops for them, raise with the telemetry item named."""
-    handler = tfp.WorkerHandler(engine=None)
-    for op in ("journey", "series", "alerts", "memory"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            handler(op, {})
+def _bare_coordinator():
+    """A coordinator with no worker slot (no process spawned)."""
+    from eventgpt_tpu_torch.obs import journey as obs_journey
+
     fleet = object.__new__(tfp.ProcFleet)
-    for call in (lambda: fleet.journey(0), lambda: fleet.journeys(), lambda: fleet.series(),
-                 lambda: fleet.alerts(), lambda: fleet.memory_stats()):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call()
-    with pytest.raises(NotImplementedError, match="streaming"):
-        fleet.stream_queue(0)
+    fleet.slots, fleet._requests, fleet.fault = [], {}, None
+    fleet._journey_owner = obs_journey.register_owner("procfleet")
+    return fleet
+
+
+def test_the_telemetry_parts_are_refused_by_name():
+    """The parts once refused answer now: the workers' journey, series,
+    alerts and memory ops over the stub engine, the coordinator's
+    gatherings over no worker, and a streamed request's queue, delivered
+    at the finish (the cumulative tokens, then the end sentinel; the
+    fault when the request failed)."""
+    engine = tfp._StubEngine(token_delay_s=0.001)
+    try:
+        handler = tfp.WorkerHandler(engine)
+        assert handler("journey", {"rid": 0}) is None
+        assert handler("memory", {}) == {"stub": True}
+        assert "enabled" in handler("series", {}) and "enabled" in handler("alerts", {})
+        assert "alerts_active" in handler("snapshot", {})
+    finally:
+        engine.shutdown()
+    fleet = _bare_coordinator()
+    assert fleet.journey(0) is None and fleet.journeys() == []
+    assert fleet.memory_stats() == {"proc_fleet": True, "workers": []}
+    assert fleet.series()["workers"] == [] and fleet.alerts()["active"] == []
+    for frid, (tokens, status, want) in enumerate(
+            [([3, 4], "ok", [[3, 4], None]),
+             ([3], "deadline_exceeded", [[3], {"status": "deadline_exceeded"}]),
+             (None, "engine_fault", [{"fault": "None"}])]):
+        freq = tfp._ProcRequest(frid=frid, input_ids=[1], pixel_values=None, max_new_tokens=2,
+                                deadline=None, slo=None, key=(), stream=True, worker=0, rid=0,
+                                t_submit=0.0, t_assign=0.0, stream_q=queue.Queue())
+        fleet._requests[frid] = freq
+        fleet._finish_locked(freq, tokens, status)
+        q = fleet.stream_queue(frid)
+        assert [q.get_nowait() for _ in want] == want and q.empty()
 
 
 def test_the_coordinators_telemetry_routes_answer_501():
-    """Behind the HTTP handler the coordinator's refusals are a 501 naming
-    the item, not a crashed handler."""
+    """Behind the HTTP handler the coordinator's telemetry routes answer
+    200 (they answered 501 until the fleets' telemetry was ported), and an
+    unknown request's journey 404, not a crashed handler."""
     import http.client
 
-    fleet = object.__new__(tfp.ProcFleet)
+    fleet = _bare_coordinator()
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), tcli.make_handler(fleet, None))
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     try:
-        for path in ("/request?rid=3", "/requests", "/series", "/alerts", "/memory"):
+        for path, code in (("/request?rid=3", 404), ("/requests", 200), ("/series", 200),
+                           ("/alerts", 200), ("/memory", 200)):
             conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=30)
             conn.request("GET", path)
             res = conn.getresponse()
-            assert res.status == 501 and b"item 6b" in res.read(), path
+            body = json.loads(res.read())
+            assert res.status == code, path
+            assert code == 404 or body.get("proc_fleet") or "requests" in body, path
     finally:
         httpd.shutdown()
         httpd.server_close()

@@ -60,6 +60,7 @@ def test_port_imports_no_jax_and_no_jax_package():
             "eventgpt_tpu_torch.data.motion_corpus",
             "eventgpt_tpu_torch.scripts.train_medusa",
             "eventgpt_tpu_torch.scripts.medusa_acceptance",
+            "eventgpt_tpu_torch.scripts.int4_decode_ab",
             "eventgpt_tpu_torch.cli.train",
             "eventgpt_tpu_torch.obs",
             "eventgpt_tpu_torch.obs.metrics",
