@@ -164,7 +164,9 @@ Phases, each printed on its own line:
                    file, the ledger's reconciliation (at least 0.9 of the
                    process's allocated bytes), the guard's deferrals, K1 by
                    name in the capture; the wall and decode ms per step of
-                   each run side by side. Process fleets over the same directory:
+                   each run side by side; the four posted at once admitted
+                   as one wave of four rows (the idle engine gathers them).
+                   Process fleets over the same directory:
                    ``serve_procfleet_7b`` (``cli/serve --proc_fleet 2``
                    with ``serve_fleet_7b``'s flags and traffic: two worker
                    processes loading the checkpoint onto the card, routing
@@ -204,6 +206,10 @@ Phases, each printed on its own line:
                    ``lora_last.npz`` through ``merge_lora``, and hold a
                    fresh trainer's resumed step against the same step in
                    memory; with ``--profile``, one more step profiled;
+                   ``train_remat_7b``: one stage-2 micro-step under each
+                   remat policy (full, ``dots_saveable``,
+                   ``dots_with_no_batch_dims_saveable``): equal loss and
+                   gradient norm, K1 64 launches each, peak memory and ms;
                    ``medusa_train_7b``: 8 Medusa-head steps (3 heads, batch
                    2) on the motion corpus through ``scripts/train_medusa``'s
                    functions (K1 held against its plain version at the
@@ -258,8 +264,11 @@ Phases, each printed on its own line:
                    then the card's name
                    and power limit, then the result line.
 
-Any failure raises and exits non-zero. Without a CUDA card it exits
-non-zero before printing any result.
+Every line carries the script's memory ledger total beside
+``torch.cuda.memory_allocated``; the run fails at its end if the ledger
+passed the card's bytes at any line. Any failure raises and exits
+non-zero. Without a CUDA card it exits non-zero before printing any
+result.
 """
 
 from __future__ import annotations
@@ -397,6 +406,11 @@ TRAIN_STEPS, TRAIN_BATCH = 4, 2
 # K1 launches per training micro-step under full remat: the forward and the
 # recompute of each of 32 layers; the backward runs once per layer.
 K1_PER_MICRO, K1_BACKWARD_PER_MICRO = 64, 32
+# stream_7b: the window of the stream script, and the shift between the
+# four streams in the one structured stream it replays.
+STREAM_WINDOW_US = 50_000
+# train_remat_7b's policies, full remat first (what the others equal).
+REMAT_POLICIES = ("full", "dots_saveable", "dots_with_no_batch_dims_saveable")
 # K1's gradient on the card (the Function: kernel forward, plain f32
 # backward rounded to bf16) vs autograd through the plain version on the
 # same bf16 inputs: the same f32 products summed in another order and
@@ -487,13 +501,38 @@ INT4_PREFILL_LAUNCHES = {(4096, 11008): 64, (11008, 4096): 32, (4096, 4096): 128
 
 
 _T_START = time.perf_counter()
+# (line, ledger bytes, allocated bytes) wherever the script's memory ledger
+# passed the card's allocated bytes: the run fails at its end if any.
+LEDGER_OVER = []
+
+
+def _ledger_vs_card(phase: str) -> dict:
+    """The script's memory ledger total beside ``torch.cuda.memory_allocated``
+    (once the card is in use). A dropped batcher in a reference cycle lets go
+    of its entries when it is collected, so an excess is read again after a
+    collection before it counts."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_available() or not torch.cuda.is_initialized():
+        return {}
+    from eventgpt_tpu_torch.obs.memory import LEDGER
+
+    total, alloc = LEDGER.total(), torch.cuda.memory_allocated()
+    if total > alloc:
+        import gc
+
+        gc.collect()
+        total, alloc = LEDGER.total(), torch.cuda.memory_allocated()
+        if total > alloc:
+            LEDGER_OVER.append((phase, total, alloc))
+    return {"script_ledger_bytes": total, "script_allocated_bytes": alloc}
 
 
 def emit(phase: str, payload: dict) -> None:
     """One phase's line; ``t_s`` is the script's wall seconds at the line
-    (the run's time budget read phase by phase)."""
-    print(f"{phase}: {json.dumps({**payload, 't_s': time.perf_counter() - _T_START})}",
-          flush=True)
+    (the run's time budget read phase by phase), and the script's memory
+    ledger beside the card's allocated bytes."""
+    line = {**payload, **_ledger_vs_card(phase), "t_s": time.perf_counter() - _T_START}
+    print(f"{phase}: {json.dumps(line)}", flush=True)
 
 
 def digest(chains) -> str:
@@ -2505,7 +2544,7 @@ def serve_breaker_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, work
             raise AssertionError(f"serve_breaker_7b: after the cooldown the clean request gave "
                                  f"the oracle's chain: {clean[0] == want[0]}, fault "
                                  f"{engine.fault}, /health {closed_code}")
-        emit("serve_breaker_7b", {
+        line = {
             "flags": " ".join(FLEET_FLAGS + BREAKER_FLAGS), "one_fault": one_fault,
             "streak": {"requests": len(streak), "faults": engine.n_faults,
                        "restarts": engine.n_restarts, "streak_s": t_open - t0,
@@ -2516,13 +2555,18 @@ def serve_breaker_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, work
                        "k1_launches": k1["streak"]},
             "closed": {"health_code": closed_code, "restarts": closed["restarts"],
                        "chain_equals_oracle": True, "k1_launches": k1["clean"]},
-            "nvidia_smi": smi})
-        return k1
+            "nvidia_smi": smi}
     finally:
         faults.disable()
         httpd.shutdown()
         httpd.server_close()
         engine.shutdown()
+    # The line is printed once the engine is gone: a live paged server's
+    # prefix entries count in its pool and in its prefix cache (as in the
+    # JAX ledger), so its ledger can pass the card's allocated bytes.
+    del engine, httpd
+    emit("serve_breaker_7b", line)
+    return k1
 
 
 def handoff_wire_7b(params, cfg, tokenizer, outs, want, counted, smi: str) -> int:
@@ -3215,7 +3259,8 @@ def telemetry_run(ckpt: str, work: str, name: str, extra=(), profile: bool = Fal
         out["stats"] = {k: stats[k] for k in ("decode_s", "decode_steps", "decode_steps_run",
                                               "segments", "dispatches", "prefix_cache",
                                               "lanes_started", "overlap_ratio", "launches",
-                                              "memory", "metrics", "alerts", "lock_wait_s")}
+                                              "memory", "metrics", "alerts", "lock_wait_s",
+                                              "admit_gather_s")}
         out["decode_ms_per_step"] = stats["decode_s"] * 1e3 / max(stats["decode_steps"], 1)
         out["metrics_text"] = srv.get("/metrics")
         if armed:
@@ -3362,6 +3407,17 @@ def serve_telemetry_7b(eventchat, llama, params, cfg, tokenizer, requests, oracl
             problems.append(f"{r}: streamed requests {bad}")
     submits = [j["t_submit"] for j in armed["journeys"]]
     first_wave = sorted(submits[:len(QUERIES)])
+    # The four posted at once are admitted as one wave of four rows: the
+    # idle engine holds its first admission while their handlers preprocess.
+    paths = {r: [[e.get("path") for e in j["events"] if e["kind"] == "admit"]
+                 for j in runs[r]["journeys"][:len(QUERIES)]] for r in ("armed", "guarded")}
+    one_wave = {r: runs[r]["stats"]["dispatches"].get("wave") == 1
+                and not runs[r]["stats"]["dispatches"].get("full") for r in runs}
+    if not one_wave["armed"] or paths["armed"] != [["wave"]] * len(QUERIES) \
+            or k1["armed"] != n_layers:
+        problems.append(f"the first four were not one admission wave: dispatches "
+                        f"{armed['stats']['dispatches']}, admit paths {paths['armed']}, "
+                        f"K1 {k1['armed']}")
     deferrals = metric_value(guarded["metrics_text"], "egpt_mem_guard_deferrals_total")
     if deferrals < 1 or guarded["stats"]["memory"]["guard"]["deferrals"] < 1:
         problems.append(f"the guard deferred {deferrals} times")
@@ -3407,6 +3463,8 @@ def serve_telemetry_7b(eventchat, llama, params, cfg, tokenizer, requests, oracl
         "first_wave_submit_spread_s": first_wave[-1] - first_wave[0],
         "armed_submit_offsets_s": [t - min(submits) for t in submits],
         "lock_wait_s": {r: runs[r]["stats"]["lock_wait_s"] for r in runs},
+        "admit_gather_s": {r: runs[r]["stats"]["admit_gather_s"] for r in runs},
+        "first_four_one_wave": one_wave, "first_four_admit_paths": paths,
         "boot_s": {r: runs[r]["boot_s"] for r in runs},
         "late_submit_s": {r: runs[r]["late_submit_s"] for r in runs},
         "dispatches": {r: runs[r]["stats"]["dispatches"] for r in runs},
@@ -4006,17 +4064,20 @@ def cli_subprocess_tiny(work: str, counted) -> dict:
         raise AssertionError(f"tiny in-process answer {answer!r} of {len(one)} tokens, "
                              f"launches {launches}")
     out = run_infer_cli(ckpt, event_path, QUERIES[2], answer, len(one))
+    evald = eval_cli_tiny(ckpt, [os.path.join(work, f"events_{i}.npy") for i in range(3)],
+                          params, lcfg, tok)
     shutil.rmtree(ckpt, ignore_errors=True)
     return {"model_path": "tiny bf16 checkpoint (vocab 260, LLaMA d=256, 2 heads of 128)",
-            **out, "in_process_launches": launches}
+            **out, "in_process_launches": launches, "eval_cli": evald}
 
 
 def checkpoint_7b(params, cfg, ckpt: str, ids, pixels, event_paths, counted,
-                  digests: dict) -> dict:
+                  digests: dict, slice_ids, smi: str) -> dict:
     """Phase 3's bf16 tree through a checkpoint on disk, as a user runs a
     real one: written by ``write_hf_checkpoint``, loaded by the CLI's
     functions (bf16, then ``--quant int4``), and by the CLI itself in a
-    subprocess. Every check raises."""
+    subprocess; on the loaded bf16 tree, ``cli/eval``'s batched evaluation
+    (``eval_7b``, its own line). Every check raises."""
     import torch
 
     from eventgpt_tpu_torch.models import eventchat
@@ -4051,6 +4112,8 @@ def checkpoint_7b(params, cfg, ckpt: str, ids, pixels, event_paths, counted,
     if digest(out_ids) != digests["slice"] or launches[FLASH_KERNEL.source] != n_layers:
         raise AssertionError(f"checkpoint_7b bf16: digest {digest(out_ids)} (slice "
                              f"{digests['slice']}), launches {launches}")
+    emit("eval_7b", eval_7b(loaded, lcfg, tokenizer, event_paths, work, counted, slice_ids,
+                            n_layers, smi))
     del loaded
     torch.cuda.empty_cache()
 
@@ -5220,6 +5283,297 @@ def medusa_acceptance_tiny(work: str) -> dict:
     return {**record, "bars": bars, "seconds": seconds}
 
 
+def _numpy_raster(x, y, p, h: int, w: int):
+    """The host's numpy scatter, last write wins: the rasterizers' oracle."""
+    import numpy as np
+
+    lin = y.astype(np.int64) * w + x.astype(np.int64)
+    last = np.full(h * w, -1, dtype=np.int64)
+    np.maximum.at(last, lin, np.arange(lin.size, dtype=np.int64))
+    frame = np.full((h * w, 3), 255, dtype=np.uint8)
+    hit = last >= 0
+    frame[hit] = np.where(np.asarray(p)[last[hit]][:, None] != 0, np.array([255, 0, 0], np.uint8),
+                          np.array([0, 0, 255], np.uint8))
+    return frame.reshape(h, w, 3)
+
+
+def native_raster(event_paths, build_s: float, smi: str) -> dict:
+    """The native host toolchain, built by the port from ``native/`` with the
+    host compiler (``build_s``, beside the kernels' nvcc): over the five
+    equal-count slices of each stream, ``rasterize_events_native``,
+    ``rasterize_events`` (its native path counted) and
+    ``rasterize_events_torch`` on the card all equal the numpy scatter bit
+    for bit; host ms per frame (native, numpy) and device ms per frame
+    (CUDA events, events already on the card); ``process_event_file`` over
+    the four streams, all through the native path."""
+    import numpy as np
+    import torch
+
+    from eventgpt_tpu_torch import native
+    from eventgpt_tpu_torch.ops import raster
+    from eventgpt_tpu_torch.ops.image import process_event_file
+
+    slices = []
+    for path in event_paths:
+        ev = raster.load_event_npy(path)
+        for x, y, p in raster.split_events_by_count(ev, 5):
+            slices.append((x, y, p, int(y.max()) + 1, int(x.max()) + 1))
+    before = raster.RASTER_PATHS["native"]
+    for x, y, p, h, w in slices:
+        want = _numpy_raster(x, y, p, h, w)
+        got = {"native": native.rasterize_events_native(x, y, p, h, w),
+               "rasterize_events": raster.rasterize_events(x, y, p),
+               "torch_cuda": raster.rasterize_events_torch(x, y, p, h, w, "cuda").cpu().numpy()}
+        bad = [k for k, v in got.items() if not np.array_equal(v, want)]
+        if bad:
+            raise AssertionError(f"native_raster: {bad} differ from the numpy scatter")
+    if raster.RASTER_PATHS["native"] - before != len(slices):
+        raise AssertionError(f"native_raster: rasterize_events took the native path "
+                             f"{raster.RASTER_PATHS['native'] - before} of {len(slices)} times")
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        for x, y, p, h, w in slices:
+            fn(x, y, p, h, w)
+        return (time.perf_counter() - t0) * 1e3 / len(slices)
+
+    on_card = [tuple(torch.as_tensor(v.astype(np.int32), device="cuda") for v in (x, y, p))
+               + (h, w) for x, y, p, h, w in slices]
+
+    def device_all():
+        for x, y, p, h, w in on_card:
+            raster.rasterize_events_torch(x, y, p, h, w)
+
+    device_all()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        device_all()
+    end.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for path in event_paths:
+        process_event_file(path)
+    process_s = time.perf_counter() - t0
+    return {"build_s": build_s, "library": os.path.relpath(native.library_path(), ROOT),
+            "frames": len(slices), "events_per_frame": [len(s[0]) for s in slices[:5]],
+            "bit_equal": ["native", "rasterize_events (native path)", "torch on cuda"],
+            "host_ms_per_frame": {"native": host_ms(native.rasterize_events_native),
+                                  "numpy": host_ms(_numpy_raster)},
+            "device_ms_per_frame": start.elapsed_time(end) / (5 * len(slices)),
+            "process_event_file_s_four_streams": process_s,
+            "process_paths": dict(raster.RASTER_PATHS), "nvidia_smi": smi}
+
+
+def eval_7b(params, cfg, tokenizer, event_paths, work: str, counted, slice_ids,
+            n_layers: int, smi: str) -> dict:
+    """``cli/eval``'s function over a tree loaded as the CLI loads it: the four
+    streams with the four queries (``--queries_json``), ``--max_new_tokens
+    32``, greedy, one batched ``generate`` (K1 at batch 4). The chains are
+    ``slice``'s, or leave them only at a measured tie (``--context_len
+    2048`` gives the cache another length than ``slice``'s)."""
+    from eventgpt_tpu_torch.cli import eval as cli_eval
+    from eventgpt_tpu_torch.models import eventchat, llama
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    qpath = os.path.join(work, "eval_queries.json")
+    with open(qpath, "w") as f:
+        json.dump(QUERIES, f)
+    args = cli_eval.build_parser().parse_args(
+        ["--model_path", "checkpoint_7b", "--event_frames", ",".join(event_paths),
+         "--queries_json", qpath, "--max_new_tokens", str(MAX_NEW_TOKENS)])
+    queries = cli_eval.read_queries(args, len(event_paths))
+    res, launches = counted(lambda: cli_eval.evaluate(cfg, params, tokenizer, event_paths,
+                                                      queries, args, "cuda"))
+    if launches[FLASH_KERNEL.source] != n_layers:
+        raise AssertionError(f"eval_7b: launches {launches}, want K1 = {n_layers}")
+    held = {"rows_identical": [True] * len(QUERIES), "divergences": []}
+    if res["ids"] != slice_ids:
+        from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
+        from eventgpt_tpu_torch.data.tokenizer import tokenize_with_event
+        from eventgpt_tpu_torch.ops.image import process_event_file
+
+        import numpy as np
+
+        ids = [tokenize_with_event(prepare_event_prompt(q), tokenizer) for q in QUERIES]
+        pixels = np.stack([process_event_file(p)[1] for p in event_paths])
+        padded, mask, _ = eventchat.prepare_prefill(params, cfg, ids, pixels)
+        held = chain_rule("eval_7b", llama, params, cfg, padded, mask, slice_ids, res["ids"],
+                          SERVE_KSTEP_WINDOW, False, tokenizer.eos_token_id)
+    return {"argv": ["--event_frames", "events_{0..3}.npy", "--queries_json", "(QUERIES)",
+                     "--max_new_tokens", str(MAX_NEW_TOKENS), "--context_len",
+                     str(args.context_len)],
+            "prep_s": res["prep_s"], "generate_s": res["generate_s"], "launches": launches,
+            "greedy_sha256": digest(res["ids"]), "same_digest_as_slice": res["ids"] == slice_ids,
+            "vs_slice": held, "answers": res["answers"], "nvidia_smi": smi}
+
+
+def eval_cli_tiny(ckpt: str, event_paths, params, cfg, tokenizer) -> dict:
+    """``python -m eventgpt_tpu_torch.cli.eval`` as a subprocess on the card
+    over the tiny checkpoint whose ids decode to one character each: with an
+    ``--expected`` file of the in-process answers it prints them and exits
+    0; ``main`` in this process, with one answer changed, exits 1."""
+    import argparse
+    import contextlib
+    import io
+
+    from eventgpt_tpu_torch.cli import eval as cli_eval
+
+    args = argparse.Namespace(conv_mode="eventgpt_v1", draft_head=None,
+                              max_new_tokens=MAX_NEW_TOKENS, temperature=0.0, top_p=1.0,
+                              seed=0, context_len=2048, num_beams=1, kv_cache="bf16",
+                              speculative=0)
+    want = cli_eval.evaluate(cfg, params, tokenizer, event_paths, QUERIES[:len(event_paths)],
+                             args, "cuda")["answers"]
+    if not all(want):
+        raise AssertionError(f"eval_cli_tiny: an in-process answer is empty: {want}")
+    work = os.path.dirname(ckpt)
+    qpath = os.path.join(work, "tiny_eval_queries.json")
+    with open(qpath, "w") as f:
+        json.dump(QUERIES[:len(event_paths)], f)
+    argv, paths = [], {}
+    for name, expected in (("matching", want), ("one_wrong", want[:-1] + [want[-1] + "?"])):
+        paths[name] = os.path.join(work, f"tiny_eval_expected_{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(expected, f)
+    argv = ["--model_path", ckpt, "--tokenizer_path", "byte", "--event_frames",
+            ",".join(event_paths), "--queries_json", qpath, "--max_new_tokens",
+            str(MAX_NEW_TOKENS), "--timing"]
+    env = dict(os.environ, PYTHONIOENCODING="utf-8",
+               PYTHONPATH=os.pathsep.join([ROOT] + [x for x in [os.environ.get("PYTHONPATH")]
+                                                    if x]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "eventgpt_tpu_torch.cli.eval", *argv,
+                          "--expected", paths["matching"]],
+                         capture_output=True, timeout=600, cwd=ROOT, env=env)
+    err = res.stderr.decode(errors="replace")
+    printed = res.stdout.decode(errors="replace")
+    runs = {"matching": {"exit_code": res.returncode, "seconds": time.perf_counter() - t0,
+                         "pass": err.count("[PASS]"), "fail": err.count("[FAIL]"),
+                         "timing": [ln for ln in err.splitlines() if ln.startswith("[timing]")]}}
+    if res.returncode != 0 or not all(f"\n{a}\n" in "\n" + printed for a in want):
+        raise AssertionError(f"eval_cli_tiny: the CLI exited {res.returncode} and printed "
+                             f"{printed[-600:]!r}; in-process answers {want}; {err[-2000:]}")
+    log = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(log), contextlib.redirect_stdout(io.StringIO()):
+            cli_eval.main(argv + ["--expected", paths["one_wrong"]])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    runs["one_wrong"] = {"exit_code": code, "pass": log.getvalue().count("[PASS]"),
+                         "fail": log.getvalue().count("[FAIL]")}
+    if code != 1 or runs["one_wrong"]["fail"] != 1:
+        raise AssertionError(f"eval_cli_tiny: {runs}")
+    return {"answers": want, "runs": runs}
+
+
+def stream_7b(params, cfg, tokenizer, event_paths, work: str, counted, n_layers: int,
+              smi: str) -> dict:
+    """The port's stream script at 7B over one structured stream: the four
+    synthetic streams shifted by 0, 50, 100 and 150 ms from t = 0, so that
+    each 50 ms window holds exactly one stream's events. The native reader
+    replays it; each window's chain equals a batch-1 ``generate`` on that
+    window's events (``chain_rule``); K1 32 a window."""
+    import numpy as np
+
+    from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
+    from eventgpt_tpu_torch.data.tokenizer import tokenize_with_event
+    from eventgpt_tpu_torch.models import eventchat, llama
+    from eventgpt_tpu_torch.ops import raster
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+    from eventgpt_tpu_torch.ops.image import clip_preprocess_batch
+    from eventgpt_tpu_torch.scripts.stream_demo import stream_answers
+
+    parts = [np.load(p) for p in event_paths]
+    for i, a in enumerate(parts):
+        a["t"] += np.uint64(STREAM_WINDOW_US * i)
+    parts[0]["t"][0] = 0
+    path = os.path.join(work, "stream_7b.npy")
+    np.save(path, np.concatenate(parts))
+    out, launches = counted(lambda: stream_answers(
+        cfg, params, tokenizer, path, QUERIES[0], window_ms=STREAM_WINDOW_US / 1e3,
+        max_windows=len(parts), max_new_tokens=MAX_NEW_TOKENS, device="cuda"))
+    windows = out["windows"]
+    got = [(w["start_us"], w["events"]) for w in windows]
+    want = [(STREAM_WINDOW_US * i, len(a)) for i, a in enumerate(parts)]
+    if got != want or launches[FLASH_KERNEL.source] != n_layers * len(parts):
+        raise AssertionError(f"stream_7b: windows (start, events) {got}, want {want}; "
+                             f"launches {launches}, want K1 = {n_layers} a window")
+    ids = tokenize_with_event(prepare_event_prompt(QUERIES[0]), tokenizer)
+    oracle, pixels = [], []
+    for a in parts:
+        ev = {k: np.ascontiguousarray(a[k]) for k in a.dtype.names}
+        pixels.append(clip_preprocess_batch(raster.events_to_frames(ev, cfg.num_event_frames),
+                                            cfg.vision.image_size))
+        oracle.append(eventchat.generate(params, cfg, [ids], pixels[-1][None],
+                                         max_new_tokens=MAX_NEW_TOKENS, temperature=0.0,
+                                         eos_token_id=tokenizer.eos_token_id, device="cuda")[0])
+    chains = [w["ids"] for w in windows]
+    padded = mask = None
+    if chains != oracle:
+        padded, mask, _ = eventchat.prepare_prefill(params, cfg, [ids] * len(parts),
+                                                    np.stack(pixels))
+    held = chain_rule("stream_7b", llama, params, cfg, padded, mask, oracle, chains,
+                      SERVE_KSTEP_WINDOW, False, tokenizer.eos_token_id)
+    return {"stream": "events_{0..3}.npy shifted by 0, 50, 100, 150 ms; first event at t = 0",
+            "query": QUERIES[0], "window_ms": STREAM_WINDOW_US / 1e3,
+            "windows": [{k: w[k] for k in ("start_us", "events", "ms")} for w in windows],
+            "reader_pops": out["pops"], "reader_events": out["popped"], "launches": launches,
+            "k1_per_window": launches[FLASH_KERNEL.source] / len(parts),
+            "vs_batch_1_generate": held, "nvidia_smi": smi}
+
+
+def train_remat_7b(params, cfg, tokenizer, paths: dict, work: str, smi: str) -> dict:
+    """One stage-2 LoRA micro-step at 7B width (batch 2, ``cli.train``'s
+    construction) under each remat policy: the loss and the gradient norm
+    equal across the three, K1 64 launches a micro-step (32 forward, 32
+    recomputed: the kernel is no matmul, so no policy keeps its output);
+    peak device memory over what was held, and step ms, which the policies
+    trade (nothing is claimed for them)."""
+    import torch
+
+    from eventgpt_tpu_torch.cli.train import build_trainer
+    from eventgpt_tpu_torch.ops import flash_attention as fa
+    from eventgpt_tpu_torch.train.data import batch_iterator
+    from eventgpt_tpu_torch.train.steps import batch_to_device
+
+    n_layers = cfg.llama.num_layers
+    runs = {}
+    for policy in REMAT_POLICIES:
+        trainer = build_trainer(*_train_args(2, paths, os.path.join(work, f"remat_{policy}"),
+                                             remat_policy=policy),
+                                device="cuda", loaded=(cfg, params, tokenizer))
+        batch = batch_to_device(next(batch_iterator(
+            trainer.dataset, TRAIN_BATCH, trainer.cfg, seed=trainer.targs.seed,
+            max_len=trainer.targs.model_max_length)), "cuda")
+        for key in fa.LAUNCHES_BY_PATH:
+            fa.LAUNCHES_BY_PATH[key] = 0
+        fa.FLASH_KERNEL.launches = 0
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, m = trainer.train_step(trainer.state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        step_ms = (time.perf_counter() - t0) * 1e3
+        runs[policy] = {"loss": loss, "grad_norm": gnorm, "step_ms": step_ms,
+                        "peak_over_held_bytes": torch.cuda.max_memory_allocated() - held,
+                        "k1_launches": fa.FLASH_KERNEL.launches,
+                        "k1_by_path": dict(fa.LAUNCHES_BY_PATH),
+                        "remat_policy": trainer.cfg.llama.remat_policy}
+        del trainer, batch, m
+        torch.cuda.empty_cache()
+    bad = {p: r for p, r in runs.items()
+           if (r["loss"], r["grad_norm"]) != (runs["full"]["loss"], runs["full"]["grad_norm"])
+           or r["k1_launches"] != 2 * n_layers or r["k1_by_path"]["recompute"] != n_layers
+           or r["remat_policy"] != p}
+    if bad:
+        raise AssertionError(f"train_remat_7b: {bad} against full {runs['full']}")
+    return {"config": "stage 2 (LoRA r 64 + projector), batch 2, bf16, one micro-step each",
+            "runs": runs, "equal_loss_and_grad_norm": True, "nvidia_smi": smi}
+
+
 def main() -> int:
     import argparse
 
@@ -5276,11 +5630,30 @@ def main() -> int:
         out = run()
         return out, {k.source: k.launches for k in kernels}
 
-    # 1. build
+    # 1. build: the kernels (one nvcc a source) and, beside them, the native
+    # host toolchain (two host compilers), all started together.
     shutil.rmtree(os.path.join(ROOT, "eventgpt_tpu_torch", "csrc", "build"), ignore_errors=True)
+    import threading
+
+    from eventgpt_tpu_torch import native
+
     t0 = time.perf_counter()
+    native_build = {}
+
+    def build_native():
+        try:
+            native.build()
+            native_build["s"] = time.perf_counter() - t0
+        except Exception as e:  # raised in the main thread below
+            native_build["error"] = e
+
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()
     built = kernels + [x for x in (baseline, flash_base) if x is not None]
     build_all(built)
+    native_thread.join()
+    if "error" in native_build:
+        raise native_build["error"]
     for k in built:
         k.lib()
         ptxas = [ln.strip() for ln in k.build_log.splitlines()
@@ -5300,6 +5673,8 @@ def main() -> int:
                                        torch.bfloat16, "cuda")
         torch.cuda.synchronize()
         emit("host", {**host, "init_weights_s": time.perf_counter() - t0})
+        event_paths = [os.path.join(work, f"events_{i}.npy") for i in range(len(QUERIES))]
+        emit("native_raster", native_raster(event_paths, native_build["s"], smi))
 
         # 2. kernel checks at the main paths' shapes: K1 at the prefill
         # shape, at an S that is no multiple of the 64-row tile and at the
@@ -5403,6 +5778,10 @@ def main() -> int:
         # after a phase hold the card until the run ends.
         del logits, cache, _
         torch.cuda.empty_cache()
+        # Streamed event QA: the native reader's 50 ms windows through the
+        # port's stream script.
+        emit("stream_7b", stream_7b(params, cfg, tokenizer, event_paths, work, counted,
+                                    n_layers, smi))
 
         # The decoding variants on the bf16 tree: speculative (lookup and
         # Medusa drafts, greedy and sampled) and beam search.
@@ -5630,9 +6009,8 @@ def main() -> int:
         ckpt = os.path.join(work, "checkpoint_7b")
         try:
             emit("checkpoint_7b", {**checkpoint_7b(
-                params, cfg, ckpt, ids, pixels,
-                [os.path.join(work, f"events_{i}.npy") for i in range(len(QUERIES))], counted,
-                {"slice": digest(out_ids), "slice_int4": digest(ids4)}),
+                params, cfg, ckpt, ids, pixels, event_paths, counted,
+                {"slice": digest(out_ids), "slice_int4": digest(ids4)}, out_ids, smi),
                 "cli_subprocess_tiny": cli_subprocess_tiny(work, counted), "nvidia_smi": smi})
             emit("slice_qformer", {**slice_qformer(cfg, ckpt, ids, pixels, counted),
                                    "nvidia_smi": smi})
@@ -5669,6 +6047,7 @@ def main() -> int:
             train_runs[stage] = train_7b(stage, params, cfg, tokenizer, train_paths, work,
                                          profile_dir=args.profile)
             emit(f"train_stage{stage}_7b", {**train_runs[stage], "nvidia_smi": smi})
+        emit("train_remat_7b", train_remat_7b(params, cfg, tokenizer, train_paths, work, smi))
         medusa_7b = medusa_train_7b(params, cfg, tokenizer, work, smi)
         emit("medusa_train_7b", medusa_7b)
         del params
@@ -5819,6 +6198,8 @@ def main() -> int:
         "bound_by": paged_check["bound_by"],
         "library_ms": paged_check["library_ms"],
     }]}), flush=True)
+    if LEDGER_OVER:
+        raise AssertionError(f"the memory ledger passed the allocated bytes at {LEDGER_OVER}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)

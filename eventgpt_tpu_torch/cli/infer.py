@@ -30,6 +30,7 @@ import json
 import os
 import sys
 import time
+import weakref
 
 import torch
 
@@ -204,9 +205,11 @@ def prepare_model(cfg, params, tokenizer, args):
         quantize_llama_params(params["llama"], bits=4 if args.quant == "int4" else 8)
     # The weight tree is resident from here on: the memory ledger counts it
     # at this boundary, under the identity a batcher over the same tree
-    # registers again (a no-op resize).
-    obs_memory.LEDGER.register("weights", f"shared/params-{id(params):x}",
-                               obs_memory.params_bytes(params))
+    # holds again (a no-op resize), and holds it while the tree's embedding
+    # table lives.
+    key = f"shared/params-{id(params):x}"
+    obs_memory.LEDGER.hold("weights", key, obs_memory.params_bytes(params))
+    weakref.finalize(params["llama"]["embed_tokens"], obs_memory.LEDGER.unhold, "weights", key)
     return cfg, params
 
 

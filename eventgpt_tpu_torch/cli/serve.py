@@ -183,6 +183,14 @@ class ServingEngine:
     Python's lock is not fair: without the hand-off the loop, which takes
     the lock again at once, kept a submit waiting through whole requests.
 
+    The first admission gathers its wave: an HTTP request announces itself
+    when it is received (``arriving``), before its event preprocessing, and
+    while no row is live the loop holds a queued admission until no
+    announced arrival is left, for at most ``ADMIT_GATHER_S``. Without the
+    hold the first handler to finish preprocessing started a cold prefill
+    alone, which held the lock for seconds, and the requests posted with it
+    rode lanes behind it. A server with a live row never waits.
+
     A scheduler exception fails the in-flight rows, lanes and pending
     admission (their waiters get the fault), keeps the queued requests, and
     restarts the scheduler on a fresh thread after a short backoff. A
@@ -202,6 +210,13 @@ class ServingEngine:
 
     # The longest the loop waits at a step boundary for announced callers.
     HANDOFF_WAIT_S = 0.05
+    # The longest an idle loop holds a queued admission for announced
+    # arrivals. Four requests' event preprocessing took 1.16 s one after
+    # another on one thread (7B server, H100 host); handlers preprocess at
+    # once under the interpreter lock, so four posted together finish near
+    # that sum. Twice it leaves room for a slower host; an arrival slower
+    # still is admitted with the next wave, as it was without the hold.
+    ADMIT_GATHER_S = 2.0
 
     def __init__(self, batcher, tokenizer, conv_mode: str = "eventgpt_v1",
                  breaker_threshold: int = 3, breaker_cooldown_s: float = 5.0,
@@ -217,6 +232,10 @@ class ServingEngine:
         self._turn = threading.Condition()
         self._waiting = 0
         self._lock_waits = {"n": 0, "total_s": 0.0, "max_s": 0.0}
+        # HTTP requests between receipt and submit; the idle loop's holds
+        # for them, their seconds and the longest.
+        self._arriving = 0
+        self._gathers = {"n": 0, "total_s": 0.0, "max_s": 0.0}
         self._wake = threading.Event()
         self._stop = False
         self._done: Dict[int, threading.Event] = {}
@@ -272,6 +291,20 @@ class ServingEngine:
         finally:
             with self._turn:
                 self._waiting -= 1
+                self._turn.notify_all()
+
+    @contextlib.contextmanager
+    def arriving(self):
+        """An HTTP request from its receipt to its submit (the handler's
+        event preprocessing), announced so that an idle loop gathers it into
+        the first admission wave (``_gather_arrivals``)."""
+        with self._turn:
+            self._arriving += 1
+        try:
+            yield
+        finally:
+            with self._turn:
+                self._arriving -= 1
                 self._turn.notify_all()
 
     def breaker_open(self) -> bool:
@@ -468,8 +501,10 @@ class ServingEngine:
                 # The registry's view of what /metrics exposes, the alerts,
                 # and the kernels this process launched.
                 "metrics": obs_metrics.serve_summary(), "alerts": obs_series.alert_stats(),
-                # How long callers from outside the loop waited for the lock.
-                "lock_wait_s": dict(self._lock_waits), **kernel_launches()}
+                # How long callers from outside the loop waited for the lock,
+                # and the idle loop's holds for announced arrivals.
+                "lock_wait_s": dict(self._lock_waits),
+                "admit_gather_s": dict(self._gathers), **kernel_launches()}
 
     # The telemetry surfaces read state that guards itself (the recorder,
     # the series store, the ledger): no engine lock, so that they answer
@@ -574,10 +609,31 @@ class ServingEngine:
                                                     "misses", "evictions") if k in pc}
         return snap
 
+    def _gather_arrivals(self) -> None:
+        """Hold a queued admission while announced arrivals preprocess and
+        no row is live, at most ``ADMIT_GATHER_S``: requests posted together
+        make one wave. The reads of the batcher are racy and only time the
+        hold; the step that follows takes the lock."""
+        b = self.batcher
+        if (self._dead or not b.queue or b._inflight is not None
+                or any(r is not None for r in b.rows)):
+            return
+        t0 = time.perf_counter()
+        with self._turn:
+            self._turn.wait_for(lambda: not self._arriving or self._stop,
+                                timeout=self.ADMIT_GATHER_S)
+        held = time.perf_counter() - t0
+        g = self._gathers
+        g["n"] += 1
+        g["total_s"] += held
+        g["max_s"] = max(g["max_s"], held)
+
     def _loop(self) -> None:
         while not self._stop:
             try:
                 faults.maybe_fail("serve.loop")
+                if self._arriving:
+                    self._gather_arrivals()
                 with self._lock:
                     # A killed engine parks. An in-flight segment left after
                     # the last row finished is drained by one more step.
@@ -974,15 +1030,23 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
                                  if k in payload}
                     if overrides:
                         slo = dataclasses.replace(slo, **overrides)
-                pixels = _decode_pixels(payload, cfg, event_root)
             except Exception as e:  # a bad request, not a server fault
                 self._json(400, {"error": str(e)})
                 return
             stream = bool(payload.get("stream", False))
             t0 = time.perf_counter()
+            # Announced from receipt to submit: an idle engine gathers the
+            # requests posted together into one admission wave.
+            arriving = getattr(engine, "arriving", contextlib.nullcontext)
             try:
-                rid = engine.submit(query, pixels, budget, stream=stream, deadline_s=deadline,
-                                    slo=slo)
+                with arriving():
+                    try:
+                        pixels = _decode_pixels(payload, cfg, event_root)
+                    except Exception as e:  # a bad request, not a server fault
+                        self._json(400, {"error": str(e)})
+                        return
+                    rid = engine.submit(query, pixels, budget, stream=stream,
+                                        deadline_s=deadline, slo=slo)
             except (QueueFullError, FleetShedError) as e:
                 # Backpressure: the client backs off by its class and the
                 # windowed attainment (a shed carries its own hint).

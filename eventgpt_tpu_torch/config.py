@@ -74,9 +74,10 @@ class LlamaConfig:
     # Rematerialize each layer in the backward pass of ``llama.forward``
     # under grad (per-layer ``torch.utils.checkpoint``); what it may save
     # instead of recomputing is ``remat_policy``: "full" and
-    # "nothing_saveable" save nothing (two spellings of one policy). The
-    # JAX package's "dots_saveable" and "dots_with_no_batch_dims_saveable"
-    # are valid names that the port's forward refuses.
+    # "nothing_saveable" save nothing (two spellings of one policy);
+    # "dots_saveable" saves every matmul output, and
+    # "dots_with_no_batch_dims_saveable" the weight products only
+    # (``models/llama._remat_context_fn``).
     remat: bool = True
     remat_policy: str = "full"
 

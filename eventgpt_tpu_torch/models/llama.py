@@ -472,6 +472,25 @@ def decode_kstep(
     return logits, cache
 
 
+def _remat_context_fn(policy: str):
+    """``checkpoint``'s ``context_fn`` for a remat policy, or None (save
+    nothing: "full" and "nothing_saveable"). The JAX policies, over the
+    aten ops a layer dispatches: "dots_saveable" saves the output of every
+    matmul (``mm``, ``addmm``, ``bmm``, the attention products of the dense
+    path among them); "dots_with_no_batch_dims_saveable" saves the 2-D
+    weight products only (``mm``, ``addmm``), not the batched attention
+    products. The flash kernel is no aten op, so it is recomputed under
+    every policy, as the JAX policies recompute the ``pallas_call``."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    aten = torch.ops.aten
+    ops = {"dots_saveable": [aten.mm.default, aten.addmm.default, aten.bmm.default],
+           "dots_with_no_batch_dims_saveable": [aten.mm.default, aten.addmm.default]}
+    if policy not in ops:
+        return None
+    return lambda: create_selective_checkpoint_contexts(ops[policy])
+
+
 def forward(
     params: Params,
     cfg: LlamaConfig,
@@ -483,21 +502,23 @@ def forward(
     ``prefill``'s, without the cache write. Under grad with ``cfg.remat``,
     each layer runs inside ``torch.utils.checkpoint`` (non-reentrant): its
     activations are dropped after the forward and recomputed in the
-    backward pass, so flash attention launches twice per layer."""
+    backward pass, so flash attention launches twice per layer; the
+    ``cfg.remat_policy`` of the dot-saving kinds keeps the matmul outputs
+    it names (``_remat_context_fn``) instead of recomputing them."""
     b, t, _ = inputs_embeds.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, t), dtype=torch.bool, device=inputs_embeds.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    if remat and cfg.remat_policy not in ("full", "nothing_saveable"):
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} (saving matmul outputs) is not ported to "
-            f"eventgpt_tpu_torch yet; use 'full' or 'nothing_saveable'")
+    extra = {}
+    context_fn = _remat_context_fn(cfg.remat_policy) if remat else None
+    if context_fn is not None:
+        extra["context_fn"] = context_fn
     cos, sin, mask = _prompt_tables(cfg, inputs_embeds, attention_mask)
     x = inputs_embeds
     for layer in params["layers"]:
         if remat:
             x = checkpoint(_layer_block, cfg, layer, x, cos, sin, attention_mask, mask,
-                           use_reentrant=False, preserve_rng_state=False)
+                           use_reentrant=False, preserve_rng_state=False, **extra)
         else:
             x = _layer_block(cfg, layer, x, cos, sin, attention_mask, mask)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)

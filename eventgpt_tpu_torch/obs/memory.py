@@ -20,6 +20,12 @@ The port of ``eventgpt_tpu/obs/memory.py``, in torch terms:
     kernels and has no compiled executable to ask, so it answers
     ``{"unavailable": ...}``, the JAX contract for a backend without
     memory analysis; the ``egpt_mem_compiled_*`` gauges stay unset.
+  * **Shared entries** (``hold``/``unhold``): a weight tree that several
+    batchers serve is one entry, held once by each batcher over it (and by
+    ``cli/infer.prepare_model`` while the tree's embedding table lives) and
+    released with its last holder. The JAX ledger keeps such an entry after
+    its tree is dropped, so a process that builds several trees counted
+    past its device's bytes there (ROADMAP Queue 3).
   * **Reconciliation** (``reconcile``): the allocator's bytes on a card
     (``torch.cuda.memory_allocated``), the live CPU tensor storages on the
     CPU, against the ledger's total.
@@ -74,6 +80,7 @@ class MemoryLedger:
     # whole under the lock, read lock-free by summary consumers.
     _GUARDED_BY = {
         "_entries": "_lock",
+        "_holders": "_lock",
         "_component_totals": "_lock",
         "total_bytes": "_lock",
         "peak_bytes": "_lock",
@@ -84,6 +91,8 @@ class MemoryLedger:
     def __init__(self):
         self._lock = threading.Lock()
         self._entries: Dict[Tuple[str, str], int] = {}
+        # Holders of each shared entry (``hold``/``unhold``).
+        self._holders: Dict[Tuple[str, str], int] = {}
         self._component_totals: Dict[str, int] = {}
         self.total_bytes = 0
         self.peak_bytes = 0
@@ -130,15 +139,39 @@ class MemoryLedger:
         """Drop an entry (the allocation was freed). Unknown keys are a
         no-op — release paths run in sweeps that may repeat."""
         with self._lock:
-            old = self._entries.pop((component, key), None)
-            if old is None:
-                return
+            old = self._drop_locked(component, key)
+        if old is not None:
+            obs_trace.instant("mem_release", cat="mem", component=component,
+                              delta_bytes=-old, total_bytes=0)
+
+    def _drop_locked(self, component: str, key: str) -> Optional[int]:
+        old = self._entries.pop((component, key), None)
+        if old is not None:
             self._component_totals[component] = (
                 self._component_totals.get(component, 0) - old)
             self.total_bytes -= old
             self._export_gauges_locked(component)
-        obs_trace.instant("mem_release", cat="mem", component=component,
-                          delta_bytes=-old, total_bytes=0)
+        return old
+
+    def hold(self, component: str, key: str, nbytes: int) -> None:
+        """``register`` a shared entry and count one holder more: the
+        entry stays until its last holder calls ``unhold``."""
+        with self._lock:
+            self._holders[(component, key)] = self._holders.get((component, key), 0) + 1
+        self.register(component, key, nbytes)
+
+    def unhold(self, component: str, key: str) -> None:
+        """One holder of a shared entry fewer; the last one releases it."""
+        with self._lock:
+            n = self._holders.get((component, key), 0) - 1
+            if n > 0:
+                self._holders[(component, key)] = n
+                return
+            self._holders.pop((component, key), None)
+            old = self._drop_locked(component, key)
+        if old is not None:
+            obs_trace.instant("mem_release", cat="mem", component=component,
+                              delta_bytes=-old, total_bytes=0)
 
     def _export_gauges_locked(self, component: str) -> None:
         obs_metrics.MEM_TOTAL.set(self.total_bytes)

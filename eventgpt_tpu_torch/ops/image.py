@@ -121,6 +121,23 @@ def _center_crop(arr: np.ndarray, crop: int) -> np.ndarray:
     return out
 
 
+def expand2square(img: np.ndarray, background: Iterable[float] = CLIP_MEAN) -> np.ndarray:
+    """Pad an (H, W, C) uint8 image to square, centered, on the CLIP mean:
+    LLaVA's ``expand2square`` for ``image_aspect_ratio='square'``. The
+    background channels are ``int(mean * 255)`` (floor, as LLaVA computes
+    them) and the image sits at ``(side - dim) // 2``."""
+    h, w = img.shape[:2]
+    if h == w:
+        return img
+    side = max(h, w)
+    bg = np.array([int(c * 255) for c in background], dtype=img.dtype)
+    out = np.full((side, side, img.shape[2]), bg, dtype=img.dtype)
+    top = (side - h) // 2
+    left = (side - w) // 2
+    out[top:top + h, left:left + w] = img
+    return out
+
+
 def clip_preprocess(frame: np.ndarray, image_size: int = 336) -> np.ndarray:
     """uint8 RGB (H, W, 3) -> normalized float32 CHW (3, S, S): bicubic
     shortest-edge resize, center crop, rescale by 1/255, CLIP normalize."""
@@ -135,6 +152,19 @@ def clip_preprocess(frame: np.ndarray, image_size: int = 336) -> np.ndarray:
 def clip_preprocess_batch(frames: Iterable[np.ndarray], image_size: int = 336) -> np.ndarray:
     """Preprocess a list of frames -> (N, 3, S, S) float32."""
     return np.stack([clip_preprocess(f, image_size) for f in frames])
+
+
+def clip_normalize(frames):
+    """uint8 NHWC frames on a device, already at the target size (the
+    device rasterizer's output) -> normalized float32 NCHW on the same
+    device: rescale by 1/255, CLIP mean and std."""
+    import torch
+
+    mean = torch.as_tensor(CLIP_MEAN, device=frames.device)
+    std = torch.as_tensor(CLIP_STD, device=frames.device)
+    x = frames.to(torch.float32) / 255.0
+    x = (x - mean) / std
+    return x.permute(0, 3, 1, 2)
 
 
 def process_event_file(

@@ -1,15 +1,23 @@
 """Event-stream rasterization: raw ``{x, y, t, p}`` -> polarity RGB frames.
 
-Host-side numpy, the same semantics as ``eventgpt_tpu/ops/raster.py``:
-white (255,255,255) background; the *last* event at a pixel wins;
-polarity 0 -> blue (0,0,255), polarity 1 -> red (255,0,0); per-frame dims
-are ``(y.max()+1, x.max()+1)`` of that frame's own events. Streams split
-into equal event-count slices.
+The same semantics as ``eventgpt_tpu/ops/raster.py``: white
+(255,255,255) background; the *last* event at a pixel wins; polarity 0 ->
+blue (0,0,255), polarity 1 -> red (255,0,0); per-frame dims are
+``(y.max()+1, x.max()+1)`` of that frame's own events. Streams split into
+equal event-count slices, or into fixed-width time bins.
+
+  * ``rasterize_events``       -- the host path: the native library's single
+    C pass (``eventgpt_tpu_torch/native.py``) when it is already built, else
+    a numpy scatter; ``RASTER_PATHS`` counts which ran;
+  * ``rasterize_events_torch`` -- the device path for events already on a
+    device: a scatter-max of event ordinals, then a gather of the winner's
+    polarity (the JAX package's ``rasterize_events_jax``).
 """
 
 from __future__ import annotations
 
 import pickle
+from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -21,9 +29,13 @@ EventDict = Dict[str, np.ndarray]
 _RED = np.array([255, 0, 0], dtype=np.uint8)
 _BLUE = np.array([0, 0, 255], dtype=np.uint8)
 
-# On-disk layout of a structured event stream: one struct per event.
+# On-disk layout of a structured event stream: one struct per event (the
+# native reader's, shared with the C++ SaveEventsNpy writer).
 STREAM_DTYPE = np.dtype([("x", "<u2"), ("y", "<u2"),
                          ("t", "<u8"), ("p", "u1")])
+
+# Frames rasterized by ``rasterize_events`` on each host path.
+RASTER_PATHS: Counter = Counter()
 
 
 class EventStreamTooLongError(ValueError):
@@ -95,6 +107,26 @@ def load_event_npy(path: str) -> EventDict:
     )
 
 
+def events_to_structured_stream(events: EventDict) -> np.ndarray:
+    """{x,y,t,p} dict -> the native reader's structured-array layout, how a
+    streaming harness replays a stream through ``native.EventStream``."""
+    n = len(events["t"])
+    arr = np.zeros(n, dtype=STREAM_DTYPE)
+    for k in ("x", "y", "t", "p"):
+        arr[k] = events[k]
+    return arr
+
+
+def events_window_us(buf: Dict[str, np.ndarray], sel: np.ndarray) -> EventDict:
+    """Select a window from a float-seconds event dict (what
+    ``native.EventStream.pop_until`` returns), ``t`` converted to int64
+    microseconds (truncated, as the JAX package converts it): the
+    ``events_to_frames`` contract."""
+    return {k: (buf[k][sel] if k != "t"
+                else (buf["t"][sel] * 1e6).astype(np.int64))
+            for k in buf}
+
+
 def rasterize_events(
     x: np.ndarray,
     y: np.ndarray,
@@ -124,6 +156,14 @@ def rasterize_events(
         if not inb.all():
             x, y, p = np.asarray(x)[inb], np.asarray(y)[inb], np.asarray(p)[inb]
 
+    from eventgpt_tpu_torch import native
+
+    # Only a library built already: a build is never started from here. The
+    # C ABI takes uint16 coordinates, so larger frames take numpy.
+    if native.built() and height <= 65536 and width <= 65536:
+        RASTER_PATHS["native"] += 1
+        return native.rasterize_events_native(x, y, p, height, width)
+    RASTER_PATHS["numpy"] += 1
     lin = y.astype(np.int64) * width + x.astype(np.int64)
     last = np.full(height * width, -1, dtype=np.int64)
     np.maximum.at(last, lin, np.arange(lin.size, dtype=np.int64))
@@ -132,6 +172,40 @@ def rasterize_events(
     hit = last >= 0
     pol = np.asarray(p)[last[hit]]
     frame[hit] = np.where(pol[:, None] != 0, _RED, _BLUE)
+    return frame.reshape(height, width, 3)
+
+
+def rasterize_events_torch(x, y, p, height: int, width: int, device=None):
+    """The device rasterizer: (H, W, 3) uint8 on ``device`` (default: the
+    events' own), last write wins, equal to ``rasterize_events`` bit for
+    bit. A ``scatter_reduce_`` ("amax") of int64 event ordinals picks each
+    pixel's last event, a gather takes its polarity. Events outside the
+    frame are dropped, as on the host path. (The JAX version scatters on
+    the linear index: it drops events below the frame's last row, and an
+    event past the right edge lands on the next row there.) Numpy inputs
+    go to the device as int32 coordinates and uint8 polarities."""
+    import torch
+
+    def on_device(v, dtype):
+        if torch.is_tensor(v):
+            return v.to(device=device if device is not None else v.device)
+        return torch.as_tensor(np.asarray(v).astype(dtype), device=device)
+
+    x, y, p = on_device(x, np.int32), on_device(y, np.int32), on_device(p, np.uint8)
+    dev = x.device
+    xi, yi = x.to(torch.int64), y.to(device=dev, dtype=torch.int64)
+    inb = (xi >= 0) & (xi < width) & (yi >= 0) & (yi < height)
+    lin = torch.where(inb, yi * width + xi, height * width)
+    last = torch.full((height * width + 1,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, lin, torch.arange(lin.numel(), dtype=torch.int64, device=dev),
+                         reduce="amax")
+    last = last[:-1]  # the dropped events' sink
+    hit = last >= 0
+    pol = p.to(dev)[last.clamp(min=0)] != 0
+    red = torch.tensor([255, 0, 0], dtype=torch.uint8, device=dev)
+    blue = torch.tensor([0, 0, 255], dtype=torch.uint8, device=dev)
+    white = torch.full((3,), 255, dtype=torch.uint8, device=dev)
+    frame = torch.where(hit[:, None], torch.where(pol[:, None], red, blue), white)
     return frame.reshape(height, width, 3)
 
 
@@ -146,6 +220,17 @@ def split_events_by_count(events: EventDict, n: int) -> List[Tuple[np.ndarray, n
         lo = i * per
         hi = (i + 1) * per if i < n - 1 else total
         out.append((x[lo:hi], y[lo:hi], p[lo:hi]))
+    return out
+
+
+def split_events_by_time(events: EventDict, time_interval_us: int = 50_000) -> List[EventDict]:
+    """Split a stream into fixed-width time bins."""
+    t = events["t"]
+    bins = (t // time_interval_us) * time_interval_us
+    out = []
+    for b in np.unique(bins):
+        sel = bins == b
+        out.append({k: events[k][sel] for k in ("p", "t", "x", "y")})
     return out
 
 

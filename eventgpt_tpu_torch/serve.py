@@ -1432,12 +1432,14 @@ class ContinuousBatcher:
 
     def _register_memory(self, params, draft_head, max_batch: int) -> None:
         """The resident buffers' ledger entries, the JAX batcher's: the
-        weight tree keyed by its identity (replicas over one tree register
-        it once), every other component under this server's owner."""
+        weight tree keyed by its identity (replicas over one tree share the
+        entry; each holds it until it is dropped), every other component
+        under this server's owner."""
         led = obs_memory.LEDGER
         if self._prefix_cache is not None:
             self._prefix_cache._mem_key = f"{self._mem_owner}/prefix_cache"
-        led.register("weights", f"shared/params-{id(params):x}", obs_memory.params_bytes(params))
+        self._mem_shared = [("weights", f"shared/params-{id(params):x}")]
+        led.hold(*self._mem_shared[0], obs_memory.params_bytes(params))
         if self._paged:
             led.register("kv_pool", f"{self._mem_owner}/kv_pool",
                          obs_memory.params_bytes([self.cache["k"], self.cache["v"]]))
@@ -1453,8 +1455,8 @@ class ContinuousBatcher:
             led.register("draft", f"{self._mem_owner}/spec_drafts",
                          obs_memory.params_bytes(self.spec_drafts))
         if draft_head is not None:
-            led.register("draft", f"shared/medusa-{id(draft_head):x}",
-                         obs_memory.params_bytes(draft_head))
+            self._mem_shared.append(("draft", f"shared/medusa-{id(draft_head):x}"))
+            led.hold(*self._mem_shared[-1], obs_memory.params_bytes(draft_head))
         if self.pipeline:
             # The device carry: frozen (bool), n_rem (int32) and, speculative,
             # base_pos (int32) per row.
@@ -1462,8 +1464,9 @@ class ContinuousBatcher:
                          max_batch * (1 + 4 + (4 if self.speculative else 0)))
 
     def __del__(self):
-        # A dropped batcher leaves no owner-keyed bytes in the ledger; the
-        # shared weight entry stays (the tree may outlive this server).
+        # A dropped batcher leaves no owner-keyed bytes in the ledger, and
+        # lets go of the shared weight entries: the last holder releases
+        # them (the JAX batcher leaves them).
         owner = getattr(self, "_mem_owner", None)
         if owner is None:
             return
@@ -1473,6 +1476,8 @@ class ContinuousBatcher:
                               ("ids_buf", "ids_buf"), ("draft", "spec_drafts"),
                               ("carry", "carry"), ("lanes", "lanes"), ("spill", "spill")):
                 obs_memory.LEDGER.release(comp, f"{owner}/{key}")
+            for comp, key in getattr(self, "_mem_shared", ()):
+                obs_memory.LEDGER.unhold(comp, key)
         except Exception:
             pass
 

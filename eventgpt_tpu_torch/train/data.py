@@ -13,9 +13,10 @@ The collator emits a *fixed-layout* batch: each event sentinel is expanded
 to ``num_event_tokens`` slots with a gather-index map, so the device-side
 splice is a gather and a ``where`` (``train/steps.multimodal_embeds``).
 ``batch_iterator`` shuffles with numpy's ``default_rng(seed)``, so a seed
-gives the JAX package's batch order. ``image`` entries (a still image
-through Pillow, padded square by ``expand2square``) are not ported: they
-raise ``NotImplementedError``.
+gives the JAX package's batch order. An ``image`` entry is a still image
+decoded by Pillow, padded square by ``expand2square`` and replicated over
+the frames; where Pillow is missing (the card machine) it raises an
+``ImportError`` naming Pillow.
 """
 
 from __future__ import annotations
@@ -196,7 +197,8 @@ class EventChatDataset:
         return out
 
     def _load_pixels(self, entry: Dict[str, Any]) -> Optional[np.ndarray]:
-        from eventgpt_tpu_torch.ops.image import process_event_file
+        from eventgpt_tpu_torch.ops.image import (clip_preprocess_batch, expand2square,
+                                                  process_event_file)
 
         if "event" in entry:
             path = os.path.join(self.event_folder, entry["event"])
@@ -207,10 +209,22 @@ class EventChatDataset:
                 return pixels
             raise ValueError(f"unsupported event file: {path}")
         if "image" in entry:
-            raise NotImplementedError(
-                f"image entry {entry['image']!r}: still-image entries (Pillow decode and "
-                f"expand2square) are not ported to eventgpt_tpu_torch yet; use event "
-                f"(.npy) entries")
+            try:
+                from PIL import Image
+            except ImportError as e:
+                raise ImportError(
+                    f"image entry {entry['image']!r}: decoding a still image needs Pillow "
+                    f"(PIL), which is not installed; use event (.npy) entries") from e
+            img = np.asarray(
+                Image.open(os.path.join(self.event_folder, entry["image"])).convert("RGB"))
+            if self.image_aspect_ratio == "square":
+                # Padded to square on the CLIP mean before preprocessing
+                # (LLaVA's dataset).
+                img = expand2square(img)
+            # A still image is replicated over the temporal axis, so the
+            # event pipeline's frame count applies unchanged.
+            frames = [img] * self.cfg.num_event_frames
+            return clip_preprocess_batch(frames, self.cfg.vision.image_size)
         return None
 
     def __getitem__(self, idx: int) -> Sample:

@@ -109,10 +109,6 @@ class Trainer:
         if train_args.remat_policy != cfg.llama.remat_policy:
             cfg = dataclasses.replace(
                 cfg, llama=dataclasses.replace(cfg.llama, remat_policy=train_args.remat_policy))
-        if cfg.llama.remat and cfg.llama.remat_policy not in ("full", "nothing_saveable"):
-            raise NotImplementedError(
-                f"remat_policy {cfg.llama.remat_policy!r} (saving matmul outputs) is not "
-                f"ported to eventgpt_tpu_torch yet; use 'full' or 'nothing_saveable'")
         if (not train_args.bf16 and cfg.llama.attn_impl == "flash"
                 and self.device.type == "cuda"):
             raise ValueError(

@@ -68,7 +68,12 @@ def test_port_imports_no_jax_and_no_jax_package():
             "eventgpt_tpu_torch.obs.journey",
             "eventgpt_tpu_torch.obs.memory",
             "eventgpt_tpu_torch.obs.series",
-            "eventgpt_tpu_torch.obs.profiling"} <= set(found["modules"])
+            "eventgpt_tpu_torch.obs.profiling",
+            "eventgpt_tpu_torch.native",
+            "eventgpt_tpu_torch.cli.eval",
+            "eventgpt_tpu_torch.data.dsec",
+            "eventgpt_tpu_torch.data.feature_track",
+            "eventgpt_tpu_torch.scripts.stream_demo"} <= set(found["modules"])
     assert found["bad"] == [], f"the port pulled in: {found['bad']}"
 
 

@@ -752,3 +752,31 @@ def test_spill_gather_to_pinned_host_and_restore_are_bit_exact(quant):
             assert torch.equal(got, exp)
     assert cache["bt"][0].tolist() == bt.tolist() and int(cache["length"][0]) == 150
     assert torch.equal(logits[0], logits[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w", [(130_000, 480, 640), (5_000, 24, 32), (1, 7, 5)])
+def test_device_rasterizer_on_the_card_equals_numpy(n, h, w):
+    """``ops/raster.rasterize_events_torch`` on the card (library scatter
+    ops, no kernel of the port's) against the host's numpy scatter, with
+    duplicate pixels and events off the frame."""
+    import numpy as np
+
+    from eventgpt_tpu_torch.ops import raster
+
+    dev = _card()
+    rng = np.random.default_rng(n)
+    x = rng.integers(0, w + 3, n).astype(np.uint16)
+    y = rng.integers(0, h + 3, n).astype(np.uint16)
+    p = rng.integers(0, 2, n).astype(np.uint8)
+    inb = (x < w) & (y < h)
+    lin = y[inb].astype(np.int64) * w + x[inb]
+    last = np.full(h * w, -1, np.int64)
+    np.maximum.at(last, lin, np.arange(lin.size))
+    want = np.full((h * w, 3), 255, np.uint8)
+    hit = last >= 0
+    want[hit] = np.where(p[inb][last[hit]][:, None] != 0, np.array([255, 0, 0], np.uint8),
+                         np.array([0, 0, 255], np.uint8))
+    got = raster.rasterize_events_torch(x, y, p, h, w, device=dev)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), torch.from_numpy(want.reshape(h, w, 3)))

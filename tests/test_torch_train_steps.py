@@ -9,8 +9,9 @@
   two steps each from the same state and batches, one case with gradient
   accumulation 2: loss, grad_norm and every updated trainable within 1e-5
   of the JAX ``make_train_step``'s.
-- Remat on equals remat off; a remat policy that saves dots raises; a
-  config whose remat fields came from a JAX ``config.json`` round-trips.
+- Remat on equals remat off, and a remat policy that saves dots equals
+  full remat; a config whose remat fields came from a JAX ``config.json``
+  round-trips.
 """
 
 import dataclasses
@@ -97,12 +98,18 @@ def test_preprocess_and_collate_match_jax(tmp_path, start_end):
             assert b[k].dtype == a[k].dtype, k
 
 
-def test_image_entries_are_not_ported(tmp_path):
+def test_image_entries_are_not_ported(tmp_path, monkeypatch):
+    """Image entries are ported (``tests/test_torch_raster_stream.py`` holds
+    their pixels to JAX's); without Pillow, as on the card machine, an
+    image entry raises an error that names Pillow."""
+    import sys
+
     _, tc = _cfgs()
     path = tmp_path / "qa.json"
     path.write_text(json.dumps([{"image": "x.png", "conversations": _conversations(0)}]))
     ds = tdata.EventChatDataset(str(path), t_load_tokenizer("byte"), tc)
-    with pytest.raises(NotImplementedError, match="expand2square"):
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="Pillow"):
         ds[0]
 
 
@@ -238,11 +245,18 @@ def test_remat_on_equals_off_and_dot_policies_raise():
     assert torch.equal(m_on["loss"], m_off["loss"])
     assert torch.equal(m_on["grad_norm"], m_off["grad_norm"])
     _assert_trees_close(tr_on, tr_off, atol=0)
-    cfg = dataclasses.replace(tc, llama=dataclasses.replace(tc.llama, remat_policy="dots_saveable"))
-    step = tsteps.make_train_step(cfg, opt, tsteps.stage1_combine)
-    tr, fz = tsteps.split_stage1(tp)
-    with pytest.raises(NotImplementedError, match="dots_saveable"):
-        step(tsteps.init_train_state(tree_map(lambda x: x.detach().clone(), tr), fz, opt), batch)
+    # The dot-saving policies are ported: a stage-1 step under each equals
+    # full remat's bit for bit (``tests/test_torch_remat.py`` holds them to
+    # the JAX policies); an unknown policy name still raises.
+    got = []
+    for policy in ("full", "dots_saveable"):
+        cfg = dataclasses.replace(tc, llama=dataclasses.replace(tc.llama, remat_policy=policy))
+        step = tsteps.make_train_step(cfg, opt, tsteps.stage1_combine)
+        tr, fz = tsteps.split_stage1(tp)
+        got.append(step(tsteps.init_train_state(tree_map(lambda x: x.detach().clone(), tr),
+                                                fz, opt), batch)[1])
+    assert torch.equal(got[0]["loss"], got[1]["loss"])
+    assert torch.equal(got[0]["grad_norm"], got[1]["grad_norm"])
     with pytest.raises(ValueError, match="remat_policy"):
         tcfg.LlamaConfig(remat_policy="dots")
 

@@ -257,9 +257,10 @@ def test_eval_freeze_and_telemetry(jparams, data, tmp_path):
 
 
 # profile_dir is ported; its slot holds the other sequence-parallel value.
+# The dot-saving remat policies are ported; theirs holds the model axis.
 @pytest.mark.parametrize("flag", [{"mesh_fsdp": 2}, {"mesh_context": 2},
                                   {"attn_impl": "ulysses"}, {"attn_impl": "ring"},
-                                  {"remat_policy": "dots_saveable"}])
+                                  {"mesh_model": 2}])
 def test_unported_options_raise(jparams, data, tmp_path, flag):
     with pytest.raises(NotImplementedError):
         _port_trainer(jparams, data, tmp_path / "x", **flag)
