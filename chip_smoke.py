@@ -139,11 +139,12 @@ Phases, each printed on its own line:
                    steps)); write and load seconds and GB/s, and the peak
                    device memory of the load over what was held before it;
                    ``python -m eventgpt_tpu_torch.cli.infer --model_path DIR``
-                   as a subprocess on one stream (the first whose answer
-                   decodes to text) prints the answer and token count of an
-                   in-process batch-1 ``generate``, and so does it over a
-                   tiny bf16 checkpoint whose every generated id is one
-                   printable character (``cli_subprocess_tiny``). ``slice_qformer``: a
+                   as a subprocess prints the answer and token count of an
+                   in-process batch-1 ``generate`` over a tiny bf16
+                   checkpoint whose every generated id is one printable
+                   character (``cli_subprocess_tiny``; the 7B run of it left
+                   where ``eval_mesh_7b`` starts a 7B CLI from
+                   the directory). ``slice_qformer``: a
                    seeded Q-Former at 7B width (32 queries, 2 layers, d =
                    4096) saved as component files and loaded over the same
                    directory with ``--use_event_qformer
@@ -152,13 +153,12 @@ Phases, each printed on its own line:
                    warm. ``serve_telemetry_7b``: ``python -m
                    eventgpt_tpu_torch.cli.serve`` over the directory as a
                    subprocess (paged int8 KV, 4 rows, chunk 32, the JAX CLI's
-                   telemetry defaults), three runs one at a time on
-                   ``serve_defaults``' six requests over HTTP: armed, with
-                   ``--no_telemetry``, and armed with the headroom guard set
+                   telemetry defaults), two runs one at a time on
+                   ``serve_defaults``' six requests over HTTP: armed, and
+                   armed with the headroom guard set
                    under the ledger's total and a 2 s ``POST /profile``
                    over the first requests (after ``--warmup``); each run's
-                   chains held to the oracle, K1 equal armed and disarmed,
-                   ``/metrics``
+                   chains held to the oracle, ``/metrics``
                    counts, journeys whose phases sum to their latency, one
                    queued/active trace pair per request, the ``--trace_out``
                    file, the ledger's reconciliation (at least 0.9 of the
@@ -257,6 +257,34 @@ Phases, each printed on its own line:
                    gate's bars (random heads 1.0 +- 0.15 tokens an
                    iteration, trained heads above 1.5 and random + 0.5,
                    one chain across the three drafts);
+                   ``tiny_mesh_card_vs_cpu``: a world of two ranks on the
+                   card (gloo) against the same world on the CPU over a tiny
+                   bf16 checkpoint with ``--quant int4 --kv_cache int8`` at
+                   meshes model 2 and fsdp 2: equal chains, prefill logits
+                   within MESH_TINY_LOGIT_ATOL, K4 launched on every shard;
+                   beside them one rank over NCCL (world-group collectives
+                   on the card); the worlds run at once, beside the other
+                   tiny phases;
+    serving mesh -- inside phase 7, after ``serve_telemetry_7b``, two ranks of
+                   the one card under ``python -m torch.distributed.run``
+                   over gloo, each holding half of every LLaMA matmul (16
+                   of the 32 heads) and the whole vision side:
+                   ``eval_mesh_7b`` (``cli/eval --mesh_model 2`` on
+                   ``eval_7b``'s batch; chains held to ``slice``'s by
+                   ``chain_rule``; per rank K1 32, peak memory, backend,
+                   collectives a decode step, load / prefill / decode s) and
+                   ``serve_mesh_7b`` (``cli/serve --mesh_model 2``, rank 0
+                   serving ``telemetry_requests()``' six over HTTP, rank 1
+                   following; chains held to the telemetry oracle, the pool
+                   clean, TTFTs, K1 per rank, the follower's steps equal
+                   rank 0's). The ``--no_telemetry`` server of
+                   ``serve_telemetry_7b``, the spill-without-lanes arm of
+                   ``serve_preempt_7b``, the by-waves arm of
+                   ``serve_fleet_chaos_7b``, the paged lookup and adaptive
+                   and the dense Medusa runs of ``serve_spec``, the dense
+                   defaults, unbounded-cache and first-chunk runs of
+                   ``serve_defaults`` and the 7B infer CLI subprocess left
+                   the run to pay for these;
 10. kernels     -- one JSON line per the kernel table (K4 with one decode
                    step's and one prefill forward's launches; K1 with its
                    training and head-training launches by path and its
@@ -357,15 +385,19 @@ SERVE_DEFAULTS_CONFIGS = [
     ("oracle", ["--no_pipeline", "--no_prefix_cache", "--prefill_budget", "0"]),
 ]
 UNBOUNDED_PAGED_POOL = ["--kv_pool_blocks", "129"]
+# The dense layout runs its oracle only (serve_spec's dense runs are held to
+# it): its defaults, unbounded-cache and first-chunk runs, the paged runs'
+# layout twins, left the run to pay for the serving mesh's phases.
+DENSE_DEFAULTS_SKIPPED = ("defaults", "unbounded_cache", "first_chunk_4")
 # serve_spec: (layout, kind, cli/serve flags over serve_defaults' base
 # flags); HEADS stands for the saved 7B-width Medusa stack. The warmup run
-# is the dense lookup server warmed first.
+# is the dense lookup server warmed first. (The paged lookup and adaptive
+# runs, the dense ones' layout twins, and the dense Medusa run, which
+# medusa_train_7b repeats with its trained stack, left the run to pay for
+# the serving mesh; tiny_serve_spec_card_vs_cpu serves paged.)
 SERVE_SPEC_CONFIGS = [
-    ("paged", "lookup", ["--speculative", "4"]),
     ("dense", "lookup", ["--speculative", "4"]),
-    ("paged", "adaptive", ["--spec_buckets", "0,2,4"]),
     ("dense", "adaptive", ["--spec_buckets", "0,2,4"]),
-    ("dense", "medusa", ["--speculative", "4", "--draft_head", "HEADS"]),
     ("dense", "warmup", ["--speculative", "4", "--warmup"]),
 ]
 # The lane chunk of the 7B runs (prefill_budget = chunk = 32): the window
@@ -450,11 +482,9 @@ PREEMPT_ARMS = [
                "--spill_capacity_mb", "1024"]),
     ("drop", ["--kv_pool_blocks", str(PREEMPT_POOL_BLOCKS), "--preempt",
               "--spill_capacity_mb", "0"]),
-    # Exclusive admission: with lanes (the default) the head prefills 32
-    # positions a boundary behind the decoding row; here it prefills at once.
-    ("spill_no_lanes", ["--kv_pool_blocks", str(PREEMPT_POOL_BLOCKS), "--preempt",
-                        "--spill_capacity_mb", "1024", "--prefill_budget", "0"]),
 ]
+# (The spill arm without lanes, a repeat of "spill" with exclusive admission,
+# left the run to pay for the serving mesh's phases.)
 IDLE_VERIFIES_BEFORE_REPAIR = {"serve_spec_paged_lookup": (46, 68),
                                "serve_spec_dense_lookup": (46, 68),
                                "serve_spec_paged_adaptive": (46, 68),
@@ -1406,6 +1436,8 @@ def serve_defaults(eventchat, llama, params, cfg, tokenizer, requests, layout: s
     reqs = serve_defaults_requests(requests)
     runs, k1 = {}, {}
     for name, flags in SERVE_DEFAULTS_CONFIGS:
+        if layout == "dense" and name in DENSE_DEFAULTS_SKIPPED:
+            continue
         if name == "unbounded_cache" and layout == "paged":
             flags = flags + UNBOUNDED_PAGED_POOL
         (numbers, chains), launches = counted(
@@ -1508,7 +1540,8 @@ def serve_spec(eventchat, llama, params, cfg, tokenizer, requests, oracles, coun
     from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
 
     heads_path = os.path.join(work, "medusa_7b.npz")
-    save_medusa(heads_path, medusa_stack(cfg, torch.bfloat16))
+    if any("HEADS" in flags for _, _, flags in SERVE_SPEC_CONFIGS):
+        save_medusa(heads_path, medusa_stack(cfg, torch.bfloat16))
     reqs = serve_defaults_requests(requests)
     runs, launches_by_run = {}, {}
     for layout, kind, flags in SERVE_SPEC_CONFIGS:
@@ -1973,10 +2006,10 @@ ORACLE_FLAGS = ["--no_pipeline", "--no_prefix_cache", "--prefill_budget", "0"]
 # the state it was armed on. Its arms: piggyback lanes of 32 prompt
 # positions a boundary (the budget the other served phases have at chunk
 # 32; the default, --chunk, would be 8) and exclusive admission.
+# (The arm by waves, "--prefill_budget 0", left the run to pay for the
+# serving mesh's phases; the CPU chaos tests run both.)
 CHAOS_ARMS = [("lanes", ["--chunk", "8", "--fleet_probe_interval_s", "0.005",
-                         "--prefill_budget", "32"]),
-              ("waves", ["--chunk", "8", "--fleet_probe_interval_s", "0.005",
-                         "--prefill_budget", "0"])]
+                         "--prefill_budget", "32"])]
 BREAKER_FLAGS = ["--max_batch", "2", "--breaker_threshold", "3", "--breaker_cooldown_s", "2"]
 CHAOS_BUDGET = 64  # two segments past a row seen mid-decode leave it unfinished
 WAIT_S = 300.0  # the bound of every wait on a served state at 7B
@@ -3101,15 +3134,12 @@ class ServerProcess:
         import re
         import threading
 
-        env = dict(os.environ, PYTHONIOENCODING="utf-8",
-                   PYTHONPATH=os.pathsep.join([ROOT] + [x for x in [os.environ.get("PYTHONPATH")]
-                                                        if x]))
         self.log_path = log_path
         self._log = open(log_path, "w")
         t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-u", "-m", "eventgpt_tpu_torch.cli.serve", *argv, "--port", "0"],
-            stdout=subprocess.PIPE, stderr=self._log, cwd=ROOT, env=env, text=True)
+            self._command(argv), stdout=subprocess.PIPE, stderr=self._log, cwd=ROOT,
+            env=self._env(), text=True)
         self.lines, self.port = [], None
         pat = re.compile(r"listening on http://[^:]+:(\d+) ")
 
@@ -3133,6 +3163,14 @@ class ServerProcess:
             raise AssertionError(f"the server exited {self.proc.returncode} before listening: "
                                  f"{self.log_tail()}")
         self.boot_s = time.perf_counter() - t0
+
+    def _command(self, argv) -> list:
+        return [sys.executable, "-u", "-m", "eventgpt_tpu_torch.cli.serve", *argv, "--port", "0"]
+
+    def _env(self) -> dict:
+        return dict(os.environ, PYTHONIOENCODING="utf-8",
+                    PYTHONPATH=os.pathsep.join([ROOT] + [x for x in [os.environ.get("PYTHONPATH")]
+                                                         if x]))
 
     def log_tail(self) -> str:
         self._log.flush()
@@ -3339,28 +3377,28 @@ def metric_value(text: str, sample: str) -> float:
 def serve_telemetry_7b(eventchat, llama, params, cfg, tokenizer, requests, oracle_chains,
                        ckpt: str, work: str, n_layers: int, smi: str, ties=None) -> dict:
     """The port's telemetry on the served 7B path, through the real entry
-    point: three ``cli/serve`` processes over the 7B checkpoint with the
+    point: two ``cli/serve`` processes over the 7B checkpoint with the
     JAX CLI's defaults (paged int8 KV, 4 rows, chunk 32), one at a time, on
-    ``serve_defaults``' traffic. Armed at the defaults; ``--no_telemetry``;
-    armed with the headroom guard set below the ledger's total (admissions
-    while rows decode defer until they drain), ``--warmup`` and a profile
-    capture over its first requests. Every run's chains held to
-    ``serve_defaults``' oracle (``hold_to_oracle``), K1 equal armed and
-    disarmed; the armed run's metrics, journeys, trace, trace file and
-    ledger reconciliation; the guard's deferrals; the capture names K1.
+    ``serve_defaults``' traffic. Armed at the defaults; armed with the
+    headroom guard set below the ledger's total (admissions while rows
+    decode defer until they drain), ``--warmup`` and a profile capture over
+    its first requests. (The ``--no_telemetry`` server left the run to
+    pay for the serving mesh's phases; the CPU tests hold disarmed
+    telemetry.) Every run's chains held to ``serve_defaults``' oracle
+    (``hold_to_oracle``); the armed run's metrics, journeys, trace, trace
+    file and ledger reconciliation; the guard's deferrals; the capture
+    names K1.
     ``ties``: {(row, first divergent step): report} already verified on the
     same oracle (``serve_defaults``'), not replayed again. Returns {run: K1
     launches}."""
     reqs = serve_defaults_requests(requests)
     runs = {"armed": telemetry_run(ckpt, work, "telemetry_armed")}
-    runs["no_telemetry"] = telemetry_run(ckpt, work, "telemetry_off", ["--no_telemetry"],
-                                         armed=False)
     total_mib = runs["armed"]["stats"]["memory"]["total_bytes"] / 2 ** 20
     guard = ["--mem_capacity_mb", str(math.ceil(total_mib) + 64), "--mem_headroom_mb", "128"]
     runs["guarded"] = telemetry_run(ckpt, work, "telemetry_guard", guard + ["--warmup"],
                                     profile=True)
     k1 = {n: r["stats"]["launches"]["flash_attention.cu"] for n, r in runs.items()}
-    armed, off, guarded = runs["armed"], runs["no_telemetry"], runs["guarded"]
+    armed, guarded = runs["armed"], runs["guarded"]
     n = len(reqs)
     problems = []
     # Over HTTP the admission paths follow the arrival times (which lanes
@@ -3368,8 +3406,7 @@ def serve_telemetry_7b(eventchat, llama, params, cfg, tokenizer, requests, oracl
     # follow the paths at rounding ties: every run is held to the oracle
     # (identical, or a divergence at a measured tie). Exact equality armed
     # against disarmed at one schedule is the CPU tests' (bytes equal).
-    same_paths = armed["stats"]["dispatches"] == off["stats"]["dispatches"]
-    if k1["armed"] != k1["no_telemetry"] or k1["armed"] % n_layers or not k1["armed"]:
+    if k1["armed"] % n_layers or not k1["armed"]:
         problems.append(f"K1 launches {k1}")
     text = armed["metrics_text"]
     counts = {"requests_ok": metric_value(text, 'egpt_serve_requests_total{status="ok"}'),
@@ -3394,9 +3431,7 @@ def serve_telemetry_7b(eventchat, llama, params, cfg, tokenizer, requests, oracl
     rec = armed["memory"]["reconcile"]
     if rec["accounted_ratio"] < RECONCILE_MIN:
         problems.append(f"the ledger accounts {rec['accounted_ratio']} of the live bytes")
-    if off["trace_code"] != 404:
-        problems.append(f"--no_telemetry /trace answered {off['trace_code']}")
-    for r in ("armed", "no_telemetry"):
+    for r in ("armed",):
         # The random 7B weights' answers are mostly empty text (token ids
         # past the byte range decode to nothing), and an empty answer sends
         # no delta: the first event is then the done record.
@@ -3450,8 +3485,7 @@ def serve_telemetry_7b(eventchat, llama, params, cfg, tokenizer, requests, oracl
                   "paged int8 KV, 4 rows, max_len 1024, chunk 32, the JAX CLI's defaults "
                   "(pipelined, prefix cache 512 MiB, lanes of 32); serve_defaults' six requests "
                   "over HTTP (event_path under --event_root)",
-        "k1_launches": k1, "same_admission_paths_armed_disarmed": same_paths,
-        "chains_equal_armed_disarmed": armed["chains"] == off["chains"],
+        "k1_launches": k1,
         "chains_equal_guarded_armed": guarded["chains"] == armed["chains"],
         "vs_oracle": hold, "metrics": counts,
         "wall_s": {r: runs[r]["wall_s"] for r in runs},
@@ -4075,9 +4109,9 @@ def checkpoint_7b(params, cfg, ckpt: str, ids, pixels, event_paths, counted,
                   digests: dict, slice_ids, smi: str) -> dict:
     """Phase 3's bf16 tree through a checkpoint on disk, as a user runs a
     real one: written by ``write_hf_checkpoint``, loaded by the CLI's
-    functions (bf16, then ``--quant int4``), and by the CLI itself in a
-    subprocess; on the loaded bf16 tree, ``cli/eval``'s batched evaluation
-    (``eval_7b``, its own line). Every check raises."""
+    functions (bf16, then ``--quant int4``); on the loaded bf16 tree,
+    ``cli/eval``'s batched evaluation (``eval_7b``, its own line). Every
+    check raises."""
     import torch
 
     from eventgpt_tpu_torch.models import eventchat
@@ -4128,21 +4162,10 @@ def checkpoint_7b(params, cfg, ckpt: str, ids, pixels, event_paths, counted,
     del loaded4
     torch.cuda.empty_cache()
 
-    # The CLI as a user starts it, on one stream, against an in-process
-    # batch-1 generate on the same tree with the CLI's defaults. The stream
-    # is the first whose answer decodes to text: with random weights most
-    # ids lie past the byte tokenizer's 259 and decode to nothing, so the
-    # token counts are compared too, and ``cli_subprocess_tiny`` repeats the
-    # check on a checkpoint whose every id decodes to text.
-    for i in range(len(QUERIES)):
-        one = eventchat.generate(params, cfg, [ids[i]], pixels[i:i + 1],
-                                 max_new_tokens=MAX_NEW_TOKENS, temperature=0.0, top_p=1.0,
-                                 eos_token_id=tokenizer.eos_token_id, seed=0,
-                                 max_context=2048)[0]
-        answer = tokenizer.batch_decode([one], skip_special_tokens=True)[0].strip()
-        if answer:
-            break
-    cli = run_infer_cli(ckpt, event_paths[i], QUERIES[i], answer, len(one))
+    # (The 7B infer CLI subprocess against a batch-1 generate left the run
+    # to pay for the serving mesh's phases: eval_mesh_7b and
+    # serve_telemetry_7b start 7B CLIs from this directory, and
+    # cli_subprocess_tiny holds cli/infer's answer to an in-process one.)
     return {
         "config": "EventGPT-7B, phase 3's random bf16 weights", "shards": CKPT_SHARDS,
         "files": files, "bytes": nbytes, "tree_bytes": tree, "free_bytes_before": free,
@@ -4157,7 +4180,6 @@ def checkpoint_7b(params, cfg, ckpt: str, ids, pixels, event_paths, counted,
                       "gb_s": nbytes / load_int4["load_s"] / 1e9},
         "int4_run": run4, "int4_launches": launches4, "k4_launches_want": want_k4,
         "int4_greedy_sha256": digest(ids4), "same_digest_as_slice_int4": True,
-        "cli_subprocess": {**cli, "stream": i},
     }
 
 
@@ -5574,6 +5596,470 @@ def train_remat_7b(params, cfg, tokenizer, paths: dict, work: str, smi: str) -> 
             "runs": runs, "equal_loss_and_grad_norm": True, "nvidia_smi": smi}
 
 
+# The serving mesh on the one card: two ranks under ``python -m
+# torch.distributed.run``, both on card 0, over gloo (NCCL 2.28.9 answers
+# two ranks of one card with "invalid usage"). MESH_TINY_LOGIT_ATOL
+# bounds a rank's bf16 prefill logits on the card (K1, K4 on the shards)
+# against the same rank on the CPU (the plain versions); MESH_TINY is the
+# tiny config whose shards K4's shape gate takes at model 2 (N and K of
+# 256 and more a rank).
+MESH_RANKS = 2
+MESH_BACKEND = "gloo"
+MESH_TINY_LOGIT_ATOL = 5e-2
+MESH_TINY_NEW = 16
+MESH_TINY_MESHES = (("model2", (1, 1, 2)), ("fsdp2", (1, 2, 1)))
+
+MESH_NCCL_RANK = r"""
+# One rank of chip_smoke.py's NCCL check on the card: OUT.
+import json, os, sys
+
+import torch
+import torch.distributed as dist
+
+from eventgpt_tpu_torch.parallel.dist import initialize_distributed
+
+initialize_distributed(backend="nccl", timeout_s=120)
+rank, world = dist.get_rank(), dist.get_world_size()
+x = torch.arange(8.0, device="cuda")
+dist.all_reduce(x)
+parts = [torch.empty_like(x) for _ in range(world)]
+dist.all_gather(parts, x)
+torch.cuda.synchronize()
+want = [world * float(i) for i in range(8)]
+with open(os.path.join(sys.argv[1], f"rank{rank}.json"), "w") as f:
+    json.dump({"rank": rank, "world": world, "backend": dist.get_backend(),
+               "world_collectives_ok": x.tolist() == want
+               and all(p.tolist() == want for p in parts)}, f)
+dist.destroy_process_group()
+"""
+
+MESH_TINY_RANK = r"""
+# One rank of chip_smoke.py's tiny_mesh_card_vs_cpu: CKPT DEVICE BACKEND OUT JOB.
+import argparse, json, os, sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from eventgpt_tpu_torch.cli.infer import load_model, prepare_model
+from eventgpt_tpu_torch.config import MeshConfig
+from eventgpt_tpu_torch.fleet_proc import _reset_kernel_launches, kernel_launches
+from eventgpt_tpu_torch.models import eventchat, llama
+from eventgpt_tpu_torch.parallel.dist import initialize_distributed
+from eventgpt_tpu_torch.parallel.mesh import COLLECTIVES, make_mesh
+from eventgpt_tpu_torch.parallel.serving import batch_rows, head_shard
+
+ckpt, device, backend, out, job_path = sys.argv[1:6]
+job = json.load(open(job_path))
+initialize_distributed(backend=backend, timeout_s=300)
+rank, world = dist.get_rank(), dist.get_world_size()
+res = {"rank": rank, "world": world, "backend": dist.get_backend()}
+pixels = np.stack([np.load(p) for p in job["pixels"]])
+ids = job["ids"]
+for name, shape in job["meshes"]:
+    mesh = make_mesh(MeshConfig(data=shape[0], fsdp=shape[1], model=shape[2]), device)
+    args = argparse.Namespace(model_path=ckpt, use_event_qformer=False,
+                              pretrain_query_embedder=None, pretrain_attention_layers=None,
+                              quant="int4", fuse_params=False, seed=0,
+                              spatial_temporal_encoder=True)
+    cfg, params, tok = load_model(ckpt, "bfloat16", "flash", "byte", "cpu")
+    cfg, params = prepare_model(cfg, params, tok, args, mesh=mesh)
+    _reset_kernel_launches()
+    COLLECTIVES.update(count=0, bytes=0, seconds=0.0)
+    chains = eventchat.generate(params, cfg, ids, pixels, max_new_tokens=job["new"],
+                                temperature=0.0, eos_token_id=None, kv_quant=True,
+                                device=device, mesh=mesh)
+    launches = kernel_launches()
+    rows = batch_rows(mesh, len(ids))
+    padded, mask, _ = eventchat.prepare_prefill(params, cfg, [ids[i] for i in rows],
+                                                pixels[rows.start:rows.stop], mesh=mesh)
+    cache = llama.init_kv_cache(cfg.llama, padded.shape[0], padded.shape[1],
+                                dtype=padded.dtype, device=device, quant=True, mesh=mesh)
+    with torch.inference_mode():
+        logits, _ = llama.prefill(params["llama"], cfg.llama, padded, mask, cache,
+                                  last_only=True, mesh=mesh)
+    res[name] = {"chains": chains, **launches, "rows": list(rows),
+                 "logits": logits.float().cpu().tolist(), "collectives": dict(COLLECTIVES),
+                 "heads": head_shard(cfg.llama, mesh).heads,
+                 "kv_heads": head_shard(cfg.llama, mesh).kv_heads}
+with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun(nproc: int) -> list:
+    """The launcher's command line for ``nproc`` ranks on this host."""
+    return [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+            "--master_addr", "127.0.0.1", "--master_port", str(free_port())]
+
+
+def mesh_env() -> dict:
+    """The ranks' environment: the repository on the path, and the host's
+    cores split between the ranks (the launcher would give each one
+    thread, which slows the ranks' host preprocessing)."""
+    return dict(os.environ, PYTHONIOENCODING="utf-8",
+                OMP_NUM_THREADS=str(max((os.cpu_count() or 2) // MESH_RANKS, 1)),
+                PYTHONPATH=os.pathsep.join([ROOT] + [x for x in [os.environ.get("PYTHONPATH")]
+                                                     if x]))
+
+
+def start_world(argv: list, nproc: int, log_path: str) -> tuple:
+    """``argv`` on ``nproc`` ranks under the launcher, its output to
+    ``log_path``: (the launcher's process, its log, the start time)."""
+    log = open(log_path, "w")
+    return (subprocess.Popen(torchrun(nproc) + argv, stdout=log, stderr=subprocess.STDOUT,
+                             cwd=ROOT, env=mesh_env()), log, time.perf_counter())
+
+
+def finish_world(started: tuple, timeout: float) -> tuple:
+    """Wait for a ``start_world`` (killed past ``timeout`` seconds from its
+    start): (exit code, seconds, the log)."""
+    proc, log, t0 = started
+    try:
+        code = proc.wait(timeout=max(timeout - (time.perf_counter() - t0), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        code = 124
+    secs = time.perf_counter() - t0
+    log.close()
+    with open(log.name) as f:
+        return code, secs, f.read()
+
+
+def run_world(argv: list, nproc: int, log_path: str, timeout: float) -> tuple:
+    """``argv`` on ``nproc`` ranks under the launcher: (exit code, seconds,
+    the log)."""
+    return finish_world(start_world(argv, nproc, log_path), timeout)
+
+
+def tagged_lines(text: str, tag: str) -> list:
+    """The JSON objects of the lines that begin with ``tag``."""
+    return [json.loads(ln[len(tag):]) for ln in text.splitlines() if ln.startswith(tag)]
+
+
+def tiny_mesh_card_vs_cpu(work: str) -> dict:
+    """A world of 2 on the card (gloo, K1 and K4 on each rank's shards)
+    against the same world on the CPU (gloo, the plain versions), at meshes
+    model 2 and fsdp 2, over a tiny bf16 checkpoint with ``--quant int4``
+    and the int8 KV cache: the chains equal and each rank's prefill logits
+    within MESH_TINY_LOGIT_ATOL. Beside them one rank over NCCL (an
+    all-reduce and an all-gather of the world group on the card). The three
+    worlds run at once."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from eventgpt_tpu_torch.config import EventChatConfig, LlamaConfig
+    from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
+    from eventgpt_tpu_torch.data.tokenizer import load_tokenizer, tokenize_with_event
+    from eventgpt_tpu_torch.models.convert import init_eventchat_params, write_hf_checkpoint
+    from eventgpt_tpu_torch.ops.image import process_event_file
+
+    base = EventChatConfig.tiny()
+    cfg = dataclasses.replace(
+        base, llama=LlamaConfig(vocab_size=260, hidden_size=512, intermediate_size=1024,
+                                num_layers=2, num_heads=4, num_kv_heads=4, max_seq_len=2048),
+        projector=dataclasses.replace(base.projector, output_dim=512))
+    root = os.path.join(work, "tiny_mesh")
+    ckpt = os.path.join(root, "checkpoint")
+    os.makedirs(root, exist_ok=True)
+    write_hf_checkpoint(init_eventchat_params(cfg, torch.Generator().manual_seed(11),
+                                              torch.bfloat16, "cpu"), cfg, ckpt)
+    tok = load_tokenizer("byte")
+    pix = []
+    for i in range(2):
+        _, px = process_event_file(os.path.join(work, f"events_{i}.npy"), cfg.num_event_frames,
+                                   cfg.vision.image_size)
+        pix.append(os.path.join(root, f"pixels_{i}.npy"))
+        np.save(pix[-1], px)
+    job = {"ids": [tokenize_with_event(prepare_event_prompt(QUERIES[i]), tok) for i in range(2)],
+           "pixels": pix, "new": MESH_TINY_NEW, "meshes": MESH_TINY_MESHES}
+    script = os.path.join(root, "rank.py")
+    with open(script, "w") as f:
+        f.write(MESH_TINY_RANK)
+    nccl_script = os.path.join(root, "nccl_rank.py")
+    with open(nccl_script, "w") as f:
+        f.write(MESH_NCCL_RANK)
+    with open(os.path.join(root, "job.json"), "w") as f:
+        json.dump(job, f)
+    # The worlds are independent: they start together.
+    started = {}
+    for name, nproc, argv in (
+            ("card", MESH_RANKS, [script, ckpt, "cuda", MESH_BACKEND]),
+            ("cpu", MESH_RANKS, [script, ckpt, "cpu", "gloo"]),
+            ("nccl_one_rank", 1, [nccl_script])):
+        out = os.path.join(root, name)
+        os.makedirs(out, exist_ok=True)
+        extra = [out, os.path.join(root, "job.json")] if argv[0] == script else [out]
+        started[name] = (nproc, start_world(argv + extra, nproc, os.path.join(out, "log.txt")))
+    runs = {}
+    for name, (nproc, world) in started.items():
+        code, secs, text = finish_world(world, 300)
+        out = os.path.join(root, name)
+        ranks = []
+        for r in range(nproc):
+            path = os.path.join(out, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    ranks.append(json.load(f))
+        runs[name] = {"exit_code": code, "seconds": secs, "ranks": ranks,
+                      "errors": [ln for ln in text.splitlines()
+                                 if "Error" in ln or "error" in ln][:6]}
+    problems = []
+    for name in ("card", "cpu", "nccl_one_rank"):
+        if runs[name]["exit_code"] != 0 or len(runs[name]["ranks"]) != (1 if "one" in name
+                                                                         else MESH_RANKS):
+            problems.append(f"{name}: exit {runs[name]['exit_code']}, "
+                            f"{runs[name]['errors']}")
+    out = {"config": "tiny bf16 checkpoint (vocab 260, LLaMA d=512, 2 layers, 4 heads of 128, "
+                     "I=1024), --quant int4 --kv_cache int8, 2 requests, "
+                     f"{MESH_TINY_NEW} tokens, greedy",
+           "backend": {"card": MESH_BACKEND, "cpu": "gloo"},
+           "seconds": {n: r["seconds"] for n, r in runs.items()},
+           "tolerance": MESH_TINY_LOGIT_ATOL}
+    if not problems:
+        card, cpu = runs["card"]["ranks"], runs["cpu"]["ranks"]
+        for mesh_name, _ in MESH_TINY_MESHES:
+            chains = [[r[mesh_name]["chains"] for r in w] for w in (card, cpu)]
+            diff = max(float(np.abs(np.asarray(a[mesh_name]["logits"])
+                                    - np.asarray(b[mesh_name]["logits"])).max())
+                       for a, b in zip(card, cpu))
+            k4 = [r[mesh_name]["launches"]["int4_matmul.cu"] for r in card]
+            k1 = [r[mesh_name]["launches"]["flash_attention.cu"] for r in card]
+            out[mesh_name] = {"chains_equal": chains[0] == chains[1],
+                              "ranks_agree": all(c == chains[0][0] for c in chains[0]),
+                              "max_abs_logit_diff": diff, "k4_launches_by_rank": k4,
+                              "k4_launched_on_the_shards": all(k4),
+                              "k1_launches_by_rank": k1,
+                              "heads_by_rank": [r[mesh_name]["heads"] for r in card],
+                              "kv_heads_by_rank": [r[mesh_name]["kv_heads"] for r in card],
+                              "collectives_rank0": card[0][mesh_name]["collectives"],
+                              "first_ids": [c[:8] for c in chains[0][0]]}
+            if not (chains[0] == chains[1] and out[mesh_name]["ranks_agree"]
+                    and diff <= MESH_TINY_LOGIT_ATOL and all(k1)):
+                problems.append(f"{mesh_name}: {out[mesh_name]}")
+        one = runs["nccl_one_rank"]["ranks"][0]
+        out["nccl_one_rank"] = {"backend": one["backend"],
+                                "world_collectives_ok": one["world_collectives_ok"]}
+        if one["backend"] != "nccl" or not one["world_collectives_ok"]:
+            problems.append(f"nccl_one_rank: {out['nccl_one_rank']}")
+    shutil.rmtree(root, ignore_errors=True)
+    if problems:
+        raise AssertionError(f"tiny_mesh_card_vs_cpu: {problems}")
+    return out
+
+
+def mesh_card_numbers(report: dict) -> dict:
+    """The per-rank numbers of a mesh phase worth a line."""
+    keep = ("rank", "backend", "device", "heads", "launches", "peak_mem_bytes", "load_s",
+            "encode_s", "prefill_s", "decode_s", "decode_steps", "steps", "collectives",
+            "decode_collectives_per_step", "decode_collective_s_per_step")
+    return {k: report[k] for k in keep if k in report}
+
+
+def eval_mesh_7b(params, cfg, tokenizer, ckpt: str, work: str, event_paths, slice_ids,
+                 n_layers: int, smi: str) -> dict:
+    """``python -m torch.distributed.run --nproc_per_node 2 -m
+    eventgpt_tpu_torch.cli.eval --mesh_model 2`` over the 7B checkpoint:
+    ``eval_7b``'s four streams and queries, 32 tokens, greedy, each rank on
+    the card holding half of every LLaMA matmul (16 of the 32 heads) and
+    the replicated vision side. The chains held to ``slice``'s (digest
+    ea7ea31e...) by ``chain_rule``; per rank: K1's launches (32, one
+    prefill), peak memory, the backend, the collectives a decode step and
+    the load, prefill and decode seconds."""
+    from eventgpt_tpu_torch.models import eventchat, llama
+
+    qpath = os.path.join(work, "eval_queries.json")
+    with open(qpath, "w") as f:
+        json.dump(QUERIES, f)
+    ids_path = os.path.join(work, "eval_mesh_ids.json")
+    argv = ["-m", "eventgpt_tpu_torch.cli.eval", "--model_path", ckpt, "--tokenizer_path",
+            "byte", "--event_frames", ",".join(event_paths), "--queries_json", qpath,
+            "--max_new_tokens", str(MAX_NEW_TOKENS), "--mesh_model", str(MESH_RANKS),
+            "--dist_backend", MESH_BACKEND, "--timing", "--ids_out", ids_path]
+    code, secs, text = run_world(argv, MESH_RANKS, os.path.join(work, "eval_mesh.log"), 900)
+    ranks = sorted(tagged_lines(text, "[mesh-rank] "), key=lambda r: r["rank"])
+    if code != 0 or len(ranks) != MESH_RANKS or not os.path.exists(ids_path):
+        raise AssertionError(f"eval_mesh_7b: exit {code}, {len(ranks)} rank reports: "
+                             f"{text[-3000:]}")
+    with open(ids_path) as f:
+        got = json.load(f)
+    held = {"rows_identical": [True] * len(QUERIES), "divergences": []}
+    if got != slice_ids:
+        from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
+        from eventgpt_tpu_torch.data.tokenizer import tokenize_with_event
+        from eventgpt_tpu_torch.ops.image import process_event_file
+
+        import numpy as np
+
+        ids = [tokenize_with_event(prepare_event_prompt(q), tokenizer) for q in QUERIES]
+        pixels = np.stack([process_event_file(p)[1] for p in event_paths])
+        padded, mask, _ = eventchat.prepare_prefill(params, cfg, ids, pixels)
+        held = chain_rule("eval_mesh_7b", llama, params, cfg, padded, mask, slice_ids, got,
+                          SERVE_KSTEP_WINDOW, False, tokenizer.eos_token_id)
+    k1 = [r["launches"]["flash_attention.cu"] for r in ranks]
+    heads = [r["heads"] for r in ranks]
+    if k1 != [n_layers] * MESH_RANKS or heads != [cfg.llama.num_heads // MESH_RANKS] * MESH_RANKS:
+        raise AssertionError(f"eval_mesh_7b: K1 launches {k1} over heads {heads}, want "
+                             f"{n_layers} a rank over {cfg.llama.num_heads // MESH_RANKS}")
+    return {"argv": ["torch.distributed.run --nproc_per_node 2", *argv[:2], "--mesh_model",
+                     str(MESH_RANKS), "--dist_backend", MESH_BACKEND, "--max_new_tokens",
+                     str(MAX_NEW_TOKENS)],
+            "seconds": secs, "greedy_sha256": digest(got),
+            "same_digest_as_slice": got == slice_ids, "vs_slice": held,
+            "ranks": [mesh_card_numbers(r) for r in ranks], "nvidia_smi": smi}
+
+
+class MeshServer(ServerProcess):
+    """``cli/serve`` under ``python -m torch.distributed.run`` with
+    ``MESH_RANKS`` ranks: rank 0 listens; ``stop()`` sends SIGTERM to rank 0
+    alone (it drains, stops the follower and exits), and the launcher then
+    exits with the ranks' code."""
+
+    def __init__(self, argv, log_path: str):
+        self._launcher = torchrun(MESH_RANKS)
+        super().__init__(argv, log_path)
+
+    def _command(self, argv) -> list:
+        return self._launcher + ["-m", "eventgpt_tpu_torch.cli.serve", *argv, "--port", "0"]
+
+    def _env(self) -> dict:
+        return mesh_env()
+
+    def _rank0_pid(self):
+        """The launcher's child with ``RANK=0`` in its environment."""
+        for tid in os.listdir(f"/proc/{self.proc.pid}/task"):
+            with open(f"/proc/{self.proc.pid}/task/{tid}/children") as f:
+                for pid in f.read().split():
+                    try:
+                        with open(f"/proc/{pid}/environ", "rb") as g:
+                            if b"\0RANK=0\0" in b"\0" + g.read():
+                                return int(pid)
+                    except OSError:
+                        continue
+        return None
+
+    def stop(self) -> int:
+        import signal
+
+        if self.proc.poll() is None:
+            pid = self._rank0_pid()
+            if pid is not None:
+                os.kill(pid, signal.SIGTERM)
+                try:
+                    self.proc.wait(timeout=120)
+                except subprocess.TimeoutExpired:
+                    pass
+        return super().stop()
+
+
+def serve_mesh_7b(eventchat, llama, params, cfg, tokenizer, requests, oracle_chains,
+                  ckpt: str, work: str, n_layers: int, smi: str, ties=None) -> dict:
+    """``cli/serve --mesh_model 2`` under the launcher over the 7B checkpoint
+    with the JAX defaults and paged int8 KV (``TELEMETRY_FLAGS``): rank 0's
+    HTTP front end and engine, rank 1 following. ``telemetry_requests()``'
+    six requests (the first four at once, the two late after the first
+    harvest), their chains held to ``serve_telemetry_7b``'s oracle by
+    ``chain_rule``; the pool clean after the drain; TTFTs; K1 per rank; the
+    follower's steps equal to rank 0's; each rank's peak memory and
+    collectives. ``ties``: {(row, first divergent step): report} already
+    verified on the same oracle, not replayed again."""
+    import threading
+
+    reqs = serve_defaults_requests(requests)
+    payloads = telemetry_requests()
+    argv = ["--model_path", ckpt, "--tokenizer_path", "byte", "--event_root", work,
+            *TELEMETRY_FLAGS, "--mesh_model", str(MESH_RANKS), "--dist_backend", MESH_BACKEND]
+    log = os.path.join(work, "serve_mesh.log")
+    srv = MeshServer(argv, log)
+    out = {"argv": ["torch.distributed.run --nproc_per_node 2 -m eventgpt_tpu_torch.cli.serve",
+                    *argv[4:]], "boot_s": srv.boot_s}
+    try:
+        results = [None] * len(payloads)
+
+        def send(i):
+            results[i] = srv.request("POST", "/v1/generate", {**payloads[i], "return_ids": True})
+
+        first = [threading.Thread(target=send, args=(i,)) for i in range(len(QUERIES))]
+        t0 = time.perf_counter()
+        for th in first:
+            th.start()
+        wait_for(lambda: time.sleep(0.05) or srv.get("/stats")["segments"] >= 1,
+                 "serve_mesh_7b: the first harvest")
+        late = [threading.Thread(target=send, args=(i,))
+                for i in range(len(QUERIES), len(payloads))]
+        for th in late:
+            th.start()
+        for th in first + late:
+            th.join(timeout=WAIT_S)
+        out["wall_s"] = time.perf_counter() - t0
+        bad = [r for r in results if r is None or r[0] != 200 or r[1].get("status") != "ok"]
+        if bad:
+            raise AssertionError(f"serve_mesh_7b: answers {bad}; {srv.log_tail()}")
+        stats = srv.get("/stats")
+        pc = srv.get("/prefix_cache")
+    finally:
+        out["exit_code"] = srv.stop()
+    with open(log) as f:
+        text = f.read()
+    follower = tagged_lines(text, "[mesh-follower] ")
+    chains = [r[1]["ids"] for r in results]
+    pool = stats["kv_blocks"]
+    held_blocks = pc.get("blocks_held", 0)
+    clean = (pool["free_blocks"] + pool["used_blocks"] == pool["usable_blocks"]
+             and pool["free_blocks"] == pool["usable_blocks"] - held_blocks
+             and not pool["spilled_runs"])
+    lead = stats["mesh"]
+    k1 = [stats["launches"]["flash_attention.cu"]] + [f["launches"]["flash_attention.cu"]
+                                                      for f in follower]
+    problems = []
+    if out["exit_code"] != 0 or len(follower) != MESH_RANKS - 1:
+        problems.append(f"exit {out['exit_code']}, {len(follower)} follower reports: "
+                        f"{text[-3000:]}")
+    if not clean:
+        problems.append(f"the pool is not clean after the drain: {pool}, {held_blocks} held")
+    if any(f["steps"] != lead["steps"] for f in follower) or len(set(k1)) != 1 \
+            or k1[0] % n_layers or not k1[0]:
+        problems.append(f"steps {lead['steps']} vs {[f['steps'] for f in follower]}, "
+                        f"K1 by rank {k1}")
+    if problems:
+        raise AssertionError(f"serve_mesh_7b: {problems}")
+    seen = dict(ties or {})
+    first = {i: next(k for k, (a, b) in enumerate(zip(o + [None], c + [None])) if a != b)
+             for i, (o, c) in enumerate(zip(oracle_chains, chains)) if o != c}
+    held = hold_to_oracle("serve_mesh_7b", eventchat, llama, params, cfg, tokenizer, reqs,
+                          oracle_chains, [oracle_chains[i] if (i, first.get(i)) in seen else c
+                                          for i, c in enumerate(chains)],
+                          SERVE_DEFAULTS_BUDGETS[0])
+    seen.update({(d["row"], d["first_divergent_step"]): d for d in held["divergences"]})
+    held = {"rows_identical": [i not in first for i in range(len(chains))],
+            "divergences": [seen[i, k] for i, k in sorted(first.items())]}
+    ttft = [r[1].get("ttft_s", stats["recent"].get(str(r[1]["rid"]), {}).get("ttft_s"))
+            for r in results]
+    return {**out, "config": "EventGPT-7B bf16 from checkpoint_7b, --mesh_model 2 over "
+                             f"{MESH_BACKEND}, paged int8 KV, 4 rows, max_len 1024, chunk 32, "
+                             "the JAX CLI's defaults; telemetry_requests()' six over HTTP",
+            "vs_oracle": held, "ttft_s": ttft, "pool_after_drain": {**pool,
+                                                                    "prefix_blocks_held":
+                                                                        held_blocks},
+            "k1_launches_by_rank": k1, "steps_by_rank": [lead["steps"]]
+            + [f["steps"] for f in follower],
+            "decode_steps": stats["decode_steps"], "dispatches": stats["dispatches"],
+            "ranks": [mesh_card_numbers(lead)] + [mesh_card_numbers(f) for f in follower],
+            "nvidia_smi": smi}
+
+
 def main() -> int:
     import argparse
 
@@ -6020,6 +6506,15 @@ def main() -> int:
             telemetry_k1 = serve_telemetry_7b(eventchat, llama, params, cfg, tokenizer,
                                               requests, defaults_oracle, ckpt, work, n_layers,
                                               smi, defaults_ties)
+            # The serving mesh: two ranks of the one card, each with half of
+            # every LLaMA matmul, through cli/eval and cli/serve.
+            mesh_runs = {"eval_mesh_7b": eval_mesh_7b(params, cfg, tokenizer, ckpt, work,
+                                                      event_paths, out_ids, n_layers, smi)}
+            emit("eval_mesh_7b", mesh_runs["eval_mesh_7b"])
+            mesh_runs["serve_mesh_7b"] = serve_mesh_7b(eventchat, llama, params, cfg, tokenizer,
+                                                       requests, defaults_oracle, ckpt, work,
+                                                       n_layers, smi, defaults_ties)
+            emit("serve_mesh_7b", mesh_runs["serve_mesh_7b"])
             # Process fleets: worker processes loading this checkpoint.
             procfleet_k1 = serve_procfleet_7b(eventchat, llama, params, cfg, tokenizer, ids,
                                               pixels, requests, ckpt, fleet_ref, counted,
@@ -6053,6 +6548,18 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
 
+        # The tiny mesh phase's worlds are processes of their own: they run
+        # beside the other tiny phases.
+        tiny_mesh_box = {}
+
+        def tiny_mesh_bg():
+            try:
+                tiny_mesh_box["out"] = tiny_mesh_card_vs_cpu(work)
+            except Exception as e:  # raised in the main thread below
+                tiny_mesh_box["error"] = e
+
+        tiny_mesh_thread = threading.Thread(target=tiny_mesh_bg)
+        tiny_mesh_thread.start()
         emit("tiny_card_vs_cpu", tiny_card_matches_cpu(os.path.join(work, "events_0.npy")))
         emit("tiny_quant_card_vs_cpu",
              tiny_quant_card_matches_cpu(os.path.join(work, "events_1.npy")))
@@ -6071,6 +6578,11 @@ def main() -> int:
         emit("train_tiny_card_vs_cpu", train_tiny_card_vs_cpu(work, train_paths))
         emit("tiny_medusa_card_vs_cpu", tiny_medusa_card_vs_cpu())
         emit("medusa_acceptance_tiny", medusa_acceptance_tiny(work))
+        tiny_mesh_thread.join()
+        if "error" in tiny_mesh_box:
+            raise tiny_mesh_box["error"]
+        tiny_mesh = tiny_mesh_box["out"]
+        emit("tiny_mesh_card_vs_cpu", tiny_mesh)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -6128,7 +6640,12 @@ def main() -> int:
                                 for st, run in train_runs.items()},
                              **{f"train_stage{st}_eval": run["eval"]["k1_inference"]
                                 for st, run in train_runs.items()},
-                             "medusa_train": medusa_7b["k1_launches"]},
+                             "medusa_train": medusa_7b["k1_launches"],
+                             **{f"eval_mesh_7b_rank{r['rank']}":
+                                r["launches"]["flash_attention.cu"]
+                                for r in mesh_runs["eval_mesh_7b"]["ranks"]},
+                             **{f"serve_mesh_7b_rank{r}": n for r, n in
+                                enumerate(mesh_runs["serve_mesh_7b"]["k1_launches_by_rank"])}},
         "train_launches_by_path": {f"train_stage{st}": run["k1_by_path"]
                                    for st, run in train_runs.items()},
         "train_launches_per_micro_step": {f"train_stage{st}": run["k1_launches_per_micro_step"]
@@ -6163,7 +6680,10 @@ def main() -> int:
         "launches_by_path": {"slice_int4": launches4[INT4_KERNEL.source],
                              **{name: n[INT4_KERNEL.source]
                                 for name, n in variant_launches.items()},
-                             "serve_spec_int4": serve_spec_int4_launches[INT4_KERNEL.source]},
+                             "serve_spec_int4": serve_spec_int4_launches[INT4_KERNEL.source],
+                             **{f"tiny_mesh_card_{m}_rank{r}": n
+                                for m, _ in MESH_TINY_MESHES
+                                for r, n in enumerate(tiny_mesh[m]["k4_launches_by_rank"])}},
         "slice_spec_int4_launches_by_path_m": {f"{p} M={m}": c
                                                for (p, m), c in sorted(spec_by_m4.items())},
         "serve_spec_int4_launches_by_path_m": {f"{p} M={m}": c

@@ -8,13 +8,20 @@ int4``). ``--queries_json`` gives
 one query per file; ``--expected`` diffs each answer against a JSON list
 of transcripts, prints PASS/FAIL per file and exits 1 on any mismatch (the
 transcript gate; greedy ``--temperature 0`` makes it meaningful). The
-serving mesh (``--mesh_*``) is not ported and raises, as in ``cli/infer``.
+serving mesh (``--mesh_*``) runs as in ``cli/infer``: one rank a device
+under ``python -m torch.distributed.run``, each rank holding its shard and
+its part of the batch; rank 0 prints the answers, and with ``--timing``
+every rank prints a ``[mesh-rank]`` JSON line to stderr (K1's launches, its
+peak device memory, the backend, the collectives a decode step, the
+phases' seconds).
 
 Usage:
   python -m eventgpt_tpu_torch.cli.eval --model_path <ckpt_dir|tiny-random> \\
       --tokenizer_path byte --event_frames s1.npy,s2.npy,s3.npy,s4.npy \\
       [--query "..." | --queries_json per_sample.json] [--expected expected.json] \\
       [--quant int4 --kv_cache int8] [--device cpu]
+  python -m torch.distributed.run --nproc_per_node 2 -m eventgpt_tpu_torch.cli.eval \\
+      --mesh_model 2 ...
 """
 
 from __future__ import annotations
@@ -27,10 +34,10 @@ from typing import Dict, List
 
 import numpy as np
 
-from eventgpt_tpu_torch.cli.infer import _DTYPES, _refuse_unported, load_model, prepare_model
+from eventgpt_tpu_torch.cli.infer import (_DTYPES, _refuse_unported, add_mesh_flags,
+                                          load_for_mesh)
 from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
 from eventgpt_tpu_torch.data.tokenizer import tokenize_with_event
-from eventgpt_tpu_torch.device import resolve_device
 from eventgpt_tpu_torch.models import eventchat
 from eventgpt_tpu_torch.models import medusa as medusa_mod
 from eventgpt_tpu_torch.ops.image import process_event_file
@@ -60,9 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="KV cache storage; int8 halves cache memory and bandwidth")
     p.add_argument("--fuse_params", action="store_true",
                    help="fuse q|k|v and gate|up weights (5 matmuls a layer)")
-    p.add_argument("--mesh_data", type=int, default=1)
-    p.add_argument("--mesh_fsdp", type=int, default=1)
-    p.add_argument("--mesh_model", type=int, default=1)
+    add_mesh_flags(p)
     p.add_argument("--use_event_qformer", action="store_true")
     p.add_argument("--pretrain_query_embedder", type=str, default=None)
     p.add_argument("--pretrain_attention_layers", type=str, default=None)
@@ -73,6 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="trained Medusa head stack (.npz) for speculative drafting "
                         "(requires --speculative > 0)")
     p.add_argument("--timing", action="store_true")
+    p.add_argument("--ids_out", default=None,
+                   help="also write each file's generated token ids to this JSON file")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; cpu only when asked)")
     return p
@@ -90,10 +97,11 @@ def read_queries(args, n_files: int) -> List[str]:
 
 
 def evaluate(cfg, params, tokenizer, files: List[str], queries: List[str], args,
-             device="cuda") -> Dict:
+             device="cuda", mesh=None) -> Dict:
     """One batched preprocessing and ``generate`` pass over a loaded, prepared
-    tree. Returns {"answers", "ids" (each file's generated chain), "prep_s",
-    "generate_s"}."""
+    tree (a rank's shard on a serving ``mesh``). Returns {"answers", "ids"
+    (each file's generated chain), "prep_s", "generate_s", "timings"
+    (``generate``'s phases)}."""
     t0 = time.perf_counter()
     pixels, ids = [], []
     for path, query in zip(files, queries):
@@ -109,6 +117,7 @@ def evaluate(cfg, params, tokenizer, files: List[str], queries: List[str], args,
         draft_head = medusa_mod.load_medusa(args.draft_head, dtype=embed.dtype,
                                             device=embed.device)
     t0 = time.perf_counter()
+    timings: Dict = {}
     out_ids = eventchat.generate(
         params, cfg, ids, pixels,
         max_new_tokens=args.max_new_tokens,
@@ -121,29 +130,62 @@ def evaluate(cfg, params, tokenizer, files: List[str], queries: List[str], args,
         kv_quant=args.kv_cache == "int8",
         speculative=args.speculative,
         draft_head=draft_head,
+        timings=timings,
         device=device,
+        mesh=mesh,
     )
     generate_s = time.perf_counter() - t0
     answers = [a.strip() for a in tokenizer.batch_decode(out_ids, skip_special_tokens=True)]
     return {"answers": answers, "ids": [list(map(int, o)) for o in out_ids],
-            "prep_s": prep_s, "generate_s": generate_s}
+            "prep_s": prep_s, "generate_s": generate_s, "timings": timings}
+
+
+def mesh_rank_report(mesh, cfg, out: Dict, t_load: float) -> Dict:
+    """One rank's numbers of a mesh run: its q heads, its kernel launches
+    (K1's at ``flash_attention.cu``), its peak device memory, the backend, the collectives (count, bytes, host seconds) a
+    decode step, and the load / prefill / decode seconds."""
+    import torch
+
+    from eventgpt_tpu_torch.fleet_proc import kernel_launches
+    from eventgpt_tpu_torch.parallel.mesh import COLLECTIVES
+    from eventgpt_tpu_torch.parallel.serving import head_shard
+
+    tm = out["timings"]
+    steps = max(int(tm.get("decode_steps", 0)), 1)
+    peak = (torch.cuda.max_memory_allocated(mesh.device) if mesh.device.type == "cuda"
+            else None)
+    return {"rank": mesh.rank, "mesh": mesh.shape, "backend": mesh.backend,
+            "device": str(mesh.device), "heads": head_shard(cfg.llama, mesh).heads,
+            **kernel_launches(),
+            "peak_mem_bytes": peak, "load_s": t_load,
+            "encode_s": tm.get("encode_s"), "prefill_s": tm.get("prefill_s"),
+            "decode_s": tm.get("decode_s"), "decode_steps": tm.get("decode_steps"),
+            "collectives": dict(COLLECTIVES),
+            "decode_collectives_per_step": tm.get("decode_collectives", 0) / steps,
+            "decode_collective_s_per_step": tm.get("decode_collective_s", 0.0) / steps}
 
 
 def main(argv=None) -> List[str]:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
-    device = resolve_device(args.device)
     files = [f for f in args.event_frames.split(",") if f]
     queries = read_queries(args, len(files))
 
     t0 = time.perf_counter()
-    cfg, params, tokenizer = load_model(args.model_path, args.dtype, None, args.tokenizer_path,
-                                        device, args.seed)
-    cfg, params = prepare_model(cfg, params, tokenizer, args)
+    cfg, params, tokenizer, mesh, device = load_for_mesh(args)
     t_load = time.perf_counter() - t0
 
-    out = evaluate(cfg, params, tokenizer, files, queries, args, device)
+    out = evaluate(cfg, params, tokenizer, files, queries, args, device, mesh)
     answers = out["answers"]
+    if args.ids_out and (mesh is None or mesh.rank == 0):
+        with open(args.ids_out, "w") as f:
+            json.dump(out["ids"], f)
+    if mesh is not None:
+        if args.timing:
+            print("[mesh-rank] " + json.dumps(mesh_rank_report(mesh, cfg, out, t_load)),
+                  file=sys.stderr, flush=True)
+        if mesh.rank != 0:
+            return answers
     for path, answer in zip(files, answers):
         print(f"=== {path}\n{answer}")
     if args.timing:

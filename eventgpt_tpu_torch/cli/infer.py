@@ -11,15 +11,26 @@ quantized path (int4 through the K4 kernel of ``ops/int4_matmul.py``).
 ``--num_beams N`` runs beam search, ``--speculative K`` speculative
 decoding with a K-token verify window, and ``--draft_head heads.npz``
 (with ``--speculative``) Medusa drafts from a head stack of either
-package. ``--model_base`` is accepted and ignored, as in the JAX CLI. The
-serving mesh (``--mesh_*``) is not ported and raises, and so does a
-tokenizer other than ``byte``: the HF tokenizer is not ported.
+package. ``--model_base`` is accepted and ignored, as in the JAX CLI. A
+tokenizer other than ``byte`` raises: the HF tokenizer is not ported.
+
+The serving mesh: ``--mesh_data/--mesh_fsdp/--mesh_model`` of N > 1 ranks
+need a world of N processes, one a device, started by
+``python -m torch.distributed.run --nproc_per_node N -m
+eventgpt_tpu_torch.cli.infer ...`` (anything else raises, naming the
+launcher). Every rank loads the checkpoint to host memory and puts only its
+shard on its device (``parallel/serving.shard_params_for_serving``); the
+process group runs over ``--dist_backend`` (default ``nccl`` on the card,
+``gloo`` on the CPU). Rank 0 prints; the other ranks print nothing to
+stdout.
 
 Usage:
   python -m eventgpt_tpu_torch.cli.infer --model_path <ckpt_dir|tiny-random> \\
       --tokenizer_path byte --event_frame events.npy --query "What is happening?" \\
       [--quant int4 --kv_cache int8 --fuse_params] \\
       [--num_beams N | --speculative K [--draft_head heads.npz]] [--device cpu]
+  python -m torch.distributed.run --nproc_per_node 2 -m eventgpt_tpu_torch.cli.infer \\
+      --mesh_model 2 [--dist_backend gloo] ...
 """
 
 from __future__ import annotations
@@ -35,7 +46,8 @@ import weakref
 import torch
 
 from eventgpt_tpu_torch import constants
-from eventgpt_tpu_torch.config import EventChatConfig, QFormerConfig, from_hf_config
+from eventgpt_tpu_torch.config import (EventChatConfig, QFormerConfig, default_attn_impl,
+                                       from_hf_config)
 from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
 from eventgpt_tpu_torch.data.tokenizer import load_tokenizer, tokenize_with_event
 from eventgpt_tpu_torch.device import resolve_device
@@ -85,9 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quant", type=str, default="none", choices=["none", "int8", "int4"])
     p.add_argument("--kv_cache", type=str, default="bf16", choices=["bf16", "int8"])
     p.add_argument("--fuse_params", action="store_true")
-    p.add_argument("--mesh_data", type=int, default=1)
-    p.add_argument("--mesh_fsdp", type=int, default=1)
-    p.add_argument("--mesh_model", type=int, default=1)
+    add_mesh_flags(p)
     p.add_argument("--speculative", type=int, default=0,
                    help="speculative decode window K (suffix-lookup drafts + a K-token "
                         "verify); exactly the greedy chain at temperature 0, the sampling "
@@ -107,12 +117,47 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def add_mesh_flags(p: argparse.ArgumentParser) -> None:
+    """The serving mesh's flags, shared by ``cli/infer``, ``cli/eval`` and
+    ``cli/serve``."""
+    for axis in ("data", "fsdp", "model"):
+        p.add_argument(f"--mesh_{axis}", type=int, default=1,
+                       help=f"serving mesh: ranks along {axis} (the product needs a world of "
+                            f"that many processes from python -m torch.distributed.run)")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="the mesh's process-group backend (default: nccl on cuda, gloo on "
+                        "the cpu)")
+
+
+def serving_mesh_from_args(args):
+    """The serving mesh of the --mesh_* flags, its process group joined, or
+    None when every size is 1. A mesh of N > 1 ranks needs a world of N
+    launched by ``python -m torch.distributed.run`` (or the ``EGPT_*``
+    variables); anything else raises."""
+    from eventgpt_tpu_torch.parallel import dist as pdist
+    from eventgpt_tpu_torch.parallel.serving import build_serving_mesh
+
+    n = args.mesh_data * args.mesh_fsdp * args.mesh_model
+    if n == 1:
+        return None
+    launcher = f"python -m torch.distributed.run --nproc_per_node {n} -m <this module>"
+    device_type = resolve_device(args.device).type
+    backend = args.dist_backend or pdist.default_backend(device_type)
+    if not pdist.initialize_distributed(backend=backend):
+        raise ValueError(f"--mesh_* asks for {n} ranks but this is a single process; "
+                         f"launch with {launcher}")
+    world = torch.distributed.get_world_size()
+    if world != n:
+        raise ValueError(f"--mesh_* asks for {n} ranks but the world has {world}; "
+                         f"launch with {launcher}")
+    mesh = build_serving_mesh(args.mesh_data, args.mesh_fsdp, args.mesh_model, device_type)
+    if mesh.rank == 0:
+        print(f"[mesh] {mesh!r} over {n} ranks", file=sys.stderr, flush=True)
+    return mesh
+
+
 def _refuse_unported(args) -> None:
-    """The serving mesh, which the port does not have, raises here; so do
-    the JAX CLI's flag errors."""
-    if args.mesh_data * args.mesh_fsdp * args.mesh_model != 1:
-        raise NotImplementedError(
-            "--mesh_*: the serving mesh is not ported to eventgpt_tpu_torch yet")
+    """The JAX CLI's flag errors."""
     if args.num_beams < 1:
         raise ValueError(f"num_beams must be >= 1, got {args.num_beams}")
     if args.draft_head is not None and not args.speculative:
@@ -151,14 +196,17 @@ def load_model(model_path: str, dtype: str = "bfloat16", attn_impl=None, tokeniz
     return cfg, convert.eventchat_params_from_hf(sd, cfg), tokenizer
 
 
-def prepare_model(cfg, params, tokenizer, args):
+def prepare_model(cfg, params, tokenizer, args, mesh=None):
     """The JAX CLI's post-load preparation, in its order, on the device
     the parameters live on: the spatio-temporal gate; the Q-Former gate,
     with its component files found beside the checkpoint or given by
     ``--pretrain_*``; special tokens; the embedding resize; ``--fuse_params``;
     ``--quant``. Fusing and quantizing replace leaves in place, one at a
-    time, so the card never holds two full trees. The prepared tree is
-    registered in the memory ledger. Returns (cfg, params).
+    time, so the card never holds two full trees. With a serving ``mesh``
+    the tree is a host tree, and its prepared form goes to the ranks'
+    devices shard by shard (``shard_params_for_serving``). The prepared tree
+    (a rank's shard) is registered in the memory ledger. Returns (cfg,
+    params).
     """
     st = getattr(args, "spatial_temporal_encoder", None)
     if st is not None and st != cfg.use_spatio_temporal_pool:
@@ -203,6 +251,10 @@ def prepare_model(cfg, params, tokenizer, args):
         fuse_llama_params(params["llama"])
     if args.quant in ("int8", "int4"):
         quantize_llama_params(params["llama"], bits=4 if args.quant == "int4" else 8)
+    if mesh is not None:
+        from eventgpt_tpu_torch.parallel.serving import shard_params_for_serving
+
+        params = shard_params_for_serving(params, cfg, mesh)
     # The weight tree is resident from here on: the memory ledger counts it
     # at this boundary, under the identity a batcher over the same tree
     # holds again (a no-op resize), and holds it while the tree's embedding
@@ -213,15 +265,31 @@ def prepare_model(cfg, params, tokenizer, args):
     return cfg, params
 
 
+def load_for_mesh(args, attn_impl=None):
+    """(cfg, params, tokenizer, mesh, device): the --mesh_* mesh (or None)
+    and the loaded, prepared tree on this rank's device; with a mesh the
+    checkpoint is read to host memory and only the rank's shard goes to its
+    device."""
+    device = resolve_device(args.device)
+    mesh = serving_mesh_from_args(args)
+    if mesh is not None:
+        device = mesh.device
+        if attn_impl is None and args.model_path != "tiny-random":
+            # The ranks' device's default, which a host load would not pick.
+            attn_impl = default_attn_impl(device)
+    cfg, params, tokenizer = load_model(args.model_path, args.dtype, attn_impl,
+                                        args.tokenizer_path,
+                                        device if mesh is None else "cpu", getattr(args, "seed", 0))
+    cfg, params = prepare_model(cfg, params, tokenizer, args, mesh=mesh)
+    return cfg, params, tokenizer, mesh, device
+
+
 def main(argv=None) -> str:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
-    device = resolve_device(args.device)
 
     t0 = time.perf_counter()
-    cfg, params, tokenizer = load_model(args.model_path, args.dtype, args.attn_impl,
-                                        args.tokenizer_path, device, args.seed)
-    cfg, params = prepare_model(cfg, params, tokenizer, args)
+    cfg, params, tokenizer, mesh, device = load_for_mesh(args, args.attn_impl)
     t_load = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -250,10 +318,13 @@ def main(argv=None) -> str:
         speculative=args.speculative,
         draft_head=draft_head,
         device=device,
+        mesh=mesh,
     )[0]
     t_gen = time.perf_counter() - t0
 
     output = tokenizer.batch_decode([out_ids], skip_special_tokens=True)[0].strip()
+    if mesh is not None and mesh.rank != 0:
+        return output
     if args.timing:
         n = max(len(out_ids), 1)
         print(

@@ -115,9 +115,25 @@ the registry, a trace ring of ``--trace_buffer`` 65536 events
 burn-rate alerts, ``--profile_dir`` for ``POST /profile`` (and the
 dispatch ranges), and the memory headroom guard (``--mem_headroom_mb``,
 ``--mem_capacity_mb``; off by default). ``--no_telemetry`` disarms the
-registry, the tracer, the recorder and the series store. ``--mesh_*``
-raise ``NotImplementedError``: the serving mesh is not ported yet. Chains
-are the same with every scheduler feature and telemetry on or off.
+registry, the tracer, the recorder and the series store. Chains are the
+same with every scheduler feature and telemetry on or off.
+
+The serving mesh (``--mesh_data/--mesh_fsdp/--mesh_model``, ``--dist_backend``)
+runs under ``python -m torch.distributed.run --nproc_per_node N``, one rank
+a device, each holding its shard of the tree. Rank 0 runs the HTTP front
+end and the engine over a ``MeshLeader``; the other ranks run a
+``MeshFollower``. Before every batcher call that changes its state
+(submits with their pixels, cancels, ``set_prefix``, the fault path's
+``abort_rows`` and ``export_requests``, and each ``step``), the leader
+broadcasts the call over a ``gloo`` channel and the followers replay it,
+so every rank runs the same scheduler over the same rows and the same
+collectives. Shutdown stops the followers; an engine fault on the mesh
+ends rank 0's process, which fails the followers' collectives, so no rank
+hangs. With ``--proc_fleet`` the mesh flags stay with the coordinator and
+the workers get none, as in the JAX CLI. On a mesh, ``--fleet``,
+``--preempt``, ``--spill_capacity_mb``, ``--mem_headroom_mb``, a ``--role``
+and deadlines (``--default_deadline_s``, a payload's ``deadline_s``) raise
+``NotImplementedError`` (ROADMAP Queue 1 item 8c).
 
 Usage:
   python -m eventgpt_tpu_torch.cli.serve --model_path tiny-random \\
@@ -125,6 +141,8 @@ Usage:
   curl -s localhost:8600/v1/generate -d @req.json   # {"query": ..., "event_b64": ...}
   curl -s localhost:8600/prefix -d '{"prefix_prompt": "A chat between"}'
   curl -s localhost:8600/prefix_cache
+  python -m torch.distributed.run --nproc_per_node 2 -m eventgpt_tpu_torch.cli.serve \\
+      --model_path <ckpt> --tokenizer_path byte --mesh_model 2 --port 8600
   python -m eventgpt_tpu_torch.cli.serve --model_path tiny-random --fleet 2 \\
       --faults 'fleet.replica_kill:n=40' [--device cpu] --port 8600
   curl -s localhost:8600/fleet
@@ -138,11 +156,13 @@ import argparse
 import base64
 import contextlib
 import dataclasses
+import datetime
 import itertools
 import json
 import math
 import os
 import queue
+import sys
 import tempfile
 import threading
 import time
@@ -150,6 +170,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
 from eventgpt_tpu_torch import faults
+from eventgpt_tpu_torch.cli.infer import add_mesh_flags
 from eventgpt_tpu_torch.data.conversation import prepare_event_prompt
 from eventgpt_tpu_torch.data.tokenizer import tokenize_with_event
 from eventgpt_tpu_torch.fleet import Fleet, FleetShedError, retry_after_s
@@ -163,6 +184,150 @@ from eventgpt_tpu_torch.ops.image import process_event_file
 from eventgpt_tpu_torch.serve import QueueFullError
 from eventgpt_tpu_torch.train.resilience import Heartbeat
 from eventgpt_tpu_torch.workload import SLO
+
+
+class MeshChannel:
+    """Rank 0's batcher calls to the other ranks of a serving mesh: pickled
+    messages broadcast over a ``gloo`` group of every rank, whose timeout
+    outlasts an idle server. Every rank makes it at the same point."""
+
+    IDLE_TIMEOUT = datetime.timedelta(days=30)
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.group = dist.new_group(backend="gloo", timeout=self.IDLE_TIMEOUT)
+
+    def send(self, msg) -> None:
+        self._dist.broadcast_object_list([msg], src=0, group=self.group)
+
+    def recv(self):
+        box = [None]
+        self._dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+
+class MeshLeader:
+    """Rank 0's batcher on a serving mesh. It answers every read as the
+    batcher does; each call that changes the batcher's state (``REPLAYED``,
+    and ``step``) is first broadcast to the followers, which replay it, then
+    run here, so that the ranks' batchers stay equal and meet in the same
+    collectives. A call that raises here raises on the followers alike."""
+
+    REPLAYED = ("submit", "cancel", "set_prefix", "abort_rows", "export_requests",
+                "reset_prefix_cache")
+
+    def __init__(self, batcher, channel: MeshChannel):
+        object.__setattr__(self, "_batcher", batcher)
+        object.__setattr__(self, "_channel", channel)
+        object.__setattr__(self, "steps", 0)
+        object.__setattr__(self, "_stopped", False)
+
+    def __getattr__(self, name):
+        attr = getattr(self._batcher, name)
+        if name not in self.REPLAYED:
+            return attr
+
+        def replayed(*args, **kwargs):
+            self._channel.send(("call", name, args, kwargs))
+            return attr(*args, **kwargs)
+
+        return replayed
+
+    def __setattr__(self, name, value) -> None:
+        setattr(self._batcher, name, value)
+
+    def step(self) -> None:
+        self._channel.send(("step",))
+        object.__setattr__(self, "steps", self.steps + 1)
+        self._batcher.step()
+
+    def mesh_stats(self) -> Dict[str, Any]:
+        """This rank's view of the mesh (``GET /stats``' ``mesh``): its shape,
+        backend and device, the steps broadcast, the collectives and the
+        peak device memory."""
+        return mesh_rank_stats(self._batcher.mesh, self.steps)
+
+    def stop_followers(self) -> None:
+        if not self._stopped:
+            object.__setattr__(self, "_stopped", True)
+            self._channel.send(("stop",))
+
+    def fatal(self, e: Exception) -> None:
+        """A fault on the mesh: a follower may wait inside a collective of
+        the failed step, so rank 0's process ends, which fails the
+        followers' collectives and ends them too."""
+        import traceback
+
+        print(f"[serve] engine fault on the serving mesh, ending the run: {e!r}",
+              file=sys.stderr, flush=True)
+        traceback.print_exception(e, file=sys.stderr)
+        sys.stderr.flush()
+        os._exit(1)
+
+
+class MeshFollower:
+    """A rank > 0 of a serving mesh: replays rank 0's batcher calls and steps
+    (``MeshLeader``) until rank 0 stops it. A replayed call that raises
+    raised on rank 0 too, and is only logged; a step that raises ends the
+    process. SIGTERM and SIGINT (the launcher passes its own to every rank)
+    are only logged: rank 0 drains and then stops the followers, and if
+    rank 0 dies, the channel's broadcast fails here."""
+
+    def __init__(self, batcher, channel: MeshChannel, rank: int):
+        self.batcher, self.channel, self.rank = batcher, channel, rank
+        self.steps = 0
+
+    def _ignore_signals(self) -> None:
+        import signal
+
+        def note(signum, frame):
+            print(f"[serve] rank {self.rank}: signal {signum}, waiting for rank 0's stop",
+                  file=sys.stderr, flush=True)
+
+        try:
+            signal.signal(signal.SIGTERM, note)
+            signal.signal(signal.SIGINT, note)
+        except ValueError:  # not the main thread: the caller owns the signals
+            pass
+
+    def follow(self) -> int:
+        self._ignore_signals()
+        while True:
+            msg = self.channel.recv()
+            if msg[0] == "stop":
+                break
+            if msg[0] == "step":
+                self.batcher.step()
+                self.steps += 1
+                self.batcher.finished.clear()
+                self.batcher.finish_status.clear()
+                continue
+            _, name, args, kwargs = msg
+            try:
+                getattr(self.batcher, name)(*args, **kwargs)
+            except Exception as e:  # rank 0 raised the same
+                print(f"[serve] rank {self.rank}: {name} raised {e!r}, as on rank 0",
+                      file=sys.stderr, flush=True)
+        print("[mesh-follower] " + json.dumps({**mesh_rank_stats(self.batcher.mesh, self.steps),
+                                               **kernel_launches()}),
+              file=sys.stderr, flush=True)
+        return self.steps
+
+
+def mesh_rank_stats(mesh, steps: int) -> Dict[str, Any]:
+    """A rank's serving-mesh numbers: the mesh, backend and device, the
+    engine steps, the collectives it ran (count, bytes, host seconds) and
+    its peak device memory."""
+    import torch
+
+    from eventgpt_tpu_torch.parallel.mesh import COLLECTIVES
+
+    return {"rank": mesh.rank, "shape": mesh.shape, "backend": mesh.backend,
+            "device": str(mesh.device), "steps": steps, "collectives": dict(COLLECTIVES),
+            "peak_mem_bytes": (torch.cuda.max_memory_allocated(mesh.device)
+                               if mesh.device.type == "cuda" else None)}
 
 
 class ServingEngine:
@@ -504,7 +669,9 @@ class ServingEngine:
                 # How long callers from outside the loop waited for the lock,
                 # and the idle loop's holds for announced arrivals.
                 "lock_wait_s": dict(self._lock_waits),
-                "admit_gather_s": dict(self._gathers), **kernel_launches()}
+                "admit_gather_s": dict(self._gathers), **kernel_launches(),
+                **({"mesh": self.batcher.mesh_stats()} if isinstance(self.batcher, MeshLeader)
+                   else {})}
 
     # The telemetry surfaces read state that guards itself (the recorder,
     # the series store, the ledger): no engine lock, so that they answer
@@ -546,6 +713,9 @@ class ServingEngine:
             thread.join(timeout=10)
         if self._thread is not thread and self._thread.is_alive():
             self._thread.join(timeout=10)  # a restart raced the stop
+        if isinstance(self.batcher, MeshLeader):
+            with self._lock:
+                self.batcher.stop_followers()
         tracer = obs_trace.active()
         if self.trace_out and tracer is not None:
             n = tracer.write(self.trace_out)
@@ -695,7 +865,10 @@ class ServingEngine:
         admission (their blocks and prefix pins return, and the in-flight
         segment and the device carry are dropped); the queued requests stay
         for the restarted scheduler, unless this fault trips the breaker,
-        which fails them too."""
+        which fails them too. On a serving mesh a fault ends the run
+        (``MeshLeader.fatal``)."""
+        if isinstance(self.batcher, MeshLeader):
+            self.batcher.fatal(e)
         with self._lock:
             self.fault = repr(e)
             self.n_faults += 1
@@ -1176,8 +1349,6 @@ def make_handler(engine, cfg, event_root=None, default_budget: int = 64,
     return Handler
 
 
-# The serving mesh's flags: accepted, and refused unless 1 (not ported yet).
-_MESH_FLAGS = ("--mesh_data", "--mesh_fsdp", "--mesh_model")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1386,16 +1557,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", action="store_true",
                    help="run every function a request can reach once before listening (kernel "
                         "builds, cuBLAS handles, the allocator's first growth)")
-    for flag in _MESH_FLAGS:
-        p.add_argument(flag, type=int, default=1,
-                       help="the serving mesh: not ported yet, raises unless 1")
+    add_mesh_flags(p)
     return p
 
 
+def _mesh_size(args) -> int:
+    return args.mesh_data * args.mesh_fsdp * args.mesh_model
+
+
 def _refuse_unported(args) -> None:
-    if any(getattr(args, f[2:]) != 1 for f in _MESH_FLAGS):
-        raise NotImplementedError("--mesh_*: the serving mesh (ROADMAP Queue 1 item 8) is not "
-                                  "ported to eventgpt_tpu_torch yet")
+    """What the serving mesh does not run yet raises with one (a process
+    fleet's coordinator keeps the mesh flags and loads no model, so they
+    are ignored there, as in the JAX CLI)."""
+    if _mesh_size(args) == 1 or args.proc_fleet > 1:
+        return
+    unported = [flag for flag, on in (
+        ("--fleet", args.fleet > 1), ("--preempt", args.preempt),
+        ("--spill_capacity_mb", args.spill_capacity_mb > 0),
+        ("--mem_headroom_mb", args.mem_headroom_mb > 0),
+        ("--role", args.role != "colocated"),
+        ("--default_deadline_s", bool(args.default_deadline_s))) if on]
+    if unported:
+        raise NotImplementedError(f"{', '.join(unported)} with --mesh_*: not ported on the "
+                                  f"serving mesh (ROADMAP Queue 1 item 8c)")
 
 
 # Every flag that shapes a worker's model, batcher or engine crosses to the
@@ -1470,7 +1654,7 @@ WORKER_COORDINATOR_ONLY = frozenset({
     "procfleet_respawn_backoff_s", "procfleet_crash_window_s", "procfleet_crash_limit",
     "procfleet_handoff_retries", "slo_interactive_ttft_s", "slo_interactive_itl_s",
     "slo_batch_latency_s", "trace_buffer", "trace_out", "profile_dir", "faults", "mesh_data",
-    "mesh_fsdp", "mesh_model",
+    "mesh_fsdp", "mesh_model", "dist_backend",
 })
 
 # Flags the coordinator appends per slot (``ProcFleet._spawn``).
@@ -1497,11 +1681,12 @@ def _worker_argv(args) -> list:
     return argv
 
 
-def make_batcher(args, params, cfg, tokenizer, device, role: Optional[str] = None):
+def make_batcher(args, params, cfg, tokenizer, device, role: Optional[str] = None, mesh=None):
     """The ``ContinuousBatcher`` the flags describe, over a prepared tree
-    on ``device``: the JAX CLI's defaults (pipelined, the prefix cache at
-    ``--prefix_cache_mb``, ``--prefill_budget`` -1 = ``--chunk``). ``role``
-    (default ``--role``) makes a prefill or decode batcher."""
+    on ``device`` (a rank's shard on a serving ``mesh``): the JAX CLI's
+    defaults (pipelined, the prefix cache at ``--prefix_cache_mb``,
+    ``--prefill_budget`` -1 = ``--chunk``). ``role`` (default ``--role``)
+    makes a prefill or decode batcher."""
     from eventgpt_tpu_torch.models.medusa import load_medusa
     from eventgpt_tpu_torch.serve import ContinuousBatcher
 
@@ -1526,7 +1711,7 @@ def make_batcher(args, params, cfg, tokenizer, device, role: Optional[str] = Non
         spill_capacity_mb=args.spill_capacity_mb, slo_window=args.slo_window,
         mem_headroom_bytes=int(args.mem_headroom_mb * (1 << 20)),
         mem_capacity_bytes=int(args.mem_capacity_mb * (1 << 20)),
-        role=args.role if role is None else role)
+        role=args.role if role is None else role, mesh=mesh)
 
 
 def arm_telemetry(args) -> None:
@@ -1559,13 +1744,14 @@ def arm_telemetry(args) -> None:
 
 def build_engine(args, force_single: bool = False):
     """(cfg, engine): the model loaded and prepared on ``--device`` as
-    ``cli/infer`` does it (``load_model``, ``prepare_model``), then the
-    engine of ``make_engine`` over it; with ``--proc_fleet N`` a
-    ``ProcFleet`` coordinator, which loads only the config and the
-    tokenizer. ``force_single`` (a worker) builds one engine whatever the
-    fleet flags say: a worker never spawns a fleet of its own."""
-    from eventgpt_tpu_torch.cli.infer import load_model, prepare_model
-    from eventgpt_tpu_torch.device import resolve_device
+    ``cli/infer`` does it (``load_for_mesh``), then the engine of
+    ``make_engine`` over it; with ``--proc_fleet N`` a ``ProcFleet``
+    coordinator, which loads only the config and the tokenizer.
+    ``force_single`` (a worker) builds one engine whatever the fleet flags
+    say: a worker never spawns a fleet of its own. On a serving mesh rank 0
+    gets the engine over a ``MeshLeader``, and every other rank a
+    ``MeshFollower`` in the engine's place."""
+    from eventgpt_tpu_torch.cli.infer import load_for_mesh
 
     _refuse_unported(args)
     arm_telemetry(args)
@@ -1574,11 +1760,12 @@ def build_engine(args, force_single: bool = False):
     if args.proc_fleet > 1 and not force_single:
         cfg, engine = make_proc_fleet(args)
     else:
-        device = resolve_device(args.device)
-        cfg, params, tokenizer = load_model(args.model_path, args.dtype, args.attn_impl,
-                                            args.tokenizer_path, device)
-        cfg, params = prepare_model(cfg, params, tokenizer, args)
-        engine = make_engine(args, params, cfg, tokenizer, device, force_single=force_single)
+        cfg, params, tokenizer, mesh, device = load_for_mesh(args, args.attn_impl)
+        channel = MeshChannel() if mesh is not None else None
+        engine = make_engine(args, params, cfg, tokenizer, device, force_single=force_single,
+                             mesh=mesh, channel=channel)
+        if isinstance(engine, MeshFollower):
+            return cfg, engine
     if args.prefix_prompt:
         # The startup form of POST /prefix.
         pixels = None
@@ -1622,17 +1809,28 @@ def make_proc_fleet(args):
     return cfg, fleet
 
 
-def make_engine(args, params, cfg, tokenizer, device, force_single: bool = False):
+def make_engine(args, params, cfg, tokenizer, device, force_single: bool = False, mesh=None,
+                channel: Optional[MeshChannel] = None):
     """The engine the flags describe over a prepared tree on ``device``:
     one ``ServingEngine``, or with ``--fleet N`` (unless ``force_single``)
     a ``Fleet`` of N engines, each over its own batcher (KV pool, generator,
-    scheduler thread) and heartbeat directory ``--heartbeat_dir/replicaI``."""
+    scheduler thread) and heartbeat directory ``--heartbeat_dir/replicaI``.
+    On a serving ``mesh`` every rank builds (and warms) the same batcher;
+    rank 0 gets its engine over a ``MeshLeader`` on ``channel``, another
+    rank a ``MeshFollower``."""
     n_fleet = args.fleet if args.fleet > 1 and not force_single else 1
-    batchers = [make_batcher(args, params, cfg, tokenizer, device) for _ in range(n_fleet)]
+    batchers = [make_batcher(args, params, cfg, tokenizer, device, mesh=mesh)
+                for _ in range(n_fleet)]
     if args.warmup:
         t0 = time.perf_counter()
         n = sum(b.warmup() for b in batchers)
-        print(f"[serve] warmup: {n} functions in {time.perf_counter() - t0:.1f}s", flush=True)
+        if mesh is None or mesh.rank == 0:
+            print(f"[serve] warmup: {n} functions in {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+    if mesh is not None:
+        if mesh.rank != 0:
+            return MeshFollower(batchers[0], channel, mesh.rank)
+        batchers = [MeshLeader(batchers[0], channel)]
 
     def engine_of(batcher, hb_dir):
         return ServingEngine(batcher, tokenizer, args.conv_mode,
@@ -1654,8 +1852,11 @@ def make_engine(args, params, cfg, tokenizer, device, force_single: bool = False
 
 def build_server(args):
     """(ThreadingHTTPServer, engine), the real stack without ``main``'s
-    serve loop, so that tests can run it on an ephemeral port."""
+    serve loop, so that tests can run it on an ephemeral port. A follower
+    rank of a serving mesh gets (None, its ``MeshFollower``)."""
     cfg, engine = build_engine(args)
+    if isinstance(engine, MeshFollower):
+        return None, engine
     httpd = ThreadingHTTPServer(
         (args.host, args.port),
         make_handler(engine, cfg, args.event_root, default_budget=args.max_new_tokens,
@@ -1680,6 +1881,9 @@ def main(argv=None):
         _, engine = build_engine(args, force_single=True)
         return serve_worker(engine, args.worker_ready_file)
     httpd, engine = build_server(args)
+    if isinstance(engine, MeshFollower):
+        engine.follow()
+        return 0
     host, port = httpd.server_address[:2]
     if isinstance(engine, ProcFleet):
         print(f"[serve] listening on http://{host}:{port} (proc_fleet={args.proc_fleet}, "

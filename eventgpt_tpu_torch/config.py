@@ -4,7 +4,8 @@ A copy of the dataclasses of ``eventgpt_tpu/config.py`` that the port runs
 (vision tower, LLaMA, projector, Q-Former, top-level EventChat), their JSON
 round trip, and ``from_hf_config`` for a checkpoint's ``config.json``.
 ``attn_impl`` takes ``dense`` or ``flash`` here; the sequence-parallel
-choices of the JAX package's ``LlamaConfig`` come with a later slice. The
+choices of the JAX package's ``LlamaConfig`` come with a later slice.
+``MeshConfig`` is the logical device mesh (``parallel/mesh.py``). The
 LM's ``remat`` and ``remat_policy`` are carried with the JAX defaults and
 validation; ``models/llama.forward`` runs ``full`` and ``nothing_saveable``
 as per-layer ``torch.utils.checkpoint`` and raises ``NotImplementedError``
@@ -148,6 +149,18 @@ class QFormerConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh: ``data`` (pure data parallelism), ``fsdp``
+    (ZeRO-style parameter sharding), ``context`` (sequence parallelism)
+    and ``model`` (tensor parallelism), one rank per device."""
+
+    data: int = 1
+    fsdp: int = 1
+    model: int = 1
+    context: int = 1
 
 
 @dataclass(frozen=True)

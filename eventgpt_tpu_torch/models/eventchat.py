@@ -17,10 +17,19 @@ right-padded to a shared length. Each loop is a host loop over device
 steps with one host read of its stop flag per iteration; the KV cache is
 updated in place, so where the JAX package rolls ``length`` back in a new
 cache, the port assigns it.
+
+``generate(mesh=)`` runs one rank's share of a batch on a serving mesh
+(``parallel/serving.py``): the rank takes the rows of its part of the
+serving batch axes (all rows at batch 1: pure tensor parallelism), the
+vision side runs replicated, the LLaMA calls run sharded, and the ranks
+agree on every loop's stop flag (``Mesh.host_all``), so that all of them
+run the same steps and so the same collectives. The answers are gathered
+to every rank.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -39,6 +48,7 @@ from eventgpt_tpu_torch.models import projector as proj_mod
 from eventgpt_tpu_torch.models import qformer as qformer_mod
 from eventgpt_tpu_torch.ops.pooling import spatio_temporal_pool
 from eventgpt_tpu_torch.ops.sampling import sample, top_p_filter
+from eventgpt_tpu_torch.parallel import serving as serving_mod
 
 Params = Dict[str, Any]
 
@@ -90,6 +100,7 @@ def splice_embeddings(
     segments: Sequence[np.ndarray],
     event_tokens: torch.Tensor,
     max_context: Optional[int] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Interleave text-segment embeddings with event-token blocks.
 
@@ -112,7 +123,7 @@ def splice_embeddings(
     for kind, val in _interleave_segments(segments):
         if kind == "text":
             ids = torch.as_tensor(np.asarray(val, dtype=np.int64), device=embed.device)
-            parts.append(llama_mod.embed_tokens(params["llama"], ids))
+            parts.append(llama_mod.embed_tokens(params["llama"], ids, mesh))
         else:
             parts.append(event_tokens[val].to(embed.dtype))
     out = torch.cat(parts, dim=0)
@@ -147,17 +158,25 @@ def _spliced_text_ids(segments: Sequence[np.ndarray], n_event_tok: int,
 
 def _vocab_size(params: Params) -> int:
     """The vocab of the lm_head leaf, which special tokens may have grown
-    past the config's: (V, D) when dense, (K, V) when quantized."""
+    past the config's: (V, D) when dense, (K, V) when quantized; a sharded
+    tree's global vocab (``serving.shard_params_for_serving``)."""
+    if "vocab_size" in params["llama"]:
+        return int(params["llama"]["vocab_size"])
     head = params["llama"]["lm_head"]
     if isinstance(head, dict):
         return int(head.get("q", head.get("q4")).shape[-1])
     return int(head.shape[0])
 
 
-def _pad_batch(embeds: List[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
-    """Right-pad per-sample (T_i, D) embeds to (B, T_max, D) + bool mask."""
+def _pad_batch(embeds: List[torch.Tensor], mesh=None
+               ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+    """Right-pad per-sample (T_i, D) embeds to (B, T_max, D) + bool mask; on
+    a mesh T_max is the longest over every rank's rows, the length the
+    whole batch pads to."""
     lens = np.array([int(e.shape[0]) for e in embeds])
     t_max = int(lens.max())
+    if mesh is not None:
+        t_max = mesh.host_max(t_max)
     padded = torch.stack([F.pad(e, (0, 0, 0, t_max - e.shape[0])) for e in embeds])
     mask = torch.as_tensor(np.arange(t_max)[None, :] < lens[:, None], device=padded.device)
     return padded, mask, lens
@@ -165,23 +184,23 @@ def _pad_batch(embeds: List[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor, 
 
 def prepare_prefill(params: Params, cfg: EventChatConfig,
                     input_ids_batch: Sequence[Sequence[int]],
-                    pixel_values_batch, max_context: Optional[int] = None):
+                    pixel_values_batch, max_context: Optional[int] = None, mesh=None):
     """Encode the events and splice each prompt: returns the right-padded
     (B, T, D) embeddings, their (B, T) mask and the per-row lengths."""
     embed = params["llama"]["embed_tokens"]
     pixels = torch.as_tensor(np.asarray(pixel_values_batch), device=embed.device).to(embed.dtype)
     event_tokens = encode_events_batch(params, cfg, pixels)
     embeds = [
-        splice_embeddings(params, cfg, split_at_event(ids), event_tokens[i], max_context)
+        splice_embeddings(params, cfg, split_at_event(ids), event_tokens[i], max_context, mesh)
         for i, ids in enumerate(input_ids_batch)
     ]
-    return _pad_batch(embeds)
+    return _pad_batch(embeds, mesh)
 
 
 @torch.inference_mode()
 def _decode_loop(params: Params, cfg: EventChatConfig, first_logits: torch.Tensor,
                  cache, generator: Optional[torch.Generator], max_new_tokens: int,
-                 temperature: float, top_p: float, eos_token_id: int):
+                 temperature: float, top_p: float, eos_token_id: int, mesh=None):
     """The autoregressive loop. Returns (tokens (B, max_new_tokens) int32
     on the host, number of steps run).
 
@@ -202,12 +221,18 @@ def _decode_loop(params: Params, cfg: EventChatConfig, first_logits: torch.Tenso
         next_tok = torch.where(done, eos, next_tok)
         tokens[:, step] = next_tok
         done = done | (next_tok == eos)
-        token_embeds = llama_mod.embed_tokens(params["llama"], next_tok[:, None].long())
-        logits, cache = llama_mod.decode_step(params["llama"], cfg.llama, token_embeds, cache)
+        token_embeds = llama_mod.embed_tokens(params["llama"], next_tok[:, None].long(), mesh)
+        logits, cache = llama_mod.decode_step(params["llama"], cfg.llama, token_embeds, cache,
+                                              mesh)
         step += 1
-        if bool(done.all()):
+        if _all_ranks(mesh, bool(done.all())):
             break
     return tokens[:, :max_new_tokens].cpu().numpy(), step
+
+
+def _all_ranks(mesh, flag: bool) -> bool:
+    """``flag`` on every rank of ``mesh`` (this process's without one)."""
+    return flag if mesh is None else mesh.host_all(flag)
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -254,7 +279,8 @@ def _beam_regather(cache, flat_parent: torch.Tensor, gather_start: int) -> None:
 
 @torch.inference_mode()
 def _beam_loop(params: Params, cfg: EventChatConfig, first_logits: torch.Tensor, cache,
-               num_beams: int, max_new_tokens: int, eos_token_id: int, gather_start: int = 0):
+               num_beams: int, max_new_tokens: int, eos_token_id: int, gather_start: int = 0,
+               mesh=None):
     """Deterministic length-normalized beam search (HF ``length_penalty=1``):
     the cumulative log-prob over the generated length picks the answer.
     Port of the JAX package's ``_beam_loop_jit``.
@@ -281,10 +307,10 @@ def _beam_loop(params: Params, cfg: EventChatConfig, first_logits: torch.Tensor,
     eos_only[eos_token_id] = 0.0
 
     step = 1
-    while step < max_new_tokens and not bool(done.all()):
+    while step < max_new_tokens and not _all_ranks(mesh, bool(done.all())):
         last = tokens[:, :, step - 1].reshape(b * k)
-        emb = llama_mod.embed_tokens(params["llama"], last[:, None].long())
-        logits, cache = llama_mod.decode_step(params["llama"], cfg.llama, emb, cache)
+        emb = llama_mod.embed_tokens(params["llama"], last[:, None].long(), mesh)
+        logits, cache = llama_mod.decode_step(params["llama"], cfg.llama, emb, cache, mesh)
         logp = torch.log_softmax(logits.float(), dim=-1).reshape(b, k, v)
         logp = torch.where(done[:, :, None], eos_only, logp)
         scores, idx = _top_k((scores[:, :, None] + logp).reshape(b, k * v), k)
@@ -452,7 +478,7 @@ def _spec_draft_verify(params: Params, cfg: EventChatConfig, ids_buf: torch.Tens
                        window: int, temperature: float, top_p: float, eos: int,
                        history: Optional[torch.Tensor] = None, medusa=None,
                        drafts_in: Optional[torch.Tensor] = None,
-                       depth: Optional[torch.Tensor] = None):
+                       depth: Optional[torch.Tensor] = None, mesh=None):
     """The speculative draft-and-verify step, port of the JAX package's
     ``_spec_draft_verify`` with the same parameters, so that the one-shot
     loop and a speculative server share it.
@@ -487,12 +513,12 @@ def _spec_draft_verify(params: Params, cfg: EventChatConfig, ids_buf: torch.Tens
 
     wtoks = torch.cat([c0[:, None], drafts], dim=1)  # (B, W)
     prev_len = cache["length"].clone()
-    embeds = llama_mod.embed_tokens(params["llama"], wtoks.long())
+    embeds = llama_mod.embed_tokens(params["llama"], wtoks.long(), mesh)
     if medusa is not None:
         logits, hidden, _ = llama_mod.decode_kstep(params["llama"], cfg.llama, embeds, cache,
-                                                   return_hidden=True)
+                                                   return_hidden=True, mesh=mesh)
     else:
-        logits, _ = llama_mod.decode_kstep(params["llama"], cfg.llama, embeds, cache)
+        logits, _ = llama_mod.decode_kstep(params["llama"], cfg.llama, embeds, cache, mesh=mesh)
     if temperature > 0.0:
         a, corrected = _spec_sample_accept(_spec_probs(logits, temperature, top_p), drafts,
                                            generator)
@@ -510,7 +536,7 @@ def _spec_draft_verify(params: Params, cfg: EventChatConfig, ids_buf: torch.Tens
         # The correction came from position a's logits; the heads at that
         # position's hidden predict the tokens after it: the next drafts.
         next_drafts = medusa_mod.medusa_drafts(params["llama"], medusa, hidden[bidx, a],
-                                               window - 1)
+                                               window - 1, mesh)
     else:
         next_drafts = drafts_in
     return commit, m_count, first_eos, first_eos < window, next_drafts
@@ -521,7 +547,7 @@ def _spec_loop(params: Params, cfg: EventChatConfig, first_logits: torch.Tensor,
                ids_buf: torch.Tensor, prompt_lens: torch.Tensor, max_new_tokens: int,
                window: int, eos_token_id: int, temperature: float = 0.0, top_p: float = 1.0,
                generator: Optional[torch.Generator] = None, medusa=None,
-               first_drafts: Optional[torch.Tensor] = None):
+               first_drafts: Optional[torch.Tensor] = None, mesh=None):
     """Speculative decoding: lookup (or Medusa) drafts and one K-token
     verification forward per iteration, port of ``_spec_loop_jit``.
 
@@ -552,12 +578,12 @@ def _spec_loop(params: Params, cfg: EventChatConfig, first_logits: torch.Tensor,
     n_iters = 0
     while True:
         active = ~done & (n_gen < max_new_tokens)
-        if not bool(active.any()):
+        if _all_ranks(mesh, not bool(active.any())):
             break
         pos = plens + n_gen  # next ids_buf write slot
         commit, m_count, first_eos, hit, drafts = _spec_draft_verify(
             params, cfg, ids_buf, pos, cache, generator, window, temperature, top_p,
-            eos_token_id, medusa=medusa, drafts_in=drafts)
+            eos_token_id, medusa=medusa, drafts_in=drafts, mesh=mesh)
         m_eff = torch.where(active, torch.where(hit, first_eos + 1, m_count),
                             torch.zeros_like(m_count))
         wpos = (pos[:, None] + iarr).clamp(0, s_ids - 1)
@@ -591,6 +617,7 @@ def generate(
     spec_stats: Optional[Dict[str, int]] = None,
     timings: Optional[Dict[str, float]] = None,
     device="cuda",
+    mesh=None,
 ) -> List[List[int]]:
     """Autoregressive generation over a batch of event-QA prompts.
 
@@ -614,6 +641,11 @@ def generate(
     ``timings``: when given, filled with host-clock seconds of the encode,
     prefill and decode phases, each ending in a device synchronize, and
     ``decode_steps``, the decode loop's iterations.
+    ``mesh``: a serving mesh (context 1) whose ``shard_params_for_serving``
+    tree ``params`` is; every rank of it calls ``generate`` with the whole
+    batch and the same arguments and gets every row's answer. Where
+    ``model`` does not divide the heads, flash prefill downgrades to dense,
+    as in the JAX package.
     """
     if speculative and num_beams > 1:
         raise ValueError("speculative decoding composes with greedy/sampled decode, "
@@ -625,9 +657,21 @@ def generate(
     if held.type != device.type:
         raise ValueError(f"generate on {device}: the parameters are on {held}")
     clock = _PhaseClock(held, timings)
+    b_all = len(input_ids_batch)
+    if mesh is not None:
+        serving_mod._require_serving_mesh(mesh)
+        if cfg.llama.attn_impl == "flash" and cfg.llama.num_heads % mesh.shape["model"]:
+            cfg = dataclasses.replace(
+                cfg, llama=dataclasses.replace(cfg.llama, attn_impl="dense"))
+        rows = serving_mod.batch_rows(mesh, b_all)
+        input_ids_batch = [input_ids_batch[i] for i in rows]
+        pixel_values_batch = np.asarray(pixel_values_batch)[rows.start:rows.stop]
+
+    def gathered(results):
+        return results if mesh is None else serving_mod.gather_batch(results, mesh, b_all)
 
     padded, mask, lens = prepare_prefill(params, cfg, input_ids_batch,
-                                         pixel_values_batch, max_context)
+                                         pixel_values_batch, max_context, mesh)
     clock.lap("encode_s")
     b, t = padded.shape[:2]
 
@@ -639,14 +683,14 @@ def generate(
     max_len = t + max_new_tokens + (2 * speculative if speculative else 0)
     max_len = ((max_len + bucket - 1) // bucket) * bucket
     cache = llama_mod.init_kv_cache(cfg.llama, b, max_len, dtype=padded.dtype, device=held,
-                                    quant=kv_quant)
+                                    quant=kv_quant, mesh=mesh)
     want_hidden = bool(speculative) and draft_head is not None
     pre = llama_mod.prefill(params["llama"], cfg.llama, padded, mask, cache, last_only=True,
-                            return_hidden=want_hidden)
+                            return_hidden=want_hidden, mesh=mesh)
     last_logits, cache = pre[0], pre[-1]
     clock.lap("prefill_s")
     if max_new_tokens == 0:
-        return [[] for _ in range(b)]
+        return [[] for _ in range(b_all)]
 
     generator = torch.Generator(device=held)
     generator.manual_seed(seed)
@@ -658,7 +702,7 @@ def generate(
         # the JAX package takes it (there a static argument).
         tokens, lengths, _, num_steps = _beam_loop(
             params, cfg, last_logits, cache, int(num_beams), max_new_tokens, int(eos),
-            gather_start=(int(lens.min()) // SEQ_BUCKET) * SEQ_BUCKET)
+            gather_start=(int(lens.min()) // SEQ_BUCKET) * SEQ_BUCKET, mesh=mesh)
         out_tokens, out_lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
         clock.lap("decode_s")
         if timings is not None:
@@ -669,7 +713,7 @@ def generate(
             if ids and eos_token_id is not None and ids[-1] == eos_token_id:
                 ids = ids[:-1]
             results.append(ids)
-        return results
+        return gathered(results)
     if speculative:
         window = int(speculative)
         limit = (cfg.llama.max_seq_len if max_context is None
@@ -681,31 +725,32 @@ def generate(
         first_drafts = None
         if draft_head is not None:
             first_drafts = medusa_mod.medusa_drafts(params["llama"], draft_head, pre[1],
-                                                    window - 1)
+                                                    window - 1, mesh)
         out_buf, n_gen, num_steps = _spec_loop(
             params, cfg, last_logits, cache, torch.as_tensor(ids_host, device=held),
             torch.as_tensor(lens.astype(np.int32), device=held), max_new_tokens, window,
             int(eos), temperature=float(temperature), top_p=float(top_p),
-            generator=generator, medusa=draft_head, first_drafts=first_drafts)
+            generator=generator, medusa=draft_head, first_drafts=first_drafts, mesh=mesh)
         out_np, gen_np = out_buf.cpu().numpy(), n_gen.cpu().numpy()
         clock.lap("decode_s")
         if timings is not None:
             timings["decode_steps"] = num_steps
         if spec_stats is not None:
             spec_stats["iterations"] = num_steps
-            spec_stats["tokens"] = int(np.minimum(gen_np, max_new_tokens).sum())
+            spec_stats["tokens"] = sum(gathered(
+                [int(n) for n in np.minimum(gen_np, max_new_tokens)]))
         results = []
         for i in range(b):
             row = out_np[i, lens[i]:lens[i] + min(int(gen_np[i]), max_new_tokens)]
             results.append(_until_eos(row, eos_token_id))
-        return results
+        return gathered(results)
     out_tokens, num_steps = _decode_loop(
         params, cfg, last_logits, cache, generator, max_new_tokens,
-        float(temperature), float(top_p), int(eos))
+        float(temperature), float(top_p), int(eos), mesh)
     clock.lap("decode_s")
     if timings is not None:
         timings["decode_steps"] = num_steps
-    return [_until_eos(out_tokens[i, :num_steps], eos_token_id) for i in range(b)]
+    return gathered([_until_eos(out_tokens[i, :num_steps], eos_token_id) for i in range(b)])
 
 
 def _until_eos(row, eos_token_id: Optional[int]) -> List[int]:
@@ -720,12 +765,18 @@ def _until_eos(row, eos_token_id: Optional[int]) -> List[int]:
 
 class _PhaseClock:
     """Host-clock laps that end in a device synchronize; records nothing
-    when no ``timings`` dict is given."""
+    when no ``timings`` dict is given. The decode lap also records the
+    collectives a mesh ran in it (``decode_collectives`` and their host
+    seconds ``decode_collective_s``)."""
 
     def __init__(self, device: torch.device, timings: Optional[Dict[str, float]]):
+        from eventgpt_tpu_torch.parallel.mesh import COLLECTIVES
+
         self.device = device
         self.timings = timings
         self.t0 = time.perf_counter()
+        self.collectives = COLLECTIVES
+        self.c0 = dict(COLLECTIVES)
 
     def lap(self, name: str) -> None:
         if self.timings is None:
@@ -735,3 +786,8 @@ class _PhaseClock:
         now = time.perf_counter()
         self.timings[name] = now - self.t0
         self.t0 = now
+        if name == "decode_s":
+            self.timings["decode_collectives"] = self.collectives["count"] - self.c0["count"]
+            self.timings["decode_collective_s"] = (self.collectives["seconds"]
+                                                   - self.c0["seconds"])
+        self.c0 = dict(self.collectives)

@@ -20,6 +20,16 @@ Parameters (dense weights in ``nn.Linear``'s (out, in) layout)::
 ``decode_kstep`` is the K-token forward of speculative decoding: a window
 of K tokens after the cache contents, one causal query per token.
 
+With ``mesh=`` (``parallel/mesh.Mesh``) the functions run one rank's share
+of a tree that ``parallel/serving.shard_params_for_serving`` sharded: the
+rank's q and KV heads (``serving.head_shard``), K1 over its heads, and the
+collectives GSPMD inserts in the JAX program: each weight gathered over
+``fsdp`` at use, an all-reduce over ``model`` after ``o_proj`` and
+``down_proj``, the vocab-parallel embedding lookup (a masked local lookup
+summed over ``model``) and the lm_head's logits gathered over ``model``,
+so every rank holds the same full row. The caches hold the rank's KV heads
+(``init_kv_cache(mesh=)``).
+
 ``fuse_llama_params`` replaces q|k|v by ``qkv_proj`` and gate|up by
 ``gate_up_proj``; ``ops/quant.quantize_llama_params`` replaces weights by
 int8 or int4 leaves in the JAX package's (K, N) layout. Every weight
@@ -49,6 +59,8 @@ from eventgpt_tpu_torch.ops.flash_attention import NEG_INF, flash_attention
 from eventgpt_tpu_torch.ops.quant import true_div
 from eventgpt_tpu_torch.ops.quant import matmul as _mm
 from eventgpt_tpu_torch.ops.quant import matmul_f32_out as _mm_f32
+from eventgpt_tpu_torch.parallel.serving import (gather_at_use, head_shard,
+                                                 serving_flash_shard_map, vocab_split)
 
 Params = Dict[str, Any]
 KVCache = Dict[str, Any]
@@ -86,8 +98,30 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return x * cos + rotated * sin
 
 
-def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed_tokens"][input_ids]
+def embed_tokens(params: Params, input_ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Embedding rows of ``input_ids``; on a mesh with the vocab split over
+    ``model``, each rank looks up the ids in its rows (zeros elsewhere) and
+    the rows are summed over ``model``, which is exact."""
+    if mesh is None:
+        return params["embed_tokens"][input_ids]
+    w = gather_at_use(params["embed_tokens"], "col", mesh)
+    if not vocab_split(params, mesh):
+        return w[input_ids]
+    v_local = w.shape[0]
+    local = input_ids - mesh.coord["model"] * v_local
+    mine = (local >= 0) & (local < v_local)
+    rows = w[local.clamp(0, v_local - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return mesh.all_reduce(rows, "model")
+
+
+def lm_head_logits(params: Params, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """f32 logits (..., V) of final-norm hidden states ``x``; on a mesh each
+    rank's vocab block, gathered over ``model`` where the vocab is split."""
+    logits = _mm_f32(x, gather_at_use(params["lm_head"], "col", mesh))
+    if vocab_split(params, mesh):
+        logits = mesh.all_gather(logits, "model", logits.ndim - 1)
+    return logits
 
 
 def resize_token_embeddings(params: Params, new_vocab_size: int) -> Params:
@@ -137,19 +171,37 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return x[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(b, s, kv * n_rep, hd)
 
 
-def _project_qkv(cfg: LlamaConfig, y: torch.Tensor, layer: Params):
+def _expand_kv(x: torch.Tensor, shard) -> torch.Tensor:
+    """(B, S, KV_local, hd) -> (B, S, H_local, hd): the GQA repeat, or where
+    the KV heads replicate over ``model``, the KV head of each local q
+    head."""
+    if shard.kv_index is not None:
+        return x[:, :, list(shard.kv_index)]
+    return _repeat_kv(x, shard.heads // shard.kv_heads)
+
+
+def _project_qkv(cfg: LlamaConfig, y: torch.Tensor, layer: Params, mesh=None):
     """y (B, T, D) -> q (B, T, H, hd), k/v (B, T, KV, hd), pre-RoPE, from
-    split or fused leaves."""
+    split or fused leaves; on a mesh the rank's heads."""
     b, t, _ = y.shape
     hd = cfg.resolved_head_dim()
-    qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    shard = head_shard(cfg, mesh)
+    qd, kvd = shard.heads * hd, shard.kv_heads * hd
     if "qkv_proj" in layer:
-        qkv = _mm(y, layer["qkv_proj"])
+        qkv = _mm(y, gather_at_use(layer["qkv_proj"], "col", mesh))
         q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
     else:
-        q, k, v = _mm(y, layer["q_proj"]), _mm(y, layer["k_proj"]), _mm(y, layer["v_proj"])
-    return (q.reshape(b, t, cfg.num_heads, hd), k.reshape(b, t, cfg.num_kv_heads, hd),
-            v.reshape(b, t, cfg.num_kv_heads, hd))
+        q, k, v = (_mm(y, gather_at_use(layer[n], "col", mesh))
+                   for n in ("q_proj", "k_proj", "v_proj"))
+    return (q.reshape(b, t, shard.heads, hd), k.reshape(b, t, shard.kv_heads, hd),
+            v.reshape(b, t, shard.kv_heads, hd))
+
+
+def _o_proj(ctx: torch.Tensor, layer: Params, cfg: LlamaConfig, mesh=None) -> torch.Tensor:
+    """The attention output product; summed over ``model`` when the heads
+    are split over it."""
+    out = _mm(ctx, gather_at_use(layer["o_proj"], "row", mesh))
+    return mesh.all_reduce(out, "model") if head_shard(cfg, mesh).attn_tp else out
 
 
 def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -164,23 +216,27 @@ def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _mlp_block(x: torch.Tensor, layer: Params) -> torch.Tensor:
+def _mlp_block(x: torch.Tensor, layer: Params, mesh=None) -> torch.Tensor:
+    """SwiGLU; on a mesh over the rank's columns, summed over ``model``."""
     if "gate_up_proj" in layer:
-        gu = _mm(x, layer["gate_up_proj"])
+        gu = _mm(x, gather_at_use(layer["gate_up_proj"], "col", mesh))
         i = gu.shape[-1] // 2
         gate, up = gu[..., :i], gu[..., i:]
     else:
-        gate, up = _mm(x, layer["gate_proj"]), _mm(x, layer["up_proj"])
-    return _mm(F.silu(gate) * up, layer["down_proj"])
+        gate, up = (_mm(x, gather_at_use(layer[n], "col", mesh)) for n in ("gate_proj", "up_proj"))
+    out = _mm(F.silu(gate) * up, gather_at_use(layer["down_proj"], "row", mesh))
+    return out if mesh is None else mesh.all_reduce(out, "model")
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16,
-                  device: Optional[torch.device] = None, quant: bool = False) -> KVCache:
+                  device: Optional[torch.device] = None, quant: bool = False,
+                  mesh=None) -> KVCache:
     """Dense KV cache buffers (L, B, max_len, KV, hd) in ``dtype``; with
-    ``quant`` int8 payloads and one f32 scale per (layer, row, slot, head)."""
+    ``quant`` int8 payloads and one f32 scale per (layer, row, slot, head).
+    On a mesh, KV is the rank's KV heads."""
     hd = cfg.resolved_head_dim()
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, hd)
+    shape = (cfg.num_layers, batch, max_len, head_shard(cfg, mesh).kv_heads, hd)
 
     def buf():
         if quant:
@@ -194,7 +250,8 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
 
 def init_paged_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, n_blocks: int,
                         block_size: int, dtype: torch.dtype = torch.bfloat16,
-                        device: Optional[torch.device] = None, quant: bool = False) -> KVCache:
+                        device: Optional[torch.device] = None, quant: bool = False,
+                        mesh=None) -> KVCache:
     """Paged KV cache: one arena (L, n_blocks, block_size, KV, hd) per
     plane (int8 payloads and f32 scales with ``quant``) and a block table
     ``bt`` (batch, max_len // block_size) int32. Which pool block backs
@@ -203,7 +260,8 @@ def init_paged_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, n_blocks: in
     writes of an unadmitted row land where nothing reads."""
     if max_len % block_size:
         raise ValueError(f"max_len {max_len} must be a block_size {block_size} multiple")
-    cache = init_kv_cache(cfg, n_blocks, block_size, dtype=dtype, device=device, quant=quant)
+    cache = init_kv_cache(cfg, n_blocks, block_size, dtype=dtype, device=device, quant=quant,
+                          mesh=mesh)
     cache["bt"] = torch.zeros((batch, max_len // block_size), dtype=torch.int32, device=device)
     cache["length"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return cache
@@ -285,30 +343,33 @@ def _additive_mask(visible: torch.Tensor) -> torch.Tensor:
 
 def _layer_block(cfg: LlamaConfig, layer: Params, x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor, attention_mask: torch.Tensor, mask: Optional[torch.Tensor],
-                 cache: Optional[KVCache] = None, li: int = 0) -> torch.Tensor:
+                 cache: Optional[KVCache] = None, li: int = 0, mesh=None) -> torch.Tensor:
     """One decoder layer over a whole prompt (B, T, D) -> (B, T, D): the body
     of ``prefill``'s layer loop and of ``forward``'s. Attention is the flash
-    kernel when ``mask`` is None, else dense with that additive mask; with a
-    ``cache`` the rotated k/v are written into its layer ``li``."""
+    kernel when ``mask`` is None (on a mesh over the rank's heads,
+    ``serving.serving_flash_shard_map``), else dense with that additive
+    mask; with a ``cache`` the rotated k/v are written into its layer
+    ``li``."""
     b, t, _ = x.shape
-    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    shard = head_shard(cfg, mesh)
     y = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
-    q, k, v = _project_qkv(cfg, y, layer)
+    q, k, v = _project_qkv(cfg, y, layer, mesh)
     k = apply_rope(k, cos, sin)
     q = apply_rope(q, cos, sin)
     if cache is not None:
         _cache_write(cache["k"], li, (slice(None), slice(0, t)), k)
         _cache_write(cache["v"], li, (slice(None), slice(0, t)), v)
-    k_rep = _repeat_kv(k, h // kvh)
-    v_rep = _repeat_kv(v, h // kvh)
+    k_rep = _expand_kv(k, shard)
+    v_rep = _expand_kv(v, shard)
     if mask is None:
-        ctx = flash_attention(q.contiguous(), k_rep.contiguous(), v_rep.contiguous(),
-                              valid=attention_mask, causal=True)
+        flash = (flash_attention if mesh is None else
+                 serving_flash_shard_map(mesh, b, cfg.num_heads if shard.attn_tp else None))
+        ctx = flash(q.contiguous(), k_rep.contiguous(), v_rep.contiguous(), attention_mask)
     else:
         ctx = _dense_attention(q, k_rep, v_rep, mask)
-    x = x + _mm(ctx.reshape(b, t, -1), layer["o_proj"])
+    x = x + _o_proj(ctx.reshape(b, t, -1), layer, cfg, mesh)
     y2 = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
-    return x + _mlp_block(y2, layer)
+    return x + _mlp_block(y2, layer, mesh)
 
 
 def _prompt_tables(cfg: LlamaConfig, inputs_embeds: torch.Tensor,
@@ -336,6 +397,7 @@ def prefill(
     last_only: bool = False,
     return_hidden: bool = False,
     with_logits: bool = True,
+    mesh=None,
 ):
     """Run the full prompt; returns (f32 logits, cache filled in place).
 
@@ -347,7 +409,8 @@ def prefill(
     last real token with ``last_only``, (B, T, D) otherwise (the seed of
     the Medusa heads' first drafts). ``with_logits=False`` skips the
     lm_head and gives None in the logits' place (Medusa training needs
-    the hidden states alone).
+    the hidden states alone). ``mesh``: run this rank's share of a sharded
+    tree (the module docstring).
     """
     if _kv_is_paged(cache):
         # Serving prefills a dense row cache and scatters it into the
@@ -359,7 +422,7 @@ def prefill(
 
     x = inputs_embeds
     for li, layer in enumerate(params["layers"]):
-        x = _layer_block(cfg, layer, x, cos, sin, attention_mask, mask, cache, li)
+        x = _layer_block(cfg, layer, x, cos, sin, attention_mask, mask, cache, li, mesh)
 
     lengths = attention_mask.to(torch.int32).sum(dim=1)
     cache["length"].copy_(lengths)
@@ -367,7 +430,7 @@ def prefill(
     if last_only:
         idx = (lengths - 1).clamp_min(0).long()
         x = x[torch.arange(b, device=x.device), idx]  # (B, D)
-    logits = _mm_f32(x, params["lm_head"]) if with_logits else None
+    logits = lm_head_logits(params, x, mesh) if with_logits else None
     if return_hidden:
         return logits, x, cache
     return logits, cache
@@ -378,6 +441,7 @@ def decode_step(
     cfg: LlamaConfig,
     token_embeds: torch.Tensor,
     cache: KVCache,
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step. token_embeds: (B, 1, D). Returns (f32 logits
     (B, V), cache updated in place).
@@ -388,7 +452,7 @@ def decode_step(
     table and keeps it.
     """
     b = token_embeds.shape[0]
-    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    shard = head_shard(cfg, mesh)
     max_len = _kv_max_len(cache)
     pos = cache["length"]  # (B,)
     cos, sin = rope_tables(cfg, pos[:, None])
@@ -401,21 +465,21 @@ def decode_step(
     x = token_embeds
     for li, layer in enumerate(params["layers"]):
         y = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
-        q, k_new, v_new = _project_qkv(cfg, y, layer)
+        q, k_new, v_new = _project_qkv(cfg, y, layer, mesh)
         k_new = apply_rope(k_new, cos, sin)
         q = apply_rope(q, cos, sin)
         _cache_write(cache["k"], li, (rows, slot), k_new[:, 0], bt)
         _cache_write(cache["v"], li, (rows, slot), v_new[:, 0], bt)
-        k_all = _repeat_kv(_cache_read_layer(cache["k"], li, x.dtype, bt), h // kvh)
-        v_all = _repeat_kv(_cache_read_layer(cache["v"], li, x.dtype, bt), h // kvh)
+        k_all = _expand_kv(_cache_read_layer(cache["k"], li, x.dtype, bt), shard)
+        v_all = _expand_kv(_cache_read_layer(cache["v"], li, x.dtype, bt), shard)
         ctx = _dense_attention(q, k_all, v_all, mask)
-        x = x + _mm(ctx.reshape(b, 1, -1), layer["o_proj"])
+        x = x + _o_proj(ctx.reshape(b, 1, -1), layer, cfg, mesh)
         y2 = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
-        x = x + _mlp_block(y2, layer)
+        x = x + _mlp_block(y2, layer, mesh)
 
     cache["length"] += 1
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    return _mm_f32(x[:, 0], params["lm_head"]), cache
+    return lm_head_logits(params, x[:, 0], mesh), cache
 
 
 def decode_kstep(
@@ -424,6 +488,7 @@ def decode_kstep(
     token_embeds: torch.Tensor,
     cache: KVCache,
     return_hidden: bool = False,
+    mesh=None,
 ):
     """K-token verification step of speculative decoding. token_embeds:
     (B, K, D), a window of candidate tokens after the cache contents.
@@ -439,7 +504,7 @@ def decode_kstep(
     paged cache is read and written through its block table.
     """
     b, kq, _ = token_embeds.shape
-    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    shard = head_shard(cfg, mesh)
     max_len = _kv_max_len(cache)
     pos = cache["length"][:, None] + torch.arange(kq, device=token_embeds.device)[None, :]
     cos, sin = rope_tables(cfg, pos)
@@ -452,21 +517,21 @@ def decode_kstep(
     x = token_embeds
     for li, layer in enumerate(params["layers"]):
         y = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
-        q, k_new, v_new = _project_qkv(cfg, y, layer)
+        q, k_new, v_new = _project_qkv(cfg, y, layer, mesh)
         k_new = apply_rope(k_new, cos, sin)
         q = apply_rope(q, cos, sin)
         _cache_write(cache["k"], li, (rows, slots), k_new, bt)
         _cache_write(cache["v"], li, (rows, slots), v_new, bt)
-        k_all = _repeat_kv(_cache_read_layer(cache["k"], li, x.dtype, bt), h // kvh)
-        v_all = _repeat_kv(_cache_read_layer(cache["v"], li, x.dtype, bt), h // kvh)
+        k_all = _expand_kv(_cache_read_layer(cache["k"], li, x.dtype, bt), shard)
+        v_all = _expand_kv(_cache_read_layer(cache["v"], li, x.dtype, bt), shard)
         ctx = _dense_attention(q, k_all, v_all, mask)
-        x = x + _mm(ctx.reshape(b, kq, -1), layer["o_proj"])
+        x = x + _o_proj(ctx.reshape(b, kq, -1), layer, cfg, mesh)
         y2 = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
-        x = x + _mlp_block(y2, layer)
+        x = x + _mlp_block(y2, layer, mesh)
 
     cache["length"] += kq
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    logits = _mm_f32(x, params["lm_head"])
+    logits = lm_head_logits(params, x, mesh)
     if return_hidden:
         return logits, x, cache
     return logits, cache

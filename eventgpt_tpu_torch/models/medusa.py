@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from eventgpt_tpu_torch.config import LlamaConfig
 from eventgpt_tpu_torch.device import resolve_device
-from eventgpt_tpu_torch.ops.quant import matmul_f32_out as _mm_f32
+from eventgpt_tpu_torch.models.llama import lm_head_logits
 
 MedusaParams = Dict[str, Any]
 
@@ -51,21 +51,23 @@ def medusa_hidden(medusa: MedusaParams, x: torch.Tensor,
 
 
 def medusa_logits(llama_params: Any, medusa: MedusaParams, x: torch.Tensor,
-                  k: Optional[int] = None) -> torch.Tensor:
+                  k: Optional[int] = None, mesh=None) -> torch.Tensor:
     """(..., D) -> (..., K, V) f32 through the frozen lm_head: head k scores
-    the token at offset k + 2 from the position whose hidden is ``x``."""
-    return _mm_f32(medusa_hidden(medusa, x, k), llama_params["lm_head"])
+    the token at offset k + 2 from the position whose hidden is ``x``. On
+    a serving mesh the heads replicate and the lm_head is the sharded
+    tree's (``llama.lm_head_logits``)."""
+    return lm_head_logits(llama_params, medusa_hidden(medusa, x, k), mesh)
 
 
 def medusa_drafts(llama_params: Any, medusa: MedusaParams, x: torch.Tensor,
-                  k: int) -> torch.Tensor:
+                  k: int, mesh=None) -> torch.Tensor:
     """Greedy drafts of the next verification window: (B, D) -> (B, k)
     int32, the argmax of each of the first ``k`` heads."""
     n = num_draft_heads(medusa)
     if k > n:
         raise ValueError(f"window needs {k} drafts but the Medusa stack has {n} heads "
                          f"(train with num_heads >= window - 1)")
-    return torch.argmax(medusa_logits(llama_params, medusa, x, k), dim=-1).to(torch.int32)
+    return torch.argmax(medusa_logits(llama_params, medusa, x, k, mesh), dim=-1).to(torch.int32)
 
 
 def medusa_loss(llama_params: Any, medusa: MedusaParams, hidden: torch.Tensor,

@@ -311,11 +311,14 @@ def kv_pos_bytes(cfg, kv_quant: bool = False, dtype_bytes: int = 2) -> int:
 
 
 def _mesh_divisors(cfg, mesh_shape: Optional[Dict[str, int]], batch: int) -> Dict[str, int]:
-    """The serving mesh's sharding divisors: refused with the mesh."""
+    """The serving layout's sharding divisors, from
+    ``parallel.serving.serving_divisors``, so that the capacity model and
+    the placement code cannot drift."""
     if not mesh_shape:
         return {"batch": 1, "kv_heads": 1, "weights": 1}
-    raise NotImplementedError("estimate(mesh_shape=...): the serving mesh (ROADMAP Queue 1 "
-                              "item 8) is not ported to eventgpt_tpu_torch yet")
+    from eventgpt_tpu_torch.parallel.serving import serving_divisors
+
+    return serving_divisors(cfg.llama.num_kv_heads, mesh_shape, batch)
 
 
 def estimate(cfg, *, max_batch: int, max_len: int, kv_quant: bool = False,
@@ -334,9 +337,13 @@ def estimate(cfg, *, max_batch: int, max_len: int, kv_quant: bool = False,
     for byte. ``speculative`` is the widest window (the draft buffer's
     width + 1). ``weights_bytes`` is the caller's weight-tree term
     (``params_bytes`` of a live tree, ``abstract_params_bytes`` of one
-    never built). A ``mesh_shape`` raises: the serving mesh is not
-    ported."""
-    _mesh_divisors(cfg, mesh_shape, max_batch)
+    never built). ``mesh_shape`` ({"data": d, "fsdp": f, "model": m})
+    applies the serving layout's divisors, as the JAX package's estimate
+    does, and adds a ``per_device`` view. That view is the JAX layout's,
+    whose dense batcher splits its rows over (data, fsdp); the port's
+    batcher runs every row on every rank (``ContinuousBatcher(mesh=)``),
+    so its rank holds the cache's KV-head share of all rows, which each
+    rank's live ledger (``GET /memory``) reports."""
     grain = 2 * _SEQ_BUCKET
     max_len = _grain_round(max_len, grain)
     pos_bytes = kv_pos_bytes(cfg, kv_quant, dtype_bytes)
@@ -378,7 +385,7 @@ def estimate(cfg, *, max_batch: int, max_len: int, kv_quant: bool = False,
     if prefix_cache_bytes:
         comp["prefix_cache"] = int(prefix_cache_bytes)
     total = sum(comp.values())
-    return {
+    out: Dict[str, Any] = {
         "components": comp,
         "total_bytes": total,
         "row_bytes": row_bytes,
@@ -386,6 +393,26 @@ def estimate(cfg, *, max_batch: int, max_len: int, kv_quant: bool = False,
         "entry_bytes_per_bucket": grain * pos_bytes,
         "max_len": max_len,
     }
+    if mesh_shape:
+        div = _mesh_divisors(cfg, mesh_shape, max_batch)
+        per: Dict[str, int] = {}
+        for name, n in comp.items():
+            if name == "weights":
+                per[name] = n // div["weights"]
+            elif name in ("kv_cache", "lanes"):
+                # Rows over (data, fsdp) and KV heads over model compose.
+                per[name] = n // (div["batch"] * div["kv_heads"])
+            elif name in ("kv_pool", "prefix_cache"):
+                # The arena has no batch axis: only the KV heads split.
+                per[name] = n // div["kv_heads"]
+            elif name in ("kv_block_table", "logits", "ids_buf", "draft"):
+                per[name] = n // div["batch"]
+            else:
+                per[name] = n
+        out["divisors"] = div
+        out["per_device"] = per
+        out["per_device_total_bytes"] = sum(per.values())
+    return out
 
 
 def compiled_stats(*args, **kwargs) -> Dict[str, Any]:

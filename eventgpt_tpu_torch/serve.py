@@ -92,8 +92,16 @@ never a chain). It reads host values the scheduler already holds: no
 device read is added to the dispatch path, and chains are byte-identical
 with telemetry armed or disarmed.
 
-What the port does not have yet raises ``NotImplementedError`` when asked
-for: the serving mesh. Greedy chains at f32
+On a serving mesh (``mesh=``, ``parallel/mesh.Mesh``) every rank runs this
+scheduler over the same rows with the same host decisions and generator
+seed, on its shard of the tree (``parallel/serving.shard_params_for_serving``)
+and its KV heads: the rows replicate over the batch axes, as the JAX paged
+arena does, where the JAX dense batcher splits them over (data, fsdp).
+The host decisions agree because every rank computes bitwise-equal
+logits (the collectives give each rank the same bits). What would let the
+ranks' decisions part (deadlines read the host clock; the spill price a
+measured bandwidth; the headroom guard and the prefill/decode roles their
+process's own state) raises ``NotImplementedError`` with a mesh. Greedy chains at f32
 equal the JAX ``ContinuousBatcher``'s and the port's one-shot ``generate``
 with every scheduler feature on or off (``tests/test_torch_serve*.py``,
 ``tests/test_torch_prefix_cache.py``, ``tests/test_torch_mixed_segments.py``,
@@ -129,6 +137,7 @@ from eventgpt_tpu_torch.obs import profiling as obs_profiling
 from eventgpt_tpu_torch.obs import series as obs_series
 from eventgpt_tpu_torch.obs import trace as obs_trace
 from eventgpt_tpu_torch.ops.sampling import sample
+from eventgpt_tpu_torch.parallel import serving as serving_mod
 from eventgpt_tpu_torch.serve_blocks import SCRATCH_BLOCK, BlockPool, BlockPoolError, SpillStore
 from eventgpt_tpu_torch.workload import SLO, SLO_CLASSES
 
@@ -577,9 +586,9 @@ def _frozen_reader(flags: _LiveFlags, run: bool, steps: int, n: int):
 def _decode_segment(params, cfg: EventChatConfig, logits, cache, generator, frozen, n_rem,
                     chunk: int, eos_token_id: int, temperature: float = 0.0,
                     top_p: float = 1.0, flags: Optional[_LiveFlags] = None,
-                    after_first_step=None, run: bool = True):
+                    after_first_step=None, run: bool = True, mesh=None):
     """Up to ``chunk`` decode steps over the shared batch, the cache
-    updated in place.
+    updated in place (on a serving ``mesh``, this rank's share).
 
     ``frozen`` (B,) bool marks free rows and rows already finished;
     ``n_rem`` (B,) int32 is each row's remaining budget. Returns (tokens
@@ -639,8 +648,8 @@ def _decode_segment(params, cfg: EventChatConfig, logits, cache, generator, froz
         n_new = n_new + commit.to(torch.int32)
         done = done | (commit & (nxt == eos))
         # Every row advances; frozen rows keep their logits and length.
-        emb = llama_mod.embed_tokens(params["llama"], nxt[:, None].long())
-        new_logits, cache = llama_mod.decode_step(params["llama"], cfg.llama, emb, cache)
+        emb = llama_mod.embed_tokens(params["llama"], nxt[:, None].long(), mesh)
+        new_logits, cache = llama_mod.decode_step(params["llama"], cfg.llama, emb, cache, mesh)
         logits = torch.where(commit[:, None], new_logits, logits)
         cache["length"].copy_(torch.where(commit, cache["length"], cache["length"] - 1))
         steps += 1
@@ -662,7 +671,7 @@ def _decode_segment(params, cfg: EventChatConfig, logits, cache, generator, froz
 
 @torch.inference_mode()
 def _lane_advance(params, cfg: EventChatConfig, lane_embeds, lane_cache, start, new_len,
-                  last_idx, chunk_p: int):
+                  last_idx, chunk_p: int, mesh=None):
     """One piggybacked prefill advance over the K resident lanes: each lane
     row takes its own ``chunk_p``-wide window of prompt embeddings at
     ``start`` and runs it through ``decode_kstep`` against its own lane
@@ -678,7 +687,7 @@ def _lane_advance(params, cfg: EventChatConfig, lane_embeds, lane_cache, start, 
     emb = torch.gather(lane_embeds, 1, idx[:, :, None].expand(k, chunk_p, d))
     lane_cache["length"].copy_(start)
     logits, hidden, _ = llama_mod.decode_kstep(params["llama"], cfg.llama, emb, lane_cache,
-                                               return_hidden=True)
+                                               return_hidden=True, mesh=mesh)
     rows = torch.arange(k, device=start.device)
     lane_cache["length"].copy_(new_len)
     return logits[rows, last_idx.long()], hidden[rows, last_idx.long()]
@@ -689,7 +698,7 @@ def _mixed_decode_segment(params, cfg: EventChatConfig, logits, cache, generator
                           lane_embeds, lane_cache, lane_start, lane_new_len, lane_last_idx,
                           chunk: int, chunk_p: int, eos_token_id: int, temperature: float = 0.0,
                           top_p: float = 1.0, flags: Optional[_LiveFlags] = None,
-                          after_first_step=None, run: bool = True):
+                          after_first_step=None, run: bool = True, mesh=None):
     """The mixed segment: ``_decode_segment`` plus the piggybacked prefill
     lanes in one dispatch. The halves touch disjoint state (shared cache
     rows against lane cache rows), so the decode rows commit tokens in the
@@ -699,9 +708,9 @@ def _mixed_decode_segment(params, cfg: EventChatConfig, logits, cache, generator
     by ``_lane_advance``'s."""
     dec = _decode_segment(params, cfg, logits, cache, generator, frozen, n_rem, chunk,
                           eos_token_id, temperature, top_p, flags,
-                          after_first_step if run else None, run)
+                          after_first_step if run else None, run, mesh)
     lane = _lane_advance(params, cfg, lane_embeds, lane_cache, lane_start, lane_new_len,
-                         lane_last_idx, chunk_p)
+                         lane_last_idx, chunk_p, mesh)
     if not run and after_first_step is not None:
         after_first_step()
     return dec + lane
@@ -712,7 +721,7 @@ def _spec_segment(params, cfg: EventChatConfig, cache, generator, ids_buf, base_
                   n_rem, n_iters: int, window: int, eos_token_id: int,
                   temperature: float = 0.0, top_p: float = 1.0, history=None, medusa=None,
                   drafts=None, depth=None, flags: Optional[_LiveFlags] = None,
-                  after_first_step=None, run: bool = True):
+                  after_first_step=None, run: bool = True, mesh=None):
     """Up to ``n_iters`` speculative verify iterations over the shared
     batch, the serving form of ``eventchat._spec_loop`` (the same drafts
     and verification), with per-row budgets and a frozen mask. The cache,
@@ -781,7 +790,7 @@ def _spec_segment(params, cfg: EventChatConfig, cache, generator, ids_buf, base_
         commit, m_count, first_eos, hit, drafts_w = eventchat._spec_draft_verify(
             params, cfg, ids_buf, pos, cache, generator, window, temperature, top_p,
             eos_token_id, history=history, medusa=medusa, drafts_in=drafts[:, :d_w],
-            depth=depth)
+            depth=depth, mesh=mesh)
         if medusa is not None and d_w:
             drafts[:, :d_w] = drafts_w
         m_count, first_eos = m_count.to(torch.int32), first_eos.to(torch.int32)
@@ -829,7 +838,7 @@ def _mixed_spec_segment(params, cfg: EventChatConfig, cache, generator, ids_buf,
                         eos_token_id: int, temperature: float = 0.0, top_p: float = 1.0,
                         history=None, medusa=None, drafts=None, depth=None,
                         flags: Optional[_LiveFlags] = None, after_first_step=None,
-                        run: bool = True):
+                        run: bool = True, mesh=None):
     """The mixed segment, speculative form: ``_spec_segment`` plus the
     piggybacked prefill lanes in one dispatch (see
     ``_mixed_decode_segment``, also for ``run``); the lane cache keeps its
@@ -837,9 +846,10 @@ def _mixed_spec_segment(params, cfg: EventChatConfig, cache, generator, ids_buf,
     spec = _spec_segment(params, cfg, cache, generator, ids_buf, base_pos, frozen, n_rem,
                          n_iters, window, eos_token_id, temperature, top_p, history=history,
                          medusa=medusa, drafts=drafts, depth=depth, flags=flags,
-                         after_first_step=after_first_step if run else None, run=run)
+                         after_first_step=after_first_step if run else None, run=run,
+                         mesh=mesh)
     lane = _lane_advance(params, cfg, lane_embeds, lane_cache, lane_start, lane_new_len,
-                         lane_last_idx, chunk_p)
+                         lane_last_idx, chunk_p, mesh)
     if not run and after_first_step is not None:
         after_first_step()
     return spec + lane
@@ -998,7 +1008,7 @@ def _slice_prefix_block(k, v, row: int, bucket: int):
 
 @torch.inference_mode()
 def _chunk_prefill(params, cfg: EventChatConfig, embeds, cache, start: int, new_len: int,
-                   last_idx: int, chunk: int):
+                   last_idx: int, chunk: int, mesh=None):
     """One chunked-admission advance: prompt positions [start, start +
     chunk) of ``embeds`` (1, S1, D) through ``decode_kstep`` (query i at
     position start + i sees slots [0, start + i], as in one-shot prefill),
@@ -1009,14 +1019,14 @@ def _chunk_prefill(params, cfg: EventChatConfig, embeds, cache, start: int, new_
     cache["length"].fill_(start)
     logits, hidden, _ = llama_mod.decode_kstep(params["llama"], cfg.llama,
                                                embeds[:, start:start + chunk], cache,
-                                               return_hidden=True)
+                                               return_hidden=True, mesh=mesh)
     cache["length"].fill_(new_len)
     return logits[:, last_idx], hidden[:, last_idx]
 
 
 @torch.inference_mode()
 def _prefix_prefill(params, cfg: EventChatConfig, pk, pv, plen, cache, suffix_embeds, new_len,
-                    last_idx):
+                    last_idx, mesh=None):
     """Admission from cached prefix KV: copy each row's entry block (``pk``/
     ``pv``, (L, N, s_pre, ...)) into the fresh row cache, pin the length to
     the entry length ``plen`` and run ONLY the suffix (N, chunk, D) through
@@ -1033,7 +1043,7 @@ def _prefix_prefill(params, cfg: EventChatConfig, pk, pv, plen, cache, suffix_em
     _ins(cache["v"], pv, copy)
     cache["length"].copy_(plen)
     logits, hidden, _ = llama_mod.decode_kstep(params["llama"], cfg.llama, suffix_embeds, cache,
-                                               return_hidden=True)
+                                               return_hidden=True, mesh=mesh)
     cache["length"].copy_(new_len)
     rows = torch.arange(logits.shape[0], device=logits.device)
     return logits[rows, last_idx.long()], hidden[rows, last_idx.long()]
@@ -1218,9 +1228,15 @@ class ContinuousBatcher:
         slo_window: int = 256,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatcher(mesh=...): the serving mesh (ROADMAP Queue 1 item 8) is "
-                "not ported to eventgpt_tpu_torch yet")
+            serving_mod._require_serving_mesh(mesh)
+            unported = [name for name, on in (
+                ("preempt", preempt), ("spill_capacity_mb", spill_capacity_mb),
+                ("role", role != "colocated"), ("mem_headroom_bytes", mem_headroom_bytes)) if on]
+            if unported:
+                raise NotImplementedError(
+                    f"ContinuousBatcher(mesh=...) with {', '.join(unported)}: on a serving "
+                    f"mesh these are not ported (ROADMAP Queue 1 item 8c)")
+        self.mesh = mesh
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got {kv_layout!r}")
         # "colocated" admits and decodes. "prefill" only admits: each
@@ -1288,11 +1304,11 @@ class ContinuousBatcher:
                                  f"({min_blocks - 1} blocks + 1 scratch)")
             self.cache = llama_mod.init_paged_kv_cache(
                 cfg.llama, max_batch, max_len, n_blocks, SEQ_BUCKET, dtype=self._dtype,
-                device=self.device, quant=self.kv_quant)
+                device=self.device, quant=self.kv_quant, mesh=mesh)
         else:
             self.cache = llama_mod.init_kv_cache(cfg.llama, max_batch, max_len,
                                                  dtype=self._dtype, device=self.device,
-                                                 quant=self.kv_quant)
+                                                 quant=self.kv_quant, mesh=mesh)
         self.kv_bytes = _nbytes([self.cache["k"], self.cache["v"]])
         # Per-position K+V bytes of one cache row: the prefix cache's unit
         # (an entry's nbytes = bucket * this; int8 halves it).
@@ -1653,11 +1669,12 @@ class ContinuousBatcher:
             row_cache = self._new_row_cache(s1)
             row_logits = llama_mod.prefill(self.params["llama"], self.cfg.llama, padded, mask,
                                            row_cache, last_only=True,
-                                           return_hidden=self.draft_head is not None)[0]
+                                           return_hidden=self.draft_head is not None,
+                                           mesh=self.mesh)[0]
             n += 1
             if self.prefill_chunk:
                 _chunk_prefill(self.params, self.cfg, padded, self._new_row_cache(s1), 0, 1, 0,
-                               self.prefill_chunk)
+                               self.prefill_chunk, self.mesh)
                 n += 1
             if self._paged:
                 # Every destination is the drop sentinel: no pool block is
@@ -1719,6 +1736,10 @@ class ContinuousBatcher:
         if slo is not None and slo.name not in SLO_CLASSES:
             raise ValueError(f"unknown SLO class {slo.name!r}: one of {SLO_CLASSES} (class "
                              f"names are metric labels and must stay a closed set)")
+        if deadline_s is not None and self.mesh is not None:
+            raise NotImplementedError("deadline_s on a serving mesh: the ranks' clocks would "
+                                      "part their decisions; not ported (ROADMAP Queue 1 "
+                                      "item 8c)")
         if self.max_queue and len(self.queue) >= self.max_queue:
             raise QueueFullError(f"admission queue is full ({len(self.queue)}/"
                                  f"{self.max_queue} requests queued); retry later")
@@ -1955,10 +1976,10 @@ class ContinuousBatcher:
             ev = eventchat.encode_events_batch(self.params, self.cfg,
                                                self._pixels(pixel_values)[None])
             embeds = [eventchat.splice_embeddings(self.params, self.cfg, split_at_event(ids),
-                                                  ev[0])]
+                                                  ev[0], mesh=self.mesh)]
         else:
             tok = _h2d(np.asarray(ids, np.int64), self.device)
-            embeds = [llama_mod.embed_tokens(self.params["llama"], tok)]
+            embeds = [llama_mod.embed_tokens(self.params["llama"], tok, self.mesh)]
         padded, mask, lens = eventchat._pad_batch(embeds)
         p_len = int(lens[0])
         if p_len + SEQ_BUCKET > self.max_len:
@@ -1969,7 +1990,7 @@ class ContinuousBatcher:
         mask = F.pad(mask, (0, s1p - p_len))
         row_cache = self._new_row_cache(s1p)
         llama_mod.prefill(self.params["llama"], self.cfg.llama, padded, mask, row_cache,
-                          last_only=True)
+                          last_only=True, mesh=self.mesh)
         self._count_dispatch("prefix_set")
         blocks = None
         kv = {"k": row_cache["k"], "v": row_cache["v"]}
@@ -2124,12 +2145,13 @@ class ContinuousBatcher:
         sentinel and pays its own encode."""
         if entry.has_event:
             tok = _h2d(np.asarray([suffix_ids], np.int64), self.device)
-            emb = llama_mod.embed_tokens(self.params["llama"], tok)
+            emb = llama_mod.embed_tokens(self.params["llama"], tok, self.mesh)
         else:
             ev = eventchat.encode_events_batch(self.params, self.cfg,
                                                self._pixels(pixel_values)[None])
             emb = eventchat.splice_embeddings(self.params, self.cfg,
-                                              split_at_event(suffix_ids), ev[0])[None]
+                                              split_at_event(suffix_ids), ev[0],
+                                              mesh=self.mesh)[None]
         assert emb.shape[1] == suf_len, (emb.shape, suf_len)
         return F.pad(emb, (0, 0, 0, chunk - suf_len))
 
@@ -2172,7 +2194,7 @@ class ContinuousBatcher:
             self.params, self.cfg, ekv["k"], ekv["v"],
             _h2d(np.asarray([entry.length], np.int32), self.device), row_cache, emb,
             _h2d(np.asarray([prompt_len], np.int32), self.device),
-            _h2d(np.asarray([suf_len - 1], np.int64), self.device))
+            _h2d(np.asarray([suf_len - 1], np.int64), self.device), self.mesh)
         if record:
             self._count_dispatch("suffix")
             tr = obs_trace.active()
@@ -2220,7 +2242,7 @@ class ContinuousBatcher:
                         self.device)
         row_cache = self._new_row_cache(s1, batch=nb)
         last, hidden = _prefix_prefill(self.params, self.cfg, wave_pk, wave_pv, plen, row_cache,
-                                       emb, new_len, last_idx)
+                                       emb, new_len, last_idx, self.mesh)
         self._count_dispatch("suffix_wave")
         tr = obs_trace.active()
         if tr is not None:
@@ -2530,7 +2552,8 @@ class ContinuousBatcher:
             history = (_h2d(self._history.astype(np.int32), self.device)
                        if self._history is not None else None)
             kw = dict(history=history, medusa=self.draft_head, drafts=self.spec_drafts,
-                      depth=depth, flags=self._flags, after_first_step=harvest_prev, run=run)
+                      depth=depth, flags=self._flags, after_first_step=harvest_prev, run=run,
+                      mesh=self.mesh)
             head = (self.params, self.cfg, self.cache, self.generator, self.ids_buf, base_pos,
                     frozen, n_rem)
             if mixed:
@@ -2553,13 +2576,13 @@ class ContinuousBatcher:
                 out = _mixed_decode_segment(
                     self.params, self.cfg, self.logits, self.cache, self.generator, frozen,
                     n_rem, *lane_args, chunk, self._lane_chunk, self.eos, self.temperature,
-                    self.top_p, self._flags, harvest_prev, run)
+                    self.top_p, self._flags, harvest_prev, run, self.mesh)
                 out, lane_out = out[:10], out[10:]
             else:
                 out = _decode_segment(
                     self.params, self.cfg, self.logits, self.cache, self.generator, frozen,
                     n_rem, chunk, self.eos, self.temperature, self.top_p, self._flags,
-                    harvest_prev, run)
+                    harvest_prev, run, self.mesh)
             (tokens, n_new, done, fin, self.logits, frozen_out, n_rem_out, lived, steps,
              all_frozen) = out
             base_pos_out = None
@@ -2788,7 +2811,7 @@ class ContinuousBatcher:
         if self._lane_cache is None:
             self._lane_cache = llama_mod.init_kv_cache(
                 self.cfg.llama, self._lane_cap, s1 + self._lane_chunk, dtype=self._dtype,
-                device=self.device, quant=False)
+                device=self.device, quant=False, mesh=self.mesh)
             self._lane_embeds = torch.zeros((self._lane_cap, s1, d), dtype=self._dtype,
                                             device=self.device)
         else:
@@ -3562,7 +3585,8 @@ class ContinuousBatcher:
         # Medusa mode also needs the prompt's last hidden: it seeds the
         # row's first drafts.
         pre = llama_mod.prefill(self.params["llama"], self.cfg.llama, padded, mask, row_cache,
-                                last_only=True, return_hidden=self.draft_head is not None)
+                                last_only=True, return_hidden=self.draft_head is not None,
+                                mesh=self.mesh)
         self._count_dispatch("full")
         self._finish_admission(req, row, prompt_len, row_cache, pre[0],
                                pre[1] if len(pre) == 3 else None)
@@ -3629,7 +3653,7 @@ class ContinuousBatcher:
         start = p.filled
         end = min(start + c, p.prompt_len)
         last, hidden = _chunk_prefill(self.params, self.cfg, p.embeds, p.row_cache, start, end,
-                                      max(0, min(p.prompt_len - 1 - start, c - 1)), c)
+                                      max(0, min(p.prompt_len - 1 - start, c - 1)), c, self.mesh)
         self._count_dispatch("chunk")
         p.filled = end
         if p.filled >= p.prompt_len:
@@ -3647,7 +3671,8 @@ class ContinuousBatcher:
         ev = eventchat.encode_events_batch(self.params, self.cfg,
                                            self._pixels(req.pixel_values)[None])
         embeds = [eventchat.splice_embeddings(self.params, self.cfg,
-                                              split_at_event(req.input_ids), ev[0])]
+                                              split_at_event(req.input_ids), ev[0],
+                                              mesh=self.mesh)]
         padded, mask, lens = eventchat._pad_batch(embeds)
         prompt_len = int(lens[0])
         s1 = _bucket(prompt_len, self.max_len)
@@ -3657,7 +3682,7 @@ class ContinuousBatcher:
 
     def _new_row_cache(self, s1: int, batch: int = 1):
         return llama_mod.init_kv_cache(self.cfg.llama, batch, s1, dtype=self._dtype,
-                                       device=self.device, quant=self.kv_quant)
+                                       device=self.device, quant=self.kv_quant, mesh=self.mesh)
 
     @torch.inference_mode()
     def _admit_wave(self, wave: List[tuple]) -> None:
@@ -3673,7 +3698,8 @@ class ContinuousBatcher:
                                             device=pv.device)])
         ev = eventchat.encode_events_batch(self.params, self.cfg, pv)
         embeds = [eventchat.splice_embeddings(self.params, self.cfg,
-                                              split_at_event(req.input_ids), ev[i])
+                                              split_at_event(req.input_ids), ev[i],
+                                              mesh=self.mesh)
                   for i, (req, _) in enumerate(wave)]
         padded, mask, lens = eventchat._pad_batch(embeds)
         prompt_lens = [int(x) for x in lens]
@@ -3684,7 +3710,8 @@ class ContinuousBatcher:
             mask[n:, 0] = True
         wave_cache = self._new_row_cache(s1, batch=nb)
         pre = llama_mod.prefill(self.params["llama"], self.cfg.llama, padded, mask, wave_cache,
-                                last_only=True, return_hidden=self.draft_head is not None)
+                                last_only=True, return_hidden=self.draft_head is not None,
+                                mesh=self.mesh)
         self._count_dispatch("wave")
         self._scatter_wave(wave, wave_cache, pre[0], pre[1] if len(pre) == 3 else None,
                            prompt_lens, path="wave")
@@ -3773,7 +3800,8 @@ class ContinuousBatcher:
             # the first commit: the row's first drafts, the whole buffer's
             # width, so that any bucket finds its columns fresh.
             self.spec_drafts[row] = medusa_mod.medusa_drafts(
-                self.params["llama"], self.draft_head, row_hidden, self.spec_max - 1)[0]
+                self.params["llama"], self.draft_head, row_hidden, self.spec_max - 1,
+                self.mesh)[0]
         if self.speculative:
             self._admit_speculative(req, row, prompt_len, row_logits)
             return

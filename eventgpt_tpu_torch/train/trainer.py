@@ -82,11 +82,12 @@ def refuse_unported(train_args: TrainingArguments) -> None:
             or train_args.mesh_context != 1:
         raise NotImplementedError(
             "mesh_data/mesh_fsdp/mesh_model/mesh_context: the training mesh is not ported "
-            "to eventgpt_tpu_torch yet; the port trains on one device")
+            "to eventgpt_tpu_torch yet (ROADMAP Queue 1 item 8b); the port trains on one "
+            "device")
     if train_args.attn_impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl={train_args.attn_impl!r}: sequence-parallel attention is not ported "
-            f"to eventgpt_tpu_torch yet")
+            f"to eventgpt_tpu_torch yet (ROADMAP Queue 1 item 8b)")
 
 
 class Trainer:

@@ -7,7 +7,8 @@ f32 on the CPU over one tiny checkpoint both packages load.
 - ``--expected``: a file of the same answers exits 0 (every PASS), a file
   with one wrong answer exits 1; a query count other than the file count
   and an expected count other than the answer count raise ValueError;
-  ``--mesh_*`` raises NotImplementedError as ``cli/infer`` does.
+  ``--mesh_*`` in one process raises ValueError naming the launcher, as
+  ``cli/infer`` does.
 """
 
 import argparse
@@ -99,7 +100,8 @@ def test_query_count_mismatch_and_mesh_refusal(setup):
     with pytest.raises(ValueError, match="2 queries for 3 event files"):
         teval.read_queries(args, 3)
     for flag in ("--mesh_data", "--mesh_fsdp", "--mesh_model"):
-        with pytest.raises(NotImplementedError, match="mesh"):
+        # A mesh needs a launched world of its size (one process here).
+        with pytest.raises(ValueError, match="mesh.*torch.distributed.run"):
             teval.main(common + ["--device", "cpu", flag, "2"])
     with pytest.raises(ValueError, match="draft_head"):
         teval.main(common + ["--device", "cpu", "--draft_head", "x.npz"])

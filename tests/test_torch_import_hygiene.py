@@ -73,7 +73,13 @@ def test_port_imports_no_jax_and_no_jax_package():
             "eventgpt_tpu_torch.cli.eval",
             "eventgpt_tpu_torch.data.dsec",
             "eventgpt_tpu_torch.data.feature_track",
-            "eventgpt_tpu_torch.scripts.stream_demo"} <= set(found["modules"])
+            "eventgpt_tpu_torch.scripts.stream_demo",
+            "eventgpt_tpu_torch.parallel",
+            "eventgpt_tpu_torch.parallel.mesh",
+            "eventgpt_tpu_torch.parallel.dist",
+            "eventgpt_tpu_torch.parallel.sharding",
+            "eventgpt_tpu_torch.parallel.serving",
+            "eventgpt_tpu_torch.scripts.serve_demo"} <= set(found["modules"])
     assert found["bad"] == [], f"the port pulled in: {found['bad']}"
 
 
@@ -111,6 +117,19 @@ def test_port_source_names_no_forbidden_import():
             found += [f"{os.path.relpath(path, REPO)}:{line} imports {mod}"
                       for line, mod in _imported_roots(tree) if mod in FORBIDDEN]
     assert scanned > 30
+    assert found == [], found
+
+
+def test_mesh_rank_bodies_name_no_jax_import():
+    """The serving-mesh tests' rank processes run the port alone: the
+    modules they execute name no JAX import, lazy ones included."""
+    found = []
+    for name in ("torch_mesh_ranks.py", "torch_mesh_serve.py"):
+        path = os.path.join(REPO, "tests", name)
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        found += [f"tests/{name}:{line} imports {mod}" for line, mod in _imported_roots(tree)
+                  if mod in FORBIDDEN]
     assert found == [], found
 
 

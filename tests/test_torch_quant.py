@@ -320,12 +320,14 @@ def test_cli_runs_the_quantized_path_on_the_cpu(event_path):
     assert isinstance(out8, str)
 
 
+# The mesh flags are ported: a mesh of 2 in one process is refused, naming
+# the launcher (tests/test_torch_sharded_generate.py runs the mesh).
 @pytest.mark.parametrize("flags,match", [
-    (["--mesh_model", "2"], "mesh"),
-    (["--mesh_fsdp", "2"], "mesh"),
+    (["--mesh_model", "2"], "mesh.*torch.distributed.run"),
+    (["--mesh_fsdp", "2"], "mesh.*torch.distributed.run"),
 ])
 def test_cli_still_refuses_unported_flags(event_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         infer.main(["--model_path", "tiny-random", "--event_frame", event_path, "--query", "q",
                     "--device", "cpu", "--quant", "int4", *flags])
 

@@ -196,22 +196,26 @@ def test_cancel_and_deadline_keep_the_other_chains(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    # The scheduler, speculation, preemption, spill and role features and
-    # the memory headroom guard are ported; with a feature that is not (the
-    # mesh), they are still refused.
-    dict(speculative=2, preempt=True, mesh=object()),
-    dict(prefix_cache=True, speculative=2, mesh=object()),
-    dict(pipeline=True, mesh=object()),
-    dict(prefill_budget=8, role="prefill", kv_layout="paged", mesh=object()),
-    dict(prefill_chunk=64, draft_head={}, spill_capacity_mb=64, mesh=object()),
-    dict(preempt=True, kv_layout="paged", mesh=object()),
-    dict(spill_capacity_mb=64, mesh=object()), dict(role="decode", mesh=object()),
-    dict(spec_buckets="0,2", mesh=object()), dict(mem_headroom_bytes=1 << 30, mesh=object()),
+    # The serving mesh is ported (tests/test_torch_sharded_serve.py); on a
+    # mesh, preemption, the spill store, the split roles and the memory
+    # headroom guard are still refused, beside the features that run there.
+    dict(speculative=2, preempt=True),
+    dict(prefix_cache=True, speculative=2, spill_capacity_mb=64),
+    dict(pipeline=True, mem_headroom_bytes=1 << 30),
+    dict(prefill_budget=8, role="prefill", kv_layout="paged"),
+    dict(prefill_chunk=64, draft_head={}, spill_capacity_mb=64),
+    dict(preempt=True, kv_layout="paged"),
+    dict(spill_capacity_mb=64), dict(role="decode"),
+    dict(spec_buckets="0,2", preempt=True), dict(mem_headroom_bytes=1 << 30),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_server_features_raise(setup, kw):
+    from eventgpt_tpu_torch.config import MeshConfig
+    from eventgpt_tpu_torch.parallel.mesh import Mesh
+
     tp, _ = setup
     with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatcher(tp, TCFG, device="cpu", **kw)
+        ContinuousBatcher(tp, TCFG, device="cpu", mesh=Mesh(MeshConfig(), torch.device("cpu")),
+                          **kw)
 
 
 def test_warmup_is_not_ported(setup):
@@ -335,13 +339,14 @@ def test_http_refuses_bad_requests(server):
             assert s.recv(64).startswith(b"HTTP/1.1 " + code)
 
 
-# The telemetry flags are ported: each case sets some of them beside a
-# mesh flag, which is still refused.
+# The mesh flags are ported: each case sets, beside one, a flag that the
+# serving mesh does not run yet (ROADMAP Queue 1 item 8c).
 @pytest.mark.parametrize("extra", [["--speculative", "2", "--preempt", "--mem_headroom_mb", "64",
                                     "--mesh_fsdp", "2"],
                                    ["--prefill_budget", "-1", "--speculative", "2",
-                                    "--series_keep", "8", "--mesh_data", "2"],
-                                   ["--mesh_model", "2"],
+                                    "--series_keep", "8", "--default_deadline_s", "5",
+                                    "--mesh_data", "2"],
+                                   ["--mesh_model", "2", "--fleet", "2"],
                                    ["--warmup", "--spill_capacity_mb", "64",
                                     "--mem_capacity_mb", "64", "--mesh_model", "2"]],
                          ids=lambda x: x[0])
@@ -349,6 +354,18 @@ def test_cli_refuses_unported_flags(extra):
     args = cli_serve.build_parser().parse_args(FLAGS + ["--port", "0"] + extra)
     with pytest.raises(NotImplementedError, match="not ported"):
         cli_serve.build_engine(args)
+
+
+def test_cli_mesh_needs_a_launched_world():
+    """A mesh of 2 in one process names the launcher, and a process fleet's
+    coordinator keeps the mesh flags (its workers get none)."""
+    args = cli_serve.build_parser().parse_args(FLAGS + ["--port", "0", "--mesh_model", "2"])
+    with pytest.raises(ValueError, match="torch.distributed.run"):
+        cli_serve.build_engine(args)
+    args = cli_serve.build_parser().parse_args(FLAGS + ["--mesh_model", "2", "--preempt",
+                                                        "--proc_fleet", "2"])
+    cli_serve._refuse_unported(args)
+    assert "--mesh_model" not in cli_serve._worker_argv(args)
 
 
 def test_cli_accepts_the_off_switches_it_already_has():
