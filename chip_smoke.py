@@ -114,17 +114,19 @@ Phases, each printed on its own line:
                    hits and K1 launches by replica (counted by the
                    launching thread, 32 per full prefill), TTFT and wall
                    against one engine, chains held to the oracle.
-                   ``serve_fleet_chaos_7b_{lanes,waves}``: a replica killed
+                   ``serve_fleet_chaos_7b_lanes``: a replica killed
                    mid-decode by ``fleet.replica_kill``, its requests
                    drained and re-decoded on the survivor (the moved
                    requests, the survivor's K1 after the kill, the time
                    from the kill to each one's first token), pools clean,
-                   the replica restarted and given a new session; with
-                   lanes and with exclusive waves. ``serve_breaker_7b``:
-                   ``serve.dispatch`` faults with the pipeline on, the
-                   breaker opened (``/health`` and a POST 503 with
-                   Retry-After) and closed by a clean request after the
-                   cooldown. ``handoff_wire_7b``: the plain handoff records
+                   the replica restarted and given a new session.
+                   ``serve_breaker_7b``: ``serve.dispatch`` faults with
+                   the pipeline on, the breaker opened (``/health`` and a
+                   POST 503 with Retry-After) and closed by a clean request
+                   after the cooldown. These two run while
+                   ``train_mesh_7b``'s ranks load and step, on the same
+                   card (their times are then shared; see PERF.md).
+                   ``handoff_wire_7b``: the plain handoff records
                    through ``rpc.dumps_frame``/``loads_frame`` (bytes, ms to
                    encode and to decode) and spliced to the in-process
                    chains;
@@ -199,17 +201,25 @@ Phases, each printed on its own line:
                    and ``train_stage2_7b`` (LoRA r 64 + projector) build
                    the trainer through ``cli.train.build_trainer`` on a toy
                    QA set of 8 entries (streams of seeds 100-107) and take
-                   4 optimizer steps of batch 2 under full remat (K1 64
+                   2 optimizer steps of batch 2 under full remat (K1 64
                    launches and 32 backward calls per micro-step), then
                    ``evaluate`` on 2 entries (K1 32), check that every
                    trainable moved and sampled frozen leaves did not, merge
                    ``lora_last.npz`` through ``merge_lora``, and hold a
                    fresh trainer's resumed step against the same step in
                    memory; with ``--profile``, one more step profiled;
-                   ``train_remat_7b``: one stage-2 micro-step under each
-                   remat policy (full, ``dots_saveable``,
-                   ``dots_with_no_batch_dims_saveable``): equal loss and
+                   ``train_remat_7b``: one stage-2 micro-step under the
+                   remat policies full and ``dots_saveable``: equal loss and
                    gradient norm, K1 64 launches each, peak memory and ms;
+                   ``train_mesh_7b``: ``cli.train`` under ``python -m
+                   torch.distributed.run`` on two ranks of the card (gloo)
+                   over ``checkpoint_7b``, ``--mesh_context 2 --attn_impl
+                   ulysses``, ``train_stage2_7b``'s data and flags: per rank
+                   K1 64 a micro-step over 16 heads and 32 backward calls,
+                   collectives, peak memory, step ms; step 1's loss and the
+                   gradient norms held to ``train_stage2_7b``'s, rank 0
+                   alone writing the files (its world runs inside phase 7,
+                   beside ``serve_fleet_chaos_7b`` and ``serve_breaker_7b``);
                    ``medusa_train_7b``: 8 Medusa-head steps (3 heads, batch
                    2) on the motion corpus through ``scripts/train_medusa``'s
                    functions (K1 held against its plain version at the
@@ -264,7 +274,15 @@ Phases, each printed on its own line:
                    within MESH_TINY_LOGIT_ATOL, K4 launched on every shard;
                    beside them one rank over NCCL (world-group collectives
                    on the card); the worlds run at once, beside the other
-                   tiny phases;
+                   tiny phases; ``tiny_train_mesh_card_vs_cpu``: a world of
+                   two on the card against the CPU's, two training steps at
+                   fsdp 2 (stages 1, 2), model 2, ring and Ulysses (losses,
+                   gradient norms and each leaf's update within their bars,
+                   K1 on the card's ranks), and a planted control that must
+                   fail the update bar; then ``multiproc_dryrun_card``:
+                   ``python -m eventgpt_tpu_torch.parallel.multiproc`` at
+                   its defaults (two workers and the reference on the
+                   card); both beside the other tiny phases;
     serving mesh -- inside phase 7, after ``serve_telemetry_7b``, two ranks of
                    the one card under ``python -m torch.distributed.run``
                    over gloo, each holding half of every LLaMA matmul (16
@@ -422,8 +440,9 @@ SPEC_K4_M = (8, 16, 32)
 # case's seven roundings, hence its bar.
 KSTEP_LOGIT_ATOL = 0.5
 # Toy QA set of the training phases: 8 entries over streams of seeds
-# 100-107, byte-tokenizer v1 dialogs; the 7B phases take 4 optimizer steps
-# of 2 entries, then evaluate on 2.
+# 100-107, byte-tokenizer v1 dialogs; the 7B phases take TRAIN_STEPS
+# optimizer steps of 2 entries, then evaluate on 2 (4 steps before the
+# training mesh's phases, whose oracle is those first steps).
 TRAIN_QA = [
     ("What is happening in this scene?", "Cars move from left to right."),
     ("Describe the motion you can see.", "A person walks toward the camera."),
@@ -434,15 +453,17 @@ TRAIN_QA = [
     ("Is anything fast?", "A ball flies across the view."),
     ("Describe the edges.", "Strong vertical edges from buildings."),
 ]
-TRAIN_STEPS, TRAIN_BATCH = 4, 2
+TRAIN_STEPS, TRAIN_BATCH = 2, 2
 # K1 launches per training micro-step under full remat: the forward and the
 # recompute of each of 32 layers; the backward runs once per layer.
 K1_PER_MICRO, K1_BACKWARD_PER_MICRO = 64, 32
 # stream_7b: the window of the stream script, and the shift between the
 # four streams in the one structured stream it replays.
 STREAM_WINDOW_US = 50_000
-# train_remat_7b's policies, full remat first (what the others equal).
-REMAT_POLICIES = ("full", "dots_saveable", "dots_with_no_batch_dims_saveable")
+# train_remat_7b's policies, full remat first (what the other equals);
+# dots_with_no_batch_dims_saveable, a subset of dots_saveable's saves, left
+# for the CPU test (tests/test_torch_remat.py) to pay for train_mesh_7b.
+REMAT_POLICIES = ("full", "dots_saveable")
 # K1's gradient on the card (the Function: kernel forward, plain f32
 # backward rounded to bf16) vs autograd through the plain version on the
 # same bf16 inputs: the same f32 products summed in another order and
@@ -5549,7 +5570,7 @@ def stream_7b(params, cfg, tokenizer, event_paths, work: str, counted, n_layers:
 def train_remat_7b(params, cfg, tokenizer, paths: dict, work: str, smi: str) -> dict:
     """One stage-2 LoRA micro-step at 7B width (batch 2, ``cli.train``'s
     construction) under each remat policy: the loss and the gradient norm
-    equal across the three, K1 64 launches a micro-step (32 forward, 32
+    equal across them, K1 64 launches a micro-step (32 forward, 32
     recomputed: the kernel is no matmul, so no policy keeps its output);
     peak device memory over what was held, and step ms, which the policies
     trade (nothing is claimed for them)."""
@@ -6060,6 +6081,422 @@ def serve_mesh_7b(eventchat, llama, params, cfg, tokenizer, requests, oracle_cha
             "nvidia_smi": smi}
 
 
+
+# The training mesh. tiny_train_mesh_card_vs_cpu: a world of 2 on
+# the card (gloo, bf16, K1 on each rank's heads) against the same world on
+# the CPU (gloo, bf16, the plain versions), two steps of each case from one
+# seeded state and batch. The card's bf16 products (tensor cores, f32
+# accumulation) and the CPU's round differently, about one bf16 step
+# (2^-8) of an activation: the loss moves by ~1e-3 of itself, the gradient
+# norm by ~1e-2. Each leaf's update (its move over the two steps) is held
+# in L2, and reads its gradient: AdamW runs with eps 1, far above every
+# element's gradient (at most the clip, 1), so that a step is lr * m/(|m| +
+# 1), monotone and near linear in the gradient; at the default eps a first
+# step is lr * sign(g), and an element whose gradient nearly cancels flips
+# on rounding (each leaf then read up to 0.14 apart, 0.235 with the MLP's
+# LoRA b at zero, on an H100). Weight decay is off, so that the update is
+# the gradient's alone. Every LoRA b starts at 0.02, not at its zero
+# init, so that each LoRA a has a gradient from the first step and is held
+# on it (with b at zero, a's first gradient is exactly zero on both sides).
+# The bars' control: MESH_TRAIN_PLANTED runs on the card alone with the
+# first leaf's reduced gradient scaled by MESH_TRAIN_PLANTED_SCALE, and is
+# held to the CPU's run of the case it plants into: it must fail.
+MESH_TRAIN_LOSS_RTOL = 3e-3
+MESH_TRAIN_NORM_RTOL = 1e-2
+MESH_TRAIN_UPDATE_RTOL = 5e-2
+MESH_TRAIN_ADAM_EPS = 1.0
+MESH_TRAIN_SEQ = 128
+MESH_TRAIN_LLAMA = {"vocab_size": 260, "hidden_size": 512, "intermediate_size": 1024,
+                    "num_layers": 2, "num_heads": 4, "num_kv_heads": 4, "max_seq_len": 2048}
+# (name, (data, fsdp, context, model), attn_impl, stage)
+MESH_TRAIN_CASES = (("fsdp2_stage1", (1, 2, 1, 1), "flash", 1),
+                    ("fsdp2_stage2", (1, 2, 1, 1), "flash", 2),
+                    ("model2_stage2", (1, 1, 1, 2), "flash", 2),
+                    ("ring2_stage2", (1, 1, 2, 1), "ring", 2),
+                    ("ulysses2_stage2", (1, 1, 2, 1), "ulysses", 2))
+# (name, mesh, attn_impl, stage, the case whose CPU run it is held to)
+MESH_TRAIN_PLANTED = ("fsdp2_stage2_planted", (1, 2, 1, 1), "flash", 2, "fsdp2_stage2")
+MESH_TRAIN_PLANTED_SCALE = 0.8
+# train_mesh_7b against train_stage2_7b's one-device run on the same data,
+# seed and flags: step 1 is the same bf16 forward over two sequence chunks
+# (its loss summed in another order), and every later number carries the
+# reordered sums of the gradient (and K1's backward) through AdamW.
+MESH_7B_LOSS_RTOL = 1e-3
+MESH_7B_NORM_RTOL = 2e-2
+# The card's room that serve_fleet_chaos_7b and serve_breaker_7b take
+# beside train_mesh_7b's two ranks (two replicas' paged int8 pools and a
+# 4-row 7B prefill's transients, a few GB), with margin.
+MESH_OVERLAP_ROOM = 8e9
+
+MESH_TRAIN_RANK = r"""
+# One rank of chip_smoke.py's tiny_train_mesh_card_vs_cpu: DEVICE BACKEND OUT JOB.
+import dataclasses, json, os, sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from eventgpt_tpu_torch.config import EventChatConfig, LlamaConfig, MeshConfig
+from eventgpt_tpu_torch.models.convert import init_eventchat_params
+from eventgpt_tpu_torch.ops import flash_attention as fa
+from eventgpt_tpu_torch.parallel import sharding
+from eventgpt_tpu_torch.parallel.dist import initialize_distributed
+from eventgpt_tpu_torch.parallel.mesh import COLLECTIVES, make_mesh
+from eventgpt_tpu_torch.train import steps as steps_mod
+from eventgpt_tpu_torch.train.data import synthetic_multimodal_batch
+from eventgpt_tpu_torch.train.lora import LoraConfig
+from eventgpt_tpu_torch.train.optim import linear_warmup_cosine, make_optimizer, tree_leaves
+from eventgpt_tpu_torch.train.trainer import tree_map
+
+device, backend, out, job_path = sys.argv[1:5]
+job = json.load(open(job_path))
+initialize_distributed(backend=backend, timeout_s=300)
+rank = dist.get_rank()
+base = EventChatConfig.tiny()
+llama = LlamaConfig(**job["llama"])
+cfg = dataclasses.replace(base, llama=llama, projector=dataclasses.replace(
+    base.projector, output_dim=llama.hidden_size))
+params = init_eventchat_params(cfg, torch.Generator().manual_seed(11), torch.bfloat16, "cpu")
+seq = job["seq"]
+rng = np.random.default_rng(12)
+size = cfg.vision.image_size
+pix = rng.standard_normal((2, cfg.num_event_frames, 3, size, size)).astype(np.float32)
+batch = synthetic_multimodal_batch(cfg, 2, seq, event_offset=5, pixel_values=pix,
+                                   mask_event_labels=True)
+batch["token_ids"] = rng.integers(3, llama.vocab_size, (2, seq)).astype(np.int32)
+batch["labels"] = np.where(batch["event_pos"], -100, batch["token_ids"]).astype(np.int32)
+batch["attn_mask"][1, seq - 9:] = False
+batch["labels"][1, seq - 9:] = -100
+lcfg = LoraConfig(r=4, alpha=8.0)
+res = {"rank": rank, "backend": dist.get_backend()}
+reduce = steps_mod.GradLayout.reduce
+
+
+def planted_reduce(self, grads):
+    # The control's fault: the first leaf's summed gradient scaled.
+    out = reduce(self, grads)
+    out[0] = out[0] * job["planted_scale"]
+    return out
+
+
+# The planted control runs on the card alone.
+cases = [c[:4] for c in job["cases"] + ([job["planted"]] if device == "cuda" else [])]
+for name, shape, attn, stage in cases:
+    steps_mod.GradLayout.reduce = planted_reduce if name == job["planted"][0] else reduce
+    mesh = make_mesh(MeshConfig(data=shape[0], fsdp=shape[1], context=shape[2],
+                                model=shape[3]), device)
+    c = dataclasses.replace(cfg, llama=dataclasses.replace(llama, attn_impl=attn))
+    if stage == 1:
+        tr, fz = steps_mod.split_stage1(params)
+        combine = steps_mod.stage1_combine
+    else:
+        tr, fz = steps_mod.split_stage2(params, c, lcfg, torch.Generator().manual_seed(13))
+        for group in ("attn", "mlp"):
+            for ab in tr["lora"][group].values():
+                ab["b"] = ab["b"] + 0.02
+        combine = steps_mod.make_stage2_combine(lcfg, mesh=mesh)
+    specs = sharding.trainable_param_specs(tr)
+    start = {".".join(map(str, p)): t.float().numpy() for p, t in tree_leaves(tr)}
+    trs = sharding.shard_trainable(tr, specs, mesh)
+    fzs = sharding.shard_frozen(fz, c, mesh, torch.bfloat16)
+
+    def cast(t, f, step=None, _c=combine):
+        return _c(tree_map(lambda x: x.to(torch.bfloat16), t), f, step)
+
+    opt = make_optimizer(linear_warmup_cosine(1e-2, 4), weight_decay=0.0, eps=job["adam_eps"],
+                         projector_lr=5e-3 if stage == 2 else None)
+    state = steps_mod.init_train_state(trs, fzs, opt)
+    step = steps_mod.make_train_step(c, opt, cast, mesh=mesh)
+    fa.FLASH_KERNEL.launches = 0
+    for key in fa.LAUNCHES_BY_PATH:
+        fa.LAUNCHES_BY_PATH[key] = 0
+    COLLECTIVES.update(count=0, bytes=0, seconds=0.0)
+    losses, norms = [], []
+    for _ in range(2):
+        state, m = step(state, steps_mod.batch_to_device(batch, mesh))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    whole = sharding.gather_trainable(state.trainable, specs, mesh)
+    if rank == 0:
+        np.savez(os.path.join(out, name + ".npz"),
+                 **{"end." + ".".join(map(str, p)): t.float().cpu().numpy()
+                    for p, t in tree_leaves(whole)},
+                 **{"start." + k: v for k, v in start.items()})
+    res[name] = {"losses": losses, "grad_norms": norms, "k1": fa.FLASH_KERNEL.launches,
+                 "k1_by_path": dict(fa.LAUNCHES_BY_PATH), "collectives": dict(COLLECTIVES),
+                 "first_leaf": ".".join(map(str, tree_leaves(tr)[0][0]))}
+with open(os.path.join(out, "rank%d.json" % rank), "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def tiny_train_mesh_card_vs_cpu(work: str) -> dict:
+    """Two ranks on the card against two on the CPU (both over gloo, bf16
+    frozen weights, f32 trainables), two training steps of each of
+    ``MESH_TRAIN_CASES`` from one seeded state: the losses and gradient
+    norms within MESH_TRAIN_{LOSS,NORM}_RTOL, each trainable's update
+    within MESH_TRAIN_UPDATE_RTOL in L2, the ranks of a world equal, and
+    K1 launched on the card's ranks under flash and Ulysses (4 a step: 2
+    layers forward and recompute) with 2 backward calls a step. The
+    planted control (MESH_TRAIN_PLANTED, on the card alone) must fail the
+    bars against its case's CPU run."""
+    import numpy as np
+
+    root = os.path.join(work, "tiny_train_mesh")
+    os.makedirs(root, exist_ok=True)
+    job = {"llama": MESH_TRAIN_LLAMA, "seq": MESH_TRAIN_SEQ, "cases": MESH_TRAIN_CASES,
+           "planted": MESH_TRAIN_PLANTED, "planted_scale": MESH_TRAIN_PLANTED_SCALE,
+           "adam_eps": MESH_TRAIN_ADAM_EPS}
+    job_path = os.path.join(root, "job.json")
+    with open(job_path, "w") as f:
+        json.dump(job, f)
+    script = os.path.join(root, "rank.py")
+    with open(script, "w") as f:
+        f.write(MESH_TRAIN_RANK)
+    started = {}
+    for name, argv in (("card", [script, "cuda", MESH_BACKEND]), ("cpu", [script, "cpu", "gloo"])):
+        out = os.path.join(root, name)
+        os.makedirs(out, exist_ok=True)
+        started[name] = start_world(argv + [out, job_path], MESH_RANKS,
+                                    os.path.join(out, "log.txt"))
+    runs, problems = {}, []
+    for name, world in started.items():
+        code, secs, text = finish_world(world, 300)
+        out = os.path.join(root, name)
+        ranks = []
+        for r in range(MESH_RANKS):
+            path = os.path.join(out, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    ranks.append(json.load(f))
+        runs[name] = {"exit_code": code, "seconds": secs, "ranks": ranks}
+        if code != 0 or len(ranks) != MESH_RANKS:
+            problems.append(f"{name}: exit {code}, {text[-2000:]}")
+    result = {"config": "tiny bf16 (LLaMA d=512, 2 layers, 4 heads of 128, I=1024, vocab 260), "
+                        f"T={MESH_TRAIN_SEQ}, batch 2, LoRA r 4, two steps a case",
+              "seconds": {n: r["seconds"] for n, r in runs.items()},
+              "bars": {"loss_rtol": MESH_TRAIN_LOSS_RTOL, "grad_norm_rtol": MESH_TRAIN_NORM_RTOL,
+                       "update_rtol_l2": MESH_TRAIN_UPDATE_RTOL}}
+    if not problems:
+        card, cpu = runs["card"]["ranks"], runs["cpu"]["ranks"]
+
+        def held(name, ref):
+            """The card's run of ``name`` against the CPU's of ``ref``:
+            (numbers, the bars it fails)."""
+            a, b = card[0][name], cpu[0][ref]
+            loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"]))
+            norm_rel = max(abs(x - y) / abs(y) for x, y in zip(a["grad_norms"], b["grad_norms"]))
+            za = np.load(os.path.join(root, "card", name + ".npz"))
+            zb = np.load(os.path.join(root, "cpu", ref + ".npz"))
+            upd = {}
+            for key in za.files:
+                if not key.startswith("end."):
+                    continue
+                leaf = key[4:]
+                ua = za[key] - za["start." + leaf]
+                ub = zb[key] - zb["start." + leaf]
+                upd[leaf] = float(np.linalg.norm(ua - ub) / max(np.linalg.norm(ub), 1e-30))
+            numbers = {"losses_card": a["losses"], "losses_cpu": b["losses"],
+                       "grad_norms_card": a["grad_norms"], "grad_norms_cpu": b["grad_norms"],
+                       "loss_rel_diff": loss_rel, "grad_norm_rel_diff": norm_rel,
+                       "update_rel_l2_max": max(upd.values()),
+                       "update_rel_l2_worst_leaf": max(upd, key=upd.get),
+                       "update_rel_l2_first_leaf": upd[a["first_leaf"]],
+                       "first_leaf": a["first_leaf"],
+                       "k1_launches_by_rank": [r[name]["k1"] for r in card],
+                       "k1_backward_by_rank": [r[name]["k1_by_path"]["backward"] for r in card],
+                       "collectives_rank0": a["collectives"],
+                       "ranks_agree": all(r[name]["losses"] == a["losses"] for r in card)}
+            failed = [bar for bar, bad in (("loss", loss_rel > MESH_TRAIN_LOSS_RTOL),
+                                           ("grad_norm", norm_rel > MESH_TRAIN_NORM_RTOL),
+                                           ("update", max(upd.values()) > MESH_TRAIN_UPDATE_RTOL))
+                      if bad]
+            return numbers, failed
+
+        for name, shape, attn, stage in MESH_TRAIN_CASES:
+            numbers, failed = held(name, name)
+            want_k1 = 0 if attn == "ring" else 8
+            result[name] = {"mesh": shape, "attn": attn, "stage": stage, **numbers}
+            if (failed or not numbers["ranks_agree"]
+                    or numbers["k1_launches_by_rank"] != [want_k1] * MESH_RANKS
+                    or numbers["k1_backward_by_rank"] != [want_k1 // 2] * MESH_RANKS):
+                problems.append(f"{name}: bars failed {failed}, {result[name]}")
+        name, shape, attn, stage, ref = MESH_TRAIN_PLANTED
+        numbers, failed = held(name, ref)
+        result[name] = {"mesh": shape, "attn": attn, "stage": stage, "held_to_cpu_run_of": ref,
+                        "planted": f"the first leaf's gradient x {MESH_TRAIN_PLANTED_SCALE}",
+                        "bars_failed": failed, **numbers}
+        if "update" not in failed:
+            problems.append(f"{name}: the planted fault passed the update bar: {result[name]}")
+    shutil.rmtree(root, ignore_errors=True)
+    if problems:
+        raise AssertionError(f"tiny_train_mesh_card_vs_cpu: {problems}")
+    return result
+
+
+def multiproc_dryrun_card(work: str) -> dict:
+    """``python -m eventgpt_tpu_torch.parallel.multiproc`` at its defaults:
+    two worker processes on the card (one rank each, gloo, the ``EGPT_*``
+    contract, fsdp 2) and the single-process reference beside them; the
+    launcher holds the losses to the reference's (1e-5 relative), the
+    checkpoint written by rank 0 alone and restored bit for bit on every
+    rank, and rank 1's preemption agreed by both. Its summary, read from
+    its last line."""
+    log_path = os.path.join(work, "multiproc.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "eventgpt_tpu_torch.parallel.multiproc"],
+                                stdout=log, stderr=subprocess.STDOUT, cwd=ROOT, env=mesh_env())
+        try:
+            code = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    found = tagged_lines(text, "MPRESULT1")
+    if code != 0 or not found:
+        raise AssertionError(f"multiproc_dryrun_card: exit {code}: {text[-3000:]}")
+    summary = found[-1]
+    ranks = sorted(summary["ranks"], key=lambda r: r["rank"])
+    devices = summary["devices"] + [summary["device_single_process"]]
+    if (not all(d.startswith("cuda") for d in devices)
+            or [r["ckpt_written_by_me"] for r in ranks] != [True, False]
+            or [r["preempt"]["local_flag"] for r in ranks] != [False, True]):
+        raise AssertionError(f"multiproc_dryrun_card: {summary}")
+    return {"argv": "python -m eventgpt_tpu_torch.parallel.multiproc", "seconds": secs,
+            "devices": summary["devices"], "device_single_process": summary["device_single_process"],
+            "mesh": summary["mesh"], "losses_multiproc": summary["losses_multiproc"],
+            "losses_single_process": summary["losses_single_process"], "rtol": summary["rtol"],
+            "checkpoints": summary["checkpoints"],
+            "preempt": [r["preempt"] for r in ranks]}
+
+
+def train_mesh_argv(ckpt: str, paths: dict, out: str) -> list:
+    """``cli.train`` with ``train_stage2_7b``'s flags (``_train_args(2, ...)``)
+    on two ranks of a context axis, Ulysses, gloo; the trainer saves
+    ``ckpt_last`` at the last step."""
+    return ["-m", "eventgpt_tpu_torch.cli.train", "--model_path", ckpt, "--tokenizer_path",
+            "byte", "--data_path", paths["data_path"], "--event_folder", paths["event_folder"],
+            "--stage", "2", "--lora_r", "64", "--lora_alpha", "16", "--learning_rate", "2e-4",
+            "--mm_projector_lr", "2e-5", "--max_steps", str(TRAIN_STEPS),
+            "--per_device_train_batch_size", str(TRAIN_BATCH), "--bf16", "true",
+            "--logging_steps", "1", "--save_steps", "-1", "--eval_steps", "-1",
+            "--mesh_context", str(MESH_RANKS), "--attn_impl", "ulysses",
+            "--dist_backend", MESH_BACKEND, "--output_dir", out]
+
+
+def start_train_mesh_7b(params, ckpt: str, paths: dict, work: str) -> dict:
+    """Start ``train_mesh_7b``'s world: ``python -m torch.distributed.run
+    --nproc_per_node 2 -m eventgpt_tpu_torch.cli.train`` over
+    ``checkpoint_7b`` (stage 2, batch 2, ``TRAIN_STEPS`` steps,
+    ``--mesh_context 2 --attn_impl ulysses``, gloo), each rank holding the
+    whole bf16 LLaMA, CLIP and the LoRA and its half of each sequence. The
+    script's tree moves to the host first when the card lacks room for two
+    ranks; ``overlap`` says whether it also has room for this process's own
+    phases beside them (MESH_OVERLAP_ROOM). ``finish_train_mesh_7b`` waits."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    room = {"free_bytes": free, "total_bytes": total, "held_bytes": torch.cuda.memory_allocated()}
+    moved = free < MESH_RANKS * 26e9
+    if moved:
+        room.update(card_room(params))
+    out = os.path.join(work, "train_mesh")
+    return {"world": start_world(train_mesh_argv(ckpt, paths, out), MESH_RANKS,
+                                 os.path.join(work, "train_mesh.log")),
+            "out": out, "room": room, "moved": moved,
+            "overlap": not moved and free >= MESH_RANKS * 26e9 + MESH_OVERLAP_ROOM}
+
+
+def finish_train_mesh_7b(started: dict, params, n_layers: int, n_heads: int, smi: str) -> dict:
+    """Wait for ``start_train_mesh_7b``'s world and read it. Per rank: K1's
+    launches by path (a micro-step 32 forward and 32 recomputed, each over
+    16 of the 32 heads and the whole gathered sequence, and 32 backward
+    calls), the collectives a micro-step, peak memory, step seconds cold
+    and warm, losses and gradient norms. Rank 0 alone wrote
+    ``metrics.jsonl`` and the checkpoints. The comparison with
+    ``train_stage2_7b`` is ``train_mesh_vs_one_device``."""
+    out, room, moved = started["out"], started["room"], started["moved"]
+    try:
+        code, secs, text = finish_world(started["world"], 900)
+    finally:
+        if moved:
+            tree_to_(params, "cuda")
+    ranks = sorted(tagged_lines(text, "[mesh-rank] "), key=lambda r: r["rank"])
+    if code != 0 or len(ranks) != MESH_RANKS:
+        raise AssertionError(f"train_mesh_7b: exit {code}, {len(ranks)} rank reports: "
+                             f"{text[-4000:]}")
+    records = [json.loads(ln) for ln in open(os.path.join(out, "metrics.jsonl"))]
+    steps = [r for r in records if "loss" in r and "event" not in r]
+    files = sorted(os.listdir(out))
+    want_files = {"ckpt_last", "lora_last.npz", "projector_last.npz", "metrics.jsonl"}
+    problems = []
+    if [r["step"] for r in steps] != list(range(1, TRAIN_STEPS + 1)):
+        problems.append(f"metrics.jsonl holds steps {[r['step'] for r in steps]}")
+    if not want_files <= set(files) or any(".tmp-" in f for f in files):
+        problems.append(f"output files {files}")
+    micro = TRAIN_STEPS
+    for r in ranks:
+        by = r["k1_by_path"]
+        if (by["train_forward"] != n_layers * micro or by["recompute"] != n_layers * micro
+                or by["backward"] != n_layers * micro or by["inference"] != 0
+                or r["k1_launches"] != 2 * n_layers * micro):
+            problems.append(f"rank {r['rank']}: K1 {r['k1_launches']} by path {by}")
+        if r["losses"] != [s["loss"] for s in steps]:
+            problems.append(f"rank {r['rank']}: losses {r['losses']} vs rank 0's file")
+    k1_heads = n_heads // MESH_RANKS
+    shutil.rmtree(out, ignore_errors=True)
+    if problems:
+        raise AssertionError(f"train_mesh_7b: {problems}")
+    per_rank = []
+    for r in ranks:
+        step_ms = [s * 1e3 for s in r["step_s"]]
+        per_rank.append({
+            "rank": r["rank"], "backend": r["backend"], "device": r["device"],
+            "k1_heads": k1_heads, "k1_launches": r["k1_launches"], "k1_by_path": r["k1_by_path"],
+            "k1_launches_per_micro_step": r["k1_launches"] / micro,
+            "k1_backward_per_micro_step": r["k1_by_path"]["backward"] / micro,
+            "collectives_per_micro_step": r["collectives_per_micro_step"],
+            "peak_mem_bytes": r["peak_mem_bytes"], "step_ms": step_ms,
+            "cold_step_ms": step_ms[0], "warm_step_ms": sum(step_ms[1:]) / max(len(step_ms) - 1, 1),
+            "losses": r["losses"], "grad_norms": r["grad_norms"]})
+    return {"argv": ["torch.distributed.run --nproc_per_node 2", "-m eventgpt_tpu_torch.cli.train",
+                     "--stage 2 --max_steps", TRAIN_STEPS, "--mesh_context 2 --attn_impl ulysses",
+                     "--dist_backend", MESH_BACKEND],
+            "seconds": secs, "card_room": room, "tree_moved_to_host": moved,
+            "beside": started.get("beside", []),
+            "files": files, "rank0_wrote_alone": True,
+            "losses": [s["loss"] for s in steps], "grad_norms": [s["grad_norm"] for s in steps],
+            "ranks": per_rank, "nvidia_smi": smi}
+
+
+def train_mesh_vs_one_device(mesh: dict, one: dict) -> dict:
+    """``train_mesh_7b`` against ``train_stage2_7b`` on the same batches:
+    step 1's loss within MESH_7B_LOSS_RTOL, every gradient norm within
+    MESH_7B_NORM_RTOL."""
+    ref = one["per_step"][:TRAIN_STEPS]
+    loss1 = abs(mesh["losses"][0] - ref[0]["loss"]) / abs(ref[0]["loss"])
+    norms = [abs(a - r["grad_norm"]) / abs(r["grad_norm"])
+             for a, r in zip(mesh["grad_norms"], ref)]
+    out = {"losses_one_device": [r["loss"] for r in ref],
+           "grad_norms_one_device": [r["grad_norm"] for r in ref],
+           "step1_loss_rel_diff": loss1, "grad_norm_rel_diffs": norms,
+           "loss_rel_diffs": [abs(a - r["loss"]) / abs(r["loss"])
+                              for a, r in zip(mesh["losses"], ref)],
+           "bars": {"step1_loss_rtol": MESH_7B_LOSS_RTOL, "grad_norm_rtol": MESH_7B_NORM_RTOL}}
+    if loss1 > MESH_7B_LOSS_RTOL or max(norms) > MESH_7B_NORM_RTOL:
+        raise AssertionError(f"train_mesh_7b against train_stage2_7b: {out}")
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -6325,14 +6762,19 @@ def main() -> int:
         handoff_k1, handoff_plain = serve_handoff_7b(eventchat, llama, params, cfg, tokenizer,
                                                      ids, pixels, counted, n_layers, smi)
         torch.cuda.empty_cache()
-        # Fleets: two replicas over the tree, routed by prefix affinity; a
-        # replica killed mid-decode; the breaker; the handoff over the wire.
+        # Fleets: two replicas over the tree, routed by prefix affinity; the
+        # handoff over the wire.
         fleet_k1, fleet_ref = serve_fleet_7b(eventchat, llama, params, cfg, tokenizer, requests,
                                              counted, n_layers, smi)
-        chaos_k1 = serve_fleet_chaos_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels,
-                                        counted, n_layers, smi)
-        breaker_k1 = serve_breaker_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, work,
-                                      counted, n_layers, smi)
+
+        def fault_phases_7b():
+            # A replica killed mid-decode; the breaker (run beside
+            # train_mesh_7b's ranks).
+            return (serve_fleet_chaos_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels,
+                                         counted, n_layers, smi),
+                    serve_breaker_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, work,
+                                     counted, n_layers, smi))
+
         wire_k1 = handoff_wire_7b(params, cfg, tokenizer, *handoff_plain, counted, smi)
         del handoff_plain
         torch.cuda.empty_cache()
@@ -6491,7 +6933,9 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # 7. the 7B tree through a checkpoint on disk, then the Q-Former
-        # loaded over it; the directory goes when the phases end.
+        # loaded over it; the directory goes when the phases end. The toy
+        # QA set first: the training mesh reads it from this checkpoint.
+        train_paths = write_train_set(work)
         ckpt = os.path.join(work, "checkpoint_7b")
         try:
             emit("checkpoint_7b", {**checkpoint_7b(
@@ -6515,6 +6959,21 @@ def main() -> int:
                                                        requests, defaults_oracle, ckpt, work,
                                                        n_layers, smi, defaults_ties)
             emit("serve_mesh_7b", mesh_runs["serve_mesh_7b"])
+            # The training mesh: cli.train on two ranks of a context axis
+            # over this checkpoint (its line follows train_stage2_7b, its
+            # one-device oracle). While its ranks load and step, this
+            # process drives the in-process fleet's kill and the engine's
+            # breaker on the same card, when the card has room for both.
+            mesh_world = start_train_mesh_7b(params, ckpt, train_paths, work)
+            try:
+                if mesh_world["overlap"]:
+                    mesh_world["beside"] = ["serve_fleet_chaos_7b", "serve_breaker_7b"]
+                    chaos_k1, breaker_k1 = fault_phases_7b()
+            finally:
+                mesh_train = finish_train_mesh_7b(mesh_world, params, n_layers,
+                                                  cfg.llama.num_heads, smi)
+            if not mesh_world["overlap"]:
+                chaos_k1, breaker_k1 = fault_phases_7b()
             # Process fleets: worker processes loading this checkpoint.
             procfleet_k1 = serve_procfleet_7b(eventchat, llama, params, cfg, tokenizer, ids,
                                               pixels, requests, ckpt, fleet_ref, counted,
@@ -6529,7 +6988,6 @@ def main() -> int:
         # cli.train's construction.
         from eventgpt_tpu_torch.train.data import EventChatDataset, batch_iterator
 
-        train_paths = write_train_set(work)
         first = next(batch_iterator(
             EventChatDataset(train_paths["data_path"], tokenizer, cfg,
                              event_folder=train_paths["event_folder"]),
@@ -6542,6 +7000,8 @@ def main() -> int:
             train_runs[stage] = train_7b(stage, params, cfg, tokenizer, train_paths, work,
                                          profile_dir=args.profile)
             emit(f"train_stage{stage}_7b", {**train_runs[stage], "nvidia_smi": smi})
+        emit("train_mesh_7b", {**mesh_train, "vs_train_stage2_7b":
+                               train_mesh_vs_one_device(mesh_train, train_runs[2])})
         emit("train_remat_7b", train_remat_7b(params, cfg, tokenizer, train_paths, work, smi))
         medusa_7b = medusa_train_7b(params, cfg, tokenizer, work, smi)
         emit("medusa_train_7b", medusa_7b)
@@ -6560,6 +7020,18 @@ def main() -> int:
 
         tiny_mesh_thread = threading.Thread(target=tiny_mesh_bg)
         tiny_mesh_thread.start()
+        tiny_train_mesh_box = {}
+
+        def tiny_train_mesh_bg():
+            # The training mesh's tiny world, then the multiprocess dry run.
+            try:
+                tiny_train_mesh_box["out"] = tiny_train_mesh_card_vs_cpu(work)
+                tiny_train_mesh_box["multiproc"] = multiproc_dryrun_card(work)
+            except BaseException as e:  # noqa: BLE001 (raised on the main thread)
+                tiny_train_mesh_box["error"] = e
+
+        tiny_train_mesh_thread = threading.Thread(target=tiny_train_mesh_bg)
+        tiny_train_mesh_thread.start()
         emit("tiny_card_vs_cpu", tiny_card_matches_cpu(os.path.join(work, "events_0.npy")))
         emit("tiny_quant_card_vs_cpu",
              tiny_quant_card_matches_cpu(os.path.join(work, "events_1.npy")))
@@ -6583,6 +7055,12 @@ def main() -> int:
             raise tiny_mesh_box["error"]
         tiny_mesh = tiny_mesh_box["out"]
         emit("tiny_mesh_card_vs_cpu", tiny_mesh)
+        tiny_train_mesh_thread.join()
+        if "error" in tiny_train_mesh_box:
+            raise tiny_train_mesh_box["error"]
+        tiny_train_mesh = tiny_train_mesh_box["out"]
+        emit("tiny_train_mesh_card_vs_cpu", tiny_train_mesh)
+        emit("multiproc_dryrun_card", {**tiny_train_mesh_box["multiproc"], "nvidia_smi": smi})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -6645,15 +7123,29 @@ def main() -> int:
                                 r["launches"]["flash_attention.cu"]
                                 for r in mesh_runs["eval_mesh_7b"]["ranks"]},
                              **{f"serve_mesh_7b_rank{r}": n for r, n in
-                                enumerate(mesh_runs["serve_mesh_7b"]["k1_launches_by_rank"])}},
-        "train_launches_by_path": {f"train_stage{st}": run["k1_by_path"]
-                                   for st, run in train_runs.items()},
-        "train_launches_per_micro_step": {f"train_stage{st}": run["k1_launches_per_micro_step"]
-                                          for st, run in train_runs.items()},
+                                enumerate(mesh_runs["serve_mesh_7b"]["k1_launches_by_rank"])},
+                             **{f"train_mesh_7b_rank{r['rank']}": r["k1_launches"]
+                                for r in mesh_train["ranks"]},
+                             **{f"tiny_train_mesh_card_{name}_rank{r}": n
+                                for name, *_ in MESH_TRAIN_CASES
+                                for r, n in enumerate(
+                                    tiny_train_mesh[name]["k1_launches_by_rank"])}},
+        "train_launches_by_path": {**{f"train_stage{st}": run["k1_by_path"]
+                                      for st, run in train_runs.items()},
+                                   **{f"train_mesh_7b_rank{r['rank']}": r["k1_by_path"]
+                                      for r in mesh_train["ranks"]}},
+        "train_launches_per_micro_step": {**{f"train_stage{st}": run["k1_launches_per_micro_step"]
+                                             for st, run in train_runs.items()},
+                                          **{f"train_mesh_7b_rank{r['rank']}":
+                                             r["k1_launches_per_micro_step"]
+                                             for r in mesh_train["ranks"]}},
         "backward": "plain torch (eventgpt_tpu_torch/ops/flash_attention.py"
                     ":flash_attention_backward)",
-        "backward_calls_per_micro_step": {f"train_stage{st}": run["k1_backward_per_micro_step"]
-                                          for st, run in train_runs.items()},
+        "backward_calls_per_micro_step": {**{f"train_stage{st}": run["k1_backward_per_micro_step"]
+                                             for st, run in train_runs.items()},
+                                          **{f"train_mesh_7b_rank{r['rank']}":
+                                             r["k1_backward_per_micro_step"]
+                                             for r in mesh_train["ranks"]}},
         "backward_shape": [grad_check["B"], grad_check["S"], grad_check["H"], grad_check["hd"]],
         "backward_ms": grad_check["backward_ms"],
         "backward_bound_ms": grad_check["backward_bound_ms"],

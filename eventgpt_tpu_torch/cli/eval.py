@@ -182,8 +182,11 @@ def main(argv=None) -> List[str]:
             json.dump(out["ids"], f)
     if mesh is not None:
         if args.timing:
-            print("[mesh-rank] " + json.dumps(mesh_rank_report(mesh, cfg, out, t_load)),
-                  file=sys.stderr, flush=True)
+            # One write: the ranks share the launcher's stderr, and print's
+            # separate write of the newline lets another rank's line in.
+            sys.stderr.write("[mesh-rank] " + json.dumps(mesh_rank_report(mesh, cfg, out, t_load))
+                             + "\n")
+            sys.stderr.flush()
         if mesh.rank != 0:
             return answers
     for path, answer in zip(files, answers):

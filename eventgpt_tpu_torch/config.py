@@ -3,8 +3,10 @@
 A copy of the dataclasses of ``eventgpt_tpu/config.py`` that the port runs
 (vision tower, LLaMA, projector, Q-Former, top-level EventChat), their JSON
 round trip, and ``from_hf_config`` for a checkpoint's ``config.json``.
-``attn_impl`` takes ``dense`` or ``flash`` here; the sequence-parallel
-choices of the JAX package's ``LlamaConfig`` come with a later slice.
+``attn_impl`` takes ``dense``, ``flash`` and the sequence-parallel
+``ring`` and ``ulysses`` (``parallel/{ring,ulysses}.py``; on a mesh whose
+``context`` is 1, or without a mesh, they run dense attention, as in the
+JAX package).
 ``MeshConfig`` is the logical device mesh (``parallel/mesh.py``). The
 LM's ``remat`` and ``remat_policy`` are carried with the JAX defaults and
 validation; ``models/llama.forward`` runs ``full`` and ``nothing_saveable``
@@ -69,8 +71,9 @@ class LlamaConfig:
     max_seq_len: int = 2048
     tie_word_embeddings: bool = False
     # "dense" = materialized-scores attention; "flash" = the fused prefill
-    # kernel (ops/flash_attention.py). Decode always uses the dense
-    # single-query path against the KV cache.
+    # kernel (ops/flash_attention.py); "ring" / "ulysses" = sequence
+    # parallelism over a mesh's context axis (dense without one). Decode
+    # always uses the dense single-query path against the KV cache.
     attn_impl: str = "dense"
     # Rematerialize each layer in the backward pass of ``llama.forward``
     # under grad (per-layer ``torch.utils.checkpoint``); what it may save
@@ -82,7 +85,7 @@ class LlamaConfig:
     remat: bool = True
     remat_policy: str = "full"
 
-    _ATTN_IMPLS = ("dense", "flash")
+    _ATTN_IMPLS = ("dense", "flash", "ring", "ulysses")
     _REMAT_POLICIES = ("full", "nothing_saveable", "dots_saveable",
                        "dots_with_no_batch_dims_saveable")
 

@@ -28,7 +28,16 @@ collectives GSPMD inserts in the JAX program: each weight gathered over
 ``down_proj``, the vocab-parallel embedding lookup (a masked local lookup
 summed over ``model``) and the lm_head's logits gathered over ``model``,
 so every rank holds the same full row. The caches hold the rank's KV heads
-(``init_kv_cache(mesh=)``).
+(``init_kv_cache(mesh=)``). The collectives a gradient crosses are the
+autograd forms of ``parallel/autograd.py``: the input of each
+column-parallel product goes through ``copy_to`` (its gradient summed over
+``model``), the row-parallel outputs and the embedding rows through
+``reduce_from``, the logits through ``gather_from``.
+
+``forward(mesh=)`` is the training forward on a mesh: the rank's rows and,
+with ``context`` > 1, its sequence chunk, RoPE at the global ``positions``
+the caller gives, and attention over ``context`` by the ring or Ulysses
+(``parallel/{ring,ulysses}.py``) as ``cfg.attn_impl`` says.
 
 ``fuse_llama_params`` replaces q|k|v by ``qkv_proj`` and gate|up by
 ``gate_up_proj``; ``ops/quant.quantize_llama_params`` replaces weights by
@@ -59,6 +68,7 @@ from eventgpt_tpu_torch.ops.flash_attention import NEG_INF, flash_attention
 from eventgpt_tpu_torch.ops.quant import true_div
 from eventgpt_tpu_torch.ops.quant import matmul as _mm
 from eventgpt_tpu_torch.ops.quant import matmul_f32_out as _mm_f32
+from eventgpt_tpu_torch.parallel import autograd as pgrad
 from eventgpt_tpu_torch.parallel.serving import (gather_at_use, head_shard,
                                                  serving_flash_shard_map, vocab_split)
 
@@ -101,26 +111,40 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def embed_tokens(params: Params, input_ids: torch.Tensor, mesh=None) -> torch.Tensor:
     """Embedding rows of ``input_ids``; on a mesh with the vocab split over
     ``model``, each rank looks up the ids in its rows (zeros elsewhere) and
-    the rows are summed over ``model``, which is exact."""
+    the rows are summed over ``model``, which is exact. A sharded tree with
+    a trainable ``embed_new`` (stage 1's new special-token rows) takes the
+    last rows of the vocab from it."""
     if mesh is None:
         return params["embed_tokens"][input_ids]
     w = gather_at_use(params["embed_tokens"], "col", mesh)
     if not vocab_split(params, mesh):
-        return w[input_ids]
-    v_local = w.shape[0]
-    local = input_ids - mesh.coord["model"] * v_local
-    mine = (local >= 0) & (local < v_local)
-    rows = w[local.clamp(0, v_local - 1)]
-    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
-    return mesh.all_reduce(rows, "model")
+        rows = w[input_ids]
+    else:
+        v_local = w.shape[0]
+        local = input_ids - mesh.coord["model"] * v_local
+        mine = (local >= 0) & (local < v_local)
+        rows = w[local.clamp(0, v_local - 1)]
+        rows = torch.where(mine[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype, device=rows.device))
+        rows = pgrad.reduce_from(rows, mesh, "model")
+    new = params.get("embed_new")
+    if new is not None:
+        first = int(params["vocab_size"]) - new.shape[0]
+        is_new = input_ids >= first
+        rows = torch.where(is_new[..., None], new.to(rows.dtype)[(input_ids - first).clamp_min(0)],
+                           rows)
+    return rows
 
 
 def lm_head_logits(params: Params, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """f32 logits (..., V) of final-norm hidden states ``x``; on a mesh each
     rank's vocab block, gathered over ``model`` where the vocab is split."""
+    split = vocab_split(params, mesh)
+    if split:
+        x = pgrad.copy_to(x, mesh, "model")
     logits = _mm_f32(x, gather_at_use(params["lm_head"], "col", mesh))
-    if vocab_split(params, mesh):
-        logits = mesh.all_gather(logits, "model", logits.ndim - 1)
+    if split:
+        logits = pgrad.gather_from(logits, mesh, "model", logits.ndim - 1)
     return logits
 
 
@@ -187,6 +211,8 @@ def _project_qkv(cfg: LlamaConfig, y: torch.Tensor, layer: Params, mesh=None):
     hd = cfg.resolved_head_dim()
     shard = head_shard(cfg, mesh)
     qd, kvd = shard.heads * hd, shard.kv_heads * hd
+    if shard.attn_tp:
+        y = pgrad.copy_to(y, mesh, "model")
     if "qkv_proj" in layer:
         qkv = _mm(y, gather_at_use(layer["qkv_proj"], "col", mesh))
         q, k, v = qkv[..., :qd], qkv[..., qd:qd + kvd], qkv[..., qd + kvd:]
@@ -201,7 +227,7 @@ def _o_proj(ctx: torch.Tensor, layer: Params, cfg: LlamaConfig, mesh=None) -> to
     """The attention output product; summed over ``model`` when the heads
     are split over it."""
     out = _mm(ctx, gather_at_use(layer["o_proj"], "row", mesh))
-    return mesh.all_reduce(out, "model") if head_shard(cfg, mesh).attn_tp else out
+    return pgrad.reduce_from(out, mesh, "model") if head_shard(cfg, mesh).attn_tp else out
 
 
 def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -218,6 +244,7 @@ def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _mlp_block(x: torch.Tensor, layer: Params, mesh=None) -> torch.Tensor:
     """SwiGLU; on a mesh over the rank's columns, summed over ``model``."""
+    x = pgrad.copy_to(x, mesh, "model")
     if "gate_up_proj" in layer:
         gu = _mm(x, gather_at_use(layer["gate_up_proj"], "col", mesh))
         i = gu.shape[-1] // 2
@@ -225,7 +252,7 @@ def _mlp_block(x: torch.Tensor, layer: Params, mesh=None) -> torch.Tensor:
     else:
         gate, up = (_mm(x, gather_at_use(layer[n], "col", mesh)) for n in ("gate_proj", "up_proj"))
     out = _mm(F.silu(gate) * up, gather_at_use(layer["down_proj"], "row", mesh))
-    return out if mesh is None else mesh.all_reduce(out, "model")
+    return pgrad.reduce_from(out, mesh, "model")
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -343,10 +370,13 @@ def _additive_mask(visible: torch.Tensor) -> torch.Tensor:
 
 def _layer_block(cfg: LlamaConfig, layer: Params, x: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor, attention_mask: torch.Tensor, mask: Optional[torch.Tensor],
-                 cache: Optional[KVCache] = None, li: int = 0, mesh=None) -> torch.Tensor:
+                 cache: Optional[KVCache] = None, li: int = 0, mesh=None,
+                 ring_fn=None) -> torch.Tensor:
     """One decoder layer over a whole prompt (B, T, D) -> (B, T, D): the body
-    of ``prefill``'s layer loop and of ``forward``'s. Attention is the flash
-    kernel when ``mask`` is None (on a mesh over the rank's heads,
+    of ``prefill``'s layer loop and of ``forward``'s. Attention is
+    ``ring_fn`` when given (sequence parallelism: the ring's or Ulysses'
+    callable over the rank's chunk; Ulysses takes the unrepeated k/v), the
+    flash kernel when ``mask`` is None (on a mesh over the rank's heads,
     ``serving.serving_flash_shard_map``), else dense with that additive
     mask; with a ``cache`` the rotated k/v are written into its layer
     ``li``."""
@@ -359,30 +389,34 @@ def _layer_block(cfg: LlamaConfig, layer: Params, x: torch.Tensor, cos: torch.Te
     if cache is not None:
         _cache_write(cache["k"], li, (slice(None), slice(0, t)), k)
         _cache_write(cache["v"], li, (slice(None), slice(0, t)), v)
-    k_rep = _expand_kv(k, shard)
-    v_rep = _expand_kv(v, shard)
-    if mask is None:
+    if ring_fn is None or not getattr(ring_fn, "accepts_unrepeated_kv", False):
+        k, v = _expand_kv(k, shard), _expand_kv(v, shard)
+    if ring_fn is not None:
+        ctx = ring_fn(q, k, v, attention_mask, attention_mask)
+    elif mask is None:
         flash = (flash_attention if mesh is None else
                  serving_flash_shard_map(mesh, b, cfg.num_heads if shard.attn_tp else None))
-        ctx = flash(q.contiguous(), k_rep.contiguous(), v_rep.contiguous(), attention_mask)
+        ctx = flash(q.contiguous(), k.contiguous(), v.contiguous(), attention_mask)
     else:
-        ctx = _dense_attention(q, k_rep, v_rep, mask)
+        ctx = _dense_attention(q, k, v, mask)
     x = x + _o_proj(ctx.reshape(b, t, -1), layer, cfg, mesh)
     y2 = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
     return x + _mlp_block(y2, layer, mesh)
 
 
 def _prompt_tables(cfg: LlamaConfig, inputs_embeds: torch.Tensor,
-                   attention_mask: torch.Tensor):
-    """RoPE tables at each token's position (its count of real tokens before
-    it) and the dense path's additive causal + key-padding mask (None on
-    the flash path)."""
+                   attention_mask: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                   seq_parallel: bool = False):
+    """RoPE tables at each token's position (its count of real tokens
+    before it, unless ``positions`` are given) and the dense path's additive
+    causal + key-padding mask (None on the flash path and under sequence
+    parallelism)."""
     t = inputs_embeds.shape[1]
-    positions = torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1
-    positions = positions.clamp_min(0)
+    if positions is None:
+        positions = (torch.cumsum(attention_mask.to(torch.int32), dim=1) - 1).clamp_min(0)
     cos, sin = rope_tables(cfg, positions)
     mask = None
-    if cfg.attn_impl != "flash":
+    if cfg.attn_impl != "flash" and not seq_parallel:
         causal = torch.tril(torch.ones((t, t), dtype=torch.bool, device=inputs_embeds.device))
         mask = _additive_mask(causal[None, None] & attention_mask[:, None, None, :])
     return cos, sin, mask
@@ -556,11 +590,32 @@ def _remat_context_fn(policy: str):
     return lambda: create_selective_checkpoint_contexts(ops[policy])
 
 
+def seq_parallel_fn(cfg: LlamaConfig, mesh):
+    """The sequence-parallel attention callable of ``cfg.attn_impl`` on
+    ``mesh`` (the JAX ``prefill``'s ``ring_fn``), or None: without a mesh,
+    on a ``context`` of 1, or for another ``attn_impl``."""
+    if mesh is None or mesh.shape["context"] == 1:
+        return None
+    if cfg.attn_impl == "ring":
+        from eventgpt_tpu_torch.parallel.ring import ring_attention_shard_map
+
+        return ring_attention_shard_map(mesh, causal=True)
+    if cfg.attn_impl == "ulysses":
+        from eventgpt_tpu_torch.parallel.ulysses import ulysses_attention_shard_map
+
+        return ulysses_attention_shard_map(mesh, causal=True)
+    raise ValueError("mesh_context > 1 requires attn_impl='ring' or 'ulysses' (sequence "
+                     "parallelism); dense/flash attention cannot consume a context-sharded "
+                     "sequence")
+
+
 def forward(
     params: Params,
     cfg: LlamaConfig,
     inputs_embeds: torch.Tensor,
     attention_mask: Optional[torch.Tensor] = None,
+    mesh=None,
+    positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Cache-free full forward -> f32 logits (B, T, V): the training and
     eval path (``eventgpt_tpu/models/llama.forward``). The layers are
@@ -569,7 +624,13 @@ def forward(
     activations are dropped after the forward and recomputed in the
     backward pass, so flash attention launches twice per layer; the
     ``cfg.remat_policy`` of the dot-saving kinds keeps the matmul outputs
-    it names (``_remat_context_fn``) instead of recomputing them."""
+    it names (``_remat_context_fn``) instead of recomputing them.
+
+    With ``mesh`` the inputs are this rank's rows and sequence chunk of a
+    tree sharded for training, ``attention_mask`` the chunk's, and
+    ``positions`` (B, T_chunk) the tokens' global positions (each token's
+    count of real tokens before it in the global mask: a chunk cannot count
+    them). Returns the chunk's logits with the whole vocab."""
     b, t, _ = inputs_embeds.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, t), dtype=torch.bool, device=inputs_embeds.device)
@@ -578,13 +639,19 @@ def forward(
     context_fn = _remat_context_fn(cfg.remat_policy) if remat else None
     if context_fn is not None:
         extra["context_fn"] = context_fn
-    cos, sin, mask = _prompt_tables(cfg, inputs_embeds, attention_mask)
+    ring_fn = seq_parallel_fn(cfg, mesh)
+    cos, sin, mask = _prompt_tables(cfg, inputs_embeds, attention_mask, positions,
+                                    seq_parallel=ring_fn is not None)
     x = inputs_embeds
     for layer in params["layers"]:
         if remat:
             x = checkpoint(_layer_block, cfg, layer, x, cos, sin, attention_mask, mask,
+                           None, 0, mesh, ring_fn,
                            use_reentrant=False, preserve_rng_state=False, **extra)
         else:
-            x = _layer_block(cfg, layer, x, cos, sin, attention_mask, mask)
+            x = _layer_block(cfg, layer, x, cos, sin, attention_mask, mask, None, 0, mesh,
+                             ring_fn)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    return _mm_f32(x, params["lm_head"])
+    if mesh is None:
+        return _mm_f32(x, params["lm_head"])
+    return lm_head_logits(params, x, mesh)

@@ -43,7 +43,8 @@ def is_quantized4(leaf: Any) -> bool:
 
 def is_lora(leaf: Any) -> bool:
     """Apply-form LoRA composite leaf: {"w": base, "a": A*scale, "b": B},
-    plus {"seed", "dr"} when the adapter branch drops its input."""
+    plus {"seed", "dr"} when the adapter branch drops its input (and
+    ``dshard``, the (parts, index) of each input dim, on a mesh)."""
     return isinstance(leaf, dict) and "w" in leaf and "a" in leaf and "b" in leaf
 
 
@@ -58,7 +59,18 @@ def _lora_branch_input(x: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
     keep = 1.0 - w["dr"]
     g = torch.Generator(device=x.device)
     g.manual_seed(int(w["seed"]))
-    mask = torch.rand(x.shape, generator=g, device=x.device) < keep
+    shard = w.get("dshard")
+    if shard is None:
+        mask = torch.rand(x.shape, generator=g, device=x.device) < keep
+    else:
+        # A rank's block of a mesh-sharded input: the mask is drawn for the
+        # global shape ((parts, index) per dim) and the block sliced from it,
+        # so the ranks together drop what one device drops.
+        whole = torch.rand([n * parts for n, (parts, _) in zip(x.shape, shard)], generator=g,
+                           device=x.device)
+        for d, (n, (_, index)) in enumerate(zip(x.shape, shard)):
+            whole = whole.narrow(d, index * n, n)
+        mask = whole < keep
     return torch.where(mask, x / x.new_tensor(keep), torch.zeros((), dtype=x.dtype,
                                                                   device=x.device))
 

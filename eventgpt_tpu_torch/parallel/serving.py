@@ -228,6 +228,12 @@ def shard_params_for_serving(params: Any, cfg, mesh, dtype: Optional[torch.dtype
     ``vocab_size``, the global vocab.
     """
     _require_serving_mesh(mesh)
+    return shard_eventchat(params, cfg, mesh, dtype)
+
+
+def shard_eventchat(params: Any, cfg, mesh, dtype: Optional[torch.dtype] = None) -> Any:
+    """``shard_params_for_serving`` on any mesh (training's included): the
+    LLaMA under the serving layout, the other subtrees replicated."""
     lp = params["llama"]
     specs = serving_llama_specs(lp, cfg.llama, mesh.shape)
     layers = []

@@ -55,6 +55,28 @@ def batch_spec(ndim: int, seq_axis: Optional[int] = None) -> P:
     return P(*parts)
 
 
+def local_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """This rank's part of a global host batch (numpy arrays): the rows over
+    (data, fsdp) and, for a (B, T) array, the sequence chunk over
+    ``context`` (``batch_spec(ndim, seq_axis=1)``). Raises the JAX
+    package's ``ValueError`` when the batch does not divide the
+    data-parallel extent."""
+    dp = mesh.parts(BATCH_AXES)
+    b = next(iter(batch.values())).shape[0]
+    if b % dp:
+        raise ValueError(
+            f"batch size {b} does not divide the data-parallel extent "
+            f"dp={dp} (mesh data={mesh.shape['data']} x "
+            f"fsdp={mesh.shape['fsdp']}); pick a batch that is a multiple "
+            f"of dp or shrink the mesh"
+        )
+    out = {}
+    for k, v in batch.items():
+        spec = batch_spec(v.ndim, seq_axis=1 if v.ndim == 2 else None)
+        out[k] = local_slice(torch.from_numpy(v), spec, mesh).numpy()
+    return out
+
+
 def _llama_layer_specs() -> Specs:
     col, row = P("model", "fsdp"), P("fsdp", "model")
     return {"input_layernorm": P(None), "post_attention_layernorm": P(None),
@@ -203,3 +225,105 @@ def _put(x, spec: P, mesh, dtype=None) -> torch.Tensor:
     if dtype is not None and block.is_floating_point():
         block = block.to(dtype)
     return block.to(mesh.device, copy=True).contiguous()
+
+
+# -- the training layout ------------------------------------------------------
+#
+# The trainer's trainables follow the JAX specs on ``model`` (the LoRA
+# factors' head and column splits, which the products need) and replicate
+# where the JAX specs put ``fsdp`` (a memory-only difference: the projector,
+# the Q-Former, ``embed_new`` and the LoRA factors are small). Every
+# trainable replicates over ``data``, ``fsdp`` and ``context``, so each
+# gradient is all-reduced over those axes; a LoRA factor that replicates
+# over ``model`` but feeds a ``model``-split product (``a`` of the
+# column-parallel targets, ``b`` of ``o``/``down``) holds a partial
+# gradient there and is all-reduced over ``model`` too.
+
+
+def training_spec(spec: P) -> P:
+    """``spec`` with its ``fsdp`` entries replicated: the layout the port's
+    trainer keeps for a trainable leaf."""
+    out = []
+    for part in spec:
+        axes = tuple(a for a in _axes(part) if a != "fsdp")
+        out.append(None if not axes else (axes[0] if len(axes) == 1 else axes))
+    return P(*out)
+
+
+def trainable_param_specs(trainable: Specs, lora_targets=None) -> Specs:
+    """The JAX trainer's spec tree for a trainable tree of ``cfg``:
+    ``projector``, ``lora``, ``qformer`` and stage 1's ``embed_new`` as
+    ``P(None, "fsdp")``."""
+    from eventgpt_tpu_torch.train.lora import DEFAULT_TARGETS, lora_param_specs
+
+    out: Specs = {}
+    for key, sub in trainable.items():
+        if key == "projector":
+            out[key] = projector_param_specs("adaptor" in sub, len(sub["mlp"]))
+        elif key == "lora":
+            specs = lora_param_specs(tuple(lora_targets or DEFAULT_TARGETS))
+            out[key] = {g: {n: specs[g][n] for n in names} for g, names in sub.items()}
+        elif key == "qformer":
+            out[key] = qformer_param_specs(len(sub["attention_layers"]))
+        elif key == "embed_new":
+            out[key] = P(None, "fsdp")
+        else:
+            raise ValueError(f"no training spec for the trainable {key!r}")
+    return out
+
+
+def spec_leaves(specs: Specs, prefix: Tuple = ()) -> list:
+    """(path, spec) pairs in ``train/optim.tree_leaves`` order."""
+    if isinstance(specs, dict):
+        return [pl for k in sorted(specs) for pl in spec_leaves(specs[k], prefix + (k,))]
+    if isinstance(specs, list):
+        return [pl for i, v in enumerate(specs) for pl in spec_leaves(v, prefix + (i,))]
+    return [(prefix, specs)]
+
+
+def model_dim(spec: P) -> Optional[int]:
+    """The dim of ``training_spec(spec)`` split over ``model``, or None."""
+    for d, part in enumerate(training_spec(spec)):
+        if "model" in _axes(part):
+            return d
+    return None
+
+
+def model_partial(path: Tuple, spec: P) -> bool:
+    """Does the leaf replicate over ``model`` while feeding a ``model``-split
+    product (so each rank holds a partial gradient of it)?"""
+    return path[0] == "lora" and model_dim(spec) is None
+
+
+def shard_trainable(tree: Any, specs: Specs, mesh) -> Any:
+    """This rank's f32 master copy of a trainable tree under
+    ``training_spec`` of ``specs``, on ``mesh.device``."""
+    if isinstance(tree, dict):
+        return {k: shard_trainable(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(shard_trainable(v, s, mesh) for v, s in zip(tree, specs))
+    block = local_slice(torch.as_tensor(tree).detach(), training_spec(specs), mesh)
+    return block.to(mesh.device, torch.float32, copy=True).contiguous()
+
+
+def gather_trainable(tree: Any, specs: Specs, mesh) -> Any:
+    """The whole trainable tree (or one with its layout) from the ranks'
+    blocks, on every rank: each ``model``-split leaf gathered over
+    ``model``."""
+    if isinstance(tree, dict):
+        return {k: gather_trainable(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_trainable(v, s, mesh) for v, s in zip(tree, specs))
+    d = model_dim(specs)
+    tree = tree.detach()
+    return tree if d is None else mesh.all_gather(tree, "model", d)
+
+
+def shard_frozen(frozen: Any, cfg, mesh, dtype: Optional[torch.dtype] = None) -> Any:
+    """This rank's shard of the frozen tree {"clip", "llama"[, "projector"]}
+    on ``mesh.device``: the LLaMA under the serving layout (the JAX
+    trainer's ``vocab_safe_llama_specs`` of ``llama_param_specs``, heads
+    over ``model``), the rest replicated; ``dtype`` casts float leaves."""
+    from eventgpt_tpu_torch.parallel import serving
+
+    return serving.shard_eventchat(frozen, cfg, mesh, dtype)

@@ -85,9 +85,8 @@ class TrainingArguments:
     # Host batches prepared ahead of the device (train/prefetch.py);
     # 0 disables the producer thread.
     prefetch_depth: int = 2
-    # Multi-host preemption agreement cadence (micro-batches) of the JAX
-    # trainer; the port runs one process, which polls its local flag every
-    # micro-batch.
+    # Preemption agreement cadence (micro-batches) of a mesh's ranks; one
+    # process polls its local flag every micro-batch.
     preempt_poll_micros: int = 8
     # Liveness cadence independent of logging_steps: heartbeat.json updates
     # at least this often (seconds) while steps complete, so watchdogs can
@@ -101,14 +100,17 @@ class TrainingArguments:
     profile_dir: str = ""
     profile_start_step: int = 2
     profile_num_steps: int = 2
-    # Mesh: -1 -> auto, which is one device in the port; any other mesh
-    # raises NotImplementedError there.
+    # Mesh (one rank a device under python -m torch.distributed.run): both
+    # mesh_data and mesh_fsdp -1 -> auto (best_mesh_config over the world:
+    # one device in a single process); one of them given, the other -1 is 1.
+    # mesh_context > 1 is sequence parallelism (attn_impl ring or ulysses);
+    # mesh_model splits heads and MLP columns.
     mesh_data: int = -1
     mesh_fsdp: int = -1
     mesh_model: int = 1
     mesh_context: int = 1
     # Attention kernel override: "" keeps the model config's choice;
-    # mesh_context > 1 requires "ring" (sequence parallelism).
+    # mesh_context > 1 requires "ring" or "ulysses" (sequence parallelism).
     attn_impl: str = ""
     # What each checkpointed layer may save instead of recomputing in the
     # backward pass: "full" and "nothing_saveable" save nothing; the

@@ -19,7 +19,15 @@ masks from a ``torch.Generator`` seeded from (seed, step, target index,
 layer), carried by the composite leaf. A checkpointed layer's recompute
 then draws the mask its forward drew. JAX's threefry bits are not
 reproduced, so dropout > 0 is held by its rules, not by equality with the
-JAX package; dropout 0 is equal.
+JAX package; dropout 0 is equal. On a mesh (``apply_lora(mesh=)``) each
+mask is drawn for the global input and sliced to the rank's rows,
+sequence chunk and (for ``o``/``down``, whose inputs split over
+``model``) features, so a sharded run drops what one device drops.
+
+``lora_param_specs`` is the JAX package's layout: ``a`` follows ``fsdp``
+on its input rows and ``b`` ``model`` on its output columns, the other way
+round for ``o``/``down``. The port's trainer keeps the ``fsdp`` splits
+replicated (``parallel/sharding.training_spec``).
 """
 
 from __future__ import annotations
@@ -94,15 +102,44 @@ def dropout_seed(seed: int, step: int, target: int, layer: int) -> int:
     return int(np.random.SeedSequence([seed, step, target, layer]).generate_state(1)[0])
 
 
+def lora_param_specs(targets: Tuple[str, ...] = DEFAULT_TARGETS) -> Params:
+    """Partition specs of the LoRA tree (``eventgpt_tpu/train/lora.py``'s):
+    the rank dim replicated, the feature dims following the base layout
+    (``fsdp`` on input rows, ``model`` on output columns; ``o``/``down``
+    contract over the ``model``-split dim instead)."""
+    from eventgpt_tpu_torch.parallel.sharding import P
+
+    spec_in = {"a": P(None, "fsdp", None), "b": P(None, None, "model")}
+    spec_out = {"a": P(None, "model", None), "b": P(None, None, "fsdp")}
+    out: Params = {"attn": {}, "mlp": {}}
+    for (group, name) in _TARGET_SHAPES:
+        if name not in targets:
+            continue
+        out[group][name] = dict(spec_out if name in ("o", "down") else spec_in)
+    return out
+
+
+def _dropout_shard(name: str, mesh) -> Tuple[Tuple[int, int], ...]:
+    """(parts, index) of the adapted product's input (B, T, F) on ``mesh``:
+    rows over (data, fsdp), the sequence over ``context``, and the features
+    over ``model`` for ``o``/``down``."""
+    rows = ("data", "fsdp")
+    feat = ("model",) if name in ("o", "down") else ()
+    return ((mesh.parts(rows), mesh.index(rows)),
+            (mesh.parts(("context",)), mesh.index(("context",))),
+            (mesh.parts(feat), mesh.index(feat)))
+
+
 def apply_lora(base_llama: Params, lora_params: Params, lora: LoraConfig,
-               dropout_key: Optional[Tuple[int, int]] = None) -> Params:
+               dropout_key: Optional[Tuple[int, int]] = None, mesh=None) -> Params:
     """Frozen base + trainable LoRA -> the LLaMA tree whose adapted weights
     are composite leaves ``{"w": base, "a": (A * scale)[i], "b": B[i]}``.
 
     Gradients reach ``lora_params`` through the two skinny products; the
     base leaves are shared, not copied. ``dropout_key`` = (seed, step)
     enables ``lora.dropout``: each composite leaf gains ``seed`` (from
-    ``dropout_seed``) and ``dr``. Without it evaluation is deterministic.
+    ``dropout_seed``) and ``dr``, and on a ``mesh`` ``dshard``. Without it
+    evaluation is deterministic.
     """
     scale = lora.scaling
     use_dropout = lora.dropout > 0.0 and dropout_key is not None
@@ -117,6 +154,8 @@ def apply_lora(base_llama: Params, lora_params: Params, lora: LoraConfig,
             if use_dropout:
                 leaf["seed"] = dropout_seed(dropout_key[0], dropout_key[1], t_idx, i)
                 leaf["dr"] = lora.dropout
+                if mesh is not None:
+                    leaf["dshard"] = _dropout_shard(name, mesh)
             layer[f"{name}_proj"] = leaf
     return {**base_llama, "layers": layers}
 

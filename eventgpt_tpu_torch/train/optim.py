@@ -86,9 +86,22 @@ def tree_leaves(tree: Any, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     return [(prefix, tree)]
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor, in f32 (``optax.global_norm``)."""
-    return torch.stack([(t.float() * t.float()).sum() for t in tensors]).sum().sqrt()
+def global_norm(tensors, mesh=None, split=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor, in f32
+    (``optax.global_norm``). On a ``mesh``, ``split[i]`` marks a tensor that
+    is this rank's block of a leaf split over ``model``: those sums of
+    squares are all-reduced over ``model``; a leaf replicated over an axis
+    is counted once."""
+    tensors = list(tensors)
+    sq = [(t.float() * t.float()).sum() for t in tensors]
+    if mesh is None or not split or not any(split) or mesh.shape["model"] == 1:
+        return torch.stack(sq).sum().sqrt()
+    mine = torch.stack([x for x, s in zip(sq, split) if s]).sum()
+    rest = [x for x, s in zip(sq, split) if not s]
+    total = mesh.all_reduce(mine, "model")
+    if rest:
+        total = total + torch.stack(rest).sum()
+    return total.sqrt()
 
 
 class AdamW:
@@ -107,6 +120,10 @@ class AdamW:
         self.weight_decay, self.b1, self.b2, self.eps = weight_decay, b1, b2, eps
         self.grad_clip = grad_clip
         self.accum_steps = max(int(accum_steps), 1)
+        # On a mesh (the trainer sets both): the norm of the clip counts the
+        # model-split leaves' blocks over the mesh (``global_norm``).
+        self.mesh = None
+        self.model_split: Callable[[Tuple], bool] = lambda path: False
 
     def _label(self, path: Tuple) -> str:
         return "projector" if "projector" in self.schedules and path[0] == "projector" \
@@ -144,14 +161,15 @@ class AdamW:
             for acc in state["acc"]:
                 acc.zero_()
             state["mini_step"] = 0
-        labels = [self._label(path) for path, _ in tree_leaves(params)]
+        paths = [path for path, _ in tree_leaves(params)]
+        labels = [self._label(path) for path in paths]
         for label, schedule in self.schedules.items():
             idx = [i for i, lab in enumerate(labels) if lab == label]
             if not idx:
                 continue
             g = [grads[i] for i in idx]
             if self.grad_clip is not None:
-                norm = global_norm(g)
+                norm = global_norm(g, self.mesh, [self.model_split(paths[i]) for i in idx])
                 g = [torch.where(norm < self.grad_clip, x, x / norm * self.grad_clip)
                      for x in g]
             count = state["count"][label]

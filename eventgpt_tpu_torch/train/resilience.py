@@ -72,10 +72,19 @@ class GracefulShutdown:
             signal.signal(s, prev)
         self._previous.clear()
 
-    def globally_requested(self) -> bool:
-        """The shutdown flag the loop acts on. The JAX trainer agrees on it
-        across hosts; the port runs one process, so it is the local flag."""
-        return self.requested
+    def globally_requested(self, mesh=None) -> bool:
+        """The shutdown flag the loop acts on, agreed by every rank: a
+        signal lands on each rank at its own time, and a rank that entered
+        the checkpoint's collectives while another ran a step's would
+        deadlock them. On a ``mesh`` of ranks the flags meet in its gloo
+        control group (``Mesh.host_max``), as the JAX trainer's allgather;
+        one process reads its local flag (no collective)."""
+        if mesh is None or mesh.control is None:
+            return self.requested
+        agreed = mesh.host_max(int(self.requested)) > 0
+        if agreed and self.reason is None:
+            self.reason = "peer"
+        return agreed
 
     def __enter__(self) -> "GracefulShutdown":
         return self.install()

@@ -1,4 +1,4 @@
-"""Training loop: the port of ``eventgpt_tpu/train/trainer.py`` on one device.
+"""Training loop: the port of ``eventgpt_tpu/train/trainer.py``.
 
 Wires dataset -> collator -> train step -> metrics -> checkpoints, with the
 JAX trainer's flow: special-token registration and the embedding resize;
@@ -24,11 +24,30 @@ around each micro-step while profiling is armed, and with ``profile_dir`` a
 capture of optimizer steps ``[profile_start_step, + profile_num_steps)``
 written there as a Chrome trace.
 
-Not ported, and refused with ``NotImplementedError``: a mesh other than one
-device (``mesh_*``, ``mesh_context > 1``) and the sequence-parallel
-``attn_impl`` values. f32 training on the card with
-``attn_impl="flash"`` raises ``ValueError``: the flash kernel takes bf16
-only (pass ``attn_impl="dense"``).
+The mesh (``mesh_*``): one rank a device under ``python -m
+torch.distributed.run`` (``parallel/mesh.make_mesh`` after
+``parallel/dist.initialize_distributed``), ``mesh_data``/``mesh_fsdp`` of
+-1 filling the world (``best_mesh_config``). The JAX trainer's checks raise
+its ``ValueError``s: ``mesh_context`` > 1 needs ``attn_impl`` ``ring`` or
+``ulysses``, Ulysses needs the heads a rank holds to divide by the context
+size, and the context size must divide ``SEQ_BUCKET``. The global batch is
+``per_device_train_batch_size`` x data x fsdp; every rank reads the same
+global batches (one seed, one order) and keeps its rows and sequence chunk
+(``steps.batch_to_device(batch, mesh)``). The frozen tree takes the
+serving layout (``parallel/sharding.shard_frozen``), the trainables the
+training layout (``shard_trainable``: the JAX specs on ``model``,
+replicated over ``fsdp``). Rank 0 alone writes ``metrics.jsonl``,
+``telemetry.jsonl``, ``heartbeat.json``, the checkpoints and the
+components, from trees gathered to their whole size, so the files are a
+one-device run's; ``resume`` loads them on every rank and keeps the
+rank's blocks. The preemption flag is agreed over the ranks every
+``preempt_poll_micros`` micro-batches.
+
+Not ported, and refused with ``NotImplementedError`` (``refuse_unported``):
+a ``model`` axis that does not divide the q heads or the KV heads (serving
+replicates such heads; training would need their partial gradients summed).
+f32 training on the card with ``attn_impl="flash"`` raises ``ValueError``:
+the flash kernel takes bf16 only (pass ``attn_impl="dense"``).
 """
 
 from __future__ import annotations
@@ -52,6 +71,8 @@ from eventgpt_tpu_torch.models.llama import resize_token_embeddings
 from eventgpt_tpu_torch.models.qformer import save_qformer_components
 from eventgpt_tpu_torch.obs import metrics as obs_metrics
 from eventgpt_tpu_torch.obs import profiling as obs_profiling
+from eventgpt_tpu_torch.parallel import dist as pdist
+from eventgpt_tpu_torch.parallel import sharding
 from eventgpt_tpu_torch.train import steps as steps_mod
 from eventgpt_tpu_torch.train.args import DataArguments, ModelArguments, TrainingArguments
 from eventgpt_tpu_torch.train.data import EventChatDataset, batch_iterator
@@ -75,23 +96,69 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def refuse_unported(train_args: TrainingArguments) -> None:
-    """The JAX trainer's options that the port does not have raise here."""
-    mesh = (train_args.mesh_data, train_args.mesh_fsdp)
-    if any(m not in (-1, 1) for m in mesh) or train_args.mesh_model != 1 \
-            or train_args.mesh_context != 1:
+def refuse_unported(cfg: EventChatConfig, mesh_shape) -> None:
+    """The JAX trainer's meshes that the port does not train on raise here:
+    a ``model`` axis that divides the MLP but not the q or the KV heads."""
+    m = int(mesh_shape.get("model", 1))
+    if m > 1 and (cfg.llama.num_heads % m or cfg.llama.num_kv_heads % m):
         raise NotImplementedError(
-            "mesh_data/mesh_fsdp/mesh_model/mesh_context: the training mesh is not ported "
-            "to eventgpt_tpu_torch yet (ROADMAP Queue 1 item 8b); the port trains on one "
-            "device")
-    if train_args.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={train_args.attn_impl!r}: sequence-parallel attention is not ported "
-            f"to eventgpt_tpu_torch yet (ROADMAP Queue 1 item 8b)")
+            f"mesh_model={m} with {cfg.llama.num_heads} q heads and {cfg.llama.num_kv_heads} "
+            f"KV heads: training on a model axis that does not divide the heads is not "
+            f"ported (serving replicates such heads)")
+
+
+def check_mesh_config(cfg: EventChatConfig, mesh_shape) -> None:
+    """The JAX trainer's checks of a mesh against the config, with its
+    ``ValueError`` texts."""
+    ctx = int(mesh_shape["context"])
+    if ctx > 1 and cfg.llama.attn_impl not in ("ring", "ulysses"):
+        raise ValueError(
+            "mesh_context > 1 requires attn_impl='ring' or 'ulysses' "
+            "(sequence parallelism); dense/flash attention cannot "
+            "consume a context-sharded sequence"
+        )
+    if ctx > 1 and cfg.llama.attn_impl == "ulysses":
+        local_heads = cfg.llama.num_heads // int(mesh_shape["model"])
+        if local_heads % ctx:
+            raise ValueError(
+                f"attn_impl='ulysses' re-shards heads over context: "
+                f"num_heads/model = {local_heads} must divide by "
+                f"mesh_context={ctx} (use attn_impl='ring' otherwise)"
+            )
+    if ctx > 1 and constants.SEQ_BUCKET % ctx:
+        raise ValueError(
+            f"mesh_context={ctx} must divide the {constants.SEQ_BUCKET}-token "
+            f"sequence bucket (use 2, 4, 8, ...)"
+        )
+
+
+def build_training_mesh(train_args: TrainingArguments, device_type: str):
+    """The mesh of the ``mesh_*`` fields, or None for one device in a single
+    process: ``mesh_data``/``mesh_fsdp`` as given (one of them given, the
+    other -1 is 1), or both -1 ``best_mesh_config`` over the world (the JAX
+    trainer's rule, which reads a lone explicit one as -1). A mesh of N > 1
+    ranks needs a world of N (``make_mesh`` raises otherwise)."""
+    import torch.distributed as dist
+
+    from eventgpt_tpu_torch.config import MeshConfig
+    from eventgpt_tpu_torch.parallel.mesh import best_mesh_config, make_mesh
+
+    if train_args.mesh_data > 0 or train_args.mesh_fsdp > 0:
+        mcfg = MeshConfig(data=max(train_args.mesh_data, 1), fsdp=max(train_args.mesh_fsdp, 1),
+                          model=train_args.mesh_model, context=train_args.mesh_context)
+    else:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        mcfg = best_mesh_config(world, model=train_args.mesh_model,
+                                context=train_args.mesh_context)
+    n = mcfg.data * mcfg.fsdp * mcfg.context * mcfg.model
+    if n == 1 and not dist.is_initialized():
+        return None
+    return make_mesh(mcfg, device_type)
 
 
 class Trainer:
-    """Two-stage EventChat trainer on one device (default ``cuda``).
+    """Two-stage EventChat trainer on one device (default ``cuda``) or, with
+    ``mesh_*`` (or a ``mesh``), on this rank's share of a mesh.
 
     ``stage=1`` trains the projector; ``stage=2`` (or ``lora_enable``)
     trains LoRA + projector.
@@ -99,10 +166,16 @@ class Trainer:
 
     def __init__(self, cfg: EventChatConfig, params: Dict[str, Any], tokenizer: Any,
                  model_args: ModelArguments, data_args: DataArguments,
-                 train_args: TrainingArguments, device="cuda"):
-        refuse_unported(train_args)
-        self.device = resolve_device(device)
+                 train_args: TrainingArguments, device="cuda", mesh=None):
+        if mesh is None:
+            mesh = build_training_mesh(train_args, resolve_device(device).type)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.margs, self.dargs, self.targs = model_args, data_args, train_args
+        # This rank's wall per optimizer step, and the logged (step, loss,
+        # grad_norm): the same global numbers on every rank of a mesh.
+        self.step_seconds: list = []
+        self.logged: list = []
 
         if train_args.attn_impl:
             cfg = dataclasses.replace(
@@ -115,6 +188,9 @@ class Trainer:
             raise ValueError(
                 "f32 training (bf16 false) with attn_impl='flash' on the card: the flash "
                 "kernel takes bf16 only; pass attn_impl='dense' for f32")
+        if mesh is not None:
+            check_mesh_config(cfg, mesh.shape)
+            refuse_unported(cfg, mesh.shape)
 
         # Special tokens (initialize_vision_tokenizer): the patch token, and
         # with mm_use_im_start_end the start/end tokens, whose new embedding
@@ -161,7 +237,8 @@ class Trainer:
                 frozen = {**frozen, "projector": trainable.pop("projector")}
                 source = "frozen"
             self.combine = steps_mod.make_stage2_combine(
-                self.lora_cfg, dropout_seed=train_args.seed, projector_source=source)
+                self.lora_cfg, dropout_seed=train_args.seed, projector_source=source,
+                mesh=mesh)
         else:
             if train_args.freeze_mm_mlp_adapter:
                 raise ValueError(
@@ -174,8 +251,15 @@ class Trainer:
         # f32 master copies of the trainables (never the caller's tensors);
         # the frozen tree in the compute dtype, shared where it already is.
         dev = self.device
-        trainable = tree_map(lambda x: x.detach().to(dev, torch.float32).clone(), trainable)
-        frozen = tree_map(lambda x: x.detach().to(dev, dtype), frozen)
+        self.specs = None
+        if mesh is None:
+            trainable = tree_map(lambda x: x.detach().to(dev, torch.float32).clone(), trainable)
+            frozen = tree_map(lambda x: x.detach().to(dev, dtype), frozen)
+        else:
+            self.specs = sharding.trainable_param_specs(
+                trainable, self.lora_cfg.targets if self.lora_cfg else None)
+            trainable = sharding.shard_trainable(trainable, self.specs, mesh)
+            frozen = sharding.shard_frozen(frozen, cfg, mesh, dtype)
         base_combine = self.combine
 
         def cast_combine(tr, fz, step=None, _base=base_combine, _dt=dtype):
@@ -184,7 +268,8 @@ class Trainer:
         self.combine = cast_combine
 
         # --- optimizer: HF step semantics --------------------------------
-        self.global_batch_size = train_args.per_device_train_batch_size
+        dp = 1 if mesh is None else mesh.shape["data"] * mesh.shape["fsdp"]
+        self.global_batch_size = train_args.per_device_train_batch_size * dp
         accum = max(train_args.gradient_accumulation_steps, 1)
         micro_per_epoch = len(self.dataset) // self.global_batch_size
         steps_per_epoch = max(micro_per_epoch // accum, 1)
@@ -201,12 +286,13 @@ class Trainer:
             accum_steps=train_args.gradient_accumulation_steps)
 
         self.state = steps_mod.init_train_state(trainable, frozen, self.optimizer)
-        self.train_step = steps_mod.make_train_step(cfg, self.optimizer, self.combine)
-        self.eval_step = steps_mod.make_eval_step(cfg, self.combine)
+        self.train_step = steps_mod.make_train_step(cfg, self.optimizer, self.combine,
+                                                    mesh=mesh, specs=self.specs)
+        self.eval_step = steps_mod.make_eval_step(cfg, self.combine, mesh=mesh)
         self.metrics_path = os.path.join(train_args.output_dir, "metrics.jsonl")
         self.telemetry = (obs_metrics.JsonlSink(
             os.path.join(train_args.output_dir, "telemetry.jsonl"))
-            if train_args.telemetry else None)
+            if train_args.telemetry and pdist.is_primary() else None)
         self._profiling = False
         if train_args.profile_dir:
             # Arms the micro-step ranges; the capture window opens at
@@ -225,8 +311,14 @@ class Trainer:
             f.write(json.dumps(record) + "\n")
 
     def _log(self, record: Dict[str, Any]) -> None:
+        if not pdist.is_primary():
+            return
         self._append(self.metrics_path, record)
         log.info("step %s: %s", record.get("step"), record)
+
+    def _to_device(self, host_batch):
+        return steps_mod.batch_to_device(host_batch, self.mesh if self.mesh is not None
+                                         else self.device)
 
     def evaluate(self, step: Optional[int] = None) -> Dict[str, float]:
         """Mean next-token loss over the held-out set, weighted by tokens;
@@ -234,10 +326,21 @@ class Trainer:
         if self.eval_dataset is None:
             raise ValueError("no eval dataset (set --eval_data_path)")
         total_loss, total_tokens = 0.0, 0
+        dp = self.global_batch_size // self.targs.per_device_train_batch_size
         for host_batch in batch_iterator(self.eval_dataset, self.global_batch_size, self.cfg,
                                          shuffle=False, drop_last=False,
                                          max_len=self.targs.model_max_length):
-            batch = steps_mod.batch_to_device(host_batch, self.device)
+            b = next(iter(host_batch.values())).shape[0]
+            if self.mesh is not None and b % dp:
+                # The trailing partial batch padded to the data-parallel
+                # extent with IGNORE-labelled copies: no tokens counted.
+                import numpy as np
+
+                pad = dp - b % dp
+                host_batch = {k: np.concatenate([v] + [v[:1]] * pad)
+                              for k, v in host_batch.items()}
+                host_batch["labels"][b:] = constants.IGNORE_INDEX
+            batch = self._to_device(host_batch)
             metrics = self.eval_step(self.state, batch)
             n = float(metrics["n_tokens"])
             total_loss += float(metrics["loss"]) * n
@@ -256,12 +359,17 @@ class Trainer:
         trainer's file names, keys and layouts."""
         out_dir = self.targs.output_dir
         out = os.path.join(out_dir, f"ckpt_{tag}")
-        os.makedirs(out_dir, exist_ok=True)
         state = self.state
-        ckpt.save_checkpoint(out, {"trainable": state.trainable, "opt_state": state.opt_state,
-                                   "step": state.step}, step=state.step)
+        tr, opt_state = state.trainable, state.opt_state
+        if self.mesh is not None:
+            tr, opt_state = self._whole_state()
         self._last_ckpt = out
-        tr = state.trainable
+        if not pdist.is_primary():
+            pdist.barrier(f"save {tag}")
+            return out
+        os.makedirs(out_dir, exist_ok=True)
+        ckpt.save_checkpoint(out, {"trainable": tr, "opt_state": opt_state,
+                                   "step": state.step}, step=state.step)
         if "projector" in tr:
             ckpt.save_component(os.path.join(out_dir, f"projector_{tag}.npz"),
                                 projector_params_to_jax(tr["projector"]),
@@ -277,12 +385,43 @@ class Trainer:
                 tr["qformer"], os.path.join(out_dir, f"query_embedder_{tag}.npz"),
                 os.path.join(out_dir, f"attention_layers_{tag}.npz"),
                 num_heads=self.cfg.qformer.num_heads)
+        if self.mesh is not None:
+            pdist.barrier(f"save {tag}")
         return out
 
+    def _leaf_specs(self) -> list:
+        """The trainables' specs in ``tree_leaves`` order (the optimizer's
+        moment lists follow it)."""
+        return [spec for _, spec in sharding.spec_leaves(self.specs)]
+
+    def _whole_state(self):
+        """The trainables and the optimizer state gathered to their whole
+        size on every rank (each ``model``-split leaf over ``model``)."""
+        mesh = self.mesh
+        tr = sharding.gather_trainable(self.state.trainable, self.specs, mesh)
+        specs = self._leaf_specs()
+        opt = dict(self.state.opt_state)
+        for key in ("mu", "nu", "acc"):
+            if key in opt:
+                opt[key] = [sharding.gather_trainable(t, s, mesh) for t, s in zip(opt[key], specs)]
+        return tr, opt
+
     def resume(self, path: str) -> None:
-        restored = ckpt.load_checkpoint(path, self.device)
-        self.state = steps_mod.TrainState(restored["trainable"], self.state.frozen,
-                                          restored["opt_state"], int(restored["step"]))
+        """Restore a checkpoint; on a mesh every rank loads the whole state
+        and keeps its blocks."""
+        if self.mesh is None:
+            restored = ckpt.load_checkpoint(path, self.device)
+            trainable, opt = restored["trainable"], restored["opt_state"]
+        else:
+            restored = ckpt.load_checkpoint(path, "cpu")
+            trainable = sharding.shard_trainable(restored["trainable"], self.specs, self.mesh)
+            opt = dict(restored["opt_state"])
+            for key in ("mu", "nu", "acc"):
+                if key in opt:
+                    opt[key] = [sharding.shard_trainable(t, s, self.mesh)
+                                for t, s in zip(opt[key], self._leaf_specs())]
+        self.state = steps_mod.TrainState(trainable, self.state.frozen, opt,
+                                          int(restored["step"]))
         self._last_ckpt = path
 
     # ------------------------------------------------------------------
@@ -378,7 +517,9 @@ class Trainer:
                     # The micro-batch boundary is a fault site.
                     faults.maybe_fail("train.step")
                     faults.maybe_delay("train.step")
-                    if shutdown.globally_requested():
+                    poll = (self.mesh is None
+                            or micro % max(targs.preempt_poll_micros, 1) == 0)
+                    if poll and shutdown.globally_requested(self.mesh):
                         self.save(f"preempt_step{step}")
                         last_metrics = {**last_metrics, "preempted": True,
                                         "reason": shutdown.reason, "step": step}
@@ -386,7 +527,7 @@ class Trainer:
                                    "step": step})
                         return last_metrics
                     t0 = time.perf_counter()
-                    batch = steps_mod.batch_to_device(host_batch, self.device)
+                    batch = self._to_device(host_batch)
                     dt_data = dt_iter + (time.perf_counter() - t0)
                     win_data_wait += dt_data
                     obs_metrics.TRAIN_DATA_WAIT.observe(dt_data)
@@ -431,6 +572,7 @@ class Trainer:
                                 f"checkpoint in {targs.output_dir}")
                         if need_log:
                             dt = time.perf_counter() - t_window
+                            self.logged.append({"step": step, "loss": loss, "grad_norm": gnorm})
                             last_metrics = {
                                 "step": step, "epoch": epoch, "loss": loss, "grad_norm": gnorm,
                                 "step_time_s": round(dt, 4),
@@ -441,6 +583,7 @@ class Trainer:
                     # Telemetry: the optimizer step's wall time split into
                     # data wait (iterator + host-to-device) and compute.
                     step_wall = time.perf_counter() - t_window
+                    self.step_seconds.append(step_wall)
                     compute_s = max(step_wall - win_data_wait, 0.0)
                     obs_metrics.TRAIN_STEP_SECONDS.observe(step_wall)
                     obs_metrics.TRAIN_COMPUTE.observe(compute_s)
@@ -466,7 +609,8 @@ class Trainer:
                     window.clear()
                     t_window = time.perf_counter()
                     now = time.perf_counter()
-                    if need_log or now - last_beat > targs.heartbeat_interval_s:
+                    if pdist.is_primary() and (
+                            need_log or now - last_beat > targs.heartbeat_interval_s):
                         self.heartbeat.beat(step, **({"loss": loss} if need_log else {}))
                         last_beat = now
                     if need_save:

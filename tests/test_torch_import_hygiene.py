@@ -79,6 +79,11 @@ def test_port_imports_no_jax_and_no_jax_package():
             "eventgpt_tpu_torch.parallel.dist",
             "eventgpt_tpu_torch.parallel.sharding",
             "eventgpt_tpu_torch.parallel.serving",
+            "eventgpt_tpu_torch.parallel.autograd",
+            "eventgpt_tpu_torch.parallel.sp_common",
+            "eventgpt_tpu_torch.parallel.ring",
+            "eventgpt_tpu_torch.parallel.ulysses",
+            "eventgpt_tpu_torch.parallel.multiproc",
             "eventgpt_tpu_torch.scripts.serve_demo"} <= set(found["modules"])
     assert found["bad"] == [], f"the port pulled in: {found['bad']}"
 
@@ -121,10 +126,10 @@ def test_port_source_names_no_forbidden_import():
 
 
 def test_mesh_rank_bodies_name_no_jax_import():
-    """The serving-mesh tests' rank processes run the port alone: the
-    modules they execute name no JAX import, lazy ones included."""
+    """The mesh tests' rank processes run the port alone: the modules they
+    execute name no JAX import, lazy ones included."""
     found = []
-    for name in ("torch_mesh_ranks.py", "torch_mesh_serve.py"):
+    for name in ("torch_mesh_ranks.py", "torch_mesh_serve.py", "torch_mesh_train.py"):
         path = os.path.join(REPO, "tests", name)
         with open(path) as f:
             tree = ast.parse(f.read(), path)

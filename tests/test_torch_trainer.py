@@ -256,13 +256,21 @@ def test_eval_freeze_and_telemetry(jparams, data, tmp_path):
         _port_trainer(jparams, data, tmp_path / "x", freeze_mm_mlp_adapter=True)
 
 
-# profile_dir is ported; its slot holds the other sequence-parallel value.
-# The dot-saving remat policies are ported; theirs holds the model axis.
+# The training mesh is ported: a mesh of 2 ranks in this single process
+# raises the ValueError that names the launcher (with the data and fsdp
+# sizes left to the world, the JAX ``best_mesh_config``'s), and the sequence-parallel
+# attn_impl values on one device train as dense attention, as in the JAX
+# package (tests/test_torch_train_mesh.py runs the meshes).
 @pytest.mark.parametrize("flag", [{"mesh_fsdp": 2}, {"mesh_context": 2},
                                   {"attn_impl": "ulysses"}, {"attn_impl": "ring"},
                                   {"mesh_model": 2}])
 def test_unported_options_raise(jparams, data, tmp_path, flag):
-    with pytest.raises(NotImplementedError):
+    if "attn_impl" in flag:
+        tt = _port_trainer(jparams, data, tmp_path / "x", **flag)
+        assert tt.mesh is None and tt.cfg.llama.attn_impl == flag["attn_impl"]
+        return
+    with pytest.raises(ValueError, match=r"needs 2 ranks, have 1.*torch.distributed.run"
+                                         r"|1 devices not divisible by model\*context=2"):
         _port_trainer(jparams, data, tmp_path / "x", **flag)
 
 
@@ -345,11 +353,14 @@ def test_cli_train_subprocess_and_auto_resume(data, tmp_path):
     assert steps == [1, 2, 3]
 
 
-# --trace_out and --profile_dir are ported; their slots hold the other
-# refused mesh flags.
-@pytest.mark.parametrize("argv,exc", [(["--mesh_fsdp", "2"], NotImplementedError),
-                                      (["--mesh_data", "2"], NotImplementedError),
-                                      (["--mesh_context", "2"], NotImplementedError)])
+# --trace_out and --profile_dir are ported; their slots hold the mesh
+# flags, which in a single process raise the ValueError that names the
+# launcher (the ids keep the names these cases had when the mesh raised
+# NotImplementedError).
+@pytest.mark.parametrize("argv,exc", [
+    pytest.param(["--mesh_fsdp", "2"], ValueError, id="argv0-NotImplementedError"),
+    pytest.param(["--mesh_data", "2"], ValueError, id="argv1-NotImplementedError"),
+    pytest.param(["--mesh_context", "2"], ValueError, id="argv2-NotImplementedError")])
 def test_cli_refuses_unported_flags(data, tmp_path, argv, exc):
     with pytest.raises(exc):
         tcli.main(["--model_path", "tiny-random", "--data_path", os.path.join(data, "qa.json"),

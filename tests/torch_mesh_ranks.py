@@ -1,6 +1,8 @@
-"""Ranks of a CPU world over ``gloo`` for the port's serving-mesh tests.
+"""Ranks of a CPU world over ``gloo`` for the port's mesh tests.
 
-``run_world`` (called by ``tests/test_torch_sharded_*.py``) writes a job,
+``run_world`` (called by ``tests/test_torch_sharded_*.py`` and the training
+mesh's tests; ``start_world``/``finish_world`` let the caller work while
+the ranks run) writes a job,
 starts ``n`` processes of this file, each with its rank, bounds every wait
 and kills the children in a ``finally``. A rank joins the group through a
 ``file://`` store, runs the job's cases in order (every rank the same
@@ -25,6 +27,12 @@ def run_world(job: dict, n: int, tmp_path, timeout_s: float = 120.0) -> list:
     """Run ``job`` on ``n`` ranks; returns each rank's result, in rank order.
     A rank that fails or outlives ``timeout_s`` fails the call, with its
     error output."""
+    return finish_world(start_world(job, n, tmp_path), timeout_s)
+
+
+def start_world(job: dict, n: int, tmp_path) -> tuple:
+    """Start ``job`` on ``n`` ranks and return at once (``finish_world``
+    waits), so that the test process can work meanwhile."""
     tmp = str(tmp_path)
     job_path = os.path.join(tmp, "job.pkl")
     with open(job_path, "wb") as f:
@@ -45,18 +53,33 @@ def run_world(job: dict, n: int, tmp_path, timeout_s: float = 120.0) -> list:
                 [sys.executable, os.path.abspath(__file__), job_path, str(r), str(n), rdv,
                  os.path.join(tmp, f"out{r}.pkl")], stdout=log, stderr=subprocess.STDOUT,
                 env=env, cwd=ROOT))
-        deadline = time.monotonic() + timeout_s
+    except BaseException:
+        _kill(procs, logs)
+        raise
+    return tmp, n, procs, logs, time.monotonic()
+
+
+def _kill(procs, logs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for log in logs:
+        log.close()
+
+
+def finish_world(started: tuple, timeout_s: float = 120.0) -> list:
+    """Wait for a ``start_world`` (``timeout_s`` from its start), kill what
+    is left, and return each rank's result in rank order."""
+    tmp, n, procs, logs, t0 = started
+    try:
+        deadline = t0 + timeout_s
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 0.1))
     except subprocess.TimeoutExpired:
         pass
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log in logs:
-            log.close()
+        _kill(procs, logs)
     bad = [r for r, p in enumerate(procs) if p.returncode != 0]
     if bad:
         tails = []
@@ -146,16 +169,23 @@ def main(argv) -> int:
         for case in job["cases"]:
             shape = tuple(case["mesh"])
             if shape not in meshes:
-                data, fsdp, model = shape
-                meshes[shape] = make_mesh(MeshConfig(data=data, fsdp=fsdp, model=model), "cpu")
+                # (data, fsdp, model), or (data, fsdp, context, model).
+                data, fsdp, context, model = shape if len(shape) == 4 else (*shape[:2], 1,
+                                                                             shape[2])
+                meshes[shape] = make_mesh(MeshConfig(data=data, fsdp=fsdp, context=context,
+                                                     model=model), "cpu")
             mesh = meshes[shape]
             t0 = time.perf_counter()
             if job["kind"] == "generate":
                 results[case["name"]] = _generate_case(job, case, mesh)
-            else:
+            elif job["kind"] == "serve":
                 from torch_mesh_serve import serve_case
 
                 results[case["name"]] = serve_case(job, case, mesh, _port_tree, _cfg)
+            else:
+                import torch_mesh_train
+
+                results[case["name"]] = torch_mesh_train.run_case(job, case, mesh)
             print(f"{case['name']}: {time.perf_counter() - t0:.2f}s", flush=True)
     finally:
         with open(out_path, "wb") as f:
