@@ -271,7 +271,13 @@ Phases, each printed on its own line:
                    card (gloo) against the same world on the CPU over a tiny
                    bf16 checkpoint with ``--quant int4 --kv_cache int8`` at
                    meshes model 2 and fsdp 2: equal chains, prefill logits
-                   within MESH_TINY_LOGIT_ATOL, K4 launched on every shard;
+                   within MESH_TINY_LOGIT_ATOL, K4 launched on every shard,
+                   and on the model-2 mesh the batcher's features
+                   (``tiny_mesh_serve_numbers``): preemption spilled and
+                   dropped with a planted clock jump on rank 1, a prefill
+                   role on the mesh spliced into a one-device decode
+                   batcher, and ``make_engine``'s ``--fleet 2`` with a
+                   replica killed mid-decode, equal on card and CPU;
                    beside them one rank over NCCL (world-group collectives
                    on the card); the worlds run at once, beside the other
                    tiny phases; ``tiny_train_mesh_card_vs_cpu``: a world of
@@ -295,7 +301,17 @@ Phases, each printed on its own line:
                    serving ``telemetry_requests()``' six over HTTP, rank 1
                    following; chains held to the telemetry oracle, the pool
                    clean, TTFTs, K1 per rank, the follower's steps equal
-                   rank 0's). The ``--no_telemetry`` server of
+                   rank 0's, no agreed decision). ``serve_mesh_preempt_7b``
+                   (``cli/serve --mesh_model 2 --fleet 2``, each replica
+                   ``serve_preempt_7b``'s spill arm with the headroom
+                   guard and a far deadline armed; the two sessions of its
+                   three requests on different replicas; the six chains
+                   held to its oracle, spills and restores on both
+                   replicas and ranks, the followers' steps, pools clean,
+                   K1 per rank and replica, peak memory, collectives and
+                   agreements a decode step) starts at the end of phase 7
+                   and runs beside phase 8 and the tiny phases when the
+                   card has the room. The ``--no_telemetry`` server of
                    ``serve_telemetry_7b``, the spill-without-lanes arm of
                    ``serve_preempt_7b``, the by-waves arm of
                    ``serve_fleet_chaos_7b``, the paged lookup and adaptive
@@ -1793,7 +1809,7 @@ def serve_preempt_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, coun
     Chains are held to the oracle's by ``chain_rule``. Fails if an arm's
     pool is not clean after the drain, if the spill arm does not spill
     and restore, or if the drop arm spills. Returns ({arm: K1 launches},
-    the K1 checks)."""
+    the K1 checks, the oracle's chains)."""
     from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
     from eventgpt_tpu_torch.serve import _bucket
 
@@ -1879,7 +1895,7 @@ def serve_preempt_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, coun
                                                      / max(inter["admission_s"], 1e-9))},
         "slo_stats": {a: r["slo_stats"] for a, r in runs.items()},
         "oracle": oracle, "k1_launches": k1, "nvidia_smi": smi})
-    return k1, flash_checks
+    return k1, flash_checks, want
 
 
 def serve_handoff_7b(eventchat, llama, params, cfg, tokenizer, ids, pixels, counted,
@@ -5629,6 +5645,15 @@ MESH_BACKEND = "gloo"
 MESH_TINY_LOGIT_ATOL = 5e-2
 MESH_TINY_NEW = 16
 MESH_TINY_MESHES = (("model2", (1, 1, 2)), ("fsdp2", (1, 2, 1)))
+# The batcher's features on the tiny mesh: preemption (spill, drop) with a
+# planted clock jump on rank 1, roles, a fleet with a replica killed. Chains
+# of MESH_TINY_NEW tokens, as the generate cases': at 40 the drop arm's
+# re-decoded row left the CPU's chain at token 25 (NVIDIA H100 80GB HBM3 at
+# 700 W), a bf16 tie between the card's kernels and the CPU's plain
+# versions (PERF.md).
+MESH_TINY_SERVE = {"mesh": "model2", "max_len": 1024, "batch": MESH_TINY_NEW,
+                   "inter": MESH_TINY_NEW // 2, "roles": MESH_TINY_NEW, "fleet": MESH_TINY_NEW,
+                   "steps_before": 2}
 
 MESH_NCCL_RANK = r"""
 # One rank of chip_smoke.py's NCCL check on the card: OUT.
@@ -5677,6 +5702,7 @@ rank, world = dist.get_rank(), dist.get_world_size()
 res = {"rank": rank, "world": world, "backend": dist.get_backend()}
 pixels = np.stack([np.load(p) for p in job["pixels"]])
 ids = job["ids"]
+kept = {}
 for name, shape in job["meshes"]:
     mesh = make_mesh(MeshConfig(data=shape[0], fsdp=shape[1], model=shape[2]), device)
     args = argparse.Namespace(model_path=ckpt, use_event_qformer=False,
@@ -5703,6 +5729,101 @@ for name, shape in job["meshes"]:
                  "logits": logits.float().cpu().tolist(), "collectives": dict(COLLECTIVES),
                  "heads": head_shard(cfg.llama, mesh).heads,
                  "kv_heads": head_shard(cfg.llama, mesh).kv_heads}
+    kept[name] = (mesh, cfg, params, tok, args)
+
+# The batcher's features on the model-2 mesh (ROADMAP item 8c).
+import time
+
+from eventgpt_tpu_torch.cli import serve as cli_serve
+from eventgpt_tpu_torch.parallel.mesh import AGREEMENTS
+from eventgpt_tpu_torch.serve import ContinuousBatcher
+from eventgpt_tpu_torch.workload import SLO
+
+sv = job["serve"]
+mesh, cfg, params, tok, args = kept[sv["mesh"]]
+_reset_kernel_launches()
+AGREEMENTS.update(count=0, seconds=0.0)
+
+
+def batcher(tree, m, **kw):
+    return ContinuousBatcher(tree, cfg, device=device, mesh=m, eos_token_id=None, max_batch=2,
+                             max_len=sv["max_len"], chunk=4, kv_quant=True, kv_layout="paged",
+                             **kw)
+
+
+def drained(b):
+    while b.queue or any(r is not None for r in b.rows):
+        b.step()
+    b._drain()
+
+
+probe = batcher(params, mesh)
+need = []
+for i, n in ((0, sv["batch"]), (1, sv["inter"])):
+    probe.submit(ids[i], pixels[i], n)
+    need.append(probe._blocks_needed(probe.queue[-1].prompt_len, n))
+del probe
+for arm, spill_mb in (("spill", 64), ("drop", 0)):
+    # The batch row holds its reservation; the interactive one needs more
+    # than the rest: it preempts. Both carry a far deadline, and after the
+    # submits rank 1's clock jumps 10^4 s: rank 0's clock governs.
+    b = batcher(params, mesh, preempt=True, kv_pool_blocks=need[0] + need[1],
+                spill_capacity_mb=spill_mb)
+    b._recompute_flops_per_s = 1.0
+    rb = b.submit(ids[0], pixels[0], sv["batch"], deadline_s=3600.0,
+                  slo=SLO(name="batch", latency_s=3600.0))
+    for _ in range(sv["steps_before"]):
+        b.step()
+    ri = b.submit(ids[1], pixels[1], sv["inter"], deadline_s=3600.0,
+                  slo=SLO(name="interactive", ttft_s=3600.0))
+    if rank == 1:
+        b._clock = lambda: time.perf_counter() + 1e4
+    drained(b)
+    res["serve_" + arm] = {"chains": [b.finished[rb], b.finished[ri]],
+                           "statuses": [b.finish_status[rb], b.finish_status[ri]],
+                           "pool": b.pool_stats(), "spill": b.spill_stats()}
+# Roles: prefill on the mesh, each whole record spliced into a one-device
+# decode batcher over the whole tree.
+_, whole = prepare_model(*load_model(ckpt, "bfloat16", "flash", "byte", device)[:2], tok, args)
+pre, dec = batcher(params, mesh, role="prefill"), batcher(whole, None, role="decode")
+rids = [pre.submit(ids[i], pixels[i], sv["roles"]) for i in range(2)]
+to_dec = {}
+while pre.queue or any(r is not None for r in pre.rows):
+    pre.step()
+    for h in pre.pop_handoffs():
+        to_dec[h["rid"]] = dec.import_handoff(h["input_ids"], h["max_new_tokens"], h["rec"],
+                                              tokens=h["tokens"], prompt_len=h["prompt_len"])
+got = dec.run_until_drained()
+res["serve_roles"] = {"chains": [got[to_dec[r]] for r in rids],
+                      "handoff_bytes": pre.handoffs_gathered_bytes}
+# cli/serve's engine with --fleet 2 on the mesh: replica 0 killed mid-decode.
+fargs = cli_serve.build_parser().parse_args(
+    ["--model_path", ckpt, "--tokenizer_path", "byte", "--device", device, "--max_batch", "2",
+     "--max_len", str(sv["max_len"]), "--chunk", "4", "--kv_layout", "paged", "--kv_cache",
+     "int8", "--fleet", "2", "--preempt", "--spill_capacity_mb", "64", "--no_telemetry",
+     "--temperature", "0"])
+engine = cli_serve.make_engine(fargs, params, cfg, tok, device, mesh=mesh,
+                               channel=cli_serve.MeshChannel())
+if rank != 0:
+    res["serve_fleet"] = {"follower_steps": engine.follow(),
+                          "follower_kills": [f.kills for f in engine.followers]}
+else:
+    try:
+        frids = [engine.submit_ids(ids[i], pixels[i], sv["fleet"]) for i in range(2)]
+        victim = engine.replicas[0].engine.batcher
+        t_end = time.monotonic() + 120
+        while not any(r is not None and r.tokens for r in victim.rows) \
+                and time.monotonic() < t_end:
+            time.sleep(0.002)
+        moved = engine.kill_replica(0)
+        res["serve_fleet"] = {"chains": [engine.result(f, timeout=300) for f in frids],
+                              "statuses": [engine.status(f) for f in frids], "moved": moved}
+    finally:
+        engine.shutdown()
+    # After the shutdown: a loop may take a trailing step after its last answer.
+    res["serve_fleet"]["leader_steps"] = [r.engine.batcher.steps for r in engine.replicas]
+res["serve_launches"] = kernel_launches()
+res["serve_agreements"] = dict(AGREEMENTS)
 with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
     json.dump(res, f)
 dist.destroy_process_group()
@@ -5805,7 +5926,8 @@ def tiny_mesh_card_vs_cpu(work: str) -> dict:
         pix.append(os.path.join(root, f"pixels_{i}.npy"))
         np.save(pix[-1], px)
     job = {"ids": [tokenize_with_event(prepare_event_prompt(QUERIES[i]), tok) for i in range(2)],
-           "pixels": pix, "new": MESH_TINY_NEW, "meshes": MESH_TINY_MESHES}
+           "pixels": pix, "new": MESH_TINY_NEW, "meshes": MESH_TINY_MESHES,
+           "serve": MESH_TINY_SERVE}
     script = os.path.join(root, "rank.py")
     with open(script, "w") as f:
         f.write(MESH_TINY_RANK)
@@ -5870,6 +5992,7 @@ def tiny_mesh_card_vs_cpu(work: str) -> dict:
             if not (chains[0] == chains[1] and out[mesh_name]["ranks_agree"]
                     and diff <= MESH_TINY_LOGIT_ATOL and all(k1)):
                 problems.append(f"{mesh_name}: {out[mesh_name]}")
+        out["serve"] = tiny_mesh_serve_numbers(card, cpu, problems)
         one = runs["nccl_one_rank"]["ranks"][0]
         out["nccl_one_rank"] = {"backend": one["backend"],
                                 "world_collectives_ok": one["world_collectives_ok"]}
@@ -5881,10 +6004,69 @@ def tiny_mesh_card_vs_cpu(work: str) -> dict:
     return out
 
 
+def tiny_mesh_serve_numbers(card: list, cpu: list, problems: list) -> dict:
+    """``tiny_mesh_card_vs_cpu``'s batcher cases, card world against CPU
+    world: each case's chains equal on every rank of both, preemption
+    spilled (restores equal to spills) and dropped, the pools clean, the
+    fleet's follower at rank 0's steps per replica with the kill seen, K4
+    on each card rank's shards, and decisions agreed."""
+    out = {}
+    for case in ("serve_spill", "serve_drop", "serve_roles"):
+        chains = [[r[case]["chains"] for r in w] for w in (card, cpu)]
+        same = all(c == chains[0][0] for w in chains for c in w)
+        entry = {"chains_equal_card_cpu_and_ranks": same,
+                 "tokens": [len(c) for c in chains[0][0]]}
+        if not same:
+            # Where each rank's chains leave the card's rank 0's.
+            ref = chains[0][0]
+            entry["first_divergence"] = [
+                [next((k for k, (a, b) in enumerate(zip(x + [None], y + [None])) if a != b),
+                      None) for x, y in zip(ref, c)] for w in chains for c in w]
+            entry["chains"] = [c for w in chains for c in w]
+        if case != "serve_roles":
+            pools = [r[case]["pool"] for w in (card, cpu) for r in w]
+            counts = [(p["preemptions"], p["spills"], p["restores"]) for p in pools]
+            clean = all(p["spilled_runs"] == 0 and p["free_blocks"] + p["used_blocks"]
+                        == p["usable_blocks"] for p in pools) and all(
+                r[case]["spill"]["records"] == 0 for w in (card, cpu) for r in w)
+            spilled = counts[0][1] >= 1 and counts[0][2] == counts[0][1]
+            ok = (len(set(counts)) == 1 and counts[0][0] >= 1 and clean
+                  and (spilled if case == "serve_spill" else counts[0][1] == 0)
+                  and all(r[case]["statuses"] == ["ok", "ok"] for w in (card, cpu) for r in w))
+            entry.update({"preemptions_spills_restores": counts[0], "clean": clean})
+            same = same and ok
+        else:
+            entry["handoff_bytes"] = card[0][case]["handoff_bytes"]
+        out[case] = entry
+        if not same:
+            problems.append(f"{case}: {entry}")
+    lead = [w[0]["serve_fleet"] for w in (card, cpu)]
+    follow = [w[1]["serve_fleet"] for w in (card, cpu)]
+    fleet_ok = (lead[0]["chains"] == lead[1]["chains"]
+                and all(x["statuses"] == ["ok", "ok"] for x in lead)
+                and all(f["follower_steps"] == x["leader_steps"] for f, x in zip(follow, lead))
+                and all(f["follower_kills"] == [1, 0] for f in follow))
+    out["serve_fleet"] = {"chains_equal": lead[0]["chains"] == lead[1]["chains"],
+                          "moved": lead[0]["moved"], "steps_by_replica": lead[0]["leader_steps"],
+                          "follower_steps_by_replica": follow[0]["follower_steps"]}
+    if not fleet_ok:
+        problems.append(f"serve_fleet: {lead} {follow}")
+    k4 = [r["serve_launches"]["launches"]["int4_matmul.cu"] for r in card]
+    agreed = [r["serve_agreements"]["count"] for r in card]
+    out["k4_launches_by_card_rank"] = k4
+    out["k1_launches_by_card_rank"] = [r["serve_launches"]["launches"]["flash_attention.cu"]
+                                       for r in card]
+    out["agreements_by_card_rank"] = agreed
+    if not all(k4) or not all(agreed):
+        problems.append(f"serve: K4 by rank {k4}, agreements by rank {agreed}")
+    return out
+
+
 def mesh_card_numbers(report: dict) -> dict:
     """The per-rank numbers of a mesh phase worth a line."""
     keep = ("rank", "backend", "device", "heads", "launches", "peak_mem_bytes", "load_s",
             "encode_s", "prefill_s", "decode_s", "decode_steps", "steps", "collectives",
+            "agreements",
             "decode_collectives_per_step", "decode_collective_s_per_step")
     return {k: report[k] for k in keep if k in report}
 
@@ -5948,15 +6130,19 @@ class MeshServer(ServerProcess):
     alone (it drains, stops the follower and exits), and the launcher then
     exits with the ranks' code."""
 
-    def __init__(self, argv, log_path: str):
+    def __init__(self, argv, log_path: str, threads: int = 0):
         self._launcher = torchrun(MESH_RANKS)
+        self._threads = threads
         super().__init__(argv, log_path)
 
     def _command(self, argv) -> list:
         return self._launcher + ["-m", "eventgpt_tpu_torch.cli.serve", *argv, "--port", "0"]
 
     def _env(self) -> dict:
-        return mesh_env()
+        env = mesh_env()
+        if self._threads:
+            env["OMP_NUM_THREADS"] = str(self._threads)
+        return env
 
     def _rank0_pid(self):
         """The launcher's child with ``RANK=0`` in its environment."""
@@ -6054,6 +6240,10 @@ def serve_mesh_7b(eventchat, llama, params, cfg, tokenizer, requests, oracle_cha
             or k1[0] % n_layers or not k1[0]:
         problems.append(f"steps {lead['steps']} vs {[f['steps'] for f in follower]}, "
                         f"K1 by rank {k1}")
+    # No feature that agrees a decision is armed: no agreement runs.
+    agreed = [r.get("agreements", {}).get("count") for r in [lead] + follower]
+    if any(agreed):
+        problems.append(f"agreements by rank {agreed}, want none")
     if problems:
         raise AssertionError(f"serve_mesh_7b: {problems}")
     seen = dict(ties or {})
@@ -6074,12 +6264,260 @@ def serve_mesh_7b(eventchat, llama, params, cfg, tokenizer, requests, oracle_cha
             "vs_oracle": held, "ttft_s": ttft, "pool_after_drain": {**pool,
                                                                     "prefix_blocks_held":
                                                                         held_blocks},
-            "k1_launches_by_rank": k1, "steps_by_rank": [lead["steps"]]
+            "k1_launches_by_rank": k1, "agreements_by_rank": agreed,
+            "steps_by_rank": [lead["steps"]]
             + [f["steps"] for f in follower],
             "decode_steps": stats["decode_steps"], "dispatches": stats["dispatches"],
             "ranks": [mesh_card_numbers(lead)] + [mesh_card_numbers(f) for f in follower],
             "nvidia_smi": smi}
 
+
+
+# serve_mesh_preempt_7b: serve_preempt_7b's spill arm on a serving mesh of two
+# ranks, as a fleet of two replicas (each on process groups of its own), with
+# the headroom guard armed where it defers nothing (1 MiB under the card) and
+# a deadline far beyond the run. The router places a request on the replica
+# with the fewest queued and active rows while fleet.route trips at every
+# submit (the key's pin then gives way): posted one at a time, the two
+# sessions of the same three requests land on different replicas. A fleet
+# admits each HTTP arrival at once (serve_preempt_7b queues its batch pair
+# as one wave), and two settings keep the phase's pressure: without lanes
+# (serve_preempt_7b once ran a spill arm without them), else the
+# second batch request rides a lane behind the first and the interactive
+# head waits behind that lane until the first has finished, and without the
+# prefix cache, else the later requests alias the first one's entry and the
+# reference's rule drops a victim whose run another reader holds instead of
+# spilling it (PERF.md measured both).
+MESH_PREEMPT_FLAGS = [*PREEMPT_FLAGS, "--kv_pool_blocks", str(PREEMPT_POOL_BLOCKS), "--preempt",
+                      "--spill_capacity_mb", "1024", "--prefill_budget", "0",
+                      "--no_prefix_cache", "--mem_headroom_mb", "1",
+                      "--default_deadline_s", "3600", "--fleet", "2",
+                      "--faults", "fleet.route:every=1"]
+# The ranks' CPU threads: they drive the card beside the tiny phases' CPU
+# worlds, and only rank 0 preprocesses (six requests).
+MESH_PREEMPT_THREADS = 2
+MESH_PREEMPT_SESSIONS = 2
+# The card room the phase takes beside phase 8's training (two ranks of half
+# a 7B tree, the vision side, two replicas' pools and a 3-row prefill each).
+MESH_PREEMPT_ROOM = 2 * 13e9
+# What phase 8 adds to this process's tree at its peak: remat's dots policy
+# held 11.29 GB over the tree on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md),
+# with margin.
+TRAIN_ROOM_OVER_TREE = 20e9
+
+
+def serve_mesh_preempt_7b_run(ckpt: str, work: str) -> dict:
+    """``serve_mesh_preempt_7b``'s server and traffic; holds nothing of this
+    process's tree, so that it can run beside other phases. ``cli/serve``
+    over ``checkpoint_7b`` under the launcher, ``--mesh_model 2`` over
+    gloo, ``MESH_PREEMPT_FLAGS``: ``serve_preempt_7b``'s two batch requests
+    and then its interactive one, each posted for each session in turn
+    (each post waits for its routing). Returns the answers, /stats, each
+    request's timeline on its replica and each rank's and replica's report
+    (its ``[mesh-leader]`` or ``[mesh-follower]`` line)."""
+    import threading
+
+    budgets = (PREEMPT_BATCH_BUDGET, PREEMPT_BATCH_BUDGET, PREEMPT_INTER_BUDGET)
+    classes = ("batch", "batch", "interactive")
+    payloads = [{"query": QUERIES[i], "event_path": f"events_{i}.npy", "max_new_tokens": n,
+                 "slo_class": c, "return_ids": True}
+                for i, (n, c) in enumerate(zip(budgets, classes))]
+    argv = ["--model_path", ckpt, "--tokenizer_path", "byte", "--event_root", work,
+            *MESH_PREEMPT_FLAGS, "--mesh_model", str(MESH_RANKS), "--dist_backend", MESH_BACKEND]
+    log = os.path.join(work, "serve_mesh_preempt.log")
+    t0 = time.perf_counter()
+    srv = MeshServer(argv, log, threads=MESH_PREEMPT_THREADS)
+    out = {"argv": ["torch.distributed.run --nproc_per_node 2 -m eventgpt_tpu_torch.cli.serve",
+                    *argv[4:]], "boot_s": srv.boot_s}
+    results, frids, threads = {}, {}, []
+
+    def post(session, i):
+        """Post one request and wait until the fleet has routed it (its
+        fleet rid is then the count before it)."""
+        n = srv.get("/stats")["requests"]
+        frids[session, i] = n
+
+        def send():
+            results[session, i] = srv.request("POST", "/v1/generate", payloads[i])
+
+        th = threading.Thread(target=send)
+        th.start()
+        threads.append(th)
+        wait_for(lambda: time.sleep(0.01) or srv.get("/stats")["requests"] > n
+                 or not th.is_alive(), f"serve_mesh_preempt_7b: request {i} routed")
+
+    def legs(frid):
+        """The (replica, its journey) assignments of one fleet request."""
+        code, rec = srv.request("GET", f"/request?rid={frid}")
+        return [(a["replica"], a["journey"] or {}) for a in rec.get("assignments", [])] \
+            if code == 200 else []
+
+    try:
+        t1 = time.perf_counter()
+        # A submit waits for its replica's step to end (the engine lock is
+        # held through a step, a whole 32-step segment on the mesh), and the
+        # router's lock is held across it: the second batch request of a
+        # session lands after its replica's first harvest and is admitted
+        # at the next boundary, and the interactive one lands after that
+        # boundary, while the pair decodes.
+        for i in range(3):
+            for session in range(MESH_PREEMPT_SESSIONS):
+                post(session, i)
+        for th in threads:
+            th.join(timeout=WAIT_S)
+        out["wall_s"] = time.perf_counter() - t1
+        out["stats"] = srv.get("/stats")
+        out["replicas"] = {f"{k[0]},{k[1]}": [r for r, _ in legs(f)] for k, f in frids.items()}
+        # Each request's timeline on its replica: event kinds and seconds
+        # from its submit there.
+        out["timelines"] = {
+            f"{k[0]},{k[1]}": [(r, ev.get("kind"), ev.get("t_s")) for r, j in legs(f)
+                               for ev in j.get("events", [])]
+            for k, f in frids.items()}
+    finally:
+        out["exit_code"] = srv.stop()
+        out["phase_s"] = time.perf_counter() - t0
+    with open(log) as f:
+        text = f.read()
+    out["results"] = {f"{k[0]},{k[1]}": v for k, v in results.items()}
+    out["leaders"] = tagged_lines(text, "[mesh-leader] ")
+    out["followers"] = tagged_lines(text, "[mesh-follower] ")
+    out["log_tail"] = text[-3000:]
+    return out
+
+
+def hold_serve_mesh_preempt_7b(run: dict, eventchat, llama, params, cfg, tokenizer, ids, pixels,
+                               want, n_layers: int, smi: str) -> dict:
+    """``serve_mesh_preempt_7b``'s bars: every answer ok, each session's
+    three chains held to ``serve_preempt_7b``'s oracle by ``chain_rule``;
+    on each replica spills >= 1 and restores equal to spills on both ranks,
+    the follower's steps equal to rank 0's, the pool clean after the drain
+    with no spilled run and no record; K1 on each rank and replica a
+    nonzero multiple of n_layers. Also each rank's peak memory, the
+    collectives and the agreed decisions a decode step, and the guard's
+    deferrals."""
+    problems = []
+    res = run.get("results", {})
+    keys = [(s, i) for s in range(MESH_PREEMPT_SESSIONS) for i in range(3)]
+    bad = {k: res.get(f"{k[0]},{k[1]}") for k in keys
+           if res.get(f"{k[0]},{k[1]}") is None or res[f"{k[0]},{k[1]}"][0] != 200
+           or res[f"{k[0]},{k[1]}"][1].get("status") != "ok"}
+    if run["exit_code"] != 0 or bad:
+        raise AssertionError(f"serve_mesh_preempt_7b: exit {run['exit_code']}, answers {bad}: "
+                             f"{run['log_tail']}")
+    reqs = [(ids[i], pixels[i], n) for i, n in
+            enumerate((PREEMPT_BATCH_BUDGET, PREEMPT_BATCH_BUDGET, PREEMPT_INTER_BUDGET))]
+    held, seen = [], {}
+    for s in range(MESH_PREEMPT_SESSIONS):
+        chains = [res[f"{s},{i}"][1]["ids"] for i in range(3)]
+        key = json.dumps(chains)
+        if key not in seen:  # a session with another's chains replays nothing again
+            seen[key] = hold_to_oracle(f"serve_mesh_preempt_7b session {s}", eventchat, llama,
+                                       params, cfg, tokenizer, reqs, want, chains,
+                                       PREEMPT_BATCH_BUDGET)
+        held.append(seen[key])
+    lead = sorted(run["leaders"], key=lambda r: r["replica"])
+    follow = sorted(run["followers"], key=lambda r: r["replica"])
+    if len(lead) != 2 or len(follow) != 2 * (MESH_RANKS - 1):
+        raise AssertionError(f"serve_mesh_preempt_7b: {len(lead)} leader and {len(follow)} "
+                             f"follower reports: {run['log_tail']}")
+    per_replica = []
+    for rl, rf in zip(lead, follow):
+        pl, pf = rl["pool"], rf["pool"]
+        counts = [(p["preemptions"], p["spills"], p["restores"]) for p in (pl, pf)]
+        held_blocks = run["stats"]["fleet"]["per_replica"][rl["replica"]].get(
+            "prefix_cache_blocks_held", 0)
+        clean = all(p["free_blocks"] + p["used_blocks"] == p["usable_blocks"]
+                    and p["spilled_runs"] == 0 for p in (pl, pf)) and all(
+            r["spill"]["records"] == 0 for r in (rl, rf))
+        k1 = [rl["flash_launches_replica"], rf["flash_launches_replica"]]
+        entry = {"replica": rl["replica"], "steps_by_rank": [rl["steps"], rf["steps"]],
+                 "preemptions_spills_restores_by_rank": counts, "k1_by_rank": k1,
+                 "deferrals_by_rank": [p["deferrals"] for p in (pl, pf)],
+                 "mem_guard_deferrals_by_rank": [rl["mem_deferrals"], rf["mem_deferrals"]],
+                 "decode_steps_run": rl["decode_steps_run"], "clean": clean,
+                 "prefix_blocks_held": held_blocks,
+                 "free_blocks_by_rank": [pl["free_blocks"], pf["free_blocks"]]}
+        per_replica.append(entry)
+        if rl["steps"] != rf["steps"] or counts[0] != counts[1] or counts[0][1] < 1 \
+                or counts[0][2] != counts[0][1] or not clean \
+                or any(k % n_layers or not k for k in k1):
+            problems.append(entry)
+    if problems:
+        emit("serve_mesh_preempt_7b", {"problems": problems, "per_replica": per_replica,
+                                       "timelines": run.get("timelines"),
+                                       "replicas": run.get("replicas"), "wall_s": run["wall_s"],
+                                       "boot_s": run["boot_s"], "nvidia_smi": smi})
+        raise AssertionError(f"serve_mesh_preempt_7b: {problems}")
+    ranks = []
+    for rank_reports in ([lead[0]], [follow[0]]):
+        r = rank_reports[0]
+        steps = sum(x["decode_steps_run"] for x in (lead if r in lead else follow))
+        ranks.append({"rank": r["rank"], "peak_mem_bytes": r["peak_mem_bytes"],
+                      "backend": r["backend"], "collectives": r["collectives"],
+                      "agreements": r["agreements"], "decode_steps_run_both_replicas": steps,
+                      "collectives_per_decode_step": r["collectives"]["count"] / max(steps, 1),
+                      "agreements_per_decode_step": r["agreements"]["count"] / max(steps, 1),
+                      "launches": r["launches"]})
+    return {"argv": run["argv"], "config": "EventGPT-7B bf16 from checkpoint_7b, --mesh_model "
+                                           f"2 over {MESH_BACKEND}, --fleet 2, each replica "
+                                           "serve_preempt_7b's spill arm without lanes or the "
+                                           "prefix cache (3 rows, 40 blocks, paged int8 KV, "
+                                           "chunk 32), "
+                                           "the guard at 1 MiB of headroom, deadlines 3600 s; "
+                                           "streams 100, 101 batch (128 tokens), 102 "
+                                           "interactive (16), each posted for two sessions in "
+                                           "turn",
+            "boot_s": run["boot_s"], "wall_s": run["wall_s"], "phase_s": run["phase_s"],
+            "vs_oracle": held, "per_replica": per_replica, "ranks": ranks,
+            "ttft_s": {k: v[1].get("ttft_s") for k, v in res.items()},
+            "latency_s": {k: v[1].get("latency_s") for k, v in res.items()},
+            "route_faults": run["stats"]["fleet"].get("route_faults"),
+            "nvidia_smi": smi}
+
+
+def start_mesh_preempt(ckpt: str, work: str) -> dict:
+    """Start ``serve_mesh_preempt_7b_run`` on a thread of its own. ``overlap``
+    says whether the card has MESH_PREEMPT_ROOM for its ranks beside what
+    phase 8 adds to this process's tree (TRAIN_ROOM_OVER_TREE)."""
+    import gc
+    import threading
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    box = {"free_bytes": free, "total_bytes": total,
+           "overlap": free >= MESH_PREEMPT_ROOM + TRAIN_ROOM_OVER_TREE}
+
+    def run():
+        try:
+            box["run"] = serve_mesh_preempt_7b_run(ckpt, work)
+        except BaseException as e:  # noqa: BLE001 (raised on the main thread)
+            box["error"] = e
+
+    box["thread"] = threading.Thread(target=run)
+    box["thread"].start()
+    return box
+
+
+def finish_mesh_preempt(box: dict, eventchat, llama, params, cfg, tokenizer, ids, pixels, want,
+                        n_layers: int, smi: str) -> dict:
+    """Wait for ``start_mesh_preempt``'s thread, hold its run to its bars and
+    emit ``serve_mesh_preempt_7b``; returns its K1 launches by replica and
+    rank."""
+    box["thread"].join()
+    if "error" in box:
+        raise box["error"]
+    out = hold_serve_mesh_preempt_7b(box["run"], eventchat, llama, params, cfg, tokenizer, ids,
+                                     pixels, want, n_layers, smi)
+    out["beside"] = ("train_*_7b, medusa_train_7b and the tiny phases" if box["overlap"]
+                     else "nothing (the card lacked the room)")
+    out["card_free_bytes_at_start"] = box["free_bytes"]
+    emit("serve_mesh_preempt_7b", out)
+    return {f"serve_mesh_preempt_7b_replica{e['replica']}_rank{r}": k
+            for e in out["per_replica"] for r, k in enumerate(e["k1_by_rank"])}
 
 
 # The training mesh. tiny_train_mesh_card_vs_cpu: a world of 2 on
@@ -6589,6 +7027,7 @@ def main() -> int:
         raise AssertionError("the 7B preset must prefill through the flash kernel")
     n_layers = cfg.llama.num_layers
     work = tempfile.mkdtemp(prefix="chip_smoke-", dir=ROOT)
+    mesh_preempt = None
     try:
         tokenizer, ids, pixels, lengths, host = prepare_requests(cfg, work)
         t0 = time.perf_counter()
@@ -6756,8 +7195,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         # Block-tier preemption with the host spill store, and the
         # prefill-to-decode handoff between two batchers of this process.
-        preempt_k1, preempt_flash = serve_preempt_7b(eventchat, llama, params, cfg, tokenizer,
-                                                     ids, pixels, counted, n_layers, smi)
+        preempt_k1, preempt_flash, preempt_want = serve_preempt_7b(
+            eventchat, llama, params, cfg, tokenizer, ids, pixels, counted, n_layers, smi)
         flash_checks += tuple(preempt_flash)
         handoff_k1, handoff_plain = serve_handoff_7b(eventchat, llama, params, cfg, tokenizer,
                                                      ids, pixels, counted, n_layers, smi)
@@ -6979,8 +7418,16 @@ def main() -> int:
                                               pixels, requests, ckpt, fleet_ref, counted,
                                               n_layers, smi)
             del fleet_ref
+            # Preemption, the guard and deadlines on a serving mesh as a
+            # fleet: its ranks boot from this checkpoint and serve while
+            # phase 8 trains and the tiny phases run, when the card has
+            # room beside them; else it runs alone here.
+            mesh_preempt = start_mesh_preempt(ckpt, work)
+            if not mesh_preempt["overlap"]:
+                mesh_preempt["thread"].join()
         finally:
-            shutil.rmtree(ckpt, ignore_errors=True)
+            if mesh_preempt is None:
+                shutil.rmtree(ckpt, ignore_errors=True)
             shutil.rmtree(os.path.join(work, "qformer_7b"), ignore_errors=True)
 
         # 8. training at 7B width on the bf16 tree: K1's gradient at the
@@ -7005,7 +7452,11 @@ def main() -> int:
         emit("train_remat_7b", train_remat_7b(params, cfg, tokenizer, train_paths, work, smi))
         medusa_7b = medusa_train_7b(params, cfg, tokenizer, work, smi)
         emit("medusa_train_7b", medusa_7b)
-        del params
+        if not mesh_preempt["overlap"]:
+            mesh_preempt_k1 = finish_mesh_preempt(mesh_preempt, eventchat, llama, params, cfg,
+                                                  tokenizer, ids, pixels, preempt_want, n_layers,
+                                                  smi)
+            del params
         torch.cuda.empty_cache()
 
         # The tiny mesh phase's worlds are processes of their own: they run
@@ -7050,6 +7501,13 @@ def main() -> int:
         emit("train_tiny_card_vs_cpu", train_tiny_card_vs_cpu(work, train_paths))
         emit("tiny_medusa_card_vs_cpu", tiny_medusa_card_vs_cpu())
         emit("medusa_acceptance_tiny", medusa_acceptance_tiny(work))
+        if mesh_preempt["overlap"]:
+            mesh_preempt_k1 = finish_mesh_preempt(mesh_preempt, eventchat, llama, params, cfg,
+                                                  tokenizer, ids, pixels, preempt_want, n_layers,
+                                                  smi)
+            del params
+            torch.cuda.empty_cache()
+        shutil.rmtree(ckpt, ignore_errors=True)
         tiny_mesh_thread.join()
         if "error" in tiny_mesh_box:
             raise tiny_mesh_box["error"]
@@ -7062,6 +7520,10 @@ def main() -> int:
         emit("tiny_train_mesh_card_vs_cpu", tiny_train_mesh)
         emit("multiproc_dryrun_card", {**tiny_train_mesh_box["multiproc"], "nvidia_smi": smi})
     finally:
+        if mesh_preempt is not None:
+            # Its waits are bounded and it stops its server: no rank outlives
+            # the script.
+            mesh_preempt["thread"].join()
         shutil.rmtree(work, ignore_errors=True)
 
     # 8. the kernel table, the card, the result. K4's numbers are one 7B
@@ -7124,6 +7586,7 @@ def main() -> int:
                                 for r in mesh_runs["eval_mesh_7b"]["ranks"]},
                              **{f"serve_mesh_7b_rank{r}": n for r, n in
                                 enumerate(mesh_runs["serve_mesh_7b"]["k1_launches_by_rank"])},
+                             **mesh_preempt_k1,
                              **{f"train_mesh_7b_rank{r['rank']}": r["k1_launches"]
                                 for r in mesh_train["ranks"]},
                              **{f"tiny_train_mesh_card_{name}_rank{r}": n

@@ -124,16 +124,20 @@ a device, each holding its shard of the tree. Rank 0 runs the HTTP front
 end and the engine over a ``MeshLeader``; the other ranks run a
 ``MeshFollower``. Before every batcher call that changes its state
 (submits with their pixels, cancels, ``set_prefix``, the fault path's
-``abort_rows`` and ``export_requests``, and each ``step``), the leader
-broadcasts the call over a ``gloo`` channel and the followers replay it,
-so every rank runs the same scheduler over the same rows and the same
-collectives. Shutdown stops the followers; an engine fault on the mesh
-ends rank 0's process, which fails the followers' collectives, so no rank
-hangs. With ``--proc_fleet`` the mesh flags stay with the coordinator and
-the workers get none, as in the JAX CLI. On a mesh, ``--fleet``,
-``--preempt``, ``--spill_capacity_mb``, ``--mem_headroom_mb``, a ``--role``
-and deadlines (``--default_deadline_s``, a payload's ``deadline_s``) raise
-``NotImplementedError`` (ROADMAP Queue 1 item 8c).
+``abort_rows`` and ``export_requests``, the handoff calls, and each
+``step``), the leader broadcasts the call over a ``gloo`` channel and the
+followers replay it, so every rank runs the same scheduler over the same
+rows and the same collectives; a submit carries rank 0's clock as its
+stamp. Shutdown stops the followers; an engine fault on the mesh ends rank
+0's process, which fails the followers' collectives, so no rank hangs.
+Every batcher feature runs on a mesh: preemption with the host spill, the
+headroom guard, deadlines and the roles take their decisions once over the
+mesh (``serve.py``). ``--fleet N`` builds N batchers on N meshes of the
+same ranks over process groups of their own (``Mesh.replica``), each with
+its own channel: rank 0 runs N leaders under one ``Fleet``, every other
+rank one follower thread a replica (``MeshFollowers``); a replica's kill
+and restart replay too. With ``--proc_fleet`` the mesh flags stay with the
+coordinator and the workers get none, as in the JAX CLI.
 
 Usage:
   python -m eventgpt_tpu_torch.cli.serve --model_path tiny-random \\
@@ -215,14 +219,17 @@ class MeshLeader:
     run here, so that the ranks' batchers stay equal and meet in the same
     collectives. A call that raises here raises on the followers alike."""
 
-    REPLAYED = ("submit", "cancel", "set_prefix", "abort_rows", "export_requests",
-                "reset_prefix_cache")
+    REPLAYED = ("cancel", "set_prefix", "abort_rows", "export_requests",
+                "reset_prefix_cache", "pop_handoffs", "import_handoff")
 
-    def __init__(self, batcher, channel: MeshChannel):
+    def __init__(self, batcher, channel: MeshChannel, replica: int = 0):
         object.__setattr__(self, "_batcher", batcher)
         object.__setattr__(self, "_channel", channel)
+        object.__setattr__(self, "replica", replica)
         object.__setattr__(self, "steps", 0)
         object.__setattr__(self, "_stopped", False)
+        # The threads that stepped it (K1's launches are counted by thread).
+        object.__setattr__(self, "_threads", set())
 
     def __getattr__(self, name):
         attr = getattr(self._batcher, name)
@@ -238,10 +245,24 @@ class MeshLeader:
     def __setattr__(self, name, value) -> None:
         setattr(self._batcher, name, value)
 
+    def submit(self, *args, **kwargs) -> int:
+        """A replayed submit stamped with rank 0's clock, so that every rank
+        measures its deadline from one instant."""
+        kwargs.setdefault("t_submit", self._batcher._clock())
+        self._channel.send(("call", "submit", args, kwargs))
+        return self._batcher.submit(*args, **kwargs)
+
     def step(self) -> None:
         self._channel.send(("step",))
         object.__setattr__(self, "steps", self.steps + 1)
+        self._threads.add(threading.get_ident())
         self._batcher.step()
+
+    def replay_alive(self, alive: bool) -> None:
+        """A fleet's kill (``alive`` False) or restart of this replica: the
+        followers' replica stops or resumes with it. An operator's kill is
+        not a fault and ends no process."""
+        self._channel.send(("alive", alive))
 
     def mesh_stats(self) -> Dict[str, Any]:
         """This rank's view of the mesh (``GET /stats``' ``mesh``): its shape,
@@ -250,9 +271,13 @@ class MeshLeader:
         return mesh_rank_stats(self._batcher.mesh, self.steps)
 
     def stop_followers(self) -> None:
+        """Stop the followers, and write this replica's ``[mesh-leader]``
+        report to stderr (the followers write theirs)."""
         if not self._stopped:
             object.__setattr__(self, "_stopped", True)
             self._channel.send(("stop",))
+            write_mesh_report("[mesh-leader] ", self._batcher, self.steps, self.replica,
+                              self._threads)
 
     def fatal(self, e: Exception) -> None:
         """A fault on the mesh: a follower may wait inside a collective of
@@ -273,11 +298,14 @@ class MeshFollower:
     raised on rank 0 too, and is only logged; a step that raises ends the
     process. SIGTERM and SIGINT (the launcher passes its own to every rank)
     are only logged: rank 0 drains and then stops the followers, and if
-    rank 0 dies, the channel's broadcast fails here."""
+    rank 0 dies, the channel's broadcast fails here. ``replica`` is its
+    index in a fleet; a killed replica takes no step until its restart."""
 
-    def __init__(self, batcher, channel: MeshChannel, rank: int):
-        self.batcher, self.channel, self.rank = batcher, channel, rank
+    def __init__(self, batcher, channel: MeshChannel, rank: int, replica: int = 0):
+        self.batcher, self.channel, self.rank, self.replica = batcher, channel, rank, replica
         self.steps = 0
+        self.alive = True
+        self.kills = 0
 
     def _ignore_signals(self) -> None:
         import signal
@@ -294,15 +322,26 @@ class MeshFollower:
 
     def follow(self) -> int:
         self._ignore_signals()
+        return self._replay()
+
+    def _replay(self) -> int:
         while True:
             msg = self.channel.recv()
             if msg[0] == "stop":
                 break
             if msg[0] == "step":
+                if not self.alive:
+                    raise RuntimeError(f"rank {self.rank}: a step of killed replica "
+                                       f"{self.replica}")
                 self.batcher.step()
                 self.steps += 1
                 self.batcher.finished.clear()
                 self.batcher.finish_status.clear()
+                self.batcher.handoff_ready.clear()
+                continue
+            if msg[0] == "alive":
+                self.kills += not msg[1]
+                self.alive = msg[1]
                 continue
             _, name, args, kwargs = msg
             try:
@@ -310,10 +349,62 @@ class MeshFollower:
             except Exception as e:  # rank 0 raised the same
                 print(f"[serve] rank {self.rank}: {name} raised {e!r}, as on rank 0",
                       file=sys.stderr, flush=True)
-        print("[mesh-follower] " + json.dumps({**mesh_rank_stats(self.batcher.mesh, self.steps),
-                                               **kernel_launches()}),
-              file=sys.stderr, flush=True)
+        write_mesh_report("[mesh-follower] ", self.batcher, self.steps, self.replica,
+                          {threading.get_ident()}, kills=self.kills)
         return self.steps
+
+
+class MeshFollowers:
+    """The followers of a fleet's replicas on one rank > 0, one thread each
+    (every replica's channel and process groups are its own). ``follow``
+    returns each replica's steps; a replica whose step raises ends the
+    process, as a lone follower's does."""
+
+    def __init__(self, followers: List[MeshFollower]):
+        self.followers = followers
+
+    def follow(self) -> List[int]:
+        self.followers[0]._ignore_signals()
+
+        def run(f):
+            try:
+                f._replay()
+            except BaseException as e:  # noqa: BLE001 (rank 0 waits in a collective)
+                import traceback
+
+                print(f"[serve] rank {f.rank} replica {f.replica}: {e!r}", file=sys.stderr,
+                      flush=True)
+                traceback.print_exception(e, file=sys.stderr)
+                sys.stderr.flush()
+                os._exit(1)
+
+        threads = [threading.Thread(target=run, args=(f,), daemon=True) for f in self.followers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return [f.steps for f in self.followers]
+
+
+FOLLOWERS = (MeshFollower, MeshFollowers)
+
+
+def write_mesh_report(tag: str, batcher, steps: int, replica: int, threads,
+                      **extra) -> None:
+    """One replica's report on one rank, a JSON line on stderr behind
+    ``tag``: ``mesh_rank_stats``, the process's kernel launches and the
+    flash launches of the threads that stepped it, its pool, store and
+    guard. One write: the ranks' and the replicas' lines never
+    interleave."""
+    from eventgpt_tpu_torch.ops.flash_attention import FLASH_KERNEL
+
+    report = {**mesh_rank_stats(batcher.mesh, steps), "replica": replica, **extra,
+              "flash_launches_replica": sum(FLASH_KERNEL.launches_by_thread[t] for t in threads),
+              "decode_steps": batcher.decode_steps, "decode_steps_run": batcher.decode_steps_run,
+              "pool": batcher.pool_stats(), "spill": batcher.spill_stats(),
+              "mem_deferrals": batcher.mem_deferrals, **kernel_launches()}
+    sys.stderr.write(tag + json.dumps(report) + "\n")
+    sys.stderr.flush()
 
 
 def mesh_rank_stats(mesh, steps: int) -> Dict[str, Any]:
@@ -322,10 +413,11 @@ def mesh_rank_stats(mesh, steps: int) -> Dict[str, Any]:
     its peak device memory."""
     import torch
 
-    from eventgpt_tpu_torch.parallel.mesh import COLLECTIVES
+    from eventgpt_tpu_torch.parallel.mesh import AGREEMENTS, COLLECTIVES
 
     return {"rank": mesh.rank, "shape": mesh.shape, "backend": mesh.backend,
             "device": str(mesh.device), "steps": steps, "collectives": dict(COLLECTIVES),
+            "agreements": dict(AGREEMENTS),
             "peak_mem_bytes": (torch.cuda.max_memory_allocated(mesh.device)
                                if mesh.device.type == "cuda" else None)}
 
@@ -607,6 +699,8 @@ class ServingEngine:
             self._push_stream_deltas_locked()
             self._harvest_locked()
             recs = self.batcher.export_requests()
+            if isinstance(self.batcher, MeshLeader):
+                self.batcher.replay_alive(False)
             self._harvest_locked()
             for rec in recs:
                 self._done.pop(rec["rid"], None)
@@ -620,6 +714,8 @@ class ServingEngine:
     def revive(self) -> None:
         """Back into service after ``kill``, with a closed breaker."""
         with self._locked():
+            if isinstance(self.batcher, MeshLeader):
+                self.batcher.replay_alive(True)
             self._dead = False
             self._consec_faults = 0
             self.fault = None
@@ -1561,27 +1657,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _mesh_size(args) -> int:
-    return args.mesh_data * args.mesh_fsdp * args.mesh_model
-
-
-def _refuse_unported(args) -> None:
-    """What the serving mesh does not run yet raises with one (a process
-    fleet's coordinator keeps the mesh flags and loads no model, so they
-    are ignored there, as in the JAX CLI)."""
-    if _mesh_size(args) == 1 or args.proc_fleet > 1:
-        return
-    unported = [flag for flag, on in (
-        ("--fleet", args.fleet > 1), ("--preempt", args.preempt),
-        ("--spill_capacity_mb", args.spill_capacity_mb > 0),
-        ("--mem_headroom_mb", args.mem_headroom_mb > 0),
-        ("--role", args.role != "colocated"),
-        ("--default_deadline_s", bool(args.default_deadline_s))) if on]
-    if unported:
-        raise NotImplementedError(f"{', '.join(unported)} with --mesh_*: not ported on the "
-                                  f"serving mesh (ROADMAP Queue 1 item 8c)")
-
-
 # Every flag that shapes a worker's model, batcher or engine crosses to the
 # --worker processes (they load their own model and share no state). The
 # forwarding is declared here so that tests can check that every entry
@@ -1690,7 +1765,6 @@ def make_batcher(args, params, cfg, tokenizer, device, role: Optional[str] = Non
     from eventgpt_tpu_torch.models.medusa import load_medusa
     from eventgpt_tpu_torch.serve import ContinuousBatcher
 
-    _refuse_unported(args)
     draft_head = None
     if args.draft_head:
         embed = params["llama"]["embed_tokens"]
@@ -1749,11 +1823,11 @@ def build_engine(args, force_single: bool = False):
     coordinator, which loads only the config and the tokenizer.
     ``force_single`` (a worker) builds one engine whatever the fleet flags
     say: a worker never spawns a fleet of its own. On a serving mesh rank 0
-    gets the engine over a ``MeshLeader``, and every other rank a
-    ``MeshFollower`` in the engine's place."""
+    gets the engine over a ``MeshLeader`` (a fleet's replicas each over
+    one), and every other rank a ``MeshFollower`` (``MeshFollowers``) in the
+    engine's place."""
     from eventgpt_tpu_torch.cli.infer import load_for_mesh
 
-    _refuse_unported(args)
     arm_telemetry(args)
     if args.faults:
         faults.configure(args.faults)
@@ -1764,7 +1838,7 @@ def build_engine(args, force_single: bool = False):
         channel = MeshChannel() if mesh is not None else None
         engine = make_engine(args, params, cfg, tokenizer, device, force_single=force_single,
                              mesh=mesh, channel=channel)
-        if isinstance(engine, MeshFollower):
+        if isinstance(engine, FOLLOWERS):
             return cfg, engine
     if args.prefix_prompt:
         # The startup form of POST /prefix.
@@ -1815,12 +1889,17 @@ def make_engine(args, params, cfg, tokenizer, device, force_single: bool = False
     one ``ServingEngine``, or with ``--fleet N`` (unless ``force_single``)
     a ``Fleet`` of N engines, each over its own batcher (KV pool, generator,
     scheduler thread) and heartbeat directory ``--heartbeat_dir/replicaI``.
-    On a serving ``mesh`` every rank builds (and warms) the same batcher;
-    rank 0 gets its engine over a ``MeshLeader`` on ``channel``, another
-    rank a ``MeshFollower``."""
+    On a serving ``mesh`` every rank builds (and warms) the same batchers;
+    replica 0 runs on ``mesh`` and ``channel``, each other replica on
+    ``mesh.replica()`` and a channel of its own, all made in one order on
+    every rank. Rank 0 gets its engines over ``MeshLeader``s, another rank
+    a ``MeshFollower`` (``MeshFollowers`` for a fleet)."""
     n_fleet = args.fleet if args.fleet > 1 and not force_single else 1
-    batchers = [make_batcher(args, params, cfg, tokenizer, device, mesh=mesh)
-                for _ in range(n_fleet)]
+    meshes, channels = [mesh] * n_fleet, [channel] * n_fleet
+    if mesh is not None:
+        meshes = [mesh] + [mesh.replica() for _ in range(n_fleet - 1)]
+        channels = [channel] + [MeshChannel() for _ in range(n_fleet - 1)]
+    batchers = [make_batcher(args, params, cfg, tokenizer, device, mesh=m) for m in meshes]
     if args.warmup:
         t0 = time.perf_counter()
         n = sum(b.warmup() for b in batchers)
@@ -1829,8 +1908,11 @@ def make_engine(args, params, cfg, tokenizer, device, force_single: bool = False
                   flush=True)
     if mesh is not None:
         if mesh.rank != 0:
-            return MeshFollower(batchers[0], channel, mesh.rank)
-        batchers = [MeshLeader(batchers[0], channel)]
+            followers = [MeshFollower(b, ch, mesh.rank, replica=i)
+                         for i, (b, ch) in enumerate(zip(batchers, channels))]
+            return followers[0] if n_fleet == 1 else MeshFollowers(followers)
+        batchers = [MeshLeader(b, ch, replica=i)
+                    for i, (b, ch) in enumerate(zip(batchers, channels))]
 
     def engine_of(batcher, hb_dir):
         return ServingEngine(batcher, tokenizer, args.conv_mode,
@@ -1853,9 +1935,10 @@ def make_engine(args, params, cfg, tokenizer, device, force_single: bool = False
 def build_server(args):
     """(ThreadingHTTPServer, engine), the real stack without ``main``'s
     serve loop, so that tests can run it on an ephemeral port. A follower
-    rank of a serving mesh gets (None, its ``MeshFollower``)."""
+    rank of a serving mesh gets (None, its ``MeshFollower`` or
+    ``MeshFollowers``)."""
     cfg, engine = build_engine(args)
-    if isinstance(engine, MeshFollower):
+    if isinstance(engine, FOLLOWERS):
         return None, engine
     httpd = ThreadingHTTPServer(
         (args.host, args.port),
@@ -1881,7 +1964,7 @@ def main(argv=None):
         _, engine = build_engine(args, force_single=True)
         return serve_worker(engine, args.worker_ready_file)
     httpd, engine = build_server(args)
-    if isinstance(engine, MeshFollower):
+    if isinstance(engine, FOLLOWERS):
         engine.follow()
         return 0
     host, port = httpd.server_address[:2]

@@ -329,7 +329,7 @@ def estimate(cfg, *, max_batch: int, max_len: int, kv_quant: bool = False,
              vocab: Optional[int] = None,
              mesh_shape: Optional[Dict[str, int]] = None,
              kv_layout: str = "dense", kv_pool_blocks: int = 0,
-             kv_block_size: int = 0) -> Dict[str, Any]:
+             kv_block_size: int = 0, spill_capacity_bytes: int = 0) -> Dict[str, Any]:
     """Static capacity model: closed-form component bytes of one
     ``ContinuousBatcher`` from its config, the constructor's own
     arithmetic (grain-rounded ``max_len``, the lane cap and chunk policy,
@@ -343,7 +343,12 @@ def estimate(cfg, *, max_batch: int, max_len: int, kv_quant: bool = False,
     whose dense batcher splits its rows over (data, fsdp); the port's
     batcher runs every row on every rank (``ContinuousBatcher(mesh=)``),
     so its rank holds the cache's KV-head share of all rows, which each
-    rank's live ledger (``GET /memory``) reports."""
+    rank's live ledger (``GET /memory``) reports. ``spill_capacity_bytes``
+    adds the host spill store's budget as ``spill`` (the JAX estimate has
+    no such term): the store counts whole rows against it, and a rank holds
+    its KV heads' share of each record. A prefill role's handoff records
+    are gathered whole and leave at once; neither package's ledger counts
+    them."""
     grain = 2 * _SEQ_BUCKET
     max_len = _grain_round(max_len, grain)
     pos_bytes = kv_pos_bytes(cfg, kv_quant, dtype_bytes)
@@ -384,6 +389,8 @@ def estimate(cfg, *, max_batch: int, max_len: int, kv_quant: bool = False,
                                  + s_lane * cfg.llama.hidden_size * dtype_bytes) + k_cap * 4
     if prefix_cache_bytes:
         comp["prefix_cache"] = int(prefix_cache_bytes)
+    if spill_capacity_bytes:
+        comp["spill"] = int(spill_capacity_bytes)
     total = sum(comp.values())
     out: Dict[str, Any] = {
         "components": comp,
@@ -402,8 +409,9 @@ def estimate(cfg, *, max_batch: int, max_len: int, kv_quant: bool = False,
             elif name in ("kv_cache", "lanes"):
                 # Rows over (data, fsdp) and KV heads over model compose.
                 per[name] = n // (div["batch"] * div["kv_heads"])
-            elif name in ("kv_pool", "prefix_cache"):
-                # The arena has no batch axis: only the KV heads split.
+            elif name in ("kv_pool", "prefix_cache", "spill"):
+                # The arena (and a spilled run of it) has no batch axis: only
+                # the KV heads split.
                 per[name] = n // div["kv_heads"]
             elif name in ("kv_block_table", "logits", "ids_buf", "draft"):
                 per[name] = n // div["batch"]

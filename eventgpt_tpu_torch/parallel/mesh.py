@@ -33,10 +33,19 @@ queued); under ``nccl`` it runs on the card. ``COLLECTIVES`` counts the
 collectives a process ran on an axis of size > 1, their payload bytes and
 their host-clock seconds (under ``gloo`` the wait included; under ``nccl``
 the enqueue only).
+
+The ranks' schedulers run on each rank's own host state. A decision that
+reads state of one process alone (its clock, a measured copy rate, its
+memory ledger, a fault drawn) is taken once and shared over ``control``:
+``agree`` gives every rank rank 0's value, ``agree_max`` the largest of
+theirs. ``AGREEMENTS`` counts them apart from ``COLLECTIVES``. ``replica``
+makes a mesh of the same ranks over process groups of its own, one per
+replica of a fleet, so that two replicas' collectives never share a group.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -49,6 +58,9 @@ from eventgpt_tpu_torch.parallel.dist import rank_device
 AXES = ("data", "fsdp", "context", "model")
 
 COLLECTIVES: Dict[str, float] = {"count": 0, "bytes": 0, "seconds": 0.0}
+# The decisions agreed over ``control`` (``agree``, ``agree_max``) and their
+# host-clock seconds.
+AGREEMENTS: Dict[str, float] = {"count": 0, "seconds": 0.0}
 
 
 class Mesh:
@@ -243,6 +255,67 @@ class Mesh:
 
     def host_max(self, value: int) -> int:
         return self._host_reduce(value, dist.ReduceOp.MAX)
+
+    def agree(self, obj: Any) -> Any:
+        """Rank 0's ``obj`` on every rank: a decision that reads state of one
+        process alone is taken there and shared. A number or a bool crosses
+        as one f64 broadcast, anything else pickled. A one-device mesh
+        returns ``obj`` and runs no collective."""
+        if self.control is None:
+            return obj
+        t0 = time.perf_counter()
+        src = dist.get_global_rank(self.control, 0)
+        if isinstance(obj, (bool, int, float)):
+            t = torch.tensor([float(obj)], dtype=torch.float64)
+            dist.broadcast(t, src=src, group=self.control)
+            out = type(obj)(t.item())
+        else:
+            box = [obj]
+            dist.broadcast_object_list(box, src=src, group=self.control)
+            out = box[0]
+        AGREEMENTS["count"] += 1
+        AGREEMENTS["seconds"] += time.perf_counter() - t0
+        return out
+
+    def agree_max(self, value: int) -> int:
+        """The largest ``value`` over the ranks, on every rank: a decision
+        that any rank can force (a fault drawn there, its budget passed)."""
+        if self.control is None:
+            return int(value)
+        t0 = time.perf_counter()
+        out = self._host_reduce(value, dist.ReduceOp.MAX)
+        AGREEMENTS["count"] += 1
+        AGREEMENTS["seconds"] += time.perf_counter() - t0
+        return out
+
+    def replica(self) -> "Mesh":
+        """A mesh of the same ranks, coordinates and device over process
+        groups of its own: each axis group of size > 1 and ``control`` made
+        anew, so that the collectives of two replicas (each driven by a
+        thread of its own) never share a group. Every rank of the world
+        calls it at the same point and in the same order: each new group is
+        created on every rank. A one-device mesh returns a copy."""
+        out = copy.copy(self)
+        if self.device_mesh is None:
+            return out
+        ranks = self.device_mesh.mesh
+        names = list(self.device_mesh.mesh_dim_names)
+        me = dist.get_rank()
+        out._groups = {}
+        for ax in AXES:
+            n = self.shape[ax]
+            if n == 1:
+                continue
+            for row in ranks.movedim(names.index(ax), -1).reshape(-1, n).tolist():
+                group = dist.new_group(ranks=row)
+                if me in row:
+                    out._groups[ax] = group
+        blocks = ranks.reshape(ranks.shape[0], -1) if "block" in names else ranks.reshape(1, -1)
+        for row in blocks.tolist():
+            group = dist.new_group(ranks=row, backend="gloo")
+            if me in row:
+                out.control = group
+        return out
 
     def all_gather_object(self, obj: Any) -> List[Any]:
         """Every rank's ``obj``, in rank order."""

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 from typing import Any, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from eventgpt_tpu_torch.ops import quant as quant_mod
@@ -82,6 +83,48 @@ def head_shard(cfg, mesh) -> HeadShard:
         return HeadShard(hl, kv // m, first, None, True)
     n_rep = h // kv
     return HeadShard(hl, kv, first, tuple((first + j) // n_rep for j in range(hl)), True)
+
+
+def kv_head_parts(cfg, mesh) -> int:
+    """The parts that the KV heads of LLaMA config ``cfg`` split into over
+    ``model`` on ``mesh``: 1 where they replicate, and without a mesh."""
+    if mesh is None:
+        return 1
+    return cfg.num_kv_heads // head_shard(cfg, mesh).kv_heads
+
+
+def _map_planes(planes, fn):
+    """``fn`` on a K or V record plane, or on each of an int8 plane's
+    {"q", "s"} (both carry the KV heads on axis 3)."""
+    if isinstance(planes, dict):
+        return {k: fn(v) for k, v in planes.items()}
+    return fn(planes)
+
+
+def gather_kv_heads(planes, cfg, mesh):
+    """A block run's K or V planes (L, 1, S, KV_local, ...) with every
+    rank's KV heads, gathered over ``model`` in head order: the
+    one-device form of a record that leaves the mesh (a handoff)."""
+    if kv_head_parts(cfg, mesh) == 1:
+        return planes
+    return _map_planes(planes, lambda t: mesh.all_gather(t, "model", 3))
+
+
+def slice_kv_heads(planes, cfg, mesh):
+    """This rank's KV heads of a whole record's K or V planes (host tensors
+    or numpy arrays, the head axis 3), as contiguous copies: a record from
+    one device, or gathered over a mesh, spliced into a rank's arena."""
+    n = kv_head_parts(cfg, mesh)
+    if n == 1:
+        return planes
+    hs = head_shard(cfg, mesh)
+    first = mesh.coord["model"] * hs.kv_heads
+
+    def sl(x):
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+        return t.narrow(3, first, hs.kv_heads).contiguous()
+
+    return _map_planes(planes, sl)
 
 
 def _not_gathered(part) -> Tuple[str, ...]:

@@ -98,10 +98,19 @@ seed, on its shard of the tree (``parallel/serving.shard_params_for_serving``)
 and its KV heads: the rows replicate over the batch axes, as the JAX paged
 arena does, where the JAX dense batcher splits them over (data, fsdp).
 The host decisions agree because every rank computes bitwise-equal
-logits (the collectives give each rank the same bits). What would let the
-ranks' decisions part (deadlines read the host clock; the spill price a
-measured bandwidth; the headroom guard and the prefill/decode roles their
-process's own state) raises ``NotImplementedError`` with a mesh. Greedy chains at f32
+logits (the collectives give each rank the same bits). A decision that
+reads its process's own state is taken once and shared over the mesh's
+``control`` group, and only while its feature is armed: the deadline clock
+is rank 0's (``_now``, agreed once a step while a deadline is queued or
+live; a submit's stamp is rank 0's), the spill-or-drop price is rank 0's,
+the headroom guard defers when any rank's ledger passes its budget, and a
+fault drawn at ``serve.preempt``, ``serve.spill`` or ``serve.mem_guard`` on
+any rank is taken by every rank. Each rank spills and restores its own KV
+heads of a victim's run (the scheduler is replicated, so the block ids
+agree), and the store counts the whole row's bytes. A handoff record
+leaves the mesh whole: the prefill side gathers the KV heads over
+``model``, and ``import_handoff`` slices the rank's heads back out, so a
+record crosses between a mesh and one device either way. Greedy chains at f32
 equal the JAX ``ContinuousBatcher``'s and the port's one-shot ``generate``
 with every scheduler feature on or off (``tests/test_torch_serve*.py``,
 ``tests/test_torch_prefix_cache.py``, ``tests/test_torch_mixed_segments.py``,
@@ -1229,14 +1238,16 @@ class ContinuousBatcher:
     ):
         if mesh is not None:
             serving_mod._require_serving_mesh(mesh)
-            unported = [name for name, on in (
-                ("preempt", preempt), ("spill_capacity_mb", spill_capacity_mb),
-                ("role", role != "colocated"), ("mem_headroom_bytes", mem_headroom_bytes)) if on]
-            if unported:
-                raise NotImplementedError(
-                    f"ContinuousBatcher(mesh=...) with {', '.join(unported)}: on a serving "
-                    f"mesh these are not ported (ROADMAP Queue 1 item 8c)")
         self.mesh = mesh
+        # The parts the KV heads split into over the mesh: block and record
+        # bytes count the whole row (the one-device batcher's), so that the
+        # spill store's budget and the price decide as it does.
+        self._kv_split = serving_mod.kv_head_parts(cfg.llama, mesh)
+        # The deadline clock (``_now``): on a mesh rank 0's, agreed once a
+        # step while a deadline is queued or live.
+        self._clock = time.perf_counter
+        self._in_step = False
+        self._step_now: Optional[float] = None
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got {kv_layout!r}")
         # "colocated" admits and decodes. "prefill" only admits: each
@@ -1318,7 +1329,7 @@ class ContinuousBatcher:
         self.prefix_insert = bool(prefix_insert)
         if self._paged:
             self._pool = BlockPool(n_blocks, SEQ_BUCKET,
-                                   block_bytes=SEQ_BUCKET * self._kv_pos_bytes)
+                                   block_bytes=SEQ_BUCKET * self._kv_pos_bytes * self._kv_split)
             self.block_deferrals = 0
             if self._prefix_cache is not None:
                 self._prefix_cache.pool = self._pool
@@ -1335,7 +1346,7 @@ class ContinuousBatcher:
         # * positions FLOPs re-prefilled at an assumed rate. The constants
         # set timing, never a chain.
         self._spill_bw_Bps = 5e9
-        self._spill_param_count = max(_nbytes(params) // 2, 1)
+        self._spill_param_count = max(self._tree_bytes(params) // 2, 1)
         self._recompute_flops_per_s = 5e12
         # The prefill role's outbox of gathered records (``pop_handoffs``)
         # and the handoff counters of both roles.
@@ -1724,7 +1735,8 @@ class ContinuousBatcher:
         return n
 
     def submit(self, input_ids: Sequence[int], pixel_values, max_new_tokens: int = 64,
-               deadline_s: Optional[float] = None, slo: Optional[SLO] = None) -> int:
+               deadline_s: Optional[float] = None, slo: Optional[SLO] = None,
+               t_submit: Optional[float] = None) -> int:
         """Enqueue one request; raises at once if it cannot fit, so one bad
         request never tears down the serving loop mid-drain.
 
@@ -1732,14 +1744,13 @@ class ContinuousBatcher:
         with ``STATUS_DEADLINE`` and the tokens committed so far. ``slo``:
         its class and targets (``workload.SLO``), scored at finish; the
         class must be one of ``SLO_CLASSES``. Raises ``QueueFullError``
-        when the queue is at ``max_queue``."""
+        when the queue is at ``max_queue``. ``t_submit`` is the stamp of a
+        replayed submit (``cli/serve.MeshLeader`` carries rank 0's clock);
+        without it a mesh agrees rank 0's stamp where a deadline needs
+        one."""
         if slo is not None and slo.name not in SLO_CLASSES:
             raise ValueError(f"unknown SLO class {slo.name!r}: one of {SLO_CLASSES} (class "
                              f"names are metric labels and must stay a closed set)")
-        if deadline_s is not None and self.mesh is not None:
-            raise NotImplementedError("deadline_s on a serving mesh: the ranks' clocks would "
-                                      "part their decisions; not ported (ROADMAP Queue 1 "
-                                      "item 8c)")
         if self.max_queue and len(self.queue) >= self.max_queue:
             raise QueueFullError(f"admission queue is full ({len(self.queue)}/"
                                  f"{self.max_queue} requests queued); retry later")
@@ -1767,7 +1778,10 @@ class ContinuousBatcher:
         req = _Request(rid, ids, pixel_values, max_new_tokens)
         req.prompt_len = prompt_len
         req.slo = slo
-        req.t_submit = time.perf_counter()
+        if t_submit is not None:
+            req.t_submit = float(t_submit)
+        else:
+            req.t_submit = self._now() if deadline_s is not None else time.perf_counter()
         if deadline_s is not None:
             req.deadline = req.t_submit + float(deadline_s)
             self._n_deadlines += 1
@@ -1859,7 +1873,9 @@ class ContinuousBatcher:
             self.n_rem[r] = 0
             by_rid[req.rid] = req
         self._dev_carry = None
-        now = time.perf_counter()
+        # The headroom each record carries is read on the agreed clock.
+        now = (self._now() if any(r.deadline is not None for r in by_rid.values())
+               else time.perf_counter())
         out: List[Dict[str, Any]] = []
         for rid in sorted(by_rid):
             req = by_rid[rid]
@@ -2070,18 +2086,34 @@ class ContinuousBatcher:
             s["spill"] = self.spill_stats()
         return s
 
+    def _tree_bytes(self, params) -> int:
+        """The weight tree's bytes: the tree's own, or on a mesh whose ranks
+        hold shards the whole model's (the port's meta-device init at the
+        tree's weight types), which a one-device batcher holds."""
+        if self.mesh is None or max(self.mesh.shape.values()) == 1:
+            return _nbytes(params)
+        layer = params["llama"]["layers"][0]
+        leaves = [v.get("w", v) if isinstance(v, dict) else v for v in layer.values()]
+        quant = ("int4" if any(isinstance(v, dict) and "q4" in v for v in leaves)
+                 else "int8" if any(isinstance(v, dict) and "q" in v for v in leaves) else "bf16")
+        dtype_bytes = params["llama"]["embed_tokens"].element_size()
+        return obs_memory.abstract_params_bytes(self.cfg, quant, dtype_bytes)
+
     def memory_estimate(self) -> Dict[str, Any]:
         """The static capacity model at this server's config
-        (``obs.memory.estimate``), which equals its live buffers."""
+        (``obs.memory.estimate``), which equals its live buffers; on a mesh
+        the whole model's, with its ``per_device`` view."""
+        mesh_shape = dict(self.mesh.shape) if self.mesh is not None else None
         return obs_memory.estimate(
             self.cfg, max_batch=self.max_batch, max_len=self.max_len, kv_quant=self.kv_quant,
             dtype_bytes=torch.finfo(self._dtype).bits // 8,
             speculative=self.spec_max, prefill_budget=self.prefill_budget,
             prefill_lane_chunk=self._lane_chunk, lane_bucket=self._lane_bucket or None,
             prefix_cache_bytes=self._prefix_cache.budget if self._prefix_cache is not None else 0,
-            weights_bytes=obs_memory.params_bytes(self.params), vocab=self.logits.shape[1],
+            weights_bytes=self._tree_bytes(self.params), vocab=self.logits.shape[1],
             kv_layout=self.kv_layout, kv_pool_blocks=self._pool.n_blocks if self._paged else 0,
-            kv_block_size=self._kv_block_size if self._paged else 0)
+            kv_block_size=self._kv_block_size if self._paged else 0, mesh_shape=mesh_shape,
+            spill_capacity_bytes=self._spill_store.capacity_bytes if self._paged else 0)
 
     def memory_stats(self) -> Dict[str, Any]:
         """The ``GET /memory`` payload: the summary, a fresh reconciliation
@@ -2307,7 +2339,16 @@ class ContinuousBatcher:
     def step(self) -> None:
         """One scheduling iteration: expire deadlines, admit (or advance a
         chunked or piggybacked admission), dispatch one decode segment,
-        harvest.
+        harvest. On a mesh the deadline clock is agreed at most once in it
+        (``_now``)."""
+        self._in_step, self._step_now = True, None
+        try:
+            self._step()
+        finally:
+            self._in_step, self._step_now = False, None
+
+    def _step(self) -> None:
+        """``step``'s body.
 
         Pipelined: the segment is dispatched from the device carry first,
         and the PREVIOUS segment is fetched once its first step is launched,
@@ -2377,12 +2418,37 @@ class ContinuousBatcher:
             rec, self._inflight = self._inflight, None
             self._harvest_segment(rec)
 
+    def _now(self) -> float:
+        """The clock of deadlines: ``perf_counter``; on a mesh rank 0's,
+        agreed once a step (read first where a deadline is queued or live)
+        and once a call outside ``step``, so that every rank expires,
+        orders victims and exports headroom alike."""
+        if self.mesh is None or self.mesh.control is None:
+            return self._clock()
+        if self._step_now is not None:
+            return self._step_now
+        now = self.mesh.agree(self._clock())
+        if self._in_step:
+            self._step_now = now
+        return now
+
+    def _tripped(self, site: str) -> bool:
+        """A fault drawn at ``site``: on a mesh, a trip on any rank is taken
+        by every rank."""
+        try:
+            faults.maybe_fail(site)
+            faults.maybe_delay(site)
+            tripped = False
+        except faults.InjectedFault:
+            tripped = True
+        return tripped if self.mesh is None else self.mesh.agree_max(int(tripped)) > 0
+
     def _deadline_expired(self) -> bool:
         """Does any live deadline need a forced finish this step? (Gates the
         pipeline drain: deadline-less traffic never serializes on it.)"""
         if self._n_deadlines <= 0:
             return False
-        now = time.perf_counter()
+        now = self._now()
 
         def expired(req):
             return req.deadline is not None and now > req.deadline
@@ -2398,7 +2464,7 @@ class ContinuousBatcher:
         ``STATUS_DEADLINE`` and its committed tokens."""
         if self._n_deadlines <= 0:
             return
-        now = time.perf_counter()
+        now = self._now()
 
         def expired(req):
             return req.deadline is not None and now > req.deadline
@@ -3084,17 +3150,15 @@ class ContinuousBatcher:
         (frozen) never are victims. Returns whether the head now fits."""
         if req.slo is None or req.slo.name != "interactive":
             return False
-        try:
-            faults.maybe_fail("serve.preempt")
-            faults.maybe_delay("serve.preempt")
-        except faults.InjectedFault:
+        if self._tripped("serve.preempt"):
             return False  # this admission defers; no victim is touched
         # Rows change only drained: the pipelined scheduler may have a
         # segment in flight, and its harvest may itself free the blocks.
         self._drain()
         if self._pool.free_blocks() >= need:
             return True
-        now = time.perf_counter()
+        # Only a victim with a deadline reads the clock.
+        now = self._now() if self._n_deadlines > 0 else 0.0
         victims = []
         for r, vic in enumerate(self.rows):
             if vic is None or self.frozen[r]:
@@ -3174,21 +3238,21 @@ class ContinuousBatcher:
         spill_s = 2.0 * nbytes / max(self._spill_bw_Bps, 1.0)
         recompute_s = (2.0 * self._spill_param_count * positions
                        / max(self._recompute_flops_per_s, 1.0))
-        return spill_s <= recompute_s
+        # The measured rate is this process's: on a mesh rank 0 prices.
+        spill = spill_s <= recompute_s
+        return spill if self.mesh is None else self.mesh.agree(spill)
 
     def _spill_victim(self, vic: _Request) -> bool:
         """One spill: the gather and the store's admission come before any
         pool change, so a refusal leaves the pool and the victim's
         reservation as they were (the caller drops instead). The gather is
         the ``serve.spill`` fault site: a trip there drops the victim with
-        the pool intact."""
-        try:
-            faults.maybe_fail("serve.spill")
-            faults.maybe_delay("serve.spill")
-            rec = self._gather_spill_record(vic)
-        except faults.InjectedFault:
+        the pool intact. On a mesh each rank spills its own KV heads of the
+        run; the store counts the whole row's bytes and holds the rank's."""
+        if self._tripped("serve.spill"):
             return False
-        if not self._spill_store.put(vic.rid, rec, rec["nbytes_kv"]):
+        rec = self._gather_spill_record(vic)
+        if not self._spill_store.put(vic.rid, rec, rec["nbytes_kv"], held=_nbytes(rec)):
             return False
         try:
             run_id = self._pool.spill_out(vic.kv_blocks_owned)
@@ -3210,7 +3274,7 @@ class ContinuousBatcher:
     # (a spill or a handoff), outside the pipelined dispatch.
     @torch.inference_mode()
     def _gather_spill_record(self, vic: _Request, blocks: Optional[List[int]] = None,
-                             kind: str = "spill") -> Dict[str, Any]:
+                             kind: str = "spill", whole: bool = False) -> Dict[str, Any]:
         """A row's whole re-activation state, gathered to host memory: its
         block run's K/V (``_gather_blocks``; an int8 arena's scale planes
         with it), cache length, logits row and, speculative, its ``ids_buf``
@@ -3218,10 +3282,15 @@ class ContinuousBatcher:
         for byte, so the restore scatter reproduces the row exactly.
         ``blocks`` overrides the run (the handoff ships the table's run up
         to the length); the default is the spill's owned run. The bandwidth
-        EWMA of the price reads the copy's time alone."""
+        EWMA of the price reads the copy's time alone. On a mesh the planes
+        are the rank's KV heads, and ``nbytes_kv`` counts the whole row's;
+        ``whole`` (a handoff, which leaves the mesh) gathers every rank's
+        heads over ``model`` first."""
         row = vic.row
         block_ids = vic.kv_blocks_owned if blocks is None else blocks
         k, v = _gather_blocks(self.cache, block_ids)
+        if whole:
+            k, v = (serving_mod.gather_kv_heads(x, self.cfg.llama, self.mesh) for x in (k, v))
         dev = {"k": k, "v": v, "length": self.cache["length"][row].clone(),
                "logits": self.logits[row].clone()}
         if self.speculative:
@@ -3235,7 +3304,8 @@ class ContinuousBatcher:
         self.gather_timings.append({"kind": kind, "bytes": nbytes, "blocks": len(block_ids),
                                     "alloc_s": alloc_s, "copy_s": copy_s})
         host["n_blocks"] = len(block_ids)
-        host["nbytes_kv"] = nbytes
+        split = 1 if whole else self._kv_split
+        host["nbytes_kv"] = nbytes + (split - 1) * _nbytes([host["k"], host["v"]])
         host["base_pos"] = int(self.base_pos[row]) if self.speculative else 0
         return host
 
@@ -3320,7 +3390,7 @@ class ContinuousBatcher:
         length = req.prompt_len + len(req.tokens)
         run = req.kv_blocks_aliased + req.kv_blocks_owned
         n_ship = min(max(self._pool.blocks_for(length), 1), len(run))
-        rec = self._gather_spill_record(req, blocks=run[:n_ship], kind="handoff")
+        rec = self._gather_spill_record(req, blocks=run[:n_ship], kind="handoff", whole=True)
         rec["n_total"] = len(run)
         self._paged_release(req)
         if req.prefix_entry is not None:
@@ -3337,7 +3407,8 @@ class ContinuousBatcher:
         if req.deadline is not None:
             self._n_deadlines -= 1
         self._dev_carry = None
-        now = time.perf_counter()
+        # The record's headroom is read on the agreed clock.
+        now = self._now() if req.deadline is not None else time.perf_counter()
         obs_trace.async_end(req.phase, req.rid, status="handoff")
         self.handoffs_gathered += 1
         self.handoffs_gathered_bytes += rec["nbytes_kv"]
@@ -3393,7 +3464,7 @@ class ContinuousBatcher:
         req.tokens = list(tokens)
         req.prompt_len = int(prompt_len)
         req.slo = slo
-        now = time.perf_counter()
+        now = self._now() if deadline_s is not None else time.perf_counter()
         req.t_submit = now - max(float(elapsed_s or 0.0), 0.0)
         req.t_journey = now
         if ttft_s is not None:
@@ -3401,6 +3472,10 @@ class ContinuousBatcher:
         if deadline_s is not None:
             req.deadline = now + float(deadline_s)
             self._n_deadlines += 1
+        if self._kv_split > 1:
+            # A record is the whole row's: this rank splices its KV heads.
+            rec = {**rec, "k": serving_mod.slice_kv_heads(rec["k"], self.cfg.llama, self.mesh),
+                   "v": serving_mod.slice_kv_heads(rec["v"], self.cfg.llama, self.mesh)}
         req.handoff_rec = rec
         self.queue.append(req)
         obs_metrics.SERVE_QUEUE_DEPTH.set(len(self.queue))
@@ -3597,12 +3672,13 @@ class ContinuousBatcher:
         land this boundary (one per free row): a paged head's whole block
         reservation; a dense head's prompt-bucket row cache, doubled when
         insert-on-prefill also copies a prefix entry. Conservative on
-        purpose: a guard that under-predicts is a guard that runs out."""
+        purpose: a guard that under-predicts is a guard that runs out. On a
+        mesh it is this rank's share (its KV heads)."""
         free = sum(1 for r in self.rows if r is None)
         heads = [req for i, req in enumerate(self.queue) if i < free]
         if self._paged:
             return sum(self._blocks_needed(req.prompt_len, req.max_new_tokens)
-                       * self._pool.block_bytes for req in heads)
+                       * (self._pool.block_bytes // self._kv_split) for req in heads)
         factor = 2 if self._prefix_cache is not None and self.prefix_insert else 1
         return sum(factor * _bucket(req.prompt_len, self.max_len) * self._kv_pos_bytes
                    for req in heads)
@@ -3613,18 +3689,27 @@ class ContinuousBatcher:
         headroom or a capacity; never defers an idle server, where nothing
         in flight would ever free the bytes. The decision is the
         ``serve.mem_guard`` fault site: a trip admits as if the guard were
-        off."""
-        if not (self.mem_headroom_bytes and self._mem_capacity and self.queue):
+        off. On a mesh the wave defers when any rank's ledger plus its share
+        of the wave passes that rank's budget (an OOM on any rank ends the
+        mesh), and a trip on any rank admits on every rank."""
+        mesh = self.mesh is not None and self.mesh.control is not None
+        if not (self.mem_headroom_bytes and (self._mem_capacity or mesh) and self.queue):
             return False
         if self._pending is None and not self._lanes and all(r is None for r in self.rows):
             return False
+        tripped = False
         try:
             faults.maybe_fail("serve.mem_guard")
             faults.maybe_delay("serve.mem_guard")
         except faults.InjectedFault:
-            return False
+            tripped = True
         predicted = self._mem_next_wave_bytes()
-        if obs_memory.LEDGER.total() + predicted <= self._mem_capacity - self.mem_headroom_bytes:
+        over = self._mem_capacity > 0 and (obs_memory.LEDGER.total() + predicted
+                                           > self._mem_capacity - self.mem_headroom_bytes)
+        if mesh:
+            code = self.mesh.agree_max(2 if tripped else int(over))
+            tripped, over = code == 2, code == 1
+        if tripped or not over:
             return False
         self.mem_deferrals += 1
         obs_metrics.MEM_GUARD_DEFERRALS.inc()

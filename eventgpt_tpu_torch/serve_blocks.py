@@ -287,7 +287,11 @@ class SpillStore:
     entry. The resident bytes are the memory ledger's ``spill`` component
     under ``{owner}/spill``, as in the JAX store: host bytes, which the
     ledger prices but ``reconcile`` does not find on the card (pinned host
-    memory is not in ``torch.cuda.memory_allocated``).
+    memory is not in ``torch.cuda.memory_allocated``). On a serving mesh a
+    rank's record holds its KV heads of the run while ``put`` counts the
+    whole row's bytes against the budget, so that every rank and the
+    one-device store decide alike: the ledger then holds the rank's bytes
+    (``held_bytes``).
 
     Threading: as ``BlockPool``: mutations and ``stats()`` hold ``_lock``;
     the ledger and metric locks are leaves below it.
@@ -299,6 +303,8 @@ class SpillStore:
         self._lock = threading.Lock()
         self._recs: Dict[Any, Dict[str, Any]] = {}
         self.used_bytes = 0
+        self.held_bytes = 0
+        self._held: Dict[Any, int] = {}
         self.puts = 0
         self.takes = 0
         self.drops = 0
@@ -312,10 +318,13 @@ class SpillStore:
         with self._lock:
             return self.capacity_bytes - self.used_bytes >= int(nbytes)
 
-    def put(self, rid, record: Dict[str, Any], nbytes: int) -> bool:
-        """Admit one record, or refuse (False) when the budget cannot cover
-        it. A second record for one request raises."""
+    def put(self, rid, record: Dict[str, Any], nbytes: int, held: Optional[int] = None) -> bool:
+        """Admit one record of ``nbytes`` against the budget, or refuse
+        (False) when the budget cannot cover it. ``held`` is what this
+        process holds of it (default ``nbytes``). A second record for one
+        request raises."""
         nbytes = int(nbytes)
+        held = nbytes if held is None else int(held)
         with self._lock:
             if rid in self._recs:
                 raise BlockPoolError(f"request {rid} already holds a spill record "
@@ -326,9 +335,11 @@ class SpillStore:
             record = dict(record)
             record["nbytes"] = nbytes
             self._recs[rid] = record
+            self._held[rid] = held
             self.used_bytes += nbytes
+            self.held_bytes += held
             self.puts += 1
-            obs_memory.LEDGER.resize("spill", self._mem_key, self.used_bytes)
+            obs_memory.LEDGER.resize("spill", self._mem_key, self.held_bytes)
             obs_metrics.SERVE_SPILL_STORE_BYTES.set(self.used_bytes)
             obs_metrics.SERVE_SPILL_BYTES.inc(nbytes)
         return True
@@ -346,8 +357,9 @@ class SpillStore:
                 raise BlockPoolError(f"request {rid} holds no spill record (double restore, "
                                      f"or never spilled)")
             self.used_bytes -= int(rec["nbytes"])
+            self.held_bytes -= self._held.pop(rid)
             self.takes += 1
-            obs_memory.LEDGER.resize("spill", self._mem_key, self.used_bytes)
+            obs_memory.LEDGER.resize("spill", self._mem_key, self.held_bytes)
             obs_metrics.SERVE_SPILL_STORE_BYTES.set(self.used_bytes)
         return rec
 
@@ -359,14 +371,16 @@ class SpillStore:
             if rec is None:
                 return
             self.used_bytes -= int(rec["nbytes"])
+            self.held_bytes -= self._held.pop(rid)
             self.drops += 1
-            obs_memory.LEDGER.resize("spill", self._mem_key, self.used_bytes)
+            obs_memory.LEDGER.resize("spill", self._mem_key, self.held_bytes)
             obs_metrics.SERVE_SPILL_STORE_BYTES.set(self.used_bytes)
 
     def clear(self) -> None:
         with self._lock:
             self._recs.clear()
-            self.used_bytes = 0
+            self._held.clear()
+            self.used_bytes = self.held_bytes = 0
             obs_memory.LEDGER.release("spill", self._mem_key)
             obs_metrics.SERVE_SPILL_STORE_BYTES.set(0)
 

@@ -196,9 +196,10 @@ def test_cancel_and_deadline_keep_the_other_chains(setup):
 
 
 @pytest.mark.parametrize("kw", [
-    # The serving mesh is ported (tests/test_torch_sharded_serve.py); on a
-    # mesh, preemption, the spill store, the split roles and the memory
-    # headroom guard are still refused, beside the features that run there.
+    # Every batcher feature runs on a serving mesh (tests/test_torch_sharded_serve.py),
+    # preemption, the spill store, the split roles and the memory headroom
+    # guard included: on a one-device mesh each set of flags builds the
+    # batcher, or refuses it, exactly as it does with no mesh.
     dict(speculative=2, preempt=True),
     dict(prefix_cache=True, speculative=2, spill_capacity_mb=64),
     dict(pipeline=True, mem_headroom_bytes=1 << 30),
@@ -213,9 +214,15 @@ def test_unported_server_features_raise(setup, kw):
     from eventgpt_tpu_torch.parallel.mesh import Mesh
 
     tp, _ = setup
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatcher(tp, TCFG, device="cpu", mesh=Mesh(MeshConfig(), torch.device("cpu")),
-                          **kw)
+
+    def outcome(**mesh):
+        try:
+            srv = ContinuousBatcher(tp, TCFG, device="cpu", **mesh, **kw)
+        except Exception as e:  # the flags' own validation, the same with or without a mesh
+            return type(e), str(e)
+        return srv.preempt, srv.role, srv.mem_headroom_bytes, srv.spill_stats()
+
+    assert outcome(mesh=Mesh(MeshConfig(), torch.device("cpu"))) == outcome()
 
 
 def test_warmup_is_not_ported(setup):
@@ -339,8 +346,9 @@ def test_http_refuses_bad_requests(server):
             assert s.recv(64).startswith(b"HTTP/1.1 " + code)
 
 
-# The mesh flags are ported: each case sets, beside one, a flag that the
-# serving mesh does not run yet (ROADMAP Queue 1 item 8c).
+# Each case sets, beside a mesh flag, a batcher feature that the serving
+# mesh runs (preemption and the spill, the headroom guard, deadlines, a
+# fleet): the flags pass, and a mesh of 2 in one process names the launcher.
 @pytest.mark.parametrize("extra", [["--speculative", "2", "--preempt", "--mem_headroom_mb", "64",
                                     "--mesh_fsdp", "2"],
                                    ["--prefill_budget", "-1", "--speculative", "2",
@@ -352,7 +360,7 @@ def test_http_refuses_bad_requests(server):
                          ids=lambda x: x[0])
 def test_cli_refuses_unported_flags(extra):
     args = cli_serve.build_parser().parse_args(FLAGS + ["--port", "0"] + extra)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         cli_serve.build_engine(args)
 
 
@@ -364,14 +372,15 @@ def test_cli_mesh_needs_a_launched_world():
         cli_serve.build_engine(args)
     args = cli_serve.build_parser().parse_args(FLAGS + ["--mesh_model", "2", "--preempt",
                                                         "--proc_fleet", "2"])
-    cli_serve._refuse_unported(args)
-    assert "--mesh_model" not in cli_serve._worker_argv(args)
+    argv = cli_serve._worker_argv(args)
+    assert "--mesh_model" not in argv and "--preempt" in argv
 
 
 def test_cli_accepts_the_off_switches_it_already_has():
     args = cli_serve.build_parser().parse_args(
         FLAGS + ["--no_prefix_cache", "--no_pipeline", "--no_telemetry"])
-    cli_serve._refuse_unported(args)
+    argv = cli_serve._worker_argv(args)
+    assert {"--no_prefix_cache", "--no_pipeline", "--no_telemetry"} <= set(argv)
 
 
 def test_cli_wants_a_card_unless_asked_for_the_cpu():
